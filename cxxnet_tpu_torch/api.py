@@ -1,11 +1,13 @@
 """Embeddable numpy API of the port: ``Net``.
 
 Counterpart of ``cxxnet_tpu.api.Net`` (the reference's wrapper surface,
-wrapper/cxxnet.py:64-307) for this slice: a config-string-driven net that
-initializes or loads a model and runs prediction and feature extraction on
-the card (``dev = "gpu"``, the default) or, when asked, on the CPU. Model
-files are those of the JAX package: int32 net_type, then the trainer's
-sections, inside the CRC framing of utils/checkpoint.py.
+wrapper/cxxnet.py:64-307) for the port's slices so far: a
+config-string-driven net that initializes or loads a model, trains it one
+``update(data, label)`` at a time, evaluates it over an iterator, and runs
+prediction and feature extraction, on the card (``dev = "gpu"``, the
+default) or, when asked, on the CPU. Model files are those of the JAX
+package: int32 net_type, then the trainer's sections (optimizer state
+included), inside the CRC framing of utils/checkpoint.py.
 """
 
 from __future__ import annotations
@@ -15,10 +17,31 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .io.data import DataBatch
 from .nnet import trainer as trainer_mod
 from .utils import checkpoint as ckpt
 from .utils import serializer
 from .utils.config import parse_config_string
+
+
+def _as_batch(data: np.ndarray, label: Optional[np.ndarray]) -> DataBatch:
+    """Wrap raw numpy into a DataBatch (reference CXNNetUpdateBatch path:
+    wrapper/cxxnet_wrapper.cpp:295-311). 2-D data is viewed as flat
+    (b, 1, 1, n) nodes."""
+    data = np.ascontiguousarray(data, np.float32)
+    if data.ndim == 2:
+        data = data.reshape(data.shape[0], 1, 1, data.shape[1])
+    if data.ndim != 4:
+        raise ValueError("data must be 2-D or 4-D, got %s" % (data.shape,))
+    batch = DataBatch()
+    batch.data = data
+    batch.batch_size = data.shape[0]
+    if label is not None:
+        label = np.ascontiguousarray(label, np.float32)
+        if label.ndim == 1:
+            label = label.reshape(-1, 1)
+        batch.label = label
+    return batch
 
 
 class Net:
@@ -73,12 +96,28 @@ class Net:
         self.net_.load_model(r)
 
     def save_model(self, fname: str) -> None:
-        """Write a CRC-framed model file that either package loads."""
+        """Write a CRC-framed model file, optimizer state included, that
+        either package loads."""
         w = serializer.Writer()
         w.write_int32(self.net_type)
         self._trainer().save_model(w)
         with open(fname, "wb") as f:
             f.write(ckpt.frame(w.getvalue()))
+
+    def start_round(self, round_counter: int) -> None:
+        self._trainer().start_round(round_counter)
+
+    # -- training -----------------------------------------------------
+    def update(self, data, label) -> None:
+        """One training step on raw numpy (data, label): data (b, c, h, w)
+        or (b, n), label (b,) or (b, label_width)."""
+        self._trainer().update(_as_batch(np.asarray(data), label))
+
+    def evaluate(self, data, name: str) -> str:
+        """The train metrics since the last call, then the metrics over
+        ``data``, an iterator with before_first / next / value (the
+        io.IIterator protocol), or None for the train metrics alone."""
+        return self._trainer().evaluate(data, name)
 
     # -- inference ----------------------------------------------------
     def predict(self, data) -> np.ndarray:

@@ -1,17 +1,21 @@
-"""Layer abstraction: shape inference, parameter init and an eval forward.
+"""Layer abstraction: shape inference, parameter init and the forward.
 
 Counterpart of cxxnet_tpu/layer/base.py (the reference's ILayer ABI,
 src/layer/layer.h:162-279). A layer here is a plain object holding its
-config; its ``forward(params, inputs)`` is a function on torch tensors, and
-its parameters live outside it, in a dict per layer, so that weight sharing,
-model files and the JAX package's parameter lists map one to one.
+config; its ``forward(params, inputs, ctx)`` is a function on torch tensors,
+as the JAX package's ``apply(params, inputs, ctx)``, and its parameters
+live outside it, in a dict per layer, so that weight sharing, model files
+and the JAX package's parameter lists map one to one. The ApplyContext
+carries what a training forward adds: the mode, the batch's labels, the
+loss terms the loss layers append, and the layer's random stream.
 """
 
 from __future__ import annotations
 
 import math
 import struct
-from typing import Dict, List, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -126,9 +130,54 @@ class LayerParam:
         return torch.randn(shape, generator=gen, dtype=torch.float32) * sigma
 
 
+class LabelInfo:
+    """Named label fields of a batch; mirrors layer::LabelInfo
+    (src/layer/layer.h:96-121). Fields are column ranges of the batch's
+    label matrix, selected by the ``label_vec[a,b) = name`` config
+    ranges."""
+
+    def __init__(self, fields: Dict[str, object]):
+        self.fields = fields
+
+    def field(self, name: str):
+        if name not in self.fields:
+            raise KeyError("unknown label target=%s" % name)
+        return self.fields[name]
+
+
+@dataclass
+class ApplyContext:
+    """Per-forward context threaded through the layers (the JAX package's
+    ApplyContext, cxxnet_tpu/layer/base.py:168-212, for this slice)."""
+    train: bool = False
+    labels: Optional[LabelInfo] = None
+    # scalar loss terms appended by the loss layers; the net sums them
+    losses: List[torch.Tensor] = field(default_factory=list)
+    # optimizer updates taken so far (the trainer's epoch_counter)
+    epoch: int = 0
+    # params slot of the layer now applying; set by the net's forward loop
+    layer_index: int = -1
+    # the applying layer's own random stream on the net's device (the JAX
+    # package's per-layer folded key); set by the net's forward loop
+    gen: Optional[torch.Generator] = None
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from (seed, data): splitmix64 of the pair, the
+    port's counterpart of ``jax.random.fold_in`` for seeding one
+    torch.Generator per (step, layer)."""
+    z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
 class Layer:
     """Base layer. Subclasses define shape inference, their parameter
-    shapes and the eval forward."""
+    shapes and the forward."""
 
     type_name = "none"
 
@@ -152,8 +201,8 @@ class Layer:
         """Initialize weights on the host; {} for parameterless layers."""
         return {}
 
-    def forward(self, params: Params,
-                inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, params: Params, inputs: List[torch.Tensor],
+                ctx: ApplyContext) -> List[torch.Tensor]:
         raise NotImplementedError
 
     def save_model(self, w: serializer.Writer,

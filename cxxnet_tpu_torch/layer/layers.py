@@ -1,11 +1,16 @@
-"""The layers of the port's first slice, in eval mode: the AlexNet set
-(conv, relu, max_pooling, lrn, flatten, fullc, dropout, softmax).
+"""The layers of the port: the AlexNet set (conv, relu, max_pooling, lrn,
+flatten, fullc, dropout, softmax), in eval and in training mode.
 
 Each class is the counterpart of the class of the same name in
 cxxnet_tpu/layer/layers.py and keeps its config keys, shape inference,
 parameter layout and model-file fields, so model files move between the two
-packages unchanged. ``forward`` is the eval forward on torch tensors;
-training (dropout masks, loss gradients) belongs to a later slice.
+packages unchanged. ``forward(params, inputs, ctx)`` runs on torch tensors;
+in training (``ctx.train``) dropout draws its mask from the layer's own
+generator, and the loss layer appends its loss term to ``ctx.losses``,
+whose gradient autograd takes. Conv, fullc, relu, max-pool and flatten are
+differentiated by autograd (cuDNN and PyTorch's own backward kernels, as
+the JAX package left them to XLA); the LRN backward is a kernel
+(ops/lrn.py).
 """
 
 from __future__ import annotations
@@ -102,7 +107,7 @@ class FullConnectLayer(_WeightBiasLayer):
     def _fan(self):
         return self.param.num_input_node, self.param.num_hidden
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         x = _flat2d(inputs[0])
         y = x @ params["wmat"].t()
         if self.param.no_bias == 0:
@@ -154,7 +159,7 @@ class ConvolutionLayer(_WeightBiasLayer):
         shape = self._wmat_shape()
         return shape[2], shape[1]
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         p = self.param
         w = params["wmat"].reshape(p.num_channel,
                                    p.num_input_channel // p.num_group,
@@ -176,7 +181,7 @@ class ReluLayer(Layer):
               "ActivationLayer only support 1-1 connection")
         return [in_shapes[0]]
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         return [torch.relu(inputs[0])]
 
 
@@ -198,7 +203,7 @@ class MaxPoolingLayer(Layer):
         ow = ops.pool_out_dim(w2, p.kernel_width, p.stride)
         return [(b, c, oh, ow)]
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         p = self.param
         return [ops.pool2d(inputs[0], "max",
                            (p.kernel_height, p.kernel_width), p.stride,
@@ -232,7 +237,7 @@ class LRNLayer(Layer):
     def infer_shape(self, in_shapes):
         return [in_shapes[0]]
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         return [ops.lrn.forward(inputs[0], self.nsize, self.alpha,
                                 self.beta, self.knorm)]
 
@@ -246,14 +251,15 @@ class FlattenLayer(Layer):
         b, c, h, w = in_shapes[0]
         return [(b, 1, 1, c * h * w)]
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, ctx):
         x = inputs[0]
         return [x.reshape(x.shape[0], 1, 1, -1)]
 
 
 class DropoutLayer(Layer):
     """Inverted dropout, self-loop (src/layer/dropout_layer-inl.hpp:12):
-    the identity at eval, which is all this slice runs."""
+    the identity at eval; in training x * (U[0,1) < 1-threshold) /
+    (1-threshold), with U drawn on x's device from the layer's generator."""
 
     type_name = "dropout"
 
@@ -271,13 +277,71 @@ class DropoutLayer(Layer):
               "DropoutLayer: invalid dropout threshold")
         return [in_shapes[0]]
 
-    def forward(self, params, inputs):
-        return [inputs[0]]
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        if not ctx.train:
+            return [x]
+        pkeep = 1.0 - self.threshold
+        u = torch.rand(x.shape, generator=ctx.gen, dtype=x.dtype,
+                       device=x.device)
+        return [x * ((u < pkeep).to(x.dtype) / pkeep)]
 
 
-class SoftmaxLayer(Layer):
-    """Softmax loss layer, self-loop (src/layer/loss/softmax_layer-inl.hpp:12):
-    the eval forward is the row softmax of the flattened node. The
+class LossLayerBase(Layer):
+    """Loss layers, self-loop (src/layer/loss/loss_layer_base-inl.hpp):
+    the forward writes the transformed node, and with labels present it
+    appends a scalar loss whose gradient is the reference's
+    (transformed - target) * grad_scale / (batch_size * update_period).
+    ``batch_size`` is the configured one, which reaches the layer through
+    the global config, not the rows of the batch."""
+
+    def __init__(self):
+        super().__init__()
+        self.target = "label"
+        self.batch_size = 1
+        self.update_period = 1
+        self.grad_scale = 1.0
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "batch_size":
+            self.batch_size = int(val)
+        if name == "update_period":
+            self.update_period = int(val)
+        if name == "target":
+            self.target = val
+        if name == "grad_scale":
+            self.grad_scale = float(val)
+
+    def infer_shape(self, in_shapes):
+        check(len(in_shapes) == 1, "LossLayer: only support 1-1 connection")
+        return [in_shapes[0]]
+
+    def _scale(self) -> float:
+        return self.grad_scale / (self.batch_size * self.update_period)
+
+    def transform(self, x2d):
+        """Forward transform of the node (e.g. softmax)."""
+        return x2d
+
+    def loss_term(self, x2d, label):
+        """Scalar loss whose gradient wrt x2d is the reference's."""
+        raise NotImplementedError
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        x2d = _flat2d(x)
+        out = self.transform(x2d)
+        if ctx.labels is not None:
+            ctx.losses.append(self.loss_term(x2d,
+                                             ctx.labels.field(self.target)))
+        return [out.reshape(x.shape)]
+
+
+class SoftmaxLayer(LossLayerBase):
+    """Softmax + cross-entropy (src/layer/loss/softmax_layer-inl.hpp:12):
+    grad = (p - onehot(label)) * scale. ``label_smooth = eps`` (beyond the
+    reference) makes the target (1-eps) one-hot + eps/K uniform. The
     per-position ``seq = 1`` mode belongs to the LM slice."""
 
     type_name = "softmax"
@@ -285,20 +349,33 @@ class SoftmaxLayer(Layer):
     def __init__(self):
         super().__init__()
         self.seq = 0
+        self.label_smooth = 0.0
 
     def set_param(self, name, val):
         super().set_param(name, val)
         if name == "seq":
             self.seq = int(val)
+        if name == "label_smooth":
+            self.label_smooth = float(val)
+            check(0.0 <= self.label_smooth < 1.0,
+                  "label_smooth must be in [0, 1)")
 
     def infer_shape(self, in_shapes):
-        check(len(in_shapes) == 1, "LossLayer: only support 1-1 connection")
         check(not self.seq, "softmax seq = 1 is not ported yet")
-        return [in_shapes[0]]
+        return super().infer_shape(in_shapes)
 
-    def forward(self, params, inputs):
-        x = inputs[0]
-        return [ops.softmax(_flat2d(x), axis=-1).reshape(x.shape)]
+    def transform(self, x2d):
+        return ops.softmax(x2d, axis=-1)
+
+    def loss_term(self, x2d, label):
+        logp = torch.log_softmax(x2d, dim=-1)
+        tgt = logp.gather(1, label[:, :1].long())[:, 0]
+        eps = self.label_smooth
+        if eps == 0.0:
+            ce = -tgt
+        else:
+            ce = -((1.0 - eps) * tgt + eps / logp.shape[-1] * logp.sum(-1))
+        return ce.sum() * self._scale()
 
 
 LAYER_CLASSES: Dict[str, type] = {

@@ -1,10 +1,12 @@
-"""NeuralNet: the assembled DAG and its eval forward over a params list.
+"""NeuralNet: the assembled DAG and its forward over a params list.
 
 Counterpart of cxxnet_tpu/nnet/net.py (the reference's NeuralNet,
-src/nnet/neural_net-inl.hpp:23-297), without the training, decode, pipeline
-and fusion paths. Parameters are a list with one dict of tensors per
+src/nnet/neural_net-inl.hpp:23-297), without the decode, pipeline and
+fusion paths. Parameters are a list with one dict of tensors per
 connection, as in the JAX package; a shared connection (``share:<tag>``)
 holds {} and applies its primary's layer with the primary's params.
+``forward`` returns the node values and the summed loss of the loss layers
+(zero without labels); the trainer differentiates that loss with autograd.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from ..layer import factory
-from ..layer.base import Layer, check
+from ..layer.base import ApplyContext, LabelInfo, Layer, check, fold_in
 from ..utils import serializer
 from .config import NetConfig
 
@@ -117,9 +119,16 @@ class NeuralNet:
             x = x * self.input_scale
         return x
 
-    def forward(self, params: Params,
-                data: torch.Tensor) -> List[Optional[torch.Tensor]]:
-        """Run the DAG in eval mode; returns the list of node values."""
+    def forward(self, params: Params, data: torch.Tensor,
+                labels: Optional[LabelInfo] = None, train: bool = False,
+                gen: Optional[torch.Generator] = None, epoch: int = 0
+                ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
+        """Run the DAG; returns (node values, total loss). ``train`` turns
+        on the training behaviour of the layers (dropout); ``labels`` makes
+        the loss layers add their loss terms. In training each connection
+        i draws from its own generator on the data's device, seeded from
+        (``gen``'s seed, i), as the JAX package folds i into the step's
+        key; no ``gen`` means seed 0."""
         cfg = self.cfg
         values: List[Optional[torch.Tensor]] = [None] * cfg.param.num_nodes
         values[0] = self._normalize_input(data)
@@ -129,13 +138,32 @@ class NeuralNet:
                   "input_shape %r"
                   % (tuple(values[0].shape[1:]),
                      tuple(self.node_shapes[0][1:])))
+        ctx = ApplyContext(train=train, labels=labels, epoch=epoch)
+        base_seed = gen.initial_seed() if gen is not None else 0
         for i, info in enumerate(cfg.layers):
             pidx = info.primary_layer_index if self.is_shared[i] else i
+            ctx.layer_index = pidx
+            if train:
+                ctx.gen = torch.Generator(device=values[0].device) \
+                    .manual_seed(fold_in(base_seed, i))
             outs = self.layers[i].forward(params[pidx],
-                                          [values[j] for j in info.nindex_in])
+                                          [values[j] for j in info.nindex_in],
+                                          ctx)
             for j, v in zip(info.nindex_out, outs):
                 values[j] = v
-        return values
+        if ctx.losses:
+            return values, sum(ctx.losses)
+        return values, torch.zeros((), device=values[0].device)
+
+    def label_info_from(self, label_batch) -> LabelInfo:
+        """Named label fields of a (batch, label_width) matrix (numpy or
+        torch) from the config's label_vec ranges (GetLabelInfo,
+        nnet_impl-inl.hpp:257-272)."""
+        fields = {}
+        for name, idx in self.cfg.label_name_map.items():
+            begin, end = self.cfg.label_range[idx]
+            fields[name] = label_batch[:, begin:end]
+        return LabelInfo(fields)
 
     def save_model_blob(self, params: Params) -> bytes:
         w = serializer.Writer()

@@ -1,47 +1,70 @@
-"""Trainer: the inference part of the INetTrainer surface.
+"""Trainer: the INetTrainer surface on one device.
 
 Counterpart of cxxnet_tpu/nnet/trainer.py (the reference's
-CXXNetThreadTrainer, src/nnet/nnet_impl-inl.hpp:16-455) for this slice of
-the port: configuration, model init and model-file load/save, prediction
-and feature extraction on one device. Updaters, the training step and
-device meshes belong to later slices.
+CXXNetThreadTrainer, src/nnet/nnet_impl-inl.hpp:16-455) for the port's
+slices so far: configuration, model init, model files with their
+optimizer-state section, prediction and feature extraction, the training
+step (``update``: forward, autograd backward, ``update_period``
+accumulation, ``clip_global_norm``, one updater per weight tensor,
+train metrics accumulated on the device), ``evaluate`` and
+``copy_model_from``. Device meshes, the health monitor, batch-norm state
+updates and the training-state section belong to later slices.
 """
 
 from __future__ import annotations
 
 import re
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import device as device_mod
-from ..layer.base import check
+from ..layer.base import check, fold_in
+from ..updater import Updater, create_updater
 from ..utils import serializer
+from ..utils.metric import MetricSet
 from .config import NetConfig
 from .net import NeuralNet
 
-# magics of the optional sections the JAX trainer appends after the model
-# blob: optimizer state (cxxnet_tpu/nnet/trainer.py save_model), then
-# training state (save_training_state)
+# magics of the optional sections after the model blob: optimizer state
+# (written by save_model, read by load_model), then the JAX package's
+# training state (save_training_state), which the port steps over
 OPT_MAGIC = b"CXNOPT01"
 STATE_MAGIC = b"CXTSTA01"
 
+OptState = List[Dict[str, Dict[str, torch.Tensor]]]
+
 
 class Trainer:
-    """Net trainer in eval mode; one instance per model."""
+    """Net trainer; one instance per model."""
 
     def __init__(self):
         self.cfg_pairs: List[Tuple[str, str]] = []
         self.net_cfg = NetConfig()
         self.net: Optional[NeuralNet] = None
         self.batch_size = 100
+        self.update_period = 1
+        self.eval_train = 1
+        self.sample_counter = 0
         self.epoch_counter = 0
         self.seed = 0
+        self.silent = 0
         self.dev_spec = "gpu"
         self.input_scale = 1.0      # device-side input normalization
         self.input_mean = None
+        self.clip_global_norm = 0.0  # 0 -> off
+        self.metric = MetricSet()
+        self.train_metric = MetricSet()
+        self.eval_node_names: List[Optional[str]] = []  # None -> last node
+        self.eval_nodes: List[int] = []
         self.params = None
+        self.updaters: List[Dict[str, Updater]] = []
+        self.opt_state: Optional[OptState] = None
+        self.grad_accum: Optional[List[torch.Tensor]] = None
+        self._metric_accum: Optional[torch.Tensor] = None  # (n_metrics, 2)
+        self._rng_counter = 0
+        self.round = 0
         self.dev: Optional[torch.device] = None
 
     # configuration (reference SetParam, nnet_impl-inl.hpp:31-69)
@@ -50,42 +73,110 @@ class Trainer:
             self.dev_spec = val
         if name == "batch_size":
             self.batch_size = int(val)
+        if name == "update_period":
+            self.update_period = int(val)
+            check(self.update_period >= 1, "update_period must be >= 1")
+        if name == "eval_train":
+            self.eval_train = int(val)
         if name == "seed":
             self.seed = int(val)
+        if name == "silent":
+            self.silent = int(val)
+        if name == "clip_global_norm":
+            self.clip_global_norm = float(val)
         if name == "compute_dtype":
             check(val == "float32",
                   "compute_dtype %s is not ported yet (float32 only)" % val)
         if name in ("model_parallel", "seq_parallel", "pipeline_parallel",
                     "expert_parallel"):
             check(int(val) == 1, "%s > 1 is not ported yet" % name)
+        if name == "health_monitor":
+            check(int(val) == 0, "health_monitor is not ported yet")
+        if name == "nonfinite_action":
+            check(False, "nonfinite_action is not ported yet (it acts "
+                  "through health_monitor)")
         if name == "input_divideby":
             self.input_scale = 1.0 / float(val)
         if name == "input_scale":
             self.input_scale = float(val)
         if name == "input_mean_value":
             self.input_mean = [float(x) for x in val.split(",")]
+        if name.startswith("metric"):
+            m = re.match(r"metric\[([^,\]]+)(?:,([^\]]+))?\]$", name)
+            label_name, node_name = (m.group(1), m.group(2)) if m \
+                else ("label", None)
+            self.metric.add_metric(val, label_name)
+            self.train_metric.add_metric(val, label_name)
+            self.eval_node_names.append(node_name)
         self.cfg_pairs.append((name, val))
 
-    def _new_net(self, infer_shapes: bool) -> NeuralNet:
-        return NeuralNet(self.net_cfg, self.batch_size,
-                         infer_shapes=infer_shapes,
+    def _new_net(self, cfg: NetConfig, batch_size: int,
+                 infer_shapes: bool) -> NeuralNet:
+        return NeuralNet(cfg, batch_size, infer_shapes=infer_shapes,
                          input_scale=self.input_scale,
                          input_mean=self.input_mean)
+
+    def _resolve_eval_nodes(self) -> None:
+        self.eval_nodes = [self.net_cfg.param.num_nodes - 1 if nm is None
+                           else self.net_cfg.node_name_map[nm]
+                           for nm in self.eval_node_names]
 
     def init_model(self) -> None:
         self.dev = device_mod.resolve_device(self.dev_spec)
         self.net_cfg.configure(self.cfg_pairs)
-        self.net = self._new_net(infer_shapes=True)
+        self.net = self._new_net(self.net_cfg, self.batch_size, True)
+        self._resolve_eval_nodes()
         self.params = self.net.init_params(self.seed, self.dev)
+        self._build_updaters()
+        self._init_opt()
+
+    def _build_updaters(self) -> None:
+        """One Updater per (connection, weight tag), configured from the
+        global then the layer's config (reference InitUpdaters,
+        neural_net-inl.hpp:177-203)."""
+        self.updaters = []
+        for i, lay in enumerate(self.net.layers):
+            ups: Dict[str, Updater] = {}
+            if not self.net.is_shared[i]:
+                for tag, key in lay.visit_order():
+                    up = create_updater(self.net_cfg.updater_type, tag)
+                    for k, v in self.net_cfg.defcfg:
+                        up.set_param(k, v)
+                    for k, v in self.net_cfg.layercfg[i]:
+                        up.set_param(k, v)
+                    ups[key] = up
+            self.updaters.append(ups)
+
+    def _init_opt(self) -> None:
+        self.opt_state = [{key: up.init_state(self.params[i][key])
+                           for key, up in ups.items()}
+                          for i, ups in enumerate(self.updaters)]
+        self.grad_accum = None
+        self._metric_accum = None
+        self.sample_counter = 0
 
     # model files (reference SaveModel/LoadModel, nnet_impl-inl.hpp:81-100)
     def save_model(self, w: serializer.Writer) -> None:
-        """Net structure, epoch counter and params, in the layout the JAX
-        package reads (its optional optimizer-state section is absent, which
-        it reads as a fresh optimizer)."""
+        """Net structure, epoch counter, params, then the optimizer-state
+        section, in the layout the JAX package reads and writes."""
         self.net_cfg.save_net(w)
         w.write_raw(np.int64(self.epoch_counter).tobytes())
         blob = self.net.save_model_blob(self.params)
+        w.write_uint64(len(blob))
+        w.write_raw(blob)
+        ow = serializer.Writer()
+        ow.write_uint64(len(self.opt_state))
+        for st in self.opt_state:
+            ow.write_uint64(len(st))
+            for key in sorted(st):
+                ow.write_string(key)
+                sub = st[key]
+                ow.write_uint64(len(sub))
+                for sk in sorted(sub):
+                    ow.write_string(sk)
+                    ow.write_tensor(sub[sk].detach().cpu().numpy())
+        blob = ow.getvalue()
+        w.write_raw(OPT_MAGIC)
         w.write_uint64(len(blob))
         w.write_raw(blob)
 
@@ -96,12 +187,15 @@ class Trainer:
         # layer params (nhidden etc.) come from the model blob, so shape
         # inference waits until it is read, as in the reference
         self.net_cfg.configure(self.cfg_pairs)
-        self.net = self._new_net(infer_shapes=False)
+        self.net = self._new_net(self.net_cfg, self.batch_size, False)
+        self._resolve_eval_nodes()
         nbytes = r.read_uint64()
         self.params = self.net.load_model_blob(r.read_raw(nbytes), self.dev)
         self.net.infer_shapes()
         self._check_param_shapes()
-        self._skip_opt_state(r)
+        self._build_updaters()
+        self._init_opt()
+        self._load_opt_state(r)
 
     def _check_param_shapes(self) -> None:
         for i, (want, have) in enumerate(zip(self.net.param_shapes(),
@@ -110,19 +204,153 @@ class Trainer:
             check(got == want, "layer %d: model file holds params %r, the "
                   "net expects %r" % (i, got, want))
 
-    @staticmethod
-    def _skip_opt_state(r: serializer.Reader) -> None:
-        """Step over the optional optimizer-state section (magic, uint64
-        length, body) that JAX checkpoints carry after the model blob; the
-        port does not train yet, so it keeps none of it. What follows must
-        be the end of the file or the training-state section, which is left
-        unread."""
+    def _load_opt_state(self, r: serializer.Reader) -> None:
+        """Restore the optional optimizer-state section (magic, uint64
+        length, body); without it the fresh states stay. What follows
+        must be the end of the file or the training-state section, which
+        is left unread."""
         magic = r.f.read(len(OPT_MAGIC))
         if magic == OPT_MAGIC:
-            r.read_raw(r.read_uint64())
+            sr = serializer.Reader(r.read_raw(r.read_uint64()))
+            n = sr.read_uint64()
+            check(n == len(self.opt_state),
+                  "optimizer state layer count %d != %d"
+                  % (n, len(self.opt_state)))
+            for st in self.opt_state:
+                for _ in range(sr.read_uint64()):
+                    key = sr.read_string()
+                    check(key in st, "optimizer state has unknown weight "
+                          "tag %r (updater type changed?)" % key)
+                    for _ in range(sr.read_uint64()):
+                        sk = sr.read_string()
+                        val = sr.read_tensor()
+                        check(sk in st[key] and
+                              tuple(st[key][sk].shape) == val.shape,
+                              "optimizer state %r/%r shape mismatch"
+                              % (key, sk))
+                        st[key][sk] = torch.from_numpy(val).to(self.dev)
             magic = r.f.read(len(STATE_MAGIC))
         check(magic in (b"", STATE_MAGIC),
               "model file: unexpected bytes %r after the model blob" % magic)
+
+    def copy_model_from(self, r: serializer.Reader) -> None:
+        """Finetune: a fresh model with the weights of the name-matched
+        layers of another model copied in (reference CopyModelFrom,
+        nnet_impl-inl.hpp:101-134)."""
+        self.init_model()
+        old_cfg = NetConfig()
+        old_cfg.load_net(r)
+        r.read_raw(8)  # old epoch_counter, discarded
+        self.epoch_counter = 0
+        old_net = self._new_net(old_cfg, 1, False)
+        old_params = old_net.load_model_blob(r.read_raw(r.read_uint64()),
+                                             self.dev)
+        for i, old_info in enumerate(old_cfg.layers):
+            if not old_info.name:
+                continue
+            for j, new_info in enumerate(self.net_cfg.layers):
+                if new_info.name == old_info.name:
+                    if self.silent == 0:
+                        print("Copying layer %s" % old_info.name)
+                    self.params[j].update(old_params[i])
+        self._check_param_shapes()
+        self._init_opt()
+
+    # training (reference Update, nnet_impl-inl.hpp:141-185)
+    def start_round(self, round_: int) -> None:
+        self.round = round_
+
+    def _next_gen(self) -> torch.Generator:
+        """The step's generator: a stream of its own for every update,
+        derived from (seed, step count) as the JAX package folds the
+        counter into its key."""
+        self._rng_counter += 1
+        return torch.Generator(device=self.dev).manual_seed(
+            fold_in(self.seed, self._rng_counter))
+
+    def update(self, batch) -> None:
+        """One mini-batch: forward with dropout and the loss, backward,
+        and, every ``update_period`` batches, the optimizer step on the
+        summed gradients. Train metrics stay on the device until
+        ``evaluate`` reads them; nothing here waits for the device."""
+        check(self.net is not None, "model not initialized")
+        check(batch.label is not None, "update needs labels")
+        need_update = (self.sample_counter + 1) % self.update_period == 0
+        data = self._input(batch.data)
+        label = torch.as_tensor(batch.label).to(device=self.dev,
+                                                dtype=torch.float32)
+        labels = self.net.label_info_from(label)
+        keys = [(i, k) for i, p in enumerate(self.params) for k in p]
+        leaves = [self.params[i][k].requires_grad_() for i, k in keys]
+        values, loss = self.net.forward(self.params, data, labels=labels,
+                                        train=True, gen=self._next_gen(),
+                                        epoch=self.epoch_counter)
+        if self.eval_train != 0 and len(self.train_metric) > 0:
+            with torch.no_grad():
+                outs = [values[n].reshape(values[n].shape[0], -1).float()
+                        for n in self.eval_nodes]
+                stats = self.train_metric.device_stats(outs, labels)
+                self._metric_accum = stats if self._metric_accum is None \
+                    else self._metric_accum + stats
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+        del values, loss
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads)]
+        if self.update_period > 1:
+            if self.grad_accum is None:
+                self.grad_accum = grads
+            else:
+                for a, g in zip(self.grad_accum, grads):
+                    a.add_(g)
+            grads = self.grad_accum
+        if need_update:
+            if self.clip_global_norm > 0:
+                # whole-model norm clip: one scale for every tensor
+                gn = torch.sqrt(sum(torch.vdot(g.flatten(), g.flatten())
+                                    for g in grads))
+                scale = torch.clamp(self.clip_global_norm
+                                    / gn.clamp_min(1e-12), max=1.0)
+                grads = [g * scale for g in grads]
+            for (i, k), g in zip(keys, grads):
+                self.updaters[i][k].apply(self.params[i][k], g,
+                                          self.opt_state[i][k],
+                                          self.epoch_counter)
+            self.grad_accum = None
+        self.sample_counter += 1
+        if self.sample_counter >= self.update_period:
+            self.sample_counter = 0
+            self.epoch_counter += 1
+
+    def evaluate(self, iter_eval, data_name: str) -> str:
+        """The train metrics gathered since the last call, then the
+        metrics over ``iter_eval`` (any object with before_first / next /
+        value, or None) with padding rows dropped (reference Evaluate,
+        nnet_impl-inl.hpp:224-243)."""
+        ret = ""
+        if self.eval_train != 0 and len(self.train_metric):
+            if self._metric_accum is not None:
+                # the only host read of the train-metric sums
+                self.train_metric.absorb(self._metric_accum.cpu().numpy())
+                self._metric_accum = None
+            ret += self.train_metric.print_str("train")
+            self.train_metric.clear()
+        if iter_eval is None:
+            return ret
+        self.metric.clear()
+        if self.eval_nodes:
+            iter_eval.before_first()
+            while iter_eval.next():
+                batch = iter_eval.value()
+                outs = self._forward_nodes(batch.data,
+                                           tuple(self.eval_nodes))
+                keep = batch.data.shape[0] - batch.num_batch_padd
+                scores = [o.reshape(o.shape[0], -1)[:keep].cpu().numpy()
+                          for o in outs]
+                labels = self.net.label_info_from(
+                    np.asarray(batch.label)[:keep])
+                self.metric.add_eval(scores, labels)
+        ret += self.metric.print_str(data_name)
+        return ret
 
     # inference (reference Predict / ExtractFeature, nnet_impl-inl.hpp:186-299)
     def _input(self, data) -> torch.Tensor:
@@ -136,7 +364,7 @@ class Trainer:
     def _forward_nodes(self, data, node_ids: Tuple[int, ...]):
         check(self.net is not None, "model not initialized")
         with torch.no_grad():
-            values = self.net.forward(self.params, self._input(data))
+            values, _ = self.net.forward(self.params, self._input(data))
         return [values[n] for n in node_ids]
 
     def predict_device(self, data) -> torch.Tensor:

@@ -1,14 +1,17 @@
-"""Cross-channel LRN forward: the hand-written CUDA kernel, its plain
-PyTorch version, and the dispatch between them.
+"""Cross-channel LRN, forward and backward: the hand-written CUDA kernels,
+their plain PyTorch versions, and the dispatch between them.
 
-Replaces the TPU kernel ``_lrn_fwd_kernel`` / ``_lrn_call``
-(cxxnet_tpu/ops/pallas_kernels.py:49-90). The kernel is
-``csrc/lrn_fwd.cu``, built with nvcc at first use and bound with ctypes; its
-source comment states the design and the bound (bytes moved / 3.35 TB/s).
+Replaces the TPU kernels ``_lrn_fwd_kernel`` / ``_lrn_call`` and
+``_lrn_bwd_kernel`` / ``_lrn_bwd_call``
+(cxxnet_tpu/ops/pallas_kernels.py:49-104). The kernels are
+``csrc/lrn_fwd.cu`` and ``csrc/lrn_bwd.cu``, built with nvcc at first use and
+bound with ctypes; their source comments state the design and the bound
+(bytes moved / 3.35 TB/s).
 
-``forward`` runs the plain version for a tensor on the CPU and the kernel for
-a tensor on a CUDA card. A failed build or launch raises: nothing falls back
-to the plain version for a CUDA tensor.
+``forward`` goes through ``LRNFunction``, whose forward saves the f32 norm
+and whose backward takes it: the kernels for a tensor on a CUDA card, the
+plain versions for a tensor on the CPU. A failed build or launch raises:
+nothing falls back to a plain version for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -21,24 +24,31 @@ import torch.nn.functional as F
 
 from . import _build
 
-# launches of the CUDA kernel, counted in lrn_fwd_cuda where it launches
+# launches of the CUDA kernels, counted in lrn_fwd_cuda / lrn_bwd_cuda
+# where each launches
 launches = 0
+bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_libs = {}
 
 
-def chpool_sum(x: torch.Tensor, nsize: int) -> torch.Tensor:
-    """Cross-channel sliding-window sum over dim 1 (mshadow chpool<red::sum>):
-    channel i sums channels [i - nsize//2, i - nsize//2 + nsize) clipped to
-    the valid range."""
-    lo = nsize // 2
+def _window_sum(x: torch.Tensor, nsize: int, before: int) -> torch.Tensor:
+    """Sum over dim 1 of the nsize channels [i - before, i - before +
+    nsize) around each channel i, clipped to the valid range."""
     c = x.shape[1]
-    xp = F.pad(x, (0, 0, 0, 0, lo, nsize - 1 - lo))
+    xp = F.pad(x, (0, 0, 0, 0, before, nsize - 1 - before))
     out = xp[:, 0:c]
     for j in range(1, nsize):
         out = out + xp[:, j:j + c]
     return out
+
+
+def chpool_sum(x: torch.Tensor, nsize: int) -> torch.Tensor:
+    """Cross-channel sliding-window sum over dim 1 (mshadow chpool<red::sum>):
+    channel i sums channels win(i) = [i - nsize//2, i - nsize//2 + nsize)
+    clipped to the valid range."""
+    return _window_sum(x, nsize, nsize // 2)
 
 
 def lrn_ref_with_norm(x: torch.Tensor, nsize: int, alpha: float, beta: float,
@@ -57,35 +67,75 @@ def lrn_ref(x: torch.Tensor, nsize: int, alpha: float, beta: float,
     return lrn_ref_with_norm(x, nsize, alpha, beta, knorm)[0]
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(_build.build_kernels(["lrn_fwd"])["lrn_fwd"])
-        lib.cxxnet_lrn_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-        lib.cxxnet_lrn_fwd.restype = ctypes.c_int
+def lrn_bwd_ref(x: torch.Tensor, norm: torch.Tensor, g: torch.Tensor,
+                nsize: int, alpha: float, beta: float) -> torch.Tensor:
+    """Plain LRN backward, the formula of ``_lrn_bwd_kernel``: for the f32
+    ``norm`` the forward saved and the upstream gradient g,
+
+        dx_m = g_m n_m^-b - 2 (alpha/nsize) b x_m sum_{i: m in win(i)}
+               g_i x_i n_i^(-b-1)
+
+    in f32 whatever the input dtype, cast to x's dtype. The channels i
+    whose window holds m are [m + lo - nsize + 1, m + lo] (lo = nsize//2):
+    the mirrored window, which differs from win(m) for even nsize."""
+    xf, gf = x.float(), g.float()
+    salpha = alpha / nsize
+    inner = gf * xf * norm.pow(-beta - 1.0)
+    s = _window_sum(inner, nsize, nsize - 1 - nsize // 2)
+    return (gf * norm.pow(-beta) - (2.0 * salpha * beta) * xf * s).to(x.dtype)
+
+
+_ARGTYPES = {
+    "lrn_fwd": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    "lrn_bwd": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def _library(name: str):
+    """The ctypes library of csrc/<name>.cu, built at first use."""
+    if name not in _libs:
+        lib = ctypes.CDLL(_build.build_kernels([name])[name])
+        fn = getattr(lib, "cxxnet_" + name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
         lib.cxxnet_cuda_error_string.argtypes = [ctypes.c_int]
         lib.cxxnet_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
-def check_kernel_input(x: torch.Tensor, nsize: int) -> None:
-    """What the kernel takes: a contiguous 4-D (B, C, H, W) float32 or
+def _launch(name: str, *args) -> None:
+    """Call cxxnet_<name> on the current stream of the tensors' device;
+    raises if the launch failed."""
+    lib = _library(name)
+    err = getattr(lib, "cxxnet_" + name)(*args)
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed: cudaError %d (%s)"
+                           % (name, err, lib.cxxnet_cuda_error_string(err)
+                              .decode()))
+
+
+def check_kernel_input(x: torch.Tensor, nsize: int,
+                       kernel: str = "lrn_fwd") -> None:
+    """What the kernels take: a contiguous 4-D (B, C, H, W) float32 or
     bfloat16 tensor on a CUDA device, and nsize >= 1."""
     if x.device.type != "cuda":
-        raise ValueError("lrn_fwd kernel needs a CUDA tensor, got one on %s"
-                         % x.device)
+        raise ValueError("%s kernel needs a CUDA tensor, got one on %s"
+                         % (kernel, x.device))
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError("lrn_fwd kernel takes float32 or bfloat16, got %s"
-                        % x.dtype)
+        raise TypeError("%s kernel takes float32 or bfloat16, got %s"
+                        % (kernel, x.dtype))
     if x.dim() != 4:
-        raise ValueError("lrn_fwd kernel needs a 4-D NCHW tensor, got shape "
-                         "%s" % (tuple(x.shape),))
+        raise ValueError("%s kernel needs a 4-D NCHW tensor, got shape %s"
+                         % (kernel, tuple(x.shape)))
     if not x.is_contiguous():
-        raise ValueError("lrn_fwd kernel needs a contiguous NCHW tensor")
+        raise ValueError("%s kernel needs a contiguous NCHW tensor" % kernel)
     if nsize < 1:
         raise ValueError("lrn local_size must be >= 1, got %d" % nsize)
 
@@ -101,44 +151,78 @@ def lrn_fwd_cuda(x: torch.Tensor, nsize: int, alpha: float, beta: float,
     norm = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return out, norm
-    lib = _library()
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.cxxnet_lrn_fwd(x.data_ptr(), out.data_ptr(),
-                                 norm.data_ptr(), _DTYPE_CODE[x.dtype], b, c,
-                                 h * w, nsize, alpha / nsize, beta, knorm,
-                                 stream)
-    if err != 0:
-        raise RuntimeError("lrn_fwd kernel launch failed: cudaError %d (%s)"
-                           % (err, lib.cxxnet_cuda_error_string(err)
-                              .decode()))
+        _launch("lrn_fwd", x.data_ptr(), out.data_ptr(), norm.data_ptr(),
+                _DTYPE_CODE[x.dtype], b, c, h * w, nsize, alpha / nsize,
+                beta, knorm, torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     return out, norm
 
 
+def lrn_bwd_cuda(x: torch.Tensor, norm: torch.Tensor, g: torch.Tensor,
+                 nsize: int, alpha: float, beta: float) -> torch.Tensor:
+    """Launch the LRN backward kernel on the current stream: dx in x's
+    dtype from x, the forward's f32 norm and the upstream gradient g (same
+    shape and dtype as x, contiguous). Raises on an input it does not take
+    or a failed launch."""
+    global bwd_launches
+    check_kernel_input(x, nsize, "lrn_bwd")
+    if g.device != x.device or g.dtype != x.dtype or g.shape != x.shape \
+            or not g.is_contiguous():
+        raise ValueError("lrn_bwd kernel needs g contiguous, on x's device, "
+                         "of x's dtype and shape; got %s %s %s on %s"
+                         % (g.dtype, tuple(g.shape),
+                            "contiguous" if g.is_contiguous()
+                            else "non-contiguous", g.device))
+    if norm.device != x.device or norm.dtype != torch.float32 \
+            or norm.shape != x.shape or not norm.is_contiguous():
+        raise ValueError("lrn_bwd kernel needs a contiguous float32 norm of "
+                         "x's shape on x's device")
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    b, c, h, w = x.shape
+    with torch.cuda.device(x.device):
+        _launch("lrn_bwd", x.data_ptr(), norm.data_ptr(), g.data_ptr(),
+                dx.data_ptr(), _DTYPE_CODE[x.dtype], b, c, h * w, nsize,
+                2.0 * (alpha / nsize) * beta, beta,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    bwd_launches += 1
+    return dx
+
+
 class LRNFunction(torch.autograd.Function):
-    """The kernel as an autograd op. The f32 norm is saved for the LRN
-    backward kernel, which is not ported yet."""
+    """LRN as an autograd op: the forward saves x and the f32 norm, the
+    backward takes them with the upstream gradient. On a CUDA tensor both
+    directions run the kernels; on a CPU tensor the plain versions."""
 
     @staticmethod
     def forward(ctx, x, nsize, alpha, beta, knorm):
-        out, norm = lrn_fwd_cuda(x, nsize, alpha, beta, knorm)
+        if x.device.type == "cuda":
+            out, norm = lrn_fwd_cuda(x, nsize, alpha, beta, knorm)
+        else:
+            out, norm = lrn_ref_with_norm(x, nsize, alpha, beta, knorm)
         ctx.save_for_backward(x, norm)
+        ctx.args = (nsize, alpha, beta)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError("LRN backward kernel: next slice")
+        x, norm = ctx.saved_tensors
+        g = grad_out.contiguous()
+        if x.device.type == "cuda":
+            dx = lrn_bwd_cuda(x, norm, g, *ctx.args)
+        else:
+            dx = lrn_bwd_ref(x, norm, g, *ctx.args)
+        return dx, None, None, None, None
 
 
 def forward(x: torch.Tensor, nsize: int, alpha: float, beta: float,
             knorm: float) -> torch.Tensor:
-    """LRN over the channels of an NCHW tensor: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
-    if x.device.type == "cuda":
-        return LRNFunction.apply(x, nsize, alpha, beta, knorm)
-    if x.device.type == "cpu":
-        return lrn_ref(x, nsize, alpha, beta, knorm)
-    raise ValueError("lrn forward: no implementation for a tensor on %s"
-                     % x.device)
+    """LRN over the channels of an NCHW tensor, differentiable: the CUDA
+    kernels for a CUDA tensor, the plain versions for a CPU tensor."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError("lrn forward: no implementation for a tensor on %s"
+                         % x.device)
+    return LRNFunction.apply(x, nsize, alpha, beta, knorm)
