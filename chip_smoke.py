@@ -3,17 +3,22 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from cxxnet_tpu_torch/csrc, holds each kernel
-against its plain PyTorch version at the shapes of the main path, then
-drives the main paths through ``cxxnet_tpu_torch.api.Net(dev="gpu")`` on
+against its plain PyTorch version at the shapes of the main paths, then
+drives the main paths through ``cxxnet_tpu_torch.api.Net(dev="gpu")``:
 AlexNet (example/ImageNet/ImageNet.conf at full width, 3x227x227 -> 1000,
-batch 256, random weights from a seed): inference (``predict`` /
-``extract``), then training (``update`` steps with the config's own SGD
-settings and dropout on). Exits non-zero, with no result, when there is no
-card or any phase fails.
+batch 256, random weights from a seed) in inference (``predict`` /
+``extract``) and in training (``update`` steps with the config's own SGD
+settings and dropout on); then the transformer LM that bench.py measures
+(vocab 8192, d_model 512, 8 heads, 4 blocks, 2048 positions, fp32, random
+weights from a seed) served through KV-cached ``generate`` and a
+full-sequence ``predict_device``, and its long-context recipe (8192
+positions, 2 kv heads, window 1024, RoPE). Exits non-zero, with no result,
+when there is no card or any phase fails.
 
 Output, in order: the card's name and power limit (nvidia-smi), the build
-time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel`` and
-``alexnet_train`` (kernel checks, the main paths' checks, throughput and
+time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
+``alexnet_train``, ``flash_fwd_kernel``, ``lm_serve`` and
+``lm_serve_long`` (kernel checks, the main paths' checks, throughput and
 profiles), then a JSON line ``{"kernels": [...]}`` and, last, the JSON
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -43,6 +48,8 @@ NET_DEV = "gpu"
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# dense bf16 on the tensor cores: the least time for bf16 attention inputs
+BF16_OPS_PER_S = 989e12
 # LRN forward per element: square, window add and subtract, scale and
 # shift, pow (counted as 3: log, multiply, exp), output multiply
 LRN_OPS_PER_ELEM = 9
@@ -75,11 +82,12 @@ PRED_RTOL, PRED_ATOL = 1e-5, 1e-8
 CPU_RTOL, CPU_ATOL = 1e-4, 1e-7
 # training
 TRAIN_STEPS = 10
-# The two one-step comparisons below run with cuDNN off (PyTorch's native
-# convolutions). cuDNN's fp32 weight gradient of conv2 (5x5, pad 2, two
-# groups) is off from float64 by several 1e-3 of its largest element, the
-# native one by about 1e-6 (the "conv layer ... vs float64" lines), which
-# would swamp what they compare.
+# The kernel-vs-plain one-step comparison below runs with cuDNN off
+# (PyTorch's native convolutions) so that the two runs differ in the LRN
+# backward alone. The weight gradients are the port's own
+# (ops.conv2d_weight, held to float64 in the "conv layer ... vs float64"
+# lines): cuDNN's fp32 one of conv2 (5x5, pad 2, two groups) was several
+# 1e-3 of its largest element off float64.
 # Parameters after one step with the backward kernel vs with lrn_bwd_ref
 # swapped in: relative 1e-5 plus 1e-5 of the tensor's largest update. Only
 # the LRN backward's rounding differs; it reaches the gradients of
@@ -92,6 +100,44 @@ STEP_RTOL, STEP_ATOL_UPDATE = 1e-5, 1e-5
 # orders, and a gradient element that nearly cancels carries that absolute
 # error
 CPU_STEP_RTOL, CPU_STEP_ATOL_UPDATE = 1e-5, 1e-4
+# every conv's weight gradient as the port computes it (ops.conv2d_weight)
+# against float64: 1e-5 of its largest element (the reference's bar)
+WGRAD_TOL = 1e-5
+
+# flash attention forward: (name, b, h, nkv, L, d, causal, window). The
+# first is the main path's: the LM's prefill, 4 launches per request
+FLASH_SHAPES = [
+    ("lm_prefill", 8, 8, 8, 1024, 64, True, 0),
+    ("lm_full_sequence", 8, 8, 8, 2048, 64, True, 0),
+    ("long_prefill_gqa_window", 2, 8, 2, 4096, 64, True, 1024),
+    ("ragged_1000", 2, 8, 8, 1000, 64, True, 0),
+    ("ragged_1000_noncausal", 2, 8, 8, 1000, 64, False, 0),
+    ("lm_conf_d16", 16, 4, 4, 256, 16, True, 0),
+    ("d128_gqa", 2, 8, 2, 1024, 128, True, 0),
+]
+# kernel vs flash_fwd_ref: rtol 1e-5 (fp32) or 2e-2 (bf16, both round the
+# same f32 value to bf16, an f32 ulp apart can round one bf16 ulp apart)
+# plus 8 f32 epsilons of the largest |out|: out is a convex combination of
+# v rows, summed blockwise with an online rescale in the kernel and densely
+# in the plain version, so an element near zero carries a few ulps of the
+# largest terms. lse (f32 in both) to rtol 1e-5 plus 8 epsilons of its
+# largest magnitude
+FLASH_ATOL_EPS = 8
+
+# the LM that bench.py measures, served at full width in fp32
+LM_ARGS = dict(vocab=8192, dim=512, nhead=8, nlayer=4)
+LM_SEQ, LM_BATCH, LM_PROMPT, LM_NEW = 2048, 8, 1024, 64
+LM_RAGGED = (1024, 1100)
+# its long-context recipe (bench.py:301-310)
+LONG_EXTRA = "nkvhead = 2\nattn_window = 1024\nrope = 1\n"
+LONG_SEQ, LONG_BATCH, LONG_PROMPT, LONG_NEW = 8192, 2, 4096, 32
+# the LM with the kernel vs with flash_fwd_ref swapped in, on the card:
+# log-probabilities of the prefill and of every teacher-forced step to
+# absolute 1e-4. Only the attention's summation order differs; a few f32
+# ulps of an attention output grow through 4 blocks, the vocab head and
+# the log-softmax to ~1e-6 of logits of magnitude ~10. Greedy tokens must
+# be equal wherever the plain run's top-2 margin exceeds twice that
+LOGP_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -430,11 +476,10 @@ def cudnn_off():
         torch.backends.cudnn.enabled = was
 
 
-def compare_params(what, got, want, start, rtol, atol_update, check=True):
+def compare_params(what, got, want, start, rtol, atol_update):
     """Hold every parameter tensor to |got - want| <= rtol |want| +
     atol_update * (the tensor's largest |want - start|, its largest
-    update); print the worst ratio of error to bound. ``check=False``
-    only reports it."""
+    update); print the worst ratio of error to bound."""
     worst, where = 0.0, ""
     for i, (g, w, s) in enumerate(zip(got, want, start)):
         for k in w:
@@ -447,8 +492,8 @@ def compare_params(what, got, want, start, rtol, atol_update, check=True):
     verdict = "ok" if worst <= 1.0 else "FAILED"
     log("  %s: worst error/bound %.3e at %s (rtol %.0e, atol %.0e of the "
         "largest update) %s" % (what, worst, where or "-", rtol, atol_update,
-                                verdict if check else "(report only)"))
-    if check and worst > 1.0:
+                                verdict))
+    if worst > 1.0:
         raise AssertionError("%s disagrees beyond tolerance" % what)
 
 
@@ -463,14 +508,24 @@ def _one_step(api, fname, cfg, x, y, dev=None):
     return before, _params(net)
 
 
-def conv_vs_f64(net, x, y):
-    """Report each conv's output, data gradient and weight gradient as
-    cuDNN computes them on the main path (fp32) against the same values in
-    float64, on the main path's own conv inputs, weights and output
-    gradients of one training forward: the largest error over the largest
-    element, and the norm-wise error. The weight gradient is also reported
-    with cuDNN in its deterministic mode and with cuDNN off."""
-    from torch.nn.grad import conv2d_input, conv2d_weight
+def cudnn_conv2d_weight(x, w_shape, g, stride, pad, groups):
+    """The weight gradient as cuDNN computes it, which the port took before
+    ops.conv2d_weight: a yardstick and the "before" of the training
+    throughput, swapped in by hand."""
+    from torch.nn.grad import conv2d_weight
+    return conv2d_weight(x, w_shape, g, stride=stride, padding=pad,
+                         groups=groups)
+
+
+def conv_vs_f64(net, x, y, ops):
+    """Each conv's weight gradient as the port computes it
+    (ops.conv2d_weight) against float64, held to WGRAD_TOL of its largest
+    element, on the main path's own conv inputs, weights and output
+    gradients of one training forward. Reported beside it: the output and
+    data gradient (cuDNN) and cuDNN's weight gradient in its default and
+    deterministic modes and with cuDNN off; timed: the port's and cuDNN's
+    weight gradients."""
+    from torch.nn.grad import conv2d_input
     t = net.net_
     infos = t.net_cfg.layers
     convs = [i for i, lay in enumerate(t.net.layers)
@@ -485,43 +540,64 @@ def conv_vs_f64(net, x, y):
     douts = torch.autograd.grad(loss, [values[infos[i].nindex_out[0]]
                                        for i in convs])
 
+    def rel(got, want):
+        return float((got.double() - want).abs().max() / want.abs().max())
+
     def err(got, want):
         e = (got.double() - want).abs()
         return "max_err/max %.3e norm-wise %.3e" % (
             float(e.max() / want.abs().max()), float(e.norm() / want.norm()))
+    worst, port_total, cudnn_total = 0.0, 0.0, 0.0
     for i, dout in zip(convs, douts):
         p = t.net.layers[i].param
         inp = values[infos[i].nindex_in[0]].detach()
         w = params[i]["wmat"].detach().reshape(
             p.num_channel, p.num_input_channel // p.num_group,
             p.kernel_height, p.kernel_width)
+        args = (p.stride, (p.pad_y, p.pad_x), p.num_group)
         kw = dict(stride=p.stride, padding=(p.pad_y, p.pad_x),
                   groups=p.num_group)
-        line = []
-        for what, fn, args in (
-                ("output", torch.nn.functional.conv2d, (inp, w)),
-                ("data grad", lambda a, b, **k: conv2d_input(
-                    inp.shape, a, b, **k), (w, dout)),
-                ("weight grad", lambda a, b, **k: conv2d_weight(
-                    a, w.shape, b, **k), (inp, dout))):
-            want = fn(*(a.double() for a in args), **kw)
-            line.append("%s %s" % (what, err(fn(*args, **kw), want)))
-            if what == "weight grad":
-                torch.backends.cudnn.deterministic = True
-                try:
-                    line.append("weight grad (cuDNN deterministic) %s"
-                                % err(fn(*args, **kw), want))
-                finally:
-                    torch.backends.cudnn.deterministic = False
-                with cudnn_off():
-                    line.append("weight grad (cuDNN off) %s"
-                                % err(fn(*args, **kw), want))
-            del want
-        log("  conv layer %d %s vs float64 (a report): %s"
-            % (i, tuple(w.shape), "; ".join(line)))
+        want = torch.nn.functional.conv2d(inp.double(), w.double(), **kw)
+        line = ["output (cuDNN) %s" % err(torch.nn.functional.conv2d(
+            inp, w, **kw), want)]
+        want = conv2d_input(inp.shape, w.double(), dout.double(), **kw)
+        line.append("data grad (cuDNN) %s" % err(
+            conv2d_input(inp.shape, w, dout, **kw), want))
+        want = cudnn_conv2d_weight(inp.double(), w.shape, dout.double(),
+                                   *args)
+        port = rel(ops.conv2d_weight(inp, w.shape, dout, *args), want)
+        worst = max(worst, port)
+        line.append("cuDNN weight grad %s" % err(
+            cudnn_conv2d_weight(inp, w.shape, dout, *args), want))
+        torch.backends.cudnn.deterministic = True
+        try:
+            line.append("(deterministic) %s" % err(
+                cudnn_conv2d_weight(inp, w.shape, dout, *args), want))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        with cudnn_off():
+            line.append("(cuDNN off) %s" % err(
+                cudnn_conv2d_weight(inp, w.shape, dout, *args), want))
+        del want
+        port_ms = time_ms(lambda: ops.conv2d_weight(inp, w.shape, dout,
+                                                    *args), iters=5)
+        cudnn_ms = time_ms(lambda: cudnn_conv2d_weight(inp, w.shape, dout,
+                                                       *args), iters=5)
+        port_total += port_ms
+        cudnn_total += cudnn_ms
+        log("  conv layer %d %s vs float64: port weight grad max_err/max "
+            "%.3e (tolerance %.0e) %s, %.3f ms (cuDNN's %.3f ms); reported: "
+            "%s" % (i, tuple(w.shape), port, WGRAD_TOL,
+                    "ok" if port <= WGRAD_TOL else "FAILED", port_ms,
+                    cudnn_ms, "; ".join(line)))
+    log("  weight gradients of the %d convs: port %.3f ms, cuDNN %.3f ms "
+        "per step" % (len(convs), port_total, cudnn_total))
+    if worst > WGRAD_TOL:
+        raise AssertionError("a conv weight gradient is %.3e of its largest "
+                             "element off float64" % worst)
 
 
-def phase_alexnet_train(lrn, api):
+def phase_alexnet_train(lrn, api, ops):
     """AlexNet training through the port's API on the card; returns the
     LRN forward and backward launches counted while the main path ran."""
     log("phase alexnet_train")
@@ -571,7 +647,7 @@ def phase_alexnet_train(lrn, api):
     log("  every parameter changed and is finite (%d tensors)"
         % sum(len(p) for p in after))
 
-    conv_vs_f64(net, x, y)
+    conv_vs_f64(net, x, y, ops)
 
     # the kernel against the plain backward: one step from the same file
     # (weights, momentum, dropout seed), cuDNN off for the three runs (see
@@ -590,8 +666,8 @@ def phase_alexnet_train(lrn, api):
     del with_kernel, again, with_plain
 
     # the card against the port's CPU path: one step on 4 images with
-    # dropout off (threshold 0) on both sides; held with cuDNN off, and
-    # reported with cuDNN on (the main path's setting)
+    # dropout off (threshold 0) on both sides; held with cuDNN off and with
+    # cuDNN on (the main path's setting)
     cfg0 = cfg.replace("threshold = 0.5", "threshold = 0")
     small_x, small_y = x[:4], y[:4]
     with cudnn_off():
@@ -603,8 +679,7 @@ def phase_alexnet_train(lrn, api):
                    "path", on_card, on_cpu, p0, CPU_STEP_RTOL,
                    CPU_STEP_ATOL_UPDATE)
     compare_params("the same with cuDNN on, card vs CPU path", on_card_cudnn,
-                   on_cpu, p0, CPU_STEP_RTOL, CPU_STEP_ATOL_UPDATE,
-                   check=False)
+                   on_cpu, p0, CPU_STEP_RTOL, CPU_STEP_ATOL_UPDATE)
     del on_card, on_card_cudnn, on_cpu, p0
     os.remove(fname)
 
@@ -649,17 +724,385 @@ def phase_alexnet_train(lrn, api):
         % (BATCH, " / ".join("%.1f" % r for r in rates["kernel"]),
            " / ".join("%.1f" % r for r in rates["plain"]),
            torch.cuda.max_memory_allocated() / 1e9))
-    profile_forward(device_step, unit="step")
+    # the weight gradient before this port's repair: cuDNN's, in turns
+    rates = {"port": [], "cudnn": []}
+    port_wgrad = ops.conv2d_weight
+    for which in ("port", "cudnn", "cudnn", "port"):
+        if which == "cudnn":
+            ops.conv2d_weight = cudnn_conv2d_weight
+        try:
+            rates[which].append(images_per_s(device_step))
+        finally:
+            ops.conv2d_weight = port_wgrad
+    log("  AlexNet fp32 training batch %d, batch on the card: %s images/s "
+        "with the port's im2col weight gradient, %s with cuDNN's swapped in "
+        "(in turns port, cuDNN, cuDNN, port)"
+        % (BATCH, " / ".join("%.1f" % r for r in rates["port"]),
+           " / ".join("%.1f" % r for r in rates["cudnn"])))
+    profile_forward(device_step, unit="step", shares=("lrn_fwd", "lrn_bwd"))
     return fwd, bwd
 
 
+def flash_work(b, h, nkv, L, d, causal, window, esize):
+    """(operations, bytes) the flash forward needs: 4 d flops (q k^T and
+    p v) per (query, key) pair the mask keeps, counted for this shape;
+    q, k, v read once, out (input dtype) and lse (f32) written once."""
+    if not causal:
+        pairs = L * L
+    elif window <= 0 or window >= L:
+        pairs = L * (L + 1) // 2
+    else:
+        pairs = window * (window + 1) // 2 + (L - window) * window
+    ops = 4 * d * pairs * b * h
+    nbytes = esize * (2 * b * h * L * d + 2 * b * nkv * L * d) + 4 * b * h * L
+    return ops, nbytes
+
+
+def sdpa_ms(F, q, k, v, causal, window, ref_out):
+    """Time of F.scaled_dot_product_attention on the same inputs (grouped
+    kv heads through enable_gqa, the window as a boolean mask), a
+    yardstick the port never calls; None where it does not run."""
+    L, h, nkv = q.shape[2], q.shape[1], k.shape[1]
+    kw = dict(enable_gqa=h != nkv)
+    if window:
+        pos = torch.arange(L, device=q.device)
+        diff = pos[:, None] - pos[None, :]
+        kw["attn_mask"] = (diff >= 0) & (diff < window)
+    else:
+        kw["is_causal"] = causal
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, **kw)
+    try:
+        out = call()
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        log("  library scaled_dot_product_attention: not available (%s)"
+            % str(e).splitlines()[0])
+        return None
+    log("  library scaled_dot_product_attention vs flash_fwd_ref: "
+        "max_abs_err %.3e (yardstick only)"
+        % float((out.float() - ref_out.float()).abs().max()))
+    return time_ms(call)
+
+
+def phase_flash_fwd_kernel(flash):
+    """The flash attention kernel against flash_fwd_ref on the card at the
+    LM's shapes and the edge shapes (ragged L, non-causal, d 16 and 128,
+    grouped kv heads with a window), fp32 and bf16; returns the per-kernel
+    record of the main path's shape (one prefill launch, fp32)."""
+    import torch.nn.functional as F
+    log("phase flash_fwd_kernel")
+    rec = _new_rec()
+    rng = np.random.RandomState(SEED + 4)
+    for name, b, h, nkv, L, d, causal, window in FLASH_SHAPES:
+        host = [torch.from_numpy(rng.randn(b, n, L, d).astype(np.float32))
+                for n in (h, nkv, nkv)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(DEV, dtype) for t in host)
+            args = (causal, None, window)
+            out, lse = flash.flash_fwd_cuda(q, k, v, *args)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = flash.flash_fwd_ref(q, k, v, *args)
+            log(" %s b %d h %d nkv %d L %d d %d causal %d window %d %s"
+                % (name, b, h, nkv, L, d, causal, window, str(dtype)[6:]))
+            if out.dtype != dtype or lse.shape != (b, h, L):
+                raise AssertionError("out %s lse %s" % (out.dtype,
+                                                        tuple(lse.shape)))
+            eps = torch.finfo(torch.float32).eps
+            err = check_close("out vs flash_fwd_ref", out, ref_out,
+                              RTOL[dtype], FLASH_ATOL_EPS * eps
+                              * float(ref_out.float().abs().max()))
+            check_close("lse vs flash_fwd_ref", lse, ref_lse, NORM_RTOL,
+                        FLASH_ATOL_EPS * eps * float(ref_lse.abs().max()))
+            del ref_out, ref_lse
+            kernel_ms = time_ms(lambda: flash.flash_fwd_cuda(q, k, v, *args))
+            plain_ms = time_ms(lambda: flash.flash_fwd_ref(q, k, v, *args),
+                               iters=5)
+            library_ms = sdpa_ms(F, q, k, v, causal, window, out)
+            ops_n, nbytes = flash_work(b, h, nkv, L, d, causal, window,
+                                       q.element_size())
+            peak = FP32_OPS_PER_S if dtype == torch.float32 \
+                else BF16_OPS_PER_S
+            ops_ms = ops_n / peak * 1e3
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+            log("  kernel_ms %.4f plain_ms %.4f library_ms %s bound_ms %.4f "
+                "(%s: %.3e operations at %.0f TFLOP/s, %d bytes) "
+                "kernel/bound %.2f"
+                % (kernel_ms, plain_ms, library_ms, bound_ms, bound_by,
+                   ops_n, peak / 1e12, nbytes, kernel_ms / bound_ms))
+            if name == FLASH_SHAPES[0][0] and dtype == torch.float32:
+                _add_fp32(rec, kernel_ms, plain_ms, library_ms, bound_ms,
+                          bound_by)
+            if dtype == torch.float32:
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    return rec
+
+
+@contextlib.contextmanager
+def plain_flash(flash):
+    """FlashAttention's forward runs flash_fwd_ref in place of the kernel
+    (on the card, by explicit swap)."""
+    kernel = flash.flash_fwd_cuda
+    flash.flash_fwd_cuda = flash.flash_fwd_ref
+    try:
+        yield
+    finally:
+        flash.flash_fwd_cuda = kernel
+
+
+def lm_net(api, models, seq, batch, attn_extra=""):
+    cfg = models.transformer_lm_config(
+        seq=seq, batch_size=batch, dev=NET_DEV, attn_extra=attn_extra,
+        **LM_ARGS) + "seed = %d\n" % SEED
+    net = api.Net(dev=NET_DEV, cfg=cfg)
+    t0 = time.time()
+    net.init_model()
+    torch.cuda.synchronize()
+    n = sum(v.numel() for p in net.net_.params for v in p.values())
+    log("  init_model %.2f s, %d parameters (%.1f MB fp32)"
+        % (time.time() - t0, n, n * 4 / 1e6))
+    return net
+
+
+def forced_logp(net, toks, plen, total):
+    """Log-probabilities of the prefill and of every step of the decode
+    loop teacher-forced on ``toks`` ((b, l_max) int64 on the card), as
+    (b, vocab, total - 1) on the card."""
+    b = toks.shape[0]
+    out = torch.empty((b, LM_ARGS["vocab"], total - 1), device=toks.device)
+
+    def record(t0, probs):
+        n = min(probs.shape[2], total - 1 - t0)
+        out[:, :, t0:t0 + n] = torch.log(probs[:, :, :n])
+    net.net_.decode(toks.clone(), torch.full((b,), total, dtype=torch.int32,
+                                             device=toks.device),
+                    plen, total, on_probs=record)
+    return out
+
+
+def check_request(flash, net, prompts, lens, got):
+    """Hold one generate request on the card against the same request with
+    flash_fwd_ref swapped in: log-probabilities of the prefill and of every
+    teacher-forced step (forced on the kernel run's tokens) to LOGP_TOL;
+    each generated token equal to the plain run's greedy pick wherever its
+    top-2 margin exceeds 2 LOGP_TOL; and the plain run's own generate equal
+    to the kernel run's, row by row, up to the row's first step under that
+    margin."""
+    b, n_new = got.shape
+    plen, total = int(lens.min()), int(lens.max()) + n_new
+    l_max = net.net_.net_cfg.param.input_shape[2]
+    toks = np.zeros((b, l_max), np.int64)
+    toks[:, :prompts.shape[1]] = prompts
+    for r in range(b):
+        toks[r, lens[r]:lens[r] + n_new] = got[r]
+    toks = torch.from_numpy(toks).to(DEV)
+    kern = forced_logp(net, toks, plen, total)
+    with plain_flash(flash):
+        plain = forced_logp(net, toks, plen, total)
+        plain_toks = net.generate(prompts, n_new, prompt_lens=lens)
+    err = float((kern - plain).abs().max())
+    log("  log-probabilities of the prefill and %d teacher-forced steps, "
+        "kernel vs flash_fwd_ref: max_abs_err %.3e (tolerance %.0e) %s"
+        % (total - 1 - plen, err, LOGP_TOL,
+           "ok" if err <= LOGP_TOL else "FAILED"))
+    if not err <= LOGP_TOL:
+        raise AssertionError("LM log-probabilities disagree beyond %g"
+                             % LOGP_TOL)
+    top2 = plain.topk(2, dim=1)
+    margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+    pick = top2.indices[:, 0].cpu().numpy()
+    held = flips = 0
+    for r in range(b):
+        first_low = n_new
+        for j in range(n_new):
+            t = int(lens[r]) - 1 + j
+            if margin[r, t] > 2 * LOGP_TOL:
+                held += 1
+                if pick[r, t] != got[r, j]:
+                    flips += 1
+            elif first_low == n_new:
+                first_low = j
+        if not np.array_equal(plain_toks[r, :first_low], got[r, :first_low]):
+            raise AssertionError("row %d: the plain run's tokens differ "
+                                 "before its first low-margin step %d"
+                                 % (r, first_low))
+    log("  tokens: %d of %d generated steps above the margin, %d differ "
+        "from the plain run's greedy pick; the plain run's own tokens equal "
+        "up to each row's first step under the margin (%d tokens equal in "
+        "all)" % (held, b * n_new, flips, int((plain_toks == got).sum())))
+    if flips:
+        raise AssertionError("%d tokens differ where the margin allows no "
+                             "flip" % flips)
+
+
+def time_generate(net, prompts, lens, n_new, reps=3):
+    """Host wall times (s) of ``reps`` generate calls, each ending in its
+    one copy of the tokens to the host (which waits for the card)."""
+    net.generate(prompts, n_new, prompt_lens=lens)
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        net.generate(prompts, n_new, prompt_lens=lens)
+        times.append(time.perf_counter() - t)
+    return times
+
+
+def serve_rates(flash, net, prompts, lens, n_new, label):
+    """Time to first token (a generate of one token: the prompt's copy to
+    the card, the prefill, the pick and the copy back) and decode tokens/s
+    (the further n_new - 1 tokens of a full request over the time it adds),
+    with the kernel and with flash_fwd_ref, in turns kernel, plain, plain,
+    kernel."""
+    b = prompts.shape[0]
+    res = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        ctx = plain_flash(flash) if which == "plain" \
+            else contextlib.nullcontext()
+        with ctx:
+            ttft = min(time_generate(net, prompts, lens, 1))
+            full = min(time_generate(net, prompts, lens, n_new))
+        res[which].append((ttft, full, b * (n_new - 1) / (full - ttft)))
+    for which, runs in res.items():
+        log("  %s %s: time to first token %s ms; request of %d new tokens "
+            "%s ms; decode %s tokens/s (best of 3 each, two turns)"
+            % (label, which, " / ".join("%.2f" % (r[0] * 1e3) for r in runs),
+               n_new, " / ".join("%.2f" % (r[1] * 1e3) for r in runs),
+               " / ".join("%.1f" % r[2] for r in runs)))
+
+
+def phase_lm_serve(flash, api, models):
+    """The bench.py LM served through api.Net(dev="gpu"): greedy generate
+    requests (uniform 1024-token prompts, a ragged batch of 1024-1100) and
+    a full-sequence predict_device; returns the flash launches counted
+    while the main path ran."""
+    log("phase lm_serve")
+    net = lm_net(api, models, LM_SEQ, LM_BATCH)
+    vocab = LM_ARGS["vocab"]
+    rng = np.random.RandomState(SEED + 5)
+    prompts = rng.randint(0, vocab, (LM_BATCH, LM_PROMPT))
+    ragged = rng.randint(0, vocab, (LM_BATCH, LM_RAGGED[1]))
+    lens = rng.randint(LM_RAGGED[0], LM_RAGGED[1] + 1, LM_BATCH)
+    lens[:2] = LM_RAGGED
+    uniform = np.full(LM_BATCH, LM_PROMPT)
+    full = torch.from_numpy(rng.randint(0, vocab, (LM_BATCH, 1, 1, LM_SEQ))
+                            .astype(np.float32)).to(DEV)
+    per_layer = LM_ARGS["nlayer"]
+
+    # the main path: the counts start at 0 here and are read right after
+    torch.cuda.reset_peak_memory_stats()
+    flash.launches = 0
+    got = net.generate(prompts, LM_NEW)
+    n_uniform = flash.launches
+    got_r = net.generate(ragged, LM_NEW, prompt_lens=lens)
+    n_ragged = flash.launches - n_uniform
+    pred = net.predict_device(full)
+    torch.cuda.synchronize()
+    n_full = flash.launches - n_uniform - n_ragged
+    launches = flash.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log("  flash_fwd launches: %d per uniform request, %d per ragged "
+        "request, %d per full-sequence forward (%d expected each)"
+        % (n_uniform, n_ragged, n_full, per_layer))
+    if (n_uniform, n_ragged, n_full) != (per_layer,) * 3:
+        raise AssertionError("expected %d flash_fwd launches per request "
+                             "and per forward" % per_layer)
+    for what, toks in (("uniform", got), ("ragged", got_r)):
+        if toks.shape != (LM_BATCH, LM_NEW) or toks.min() < 0 \
+                or toks.max() >= vocab:
+            raise AssertionError("%s tokens: shape %s range [%d, %d]"
+                                 % (what, toks.shape, toks.min(),
+                                    toks.max()))
+    if pred.shape != (LM_BATCH,) or not bool(torch.isfinite(pred).all()):
+        raise AssertionError("predict_device: %s" % (tuple(pred.shape),))
+    log("  peak device memory over the main path %.2f GB" % peak)
+
+    log(" uniform request (prompts %d, %d new tokens)" % (LM_PROMPT, LM_NEW))
+    check_request(flash, net, prompts, uniform, got)
+    log(" ragged request (prompt_lens %s)" % lens.tolist())
+    check_request(flash, net, ragged, lens, got_r)
+    log(" full-sequence forward (L %d)" % LM_SEQ)
+    last = net.net_.net_cfg.param.num_nodes - 1
+    kern = torch.log(net.net_._forward_nodes(full, (last,))[0])
+    with plain_flash(flash):
+        plain = torch.log(net.net_._forward_nodes(full, (last,))[0])
+    err = float((kern - plain).abs().max())
+    log("  log-probabilities kernel vs flash_fwd_ref: max_abs_err %.3e "
+        "(tolerance %.0e) %s" % (err, LOGP_TOL,
+                                  "ok" if err <= LOGP_TOL else "FAILED"))
+    if not err <= LOGP_TOL:
+        raise AssertionError("full-sequence log-probabilities disagree")
+    del kern, plain
+
+    serve_rates(flash, net, prompts, uniform, LM_NEW, "uniform")
+    serve_rates(flash, net, ragged, lens, LM_NEW, "ragged")
+
+    def tokens_per_s(iters=5):
+        net.predict_device(full)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            net.predict_device(full)
+            torch.cuda.synchronize()
+        return LM_BATCH * LM_SEQ * iters / (time.perf_counter() - t)
+    rates = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        with plain_flash(flash) if which == "plain" \
+                else contextlib.nullcontext():
+            rates[which].append(tokens_per_s())
+    log("  full-sequence forward, batch %d x %d: %s tokens/s with the "
+        "kernel, %s with flash_fwd_ref (in turns)"
+        % (LM_BATCH, LM_SEQ, " / ".join("%.0f" % r for r in rates["kernel"]),
+           " / ".join("%.0f" % r for r in rates["plain"])))
+    profile_forward(lambda: net.generate(prompts, LM_NEW), iters=2,
+                    unit="request", shares=("flash_fwd",))
+    profile_forward(lambda: net.predict_device(full), unit="forward",
+                    shares=("flash_fwd",))
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_serve_long(flash, api, models):
+    """The long-context recipe (8192 positions, 2 kv heads, window 1024,
+    RoPE) served through api.Net(dev="gpu").generate: batch 2, a
+    4096-token prompt, 32 new tokens; returns the flash launches counted
+    while the main path ran."""
+    log("phase lm_serve_long")
+    net = lm_net(api, models, LONG_SEQ, LONG_BATCH, LONG_EXTRA)
+    rng = np.random.RandomState(SEED + 6)
+    prompts = rng.randint(0, LM_ARGS["vocab"], (LONG_BATCH, LONG_PROMPT))
+    lens = np.full(LONG_BATCH, LONG_PROMPT)
+
+    # the main path: the counts start at 0 here and are read right after
+    flash.launches = 0
+    got = net.generate(prompts, LONG_NEW)
+    torch.cuda.synchronize()
+    launches = flash.launches
+    log("  flash_fwd launches: %d per request (%d expected)"
+        % (launches, LM_ARGS["nlayer"]))
+    if launches != LM_ARGS["nlayer"]:
+        raise AssertionError("expected %d flash_fwd launches per request"
+                             % LM_ARGS["nlayer"])
+    if got.shape != (LONG_BATCH, LONG_NEW):
+        raise AssertionError("tokens: shape %s" % (got.shape,))
+    check_request(flash, net, prompts, lens, got)
+    serve_rates(flash, net, prompts, lens, LONG_NEW, "long")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_forward(forward, iters: int = 3, top: int = 8,
-                    unit: str = "forward") -> None:
-    """Where a forward's (or a training step's) device time goes:
-    torch.profiler over ``iters`` synchronised calls; prints kernel time
-    per call, the device's busy share of the wall time (the profiler's own
-    overhead included), the largest kernels by self device time, and the
-    LRN kernels' share."""
+                    unit: str = "forward", shares=("lrn_fwd",)) -> None:
+    """Where a forward's (or a training step's, or a request's) device
+    time goes: torch.profiler over ``iters`` synchronised calls; prints
+    kernel time per call, the device's busy share of the wall time (the
+    profiler's own overhead included), the largest kernels by self device
+    time, and the share of the port's kernels named in ``shares``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     forward()
@@ -688,10 +1131,10 @@ def profile_forward(forward, iters: int = 3, top: int = 8,
         % (iters, unit, busy_ms, unit, wall_ms, unit, busy_ms / wall_ms))
     for ms, name in kernels[:top]:
         log("    %8.3f ms %5.1f%%  %s" % (ms, 100 * ms / busy_ms, name[:90]))
-    for kernel in ("lrn_fwd", "lrn_bwd") if unit == "step" else ("lrn_fwd",):
-        lrn_ms = sum(ms for ms, name in kernels if kernel in name)
+    for kernel in shares:
+        k_ms = sum(ms for ms, name in kernels if kernel in name)
         log("    %s kernels: %.3f ms/%s, %.1f%% of device time"
-            % (kernel, lrn_ms, unit, 100 * lrn_ms / busy_ms))
+            % (kernel, k_ms, unit, 100 * k_ms / busy_ms))
 
 
 def main() -> int:
@@ -699,8 +1142,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    from cxxnet_tpu_torch import api
-    from cxxnet_tpu_torch.ops import _build, lrn
+    from cxxnet_tpu_torch import api, models, ops
+    from cxxnet_tpu_torch.ops import _build, flash_attn, lrn
 
     log(nvidia_smi())
     log("torch %s cuda %s, %s" % (torch.__version__, torch.version.cuda,
@@ -716,19 +1159,28 @@ def main() -> int:
     fwd_rec = phase_lrn_kernel(lrn)
     pred_launches = phase_alexnet_pred(lrn, api)
     bwd_rec = phase_lrn_bwd_kernel(lrn)
-    train_fwd, train_bwd = phase_alexnet_train(lrn, api)
+    train_fwd, train_bwd = phase_alexnet_train(lrn, api, ops)
+    flash_rec = phase_flash_fwd_kernel(flash_attn)
+    serve_launches = phase_lm_serve(flash_attn, api, models)
+    long_launches = phase_lm_serve_long(flash_attn, api, models)
     kernels = []
-    for name, rec, replaces, by_path in (
+    for name, rec, replaces, by_path, per in (
             ("lrn_fwd", fwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:78",
-             {"alexnet_pred": pred_launches, "alexnet_train": train_fwd}),
+             {"alexnet_pred": pred_launches, "alexnet_train": train_fwd},
+             {"train_step": train_fwd // TRAIN_STEPS}),
             ("lrn_bwd", bwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:98",
-             {"alexnet_train": train_bwd})):
+             {"alexnet_train": train_bwd},
+             {"train_step": train_bwd // TRAIN_STEPS}),
+            ("flash_fwd", flash_rec, "cxxnet_tpu/ops/flash_attn.py:284",
+             {"lm_serve": serve_launches, "lm_serve_long": long_launches},
+             {"generate_request": LM_ARGS["nlayer"],
+              "full_sequence_forward": LM_ARGS["nlayer"]})):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "cxxnet_tpu_torch/csrc/%s.cu" % name,
             "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "launches_per_train_step": by_path["alexnet_train"] // TRAIN_STEPS,
+            "launches_per": per,
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

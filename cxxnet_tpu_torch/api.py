@@ -3,8 +3,9 @@
 Counterpart of ``cxxnet_tpu.api.Net`` (the reference's wrapper surface,
 wrapper/cxxnet.py:64-307) for the port's slices so far: a
 config-string-driven net that initializes or loads a model, trains it one
-``update(data, label)`` at a time, evaluates it over an iterator, and runs
-prediction and feature extraction, on the card (``dev = "gpu"``, the
+``update(data, label)`` at a time, evaluates it over an iterator, runs
+prediction and feature extraction, and continues token sequences with a
+KV-cached ``generate`` (sequence nets), on the card (``dev = "gpu"``, the
 default) or, when asked, on the CPU. Model files are those of the JAX
 package: int32 net_type, then the trainer's sections (optimizer state
 included), inside the CRC framing of utils/checkpoint.py.
@@ -133,6 +134,18 @@ class Net:
     def extract(self, data, name: str) -> np.ndarray:
         """Activations of the named node (or ``top[-k]``) for the batch."""
         return self._trainer().extract_feature(data, name)
+
+    def generate(self, prompts: np.ndarray, n_new: int,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 prompt_lens=None) -> np.ndarray:
+        """KV-cached greedy continuation for sequence nets: (batch,
+        prompt_len) token ids -> (batch, n_new) generated ids; ragged
+        batches via ``prompt_lens`` (see Trainer.generate). Sampling
+        (temperature > 0) is not ported yet."""
+        return self._trainer().generate(prompts, n_new,
+                                        temperature=temperature,
+                                        top_k=top_k, seed=seed,
+                                        prompt_lens=prompt_lens)
 
     # -- weight io ----------------------------------------------------
     def set_weight(self, weight: np.ndarray, layer_name: str,

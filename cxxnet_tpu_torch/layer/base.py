@@ -7,7 +7,9 @@ as the JAX package's ``apply(params, inputs, ctx)``, and its parameters
 live outside it, in a dict per layer, so that weight sharing, model files
 and the JAX package's parameter lists map one to one. The ApplyContext
 carries what a training forward adds: the mode, the batch's labels, the
-loss terms the loss layers append, and the layer's random stream.
+loss terms the loss layers append, and the layer's random stream; and what
+a KV-cached decode forward adds: the position of the input's first slot
+and the per-attention-layer caches.
 """
 
 from __future__ import annotations
@@ -160,6 +162,19 @@ class ApplyContext:
     # the applying layer's own random stream on the net's device (the JAX
     # package's per-layer folded key); set by the net's forward loop
     gen: Optional[torch.Generator] = None
+    # the CONNECTION index (distinct even when share[...] ties the params
+    # slot): the key of per-application state like KV caches
+    conn_index: int = -1
+    # KV-cached decoding (Trainer.generate): the global position of the
+    # input's first sequence slot, a host int (None = a full-sequence
+    # forward). Embed reads its position rows there, attention its RoPE
+    # angles, and attention attends against the cache
+    decode_pos: Optional[int] = None
+    # per-attention-connection k/v caches, keyed (conn_index, "k"/"v"):
+    # (b, nkv, L_max, dh) tensors that attention writes in place at
+    # [decode_pos, decode_pos + L) and records in cache_updates
+    kv_cache: Dict = field(default_factory=dict)
+    cache_updates: Dict = field(default_factory=dict)
 
 
 _MASK64 = (1 << 64) - 1
@@ -180,6 +195,9 @@ class Layer:
     shapes and the forward."""
 
     type_name = "none"
+    # True for layers whose inputs are integer ids stored as floats (embed):
+    # the net never casts such nodes
+    integer_inputs = False
 
     def __init__(self):
         self.param = LayerParam()

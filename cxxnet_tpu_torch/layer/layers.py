@@ -1,5 +1,6 @@
 """The layers of the port: the AlexNet set (conv, relu, max_pooling, lrn,
-flatten, fullc, dropout, softmax), in eval and in training mode.
+flatten, fullc, dropout, softmax), in eval and in training mode, and the
+transformer LM set (embed, attention, split, add, softmax ``seq = 1``).
 
 Each class is the counterpart of the class of the same name in
 cxxnet_tpu/layer/layers.py and keeps its config keys, shape inference,
@@ -10,7 +11,9 @@ generator, and the loss layer appends its loss term to ``ctx.losses``,
 whose gradient autograd takes. Conv, fullc, relu, max-pool and flatten are
 differentiated by autograd (cuDNN and PyTorch's own backward kernels, as
 the JAX package left them to XLA); the LRN backward is a kernel
-(ops/lrn.py).
+(ops/lrn.py). Attention sends a sequence the flash kernel takes to it
+(ops/flash_attn.py) and the rest, and every KV-cached decode step, to
+dense attention (ops/attention.py).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..ops import flash_attn
+from ..ops.attention import attention_reference
 from .base import Layer, check
 
 
@@ -341,8 +346,9 @@ class LossLayerBase(Layer):
 class SoftmaxLayer(LossLayerBase):
     """Softmax + cross-entropy (src/layer/loss/softmax_layer-inl.hpp:12):
     grad = (p - onehot(label)) * scale. ``label_smooth = eps`` (beyond the
-    reference) makes the target (1-eps) one-hot + eps/K uniform. The
-    per-position ``seq = 1`` mode belongs to the LM slice."""
+    reference) makes the target (1-eps) one-hot + eps/K uniform. ``seq =
+    1`` (beyond the reference) is the per-position softmax of a sequence
+    node (b, vocab, 1, L) with L labels per row: the LM loss."""
 
     type_name = "softmax"
 
@@ -360,25 +366,315 @@ class SoftmaxLayer(LossLayerBase):
             check(0.0 <= self.label_smooth < 1.0,
                   "label_smooth must be in [0, 1)")
 
-    def infer_shape(self, in_shapes):
-        check(not self.seq, "softmax seq = 1 is not ported yet")
-        return super().infer_shape(in_shapes)
-
     def transform(self, x2d):
         return ops.softmax(x2d, axis=-1)
+
+    def _ce(self, logp, tgt):
+        eps = self.label_smooth
+        if eps == 0.0:
+            return -tgt
+        return -((1.0 - eps) * tgt + eps / logp.shape[-1] * logp.sum(-1))
 
     def loss_term(self, x2d, label):
         logp = torch.log_softmax(x2d, dim=-1)
         tgt = logp.gather(1, label[:, :1].long())[:, 0]
-        eps = self.label_smooth
-        if eps == 0.0:
-            ce = -tgt
+        return self._ce(logp, tgt).sum() * self._scale()
+
+    def forward(self, params, inputs, ctx):
+        if not self.seq:
+            return super().forward(params, inputs, ctx)
+        x = inputs[0]
+        b, v, h, L = x.shape
+        check(h == 1, "softmax seq=1 needs a (batch, vocab, 1, seq) node")
+        logits = x.reshape(b, v, L).transpose(1, 2)          # (b, L, v)
+        out = torch.softmax(logits, dim=-1)
+        if ctx.labels is not None:
+            label = ctx.labels.field(self.target)            # (b, L)
+            check(label.shape[1] == L,
+                  "softmax seq=1: label field width %d != seq length %d"
+                  % (label.shape[1], L))
+            logp = torch.log_softmax(logits, dim=-1)
+            tgt = logp.gather(2, label.long()[..., None])[..., 0]
+            ctx.losses.append(self._ce(logp, tgt).sum() / L * self._scale())
+        return [out.transpose(1, 2).reshape(b, v, 1, L)]
+
+
+class SplitLayer(Layer):
+    """1->N copy forward, summed gradients backward
+    (src/layer/split_layer-inl.hpp:12)."""
+
+    type_name = "split"
+
+    def __init__(self, n_out: int = 2):
+        super().__init__()
+        # fan-out; the net sets it from the connection's out-node count
+        self.n_out = n_out
+
+    def infer_shape(self, in_shapes):
+        return [in_shapes[0]] * self.n_out
+
+    def forward(self, params, inputs, ctx):
+        return [inputs[0]] * self.n_out
+
+
+class AddLayer(Layer):
+    """Elementwise sum of 2-4 same-shaped inputs (beyond the reference): the
+    residual connection of transformer stacks."""
+
+    type_name = "add"
+
+    def infer_shape(self, in_shapes):
+        check(2 <= len(in_shapes) <= 4, "AddLayer takes 2-4 inputs")
+        for s in in_shapes[1:]:
+            check(s == in_shapes[0], "add: input shapes must all match")
+        return [in_shapes[0]]
+
+    def forward(self, params, inputs, ctx):
+        out = inputs[0]
+        for x in inputs[1:]:
+            out = out + x
+        return [out]
+
+
+class EmbedLayer(Layer):
+    """Token embedding (beyond the reference): input node (b, 1, 1, L) of
+    token ids stored as floats, output (b, nhidden, 1, L). Weight
+    (vocab_size, nhidden) under the 'wmat' tag; ``pos_embed = 1`` adds a
+    learned, zero-initialised (L, nhidden) position table under 'bias'."""
+
+    type_name = "embed"
+    integer_inputs = True
+
+    def __init__(self):
+        super().__init__()
+        self.vocab_size = 0
+        self.pos_embed = 0
+        self._seq_len = 0
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "vocab_size":
+            self.vocab_size = int(val)
+        if name == "pos_embed":
+            self.pos_embed = int(val)
+
+    def infer_shape(self, in_shapes):
+        check(len(in_shapes) == 1, "EmbedLayer only support 1-1 connection")
+        b, c, h, L = in_shapes[0]
+        check(c == 1 and h == 1,
+              "embed input must be (batch, 1, 1, seq) token ids")
+        check(self.vocab_size > 0, "must set vocab_size")
+        check(self.param.num_hidden > 0, "must set nhidden (embedding dim)")
+        self._seq_len = L
+        return [(b, self.param.num_hidden, 1, L)]
+
+    def param_shapes(self):
+        d = self.param.num_hidden
+        out = {"wmat": (self.vocab_size, d)}
+        if self.pos_embed:
+            out["pos"] = (self._seq_len, d)
+        return out
+
+    def init_params(self, gen):
+        d = self.param.num_hidden
+        out = {"wmat": self.param.rand_init_weight(
+            gen, (self.vocab_size, d), self.vocab_size, d)}
+        if self.pos_embed:
+            out["pos"] = torch.zeros((self._seq_len, d), dtype=torch.float32)
+        return out
+
+    def save_model(self, w, params):
+        self.param.save(w)
+        w.write_tensor(params["wmat"])
+        if self.pos_embed:
+            w.write_tensor(params["pos"])
+
+    def load_model(self, r):
+        self.param.load(r)
+        out = {"wmat": r.read_tensor()}
+        if self.pos_embed:
+            out["pos"] = r.read_tensor()
+        return out
+
+    def visit_order(self):
+        if self.pos_embed:
+            return [("wmat", "wmat"), ("bias", "pos")]
+        return [("wmat", "wmat")]
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        b, _, _, L = x.shape
+        emb = params["wmat"][x.reshape(b, L).long()]          # (b, L, d)
+        if self.pos_embed:
+            pos = params["pos"]
+            if ctx.decode_pos is not None:
+                # a decode step covers positions [decode_pos, decode_pos + L)
+                pos = pos[ctx.decode_pos:ctx.decode_pos + L]
+            emb = emb + pos
+        return [emb.transpose(1, 2).reshape(b, -1, 1, L)]
+
+
+class AttentionLayer(Layer):
+    """Multi-head self-attention over sequence nodes (b, D, 1, L) (beyond
+    the reference; cxxnet_tpu/layer/layers.py:1097-1392 for one device).
+    ``causal``, ``rope`` / ``rope_base`` (rotary embedding, angles in
+    float32), ``nkvhead`` (grouped-query attention: k/v carry fewer heads)
+    and ``attn_window`` (sliding window, causal only). A sequence the flash
+    kernel takes (ops.flash_attn.supports) goes to it, any other to dense
+    attention. In a KV-cached decode forward the layer writes its k/v into
+    the caches at ``decode_pos``; the prefill (position 0) attends within
+    its own chunk, through the flash kernel where it takes the shape, and a
+    one-token step attends densely against the whole cache."""
+
+    type_name = "attention"
+
+    def __init__(self):
+        super().__init__()
+        self.nhead = 1
+        self.causal = 0
+        self.rope = 0
+        self.rope_base = 10000.0
+        self.nkvhead = 0          # 0 -> nhead (classic MHA)
+        self.attn_window = 0
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "nhead":
+            self.nhead = int(val)
+        if name == "causal":
+            self.causal = int(val)
+        if name == "rope":
+            self.rope = int(val)
+        if name == "rope_base":
+            self.rope_base = float(val)
+        if name == "nkvhead":
+            self.nkvhead = int(val)
+        if name == "attn_window":
+            self.attn_window = int(val)
+        if name == "decode_chunk":
+            check(int(val) == 0, "attention decode_chunk > 0 (the chunked "
+                  "flash-decode step) is not ported yet")
+        if name == "sp_mode":
+            check(val in ("ring", "ulysses"),
+                  "sp_mode must be ring or ulysses")
+            check(False, "attention sp_mode (sequence parallelism) is not "
+                  "ported yet")
+
+    def infer_shape(self, in_shapes):
+        check(len(in_shapes) == 1,
+              "AttentionLayer only support 1-1 connection")
+        b, d, h, L = in_shapes[0]
+        check(h == 1, "attention input must be (batch, d_model, 1, seq)")
+        check(d % self.nhead == 0, "nhead must divide d_model")
+        if self.rope:
+            check((d // self.nhead) % 2 == 0, "rope needs an even head dim")
+        if self.nkvhead:
+            check(self.nhead % self.nkvhead == 0,
+                  "nkvhead must divide nhead")
+        if self.attn_window:
+            check(self.attn_window > 0, "attn_window must be positive")
+            check(self.causal, "attn_window requires causal = 1")
+        self.param.num_input_channel = d
+        return [in_shapes[0]]
+
+    def _kv_width(self, d: int) -> int:
+        return (self.nkvhead or self.nhead) * (d // self.nhead)
+
+    def param_shapes(self):
+        d = self.param.num_input_channel
+        return {"wqkv": (d, d + 2 * self._kv_width(d)), "wo": (d, d)}
+
+    def init_params(self, gen):
+        d = self.param.num_input_channel
+        w = d + 2 * self._kv_width(d)    # [q | k | v] columns
+        return {"wqkv": self.param.rand_init_weight(gen, (d, w), d, w),
+                "wo": self.param.rand_init_weight(gen, (d, d), d, d)}
+
+    def save_model(self, w, params):
+        self.param.save(w)
+        w.write_tensor(params["wqkv"])
+        w.write_tensor(params["wo"])
+
+    def load_model(self, r):
+        self.param.load(r)
+        return {"wqkv": r.read_tensor(), "wo": r.read_tensor()}
+
+    def visit_order(self):
+        return [("wmat", "wqkv"), ("wo", "wo")]
+
+    def _apply_rope(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """Rotary embedding on (b, nh, L, dh): rotate the (first-half,
+        second-half) feature pairs by angles (offset + position) *
+        rope_base^(-i / half), computed in float32. ``offset`` is the
+        global position of row 0."""
+        half = x.shape[-1] // 2
+        f32 = dict(dtype=torch.float32, device=x.device)
+        pos = offset + torch.arange(x.shape[2], **f32)[:, None]
+        inv = torch.pow(self.rope_base, -torch.arange(half, **f32) / half)
+        ang = pos * inv                                       # (L, half)
+        cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+    def _attend(self, q, k, v, causal: bool, dh: int):
+        """Full-sequence attention within the input: the flash kernel where
+        it takes the shape, dense attention otherwise."""
+        if flash_attn.supports(q.shape[2], dh):
+            return flash_attn.flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=causal, window=self.attn_window)
+        return attention_reference(q, k, v, causal=causal, scale=dh ** -0.5,
+                                   window=self.attn_window)
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        b, d, _, L = x.shape
+        seq = x.reshape(b, d, L).transpose(1, 2)             # (b, L, d)
+        nh, dh = self.nhead, d // self.nhead
+        nkv = self.nkvhead or nh
+        kvw = self._kv_width(d)
+        qkv = seq @ params["wqkv"]                          # (b, L, d+2kvw)
+
+        def heads(t, n):  # (b, L, n*dh) -> (b, n, L, dh)
+            return t.reshape(b, L, n, dh).transpose(1, 2)
+
+        q = heads(qkv[..., :d], nh)
+        k = heads(qkv[..., d:d + kvw], nkv)
+        v = heads(qkv[..., d + kvw:], nkv)
+        pos = ctx.decode_pos
+        if self.rope:
+            off = pos if pos is not None else 0
+            q, k = self._apply_rope(q, off), self._apply_rope(k, off)
+        if pos is not None:
+            # KV-cached decode: write this input's k/v into the caches at
+            # [pos, pos + L), in place (the JAX package returns updated
+            # copies), and record them as the updated caches
+            li = ctx.conn_index
+            ck, cv = ctx.kv_cache[(li, "k")], ctx.kv_cache[(li, "v")]
+            ck[:, :, pos:pos + L] = k
+            cv[:, :, pos:pos + L] = v
+            ctx.cache_updates[(li, "k")] = ck
+            ctx.cache_updates[(li, "v")] = cv
+            if pos == 0 and L > 1:
+                # prefill: attention within the chunk equals cache
+                # attention at offset 0 (later slots are causally masked)
+                out = self._attend(q, k, v, True, dh)
+            else:
+                check(L == 1, "attention: a decode input of %d positions at "
+                      "position %d (the paged suffix prefill) is not ported "
+                      "yet" % (L, pos))
+                out = attention_reference(q, ck, cv, causal=True,
+                                          scale=dh ** -0.5,
+                                          window=self.attn_window,
+                                          q_offset=pos)
         else:
-            ce = -((1.0 - eps) * tgt + eps / logp.shape[-1] * logp.sum(-1))
-        return ce.sum() * self._scale()
+            out = self._attend(q, k, v, bool(self.causal), dh)
+        out = out.transpose(1, 2).reshape(b, L, d) @ params["wo"]
+        return [out.transpose(1, 2).reshape(b, d, 1, L)]
 
 
 LAYER_CLASSES: Dict[str, type] = {
     cls.type_name: cls for cls in (
         FullConnectLayer, ConvolutionLayer, ReluLayer, MaxPoolingLayer,
-        LRNLayer, FlattenLayer, DropoutLayer, SoftmaxLayer)}
+        LRNLayer, FlattenLayer, DropoutLayer, SoftmaxLayer, SplitLayer,
+        AddLayer, EmbedLayer, AttentionLayer)}

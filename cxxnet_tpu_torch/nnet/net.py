@@ -1,10 +1,11 @@
 """NeuralNet: the assembled DAG and its forward over a params list.
 
 Counterpart of cxxnet_tpu/nnet/net.py (the reference's NeuralNet,
-src/nnet/neural_net-inl.hpp:23-297), without the decode, pipeline and
-fusion paths. Parameters are a list with one dict of tensors per
-connection, as in the JAX package; a shared connection (``share:<tag>``)
-holds {} and applies its primary's layer with the primary's params.
+src/nnet/neural_net-inl.hpp:23-297), with the KV-cached decode forward
+and without the pipeline and fusion paths. Parameters are a list with one
+dict of tensors per connection, as in the JAX package; a shared
+connection (``share:<tag>``) holds {} and applies its primary's layer with
+the primary's params.
 ``forward`` returns the node values and the summed loss of the loss layers
 (zero without labels); the trainer differentiates that loss with autograd.
 """
@@ -44,6 +45,8 @@ class NeuralNet:
         self.is_shared: List[bool] = []
         self.node_shapes: List[Tuple[int, int, int, int]] = []
         self._build_layers()
+        # nodes of integer ids, which forward never casts
+        self.id_nodes = self._integer_id_nodes()
         if infer_shapes:
             self.infer_shapes()
 
@@ -57,6 +60,8 @@ class NeuralNet:
                 self.is_shared.append(True)
                 continue
             lay = factory.create_layer(info.type)
+            if hasattr(lay, "n_out"):  # split: fan-out = the out arity
+                lay.n_out = max(len(info.nindex_out), 1)
             for k, v in cfg.defcfg:
                 lay.set_param(k, v)
             for k, v in cfg.layercfg[i]:
@@ -106,6 +111,26 @@ class NeuralNet:
                            for k, v in lay.init_params(gen).items()})
         return params
 
+    def _integer_id_nodes(self) -> set:
+        """Nodes carrying integer ids: inputs of integer_inputs layers
+        (embed) and, transitively, the inputs of the layers that produce
+        them (ids routed through split). The net never casts them."""
+        cfg = self.cfg
+        id_nodes = set()
+        for i, info in enumerate(cfg.layers):
+            if self.layers[i].integer_inputs:
+                id_nodes.update(info.nindex_in)
+        changed = bool(id_nodes)
+        while changed:
+            changed = False
+            for info in cfg.layers:
+                if any(o in id_nodes for o in info.nindex_out):
+                    new = set(info.nindex_in) - id_nodes
+                    if new:
+                        id_nodes |= new
+                        changed = True
+        return id_nodes
+
     def _normalize_input(self, x: torch.Tensor) -> torch.Tensor:
         """Device-side input normalization ``(x - mean) * scale``; channel
         order of input_mean matches the augmenter's mean_value key."""
@@ -121,16 +146,26 @@ class NeuralNet:
 
     def forward(self, params: Params, data: torch.Tensor,
                 labels: Optional[LabelInfo] = None, train: bool = False,
-                gen: Optional[torch.Generator] = None, epoch: int = 0
+                gen: Optional[torch.Generator] = None, epoch: int = 0,
+                decode_pos: Optional[int] = None, kv_cache=None
                 ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
         """Run the DAG; returns (node values, total loss). ``train`` turns
         on the training behaviour of the layers (dropout); ``labels`` makes
         the loss layers add their loss terms. In training each connection
         i draws from its own generator on the data's device, seeded from
         (``gen``'s seed, i), as the JAX package folds i into the step's
-        key; no ``gen`` means seed 0."""
+        key; no ``gen`` means seed 0.
+
+        ``decode_pos``/``kv_cache`` select the KV-cached decode forward
+        (Trainer.generate): the data covers sequence positions
+        [decode_pos, decode_pos + L), attention layers write their k/v into
+        the caches and attend against them, and the updated caches land in
+        ``self._last_cache_updates``. An id input node (embed's) keeps the
+        data's dtype; any other is taken as float32."""
         cfg = self.cfg
         values: List[Optional[torch.Tensor]] = [None] * cfg.param.num_nodes
+        if 0 not in self.id_nodes:
+            data = data.float()
         values[0] = self._normalize_input(data)
         if self.node_shapes:
             check(tuple(values[0].shape[1:]) == tuple(self.node_shapes[0][1:]),
@@ -138,11 +173,15 @@ class NeuralNet:
                   "input_shape %r"
                   % (tuple(values[0].shape[1:]),
                      tuple(self.node_shapes[0][1:])))
-        ctx = ApplyContext(train=train, labels=labels, epoch=epoch)
+        ctx = ApplyContext(train=train, labels=labels, epoch=epoch,
+                           decode_pos=decode_pos, kv_cache=kv_cache or {})
         base_seed = gen.initial_seed() if gen is not None else 0
         for i, info in enumerate(cfg.layers):
             pidx = info.primary_layer_index if self.is_shared[i] else i
             ctx.layer_index = pidx
+            # the connection, not the params slot: two share-tied
+            # attention layers share weights but not a cache
+            ctx.conn_index = i
             if train:
                 ctx.gen = torch.Generator(device=values[0].device) \
                     .manual_seed(fold_in(base_seed, i))
@@ -151,6 +190,7 @@ class NeuralNet:
                                           ctx)
             for j, v in zip(info.nindex_out, outs):
                 values[j] = v
+        self._last_cache_updates = ctx.cache_updates
         if ctx.losses:
             return values, sum(ctx.losses)
         return values, torch.zeros((), device=values[0].device)

@@ -6,15 +6,17 @@ slices so far: configuration, model init, model files with their
 optimizer-state section, prediction and feature extraction, the training
 step (``update``: forward, autograd backward, ``update_period``
 accumulation, ``clip_global_norm``, one updater per weight tensor,
-train metrics accumulated on the device), ``evaluate`` and
-``copy_model_from``. Device meshes, the health monitor, batch-norm state
-updates and the training-state section belong to later slices.
+train metrics accumulated on the device), ``evaluate``,
+``copy_model_from`` and greedy KV-cached ``generate`` for sequence nets.
+Device meshes, the health monitor, batch-norm state updates, sampling,
+beam search and the training-state section belong to later slices.
 """
 
 from __future__ import annotations
 
+import copy
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +68,10 @@ class Trainer:
         self._rng_counter = 0
         self.round = 0
         self.dev: Optional[torch.device] = None
+        # generate's nets: the one-token decode net for a batch size, and
+        # the prefill nets of that batch size by prompt length
+        self._decode_net = None
+        self._prefill_nets: Dict[int, NeuralNet] = {}
 
     # configuration (reference SetParam, nnet_impl-inl.hpp:31-69)
     def set_param(self, name: str, val: str) -> None:
@@ -125,6 +131,7 @@ class Trainer:
         self.dev = device_mod.resolve_device(self.dev_spec)
         self.net_cfg.configure(self.cfg_pairs)
         self.net = self._new_net(self.net_cfg, self.batch_size, True)
+        self._decode_net = None
         self._resolve_eval_nodes()
         self.params = self.net.init_params(self.seed, self.dev)
         self._build_updaters()
@@ -188,6 +195,7 @@ class Trainer:
         # inference waits until it is read, as in the reference
         self.net_cfg.configure(self.cfg_pairs)
         self.net = self._new_net(self.net_cfg, self.batch_size, False)
+        self._decode_net = None
         self._resolve_eval_nodes()
         nbytes = r.read_uint64()
         self.params = self.net.load_model_blob(r.read_raw(nbytes), self.dev)
@@ -398,6 +406,132 @@ class Trainer:
 
     def extract_feature(self, data, node_name: str) -> np.ndarray:
         return self.extract_feature_device(data, node_name).cpu().numpy()
+
+    # KV-cached generation (the JAX package's Trainer.generate,
+    # cxxnet_tpu/nnet/trainer.py:1405-1610)
+    def generate(self, prompts, n_new: int, temperature: float = 0.0,
+                 top_k: int = 0, seed: int = 0,
+                 prompt_lens=None) -> np.ndarray:
+        """Greedy KV-cached continuation for sequence nets (embed/attention
+        stacks): prompts (batch, prompt_len) of token ids -> (batch, n_new)
+        int32 ids. One chunked forward over the shared prefix
+        [0, min(prompt_lens)) fills every layer's k/v cache, then one
+        one-token decode step per position attends against the caches. With
+        ``prompt_lens`` (per-row lengths <= prompt_len) a ragged batch
+        streams each row's remaining prompt tokens through the decode steps
+        and every row's n_new tokens come back aligned. Tokens and caches
+        stay on the net's device until the one copy of the tokens at the
+        end. ``temperature > 0`` (sampling) is not ported yet; ``seed``
+        belongs to it."""
+        check(self.net is not None, "model not initialized")
+        prompts = np.asarray(prompts)
+        check(prompts.ndim == 2, "generate: prompts must be (batch, len)")
+        b, max_p = prompts.shape
+        if prompt_lens is None:
+            lens = np.full(b, max_p, np.int32)
+        else:
+            lens = np.asarray(prompt_lens, np.int32)
+            check(lens.shape == (b,) and lens.min() >= 1
+                  and lens.max() <= max_p,
+                  "generate: prompt_lens must be (batch,) ints in "
+                  "[1, prompts.shape[1]]")
+        plen = int(lens.min())
+        l_max = self.net_cfg.param.input_shape[2]
+        total = int(lens.max()) + n_new
+        check(total <= l_max,
+              "generate: prompt_len %d + n_new %d exceeds the net's "
+              "sequence length %d" % (int(lens.max()), n_new, l_max))
+        if n_new <= 0:
+            return np.zeros((b, 0), np.int32)
+        check(int(top_k) >= 0, "generate: top_k must be >= 0")
+        check(float(temperature) <= 0.0,
+              "generate: sampling (temperature > 0) is not ported yet; "
+              "greedy decoding takes temperature 0")
+        toks = torch.zeros((b, l_max), dtype=torch.int64, device=self.dev)
+        toks[:, :max_p] = torch.from_numpy(prompts.astype(np.int64))
+        self.decode(toks, torch.from_numpy(lens).to(self.dev), plen, total)
+        host = toks.cpu().numpy()
+        return np.stack([host[r, lens[r]:lens[r] + n_new]
+                         for r in range(b)]).astype(np.int32)
+
+    def decode(self, toks: torch.Tensor, lens: torch.Tensor, plen: int,
+               total: int,
+               on_probs: Optional[Callable[[int, torch.Tensor], None]] = None
+               ) -> None:
+        """The decode loop of ``generate`` on a (batch, l_max) int64 token
+        matrix on the device, in place: a prefill of [0, plen), then one
+        step per position t in [plen, total - 1). Column t + 1 keeps the
+        row's own token while t + 1 < lens[row] (its prompt), else takes
+        the greedy pick from the softmax at position t. With lens >= total
+        every column keeps its token: the run is teacher-forced.
+        ``on_probs(t0, probs)``, when given, sees the last node's
+        probabilities for positions t0 .. t0 + n - 1 as (batch, vocab, n):
+        the prefill's, then each step's."""
+        b, l_max = toks.shape
+        if self._decode_net is None or self._decode_net[0] != b:
+            self._decode_net = (b, self._seq_net(b, 1))
+            self._prefill_nets = {}
+        net2 = self._decode_net[1]
+        if plen not in self._prefill_nets:
+            self._prefill_nets[plen] = self._seq_net(b, plen)
+        pre_net = self._prefill_nets[plen]
+        _, keys, shapes = self._decode_cache_specs(net2, b, l_max)
+        caches = {k: torch.zeros(sh, dtype=torch.float32, device=toks.device)
+                  for k, sh in zip(keys, shapes)}
+        last = net2.cfg.param.num_nodes - 1
+
+        def place(t: int, probs: torch.Tensor) -> None:
+            cur = toks[:, t + 1]
+            toks[:, t + 1] = torch.where(t + 1 < lens, cur,
+                                         torch.argmax(probs, dim=1))
+
+        with torch.no_grad():
+            values, _ = pre_net.forward(
+                self.params, toks[:, :plen].reshape(b, 1, 1, plen),
+                decode_pos=0, kv_cache=caches)
+            probs = values[last].reshape(b, -1, plen)
+            if on_probs is not None:
+                on_probs(0, probs)
+            place(plen - 1, probs[:, :, -1])
+            caches = pre_net._last_cache_updates
+            for t in range(plen, total - 1):
+                values, _ = net2.forward(
+                    self.params, toks[:, t:t + 1].reshape(b, 1, 1, 1),
+                    decode_pos=t, kv_cache=caches)
+                probs = values[last].reshape(b, -1, 1)
+                if on_probs is not None:
+                    on_probs(t, probs)
+                place(t, probs[:, :, 0])
+                caches = net2._last_cache_updates
+
+    def _seq_net(self, batch_size: int, seq_len: int) -> NeuralNet:
+        """A NeuralNet over the same config at another sequence length (the
+        decode and prefill nets; the weights stay the trainer's)."""
+        cfg2 = copy.deepcopy(self.net_cfg)
+        cfg2.param.input_shape = (1, 1, seq_len)
+        return self._new_net(cfg2, batch_size, True)
+
+    @staticmethod
+    def _decode_cache_specs(net2: NeuralNet, b: int, l_max: int):
+        """(attention connections, cache keys, cache shapes) of a decode
+        net: THE cache layout contract, a (b, nkv, l_max, d_head) k and v
+        cache per attention connection, keyed (connection, "k"/"v"). Also
+        enforces the decode preconditions (attention present, causal)."""
+        att_idx = [i for i, lay in enumerate(net2.layers)
+                   if lay.type_name == "attention"]
+        check(bool(att_idx), "decode: the net has no attention layers")
+        for i in att_idx:
+            check(bool(net2.layers[i].causal),
+                  "decode: attention layer %d is not causal" % i)
+        keys, shapes = [], []
+        for i in att_idx:
+            lay = net2.layers[i]
+            d_in = net2.node_shapes[net2.cfg.layers[i].nindex_in[0]][1]
+            for nm in ("k", "v"):
+                keys.append((i, nm))
+                shapes.append((b, lay.nkvhead or lay.nhead, l_max,
+                               d_in // lay.nhead))
+        return att_idx, keys, shapes
 
     # weight access
     def get_weight(self, layer_name: str, tag: str):

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into its own shared library, ``build/cxxnet_tpu_torch/lib<name>-<hash>.so``
 at the repository root, where ``<hash>`` is taken from the source text and
 the flags, so an edited source builds anew and an unchanged one is reused.
-The libraries are loaded with ctypes by the op modules. ``nvcc``'s output,
+``launch`` loads a library with ctypes at first use and calls its entry
+point ``cxxnet_<name>``, raising if the launch failed. ``nvcc``'s output,
 with ``-Xptxas -v`` (registers, shared memory and spills per kernel), is kept
 beside each library as ``lib<name>-<hash>.log``.
 
@@ -14,11 +15,12 @@ Nothing here runs at import: the CPU tests import every module and have no
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -84,3 +86,32 @@ def build_kernels(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths
+
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _library(name: str, argtypes: Sequence) -> ctypes.CDLL:
+    """The ctypes library of csrc/<name>.cu, built at first use, with the
+    argument types of its entry point ``cxxnet_<name>`` declared."""
+    if name not in _libs:
+        lib = ctypes.CDLL(build_kernels([name])[name])
+        fn = getattr(lib, "cxxnet_" + name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        lib.cxxnet_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cxxnet_cuda_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
+
+
+def launch(name: str, argtypes: Sequence, *args) -> None:
+    """Call ``cxxnet_<name>(*args)`` of csrc/<name>.cu, which launches on
+    the stream it is given and returns a cudaError_t; raises if that is
+    not 0."""
+    lib = _library(name, argtypes)
+    err = getattr(lib, "cxxnet_" + name)(*args)
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed: cudaError %d (%s)"
+                           % (name, err, lib.cxxnet_cuda_error_string(err)
+                              .decode()))

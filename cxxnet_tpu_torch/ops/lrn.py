@@ -30,7 +30,6 @@ launches = 0
 bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_libs = {}
 
 
 def _window_sum(x: torch.Tensor, nsize: int, before: int) -> torch.Tensor:
@@ -97,30 +96,6 @@ _ARGTYPES = {
 }
 
 
-def _library(name: str):
-    """The ctypes library of csrc/<name>.cu, built at first use."""
-    if name not in _libs:
-        lib = ctypes.CDLL(_build.build_kernels([name])[name])
-        fn = getattr(lib, "cxxnet_" + name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        lib.cxxnet_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cxxnet_cuda_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return _libs[name]
-
-
-def _launch(name: str, *args) -> None:
-    """Call cxxnet_<name> on the current stream of the tensors' device;
-    raises if the launch failed."""
-    lib = _library(name)
-    err = getattr(lib, "cxxnet_" + name)(*args)
-    if err != 0:
-        raise RuntimeError("%s kernel launch failed: cudaError %d (%s)"
-                           % (name, err, lib.cxxnet_cuda_error_string(err)
-                              .decode()))
-
-
 def check_kernel_input(x: torch.Tensor, nsize: int,
                        kernel: str = "lrn_fwd") -> None:
     """What the kernels take: a contiguous 4-D (B, C, H, W) float32 or
@@ -153,9 +128,10 @@ def lrn_fwd_cuda(x: torch.Tensor, nsize: int, alpha: float, beta: float,
         return out, norm
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
-        _launch("lrn_fwd", x.data_ptr(), out.data_ptr(), norm.data_ptr(),
-                _DTYPE_CODE[x.dtype], b, c, h * w, nsize, alpha / nsize,
-                beta, knorm, torch.cuda.current_stream(x.device).cuda_stream)
+        _build.launch("lrn_fwd", _ARGTYPES["lrn_fwd"], x.data_ptr(),
+                      out.data_ptr(), norm.data_ptr(), _DTYPE_CODE[x.dtype],
+                      b, c, h * w, nsize, alpha / nsize, beta, knorm,
+                      torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     return out, norm
 
@@ -184,10 +160,11 @@ def lrn_bwd_cuda(x: torch.Tensor, norm: torch.Tensor, g: torch.Tensor,
         return dx
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
-        _launch("lrn_bwd", x.data_ptr(), norm.data_ptr(), g.data_ptr(),
-                dx.data_ptr(), _DTYPE_CODE[x.dtype], b, c, h * w, nsize,
-                2.0 * (alpha / nsize) * beta, beta,
-                torch.cuda.current_stream(x.device).cuda_stream)
+        _build.launch("lrn_bwd", _ARGTYPES["lrn_bwd"], x.data_ptr(),
+                      norm.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                      _DTYPE_CODE[x.dtype], b, c, h * w, nsize,
+                      2.0 * (alpha / nsize) * beta, beta,
+                      torch.cuda.current_stream(x.device).cuda_stream)
     bwd_launches += 1
     return dx
 

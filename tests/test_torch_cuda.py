@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here needs a CUDA card and skips without one. The file
-imports nothing of JAX, so it also runs where JAX is not installed:
+card, and the paths that must go through them. Every test here needs a
+CUDA card and skips without one. The file imports nothing of JAX, so it
+also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -12,13 +13,21 @@ norm always to 1e-5. The backward's dx gets, beside these, an absolute
 that can cancel, and where an element passes near zero the few ulps by
 which the two versions' terms differ (the kernel sums the window in
 double, the plain version in f32) are a large relative error.
+
+The flash attention kernel against flash_fwd_ref: out to the same rtol
+(1e-5 fp32, 2e-2 bf16) plus 8 f32 epsilons of its largest magnitude (out
+is a convex combination of v rows, summed blockwise with an online rescale
+in the kernel and densely in the plain version); lse, f32 in both, to rtol
+1e-5 plus 8 epsilons of its largest magnitude. The convolution's weight
+gradient (ops.conv2d_weight) against float64: 1e-5 of its largest element.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from cxxnet_tpu_torch.ops import lrn
+from cxxnet_tpu_torch import api, models, ops
+from cxxnet_tpu_torch.ops import flash_attn, lrn
 
 ARGS = dict(nsize=5, alpha=0.001, beta=0.75, knorm=1.0)
 
@@ -133,3 +142,136 @@ def test_lrn_kernel_refuses_what_it_does_not_take(card):
                          .transpose(1, 3), **ARGS)
     with pytest.raises(ValueError, match="4-D"):
         lrn.lrn_fwd_cuda(torch.zeros(4, 2, 2, device=card), **ARGS)
+
+
+# (b, h, nkv, L, d, causal, window)
+FLASH_SHAPES = [
+    (8, 8, 8, 1024, 64, True, 0),       # the bench.py LM's prefill
+    (2, 8, 2, 1024, 64, True, 256),     # grouped kv heads with a window
+    (2, 8, 8, 1000, 64, True, 0),       # ragged last tile
+    (2, 4, 4, 1000, 64, False, 0),
+    (3, 4, 4, 256, 16, True, 0),        # lm.conf's head dim
+    (2, 4, 2, 300, 32, True, 100),
+    (1, 8, 1, 512, 128, True, 0),
+    (2, 2, 2, 130, 128, False, 0),
+    (1, 2, 2, 40, 16, True, 0),         # shorter than one tile
+]
+
+
+def _flash_inputs(card, shape, dtype, seed=3):
+    b, h, nkv, L, d, _, _ = shape
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(b, n, L, d).astype(np.float32))
+            .to(card, dtype) for n in (h, nkv, nkv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol", [(torch.float32, 1e-5),
+                                         (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_kernel_matches_plain(card, shape, dtype, rtol):
+    q, k, v = _flash_inputs(card, shape, dtype)
+    causal, window = shape[5], shape[6]
+    before = flash_attn.launches
+    out, lse = flash_attn.flash_fwd_cuda(q, k, v, causal, None, window)
+    torch.cuda.synchronize()
+    assert flash_attn.launches == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert lse.shape == q.shape[:3]
+    ref_out, ref_lse = flash_attn.flash_fwd_ref(q, k, v, causal, None,
+                                                window)
+    eps = torch.finfo(torch.float32).eps
+    torch.testing.assert_close(
+        out.float(), ref_out.float(), rtol=rtol,
+        atol=8 * eps * float(ref_out.float().abs().max()))
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5,
+                               atol=8 * eps * float(ref_lse.abs().max()))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(card):
+    q, k, v = _flash_inputs(card, (1, 4, 2, 128, 64, True, 0), torch.float32)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_attn.flash_fwd_cuda(q.cpu(), k, v, True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attn.flash_fwd_cuda(q.double(), k.double(), v.double(), True)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attn.flash_fwd_cuda(q, k.bfloat16(), v, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attn.flash_fwd_cuda(q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), k, v, True)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        k3 = torch.zeros(1, 3, 128, 64, device=card)
+        flash_attn.flash_fwd_cuda(q, k3, k3, True)
+    with pytest.raises(ValueError, match="needs causal"):
+        flash_attn.flash_fwd_cuda(q, k, v, False, None, 16)
+    for d in (8, 24, 256):
+        # supports() takes these head dims; the kernel names them
+        assert flash_attn.supports(128, d)
+        qd, kd, vd = _flash_inputs(card, (1, 2, 2, 128, d, True, 0),
+                                   torch.float32)
+        with pytest.raises(ValueError, match="not %d" % d):
+            flash_attn.flash_fwd_cuda(qd, kd, vd, True)
+
+
+@pytest.mark.cuda
+def test_flash_attention_on_the_card_has_no_backward_yet(card):
+    q, k, v = (t.requires_grad_() for t in _flash_inputs(
+        card, (1, 2, 2, 128, 64, True, 0), torch.float32))
+    out = flash_attn.flash_attention(q, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="rows 5-6"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+def test_generate_and_full_forward_launch_the_flash_kernel(card):
+    cfg = models.transformer_lm_config(vocab=64, seq=256, batch_size=2,
+                                       dim=64, nhead=4, nlayer=2, dev="gpu")
+    net = api.Net(dev="gpu", cfg=cfg + "seed = 1\n")
+    net.init_model()
+    prompts = np.random.RandomState(0).randint(0, 64, (2, 140))
+    before = flash_attn.launches
+    got = net.generate(prompts, 6)
+    assert flash_attn.launches == before + 2
+    assert got.shape == (2, 6)
+    # a prompt under 128 tokens takes the dense branch
+    net.generate(prompts[:, :100], 6)
+    assert flash_attn.launches == before + 2
+    ids = np.random.RandomState(1).randint(0, 64, (2, 1, 1, 256))
+    net.predict_device(ids.astype(np.float32))
+    torch.cuda.synchronize()
+    assert flash_attn.launches == before + 4
+    # the same tokens with the plain version swapped in
+    kernel = flash_attn.flash_fwd_cuda
+    flash_attn.flash_fwd_cuda = flash_attn.flash_fwd_ref
+    try:
+        plain = net.generate(prompts, 6)
+    finally:
+        flash_attn.flash_fwd_cuda = kernel
+    np.testing.assert_array_equal(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xs, ws, stride, pad, groups", [
+    ((32, 96, 27, 27), (256, 48, 5, 5), 1, (2, 2), 2),     # AlexNet conv2
+    ((16, 3, 227, 227), (96, 3, 11, 11), 4, (0, 0), 1),    # conv1
+    ((32, 384, 13, 13), (384, 192, 3, 3), 1, (1, 1), 2)])  # conv4
+def test_conv_weight_gradient_matches_float64(card, xs, ws, stride, pad,
+                                              groups):
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(np.maximum(rng.randn(*xs), 0).astype(np.float32)) \
+        .to(card)
+    w = torch.from_numpy(rng.randn(*ws).astype(np.float32) * 0.05).to(card)
+    out_shape = torch.nn.functional.conv2d(x, w, stride=stride, padding=pad,
+                                           groups=groups).shape
+    g = torch.from_numpy(rng.randn(*out_shape).astype(np.float32)).to(card)
+    got = ops.conv2d_weight(x, w.shape, g, stride, pad, groups)
+    want = torch.nn.grad.conv2d_weight(x.double(), w.shape, g.double(),
+                                       stride=stride, padding=pad,
+                                       groups=groups)
+    assert float((got.double() - want).abs().max()
+                 / want.abs().max()) <= 1e-5
+    # through autograd, the data gradient stays cuDNN's
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ops.conv2d(xl, wl, stride=stride, pad=pad, groups=groups).backward(g)
+    torch.testing.assert_close(wl.grad, got, rtol=0, atol=0)
