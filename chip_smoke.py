@@ -12,15 +12,17 @@ settings and dropout on); then the transformer LM that bench.py measures
 (vocab 8192, d_model 512, 8 heads, 4 blocks, 2048 positions, fp32, random
 weights from a seed) served through KV-cached ``generate`` and a
 full-sequence ``predict_device``, and its long-context recipe (8192
-positions, 2 kv heads, window 1024, RoPE). Exits non-zero, with no result,
-when there is no card or any phase fails.
+positions, 2 kv heads, window 1024, RoPE); then both LMs trained through
+``update`` (the config's Adam, batch 8 and 2). Exits non-zero, with no
+result, when there is no card or any phase fails.
 
 Output, in order: the card's name and power limit (nvidia-smi), the build
 time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
-``alexnet_train``, ``flash_fwd_kernel``, ``lm_serve`` and
-``lm_serve_long`` (kernel checks, the main paths' checks, throughput and
-profiles), then a JSON line ``{"kernels": [...]}`` and, last, the JSON
-result line ``{"ok": true, "device": {...}}``.
+``alexnet_train``, ``flash_fwd_kernel``, ``lm_serve``, ``lm_serve_long``,
+``flash_bwd_kernel``, ``lm_train`` and ``lm_train_long`` (kernel checks,
+the main paths' checks, throughput and profiles), the wall time, then a
+JSON line ``{"kernels": [...]}`` and, last, the JSON result line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -114,6 +116,9 @@ FLASH_SHAPES = [
     ("ragged_1000_noncausal", 2, 8, 8, 1000, 64, False, 0),
     ("lm_conf_d16", 16, 4, 4, 256, 16, True, 0),
     ("d128_gqa", 2, 8, 2, 1024, 128, True, 0),
+    # head dims between the compiled widths (run in the next one)
+    ("d8", 2, 4, 4, 512, 8, True, 0),
+    ("d24_gqa_window", 2, 8, 2, 1000, 24, True, 256),
 ]
 # kernel vs flash_fwd_ref: rtol 1e-5 (fp32) or 2e-2 (bf16, both round the
 # same f32 value to bf16, an f32 ulp apart can round one bf16 ulp apart)
@@ -131,6 +136,61 @@ LM_RAGGED = (1024, 1100)
 # its long-context recipe (bench.py:301-310)
 LONG_EXTRA = "nkvhead = 2\nattn_window = 1024\nrope = 1\n"
 LONG_SEQ, LONG_BATCH, LONG_PROMPT, LONG_NEW = 8192, 2, 4096, 32
+# flash attention backward: (name, b, h, nkv, L, d, causal, window). The
+# first is the main path's: the bench.py LM's training step, 4 launches of
+# each kernel per step; the second the long recipe's
+FLASH_BWD_SHAPES = [
+    ("lm_train", 8, 8, 8, 2048, 64, True, 0),
+    ("long_train_gqa_window", 2, 8, 2, 8192, 64, True, 1024),
+    ("ragged_1000", 2, 8, 8, 1000, 64, True, 0),
+    ("ragged_200", 4, 8, 8, 200, 64, True, 0),
+    ("ragged_1000_noncausal", 2, 8, 8, 1000, 64, False, 0),
+    ("nkv1", 2, 8, 1, 1024, 64, True, 0),
+    ("window_64", 2, 8, 2, 1024, 64, True, 64),
+    ("d8", 2, 4, 4, 512, 8, True, 0),
+    ("d16", 4, 4, 4, 512, 16, True, 0),
+    ("d24_gqa", 2, 8, 2, 1000, 24, True, 0),
+    ("d32_window", 2, 4, 2, 1000, 32, True, 100),
+    ("d128_gqa", 2, 8, 2, 1024, 128, True, 0),
+]
+# backward kernels vs flash_bwd_ref: dq, dk, dv within 1e-5 (fp32) or 2e-2
+# (bf16) of the largest magnitude compared. The kernels sum per 64-wide
+# tile, the plain version densely; in bf16 both round the same f32 sums,
+# 2^-8 relative, and the gradient sums many such terms
+FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the LM training phases: (phase, seq, batch, attention keys, the reduced
+# (seq, batch) of the card-vs-CPU step). The long recipe's reduced seq
+# exceeds its window, so that the window binds on both sides
+LM_TRAIN = [("lm_train", LM_SEQ, LM_BATCH, "", 256, 2),
+            ("lm_train_long", 8192, 2, "nkvhead = 2\nattn_window = 1024\n"
+             "rope = 1\n", 1152, 1)]
+LM_TRAIN_STEPS = 10
+LM_ETA = 0.003
+# The config's Adam at eta 0.003 from this random init does not lower the
+# loss of a fixed batch within 10 steps, in the JAX package either (its own
+# f32 run of this LM on the CPU, L 128, batch 8: 9.70, 26.4, inf, inf, inf,
+# inf, 21.7, 9.05, 8.54, 8.92, 8.33; at eta 3e-4: 9.70, 9.04, ... 5.11,
+# falling at every step). The main path runs the config as it is; the
+# check that training lowers the loss runs the same start at this eta
+LM_LOSS_ETA = 3e-4
+# one LM step's gradients with the kernels against the step with
+# flash_bwd_ref swapped in, and the card against the CPU path: 1e-4 of each
+# tensor's largest magnitude. The attention gradients differ by the
+# backward's summation order (f32 ulps of the largest terms) and pass back
+# through every block; the embedding's gradient is a scatter-add, whose
+# order on the card may change from run to run (the spread of two identical
+# steps is printed); the card and the CPU sum every product in other orders
+LM_GRAD_TOL = 1e-4
+# parameters after one Adam step from the same start, card vs CPU: Adam's
+# first step moves an element by eta g / (|g| + ADAM_C) (the updater's
+# epsilon 1e-8 over the square root of its decay2 0.001, which the LM
+# config keeps), a map whose slope is at most eta / ADAM_C. An element whose
+# gradient is near zero thus turns a gradient difference of a few ulps into
+# a visible share of eta, and the two sides are held to that: per element
+# eta |g_card - g_cpu| / ADAM_C, plus 1e-6 of eta and two f32 ulps of the
+# parameter for the roundings of the step itself
+ADAM_C = 1e-8 / 0.001 ** 0.5
+LM_LOSS_RTOL = 1e-5
 # the LM with the kernel vs with flash_fwd_ref swapped in, on the card:
 # log-probabilities of the prefill and of every teacher-forced step to
 # absolute 1e-4. Only the attention's summation order differs; a few f32
@@ -151,6 +211,31 @@ def nvidia_smi() -> str:
     if out.returncode != 0:
         raise RuntimeError("nvidia-smi failed: %s" % out.stderr.strip())
     return out.stdout.strip()
+
+
+def ptxas_summary(text: str) -> str:
+    """Registers and spills per kernel instantiation from nvcc's -Xptxas -v
+    output, each named by its element type, head dim and exact-width flag
+    where the mangled name carries them (``float/64/exact``)."""
+    import re
+    out, inst = [], "?"
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            t = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?",
+                          m.group(1))
+            inst = "?" if not t else "/".join(
+                [("float" if t.group(1) == "f" else "bf16")] +
+                ([t.group(2)] if t.group(2) else []) +
+                ([("exact", "padded")[t.group(3) == "0"]] if t.group(3)
+                 else []))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append("%s %s regs %s B spill" % (inst, m.group(1), spill))
+    return ", ".join(out)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -743,25 +828,27 @@ def phase_alexnet_train(lrn, api, ops):
     return fwd, bwd
 
 
+def kept_pairs(L, causal, window):
+    """(query, key) pairs of one head that the mask keeps."""
+    if not causal:
+        return L * L
+    if window <= 0 or window >= L:
+        return L * (L + 1) // 2
+    return window * (window + 1) // 2 + (L - window) * window
+
+
 def flash_work(b, h, nkv, L, d, causal, window, esize):
     """(operations, bytes) the flash forward needs: 4 d flops (q k^T and
     p v) per (query, key) pair the mask keeps, counted for this shape;
     q, k, v read once, out (input dtype) and lse (f32) written once."""
-    if not causal:
-        pairs = L * L
-    elif window <= 0 or window >= L:
-        pairs = L * (L + 1) // 2
-    else:
-        pairs = window * (window + 1) // 2 + (L - window) * window
-    ops = 4 * d * pairs * b * h
+    ops = 4 * d * kept_pairs(L, causal, window) * b * h
     nbytes = esize * (2 * b * h * L * d + 2 * b * nkv * L * d) + 4 * b * h * L
     return ops, nbytes
 
 
-def sdpa_ms(F, q, k, v, causal, window, ref_out):
-    """Time of F.scaled_dot_product_attention on the same inputs (grouped
-    kv heads through enable_gqa, the window as a boolean mask), a
-    yardstick the port never calls; None where it does not run."""
+def sdpa_kw(q, k, causal, window):
+    """scaled_dot_product_attention's arguments for the port's mask: the
+    grouped kv heads through enable_gqa, a window as a boolean mask."""
     L, h, nkv = q.shape[2], q.shape[1], k.shape[1]
     kw = dict(enable_gqa=h != nkv)
     if window:
@@ -770,6 +857,14 @@ def sdpa_ms(F, q, k, v, causal, window, ref_out):
         kw["attn_mask"] = (diff >= 0) & (diff < window)
     else:
         kw["is_causal"] = causal
+    return kw
+
+
+def sdpa_ms(F, q, k, v, causal, window, ref_out):
+    """Time of F.scaled_dot_product_attention on the same inputs (grouped
+    kv heads through enable_gqa, the window as a boolean mask), a
+    yardstick the port never calls; None where it does not run."""
+    kw = sdpa_kw(q, k, causal, window)
 
     def call():
         return F.scaled_dot_product_attention(q, k, v, **kw)
@@ -854,11 +949,16 @@ def plain_flash(flash):
         flash.flash_fwd_cuda = kernel
 
 
-def lm_net(api, models, seq, batch, attn_extra=""):
-    cfg = models.transformer_lm_config(
-        seq=seq, batch_size=batch, dev=NET_DEV, attn_extra=attn_extra,
+def lm_cfg(models, seq, batch, attn_extra="", dev=None):
+    """The bench.py LM's config (the port's transformer_lm_config) at
+    (seq, batch), weights from SEED."""
+    return models.transformer_lm_config(
+        seq=seq, batch_size=batch, dev=dev or NET_DEV, attn_extra=attn_extra,
         **LM_ARGS) + "seed = %d\n" % SEED
-    net = api.Net(dev=NET_DEV, cfg=cfg)
+
+
+def lm_net(api, models, seq, batch, attn_extra=""):
+    net = api.Net(dev=NET_DEV, cfg=lm_cfg(models, seq, batch, attn_extra))
     t0 = time.time()
     net.init_model()
     torch.cuda.synchronize()
@@ -1096,13 +1196,407 @@ def phase_lm_serve_long(flash, api, models):
     return launches
 
 
+def flash_bwd_work(b, h, nkv, L, d, causal, window, esize):
+    """((dq operations, bytes), (dk/dv operations, bytes)) the backward
+    kernels need, counted for this shape: per (query, key) pair the mask
+    keeps, 6 d flops for dQ (S, dP, dS K) and 8 d for dK/dV (S, P^T dO, dP,
+    dS^T Q); each input read once (q, k, v, dO in the input dtype, lse and
+    D in f32), each output written once."""
+    pairs = kept_pairs(L, causal, window) * b * h
+    q_elems, kv_elems = b * h * L * d, b * nkv * L * d
+    rows = 8 * b * h * L
+    return ((6 * d * pairs, esize * (3 * q_elems + 2 * kv_elems) + rows),
+            (8 * d * pairs, esize * (2 * q_elems + 4 * kv_elems) + rows))
+
+
+def sdpa_bwd_ms(F, q, k, v, dout, causal, window, ref):
+    """Time of the backward of F.scaled_dot_product_attention on the same
+    inputs (autograd.grad of dq, dk, dv over a kept graph), a yardstick the
+    port never calls; None where it does not run."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    try:
+        out = F.scaled_dot_product_attention(*leaves,
+                                             **sdpa_kw(q, k, causal, window))
+
+        def call():
+            return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        grads = call()
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        log("  library backward of scaled_dot_product_attention: not "
+            "available (%s)" % str(e).splitlines()[0])
+        return None
+    log("  library backward of scaled_dot_product_attention vs "
+        "flash_bwd_ref: max_abs_err dq %.3e dk %.3e dv %.3e (yardstick only)"
+        % tuple(float((g.float() - r.float()).abs().max())
+                for g, r in zip(grads, ref)))
+    del grads
+    return time_ms(call, iters=5, warmup=1)
+
+
+def phase_flash_bwd_kernel(flash):
+    """The dQ and dK/dV kernels against flash_bwd_ref on the card at the
+    LM training shapes and the edge shapes (ragged L, non-causal, one kv
+    head, window 64, d 8-128), fp32 and bf16, on the forward kernel's out
+    and lse; two runs held bitwise equal; returns the per-kernel records of
+    the main path's shape (one fp32 launch each at the bench.py LM's
+    step). The plain and library times are those of the whole backward
+    (dq, dk and dv in one call)."""
+    import torch.nn.functional as F
+    log("phase flash_bwd_kernel")
+    recs = {"dq": _new_rec(), "dkv": _new_rec()}
+    rng = np.random.RandomState(SEED + 8)
+    for name, b, h, nkv, L, d, causal, window in FLASH_BWD_SHAPES:
+        host = [torch.from_numpy(rng.randn(b, n, L, d).astype(np.float32))
+                for n in (h, nkv, nkv, h)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (t.to(DEV, dtype) for t in host)
+            args = (causal, None, window)
+            out, lse = flash.flash_fwd_cuda(q, k, v, *args)
+            delta = flash.bwd_delta(out, dout)
+            dq = flash.flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *args)
+            dk, dv = flash.flash_bwd_dkv_cuda(q, k, v, dout, lse, delta,
+                                              *args)
+            torch.cuda.synchronize()
+            ref = flash.flash_bwd_ref(q, k, v, out, lse, dout, *args)
+            log(" %s b %d h %d nkv %d L %d d %d causal %d window %d %s"
+                % (name, b, h, nkv, L, d, causal, window, str(dtype)[6:]))
+            err = 0.0
+            for nm, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                if got.dtype != dtype or got.shape != want.shape:
+                    raise AssertionError("%s: %s %s" % (nm, got.dtype,
+                                                        tuple(got.shape)))
+                tol = FLASH_BWD_TOL[dtype] * float(want.float().abs().max())
+                err = max(err, check_close("%s vs flash_bwd_ref" % nm, got,
+                                           want, 0.0, tol))
+            again = flash.flash_bwd_cuda(q, k, v, out, lse, dout, *args)
+            if not all(torch.equal(a, g) for a, g in zip(again,
+                                                         (dq, dk, dv))):
+                raise AssertionError("two backward runs differ")
+            log("  two backward runs: dq, dk, dv bitwise equal")
+            del again
+            dq_ms = time_ms(lambda: flash.flash_bwd_dq_cuda(
+                q, k, v, dout, lse, delta, *args))
+            dkv_ms = time_ms(lambda: flash.flash_bwd_dkv_cuda(
+                q, k, v, dout, lse, delta, *args))
+            delta_ms = time_ms(lambda: flash.bwd_delta(out, dout))
+            plain_ms = time_ms(lambda: flash.flash_bwd_ref(
+                q, k, v, out, lse, dout, *args), iters=3, warmup=1)
+            library_ms = sdpa_bwd_ms(F, q, k, v, dout, causal, window, ref)
+            peak = FP32_OPS_PER_S if dtype == torch.float32 \
+                else BF16_OPS_PER_S
+            works = flash_bwd_work(b, h, nkv, L, d, causal, window,
+                                   q.element_size())
+            for key, ms, (ops_n, nbytes) in (("dq", dq_ms, works[0]),
+                                             ("dkv", dkv_ms, works[1])):
+                ops_ms = ops_n / peak * 1e3
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                bound_ms = max(ops_ms, bytes_ms)
+                bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+                log("  %s kernel_ms %.4f bound_ms %.4f (%s: %.3e operations "
+                    "at %.0f TFLOP/s, %d bytes, %.4f ms) kernel/bound %.2f"
+                    % (key, ms, bound_ms, bound_by, ops_n, peak / 1e12,
+                       nbytes, bytes_ms, ms / bound_ms))
+                if name == FLASH_BWD_SHAPES[0][0] and \
+                        dtype == torch.float32:
+                    _add_fp32(recs[key], ms, plain_ms, library_ms, bound_ms,
+                              bound_by)
+                if dtype == torch.float32:
+                    recs[key]["max_abs_err"] = max(recs[key]["max_abs_err"],
+                                                   err)
+            log("  whole backward: kernels %.4f ms + D reduction %.4f ms; "
+                "plain_ms %.4f library_ms %s"
+                % (dq_ms + dkv_ms, delta_ms, plain_ms, library_ms))
+            del q, k, v, dout, out, lse, delta, dq, dk, dv, ref
+            torch.cuda.empty_cache()
+    return recs
+
+
+@contextlib.contextmanager
+def plain_flash_backward(flash):
+    """FlashAttention's backward runs flash_bwd_ref in place of the two
+    kernels (on the card, by explicit swap; the forward kernel still runs
+    and saves out and lse)."""
+    kernel = flash.flash_bwd_cuda
+    flash.flash_bwd_cuda = flash.flash_bwd_ref
+    try:
+        yield
+    finally:
+        flash.flash_bwd_cuda = kernel
+
+
+def lm_batch(x, y, dev):
+    from cxxnet_tpu_torch.io import DataBatch
+    batch = DataBatch()
+    batch.data = torch.from_numpy(x).to(dev)
+    batch.label = torch.from_numpy(y).to(dev)
+    batch.batch_size = x.shape[0]
+    return batch
+
+
+def lm_loss(net, x, y) -> float:
+    """Mean per-position cross-entropy of the net's softmax output on
+    (x, y), computed on the card."""
+    last = net.net_.net_cfg.param.num_nodes - 1
+    probs = net.net_._forward_nodes(x, (last,))[0][:, :, 0, :]
+    lab = torch.from_numpy(y).to(probs.device).long()
+    return float(-torch.log(probs.gather(1, lab[:, None, :])).double().mean())
+
+
+def compare_grads(what, got, want, tol):
+    """Hold every gradient tensor to tol of its largest magnitude in want;
+    print the worst ratio of error to bound."""
+    worst, where = 0.0, ""
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            bound = tol * float(w[k].abs().max())
+            err = float((g[k].to(w[k].device) - w[k]).abs().max())
+            ratio = err / bound if bound > 0 else (0.0 if err == 0 else
+                                                   float("inf"))
+            if ratio > worst:
+                worst, where = ratio, "layer %d %s (%.3e of its max)" % (
+                    i, k, err / max(bound / tol, 1e-30))
+    ok = worst <= 1.0
+    log("  %s: worst error/bound %.3e at %s (tolerance %.0e of each "
+        "tensor's largest) %s" % (what, worst, where or "-", tol,
+                                  "ok" if ok else "FAILED"))
+    if not ok:
+        raise AssertionError("%s disagree beyond tolerance" % what)
+
+
+def take_card_relu_masks(net, cpu, x):
+    """Give the ReLU layers of the CPU net the card's masks (the card's own
+    pre-activations > 0). A pre-activation within rounding of 0 can fall on
+    the other side of 0 on the two devices, and that flips its element's
+    gradient wholesale, far beyond any summation-order tolerance; with the
+    card's masks the two sides differ by rounding alone. Returns (flips,
+    pre-activations, largest |pre-activation| at a flip over the node's
+    largest)."""
+    t, c = net.net_, cpu.net_
+    relus = [i for i, lay in enumerate(c.net.layers)
+             if lay.type_name == "relu"]
+    nodes = tuple(c.net_cfg.layers[i].nindex_in[0] for i in relus)
+    flips = total = 0
+    worst = 0.0
+    for i, a, b in zip(relus, t._forward_nodes(x, nodes),
+                       c._forward_nodes(x, nodes)):
+        keep = a > 0
+        diff = keep != (b.to(DEV) > 0)
+        flips += int(diff.sum())
+        total += diff.numel()
+        if bool(diff.any()):
+            worst = max(worst, float(a[diff].abs().max() / a.abs().max()))
+        mask = keep.to(device="cpu", dtype=torch.float32)
+        c.net.layers[i].forward = \
+            lambda params, inputs, ctx, m=mask: [inputs[0] * m]
+    return flips, total, worst
+
+
+def lm_card_vs_cpu(api, models, seq, batch, extra):
+    """One step of the LM at every width but a reduced (seq, batch) on the
+    card and through the port's CPU path, from one model file, with the
+    card's ReLU masks on both sides: loss, gradients, and parameters after
+    the Adam step."""
+    net = lm_net(api, models, seq, batch, extra)
+    fname = scratch_file("chip_smoke_lm.model")
+    net.save_model(fname)
+    cpu = api.Net(dev="cpu", cfg=lm_cfg(models, seq, batch, extra, "cpu"))
+    cpu.load_model(fname)
+    os.remove(fname)
+    rng = np.random.RandomState(SEED + 9)
+    x = rng.randint(0, LM_ARGS["vocab"], (batch, 1, 1, seq)).astype(
+        np.float32)
+    y = rng.randint(0, LM_ARGS["vocab"], (batch, seq)).astype(np.float32)
+    flips, total, worst = take_card_relu_masks(net, cpu, x)
+    log("  ReLU masks: %d of %d FFN pre-activations fall on the other side "
+        "of 0 on the card and on the CPU (the largest of them %.3e of its "
+        "node's largest magnitude); the CPU run takes the card's masks"
+        % (flips, total, worst))
+    t = time.time()
+    loss_c, grads_c = cpu.net_.loss_and_grads(lm_batch(x, y, "cpu"))
+    cpu_s = time.time() - t
+    loss_g, grads_g = net.net_.loss_and_grads(lm_batch(x, y, DEV))
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    log("  card vs CPU path (seq %d, batch %d, every width kept; CPU step "
+        "%.1f s): loss %.7f vs %.7f, relative %.3e (tolerance %.0e) %s"
+        % (seq, batch, cpu_s, float(loss_g), float(loss_c), rel,
+           LM_LOSS_RTOL, "ok" if rel <= LM_LOSS_RTOL else "FAILED"))
+    if rel > LM_LOSS_RTOL:
+        raise AssertionError("LM loss: card vs CPU")
+    compare_grads("gradients card vs CPU path", grads_g, grads_c,
+                  LM_GRAD_TOL)
+    net.update(x, y)
+    cpu.update(x, y)
+    worst = ratio = 0.0
+    for pg, pc, gg, gc in zip(_params(net), cpu.net_.params, grads_g,
+                              grads_c):
+        for k in pg:
+            err = (pg[k] - pc[k].detach().to(DEV)).abs()
+            bound = LM_ETA * ((gg[k] - gc[k].to(DEV)).abs() / ADAM_C + 1e-6) \
+                + 2.0 ** -22 * pg[k].abs()
+            worst = max(worst, float(err.max()))
+            ratio = max(ratio, float((err / bound).max()))
+    ok = ratio <= 1.0
+    log("  parameters after one Adam step, card vs CPU path: max_abs_err "
+        "%.3e = %.3e of eta; worst error / bound %.3e (bound per element: "
+        "eta |g_card - g_cpu| / %.3e + 1e-6 eta + 2 ulps) %s"
+        % (worst, worst / LM_ETA, ratio, ADAM_C, "ok" if ok else "FAILED"))
+    if not ok:
+        raise AssertionError("LM parameters after a step: card vs CPU")
+    del grads_c, grads_g
+    del net, cpu
+    torch.cuda.empty_cache()
+
+
+def conv_wgrad_ms(ops, step, vocab):
+    """The conv weight gradients of one training step (ops.conv2d_weight on
+    the step's own inputs, recorded in the step and timed alone):
+    (1x1-conv FFN ms, vocab head ms, calls)."""
+    calls = []
+    real = ops.conv2d_weight
+
+    def record(x, w_shape, g, *args):
+        calls.append((x.detach(), tuple(w_shape), g.detach(), args))
+        return real(x, w_shape, g, *args)
+    ops.conv2d_weight = record
+    try:
+        step()
+    finally:
+        ops.conv2d_weight = real
+    ffn = head = 0.0
+    for x, w_shape, g, args in calls:
+        ms = time_ms(lambda: real(x, w_shape, g, *args), iters=5, warmup=1)
+        if w_shape[0] == vocab:
+            head += ms
+        else:
+            ffn += ms
+    return ffn, head, len(calls)
+
+
+def phase_lm_train(flash, api, models, ops, phase, seq, batch, extra,
+                   cpu_seq, cpu_batch):
+    """An LM trained through api.Net(dev="gpu").update on one repeated
+    batch of random ids: 4 launches of each flash kernel per step, the
+    loss falling, the step's gradients against the plain-backward run and
+    the card against the CPU path, tokens/s and a step profile; returns
+    the (forward, dQ, dK/dV) launches counted while the main path ran."""
+    log("phase %s (L %d, batch %d%s)" % (phase, seq, batch,
+                                          ", " + extra.replace("\n", ", ")
+                                          .strip(", ") if extra else ""))
+    net = lm_net(api, models, seq, batch, extra)
+    vocab, nlayer = LM_ARGS["vocab"], LM_ARGS["nlayer"]
+    rng = np.random.RandomState(SEED + 7)
+    x = rng.randint(0, vocab, (batch, 1, 1, seq)).astype(np.float32)
+    y = rng.randint(0, vocab, (batch, seq)).astype(np.float32)
+    loss0 = lm_loss(net, x, y)
+    fname = scratch_file("chip_smoke_lm_train.model")
+    net.save_model(fname)
+
+    # the main path: the counts start at 0 here and are read right after
+    torch.cuda.reset_peak_memory_stats()
+    flash.launches = flash.dq_launches = flash.dkv_launches = 0
+    t = time.perf_counter()
+    for step in range(LM_TRAIN_STEPS):
+        net.update(x, y)
+        counts = (flash.launches, flash.dq_launches, flash.dkv_launches)
+        if counts != (nlayer * (step + 1),) * 3:
+            raise AssertionError(
+                "expected %d launches of each flash kernel per update, "
+                "counted %s after %d updates" % (nlayer, counts, step + 1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    log("  %d update steps in %.2f s (first steps included); flash_fwd, "
+        "flash_bwd_dq, flash_bwd_dkv launches %s: %d + %d + %d in every "
+        "update; peak memory %.2f GB"
+        % (LM_TRAIN_STEPS, wall, counts, nlayer, nlayer, nlayer,
+           torch.cuda.max_memory_allocated() / 1e9))
+    loss1 = lm_loss(net, x, y)
+    log("  fixed-batch cross-entropy %.6f before, %.6f after %d steps at "
+        "the config's eta %g (reported; see LM_LOSS_ETA)"
+        % (loss0, loss1, LM_TRAIN_STEPS, LM_ETA))
+    slow = api.Net(dev=NET_DEV, cfg=lm_cfg(models, seq, batch, extra) +
+                   "eta = %g\n" % LM_LOSS_ETA)
+    slow.load_model(fname)
+    os.remove(fname)
+    losses = [loss0]
+    for _ in range(LM_TRAIN_STEPS):
+        slow.update(x, y)
+        losses.append(lm_loss(slow, x, y))
+    log("  the same start at eta %g: fixed-batch cross-entropy %s"
+        % (LM_LOSS_ETA, " ".join("%.4f" % v for v in losses)))
+    if not (np.isfinite(losses[-1]) and losses[-1] < loss0):
+        raise AssertionError("LM training loss did not fall: %r -> %r"
+                             % (loss0, losses[-1]))
+    del slow
+    for i, p in enumerate(_params(net)):
+        for k, v in p.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError("layer %d %s not finite" % (i, k))
+
+    # one step's gradients: kernels, kernels again, flash_bwd_ref swapped in
+    batch_dev = lm_batch(x, y, DEV)
+    batch_dev.data = batch_dev.data.long()
+    _, with_kernel = net.net_.loss_and_grads(batch_dev)
+    _, again = net.net_.loss_and_grads(batch_dev)
+    spread = max(float((a[k] - b[k]).abs().max() / b[k].abs().max())
+                 for a, b in zip(again, with_kernel) for k in a)
+    log("  spread of two identical kernel steps' gradients: %.3e of the "
+        "tensor's largest" % spread)
+    del again
+    with plain_flash_backward(flash):
+        _, with_plain = net.net_.loss_and_grads(batch_dev)
+    compare_grads("gradients kernels vs flash_bwd_ref swapped in",
+                  with_kernel, with_plain, LM_GRAD_TOL)
+    del with_kernel, with_plain
+    torch.cuda.empty_cache()
+
+    # tokens/s (batch * L per step): through Net.update on numpy, then with
+    # the batch already on the card, kernels and plain backward in turns
+    def tokens_per_s(step, iters=5):
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            step()
+            torch.cuda.synchronize()
+        return batch * seq * iters / (time.perf_counter() - t)
+
+    def device_step():
+        net.net_.update(batch_dev)
+    log("  training through Net.update (numpy): %.0f tokens/s"
+        % tokens_per_s(lambda: net.update(x, y)))
+    rates = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        with plain_flash_backward(flash) if which == "plain" \
+                else contextlib.nullcontext():
+            rates[which].append(tokens_per_s(device_step))
+    log("  training, batch on the card: %s tokens/s with the backward "
+        "kernels, %s with flash_bwd_ref (in turns kernel, plain, plain, "
+        "kernel)" % (" / ".join("%.0f" % r for r in rates["kernel"]),
+                     " / ".join("%.0f" % r for r in rates["plain"])))
+    busy_ms = profile_forward(device_step, unit="step",
+                              shares=("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv"))
+    ffn_ms, head_ms, n_calls = conv_wgrad_ms(ops, device_step, vocab)
+    log("  conv weight gradients (ops.conv2d_weight, %d calls, timed alone "
+        "on the step's inputs): 1x1-conv FFN %.3f ms, vocab head %.3f ms "
+        "per step%s" % (n_calls, ffn_ms, head_ms, "" if not busy_ms else
+                        ", %.1f%% and %.1f%% of the step's device time"
+                        % (100 * ffn_ms / busy_ms, 100 * head_ms / busy_ms)))
+    del net, batch_dev
+    torch.cuda.empty_cache()
+    lm_card_vs_cpu(api, models, cpu_seq, cpu_batch, extra)
+    return counts
+
+
 def profile_forward(forward, iters: int = 3, top: int = 8,
                     unit: str = "forward", shares=("lrn_fwd",)) -> None:
     """Where a forward's (or a training step's, or a request's) device
     time goes: torch.profiler over ``iters`` synchronised calls; prints
     kernel time per call, the device's busy share of the wall time (the
     profiler's own overhead included), the largest kernels by self device
-    time, and the share of the port's kernels named in ``shares``."""
+    time, and the share of the port's kernels named in ``shares``; returns
+    the device kernel time per call (None where none was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     forward()
@@ -1123,7 +1617,7 @@ def profile_forward(forward, iters: int = 3, top: int = 8,
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     if not kernels:
         log("  profile: no device time recorded (not measured)")
-        return
+        return None
     kernels.sort(reverse=True)
     busy_ms = sum(ms for ms, _ in kernels)
     log("  profile over %d %ss: device kernel time %.3f ms/%s, "
@@ -1135,6 +1629,7 @@ def profile_forward(forward, iters: int = 3, top: int = 8,
         k_ms = sum(ms for ms, name in kernels if kernel in name)
         log("    %s kernels: %.3f ms/%s, %.1f%% of device time"
             % (kernel, k_ms, unit, 100 * k_ms / busy_ms))
+    return busy_ms
 
 
 def main() -> int:
@@ -1153,8 +1648,7 @@ def main() -> int:
     log("build: %d kernels in %.2f s" % (len(libs), time.time() - t0))
     for name, path in libs.items():
         with open(path[:-3] + ".log") as f:
-            log("  %s: %s" % (name, " | ".join(
-                ln.strip() for ln in f if "registers" in ln or "spill" in ln)))
+            log("  %s: %s" % (name, ptxas_summary(f.read())))
 
     fwd_rec = phase_lrn_kernel(lrn)
     pred_launches = phase_alexnet_pred(lrn, api)
@@ -1163,6 +1657,11 @@ def main() -> int:
     flash_rec = phase_flash_fwd_kernel(flash_attn)
     serve_launches = phase_lm_serve(flash_attn, api, models)
     long_launches = phase_lm_serve_long(flash_attn, api, models)
+    bwd_recs = phase_flash_bwd_kernel(flash_attn)
+    train = {spec[0]: phase_lm_train(flash_attn, api, models, ops, *spec)
+             for spec in LM_TRAIN}
+    per_step = {"train_step": LM_ARGS["nlayer"]}
+    log("wall time %.1f s" % (time.time() - t0))
     kernels = []
     for name, rec, replaces, by_path, per in (
             ("lrn_fwd", fwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:78",
@@ -1172,9 +1671,16 @@ def main() -> int:
              {"alexnet_train": train_bwd},
              {"train_step": train_bwd // TRAIN_STEPS}),
             ("flash_fwd", flash_rec, "cxxnet_tpu/ops/flash_attn.py:284",
-             {"lm_serve": serve_launches, "lm_serve_long": long_launches},
+             {"lm_serve": serve_launches, "lm_serve_long": long_launches,
+              **{p: c[0] for p, c in train.items()}},
              {"generate_request": LM_ARGS["nlayer"],
-              "full_sequence_forward": LM_ARGS["nlayer"]})):
+              "full_sequence_forward": LM_ARGS["nlayer"], **per_step}),
+            ("flash_bwd_dq", bwd_recs["dq"],
+             "cxxnet_tpu/ops/flash_attn.py:337",
+             {p: c[1] for p, c in train.items()}, per_step),
+            ("flash_bwd_dkv", bwd_recs["dkv"],
+             "cxxnet_tpu/ops/flash_attn.py:363",
+             {p: c[2] for p, c in train.items()}, per_step)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "cxxnet_tpu_torch/csrc/%s.cu" % name,
@@ -1185,6 +1691,9 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
+        if name.startswith("flash_bwd"):
+            kernels[-1]["plain_and_library_cover"] = \
+                "the whole backward: dq, dk and dv in one call"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,28 +46,17 @@
 // bound; mma.sync / wgmma on bf16 inputs, TMA staging and a pipelined K/V
 // ring are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// Head dims: see flash_common.cuh (any d <= 128, run in the next compiled
+// width with zero-filled columns).
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per kv tile
+using namespace flash;
+
 constexpr int kThreads = 128;    // 8 row groups x 16 column lanes
 constexpr int kRows = 8;         // query rows per thread
-constexpr int kPadQ = kBQ + 4;   // row stride of the transposed Q and P tiles
-constexpr int kPadK = kBK + 1;   // row stride of the transposed K tile
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -76,12 +65,14 @@ constexpr size_t smem_bytes() {
          (size_t)(D * kPadQ + D * kPadK + kBK * D + kBK * kPadQ);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int heads, int group, int64_t L,
-                 int causal, int64_t window, float scale) {
+                 int d_in, int causal, int64_t window, float scale) {
+  // the row stride; the compiled width itself when d is one of them
+  const int d = kExact ? D : d_in;
   constexpr int kCols = D / 16;  // accumulator columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;
@@ -95,14 +86,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t batch = bh / heads, head = bh % heads;
   const int64_t kv_row = batch * (heads / group) + head / group;
   const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * kBQ;
-  const T* qp = q + bh * L * D;
-  const T* kp = k + kv_row * L * D;
-  const T* vp = v + kv_row * L * D;
+  const T* qp = q + bh * L * d;
+  const T* kp = k + kv_row * L * d;
+  const T* vp = v + kv_row * L * d;
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
-    const int64_t qpos = q0 + r;
-    qt[c * kPadQ + r] = qpos < L ? to_f32(qp[qpos * D + c]) : 0.f;
+    qt[c * kPadQ + r] = load_or_zero<kExact>(qp, q0 + r, L, c, d);
   }
 
   float m[kRows], l[kRows], acc[kRows][kCols];
@@ -114,32 +104,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  // the kv tiles _block_needed keeps: none above the causal diagonal, none
-  // wholly older than the window for the tile's oldest query
-  const int64_t n_kv = (L + kBK - 1) / kBK;
-  int64_t kv_end = n_kv, kv_begin = 0;
-  if (causal) {
-    const int64_t diag = (q0 + kBQ - 1) / kBK + 1;
-    kv_end = diag < n_kv ? diag : n_kv;
-    if (window > 0) {
-      const int64_t lo = q0 - window - kBK + 2;  // first tile start kept
-      kv_begin = lo <= 0 ? 0 : (lo + kBK - 1) / kBK;
-    }
-  }
+  // the kv tiles _block_needed keeps
+  int64_t kv_begin, kv_end;
+  kv_tiles_for_q(q0, L, causal, window, &kv_begin, &kv_end);
 
   for (int64_t j = kv_begin; j < kv_end; ++j) {
     const int64_t k0 = j * kBK;
     __syncthreads();  // the Q tile is in; the last tile's readers are done
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int r = idx / D, c = idx % D;
-      const int64_t kpos = k0 + r;
-      float kk = 0.f, vv = 0.f;
-      if (kpos < L) {
-        kk = to_f32(kp[kpos * D + c]);
-        vv = to_f32(vp[kpos * D + c]);
-      }
-      kt[c * kPadK + r] = kk;
-      vs[r * D + c] = vv;
+      kt[c * kPadK + r] = load_or_zero<kExact>(kp, k0 + r, L, c, d);
+      vs[r * D + c] = load_or_zero<kExact>(vp, k0 + r, L, c, d);
     }
     __syncthreads();
 
@@ -169,13 +144,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float rmax = kNegInf;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const int64_t kpos = k0 + tx + 16 * jj;
-        bool keep = kpos < L;
-        if (causal) {
-          keep = keep && qpos >= kpos;
-          if (window > 0) keep = keep && (qpos - kpos < window);
-        }
-        s[i][jj] = keep ? s[i][jj] * scale : kNegInf;
+        s[i][jj] = keep(qpos, k0 + tx + 16 * jj, L, causal, window)
+                       ? s[i][jj] * scale
+                       : kNegInf;
         rmax = fmaxf(rmax, s[i][jj]);
       }
 #pragma unroll
@@ -225,10 +196,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qpos = q0 + ty * 8 + i;
     if (qpos < L) {
       const float li = fmaxf(l[i], 1e-30f);
-      T* op = out + (bh * L + qpos) * D;
+      T* op = out + (bh * L + qpos) * d;
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
-        store_from_f32(op + tx + 16 * c, acc[i][c] / li);
+        if (kExact || tx + 16 * c < d)
+          store_from_f32(op + tx + 16 * c, acc[i][c] / li);
       if (tx == 0) lse[bh * L + qpos] = m[i] + logf(li);
     }
   }
@@ -237,19 +209,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int64_t batch, int heads, int kv_heads,
-                   int64_t L, int causal, int64_t window, float scale,
+                   int64_t L, int d, int causal, int64_t window, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
+  // a head dim equal to the compiled width takes the instantiation with
+  // compile-time strides and no column checks
+  const auto kernel = d == D ? flash_fwd_kernel<T, D, true>
+                              : flash_fwd_kernel<T, D, false>;
   // above 48 KB a block's dynamic shared memory must be allowed first
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(batch * heads), (unsigned)((L + kBQ - 1) / kBQ));
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, heads,
-      heads / kv_heads, L, causal, window, scale);
+      heads / kv_heads, L, d, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -258,18 +234,18 @@ cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v,
                          void* out, float* lse, int64_t batch, int heads,
                          int kv_heads, int64_t L, int causal, int64_t window,
                          float scale, cudaStream_t s) {
-  switch (d) {
+  switch (compiled_width(d)) {
     case 16:
-      return launch<T, 16>(q, k, v, out, lse, batch, heads, kv_heads, L,
+      return launch<T, 16>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
                            causal, window, scale, s);
     case 32:
-      return launch<T, 32>(q, k, v, out, lse, batch, heads, kv_heads, L,
+      return launch<T, 32>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
                            causal, window, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, out, lse, batch, heads, kv_heads, L,
+      return launch<T, 64>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
                            causal, window, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, lse, batch, heads, kv_heads, L,
+      return launch<T, 128>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
                             causal, window, scale, s);
     default:
       return cudaErrorInvalidValue;
@@ -280,21 +256,19 @@ cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; d one of 16, 32, 64, 128; kv_heads
-// divides heads; window > 0 only with causal. q, out (batch, heads, L, d),
-// k, v (batch, kv_heads, L, d), lse (batch, heads, L) f32, all contiguous.
-// Returns the cudaError_t of the launch (0 = success). Launches on `stream`
-// and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16; 1 <= d <= 128; kv_heads divides heads;
+// window > 0 only with causal. q, out (batch, heads, L, d), k, v (batch,
+// kv_heads, L, d), lse (batch, heads, L) f32, all contiguous. Returns the
+// cudaError_t of the launch (0 = success). Launches on `stream` and does
+// not synchronise.
 int cxxnet_flash_fwd(const void* q, const void* k, const void* v, void* out,
                      float* lse, int dtype, long long batch, int heads,
                      int kv_heads, long long L, int d, int causal,
                      long long window, float scale, void* stream) {
   if (batch <= 0 || L <= 0) return 0;
-  if (heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || window < 0 ||
-      (window > 0 && !causal))
-    return (int)cudaErrorInvalidValue;
-  if (batch * heads > 0x7fffffffLL || (L + kBQ - 1) / kBQ > 65535)
-    return (int)cudaErrorInvalidConfiguration;
+  const cudaError_t bad =
+      check_args(batch, heads, kv_heads, L, d, causal, window);
+  if (bad != cudaSuccess) return (int)bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)dispatch_dim<float>(d, q, k, v, out, lse, batch, heads,

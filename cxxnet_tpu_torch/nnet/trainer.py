@@ -276,23 +276,47 @@ class Trainer:
         return torch.Generator(device=self.dev).manual_seed(
             fold_in(self.seed, self._rng_counter))
 
+    def _forward_backward(self, batch, gen: torch.Generator, keys):
+        """(node values, labels, loss, gradients of the weights ``keys``)
+        of one training forward with the loss on ``batch``."""
+        check(self.net is not None, "model not initialized")
+        check(batch.label is not None, "update needs labels")
+        data = self._input(batch.data)
+        label = torch.as_tensor(batch.label).to(device=self.dev,
+                                                dtype=torch.float32)
+        labels = self.net.label_info_from(label)
+        leaves = [self.params[i][k].requires_grad_() for i, k in keys]
+        values, loss = self.net.forward(self.params, data, labels=labels,
+                                        train=True, gen=gen,
+                                        epoch=self.epoch_counter)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads)]
+        return values, labels, loss.detach(), grads
+
+    def loss_and_grads(self, batch):
+        """The loss and the weight gradients (per layer, {tag: tensor} like
+        ``params``) of the forward that the next ``update`` on ``batch``
+        would take, its dropout stream included; steps and advances
+        nothing."""
+        keys = [(i, k) for i, p in enumerate(self.params) for k in p]
+        gen = torch.Generator(device=self.dev).manual_seed(
+            fold_in(self.seed, self._rng_counter + 1))
+        _, _, loss, grads = self._forward_backward(batch, gen, keys)
+        out = [{} for _ in self.params]
+        for (i, k), g in zip(keys, grads):
+            out[i][k] = g
+        return loss, out
+
     def update(self, batch) -> None:
         """One mini-batch: forward with dropout and the loss, backward,
         and, every ``update_period`` batches, the optimizer step on the
         summed gradients. Train metrics stay on the device until
         ``evaluate`` reads them; nothing here waits for the device."""
-        check(self.net is not None, "model not initialized")
-        check(batch.label is not None, "update needs labels")
         need_update = (self.sample_counter + 1) % self.update_period == 0
-        data = self._input(batch.data)
-        label = torch.as_tensor(batch.label).to(device=self.dev,
-                                                dtype=torch.float32)
-        labels = self.net.label_info_from(label)
         keys = [(i, k) for i, p in enumerate(self.params) for k in p]
-        leaves = [self.params[i][k].requires_grad_() for i, k in keys]
-        values, loss = self.net.forward(self.params, data, labels=labels,
-                                        train=True, gen=self._next_gen(),
-                                        epoch=self.epoch_counter)
+        values, labels, _, grads = self._forward_backward(
+            batch, self._next_gen(), keys)
         if self.eval_train != 0 and len(self.train_metric) > 0:
             with torch.no_grad():
                 outs = [values[n].reshape(values[n].shape[0], -1).float()
@@ -300,10 +324,7 @@ class Trainer:
                 stats = self.train_metric.device_stats(outs, labels)
                 self._metric_accum = stats if self._metric_accum is None \
                     else self._metric_accum + stats
-        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
-        del values, loss
-        grads = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(leaves, grads)]
+        del values
         if self.update_period > 1:
             if self.grad_accum is None:
                 self.grad_accum = grads
@@ -367,6 +388,9 @@ class Trainer:
             x = x.reshape(x.shape[0], 1, 1, x.shape[1])
         check(x.dim() == 4, "data must be 2-D or 4-D, got shape %s"
               % (tuple(x.shape),))
+        if 0 in self.net.id_nodes and not x.is_floating_point():
+            # token ids for an embed input stay integer
+            return x.to(device=self.dev)
         return x.to(device=self.dev, dtype=torch.float32)
 
     def _forward_nodes(self, data, node_ids: Tuple[int, ...]):

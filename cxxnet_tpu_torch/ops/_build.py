@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into its own shared library, ``build/cxxnet_tpu_torch/lib<name>-<hash>.so``
-at the repository root, where ``<hash>`` is taken from the source text and
-the flags, so an edited source builds anew and an unchanged one is reused.
+at the repository root, where ``<hash>`` is taken from the source text, the
+headers of ``csrc/`` (``*.cuh``) and the flags, so an edited source or
+header builds anew and an unchanged one is reused.
 ``launch`` loads a library with ctypes at first use and calls its entry
 point ``cxxnet_<name>``, raising if the launch failed. ``nvcc``'s output,
 with ``-Xptxas -v`` (registers, shared memory and spills per kernel), is kept
@@ -46,9 +47,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the shared library of csrc/<name>.cu lives once built."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the shared library of csrc/<name>.cu lives once built: its
+    hash covers the source, every header in csrc/ and the flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name,
                                                     digest.hexdigest()[:12]))
 

@@ -1,17 +1,20 @@
-"""Flash attention forward: the hand-written CUDA kernel, its plain PyTorch
-version, and the dispatch between them.
+"""Flash attention: the hand-written CUDA kernels of the forward and the
+backward, their plain PyTorch versions, and the dispatch between them.
 
-Replaces the TPU kernel ``_fwd_kernel`` / ``_flash_fwd``
-(cxxnet_tpu/ops/flash_attn.py:82-120, launched at :284) and the gate
-``supports`` (:213-216). The kernel is ``csrc/flash_fwd.cu``, built with
-nvcc at first use and bound with ctypes; its source comment states the
-design and the bound.
+Replaces the TPU kernels ``_fwd_kernel`` (cxxnet_tpu/ops/flash_attn.py:82,
+launched at :284), ``_dq_kernel`` (:123, launched at :337) and
+``_dkv_kernel`` (:156, launched at :363), and the gate ``supports``
+(:213-216). The kernels are ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu``
+and ``csrc/flash_bwd_dkv.cu``, built with nvcc at first use and bound with
+ctypes; their source comments state the design and the bound. They take
+any head dim up to 128 (run in the next compiled width with zero-filled
+columns); the JAX package also takes 256, which raises here.
 
 ``flash_attention`` goes through ``FlashAttention``: for a CUDA tensor the
-forward launches the kernel, and the backward raises (the backward kernels,
-rows 5-6 of the kernel table, belong to the LM training slice); for a CPU
-tensor the forward is ``flash_fwd_ref`` and the backward differentiates it.
-Nothing falls back to the plain version for a CUDA tensor.
+forward launches the forward kernel and keeps its lse, and the backward
+launches the dQ and dK/dV kernels; for a CPU tensor the forward is
+``flash_fwd_ref`` and the backward ``flash_bwd_ref``. Nothing falls back
+to the plain version for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -23,21 +26,29 @@ import torch
 
 from . import _build
 
-# launches of the CUDA kernel, counted in flash_fwd_cuda where it launches
+# launches of the CUDA kernels, each counted in its wrapper where it
+# launches: the forward, the dQ and the dK/dV kernel
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 # finite stand-in for -inf: exp(NEG_INF - m) is 0 and never NaN (the TPU
 # kernel's rule, cxxnet_tpu/ops/flash_attn.py:46)
 NEG_INF = -1e30
-# head dims the kernel is compiled for
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# the kernels are compiled for head dims 16, 32, 64 and 128; a smaller one
+# runs in the next of them, its extra columns zero-filled
+KERNEL_MAX_HEAD_DIM = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_float, ctypes.c_void_p]
+# after the tensor pointers: dtype, batch, heads, kv_heads, L, d, causal,
+# window, scale, stream
+_SHAPE_ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                   ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + _SHAPE_ARGTYPES
+_DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _SHAPE_ARGTYPES
+_DKV_ARGTYPES = [ctypes.c_void_p] * 8 + _SHAPE_ARGTYPES
 
 
 def supports(L: int, d: int) -> bool:
@@ -65,6 +76,20 @@ def _check_shapes(q, k, v, causal: bool, window: int) -> None:
                          "be >= 0" % window)
 
 
+def _keep_mask(L: int, causal: bool, window: int,
+               device: torch.device) -> Optional[torch.Tensor]:
+    """(L, L) bool of the (query, key) pairs the mask keeps, None when it
+    keeps every pair."""
+    if not causal:
+        return None
+    pos = torch.arange(L, device=device)
+    diff = pos[:, None] - pos[None, :]
+    keep = diff >= 0
+    if window > 0:
+        keep = keep & (diff < window)
+    return keep
+
+
 def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False, scale: Optional[float] = None,
                   window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -80,12 +105,8 @@ def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = d ** -0.5
     qg = q.float().reshape(b, nkv, h // nkv, L, d)
     s = torch.einsum("bngqd,bnkd->bngqk", qg, k.float()) * scale
-    if causal:
-        pos = torch.arange(L, device=q.device)
-        diff = pos[:, None] - pos[None, :]
-        keep = diff >= 0
-        if window > 0:
-            keep = keep & (diff < window)
+    keep = _keep_mask(L, causal, window, q.device)
+    if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
@@ -93,40 +114,99 @@ def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out.reshape(b, h, L, d).to(q.dtype), lse.reshape(b, h, L))
 
 
-def check_kernel_input(q, k, v, causal: bool, window: int) -> None:
-    """What the kernel takes: q (b, h, L, d) and k/v (b, nkv, L, d),
+def bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO o O) in f32, (b, h, L): the term of dS that both
+    backward kernels read, one PyTorch reduction before their launches, as
+    the JAX package computes it in XLA outside its kernels
+    (cxxnet_tpu/ops/flash_attn.py:330-331)."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                  causal: bool = False, scale: Optional[float] = None,
+                  window: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward kernels: (dq, dk, dv) of
+    flash attention at the forward's (out, lse) and the upstream gradient
+    dout, in the FlashAttention-2 factorisation of the JAX package
+    (cxxnet_tpu/ops/flash_attn.py:15-23): P = exp(scale q k^T + mask - lse)
+    with masked scores at NEG_INF, dV = P^T dO, dS = P o (dO V^T - D) with
+    D = rowsum(dO o O), dQ = scale dS K, dK = scale dS^T Q. Computed densely
+    in f32 one (batch row, kv head) at a time, so that a long sequence
+    holds a few (h / nkv, L, L) temporaries and not (b, h, L, L) ones; dk
+    and dv come back summed over each kv head's query heads, all three in
+    the inputs' dtypes."""
+    _check_shapes(q, k, v, causal, window)
+    b, h, L, d = q.shape
+    nkv = k.shape[1]
+    g = h // nkv
+    if scale is None:
+        scale = d ** -0.5
+    keep = _keep_mask(L, causal, window, q.device)
+    delta = bwd_delta(out, dout)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for bi in range(b):
+        for n in range(nkv):
+            hs = slice(n * g, (n + 1) * g)
+            qf, do = q[bi, hs].float(), dout[bi, hs].float()  # (g, L, d)
+            kf, vf = k[bi, n].float(), v[bi, n].float()        # (L, d)
+            s = (qf @ kf.T) * scale                            # (g, L, L)
+            if keep is not None:
+                s = s.masked_fill(~keep, NEG_INF)
+            p = torch.exp(s - lse[bi, hs, :, None])
+            del s
+            ds = p * ((do @ vf.T) - delta[bi, hs, :, None]) * scale
+            dq[bi, hs] = (ds @ kf).to(q.dtype)
+            dk[bi, n] = (ds.transpose(1, 2) @ qf).sum(0).to(k.dtype)
+            dv[bi, n] = (p.transpose(1, 2) @ do).sum(0).to(v.dtype)
+    return dq, dk, dv
+
+
+def check_kernel_input(q, k, v, causal: bool, window: int,
+                       name: str = "flash_fwd") -> None:
+    """What the kernels take: q (b, h, L, d) and k/v (b, nkv, L, d),
     contiguous, float32 or bfloat16 alike, on one CUDA device, with
-    nkv | h, d one of KERNEL_HEAD_DIMS and window only with causal."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    nkv | h, 1 <= d <= 128 and window only with causal."""
+    for nm, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
-            raise ValueError("flash_fwd kernel needs CUDA tensors, got %s on "
-                             "%s" % (name, t.device))
+            raise ValueError("%s kernel needs CUDA tensors, got %s on %s"
+                             % (name, nm, t.device))
         if t.dtype not in _DTYPE_CODE or t.dtype != q.dtype:
-            raise TypeError("flash_fwd kernel takes float32 or bfloat16 "
-                            "q, k, v of one dtype, got %s %s %s"
-                            % (q.dtype, k.dtype, v.dtype))
+            raise TypeError("%s kernel takes float32 or bfloat16 q, k, v of "
+                            "one dtype, got %s %s %s"
+                            % (name, q.dtype, k.dtype, v.dtype))
         if not t.is_contiguous():
-            raise ValueError("flash_fwd kernel needs a contiguous %s" % name)
+            raise ValueError("%s kernel needs a contiguous %s" % (name, nm))
         if t.device != q.device:
-            raise ValueError("flash_fwd kernel needs q, k, v on one device")
+            raise ValueError("%s kernel needs q, k, v on one device" % name)
     _check_shapes(q, k, v, causal, window)
     d = q.shape[3]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError("flash_fwd kernel is compiled for head dims %s, not "
-                         "%d" % (KERNEL_HEAD_DIMS, d))
+    if not 0 < d <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError("%s kernel takes head dims up to %d, not %d"
+                         % (name, KERNEL_MAX_HEAD_DIM, d))
+
+
+def _shape_args(q, k, causal, scale, window):
+    """The trailing arguments of every entry point: dtype, batch, heads,
+    kv heads, L, d, causal, window, scale, stream."""
+    b, h, L, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    return (_DTYPE_CODE[q.dtype], b, h, k.shape[1], L, d, int(bool(causal)),
+            window, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = False, scale: Optional[float] = None,
                    window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream: (out in q's dtype, f32
-    lse (b, h, L)). Raises on an input it does not take or a failed
+    """Launch the forward kernel on the current stream: (out in q's dtype,
+    f32 lse (b, h, L)). Raises on an input it does not take or a failed
     launch."""
     global launches
     check_kernel_input(q, k, v, causal, window)
-    b, h, L, d = q.shape
-    if scale is None:
-        scale = d ** -0.5
+    b, h, L, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -134,41 +214,101 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         _build.launch("flash_fwd", _ARGTYPES, q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                      _DTYPE_CODE[q.dtype], b, h, k.shape[1], L, d,
-                      int(bool(causal)), window, float(scale),
-                      torch.cuda.current_stream(q.device).cuda_stream)
+                      *_shape_args(q, k, causal, scale, window))
     launches += 1
     return out, lse
 
 
+def _check_bwd_input(name, q, k, v, dout, lse, delta, causal, window):
+    check_kernel_input(q, k, v, causal, window, name)
+    if (dout.shape != q.shape or dout.dtype != q.dtype
+            or dout.device != q.device or not dout.is_contiguous()):
+        raise ValueError("%s kernel needs a contiguous dout of q's shape, "
+                         "dtype and device" % name)
+    for nm, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError("%s kernel needs a contiguous float32 %s of "
+                             "shape (b, h, L) on q's device" % (name, nm))
+
+
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool = False,
+                      scale: Optional[float] = None,
+                      window: int = 0) -> torch.Tensor:
+    """Launch the dQ kernel on the current stream: dq in q's dtype, from
+    the forward's lse and D = bwd_delta(out, dout). Raises on an input it
+    does not take or a failed launch."""
+    global dq_launches
+    _check_bwd_input("flash_bwd_dq", q, k, v, dout, lse, delta, causal,
+                     window)
+    dq = torch.empty_like(q)
+    if q.numel() == 0:
+        return dq
+    with torch.cuda.device(q.device):
+        _build.launch("flash_bwd_dq", _DQ_ARGTYPES, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                      *_shape_args(q, k, causal, scale, window))
+    dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool = False,
+                       scale: Optional[float] = None, window: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel on the current stream: (dk, dv) in k's
+    dtype at kv-head resolution (each summed over its query heads inside
+    the kernel). Raises on an input it does not take or a failed launch."""
+    global dkv_launches
+    _check_bwd_input("flash_bwd_dkv", q, k, v, dout, lse, delta, causal,
+                     window)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dk, dv
+    with torch.cuda.device(q.device):
+        _build.launch("flash_bwd_dkv", _DKV_ARGTYPES, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                      lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), *_shape_args(q, k, causal, scale, window))
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   causal: bool = False, scale: Optional[float] = None,
+                   window: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward on the card, flash_bwd_ref's contract: D as one
+    PyTorch reduction, then the dQ and the dK/dV kernels."""
+    delta = bwd_delta(out, dout)
+    dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, window)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale,
+                                window)
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
-    """Flash attention as an autograd op. A CUDA tensor runs the kernel,
-    whose backward is not ported yet; a CPU tensor runs flash_fwd_ref, and
-    its backward differentiates the plain version again from the saved
-    inputs."""
+    """Flash attention as an autograd op. The forward keeps (q, k, v, out,
+    lse) for the backward. A CUDA tensor runs the kernels both ways (the
+    forward kernel's lse feeds the backward kernels); a CPU tensor runs
+    flash_fwd_ref and flash_bwd_ref."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window):
-        if q.device.type == "cuda":
-            out, _ = flash_fwd_cuda(q, k, v, causal, scale, window)
-        else:
-            out, _ = flash_fwd_ref(q, k, v, causal, scale, window)
-        ctx.save_for_backward(q, k, v)
+        fwd = flash_fwd_cuda if q.device.type == "cuda" else flash_fwd_ref
+        out, lse = fwd(q, k, v, causal, scale, window)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, scale, window)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        if q.device.type == "cuda":
-            raise NotImplementedError(
-                "the flash attention backward kernels (_dq_kernel, "
-                "_dkv_kernel: kernel table rows 5-6) are not ported yet; "
-                "they come with the LM training slice")
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out, _ = flash_fwd_ref(*leaves, *ctx.args)
-            dq, dk, dv = torch.autograd.grad(out, leaves, grad_out)
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_bwd_cuda if q.device.type == "cuda" else flash_bwd_ref
+        # autograd hands over the gradient of a transposed view; the
+        # kernels take it contiguous
+        dq, dk, dv = bwd(q, k, v, out, lse, grad_out.contiguous(), *ctx.args)
         return dq, dk, dv, None, None, None
 
 
@@ -176,8 +316,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     window: int = 0) -> torch.Tensor:
     """Memory-O(L) attention (the JAX package's ops.flash_attention): q
-    (b, h, L, d), k/v (b, nkv, L, d) with nkv | h; the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    (b, h, L, d), k/v (b, nkv, L, d) with nkv | h; the kernels for CUDA
+    tensors, the plain versions for CPU tensors."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError("flash attention: no implementation for a tensor "
                          "on %s" % q.device)

@@ -18,8 +18,14 @@ The flash attention kernel against flash_fwd_ref: out to the same rtol
 (1e-5 fp32, 2e-2 bf16) plus 8 f32 epsilons of its largest magnitude (out
 is a convex combination of v rows, summed blockwise with an online rescale
 in the kernel and densely in the plain version); lse, f32 in both, to rtol
-1e-5 plus 8 epsilons of its largest magnitude. The convolution's weight
-gradient (ops.conv2d_weight) against float64: 1e-5 of its largest element.
+1e-5 plus 8 epsilons of its largest magnitude. The backward kernels
+against flash_bwd_ref: dq, dk, dv within 1e-5 (fp32) or 2e-2 (bf16) of
+their largest magnitude; an LM step's gradients with the kernels against
+the step with flash_bwd_ref swapped in within 1e-4 of each tensor's
+largest magnitude (the difference passes back through every block, and
+the embedding's gradient is a scatter-add whose order may change).
+The convolution's weight gradient (ops.conv2d_weight) against float64:
+1e-5 of its largest element.
 """
 
 import numpy as np
@@ -27,6 +33,7 @@ import pytest
 import torch
 
 from cxxnet_tpu_torch import api, models, ops
+from cxxnet_tpu_torch.io import DataBatch
 from cxxnet_tpu_torch.ops import flash_attn, lrn
 
 ARGS = dict(nsize=5, alpha=0.001, beta=0.75, knorm=1.0)
@@ -205,22 +212,150 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
         flash_attn.flash_fwd_cuda(q, k3, k3, True)
     with pytest.raises(ValueError, match="needs causal"):
         flash_attn.flash_fwd_cuda(q, k, v, False, None, 16)
-    for d in (8, 24, 256):
-        # supports() takes these head dims; the kernel names them
-        assert flash_attn.supports(128, d)
-        qd, kd, vd = _flash_inputs(card, (1, 2, 2, 128, d, True, 0),
-                                   torch.float32)
-        with pytest.raises(ValueError, match="not %d" % d):
-            flash_attn.flash_fwd_cuda(qd, kd, vd, True)
+    # supports() takes any head dim that is a multiple of 8, as the JAX gate
+    # does; the kernels take those up to 128 and name any larger one
+    assert flash_attn.supports(128, 256)
+    qd, kd, vd = _flash_inputs(card, (1, 2, 2, 128, 256, True, 0),
+                               torch.float32)
+    with pytest.raises(ValueError, match="up to 128, not 256"):
+        flash_attn.flash_fwd_cuda(qd, kd, vd, True)
 
 
 @pytest.mark.cuda
-def test_flash_attention_on_the_card_has_no_backward_yet(card):
-    q, k, v = (t.requires_grad_() for t in _flash_inputs(
-        card, (1, 2, 2, 128, 64, True, 0), torch.float32))
-    out = flash_attn.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="rows 5-6"):
-        out.sum().backward()
+@pytest.mark.parametrize("d", [8, 24, 40, 96])
+def test_flash_head_dims_below_128_run_forward_and_backward(card, d):
+    # a head dim between the compiled widths runs in the next one with
+    # zero-filled columns: exact, so held to the fp32 bars of the kernels
+    shape = (2, 4, 2, 200, d, True, 64)
+    q, k, v = _flash_inputs(card, shape, torch.float32)
+    assert flash_attn.supports(200, d)
+    out, lse = flash_attn.flash_fwd_cuda(q, k, v, True, None, 64)
+    ref_out, ref_lse = flash_attn.flash_fwd_ref(q, k, v, True, None, 64)
+    eps = torch.finfo(torch.float32).eps
+    torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=8 * eps * float(
+        ref_out.abs().max()))
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=8 * eps * float(
+        ref_lse.abs().max()))
+    dout = _flash_inputs(card, shape, torch.float32, seed=4)[0]
+    got = flash_attn.flash_bwd_cuda(q, k, v, out, lse, dout, True, None, 64)
+    want = flash_attn.flash_bwd_ref(q, k, v, out, lse, dout, True, None, 64)
+    for g, w in zip(got, want):
+        _assert_grad_close(g, w, 1e-5)
+
+
+def _assert_grad_close(got, want, tol):
+    """Within tol of the largest magnitude of want."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * float(want.float().abs().max()))
+
+
+# (b, h, nkv, L, d, causal, window): the backward kernels' shapes
+FLASH_BWD_SHAPES = [
+    (8, 8, 8, 2048, 64, True, 0),       # the bench.py LM's training step
+    (2, 8, 2, 2048, 64, True, 512),     # grouped kv heads with a window
+    (2, 8, 8, 1000, 64, True, 0),       # ragged last tile
+    (2, 4, 4, 1000, 64, False, 0),
+    (3, 4, 4, 256, 16, True, 0),        # lm.conf's head dim
+    (2, 4, 2, 300, 32, True, 100),
+    (1, 8, 1, 512, 128, True, 0),
+    (2, 2, 2, 130, 128, False, 0),
+    (1, 2, 2, 40, 16, True, 0),         # shorter than one tile
+]
+
+
+def _bwd_case(card, shape, dtype):
+    q, k, v = _flash_inputs(card, shape, dtype)
+    dout = _flash_inputs(card, shape, dtype, seed=4)[0]
+    causal, window = shape[5], shape[6]
+    out, lse = flash_attn.flash_fwd_cuda(q, k, v, causal, None, window)
+    return (q, k, v, out, lse, dout), (causal, None, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES, ids=str)
+def test_flash_bwd_kernels_match_plain(card, shape, dtype, tol):
+    # fp32 within 1e-5 of the largest magnitude (the kernels sum per tile,
+    # the plain version densely); bf16 within 2e-2 (both round the same f32
+    # sums to bf16, 2^-8 relative)
+    (q, k, v, out, lse, dout), args = _bwd_case(card, shape, dtype)
+    delta = flash_attn.bwd_delta(out, dout)
+    before = (flash_attn.dq_launches, flash_attn.dkv_launches)
+    dq = flash_attn.flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *args)
+    dk, dv = flash_attn.flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *args)
+    torch.cuda.synchronize()
+    assert (flash_attn.dq_launches, flash_attn.dkv_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = flash_attn.flash_bwd_ref(q, k, v, out, lse, dout, *args)
+    for g, w in zip((dq, dk, dv), want):
+        _assert_grad_close(g, w, tol)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_are_bitwise_repeatable(card):
+    (q, k, v, out, lse, dout), args = _bwd_case(
+        card, (2, 8, 2, 1000, 64, True, 256), torch.float32)
+    first = flash_attn.flash_bwd_cuda(q, k, v, out, lse, dout, *args)
+    second = flash_attn.flash_bwd_cuda(q, k, v, out, lse, dout, *args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_refuse_what_they_do_not_take(card):
+    (q, k, v, out, lse, dout), _ = _bwd_case(
+        card, (1, 4, 2, 128, 64, True, 0), torch.float32)
+    delta = flash_attn.bwd_delta(out, dout)
+    for fn in (flash_attn.flash_bwd_dq_cuda, flash_attn.flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="contiguous dout"):
+            fn(q, k, v, dout.transpose(2, 3).contiguous().transpose(2, 3),
+               lse, delta, True)
+        with pytest.raises(ValueError, match="contiguous dout"):
+            fn(q, k, v, dout.bfloat16(), lse, delta, True)
+        with pytest.raises(ValueError, match="float32 lse"):
+            fn(q, k, v, dout, lse[:, :, :64].contiguous(), delta, True)
+        with pytest.raises(ValueError, match="float32 delta"):
+            fn(q, k, v, dout, lse, delta.cpu(), True)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fn(q.double(), k.double(), v.double(), dout.double(), lse, delta,
+               True)
+        with pytest.raises(ValueError, match="needs causal"):
+            fn(q, k, v, dout, lse, delta, False, None, 16)
+
+
+@pytest.mark.cuda
+def test_lm_update_launches_each_flash_kernel_once_per_layer(card):
+    # one Net.update of a 4-block LM whose sequence takes the flash path:
+    # 4 forward, 4 dQ and 4 dK/dV launches, and the gradients of the step
+    # agree with the same step with flash_bwd_ref swapped in
+    cfg = models.transformer_lm_config(vocab=64, seq=256, batch_size=2,
+                                       dim=64, nhead=4, nlayer=4, dev="gpu",
+                                       attn_extra="nkvhead = 2\nrope = 1\n")
+    net = api.Net(dev="gpu", cfg=cfg + "seed = 1\n")
+    net.init_model()
+    rng = np.random.RandomState(2)
+    x = rng.randint(0, 64, (2, 1, 1, 256)).astype(np.float32)
+    y = rng.randint(0, 64, (2, 256)).astype(np.float32)
+    batch = DataBatch()
+    batch.data, batch.label, batch.batch_size = x, y, 2
+    _, grads = net.net_.loss_and_grads(batch)
+    kernel = flash_attn.flash_bwd_cuda
+    flash_attn.flash_bwd_cuda = flash_attn.flash_bwd_ref
+    try:
+        _, plain = net.net_.loss_and_grads(batch)
+    finally:
+        flash_attn.flash_bwd_cuda = kernel
+    for g, w in zip(grads, plain):
+        for key in g:
+            _assert_grad_close(g[key], w[key], 1e-4)
+    before = (flash_attn.launches, flash_attn.dq_launches,
+              flash_attn.dkv_launches)
+    net.update(x, y)
+    torch.cuda.synchronize()
+    assert (flash_attn.launches, flash_attn.dq_launches,
+            flash_attn.dkv_launches) == tuple(n + 4 for n in before)
 
 
 @pytest.mark.cuda
