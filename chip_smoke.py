@@ -8,21 +8,25 @@ drives the main paths through ``cxxnet_tpu_torch.api.Net(dev="gpu")``:
 AlexNet (example/ImageNet/ImageNet.conf at full width, 3x227x227 -> 1000,
 batch 256, random weights from a seed) in inference (``predict`` /
 ``extract``) and in training (``update`` steps with the config's own SGD
-settings and dropout on); then the transformer LM that bench.py measures
-(vocab 8192, d_model 512, 8 heads, 4 blocks, 2048 positions, fp32, random
-weights from a seed) served through KV-cached ``generate`` and a
-full-sequence ``predict_device``, and its long-context recipe (8192
+settings and dropout on) and its RReLU form (every relu made insanity,
+every max_pooling insanity_max_pooling, trained the same way, its noise
+drawn by the Philox kernel); then the transformer LM that bench.py
+measures (vocab 8192, d_model 512, 8 heads, 4 blocks, 2048 positions,
+fp32, random weights from a seed) served through KV-cached ``generate``
+and a full-sequence ``predict_device``, and its long-context recipe (8192
 positions, 2 kv heads, window 1024, RoPE); then both LMs trained through
-``update`` (the config's Adam, batch 8 and 2). Exits non-zero, with no
-result, when there is no card or any phase fails.
+``update`` (the config's Adam, batch 8 and 2); last the bench.py LM with 2
+heads (head dim 256) served and trained. Exits non-zero, with no result,
+when there is no card or any phase fails.
 
 Output, in order: the card's name and power limit (nvidia-smi), the build
 time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
-``alexnet_train``, ``flash_fwd_kernel``, ``lm_serve``, ``lm_serve_long``,
-``flash_bwd_kernel``, ``lm_train`` and ``lm_train_long`` (kernel checks,
-the main paths' checks, throughput and profiles), the wall time, then a
-JSON line ``{"kernels": [...]}`` and, last, the JSON result line
-``{"ok": true, "device": {...}}``.
+``alexnet_train``, ``uniform_kernel``, ``rrelu_alexnet_train``,
+``flash_fwd_kernel``, ``lm_serve``, ``lm_serve_long``,
+``flash_bwd_kernel``, ``lm_train``, ``lm_train_long`` and ``lm_hd256``
+(kernel checks, the main paths' checks, throughput and profiles), the
+wall time, then a JSON line ``{"kernels": [...]}`` and, last, the JSON
+result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -119,6 +123,7 @@ FLASH_SHAPES = [
     # head dims between the compiled widths (run in the next one)
     ("d8", 2, 4, 4, 512, 8, True, 0),
     ("d24_gqa_window", 2, 8, 2, 1000, 24, True, 256),
+    ("d200_window", 2, 4, 2, 1000, 200, True, 300),
 ]
 # kernel vs flash_fwd_ref: rtol 1e-5 (fp32) or 2e-2 (bf16, both round the
 # same f32 value to bf16, an f32 ulp apart can round one bf16 ulp apart)
@@ -152,6 +157,7 @@ FLASH_BWD_SHAPES = [
     ("d24_gqa", 2, 8, 2, 1000, 24, True, 0),
     ("d32_window", 2, 4, 2, 1000, 32, True, 100),
     ("d128_gqa", 2, 8, 2, 1024, 128, True, 0),
+    ("d200_window", 2, 4, 2, 1000, 200, True, 300),
 ]
 # backward kernels vs flash_bwd_ref: dq, dk, dv within 1e-5 (fp32) or 2e-2
 # (bf16) of the largest magnitude compared. The kernels sum per 64-wide
@@ -198,6 +204,43 @@ LM_LOSS_RTOL = 1e-5
 # the log-softmax to ~1e-6 of logits of magnitude ~10. Greedy tokens must
 # be equal wherever the plain run's top-2 margin exceeds twice that
 LOGP_TOL = 1e-4
+
+# the RReLU AlexNet: ImageNet.conf with its 7 relu layers made insanity
+# (slopes from U[3, 8], the range of Xu et al., arXiv:1505.00853) and its
+# 3 max_pooling layers made insanity_max_pooling (keep 0.75, each
+# displacement on 1/16 of the pixels); one uniform draw per layer and step
+RRELU = dict(lb=3.0, ub=8.0, keep=0.75)
+RRELU_LAYERS = {"insanity": 7, "insanity_max_pooling": 3}
+RRELU_RATE_STEPS = 5
+# the uniform kernel against uniform_ref, bitwise: (name, seed, shape). The
+# first is the main path's largest draw, conv1's output at batch 256
+UNIFORM_SHAPES = [
+    ("conv1", SEED, (BATCH, 96, 55, 55)),
+    ("n1", 1, (1,)),
+    ("n3", 2, (3,)),
+    ("n5", 3, (5,)),
+    ("n4k_plus_3", 4, (4 * 250000 + 3,)),
+    ("seed_above_2^32", (1 << 32) + 11, (BATCH, 256, 27, 27)),
+]
+# Philox4x32-10 per counter: 10 rounds of 2 low and 2 high 32-bit products
+# and 4 xors, 9 key bumps of 2 adds, then per word a shift, a conversion
+# and a multiply: ~110 integer operations per 4 elements
+UNIFORM_OPS_PER_ELEM = 28
+# the draw's statistics: mean and variance within 5 standard errors of 1/2
+# and 1/12; the one-sample Kolmogorov-Smirnov distance at 10^7 draws under
+# 2e-3 (its 1% critical value there is 5.2e-4)
+MOMENT_SIGMAS = 5
+KS_DRAWS, KS_BAR = 10 ** 7, 2e-3
+
+# the head-dim-256 LM: the bench.py LM with 2 heads, so d_model 512 / 2 =
+# 256 per head, fp32; served through generate and trained through update
+HD256_ARGS = dict(LM_ARGS, nhead=2)
+HD256_NEW = 16
+HD256_TRAIN_STEPS = 2
+HD256_FLASH = [("lm_hd256", LM_BATCH, 2, 2, LM_SEQ, 256, True, 0)]
+
+# fp32 kernel times by (kernel, shape name), filled by the kernel phases
+KERNEL_MS = {}
 
 
 def log(msg: str) -> None:
@@ -880,16 +923,18 @@ def sdpa_ms(F, q, k, v, causal, window, ref_out):
     return time_ms(call)
 
 
-def phase_flash_fwd_kernel(flash):
-    """The flash attention kernel against flash_fwd_ref on the card at the
-    LM's shapes and the edge shapes (ragged L, non-causal, d 16 and 128,
-    grouped kv heads with a window), fp32 and bf16; returns the per-kernel
-    record of the main path's shape (one prefill launch, fp32)."""
+def phase_flash_fwd_kernel(flash, shapes=None, phase="flash_fwd_kernel"):
+    """The flash attention kernel against flash_fwd_ref on the card at
+    ``shapes`` (by default the LM's and the edge shapes: ragged L,
+    non-causal, d 8-256, grouped kv heads with a window), fp32 and bf16;
+    returns the per-kernel record of the first shape (the main path's: one
+    launch, fp32). Every fp32 time lands in KERNEL_MS."""
     import torch.nn.functional as F
-    log("phase flash_fwd_kernel")
+    log("phase %s" % phase)
+    shapes = shapes or FLASH_SHAPES
     rec = _new_rec()
     rng = np.random.RandomState(SEED + 4)
-    for name, b, h, nkv, L, d, causal, window in FLASH_SHAPES:
+    for name, b, h, nkv, L, d, causal, window in shapes:
         host = [torch.from_numpy(rng.randn(b, n, L, d).astype(np.float32))
                 for n in (h, nkv, nkv)]
         for dtype in (torch.float32, torch.bfloat16):
@@ -927,11 +972,12 @@ def phase_flash_fwd_kernel(flash):
                 "kernel/bound %.2f"
                 % (kernel_ms, plain_ms, library_ms, bound_ms, bound_by,
                    ops_n, peak / 1e12, nbytes, kernel_ms / bound_ms))
-            if name == FLASH_SHAPES[0][0] and dtype == torch.float32:
+            if name == shapes[0][0] and dtype == torch.float32:
                 _add_fp32(rec, kernel_ms, plain_ms, library_ms, bound_ms,
                           bound_by)
             if dtype == torch.float32:
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                KERNEL_MS[("flash_fwd", name)] = kernel_ms
             del q, k, v, out, lse
         torch.cuda.empty_cache()
     return rec
@@ -949,16 +995,17 @@ def plain_flash(flash):
         flash.flash_fwd_cuda = kernel
 
 
-def lm_cfg(models, seq, batch, attn_extra="", dev=None):
+def lm_cfg(models, seq, batch, attn_extra="", dev=None, args=None):
     """The bench.py LM's config (the port's transformer_lm_config) at
-    (seq, batch), weights from SEED."""
+    (seq, batch), weights from SEED; ``args`` replaces its widths."""
     return models.transformer_lm_config(
         seq=seq, batch_size=batch, dev=dev or NET_DEV, attn_extra=attn_extra,
-        **LM_ARGS) + "seed = %d\n" % SEED
+        **(args or LM_ARGS)) + "seed = %d\n" % SEED
 
 
-def lm_net(api, models, seq, batch, attn_extra=""):
-    net = api.Net(dev=NET_DEV, cfg=lm_cfg(models, seq, batch, attn_extra))
+def lm_net(api, models, seq, batch, attn_extra="", args=None):
+    net = api.Net(dev=NET_DEV, cfg=lm_cfg(models, seq, batch, attn_extra,
+                                          args=args))
     t0 = time.time()
     net.init_model()
     torch.cuda.synchronize()
@@ -1233,19 +1280,21 @@ def sdpa_bwd_ms(F, q, k, v, dout, causal, window, ref):
     return time_ms(call, iters=5, warmup=1)
 
 
-def phase_flash_bwd_kernel(flash):
-    """The dQ and dK/dV kernels against flash_bwd_ref on the card at the
-    LM training shapes and the edge shapes (ragged L, non-causal, one kv
-    head, window 64, d 8-128), fp32 and bf16, on the forward kernel's out
-    and lse; two runs held bitwise equal; returns the per-kernel records of
-    the main path's shape (one fp32 launch each at the bench.py LM's
-    step). The plain and library times are those of the whole backward
-    (dq, dk and dv in one call)."""
+def phase_flash_bwd_kernel(flash, shapes=None, phase="flash_bwd_kernel"):
+    """The dQ and dK/dV kernels against flash_bwd_ref on the card at
+    ``shapes`` (by default the LM training shapes and the edge shapes:
+    ragged L, non-causal, one kv head, window 64, d 8-256), fp32 and bf16,
+    on the forward kernel's out and lse; two runs held bitwise equal;
+    returns the per-kernel records of the first shape (the main path's:
+    one fp32 launch each). The plain and library times are those of the
+    whole backward (dq, dk and dv in one call). Every fp32 time lands in
+    KERNEL_MS."""
     import torch.nn.functional as F
-    log("phase flash_bwd_kernel")
+    log("phase %s" % phase)
+    shapes = shapes or FLASH_BWD_SHAPES
     recs = {"dq": _new_rec(), "dkv": _new_rec()}
     rng = np.random.RandomState(SEED + 8)
-    for name, b, h, nkv, L, d, causal, window in FLASH_BWD_SHAPES:
+    for name, b, h, nkv, L, d, causal, window in shapes:
         host = [torch.from_numpy(rng.randn(b, n, L, d).astype(np.float32))
                 for n in (h, nkv, nkv, h)]
         for dtype in (torch.float32, torch.bfloat16):
@@ -1296,13 +1345,13 @@ def phase_flash_bwd_kernel(flash):
                     "at %.0f TFLOP/s, %d bytes, %.4f ms) kernel/bound %.2f"
                     % (key, ms, bound_ms, bound_by, ops_n, peak / 1e12,
                        nbytes, bytes_ms, ms / bound_ms))
-                if name == FLASH_BWD_SHAPES[0][0] and \
-                        dtype == torch.float32:
+                if name == shapes[0][0] and dtype == torch.float32:
                     _add_fp32(recs[key], ms, plain_ms, library_ms, bound_ms,
                               bound_by)
                 if dtype == torch.float32:
                     recs[key]["max_abs_err"] = max(recs[key]["max_abs_err"],
                                                    err)
+                    KERNEL_MS[("flash_bwd_" + key, name)] = ms
             log("  whole backward: kernels %.4f ms + D reduction %.4f ms; "
                 "plain_ms %.4f library_ms %s"
                 % (dq_ms + dkv_ms, delta_ms, plain_ms, library_ms))
@@ -1589,6 +1638,424 @@ def phase_lm_train(flash, api, models, ops, phase, seq, batch, extra,
     return counts
 
 
+def phase_uniform_kernel(rnd):
+    """The uniform kernel against uniform_ref on the card, bitwise, at the
+    main path's largest draw and at edge sizes (n 1, 3, 5, 4 k + 3, a seed
+    above 2^32); on conv1's draw the range, the 24-bit ladder, the mean and
+    variance, the Kolmogorov-Smirnov distance at 10^7 draws, two seeds and
+    the seeds of two layers of one training step apart; times against the
+    bound, the plain version and torch.rand. Returns the per-kernel record
+    of conv1's draw."""
+    from cxxnet_tpu_torch.layer.base import fold_in
+    log("phase uniform_kernel")
+    rec = _new_rec()
+    for name, seed, shape in UNIFORM_SHAPES:
+        got = rnd.uniform_cuda(seed, shape, DEV)
+        torch.cuda.synchronize()
+        same = torch.equal(got, rnd.uniform_ref(seed, shape, DEV))
+        log(" %s seed %d shape %s: kernel vs uniform_ref bitwise %s"
+            % (name, seed, shape, "equal" if same else "DIFFERENT"))
+        if not same:
+            raise AssertionError("uniform kernel differs from uniform_ref")
+        if name == UNIFORM_SHAPES[0][0]:
+            _uniform_stats(rnd, fold_in, got, seed, shape)
+            rec.update(_uniform_times(rnd, seed, shape))
+        del got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _uniform_stats(rnd, fold_in, u, seed, shape):
+    n = u.numel()
+    lo, hi = float(u.min()), float(u.max())
+    scaled = u.double() * 2 ** 24
+    ladder = bool(torch.equal(scaled, scaled.round()))
+    del scaled
+    mean, var = float(u.double().mean()), float(u.double().var())
+    se_mean = (1 / 12 / n) ** 0.5
+    se_var = ((1 / 80 - 1 / 144) / n) ** 0.5
+    m = min(n, KS_DRAWS)
+    s = torch.sort(u.reshape(-1)[:m].double())[0]
+    i = torch.arange(1, m + 1, dtype=torch.float64, device=s.device)
+    ks = float(torch.maximum(i / m - s, s - (i - 1) / m).max())
+    del s, i
+    ok = (0.0 <= lo and hi < 1.0 and ladder
+          and abs(mean - 0.5) <= MOMENT_SIGMAS * se_mean
+          and abs(var - 1 / 12) <= MOMENT_SIGMAS * se_var and ks < KS_BAR)
+    log("  range [%.9f, %.9f], on the 2^-24 ladder: %s; mean %.9f (1/2 "
+        "within %.0f se = %.2e), variance %.9f (1/12 within %.0f se = "
+        "%.2e); KS distance at %d draws %.3e (bar %.0e) %s"
+        % (lo, hi, ladder, mean, MOMENT_SIGMAS, MOMENT_SIGMAS * se_mean, var,
+           MOMENT_SIGMAS, MOMENT_SIGMAS * se_var, m, ks, KS_BAR,
+           "ok" if ok else "FAILED"))
+    if not ok:
+        raise AssertionError("uniform draw fails its statistics")
+    # two seeds, and the seeds of layers 1 and 2 (conv1's insanity and the
+    # insanity pooling after it) in the first update of a net of seed SEED:
+    # the trainer folds the step into the seed, the net the connection
+    step = fold_in(SEED, 1)
+    for what, sa, sb in (("seed %d vs seed %d" % (seed, seed + 1), seed,
+                          seed + 1),
+                         ("layers 1 and 2 of one step", fold_in(step, 1),
+                          fold_in(step, 2))):
+        a = rnd.uniform_cuda(sa, shape, DEV)
+        b = rnd.uniform_cuda(sb, shape, DEV)
+        equal = float((a == b).double().mean())
+        corr = float(torch.corrcoef(torch.stack([a.reshape(-1)[:m],
+                                                 b.reshape(-1)[:m]])
+                                    .double())[0, 1])
+        ok = equal < 1e-5 and abs(corr) < MOMENT_SIGMAS / m ** 0.5
+        log("  %s: share of equal elements %.3e (bar 1e-5), correlation "
+            "over %d draws %.3e (bar %.1e) %s"
+            % (what, equal, m, corr, MOMENT_SIGMAS / m ** 0.5,
+               "ok" if ok else "FAILED"))
+        if not ok:
+            raise AssertionError("two uniform streams are not apart")
+        del a, b
+
+
+def _uniform_times(rnd, seed, shape):
+    n = int(np.prod(shape))
+    kernel_ms = time_ms(lambda: rnd.uniform_cuda(seed, shape, DEV))
+    plain_ms = time_ms(lambda: rnd.uniform_ref(seed, shape, DEV), iters=3,
+                       warmup=1)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    library_ms = time_ms(lambda: torch.rand(shape, generator=gen,
+                                            device=DEV))
+    bound_ms, bound_by, bytes_ms, ops_ms = _bound(n, 4 * n,
+                                                  UNIFORM_OPS_PER_ELEM)
+    log("  kernel_ms %.4f plain_ms %.4f library_ms %.4f (torch.rand on a "
+        "CUDA generator) bound_ms %.4f (%s: %d bytes written, %.4f ms; "
+        "%d operations at %.0f TOP/s, %.4f ms) kernel/bound %.2f"
+        % (kernel_ms, plain_ms, library_ms, bound_ms, bound_by, 4 * n,
+           bytes_ms, n * UNIFORM_OPS_PER_ELEM, FP32_OPS_PER_S / 1e12, ops_ms,
+           kernel_ms / bound_ms))
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _insanity_layers(net):
+    return [lay for lay in net.net_.net.layers if lay.type_name == "insanity"]
+
+
+@contextlib.contextmanager
+def recorded_signs(net):
+    """Record the sign mask (input > 0) that each insanity layer of
+    ``net`` applies in the forwards run inside the block."""
+    signs = {}
+    for lay in _insanity_layers(net):
+        def forward(params, inputs, ctx, lay=lay, real=lay.forward):
+            signs[id(lay)] = inputs[0] > 0
+            return real(params, inputs, ctx)
+        lay.forward = forward
+    try:
+        yield signs
+    finally:
+        for lay in _insanity_layers(net):
+            del lay.forward
+
+
+def take_card_signs(card, cpu, signs):
+    """Give the insanity layers of the CPU net the card's sign masks
+    (recorded in the card's step): the same slopes (the same draw), but
+    the card's choice of which elements are negative. A pre-activation
+    within rounding of 0 can fall on the other side of 0 on the two
+    devices, which changes its gradient by the factor 1 - 1/slope, far
+    beyond any summation-order tolerance; with the card's signs the two
+    sides differ by rounding alone. Returns a list that the CPU step fills
+    with (flips, elements) per layer."""
+    from cxxnet_tpu_torch.layer import layers as L
+    seen = []
+    for lay_card, lay in zip(_insanity_layers(card), _insanity_layers(cpu)):
+        keep = signs[id(lay_card)].cpu()
+
+        def forward(params, inputs, ctx, lay=lay, keep=keep):
+            x = inputs[0]
+            seen.append((int((keep != (x > 0)).sum()), x.numel()))
+            lb, ub = lay._bounds(ctx.epoch)
+            slope = L.draw_uniform(ctx, x.shape, x.device) * (ub - lb) + lb
+            return [torch.where(keep, x, x / slope)]
+        lay.forward = forward
+    return seen
+
+
+def rrelu_card_vs_cpu(api, fname, cfg, x, y):
+    """(params before, after one update on the card, after the same
+    update on the CPU path with the card's insanity signs, moved to the
+    card); prints the sign flips the CPU run took over."""
+    card = api.Net(dev=NET_DEV, cfg=cfg)
+    card.load_model(fname)
+    before = _params(card)
+    with recorded_signs(card) as signs:
+        card.update(x, y)
+    cpu = api.Net(dev="cpu", cfg=cfg)
+    cpu.load_model(fname)
+    seen = take_card_signs(card, cpu, signs)
+    cpu.update(x, y)
+    log("  insanity inputs: %d of %d elements fall on the other side of 0 "
+        "on the card and on the CPU (per layer %s); the CPU step takes the "
+        "card's signs" % (sum(f for f, _ in seen), sum(n for _, n in seen),
+                          [f for f, _ in seen]))
+    return before, _params(card), [{k: v.detach().to(DEV)
+                                     for k, v in p.items()}
+                                    for p in cpu.net_.params]
+
+
+def noise_layers_ms(rnd, net):
+    """Device ms per training step of the RReLU layers' work, timed alone
+    on their own shapes with CUDA events: the 10 draws; the 7 insanity
+    layers' forward (draw, affine, xelu) and backward, beside relu's on the
+    same inputs; the 3 insanity pooling layers' forward (draw, bands,
+    index, gather, max pool) and backward, beside a plain max pool's."""
+    from cxxnet_tpu_torch.layer.base import ApplyContext
+    t = net.net_
+
+    def inputs(kind):
+        out = []
+        for i, lay in enumerate(t.net.layers):
+            if lay.type_name == kind:
+                info = t.net_cfg.layers[i]
+                x = torch.randn(t.net.node_shapes[info.nindex_in[0]],
+                                device=DEV).requires_grad_()
+                g = torch.randn(t.net.node_shapes[info.nindex_out[0]],
+                                device=DEV)
+                out.append((lay, x, g))
+        return out
+    ins, pools = inputs("insanity"), inputs("insanity_max_pooling")
+    train = ApplyContext(train=True,
+                         gen=torch.Generator(device=DEV).manual_seed(SEED))
+
+    def draws():
+        for _, x, _ in ins + pools:
+            rnd.uniform_cuda(SEED, x.shape, DEV)
+
+    def fwd_bwd(layers, fn):
+        def run():
+            for lay, x, g in layers:
+                torch.autograd.grad(fn(lay, x), x, g)
+        return time_ms(run, iters=10)
+    return {
+        "draws": time_ms(draws, iters=10),
+        "insanity": fwd_bwd(ins, lambda lay, x: lay.forward({}, [x],
+                                                            train)[0]),
+        "relu": fwd_bwd(ins, lambda lay, x: torch.relu(x)),
+        "insanity_pool": fwd_bwd(pools, lambda lay, x: lay.forward(
+            {}, [x], train)[0]),
+        "max_pool": fwd_bwd(pools, lambda lay, x: lay.forward(
+            {}, [x], ApplyContext())[0])}
+
+
+def phase_rrelu_alexnet_train(rnd, lrn, api, ops, models):
+    """The RReLU AlexNet trained through the port's API on the card: 10
+    uniform draws (7 insanity, 3 pooling) and 2 + 2 LRN launches per update,
+    the loss falling, one step card vs CPU with the noise on, images/s
+    against AlexNet's in turns, step profiles; returns the (uniform, LRN
+    forward, LRN backward) launches counted while the main path ran."""
+    log("phase rrelu_alexnet_train")
+    cfg = models.rrelu_config(imagenet_cfg(), **RRELU)
+    net = api.Net(dev=NET_DEV, cfg=cfg)
+    net.init_model()
+    types = [lay.type_name for lay in net.net_.net.layers]
+    found = {k: types.count(k) for k in RRELU_LAYERS}
+    log("  layers: %s, relu %d, max_pooling %d"
+        % (found, types.count("relu"), types.count("max_pooling")))
+    if found != RRELU_LAYERS or "relu" in types or "max_pooling" in types:
+        raise AssertionError("not the RReLU AlexNet")
+    per_step = sum(RRELU_LAYERS.values())
+    rng = np.random.RandomState(SEED + 10)
+    x = rng.randn(BATCH, 3, 227, 227).astype(np.float32)
+    y = rng.randint(0, 1000, size=BATCH).astype(np.float32)
+    fname = scratch_file("chip_smoke_rrelu.model")
+    net.save_model(fname)
+    start = _params(net)
+    loss0 = cross_entropy(net.extract(x, "top[-1]"), y)
+
+    # the main path: the counts start at 0 here and are read right after
+    rnd.launches = lrn.launches = lrn.bwd_launches = 0
+    t = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        net.update(x, y)
+        counts = (rnd.launches, lrn.launches, lrn.bwd_launches)
+        if counts != (per_step * (step + 1), 2 * step + 2, 2 * step + 2):
+            raise AssertionError(
+                "expected %d uniform draws and 2 + 2 LRN launches per "
+                "update, counted %s after %d updates"
+                % (per_step, counts, step + 1))
+    torch.cuda.synchronize()
+    log("  %d update steps in %.2f s (first steps included); uniform, "
+        "lrn_fwd, lrn_bwd launches %s: %d + 2 + 2 in every update"
+        % (TRAIN_STEPS, time.perf_counter() - t, counts, per_step))
+    loss1 = cross_entropy(net.extract(x, "top[-1]"), y)
+    log("  fixed-batch cross-entropy %.6f before, %.6f after %d steps at "
+        "the config's learning rates" % (loss0, loss1, TRAIN_STEPS))
+    if not (np.isfinite(loss1) and loss1 < loss0):
+        raise AssertionError("RReLU training loss did not fall: %r -> %r"
+                             % (loss0, loss1))
+    for i, (p0, p1) in enumerate(zip(start, _params(net))):
+        for k in p0:
+            if not bool(torch.isfinite(p1[k]).all()) \
+                    or torch.equal(p0[k], p1[k]):
+                raise AssertionError("layer %d %s not finite or unchanged"
+                                     % (i, k))
+    log("  every parameter changed and is finite")
+
+    # the card against the port's CPU path, noise on (both draw the same
+    # bits), dropout off: one step on 4 images, cuDNN off and on, the CPU
+    # run taking the card's insanity signs (take_card_signs)
+    cfg0 = cfg.replace("threshold = 0.5", "threshold = 0")
+    for what, ctx in (("cuDNN off", cudnn_off()),
+                      ("cuDNN on", contextlib.nullcontext())):
+        with ctx:
+            before = rnd.launches
+            p0, on_card, on_cpu = rrelu_card_vs_cpu(api, fname, cfg0, x[:4],
+                                                    y[:4])
+            if rnd.launches != before + per_step:
+                raise AssertionError("the card step launched %d draws, the "
+                                     "CPU step must launch none"
+                                     % (rnd.launches - before))
+        compare_params("one step (4 images, noise on, no dropout, %s), card "
+                       "vs CPU path" % what, on_card, on_cpu, p0,
+                       CPU_STEP_RTOL, CPU_STEP_ATOL_UPDATE)
+        del on_card, on_cpu, p0
+    os.remove(fname)
+
+    # images/s: through Net.update on numpy, then with the batch on the
+    # card, the RReLU AlexNet and AlexNet (relu, max pooling) in turns
+    relu = api.Net(dev=NET_DEV, cfg=imagenet_cfg())
+    relu.init_model()
+    from cxxnet_tpu_torch.io import DataBatch
+    batch = DataBatch()
+    batch.data = torch.from_numpy(x).to(DEV)
+    batch.label = torch.from_numpy(y.reshape(-1, 1)).to(DEV)
+    batch.batch_size = BATCH
+
+    def images_per_s(step):
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(RRELU_RATE_STEPS):
+            step()
+            torch.cuda.synchronize()
+        return BATCH * RRELU_RATE_STEPS / (time.perf_counter() - t)
+    steps = {"rrelu": lambda: net.net_.update(batch),
+             "relu": lambda: relu.net_.update(batch)}
+    log("  RReLU AlexNet fp32 training batch %d through Net.update (numpy): "
+        "%.1f images/s" % (BATCH, images_per_s(lambda: net.update(x, y))))
+    rates = {"rrelu": [], "relu": []}
+    for which in ("rrelu", "relu", "relu", "rrelu"):
+        rates[which].append(images_per_s(steps[which]))
+    log("  fp32 training batch %d, batch on the card: %s images/s RReLU "
+        "AlexNet, %s AlexNet (in turns RReLU, AlexNet, AlexNet, RReLU); "
+        "RReLU / AlexNet %.4f"
+        % (BATCH, " / ".join("%.1f" % r for r in rates["rrelu"]),
+           " / ".join("%.1f" % r for r in rates["relu"]),
+           sum(rates["rrelu"]) / sum(rates["relu"])))
+    busy = profile_forward(steps["rrelu"], unit="step",
+                           shares=("uniform_kernel", "lrn_fwd", "lrn_bwd"))
+    busy_relu = profile_forward(steps["relu"], unit="step",
+                                shares=("lrn_fwd", "lrn_bwd"))
+    ms = noise_layers_ms(rnd, net)
+    extra = ms["insanity"] - ms["relu"] + ms["insanity_pool"] \
+        - ms["max_pool"]
+    log("  timed alone on their shapes, per step: the 10 draws %.3f ms; the "
+        "7 insanity layers forward + backward %.3f ms (relu there %.3f); "
+        "the 3 insanity pooling layers %.3f ms (max pooling there %.3f); "
+        "together %.3f ms over AlexNet's layers"
+        % (ms["draws"], ms["insanity"], ms["relu"], ms["insanity_pool"],
+           ms["max_pool"], extra))
+    if busy and busy_relu:
+        log("  RReLU step %.3f ms vs AlexNet step %.3f ms of device time "
+            "(+%.3f ms); of the RReLU step: draws %.1f%%, insanity layers "
+            "%.1f%%, insanity pooling layers %.1f%%"
+            % (busy, busy_relu, busy - busy_relu, 100 * ms["draws"] / busy,
+               100 * ms["insanity"] / busy, 100 * ms["insanity_pool"] / busy))
+    del net, relu, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_lm_hd256(flash, api, models):
+    """Head dim 256: the three flash kernels against their plain versions
+    at the nhead-2 LM's shape, fp32 and bf16, with times beside d 64's at
+    equal b h d; the nhead-2 LM served through generate (held to the
+    plain-flash run) and trained through update (gradients held to the
+    plain backward's). Returns (kernel records by kernel, launches of the
+    request, (forward, dQ, dK/dV) launches of the training steps)."""
+    log("phase lm_hd256 (bench.py LM with nhead 2: head dim 256)")
+    recs = {"flash_fwd": phase_flash_fwd_kernel(flash, HD256_FLASH,
+                                                "lm_hd256 flash_fwd_kernel")}
+    bwd = phase_flash_bwd_kernel(flash, HD256_FLASH,
+                                 "lm_hd256 flash_bwd_kernel")
+    recs["flash_bwd_dq"], recs["flash_bwd_dkv"] = bwd["dq"], bwd["dkv"]
+    for kernel, d64 in (("flash_fwd", "lm_full_sequence"),
+                        ("flash_bwd_dq", "lm_train"),
+                        ("flash_bwd_dkv", "lm_train")):
+        a, b = KERNEL_MS.get((kernel, "lm_hd256")), KERNEL_MS.get((kernel,
+                                                                   d64))
+        if a and b:
+            log("  %s fp32: d 256 (%s) %.4f ms vs d 64 (%s) %.4f ms, ratio "
+                "%.3f" % (kernel, HD256_FLASH[0][0], a, d64, b, a / b))
+    nlayer = HD256_ARGS["nlayer"]
+    net = lm_net(api, models, LM_SEQ, LM_BATCH, args=HD256_ARGS)
+    rng = np.random.RandomState(SEED + 11)
+    prompts = rng.randint(0, LM_ARGS["vocab"], (LM_BATCH, LM_PROMPT))
+
+    # the serving path: the counts start at 0 here and are read right after
+    flash.launches = 0
+    t = time.perf_counter()
+    got = net.generate(prompts, HD256_NEW)
+    wall = time.perf_counter() - t
+    serve = flash.launches
+    log("  generate (batch %d, prompt %d, %d new tokens): %.3f s wall, "
+        "flash_fwd launches %d (%d expected)"
+        % (LM_BATCH, LM_PROMPT, HD256_NEW, wall, serve, nlayer))
+    if serve != nlayer or got.shape != (LM_BATCH, HD256_NEW):
+        raise AssertionError("head dim 256 request: %d launches, tokens %s"
+                             % (serve, got.shape))
+    check_request(flash, net, prompts, np.full(LM_BATCH, LM_PROMPT), got)
+
+    # the training path: the counts start at 0 here and are read right after
+    x = rng.randint(0, LM_ARGS["vocab"], (LM_BATCH, 1, 1, LM_SEQ)).astype(
+        np.float32)
+    y = rng.randint(0, LM_ARGS["vocab"], (LM_BATCH, LM_SEQ)).astype(
+        np.float32)
+    loss0 = lm_loss(net, x, y)
+    batch_dev = lm_batch(x, y, DEV)
+    batch_dev.data = batch_dev.data.long()
+
+    def hold_grads(when):
+        _, with_kernel = net.net_.loss_and_grads(batch_dev)
+        with plain_flash_backward(flash):
+            _, with_plain = net.net_.loss_and_grads(batch_dev)
+        compare_grads("gradients %s, kernels vs flash_bwd_ref swapped in"
+                      % when, with_kernel, with_plain, LM_GRAD_TOL)
+    hold_grads("of the first step")
+    flash.launches = flash.dq_launches = flash.dkv_launches = 0
+    t = time.perf_counter()
+    for step in range(HD256_TRAIN_STEPS):
+        net.update(x, y)
+        counts = (flash.launches, flash.dq_launches, flash.dkv_launches)
+        if counts != (nlayer * (step + 1),) * 3:
+            raise AssertionError("expected %d launches of each flash kernel "
+                                 "per update, counted %s" % (nlayer, counts))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    loss1 = lm_loss(net, x, y)
+    log("  %d update steps in %.3f s (first steps included), %s launches; "
+        "fixed-batch cross-entropy %.6f before, %.6f after at the config's "
+        "eta %g (reported: see LM_LOSS_ETA)"
+        % (HD256_TRAIN_STEPS, wall, counts, loss0, loss1, LM_ETA))
+    for i, p in enumerate(_params(net)):
+        for k, v in p.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError("layer %d %s not finite" % (i, k))
+    hold_grads("after the %d steps" % HD256_TRAIN_STEPS)
+    del net, batch_dev
+    torch.cuda.empty_cache()
+    return recs, serve, counts
+
+
 def profile_forward(forward, iters: int = 3, top: int = 8,
                     unit: str = "forward", shares=("lrn_fwd",)) -> None:
     """Where a forward's (or a training step's, or a request's) device
@@ -1639,6 +2106,7 @@ def main() -> int:
         return 1
     from cxxnet_tpu_torch import api, models, ops
     from cxxnet_tpu_torch.ops import _build, flash_attn, lrn
+    from cxxnet_tpu_torch.ops import random as rnd
 
     log(nvidia_smi())
     log("torch %s cuda %s, %s" % (torch.__version__, torch.version.cuda,
@@ -1654,24 +2122,34 @@ def main() -> int:
     pred_launches = phase_alexnet_pred(lrn, api)
     bwd_rec = phase_lrn_bwd_kernel(lrn)
     train_fwd, train_bwd = phase_alexnet_train(lrn, api, ops)
+    uniform_rec = phase_uniform_kernel(rnd)
+    rrelu = phase_rrelu_alexnet_train(rnd, lrn, api, ops, models)
     flash_rec = phase_flash_fwd_kernel(flash_attn)
     serve_launches = phase_lm_serve(flash_attn, api, models)
     long_launches = phase_lm_serve_long(flash_attn, api, models)
     bwd_recs = phase_flash_bwd_kernel(flash_attn)
     train = {spec[0]: phase_lm_train(flash_attn, api, models, ops, *spec)
              for spec in LM_TRAIN}
+    hd256_recs, hd256_serve, hd256_train = phase_lm_hd256(flash_attn, api,
+                                                          models)
+    train["lm_hd256_train"] = hd256_train
     per_step = {"train_step": LM_ARGS["nlayer"]}
     log("wall time %.1f s" % (time.time() - t0))
     kernels = []
     for name, rec, replaces, by_path, per in (
             ("lrn_fwd", fwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:78",
-             {"alexnet_pred": pred_launches, "alexnet_train": train_fwd},
+             {"alexnet_pred": pred_launches, "alexnet_train": train_fwd,
+              "rrelu_alexnet_train": rrelu[1]},
              {"train_step": train_fwd // TRAIN_STEPS}),
             ("lrn_bwd", bwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:98",
-             {"alexnet_train": train_bwd},
+             {"alexnet_train": train_bwd, "rrelu_alexnet_train": rrelu[2]},
              {"train_step": train_bwd // TRAIN_STEPS}),
+            ("uniform", uniform_rec, "cxxnet_tpu/ops/pallas_kernels.py:169",
+             {"rrelu_alexnet_train": rrelu[0]},
+             {"train_step": rrelu[0] // TRAIN_STEPS}),
             ("flash_fwd", flash_rec, "cxxnet_tpu/ops/flash_attn.py:284",
              {"lm_serve": serve_launches, "lm_serve_long": long_launches,
+              "lm_hd256_serve": hd256_serve,
               **{p: c[0] for p, c in train.items()}},
              {"generate_request": LM_ARGS["nlayer"],
               "full_sequence_forward": LM_ARGS["nlayer"], **per_step}),
@@ -1694,6 +2172,11 @@ def main() -> int:
         if name.startswith("flash_bwd"):
             kernels[-1]["plain_and_library_cover"] = \
                 "the whole backward: dq, dk and dv in one call"
+        if name in hd256_recs:
+            kernels[-1]["head_dim_256"] = {
+                k: hd256_recs[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms",
+                                                 "max_abs_err")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,7 +30,11 @@
 // past L contribute exactly nothing: their p is set to 0 and their lse is
 // never read (JAX gets this from zero-padded dO). A masked pair gets p = 0
 // outright, so exp never sees NEG_INF. Head dim 128 runs 256 threads (32
-// column lanes) so that dK and dV stay at 2 x 8 x 4 registers.
+// column lanes) so that dK and dV stay at 2 x 8 x 4 registers. Head dim 256
+// gives a block 32 keys (4 row groups) and 64 column lanes, again 256
+// threads and 2 x 8 x 4 accumulator registers: at 64 keys its K^T, V^T,
+// Q, dO, P^T and dS^T tiles would take 299 KB of shared memory, over the
+// 227 KB a block may opt into; at 32 they take 219 KB.
 //
 // Bound. 8 d flops per (query, key) pair the mask keeps (S, dV, dP, dK),
 // at 67 TFLOP/s fp32: for the bench.py LM's step (b 8, h 8, L 2048, d 64,
@@ -47,17 +51,19 @@ using namespace flash;
 
 template <int D>
 struct Tiles {
-  static constexpr int TX = D == 128 ? 32 : 16;  // column lanes
-  static constexpr int kThreads = 8 * TX;        // 8 row groups
-  static constexpr int kRows = 8;                // key rows per thread
-  static constexpr int NC = kBQ / TX;            // query columns per thread
-  static constexpr int NA = D / TX;              // dK, dV columns per thread
-  static constexpr int kPadD = D + 1;            // row stride of Q and dO
-  // K^T, V^T [D][kPadQ]; Q, dO [kBQ][kPadD]; P^T, dS^T [kBQ][kPadQ];
+  static constexpr int BK = D == 256 ? 32 : kBK;  // keys per block
+  static constexpr int TX = D == 256 ? 64 : D == 128 ? 32 : 16;  // lanes
+  static constexpr int kRows = 8;                 // key rows per thread
+  static constexpr int kThreads = BK / kRows * TX;  // BK / 8 row groups
+  static constexpr int NC = kBQ / TX;             // query columns per thread
+  static constexpr int NA = D / TX;               // dK, dV columns per thread
+  static constexpr int kPadD = D + 1;             // row stride of Q and dO
+  static constexpr int kPadKey = BK + 4;          // row stride of key rows
+  // K^T, V^T [D][kPadKey]; Q, dO [kBQ][kPadD]; P^T, dS^T [kBQ][kPadKey];
   // lse, D [kBQ]
   static constexpr size_t smem =
-      sizeof(float) * (size_t)(2 * D * kPadQ + 2 * kBQ * kPadD +
-                               2 * kBQ * kPadQ + 2 * kBQ);
+      sizeof(float) * (size_t)(2 * D * kPadKey + 2 * kBQ * kPadD +
+                               2 * kBQ * kPadKey + 2 * kBQ);
 };
 
 template <typename T, int D, bool kExact>
@@ -72,15 +78,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d = kExact ? D : d_in;
   using C = Tiles<D>;
   constexpr int TX = C::TX, kRows = C::kRows, NC = C::NC, NA = C::NA;
-  constexpr int kPadD = C::kPadD;
+  constexpr int kPadD = C::kPadD, BK = C::BK, kPadKey = C::kPadKey;
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;
-  float* vt = kt + D * kPadQ;
-  float* qs = vt + D * kPadQ;
+  float* vt = kt + D * kPadKey;
+  float* qs = vt + D * kPadKey;
   float* dos = qs + kBQ * kPadD;
   float* pt = dos + kBQ * kPadD;
-  float* dst = pt + kBQ * kPadQ;
-  float* lse_s = dst + kBQ * kPadQ;
+  float* dst = pt + kBQ * kPadKey;
+  float* lse_s = dst + kBQ * kPadKey;
   float* d_s = lse_s + kBQ;
 
   const int tid = threadIdx.x;
@@ -88,14 +94,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t bkv = blockIdx.x;  // batch * kv_heads + kv head
   const int kv_heads = heads / group;
   const int64_t batch = bkv / kv_heads, kvh = bkv % kv_heads;
-  const int64_t k0 = (int64_t)blockIdx.y * kBK;
+  const int64_t k0 = (int64_t)blockIdx.y * BK;
   const T* kp = k + bkv * L * d;
   const T* vp = v + bkv * L * d;
 
-  for (int idx = tid; idx < kBK * D; idx += C::kThreads) {
+  for (int idx = tid; idx < BK * D; idx += C::kThreads) {
     const int r = idx / D, c = idx % D;
-    kt[c * kPadQ + r] = load_or_zero<kExact>(kp, k0 + r, L, c, d);
-    vt[c * kPadQ + r] = load_or_zero<kExact>(vp, k0 + r, L, c, d);
+    kt[c * kPadKey + r] = load_or_zero<kExact>(kp, k0 + r, L, c, d);
+    vt[c * kPadKey + r] = load_or_zero<kExact>(vp, k0 + r, L, c, d);
   }
   float acc_k[kRows][NA], acc_v[kRows][NA];
 #pragma unroll
@@ -104,7 +110,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NA; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
   int64_t q_begin, q_end;
-  q_tiles_for_kv(k0, L, causal, window, &q_begin, &q_end);
+  q_tiles_for_kv<kBQ, BK>(k0, L, causal, window, &q_begin, &q_end);
 
   for (int g = 0; g < group; ++g) {
     const int64_t bh = batch * heads + kvh * group + g;
@@ -134,13 +140,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 4
       for (int c = 0; c < D; ++c) {
         const float4 ka =
-            *reinterpret_cast<const float4*>(kt + c * kPadQ + ty * 8);
+            *reinterpret_cast<const float4*>(kt + c * kPadKey + ty * 8);
         const float4 kb =
-            *reinterpret_cast<const float4*>(kt + c * kPadQ + ty * 8 + 4);
+            *reinterpret_cast<const float4*>(kt + c * kPadKey + ty * 8 + 4);
         const float4 va =
-            *reinterpret_cast<const float4*>(vt + c * kPadQ + ty * 8);
+            *reinterpret_cast<const float4*>(vt + c * kPadKey + ty * 8);
         const float4 vb =
-            *reinterpret_cast<const float4*>(vt + c * kPadQ + ty * 8 + 4);
+            *reinterpret_cast<const float4*>(vt + c * kPadKey + ty * 8 + 4);
         const float kv[kRows] = {ka.x, ka.y, ka.z, ka.w,
                                  kb.x, kb.y, kb.z, kb.w};
         const float vv[kRows] = {va.x, va.y, va.z, va.w,
@@ -172,8 +178,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               (qpos < L && keep(qpos, k0 + ty * 8 + i, L, causal, window))
                   ? expf(s[i][jj] * scale - lse_q)
                   : 0.f;
-          pt[qc * kPadQ + ty * 8 + i] = p;
-          dst[qc * kPadQ + ty * 8 + i] = p * (dp[i][jj] - d_q) * scale;
+          pt[qc * kPadKey + ty * 8 + i] = p;
+          dst[qc * kPadKey + ty * 8 + i] = p * (dp[i][jj] - d_q) * scale;
         }
       }
       __syncthreads();
@@ -182,13 +188,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 2
       for (int qq = 0; qq < kBQ; ++qq) {
         const float4 pa =
-            *reinterpret_cast<const float4*>(pt + qq * kPadQ + ty * 8);
+            *reinterpret_cast<const float4*>(pt + qq * kPadKey + ty * 8);
         const float4 pb =
-            *reinterpret_cast<const float4*>(pt + qq * kPadQ + ty * 8 + 4);
+            *reinterpret_cast<const float4*>(pt + qq * kPadKey + ty * 8 + 4);
         const float4 sa =
-            *reinterpret_cast<const float4*>(dst + qq * kPadQ + ty * 8);
+            *reinterpret_cast<const float4*>(dst + qq * kPadKey + ty * 8);
         const float4 sb =
-            *reinterpret_cast<const float4*>(dst + qq * kPadQ + ty * 8 + 4);
+            *reinterpret_cast<const float4*>(dst + qq * kPadKey + ty * 8 + 4);
         const float pv[kRows] = {pa.x, pa.y, pa.z, pa.w,
                                  pb.x, pb.y, pb.z, pb.w};
         const float sv[kRows] = {sa.x, sa.y, sa.z, sa.w,
@@ -245,7 +251,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   // kv tile 0 first: under a causal mask it feeds the most q tiles
   const dim3 grid((unsigned)(batch * kv_heads),
-                  (unsigned)((L + kBK - 1) / kBK));
+                  (unsigned)((L + C::BK - 1) / C::BK));
   kernel<<<grid, C::kThreads, C::smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -274,6 +280,9 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, batch, heads,
                             kv_heads, L, d, causal, window, scale, s);
+    case 256:
+      return launch<T, 256>(q, k, v, dout, lse, delta, dk, dv, batch, heads,
+                            kv_heads, L, d, causal, window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -283,7 +292,7 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dk, dv); 1 <= d <= 128;
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dk, dv); 1 <= d <= 256;
 // kv_heads divides heads; window > 0 only with causal. q, dout (batch,
 // heads, L, d), k, v, dk, dv (batch, kv_heads, L, d), lse and delta (batch,
 // heads, L) f32, all contiguous. Returns the cudaError_t of the launch

@@ -30,7 +30,10 @@
 // are never stored. No atomics: a backward is bitwise repeatable. The
 // last q tiles, which have the most kv tiles under a causal mask, are
 // scheduled first. Head dim 128 runs 256 threads (32 column lanes) so
-// that the accumulators stay at 4 x 8 registers.
+// that the accumulators stay at 4 x 8 registers. Head dim 256 keeps the 32
+// lanes (8 x 8 accumulator registers) and halves the key tile to 32: at 64
+// keys its Q^T, dO^T, K^T, V^T and dS^T tiles would take 283 KB of shared
+// memory, over the 227 KB a block may opt into; at 32 they take 211 KB.
 //
 // Bound. With TF32 off the port's fp32 runs outside the tensor cores: 6 d
 // flops per (query, key) pair the mask keeps (S, dP, dQ), at 67 TFLOP/s.
@@ -49,14 +52,16 @@ using namespace flash;
 
 template <int D>
 struct Tiles {
-  static constexpr int TX = D == 128 ? 32 : 16;  // column lanes
+  static constexpr int TX = D >= 128 ? 32 : 16;  // column lanes
+  static constexpr int BK = D == 256 ? 32 : kBK; // keys per tile
+  static constexpr int kPadKT = BK + 1;          // row stride of K^T, V^T
   static constexpr int kThreads = 8 * TX;        // 8 row groups
   static constexpr int kRows = 8;                // query rows per thread
-  static constexpr int NC = kBK / TX;            // score columns per thread
+  static constexpr int NC = BK / TX;             // score columns per thread
   static constexpr int NA = D / TX;              // dQ columns per thread
-  // Q^T, dO^T [D][kPadQ]; K^T, V^T [D][kPadK]; dS^T [kBK][kPadQ]
+  // Q^T, dO^T [D][kPadQ]; K^T, V^T [D][kPadKT]; dS^T [BK][kPadQ]
   static constexpr size_t smem =
-      sizeof(float) * (size_t)(2 * D * kPadQ + 2 * D * kPadK + kBK * kPadQ);
+      sizeof(float) * (size_t)(2 * D * kPadQ + 2 * D * kPadKT + BK * kPadQ);
 };
 
 template <typename T, int D, bool kExact>
@@ -71,12 +76,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int d = kExact ? D : d_in;
   using C = Tiles<D>;
   constexpr int TX = C::TX, kRows = C::kRows, NC = C::NC, NA = C::NA;
+  constexpr int BK = C::BK, kPadKT = C::kPadKT;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;
   float* dot = qt + D * kPadQ;
   float* kt = dot + D * kPadQ;
-  float* vt = kt + D * kPadK;
-  float* dst = vt + D * kPadK;
+  float* vt = kt + D * kPadKT;
+  float* dst = vt + D * kPadKT;
 
   const int tid = threadIdx.x;
   const int ty = tid / TX, tx = tid % TX;
@@ -106,15 +112,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int64_t kv_begin, kv_end;
-  kv_tiles_for_q(q0, L, causal, window, &kv_begin, &kv_end);
+  kv_tiles_for_q<kBQ, BK>(q0, L, causal, window, &kv_begin, &kv_end);
 
   for (int64_t j = kv_begin; j < kv_end; ++j) {
-    const int64_t k0 = j * kBK;
+    const int64_t k0 = j * BK;
     __syncthreads();  // Q, dO are in; the last tile's readers are done
-    for (int idx = tid; idx < kBK * D; idx += C::kThreads) {
+    for (int idx = tid; idx < BK * D; idx += C::kThreads) {
       const int r = idx / D, c = idx % D;
-      kt[c * kPadK + r] = load_or_zero<kExact>(kp, k0 + r, L, c, d);
-      vt[c * kPadK + r] = load_or_zero<kExact>(vp, k0 + r, L, c, d);
+      kt[c * kPadKT + r] = load_or_zero<kExact>(kp, k0 + r, L, c, d);
+      vt[c * kPadKT + r] = load_or_zero<kExact>(vp, k0 + r, L, c, d);
     }
     __syncthreads();
 
@@ -138,8 +144,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kv[NC], vv[NC];
 #pragma unroll
       for (int jj = 0; jj < NC; ++jj) {
-        kv[jj] = kt[c * kPadK + tx + TX * jj];
-        vv[jj] = vt[c * kPadK + tx + TX * jj];
+        kv[jj] = kt[c * kPadKT + tx + TX * jj];
+        vv[jj] = vt[c * kPadKT + tx + TX * jj];
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -167,7 +173,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // dQ += dS K
 #pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
+    for (int kk = 0; kk < BK; ++kk) {
       const float4 sa =
           *reinterpret_cast<const float4*>(dst + kk * kPadQ + ty * 8);
       const float4 sb =
@@ -175,7 +181,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float sv[kRows] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
       float kv[NA];
 #pragma unroll
-      for (int c = 0; c < NA; ++c) kv[c] = kt[(tx + TX * c) * kPadK + kk];
+      for (int c = 0; c < NA; ++c) kv[c] = kt[(tx + TX * c) * kPadKT + kk];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -241,6 +247,9 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, dout, lse, delta, dq, batch, heads,
                             kv_heads, L, d, causal, window, scale, s);
+    case 256:
+      return launch<T, 256>(q, k, v, dout, lse, delta, dq, batch, heads,
+                            kv_heads, L, d, causal, window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -250,7 +259,7 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dq); 1 <= d <= 128;
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dq); 1 <= d <= 256;
 // kv_heads divides heads; window > 0 only with causal. q, dout, dq (batch,
 // heads, L, d), k, v (batch, kv_heads, L, d), lse and delta (batch, heads,
 // L) f32, all contiguous. Returns the cudaError_t of the launch (0 =

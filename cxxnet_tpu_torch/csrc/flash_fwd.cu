@@ -24,7 +24,11 @@
 // memory: the Q tile (staged once) and the P tile are stored transposed so
 // that a thread's 8 rows are two float4 loads, K transposed and V row-major
 // so that the 16 column lanes read 16 consecutive words. A row's max and
-// sum are reduced over its 16 lanes with warp shuffles. The masked score is
+// sum are reduced over its 16 lanes with warp shuffles. Head dim 256 runs
+// 256 threads, (ty, tx) = (tid / 32, tid % 32): 2 score columns and 8
+// accumulator columns a thread, so that the accumulator stays at 8 x 8
+// registers (8 x 16 would spill), and a warp owns 8 whole rows. Its tiles
+// take 214 KB of shared memory, one block per SM. The masked score is
 // the finite NEG_INF = -1e30 of the TPU kernel, so exp never sees
 // inf - inf: a row whose first tiles are wholly masked takes p = 1 there,
 // and the first real key rescales that by exp(-1e30 - m) = 0. Tiles wholly
@@ -46,7 +50,7 @@
 // bound; mma.sync / wgmma on bf16 inputs, TMA staging and a pipelined K/V
 // ring are later work.
 
-// Head dims: see flash_common.cuh (any d <= 128, run in the next compiled
+// Head dims: see flash_common.cuh (any d <= 256, run in the next compiled
 // width with zero-filled columns).
 
 #include "flash_common.cuh"
@@ -55,25 +59,28 @@ namespace {
 
 using namespace flash;
 
-constexpr int kThreads = 128;    // 8 row groups x 16 column lanes
-constexpr int kRows = 8;         // query rows per thread
-
 template <int D>
-constexpr size_t smem_bytes() {
+struct Tiles {
+  static constexpr int TX = D == 256 ? 32 : 16;  // column lanes
+  static constexpr int kThreads = 8 * TX;        // 8 row groups
+  static constexpr int kRows = 8;                // query rows per thread
+  static constexpr int NC = kBK / TX;            // score columns per thread
+  static constexpr int NA = D / TX;              // accumulator columns
   // Q^T [D][kPadQ], K^T [D][kPadK], V [kBK][D], P^T [kBK][kPadQ]
-  return sizeof(float) *
-         (size_t)(D * kPadQ + D * kPadK + kBK * D + kBK * kPadQ);
-}
+  static constexpr size_t smem =
+      sizeof(float) * (size_t)(D * kPadQ + D * kPadK + kBK * D + kBK * kPadQ);
+};
 
 template <typename T, int D, bool kExact>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tiles<D>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int heads, int group, int64_t L,
                  int d_in, int causal, int64_t window, float scale) {
   // the row stride; the compiled width itself when d is one of them
   const int d = kExact ? D : d_in;
-  constexpr int kCols = D / 16;  // accumulator columns per thread
+  using C = Tiles<D>;
+  constexpr int TX = C::TX, kRows = C::kRows, NC = C::NC, kCols = C::NA;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;
   float* kt = qt + D * kPadQ;
@@ -81,7 +88,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* pt = vs + kBK * D;
 
   const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int ty = tid / TX, tx = tid % TX;
   const int64_t bh = blockIdx.x;
   const int64_t batch = bh / heads, head = bh % heads;
   const int64_t kv_row = batch * (heads / group) + head / group;
@@ -90,7 +97,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + kv_row * L * d;
   const T* vp = v + kv_row * L * d;
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
+  for (int idx = tid; idx < kBQ * D; idx += C::kThreads) {
     const int r = idx / D, c = idx % D;
     qt[c * kPadQ + r] = load_or_zero<kExact>(qp, q0 + r, L, c, d);
   }
@@ -106,36 +113,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the kv tiles _block_needed keeps
   int64_t kv_begin, kv_end;
-  kv_tiles_for_q(q0, L, causal, window, &kv_begin, &kv_end);
+  kv_tiles_for_q<kBQ, kBK>(q0, L, causal, window, &kv_begin, &kv_end);
 
   for (int64_t j = kv_begin; j < kv_end; ++j) {
     const int64_t k0 = j * kBK;
     __syncthreads();  // the Q tile is in; the last tile's readers are done
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
+    for (int idx = tid; idx < kBK * D; idx += C::kThreads) {
       const int r = idx / D, c = idx % D;
       kt[c * kPadK + r] = load_or_zero<kExact>(kp, k0 + r, L, c, d);
       vs[r * D + c] = load_or_zero<kExact>(vp, k0 + r, L, c, d);
     }
     __syncthreads();
 
-    float s[kRows][4];
+    float s[kRows][NC];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+      for (int jj = 0; jj < NC; ++jj) s[i][jj] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < D; ++c) {
       const float4 qa = *reinterpret_cast<const float4*>(qt + c * kPadQ + ty * 8);
       const float4 qb =
           *reinterpret_cast<const float4*>(qt + c * kPadQ + ty * 8 + 4);
       const float qv[kRows] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-      float kv[4];
+      float kv[NC];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) kv[jj] = kt[c * kPadK + tx + 16 * jj];
+      for (int jj = 0; jj < NC; ++jj) kv[jj] = kt[c * kPadK + tx + TX * jj];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
+        for (int jj = 0; jj < NC; ++jj) s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
     }
 
 #pragma unroll
@@ -143,25 +150,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int64_t qpos = q0 + ty * 8 + i;
       float rmax = kNegInf;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        s[i][jj] = keep(qpos, k0 + tx + 16 * jj, L, causal, window)
+      for (int jj = 0; jj < NC; ++jj) {
+        s[i][jj] = keep(qpos, k0 + tx + TX * jj, L, causal, window)
                        ? s[i][jj] * scale
                        : kNegInf;
         rmax = fmaxf(rmax, s[i][jj]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = TX / 2; off > 0; off >>= 1)
         rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
       const float m_new = fmaxf(m[i], rmax);
       const float alpha = expf(m[i] - m_new);
       float rsum = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < NC; ++jj) {
         s[i][jj] = expf(s[i][jj] - m_new);
         rsum += s[i][jj];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = TX / 2; off > 0; off >>= 1)
         rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
       l[i] = l[i] * alpha + rsum;
       m[i] = m_new;
@@ -171,8 +178,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        pt[(tx + 16 * jj) * kPadQ + ty * 8 + i] = s[i][jj];
+      for (int jj = 0; jj < NC; ++jj)
+        pt[(tx + TX * jj) * kPadQ + ty * 8 + i] = s[i][jj];
     __syncthreads();
 
 #pragma unroll 4
@@ -183,7 +190,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float pv[kRows] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
       float vv[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = vs[kk * D + tx + 16 * c];
+      for (int c = 0; c < kCols; ++c) vv[c] = vs[kk * D + tx + TX * c];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -199,8 +206,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* op = out + (bh * L + qpos) * d;
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
-        if (kExact || tx + 16 * c < d)
-          store_from_f32(op + tx + 16 * c, acc[i][c] / li);
+        if (kExact || tx + TX * c < d)
+          store_from_f32(op + tx + TX * c, acc[i][c] / li);
       if (tx == 0) lse[bh * L + qpos] = m[i] + logf(li);
     }
   }
@@ -211,7 +218,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int64_t batch, int heads, int kv_heads,
                    int64_t L, int d, int causal, int64_t window, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  using C = Tiles<D>;
+  constexpr size_t smem = C::smem;
   // a head dim equal to the compiled width takes the instantiation with
   // compile-time strides and no column checks
   const auto kernel = d == D ? flash_fwd_kernel<T, D, true>
@@ -222,7 +230,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(batch * heads), (unsigned)((L + kBQ - 1) / kBQ));
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, C::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, heads,
       heads / kv_heads, L, d, causal, window, scale);
@@ -247,6 +255,9 @@ cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
                             causal, window, scale, s);
+    case 256:
+      return launch<T, 256>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
+                            causal, window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -256,7 +267,7 @@ cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; 1 <= d <= 128; kv_heads divides heads;
+// dtype: 0 = float32, 1 = bfloat16; 1 <= d <= 256; kv_heads divides heads;
 // window > 0 only with causal. q, out (batch, heads, L, d), k, v (batch,
 // kv_heads, L, d), lse (batch, heads, L) f32, all contiguous. Returns the
 // cudaError_t of the launch (0 = success). Launches on `stream` and does

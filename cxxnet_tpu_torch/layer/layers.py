@@ -1,6 +1,8 @@
 """The layers of the port: the AlexNet set (conv, relu, max_pooling, lrn,
-flatten, fullc, dropout, softmax), in eval and in training mode, and the
-transformer LM set (embed, attention, split, add, softmax ``seq = 1``).
+flatten, fullc, dropout, softmax), in eval and in training mode, the
+leaky and noisy activations of the RReLU nets (xelu, insanity, prelu,
+insanity_max_pooling), and the transformer LM set (embed, attention,
+split, add, softmax ``seq = 1``).
 
 Each class is the counterpart of the class of the same name in
 cxxnet_tpu/layer/layers.py and keeps its config keys, shape inference,
@@ -11,7 +13,9 @@ generator, and the loss layer appends its loss term to ``ctx.losses``,
 whose gradient autograd takes. Conv, fullc, relu, max-pool and flatten are
 differentiated by autograd (cuDNN and PyTorch's own backward kernels, as
 the JAX package left them to XLA); the LRN backward is a kernel
-(ops/lrn.py). Attention sends a sequence the flash kernel takes to it
+(ops/lrn.py). The noisy layers draw their noise through ``draw_uniform``
+(ops/random.py: a Philox kernel on the card, the same bits on the CPU).
+Attention sends a sequence the flash kernel takes to it
 (ops/flash_attn.py) and the rest, and every KV-cached decode step, to
 dense attention (ops/attention.py).
 """
@@ -26,11 +30,22 @@ import torch
 from .. import ops
 from ..ops import flash_attn
 from ..ops.attention import attention_reference
-from .base import Layer, check
+from .base import ApplyContext, Layer, check
 
 
 def _flat2d(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
+
+
+def draw_uniform(ctx: ApplyContext, shape, device) -> torch.Tensor:
+    """The training noise of the applying layer: U[0, 1) float32 of
+    ``shape`` from ops.random.uniform, seeded with the layer's own
+    generator's seed (the net folds (step seed, connection) into it, as the
+    JAX package folds them into the layer's key). The seed is read on the
+    host, with no device sync, and the generator is not advanced. Every
+    noisy layer draws here, once per forward, so that a test can replace
+    this one function."""
+    return ops.random.uniform(ctx.gen.initial_seed(), shape, device)
 
 
 class _WeightBiasLayer(Layer):
@@ -190,6 +205,147 @@ class ReluLayer(Layer):
         return [torch.relu(inputs[0])]
 
 
+class XeluLayer(Layer):
+    """Leaky relu with divisor b: y = x > 0 ? x : x / b
+    (src/layer/xelu_layer-inl.hpp:15)."""
+
+    type_name = "xelu"
+
+    def __init__(self):
+        super().__init__()
+        self.b = 5.0
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "b":
+            self.b = float(val)
+
+    def infer_shape(self, in_shapes):
+        return [in_shapes[0]]
+
+    def forward(self, params, inputs, ctx):
+        return [ops.xelu(inputs[0], self.b)]
+
+
+class InsanityLayer(Layer):
+    """RReLU (src/layer/insanity_layer-inl.hpp:14; Xu et al. 2015): in
+    training the negative part is divided by a per-element slope u (ub -
+    lb) + lb with u ~ U[0, 1) from ``draw_uniform``, outside the gradient;
+    at eval by the configured mean (lb + ub) / 2. ``calm_start`` /
+    ``calm_end`` anneal [lb, ub] linearly toward the midpoint over the
+    update counter, in float32 as the JAX package computes it."""
+
+    type_name = "insanity"
+
+    def __init__(self):
+        super().__init__()
+        self.lb = 5.0
+        self.ub = 10.0
+        self.calm_start = 0
+        self.calm_end = 0
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "lb":
+            self.lb = float(val)
+        if name == "ub":
+            self.ub = float(val)
+        if name == "calm_start":
+            self.calm_start = int(val)
+        if name == "calm_end":
+            self.calm_end = int(val)
+
+    def infer_shape(self, in_shapes):
+        return [in_shapes[0]]
+
+    def _bounds(self, epoch: int) -> Tuple[float, float]:
+        """(lb, ub) after ``epoch`` updates (cxxnet_tpu/layer/layers.py
+        :374-383): float32 arithmetic, the bounds unchanged when the
+        schedule is off."""
+        if self.calm_end <= self.calm_start:
+            return self.lb, self.ub
+        f32 = np.float32
+        mid = (self.lb + self.ub) / 2.0
+        frac = np.clip(f32(epoch - self.calm_start)
+                       / f32(self.calm_end - self.calm_start),
+                       f32(0.0), f32(1.0))
+        ub = f32(self.ub) - f32(self.ub - mid) * frac
+        lb = f32(self.lb) + f32(mid - self.lb) * frac
+        return float(lb), float(ub)
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        if not ctx.train:
+            return [ops.xelu(x, (self.lb + self.ub) / 2.0)]
+        lb, ub = self._bounds(ctx.epoch)
+        u = draw_uniform(ctx, x.shape, x.device).to(x.dtype)
+        return [ops.xelu(x, u * (ub - lb) + lb)]
+
+
+class PReluLayer(Layer):
+    """Learnable per-channel negative slope with optional training noise
+    (src/layer/prelu_layer-inl.hpp:48): y = x > 0 ? x : x * mask, the mask
+    the slope (times 1 + (2u - 1) random in training, u from
+    ``draw_uniform``) clipped to [0, 1]. The slope is visited, and written
+    in model files, under the reference's ``bias`` tag."""
+
+    type_name = "prelu"
+
+    def __init__(self):
+        super().__init__()
+        self.init_slope = 0.25
+        self.init_random = 0
+        self.random = 0.0
+        self.channel = 0
+        self.is_fc = False
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "init_slope":
+            self.init_slope = float(val)
+        if name == "random_slope":
+            self.init_random = int(val)
+        if name == "random":
+            self.random = float(val)
+
+    def infer_shape(self, in_shapes):
+        b, c, h, w = in_shapes[0]
+        self.channel = w if c == 1 else c
+        self.is_fc = c == 1
+        return [in_shapes[0]]
+
+    def param_shapes(self):
+        return {"slope": (self.channel,)}
+
+    def init_params(self, gen):
+        if self.init_random == 0:
+            slope = torch.full((self.channel,), self.init_slope,
+                               dtype=torch.float32)
+        else:
+            slope = torch.rand((self.channel,), generator=gen,
+                               dtype=torch.float32) * self.init_slope
+        return {"slope": slope}
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        bshape = (1, 1, 1, self.channel) if self.is_fc \
+            else (1, self.channel, 1, 1)
+        mask = params["slope"].reshape(bshape).expand(x.shape)
+        if ctx.train and self.random != 0.0:
+            u = draw_uniform(ctx, x.shape, x.device).to(x.dtype)
+            mask = mask * (1 + u * self.random * 2.0 - self.random)
+        return [ops.mxelu(x, mask.clamp(0.0, 1.0))]
+
+    def visit_order(self):
+        return [("bias", "slope")]
+
+    def save_model(self, w, params):
+        w.write_tensor(params["slope"])
+
+    def load_model(self, r):
+        return {"slope": r.read_tensor()}
+
+
 class MaxPoolingLayer(Layer):
     """Max pooling with the reference's ceil-mode shapes
     (src/layer/pooling_layer-inl.hpp:17)."""
@@ -213,6 +369,53 @@ class MaxPoolingLayer(Layer):
         return [ops.pool2d(inputs[0], "max",
                            (p.kernel_height, p.kernel_width), p.stride,
                            pad=(p.pad_y, p.pad_x))]
+
+
+class InsanityPoolingLayer(MaxPoolingLayer):
+    """Stochastic jittered max pooling
+    (src/layer/insanity_pooling_layer-inl.hpp:13-100): in training each
+    source pixel is, with probability 1 - keep, displaced one step up,
+    down, left or right (equiprobable bands of the flag u ~ U[0, 1) from
+    ``draw_uniform``, clamped to the image) before the ceil-mode max
+    pool; a gather over the flattened h w, whose autograd is the
+    reference's InsanityUnPooling. At eval a plain max pool. Departure from
+    the JAX package, on purpose: the flags come from the port's Philox draw
+    (jax.random there, cxxnet_tpu/layer/layers.py:781), so that the card
+    and the CPU draw the same flags."""
+
+    type_name = "insanity_max_pooling"
+
+    def __init__(self):
+        super().__init__()
+        self.p_keep = 1.0
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "keep":
+            self.p_keep = float(val)
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        if ctx.train:
+            b, c, h, w = x.shape
+            flag = draw_uniform(ctx, x.shape, x.device).to(x.dtype)
+            p, delta = self.p_keep, (1.0 - self.p_keep) / 4.0
+            loc_y = torch.arange(h, device=x.device).reshape(1, 1, h, 1) \
+                .expand(x.shape)
+            loc_x = torch.arange(w, device=x.device).reshape(1, 1, 1, w) \
+                .expand(x.shape)
+            loc_y = torch.where((flag >= p) & (flag < p + delta),
+                                (loc_y - 1).clamp_min(0), loc_y)
+            loc_y = torch.where((flag >= p + delta) & (flag < p + 2 * delta),
+                                (loc_y + 1).clamp_max(h - 1), loc_y)
+            loc_x = torch.where((flag >= p + 2 * delta)
+                                & (flag < p + 3 * delta),
+                                (loc_x - 1).clamp_min(0), loc_x)
+            loc_x = torch.where(flag >= p + 3 * delta,
+                                (loc_x + 1).clamp_max(w - 1), loc_x)
+            idx = (loc_y * w + loc_x).reshape(b, c, h * w)
+            x = x.reshape(b, c, h * w).gather(2, idx).reshape(b, c, h, w)
+        return super().forward(params, [x], ctx)
 
 
 class LRNLayer(Layer):
@@ -675,6 +878,7 @@ class AttentionLayer(Layer):
 
 LAYER_CLASSES: Dict[str, type] = {
     cls.type_name: cls for cls in (
-        FullConnectLayer, ConvolutionLayer, ReluLayer, MaxPoolingLayer,
+        FullConnectLayer, ConvolutionLayer, ReluLayer, XeluLayer,
+        InsanityLayer, PReluLayer, MaxPoolingLayer, InsanityPoolingLayer,
         LRNLayer, FlattenLayer, DropoutLayer, SoftmaxLayer, SplitLayer,
         AddLayer, EmbedLayer, AttentionLayer)}

@@ -1,5 +1,6 @@
 """Model configs of the port, as netconfig text: the counterpart of the
-transformer LM builders of cxxnet_tpu/models.py:346-442.
+transformer LM builders of cxxnet_tpu/models.py:346-442, and the RReLU
+form of an image config.
 
 ``transformer_lm_netconfig`` writes the same text as the JAX package's
 builder of that name, so a model built from it has the same layers, names
@@ -9,10 +10,17 @@ the whole config (net, input shape, batch, labels, Adam), for
 ``api.Net(cfg=...)``. The full-width LM that ``bench.py`` measures is
 ``transformer_lm_config(vocab=8192, seq=2048, dim=512, nhead=8,
 nlayer=4)``.
+
+``rrelu_config`` turns an image config into its RReLU form (Xu, Wang,
+Chen and Li, "Empirical evaluation of rectified activations in
+convolutional network", arXiv:1505.00853): every ``relu`` layer becomes
+``insanity`` (slopes drawn from U[lb, ub]) and every ``max_pooling``
+layer ``insanity_max_pooling``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Tuple
 
 
@@ -91,3 +99,24 @@ def transformer_lm_config(vocab: int = 50, seq: int = 16,
             "label_vec[0,%d) = label\n" % seq +
             "updater = adam\neta = 0.003\n" +
             "dev = %s\n" % dev + extra_cfg)
+
+
+def _retype(text: str, kind: str, new: str, keys) -> str:
+    """``text`` with every layer of type ``kind`` made ``new``, the config
+    lines ``keys`` added under it; its name and other keys unchanged."""
+    pat = re.compile(r"^(layer\[[^\]]*\]\s*=\s*)%s(\s*:\S+)?[ \t]*$" % kind,
+                     re.M)
+    return pat.sub(lambda m: m.group(1) + new + (m.group(2) or "") +
+                   "".join("\n  " + k for k in keys), text)
+
+
+def rrelu_config(text: str, lb: float = 3.0, ub: float = 8.0,
+                 keep: float = 0.75) -> str:
+    """``text`` with every ``relu`` layer made ``insanity`` with slopes
+    drawn from U[lb, ub] (3 and 8 are the paper's range) and every
+    ``max_pooling`` layer made ``insanity_max_pooling`` keeping a pixel in
+    place with probability ``keep`` (0.75 displaces a pixel each way with
+    probability 1/16; the value is not the paper's)."""
+    text = _retype(text, "relu", "insanity", ("lb = %g" % lb, "ub = %g" % ub))
+    return _retype(text, "max_pooling", "insanity_max_pooling",
+                   ("keep = %g" % keep,))

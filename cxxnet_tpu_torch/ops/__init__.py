@@ -4,14 +4,17 @@ conv2d          <- unpack_patch2col + dot + swapaxis   (src/layer/convolution_la
 pool2d          <- pool<Reducer>                       (src/layer/pooling_layer-inl.hpp)
 chpool_sum/lrn  <- chpool<red::sum>                    (src/layer/lrn_layer-inl.hpp:55-60)
 softmax         <- mshadow::Softmax                    (src/layer/loss/softmax_layer-inl.hpp)
+xelu / mxelu    <- op::xelu, op::mxelu                 (src/layer/op.h:56-60, src/layer/prelu_layer-inl.hpp:10-14)
 
 Convolution and pooling were left to XLA by the JAX package and go to
 PyTorch's own ops here; the convolution's weight gradient is an im2col
 product of our own (``conv2d_weight``), because cuDNN's fp32 one misses
 the reference's 1e-5 bar on AlexNet's conv2. LRN and flash attention were
 Pallas kernels on the TPU and are hand-written CUDA kernels here
-(ops/lrn.py, ops/flash_attn.py). Shapes follow the reference exactly
-(ceil-mode pooling with clamp), and activations stay NCHW.
+(ops/lrn.py, ops/flash_attn.py); so is the uniform draw of the noisy
+activations (the TPU's on-core PRNG, here Philox, ops/random.py). Shapes
+follow the reference exactly (ceil-mode pooling with clamp), and
+activations stay NCHW.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from . import flash_attn  # noqa: F401  (flash attention: kernel or plain)
 from . import lrn  # noqa: F401  (ops.lrn.forward: kernel or plain LRN)
+from . import random  # noqa: F401  (ops.random.uniform: kernel or plain)
 from .lrn import chpool_sum, lrn_ref  # noqa: F401
 
 
@@ -144,3 +148,15 @@ def pool2d(x: torch.Tensor, mode: str, kernel: Tuple[int, int], stride: int,
 
 def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.softmax(x, dim=axis)
+
+
+def xelu(x: torch.Tensor, b) -> torch.Tensor:
+    """Leaky relu with *divisor* b, a number or a tensor of x's shape
+    (reference op::xelu, src/layer/op.h:56-60)."""
+    return torch.where(x > 0, x, x / b)
+
+
+def mxelu(x: torch.Tensor, m) -> torch.Tensor:
+    """Leaky relu with *multiplier* m (reference op::mxelu,
+    src/layer/prelu_layer-inl.hpp:10-14)."""
+    return torch.where(x > 0, x, x * m)

@@ -89,7 +89,8 @@ def test_unported_layer_types_parse_but_do_not_build():
         with pytest.raises(ValueError, match=name):
             tfactory.create_layer(tid)
     for name in ("conv", "relu", "max_pooling", "lrn", "flatten", "fullc",
-                 "dropout", "softmax", "split", "add", "embed", "attention"):
+                 "dropout", "softmax", "split", "add", "embed", "attention",
+                 "xelu", "insanity", "insanity_max_pooling", "prelu"):
         tid = tfactory.get_layer_type(name)
         assert tid == jfactory.get_layer_type(name)
         assert tfactory.create_layer(tid).type_name == name

@@ -25,8 +25,15 @@ the step with flash_bwd_ref swapped in within 1e-4 of each tensor's
 largest magnitude (the difference passes back through every block, and
 the embedding's gradient is a scatter-add whose order may change).
 The convolution's weight gradient (ops.conv2d_weight) against float64:
-1e-5 of its largest element.
+1e-5 of its largest element. The uniform kernel against uniform_ref:
+bitwise (both compute the same integer function of (seed, index)). One
+RReLU AlexNet step on the card against the CPU path, noise on (both draw
+the same bits), dropout off: every parameter within relative 1e-5 plus
+1e-4 of the tensor's largest update (cuDNN and the CPU sum every conv and
+fullc in other orders).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -35,6 +42,9 @@ import torch
 from cxxnet_tpu_torch import api, models, ops
 from cxxnet_tpu_torch.io import DataBatch
 from cxxnet_tpu_torch.ops import flash_attn, lrn
+from cxxnet_tpu_torch.ops import random as trandom
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ARGS = dict(nsize=5, alpha=0.001, beta=0.75, knorm=1.0)
 
@@ -162,6 +172,9 @@ FLASH_SHAPES = [
     (1, 8, 1, 512, 128, True, 0),
     (2, 2, 2, 130, 128, False, 0),
     (1, 2, 2, 40, 16, True, 0),         # shorter than one tile
+    (2, 2, 2, 1024, 256, True, 0),      # head dim 256 (its own layout)
+    (1, 4, 2, 300, 256, True, 100),
+    (1, 2, 1, 200, 200, False, 0),      # run in width 256
 ]
 
 
@@ -213,11 +226,11 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="needs causal"):
         flash_attn.flash_fwd_cuda(q, k, v, False, None, 16)
     # supports() takes any head dim that is a multiple of 8, as the JAX gate
-    # does; the kernels take those up to 128 and name any larger one
-    assert flash_attn.supports(128, 256)
-    qd, kd, vd = _flash_inputs(card, (1, 2, 2, 128, 256, True, 0),
+    # does; the kernels take those up to 256 and name any larger one
+    assert flash_attn.supports(128, 264)
+    qd, kd, vd = _flash_inputs(card, (1, 2, 2, 128, 264, True, 0),
                                torch.float32)
-    with pytest.raises(ValueError, match="up to 128, not 256"):
+    with pytest.raises(ValueError, match="up to 256, not 264"):
         flash_attn.flash_fwd_cuda(qd, kd, vd, True)
 
 
@@ -261,6 +274,9 @@ FLASH_BWD_SHAPES = [
     (1, 8, 1, 512, 128, True, 0),
     (2, 2, 2, 130, 128, False, 0),
     (1, 2, 2, 40, 16, True, 0),         # shorter than one tile
+    (2, 2, 2, 1024, 256, True, 0),      # head dim 256: 32-key tiles
+    (1, 4, 2, 300, 256, True, 100),
+    (1, 2, 1, 200, 200, False, 0),      # run in width 256
 ]
 
 
@@ -410,3 +426,117 @@ def test_conv_weight_gradient_matches_float64(card, xs, ws, stride, pad,
     xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
     ops.conv2d(xl, wl, stride=stride, pad=pad, groups=groups).backward(g)
     torch.testing.assert_close(wl.grad, got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_head_dim_256_trains_through_the_kernels(card):
+    # an LM whose attention has head dim 256 (d_model 512, 2 heads): one
+    # update launches each flash kernel once per layer, and its gradients
+    # agree with the step with flash_bwd_ref swapped in
+    cfg = models.transformer_lm_config(vocab=64, seq=256, batch_size=2,
+                                       dim=512, nhead=2, nlayer=2, dev="gpu")
+    net = api.Net(dev="gpu", cfg=cfg + "seed = 1\n")
+    net.init_model()
+    rng = np.random.RandomState(3)
+    x = rng.randint(0, 64, (2, 1, 1, 256)).astype(np.float32)
+    y = rng.randint(0, 64, (2, 256)).astype(np.float32)
+    batch = DataBatch()
+    batch.data, batch.label, batch.batch_size = x, y, 2
+    _, grads = net.net_.loss_and_grads(batch)
+    kernel = flash_attn.flash_bwd_cuda
+    flash_attn.flash_bwd_cuda = flash_attn.flash_bwd_ref
+    try:
+        _, plain = net.net_.loss_and_grads(batch)
+    finally:
+        flash_attn.flash_bwd_cuda = kernel
+    for g, w in zip(grads, plain):
+        for key in g:
+            _assert_grad_close(g[key], w[key], 1e-4)
+    before = (flash_attn.launches, flash_attn.dq_launches,
+              flash_attn.dkv_launches)
+    net.update(x, y)
+    torch.cuda.synchronize()
+    assert (flash_attn.launches, flash_attn.dq_launches,
+            flash_attn.dkv_launches) == tuple(n + 2 for n in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, (1 << 32) + 5, (1 << 64) - 1])
+@pytest.mark.parametrize("shape", [(1,), (3,), (5,), (4 * 1000 + 3,),
+                                   (256, 96, 55, 55), (3, 5, 7)], ids=str)
+def test_uniform_kernel_is_bitwise_the_plain_version(card, seed, shape):
+    before = trandom.launches
+    got = trandom.uniform_cuda(seed, shape, card)
+    torch.cuda.synchronize()
+    assert trandom.launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    assert torch.equal(got, trandom.uniform_ref(seed, shape, card))
+    assert torch.equal(got, trandom.uniform(seed, shape, card))
+
+
+@pytest.mark.cuda
+def test_uniform_kernel_same_bits_as_the_cpu(card):
+    got = trandom.uniform(2024, (7, 3001), card).cpu()
+    assert torch.equal(got, trandom.uniform(2024, (7, 3001), "cpu"))
+
+
+def _rrelu_alexnet_cfg(rows):
+    text = open(os.path.join(REPO, "example/ImageNet/ImageNet.conf")).read()
+    return models.rrelu_config(text).replace("threshold = 0.5",
+                                             "threshold = 0") + \
+        "\nbatch_size = %d\nseed = 3\n" % rows
+
+
+@pytest.mark.cuda
+def test_rrelu_alexnet_step_card_matches_cpu(card, tmp_path):
+    # 7 insanity and 3 pooling draws per step through the kernel; the CPU
+    # path draws the same bits, so the two steps differ by summation order
+    # once the CPU takes the card's signs at the insanity inputs: an input
+    # within rounding of 0 (1-2 of ~10^6 here) can fall on the other side
+    # of 0 on the two devices, and its gradient then differs by the factor
+    # 1 - 1/slope, which moves every layer upstream by up to a few percent
+    # of its update
+    from cxxnet_tpu_torch.layer import layers as L
+    cfg = _rrelu_alexnet_cfg(2)
+    net = api.Net(dev="gpu", cfg=cfg)
+    net.init_model()
+    fname = str(tmp_path / "rrelu.model")
+    net.save_model(fname)
+    cpu = api.Net(dev="cpu", cfg=cfg)
+    cpu.load_model(fname)
+    start = [{k: v.detach().clone() for k, v in p.items()}
+             for p in net.net_.params]
+    rng = np.random.RandomState(4)
+    x = rng.randn(2, 3, 227, 227).astype(np.float32)
+    y = rng.randint(0, 1000, 2).astype(np.float32)
+
+    def insanity(n):
+        return [lay for lay in n.net_.net.layers
+                if lay.type_name == "insanity"]
+    signs = []
+    for lay in insanity(net):
+        def record(params, inputs, ctx, real=lay.forward):
+            signs.append(inputs[0] > 0)
+            return real(params, inputs, ctx)
+        lay.forward = record
+    before = trandom.launches
+    net.update(x, y)
+    torch.cuda.synchronize()
+    assert trandom.launches == before + 10 and len(signs) == 7
+    for lay, keep in zip(insanity(cpu), signs):
+        def forward(params, inputs, ctx, lay=lay, keep=keep.cpu()):
+            lb, ub = lay._bounds(ctx.epoch)
+            slope = L.draw_uniform(ctx, inputs[0].shape, "cpu") \
+                * (ub - lb) + lb
+            return [torch.where(keep, inputs[0], inputs[0] / slope)]
+        lay.forward = forward
+    cpu.update(x, y)
+    assert trandom.launches == before + 10
+    for i, (g, w, s0) in enumerate(zip(net.net_.params, cpu.net_.params,
+                                       start)):
+        for k in w:
+            got, want = g[k].detach().cpu(), w[k].detach()
+            step = float((want - s0[k].cpu()).abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-4 * step,
+                                       msg="layer %d %s" % (i, k))

@@ -3,7 +3,10 @@ the CPU: ``flash_fwd_ref`` against the Pallas kernel run in interpret mode
 (as tests/test_flash_attention.py runs it) for out and lse, and against
 ``attention_reference``; the gate ``supports``; the autograd route of
 ``flash_attention`` on CPU tensors against ``jax.grad``; and the
-wrapper's refusal of what the kernel does not take.
+wrapper's refusal of what the kernel does not take. At head dim 256, the
+widest the kernels take, ``flash_fwd_ref`` and ``flash_bwd_ref`` against
+the Pallas forward and ``jax.vjp`` of the Pallas backward, both in
+interpret mode.
 
 Inputs come from seeded numpy. Tolerance: relative 1e-5 (the reference's
 PairTest bar) plus an absolute 1e-5 of the largest magnitude compared: the
@@ -25,6 +28,9 @@ from cxxnet_tpu.ops import flash_attn as jflash
 from cxxnet_tpu.parallel.ring import attention_reference as jattention
 from cxxnet_tpu_torch.ops import attention as tattention
 from cxxnet_tpu_torch.ops import flash_attn
+
+from tests.test_torch_flash_bwd import TOL as BWD_TOL
+from tests.test_torch_flash_bwd import _inputs, _jax_grads, _port_grads
 
 RTOL, ATOL_REL = 1e-5, 1e-5
 
@@ -69,6 +75,36 @@ def test_flash_fwd_ref_matches_pallas_kernel(L, d, nkv, causal, window):
     assert got_out.dtype == torch.float32 and got_lse.shape == (2, 4, L)
     _close(got_out, out, what="out")
     _close(got_lse, jlse, what="lse")
+
+
+# head dim 256 (the widest compiled width of the kernels), with h = 4
+CASES_D256 = [
+    (128, 4, True, 0),
+    (128, 2, False, 0),
+    (200, 2, True, 64),
+    (200, 1, True, 0),
+]
+
+
+@pytest.mark.parametrize("L, nkv, causal, window", CASES_D256)
+def test_flash_fwd_ref_at_head_dim_256_matches_pallas_kernel(L, nkv, causal,
+                                                             window):
+    test_flash_fwd_ref_matches_pallas_kernel(L, 256, nkv, causal, window)
+
+
+@pytest.mark.parametrize("L, nkv, causal, window", CASES_D256)
+def test_flash_bwd_ref_at_head_dim_256_matches_pallas_backward(L, nkv,
+                                                               causal,
+                                                               window):
+    # fp32: both sides compute the same f32 function, blockwise in JAX and
+    # densely here, so within 1e-5 of each gradient's largest magnitude
+    q, k, v, do = _inputs(L + nkv + window, L, 256, nkv)
+    want = _jax_grads(q, k, v, do, causal, window, "float32")
+    got = _port_grads(q, k, v, do, causal, window, "float32")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(
+            g, w, rtol=0, atol=BWD_TOL["float32"] * float(np.abs(w).max()),
+            err_msg=name)
 
 
 @pytest.mark.parametrize("L, d, nkv, causal, window", CASES)
