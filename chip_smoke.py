@@ -15,18 +15,25 @@ measures (vocab 8192, d_model 512, 8 heads, 4 blocks, 2048 positions,
 fp32, random weights from a seed) served through KV-cached ``generate``
 and a full-sequence ``predict_device``, and its long-context recipe (8192
 positions, 2 kv heads, window 1024, RoPE); then both LMs trained through
-``update`` (the config's Adam, batch 8 and 2); last the bench.py LM with 2
-heads (head dim 256) served and trained. Exits non-zero, with no result,
-when there is no card or any phase fails.
+``update`` (the config's Adam, batch 8 and 2); the bench.py LM with 2
+heads (head dim 256) and with 1 head (head dim 512) served and trained;
+last sequence parallelism: the ring-step kernels against their plain
+versions and n ring steps against the flash kernels, then the long recipe
+trained with ``seq_parallel = 4`` as a ring (the ring-step kernels on
+shards of 2048) and as Ulysses, and the bench.py LM as a ring, each held
+to the single-card run. Exits non-zero, with no result, when there is no
+card or any phase fails.
 
 Output, in order: the card's name and power limit (nvidia-smi), the build
 time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``alexnet_train``, ``uniform_kernel``, ``rrelu_alexnet_train``,
 ``flash_fwd_kernel``, ``lm_serve``, ``lm_serve_long``,
-``flash_bwd_kernel``, ``lm_train``, ``lm_train_long`` and ``lm_hd256``
-(kernel checks, the main paths' checks, throughput and profiles), the
-wall time, then a JSON line ``{"kernels": [...]}`` and, last, the JSON
-result line ``{"ok": true, "device": {...}}``.
+``flash_bwd_kernel``, ``lm_train``, ``lm_train_long``, ``lm_hd256``,
+``lm_hd512``, ``ring_step_kernels``, ``lm_sp_train_long_ring``,
+``lm_sp_train_long_ulysses`` and ``lm_sp_train_ring`` (kernel checks, the
+main paths' checks, throughput and profiles), the wall time, then a JSON
+line ``{"kernels": [...]}`` and, last, the JSON result line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -124,6 +131,9 @@ FLASH_SHAPES = [
     ("d8", 2, 4, 4, 512, 8, True, 0),
     ("d24_gqa_window", 2, 8, 2, 1000, 24, True, 256),
     ("d200_window", 2, 4, 2, 1000, 200, True, 300),
+    # Ulysses' local attention on the long recipe at seq_parallel 4: a
+    # quarter of the 8 query heads, k/v broadcast to them (group 1)
+    ("ulysses_rank_long", 2, 2, 2, 8192, 64, True, 1024),
 ]
 # kernel vs flash_fwd_ref: rtol 1e-5 (fp32) or 2e-2 (bf16, both round the
 # same f32 value to bf16, an f32 ulp apart can round one bf16 ulp apart)
@@ -158,6 +168,7 @@ FLASH_BWD_SHAPES = [
     ("d32_window", 2, 4, 2, 1000, 32, True, 100),
     ("d128_gqa", 2, 8, 2, 1024, 128, True, 0),
     ("d200_window", 2, 4, 2, 1000, 200, True, 300),
+    ("ulysses_rank_long", 2, 2, 2, 8192, 64, True, 1024),
 ]
 # backward kernels vs flash_bwd_ref: dq, dk, dv within 1e-5 (fp32) or 2e-2
 # (bf16) of the largest magnitude compared. The kernels sum per 64-wide
@@ -204,6 +215,12 @@ LM_LOSS_RTOL = 1e-5
 # the log-softmax to ~1e-6 of logits of magnitude ~10. Greedy tokens must
 # be equal wherever the plain run's top-2 margin exceeds twice that
 LOGP_TOL = 1e-4
+# a ReLU mask one side takes from the other may hide rounding alone: every
+# pre-activation that flips lies within MASK_FLIP_MAG of its node's largest
+# magnitude of 0, and at most MASK_FLIP_SHARE of them flip (H100 runs of
+# this script: up to 10 of 67 M, within 1.3e-7). A fault that moves
+# pre-activations flips larger ones, or many
+MASK_FLIP_MAG, MASK_FLIP_SHARE = 1e-6, 1e-5
 
 # the RReLU AlexNet: ImageNet.conf with its 7 relu layers made insanity
 # (slopes from U[3, 8], the range of Xu et al., arXiv:1505.00853) and its
@@ -232,15 +249,73 @@ UNIFORM_OPS_PER_ELEM = 28
 MOMENT_SIGMAS = 5
 KS_DRAWS, KS_BAR = 10 ** 7, 2e-3
 
-# the head-dim-256 LM: the bench.py LM with 2 heads, so d_model 512 / 2 =
-# 256 per head, fp32; served through generate and trained through update
-HD256_ARGS = dict(LM_ARGS, nhead=2)
-HD256_NEW = 16
-HD256_TRAIN_STEPS = 2
-HD256_FLASH = [("lm_hd256", LM_BATCH, 2, 2, LM_SEQ, 256, True, 0)]
+# the wide-head LMs: the bench.py LM with 2 heads (d_model 512 / 2 = 256
+# per head) and with 1 head (512 per head, run in two slices of 256), fp32;
+# each served through generate and trained through update, its flash
+# kernels held at its own shape: {phase: (nhead, flash shape)}
+HD_PHASES = {"lm_hd256": (2, ("lm_hd256", LM_BATCH, 2, 2, LM_SEQ, 256, True,
+                              0)),
+             "lm_hd512": (1, ("lm_hd512", LM_BATCH, 1, 1, LM_SEQ, 512, True,
+                              0))}
+HD_NEW = 16
+HD_TRAIN_STEPS = 2
+
+# sequence parallelism: the ring's virtual ranks on the card, and the ring
+# steps at the long recipe's shard (b h = 2 * 8 query rows, 2 * 2 kv rows,
+# sq = skv = 8192 / 4, d 64) in every class of offsets a step meets:
+# (name, q_off, kv_off, causal, window)
+SP_N = 4
+RING_SHAPE = (2 * 8, 2 * 2, 2048, 2048, 64)
+RING_CLASSES = [
+    ("diagonal", 2048, 2048, True, 1024),
+    ("visible", 4096, 0, True, 0),
+    ("masked", 0, 2048, True, 1024),
+    ("window_cut", 2048, 0, True, 1024),
+    ("noncausal", 0, 4096, False, 0),
+]
+# the bench.py LM's shard at sp = SP_N (b h = 8 * 8 query and kv rows,
+# sq = skv = 2048 / 4, causal, no window), in the classes its ring meets,
+# then wide heads and sq != skv: (name, bh, bkv, sq, skv, d, q_off, kv_off,
+# causal, window)
+RING_EDGE = [
+    ("bench_diagonal", 64, 64, 512, 512, 64, 512, 512, True, 0),
+    ("bench_visible", 64, 64, 512, 512, 64, 1536, 512, True, 0),
+    ("bench_masked", 64, 64, 512, 512, 64, 512, 1024, True, 0),
+    ("d256_gqa", 8, 2, 1024, 1024, 256, 1024, 0, True, 1024),
+    ("d512", 4, 4, 1024, 1024, 512, 1024, 1024, True, 0),
+    ("sq_2048_skv_1024", 16, 4, 2048, 1024, 64, 2048, 1024, True, 0),
+]
+# n ring steps over a whole sequence against the flash kernels (rows 4-6):
+# (name, b, h, nkv, L, d, causal, window); the first is the long recipe's
+# attention, the main path of lm_sp_train
+RING_VS_FLASH = [
+    ("long_recipe", 2, 8, 2, 8192, 64, True, 1024),
+    ("bench_lm", 8, 8, 8, 2048, 64, True, 0),
+    ("d256", 2, 2, 2, 2048, 256, True, 512),
+    ("d512_noncausal", 1, 2, 1, 2048, 512, False, 0),
+]
+# the ring steps against their plain versions and n steps against the flash
+# kernels: 1e-5 (fp32) or 2e-2 (bf16) of the largest magnitude compared;
+# m and l (f32 on both sides, one max and one sum of the same scores) to
+# 1e-5 in both
+RING_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the sequence-parallel training runs: (phase, seq, batch, attention keys,
+# sp_mode), each one full-sequence predict_device and SP_STEPS updates
+LM_SP = [("lm_sp_train_long_ring", 8192, 2, LONG_EXTRA, "ring"),
+         ("lm_sp_train_long_ulysses", 8192, 2, LONG_EXTRA, "ulysses"),
+         ("lm_sp_train_ring", LM_SEQ, LM_BATCH, "", "ring")]
+SP_STEPS = 2
 
 # fp32 kernel times by (kernel, shape name), filled by the kernel phases
 KERNEL_MS = {}
+# what names a kernel in a profile where its symbol does not: the flash
+# kernels and the ring steps share their bodies (attn_fwd_kernel, ...) and
+# differ by the IO policy in the template's arguments
+KERNEL_SYMBOLS = {"flash_fwd": "FlashFwdOut", "flash_bwd_dq": "FlashDqOut",
+                  "flash_bwd_dkv": "FlashDkvOut",
+                  "ring_fwd_step": "RingFwdCarry",
+                  "ring_dq_step": "RingDqCarry",
+                  "ring_dkv_step": "RingDkvCarry"}
 
 
 def log(msg: str) -> None:
@@ -258,20 +333,21 @@ def nvidia_smi() -> str:
 
 def ptxas_summary(text: str) -> str:
     """Registers and spills per kernel instantiation from nvcc's -Xptxas -v
-    output, each named by its element type, head dim and exact-width flag
-    where the mangled name carries them (``float/64/exact``)."""
+    output, each named by its element type, head dim, exact-width flag and
+    the wide flag (a head dim above 256, in slices) where the mangled name
+    carries them (``float/64/exact``, ``float/256/padded/wide``)."""
     import re
     out, inst = [], "?"
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            t = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?",
-                          m.group(1))
+            t = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?"
+                          r"(?:Lb([01])E)?", m.group(1))
             inst = "?" if not t else "/".join(
                 [("float" if t.group(1) == "f" else "bf16")] +
                 ([t.group(2)] if t.group(2) else []) +
                 ([("exact", "padded")[t.group(3) == "0"]] if t.group(3)
-                 else []))
+                 else []) + (["wide"] if t.group(4) == "1" else []))
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = m.group(1)
@@ -871,13 +947,17 @@ def phase_alexnet_train(lrn, api, ops):
     return fwd, bwd
 
 
-def kept_pairs(L, causal, window):
-    """(query, key) pairs of one head that the mask keeps."""
+def kept_pairs(L, causal, window, skv=None, q_off=0, kv_off=0):
+    """(query, key) pairs of one head that the mask keeps, for L queries
+    at the global positions q_off.. against skv keys (L by default) at
+    kv_off.. (a ring step's block; 0 and 0 for a whole sequence)."""
+    skv = L if skv is None else skv
     if not causal:
-        return L * L
-    if window <= 0 or window >= L:
-        return L * (L + 1) // 2
-    return window * (window + 1) // 2 + (L - window) * window
+        return L * skv
+    qpos = q_off + np.arange(L, dtype=np.int64)
+    hi = np.minimum(qpos - kv_off + 1, skv)            # keys <= the query
+    lo = np.maximum(qpos - window + 1 - kv_off, 0) if window > 0 else 0
+    return int(np.clip(hi - lo, 0, None).sum())
 
 
 def flash_work(b, h, nkv, L, d, causal, window, esize):
@@ -1413,9 +1493,10 @@ def compare_grads(what, got, want, tol):
 
 
 def take_card_relu_masks(net, cpu, x):
-    """Give the ReLU layers of the CPU net the card's masks (the card's own
-    pre-activations > 0). A pre-activation within rounding of 0 can fall on
-    the other side of 0 on the two devices, and that flips its element's
+    """Give the ReLU layers of the CPU net (or of any second net) the
+    card's masks (the card's own pre-activations > 0). A pre-activation
+    within rounding of 0 can fall on the other side of 0 in the two runs,
+    and that flips its element's
     gradient wholesale, far beyond any summation-order tolerance; with the
     card's masks the two sides differ by rounding alone. Returns (flips,
     pre-activations, largest |pre-activation| at a flip over the node's
@@ -1434,9 +1515,15 @@ def take_card_relu_masks(net, cpu, x):
         total += diff.numel()
         if bool(diff.any()):
             worst = max(worst, float(a[diff].abs().max() / a.abs().max()))
-        mask = keep.to(device="cpu", dtype=torch.float32)
+        mask = keep.to(device=b.device, dtype=torch.float32)
         c.net.layers[i].forward = \
             lambda params, inputs, ctx, m=mask: [inputs[0] * m]
+    if worst > MASK_FLIP_MAG or flips > MASK_FLIP_SHARE * total:
+        raise AssertionError(
+            "%d of %d ReLU pre-activations flip, the largest %.3e of its "
+            "node's largest: more than rounding (bars %.0e of the node's "
+            "largest, %.0e of all)" % (flips, total, worst, MASK_FLIP_MAG,
+                                       MASK_FLIP_SHARE))
     return flips, total, worst
 
 
@@ -1975,44 +2062,48 @@ def phase_rrelu_alexnet_train(rnd, lrn, api, ops, models):
     return counts
 
 
-def phase_lm_hd256(flash, api, models):
-    """Head dim 256: the three flash kernels against their plain versions
-    at the nhead-2 LM's shape, fp32 and bf16, with times beside d 64's at
-    equal b h d; the nhead-2 LM served through generate (held to the
-    plain-flash run) and trained through update (gradients held to the
-    plain backward's). Returns (kernel records by kernel, launches of the
-    request, (forward, dQ, dK/dV) launches of the training steps)."""
-    log("phase lm_hd256 (bench.py LM with nhead 2: head dim 256)")
-    recs = {"flash_fwd": phase_flash_fwd_kernel(flash, HD256_FLASH,
-                                                "lm_hd256 flash_fwd_kernel")}
-    bwd = phase_flash_bwd_kernel(flash, HD256_FLASH,
-                                 "lm_hd256 flash_bwd_kernel")
+def phase_lm_head_dim(flash, api, models, phase):
+    """A wide head dim (HD_PHASES: 256, or 512 in two slices): the three
+    flash kernels against their plain versions at the LM's shape, fp32 and
+    bf16, with times beside d 64's at equal b h d; the LM with that head
+    dim served through generate (held to the plain-flash run) and trained
+    through update (gradients held to the plain backward's). Returns
+    (kernel records by kernel, launches of the request, (forward, dQ,
+    dK/dV) launches of the training steps)."""
+    nhead, shape = HD_PHASES[phase]
+    d = shape[5]
+    log("phase %s (bench.py LM with nhead %d: head dim %d)"
+        % (phase, nhead, d))
+    recs = {"flash_fwd": phase_flash_fwd_kernel(
+        flash, [shape], "%s flash_fwd_kernel" % phase)}
+    bwd = phase_flash_bwd_kernel(flash, [shape],
+                                 "%s flash_bwd_kernel" % phase)
     recs["flash_bwd_dq"], recs["flash_bwd_dkv"] = bwd["dq"], bwd["dkv"]
     for kernel, d64 in (("flash_fwd", "lm_full_sequence"),
                         ("flash_bwd_dq", "lm_train"),
                         ("flash_bwd_dkv", "lm_train")):
-        a, b = KERNEL_MS.get((kernel, "lm_hd256")), KERNEL_MS.get((kernel,
-                                                                   d64))
+        a, b = KERNEL_MS.get((kernel, phase)), KERNEL_MS.get((kernel, d64))
         if a and b:
-            log("  %s fp32: d 256 (%s) %.4f ms vs d 64 (%s) %.4f ms, ratio "
-                "%.3f" % (kernel, HD256_FLASH[0][0], a, d64, b, a / b))
-    nlayer = HD256_ARGS["nlayer"]
-    net = lm_net(api, models, LM_SEQ, LM_BATCH, args=HD256_ARGS)
+            log("  %s fp32: d %d (%s) %.4f ms vs d 64 (%s) %.4f ms, ratio "
+                "%.3f" % (kernel, d, phase, a, d64, b, a / b))
+    args = dict(LM_ARGS, nhead=nhead)
+    nlayer = args["nlayer"]
+    net = lm_net(api, models, LM_SEQ, LM_BATCH, args=args)
     rng = np.random.RandomState(SEED + 11)
     prompts = rng.randint(0, LM_ARGS["vocab"], (LM_BATCH, LM_PROMPT))
 
     # the serving path: the counts start at 0 here and are read right after
     flash.launches = 0
     t = time.perf_counter()
-    got = net.generate(prompts, HD256_NEW)
+    got = net.generate(prompts, HD_NEW)
     wall = time.perf_counter() - t
     serve = flash.launches
     log("  generate (batch %d, prompt %d, %d new tokens): %.3f s wall, "
         "flash_fwd launches %d (%d expected)"
-        % (LM_BATCH, LM_PROMPT, HD256_NEW, wall, serve, nlayer))
-    if serve != nlayer or got.shape != (LM_BATCH, HD256_NEW):
-        raise AssertionError("head dim 256 request: %d launches, tokens %s"
-                             % (serve, got.shape))
+        % (LM_BATCH, LM_PROMPT, HD_NEW, wall, serve, nlayer))
+    if serve != nlayer or got.shape != (LM_BATCH, HD_NEW):
+        raise AssertionError("head dim %d request: %d launches, tokens %s"
+                             % (d, serve, got.shape))
     check_request(flash, net, prompts, np.full(LM_BATCH, LM_PROMPT), got)
 
     # the training path: the counts start at 0 here and are read right after
@@ -2033,7 +2124,7 @@ def phase_lm_hd256(flash, api, models):
     hold_grads("of the first step")
     flash.launches = flash.dq_launches = flash.dkv_launches = 0
     t = time.perf_counter()
-    for step in range(HD256_TRAIN_STEPS):
+    for step in range(HD_TRAIN_STEPS):
         net.update(x, y)
         counts = (flash.launches, flash.dq_launches, flash.dkv_launches)
         if counts != (nlayer * (step + 1),) * 3:
@@ -2045,15 +2136,351 @@ def phase_lm_hd256(flash, api, models):
     log("  %d update steps in %.3f s (first steps included), %s launches; "
         "fixed-batch cross-entropy %.6f before, %.6f after at the config's "
         "eta %g (reported: see LM_LOSS_ETA)"
-        % (HD256_TRAIN_STEPS, wall, counts, loss0, loss1, LM_ETA))
+        % (HD_TRAIN_STEPS, wall, counts, loss0, loss1, LM_ETA))
     for i, p in enumerate(_params(net)):
         for k, v in p.items():
             if not bool(torch.isfinite(v).all()):
                 raise AssertionError("layer %d %s not finite" % (i, k))
-    hold_grads("after the %d steps" % HD256_TRAIN_STEPS)
+    hold_grads("after the %d steps" % HD_TRAIN_STEPS)
     del net, batch_dev
     torch.cuda.empty_cache()
     return recs, serve, counts
+
+
+def ring_step_work(kernel, bh, bkv, sq, skv, d, q_off, kv_off, causal,
+                   window, esize):
+    """(operations, bytes) one ring step needs, counted for these offsets:
+    per (query, key) pair the mask keeps 4 d flops (forward), 6 d (dQ) or
+    8 d (dK/dV); q, the block's k and v (and dO, lse, D) read once, the f32
+    carries read and written once. A step that keeps no pair needs only
+    the forward's (m, l) copied."""
+    pairs = kept_pairs(sq, causal, window, skv, q_off, kv_off) * bh
+    q_b, kv_b = esize * bh * sq * d, esize * bkv * skv * d
+    rows, q_f32, kv_f32 = 4 * bh * sq, 4 * bh * sq * d, 4 * bkv * skv * d
+    if kernel == "fwd":
+        if not pairs:
+            return 0, 4 * rows
+        return 4 * d * pairs, q_b + 2 * kv_b + 4 * rows + 2 * q_f32
+    if not pairs:
+        return 0, 0
+    if kernel == "dq":
+        return 6 * d * pairs, 2 * q_b + 2 * kv_b + 2 * rows + 2 * q_f32
+    return 8 * d * pairs, 2 * q_b + 2 * kv_b + 2 * rows + 4 * kv_f32
+
+
+def ring_step_inputs(bh, bkv, sq, skv, d, dtype, rng):
+    """q, k, v, dO in dtype, the f32 forward carry of an earlier step
+    (every third row still at (NEG_INF, 0, 0)), lse and D, and the f32
+    backward carries (dq; dk and dv at query-head resolution), on the
+    card."""
+    def mk(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(DEV)
+    q, do = mk(bh, sq, d).to(dtype), mk(bh, sq, d).to(dtype)
+    k, v = mk(bkv, skv, d).to(dtype), mk(bkv, skv, d).to(dtype)
+    m, l, acc = mk(bh, sq, 1), mk(bh, sq, 1).abs() + 0.5, mk(bh, sq, d)
+    m[:, ::3], l[:, ::3], acc[:, ::3] = -1e30, 0.0, 0.0
+    lse, delta = mk(bh, sq, 1).abs() + 3.0, mk(bh, sq, 1)
+    return ((q, k, v, do), (m, l, acc), (lse, delta),
+            (mk(bh, sq, d), mk(bh, skv, d), mk(bh, skv, d)))
+
+
+def ring_step_case(rf, case, dtype, rng):
+    """The three step kernels against their plain versions at one step's
+    shape and offsets, from the same carries; a step that keeps no pair
+    leaves every carry bitwise as it was. Returns the largest absolute
+    error and {kernel: (kernel ms, plain ms, bound ms, what bounds it)}."""
+    name, bh, bkv, sq, skv, d, q_off, kv_off, causal, window = case
+    (q, k, v, do), (m, l, acc), (lse, delta), (dq, dk, dv) = \
+        ring_step_inputs(bh, bkv, sq, skv, d, dtype, rng)
+    offs = (q_off, kv_off)
+    kw = dict(causal=causal, scale=d ** -0.5, window=window)
+    log(" %s bh %d bkv %d sq %d skv %d d %d offs %s causal %d window %d %s"
+        % (name, bh, bkv, sq, skv, d, offs, causal, window,
+           str(dtype)[6:]))
+    got = rf.fwd_step_cuda(q, k, v, m, l, acc.clone(), offs, **kw) + \
+        (rf.dq_step_cuda(q, k, v, do, lse, delta, dq.clone(), offs, **kw),) \
+        + rf.dkv_step_cuda(q, k, v, do, lse, delta, dk.clone(), dv.clone(),
+                           offs, **kw)
+    torch.cuda.synchronize()
+    want = rf.fwd_step_ref(q, k, v, m, l, acc, offs, **kw) + \
+        (rf.dq_step_ref(q, k, v, do, lse, delta, dq, offs, **kw),) + \
+        rf.dkv_step_ref(q, k, v, do, lse, delta, dk, dv, offs, **kw)
+    err = 0.0
+    for nm, g, w in zip(("m", "l", "acc", "dq", "dk", "dv"), got, want):
+        finite = w[w > -5e29]
+        scale = float(finite.abs().max()) if finite.numel() else 1.0
+        tol = (RING_TOL[torch.float32] if nm in ("m", "l")
+               else RING_TOL[dtype])
+        err = max(err, check_close("%s vs plain" % nm, g, w, 0.0,
+                                   tol * scale))
+    pairs = kept_pairs(sq, causal, window, skv, q_off, kv_off)
+    if pairs == 0:
+        same = all(torch.equal(g, s0) for g, s0 in
+                   zip(got, (m, l, acc, dq, dk, dv)))
+        log("  no pair kept: every carry bitwise as it was: %s" % same)
+        if not same:
+            raise AssertionError("a wholly masked ring step moved a carry")
+    calls = {
+        "fwd": (lambda: rf.fwd_step_cuda(q, k, v, m, l, acc, offs, **kw),
+                lambda: rf.fwd_step_ref(q, k, v, m, l, acc, offs, **kw)),
+        "dq": (lambda: rf.dq_step_cuda(q, k, v, do, lse, delta, dq, offs,
+                                       **kw),
+               lambda: rf.dq_step_ref(q, k, v, do, lse, delta, dq, offs,
+                                      **kw)),
+        "dkv": (lambda: rf.dkv_step_cuda(q, k, v, do, lse, delta, dk, dv,
+                                         offs, **kw),
+                lambda: rf.dkv_step_ref(q, k, v, do, lse, delta, dk, dv,
+                                        offs, **kw))}
+    times = {}
+    peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    for key, (kern, plain) in calls.items():
+        ms, plain_ms = time_ms(kern), time_ms(plain, iters=3, warmup=1)
+        ops_n, nbytes = ring_step_work(key, bh, bkv, sq, skv, d, q_off,
+                                       kv_off, causal, window,
+                                       q.element_size())
+        bound_ms, bound_by = max((ops_n / peak * 1e3, "operations"),
+                                 (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+        times[key] = (ms, plain_ms, bound_ms, bound_by)
+        log("  %s kernel_ms %.4f plain_ms %.4f bound_ms %.4f (%s: %.3e "
+            "operations, %d bytes, %d pairs kept a head)%s"
+            % (key, ms, plain_ms, bound_ms, bound_by, ops_n, nbytes, pairs,
+               "" if not bound_ms else " kernel/bound %.2f" % (ms / bound_ms)))
+    return err, times
+
+
+def ring_main_path(rf, dtype, rng):
+    """One layer's ring on the main path: the long recipe's shard at
+    sp = SP_N, every (rank, step) launch of the forward step, then of the
+    dQ and dK/dV steps, timed as one ring each against the same launches
+    of the plain versions and the sum of their bounds. Returns
+    {kernel: record}."""
+    bh, bkv, sq, skv, d = RING_SHAPE
+    window = int(LONG_EXTRA.split("attn_window = ")[1].split()[0])
+    kw = dict(causal=True, scale=d ** -0.5, window=window)
+    (q, k, v, do), (m, l, acc), (lse, delta), (dq, dk, dv) = \
+        ring_step_inputs(bh, bkv, sq, skv, d, dtype, rng)
+    steps = [(i * sq, ((i - t) % SP_N) * skv) for t in range(SP_N)
+             for i in range(SP_N)]
+    calls = {
+        "fwd": (rf.fwd_step_cuda, rf.fwd_step_ref,
+                lambda fn, o: fn(q, k, v, m, l, acc, o, **kw)),
+        "dq": (rf.dq_step_cuda, rf.dq_step_ref,
+               lambda fn, o: fn(q, k, v, do, lse, delta, dq, o, **kw)),
+        "dkv": (rf.dkv_step_cuda, rf.dkv_step_ref,
+                lambda fn, o: fn(q, k, v, do, lse, delta, dk, dv, o, **kw))}
+    recs = {}
+    for key, (kern, plain, call) in calls.items():
+        ms = time_ms(lambda: [call(kern, o) for o in steps], iters=5)
+        plain_ms = time_ms(lambda: [call(plain, o) for o in steps], iters=2,
+                           warmup=1)
+        bound_ms = ops_ms = bytes_ms = 0.0
+        for o in steps:
+            ops_n, nbytes = ring_step_work(key, bh, bkv, sq, skv, d, o[0],
+                                           o[1], True, window, 4)
+            ops_ms += ops_n / FP32_OPS_PER_S * 1e3
+            bytes_ms += nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms += max(ops_n / FP32_OPS_PER_S,
+                            nbytes / HBM_BYTES_PER_S) * 1e3
+        rec = _new_rec()
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   library_ms=None)
+        recs[key] = rec
+        log("  one layer's ring of %d %s launches (bh %d, bkv %d, shards "
+            "of %d, d %d, window %d): kernels %.4f ms, plain %.4f ms, bound "
+            "%.4f ms (the sum of each launch's), kernel/bound %.2f"
+            % (len(steps), key, bh, bkv, sq, d, window, ms, plain_ms,
+               bound_ms, ms / bound_ms))
+    return recs
+
+
+def phase_ring_step_kernels(rf, flash, ring):
+    """The ring-step kernels against their plain versions on the card: at
+    the long recipe's shard in every class of offsets, at d 256 and 512
+    and at sq != skv, fp32 and bf16, with times, bounds and the plain
+    versions' times; one layer's whole ring on the main path timed; then
+    n steps over a whole sequence against the flash kernels (rows 4-6):
+    out, lse, dq, dk, dv. Returns {kernel: record} (the main path's fp32
+    times; the largest error of every check)."""
+    log("phase ring_step_kernels")
+    rng = np.random.RandomState(SEED + 13)
+    bh, bkv, sq, skv, d = RING_SHAPE
+    cases = [(nm, bh, bkv, sq, skv, d, qo, ko, c, w)
+             for nm, qo, ko, c, w in RING_CLASSES] + RING_EDGE
+    err = 0.0
+    for case in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            e, _ = ring_step_case(rf, case, dtype, rng)
+            if dtype == torch.float32:
+                err = max(err, e)
+            torch.cuda.empty_cache()
+    recs = ring_main_path(rf, torch.float32, rng)
+    for name, b, h, nkv, L, d_, causal, window in RING_VS_FLASH:
+        for dtype in ((torch.float32, torch.bfloat16)
+                      if name == RING_VS_FLASH[0][0] else (torch.float32,)):
+            host = [torch.from_numpy(rng.randn(b, n, L, d_).astype(
+                np.float32)) for n in (h, nkv, nkv, h)]
+            q, k, v, dout = (t.to(DEV, dtype) for t in host)
+            args = (causal, None, window)
+            out, lse = flash.flash_fwd_cuda(q, k, v, *args)
+            want = (out, lse) + flash.flash_bwd_cuda(q, k, v, out, lse, dout,
+                                                     *args)
+            ranks = ring._Ranks(SP_N, None)
+            scale = d_ ** -0.5
+            before = (rf.fwd_launches, rf.dq_launches, rf.dkv_launches)
+            r_out, r_lse = ring._ring_flash_fwd(q, k, v, ranks, causal,
+                                                scale, window)
+            got = ring._ring_flash_bwd(q, k, v, r_out, r_lse, dout, ranks,
+                                       causal, scale, window)
+            torch.cuda.synchronize()
+            counts = tuple(a - b0 for a, b0 in zip(
+                (rf.fwd_launches, rf.dq_launches, rf.dkv_launches), before))
+            r_lse = r_lse.reshape(SP_N, b, h, L // SP_N).permute(
+                1, 2, 0, 3).reshape(b, h, L)
+            log(" %d ring steps vs the flash kernels: %s b %d h %d nkv %d L "
+                "%d d %d causal %d window %d %s; step launches %s"
+                % (SP_N, name, b, h, nkv, L, d_, causal, window,
+                   str(dtype)[6:], counts))
+            if counts != (SP_N * SP_N,) * 3:
+                raise AssertionError("expected %d launches of each step "
+                                     "kernel" % (SP_N * SP_N))
+            for nm, g, w in zip(("out", "lse", "dq", "dk", "dv"),
+                                (r_out, r_lse) + got, want):
+                tol = RING_TOL[torch.float32 if nm == "lse" else dtype]
+                e = check_close("%s vs flash kernels" % nm, g, w, 0.0,
+                                tol * float(w.float().abs().max()))
+                if dtype == torch.float32:
+                    err = max(err, e)
+            del q, k, v, dout, out, lse, want, r_out, r_lse, got
+            torch.cuda.empty_cache()
+    for rec in recs.values():
+        rec["max_abs_err"] = err
+    log("  largest absolute error of the fp32 checks: %.3e" % err)
+    return recs
+
+
+def sp_logp(net, x):
+    """log-probabilities of a full-sequence predict_device, (b, vocab, L)."""
+    last = net.net_.net_cfg.param.num_nodes - 1
+    return torch.log(net.net_._forward_nodes(x, (last,))[0][:, :, 0, :])
+
+
+def phase_lm_sp_train(flash, rf, api, models, phase, seq, batch, extra,
+                      sp_mode):
+    """An LM under seq_parallel = SP_N through api.Net(dev="gpu"), loaded
+    from the single-card net's model file: one full-sequence
+    predict_device (log-probabilities held to the single-card flash run)
+    and SP_STEPS updates (the first step's gradients held to the single
+    card's; the ring runs n^2 launches of each step kernel per layer and
+    direction, Ulysses n of each flash kernel); tokens/s in turns with the
+    single-card run. Returns the launches of the main path: (forward, dQ,
+    dK/dV) of the ring-step kernels for the ring, of the flash kernels for
+    Ulysses, over the predict_device and the updates."""
+    log("phase %s (L %d, batch %d, seq_parallel %d, sp_mode %s%s)"
+        % (phase, seq, batch, SP_N, sp_mode,
+           ", " + extra.replace("\n", ", ").strip(", ") if extra else ""))
+    one = lm_net(api, models, seq, batch, extra)
+    fname = scratch_file("chip_smoke_sp.model")
+    one.save_model(fname)
+    sp = api.Net(dev=NET_DEV, cfg=lm_cfg(
+        models, seq, batch, extra + "sp_mode = %s\n" % sp_mode) +
+        "seq_parallel = %d\n" % SP_N)
+    sp.load_model(fname)
+    os.remove(fname)
+    nlayer, vocab = LM_ARGS["nlayer"], LM_ARGS["vocab"]
+    rng = np.random.RandomState(SEED + 17)
+    x = rng.randint(0, vocab, (batch, 1, 1, seq)).astype(np.float32)
+    y = rng.randint(0, vocab, (batch, seq)).astype(np.float32)
+    ring_path = sp_mode == "ring"
+    per = SP_N * SP_N if ring_path else SP_N   # per layer and direction
+
+    def counts():
+        if ring_path:
+            return (rf.fwd_launches, rf.dq_launches, rf.dkv_launches)
+        return (flash.launches, flash.dq_launches, flash.dkv_launches)
+
+    def zero():
+        rf.fwd_launches = rf.dq_launches = rf.dkv_launches = 0
+        flash.launches = flash.dq_launches = flash.dkv_launches = 0
+
+    # the main path: the counts start at 0 here and are read right after
+    zero()
+    got = sp_logp(sp, x)
+    torch.cuda.synchronize()
+    pred = counts()
+    want = sp_logp(one, x)
+    err = float((got - want).abs().max())
+    log("  full-sequence predict_device: %s launches (%d expected); "
+        "log-probabilities vs the single-card flash run: max_abs_err %.3e "
+        "(tolerance %.0e) %s" % (pred, per * nlayer, err, LOGP_TOL,
+                                 "ok" if err <= LOGP_TOL else "FAILED"))
+    if pred != (per * nlayer, 0, 0) or not err <= LOGP_TOL:
+        raise AssertionError("%s predict_device: %s launches, error %g"
+                             % (phase, pred, err))
+    del got, want
+    batch_dev = lm_batch(x, y, DEV)
+    batch_dev.data = batch_dev.data.long()
+    # the attention outputs of the two runs differ by their summation order,
+    # and an FFN pre-activation within rounding of 0 can fall on the other
+    # side of 0 in the two runs, which flips its element's gradient
+    # wholesale; the single-card run takes the sp run's ReLU masks for the
+    # comparison (as the card-vs-CPU steps do)
+    flips, total, worst = take_card_relu_masks(sp, one, x)
+    log("  ReLU masks: %d of %d FFN pre-activations fall on the other side "
+        "of 0 in the two runs (the largest of them %.3e of its node's "
+        "largest magnitude); the single-card run takes the sp run's masks "
+        "for the gradients" % (flips, total, worst))
+    loss_1, grads_1 = one.net_.loss_and_grads(batch_dev)
+    for lay in one.net_.net.layers:
+        lay.__dict__.pop("forward", None)   # its own ReLUs again
+    loss_sp, grads_sp = sp.net_.loss_and_grads(batch_dev)
+    rel = abs(float(loss_sp) - float(loss_1)) / abs(float(loss_1))
+    log("  loss seq_parallel %.7f vs single card %.7f: relative %.3e "
+        "(tolerance %.0e) %s" % (float(loss_sp), float(loss_1), rel,
+                                 LM_LOSS_RTOL,
+                                 "ok" if rel <= LM_LOSS_RTOL else "FAILED"))
+    if rel > LM_LOSS_RTOL:
+        raise AssertionError("%s loss" % phase)
+    compare_grads("gradients seq_parallel vs single card", grads_sp,
+                  grads_1, LM_GRAD_TOL)
+    del grads_1, grads_sp
+    zero()
+    for step in range(SP_STEPS):
+        sp.update(x, y)
+    torch.cuda.synchronize()
+    steps = counts()
+    log("  %d update steps: %s launches (%d of each per step expected)"
+        % (SP_STEPS, steps, per * nlayer))
+    if steps != (SP_STEPS * per * nlayer,) * 3:
+        raise AssertionError("%s: %s launches in %d updates"
+                             % (phase, steps, SP_STEPS))
+    for i, p in enumerate(_params(sp)):
+        for k, v in p.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError("layer %d %s not finite" % (i, k))
+
+    def tokens_per_s(net, iters=3):
+        net.net_.update(batch_dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            net.net_.update(batch_dev)
+        torch.cuda.synchronize()
+        return batch * seq * iters / (time.perf_counter() - t)
+    rates = {"one": [], "sp": []}
+    for which in ("one", "sp", "sp", "one"):
+        rates[which].append(tokens_per_s(one if which == "one" else sp))
+    log("  training, batch on the card: %s tokens/s with seq_parallel %d "
+        "(%s), %s on one rank (flash kernels), in turns one, sp, sp, one"
+        % (" / ".join("%.0f" % r for r in rates["sp"]), SP_N, sp_mode,
+           " / ".join("%.0f" % r for r in rates["one"])))
+    profile_forward(lambda: sp.net_.update(batch_dev), unit="step",
+                    shares=("ring_fwd_step", "ring_dq_step", "ring_dkv_step")
+                    if ring_path else ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv"))
+    del one, sp, batch_dev
+    torch.cuda.empty_cache()
+    return tuple(a + b for a, b in zip(pred, steps))
 
 
 def profile_forward(forward, iters: int = 3, top: int = 8,
@@ -2093,7 +2520,8 @@ def profile_forward(forward, iters: int = 3, top: int = 8,
     for ms, name in kernels[:top]:
         log("    %8.3f ms %5.1f%%  %s" % (ms, 100 * ms / busy_ms, name[:90]))
     for kernel in shares:
-        k_ms = sum(ms for ms, name in kernels if kernel in name)
+        symbol = KERNEL_SYMBOLS.get(kernel, kernel)
+        k_ms = sum(ms for ms, name in kernels if symbol in name)
         log("    %s kernels: %.3f ms/%s, %.1f%% of device time"
             % (kernel, k_ms, unit, 100 * k_ms / busy_ms))
     return busy_ms
@@ -2107,6 +2535,8 @@ def main() -> int:
     from cxxnet_tpu_torch import api, models, ops
     from cxxnet_tpu_torch.ops import _build, flash_attn, lrn
     from cxxnet_tpu_torch.ops import random as rnd
+    from cxxnet_tpu_torch.ops import ring_flash
+    from cxxnet_tpu_torch.parallel import ring
 
     log(nvidia_smi())
     log("torch %s cuda %s, %s" % (torch.__version__, torch.version.cuda,
@@ -2130,10 +2560,20 @@ def main() -> int:
     bwd_recs = phase_flash_bwd_kernel(flash_attn)
     train = {spec[0]: phase_lm_train(flash_attn, api, models, ops, *spec)
              for spec in LM_TRAIN}
-    hd256_recs, hd256_serve, hd256_train = phase_lm_hd256(flash_attn, api,
-                                                          models)
-    train["lm_hd256_train"] = hd256_train
+    wide = {}
+    serve_wide = {}
+    for phase in HD_PHASES:
+        wide[phase], serve_wide[phase + "_serve"], \
+            train[phase + "_train"] = phase_lm_head_dim(flash_attn, api,
+                                                        models, phase)
+    ring_recs = phase_ring_step_kernels(ring_flash, flash_attn, ring)
+    sp = {spec[0]: phase_lm_sp_train(flash_attn, ring_flash, api, models,
+                                     *spec) for spec in LM_SP}
+    ring_paths = {p: c for p, c in sp.items() if p.endswith("_ring")}
+    train.update({p: c for p, c in sp.items() if p.endswith("_ulysses")})
     per_step = {"train_step": LM_ARGS["nlayer"]}
+    ring_per = {"layer_and_direction": SP_N * SP_N,
+                "train_step": SP_N * SP_N * LM_ARGS["nlayer"]}
     log("wall time %.1f s" % (time.time() - t0))
     kernels = []
     for name, rec, replaces, by_path, per in (
@@ -2149,7 +2589,7 @@ def main() -> int:
              {"train_step": rrelu[0] // TRAIN_STEPS}),
             ("flash_fwd", flash_rec, "cxxnet_tpu/ops/flash_attn.py:284",
              {"lm_serve": serve_launches, "lm_serve_long": long_launches,
-              "lm_hd256_serve": hd256_serve,
+              **serve_wide,
               **{p: c[0] for p, c in train.items()}},
              {"generate_request": LM_ARGS["nlayer"],
               "full_sequence_forward": LM_ARGS["nlayer"], **per_step}),
@@ -2158,7 +2598,16 @@ def main() -> int:
              {p: c[1] for p, c in train.items()}, per_step),
             ("flash_bwd_dkv", bwd_recs["dkv"],
              "cxxnet_tpu/ops/flash_attn.py:363",
-             {p: c[2] for p, c in train.items()}, per_step)):
+             {p: c[2] for p, c in train.items()}, per_step),
+            ("ring_fwd_step", ring_recs["fwd"],
+             "cxxnet_tpu/ops/ring_flash.py:191",
+             {p: c[0] for p, c in ring_paths.items()}, ring_per),
+            ("ring_dq_step", ring_recs["dq"],
+             "cxxnet_tpu/ops/ring_flash.py:224",
+             {p: c[1] for p, c in ring_paths.items()}, ring_per),
+            ("ring_dkv_step", ring_recs["dkv"],
+             "cxxnet_tpu/ops/ring_flash.py:248",
+             {p: c[2] for p, c in ring_paths.items()}, ring_per)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "cxxnet_tpu_torch/csrc/%s.cu" % name,
@@ -2172,11 +2621,16 @@ def main() -> int:
         if name.startswith("flash_bwd"):
             kernels[-1]["plain_and_library_cover"] = \
                 "the whole backward: dq, dk and dv in one call"
-        if name in hd256_recs:
-            kernels[-1]["head_dim_256"] = {
-                k: hd256_recs[name][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "library_ms",
-                                                 "max_abs_err")}
+        for phase, recs in wide.items():
+            if name in recs:
+                kernels[-1]["head_dim_" + phase[len("lm_hd"):]] = {
+                    k: recs[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms",
+                                               "max_abs_err")}
+        if name.startswith("ring_"):
+            kernels[-1]["times_cover"] = (
+                "one layer's ring on the main path: %d (rank, step) launches "
+                "at the long recipe's shard" % (SP_N * SP_N))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

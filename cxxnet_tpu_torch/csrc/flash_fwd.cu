@@ -30,11 +30,13 @@
 // registers (8 x 16 would spill), and a warp owns 8 whole rows. Its tiles
 // take 214 KB of shared memory, one block per SM. The masked score is
 // the finite NEG_INF = -1e30 of the TPU kernel, so exp never sees
-// inf - inf: a row whose first tiles are wholly masked takes p = 1 there,
-// and the first real key rescales that by exp(-1e30 - m) = 0. Tiles wholly
-// above the causal diagonal or wholly older than the window are never
-// loaded (the loop bounds are _block_needed), which halves a causal
-// prefill. The ragged last tile is masked in the kernel, with no padded
+// inf - inf, and its mass is set to 0 outright, as the ring step must
+// (ring_fwd_step.cu): a row whose first tiles are wholly masked gains
+// nothing there. Tiles wholly above the causal diagonal or wholly older
+// than the window are never loaded (the loop bounds are _block_needed),
+// which halves a causal prefill; tiles wholly inside the mask (all but the
+// diagonal and the window's edge) skip the per-pair test, which took 14%
+// of the forward's time at the bench.py LM's shapes. The ragged last tile is masked in the kernel, with no padded
 // copy: rows past L are computed from zeros and not stored. The last q
 // tiles, which have the most kv tiles under a causal mask, are scheduled
 // first.
@@ -50,224 +52,63 @@
 // bound; mma.sync / wgmma on bf16 inputs, TMA staging and a pipelined K/V
 // ring are later work.
 
-// Head dims: see flash_common.cuh (any d <= 256, run in the next compiled
-// width with zero-filled columns).
+// The kernel body is flash_fwd.cuh, which ring_fwd_step.cu runs too; this
+// file holds what only the flash forward does: the carry starts at
+// (NEG_INF, 0, 0) and the row ends as out = acc / l and lse = m + log(l).
+//
+// Head dims: see flash_common.cuh (any d <= 256 in the next compiled
+// width with zero-filled columns; above 256 in slices of 256 columns, the
+// score product streamed over d in chunks, one more grid axis: at d 512
+// two blocks per 64 query rows, each computing the whole 64 x 64 score
+// tile).
 
-#include "flash_common.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
 using namespace flash;
 
-template <int D>
-struct Tiles {
-  static constexpr int TX = D == 256 ? 32 : 16;  // column lanes
-  static constexpr int kThreads = 8 * TX;        // 8 row groups
-  static constexpr int kRows = 8;                // query rows per thread
-  static constexpr int NC = kBK / TX;            // score columns per thread
-  static constexpr int NA = D / TX;              // accumulator columns
-  // Q^T [D][kPadQ], K^T [D][kPadK], V [kBK][D], P^T [kBK][kPadQ]
-  static constexpr size_t smem =
-      sizeof(float) * (size_t)(D * kPadQ + D * kPadK + kBK * D + kBK * kPadQ);
+// the flash forward's carry: it starts empty and ends normalised
+template <typename T>
+struct FlashFwdOut {
+  T* out;      // (rows, sq, d), q's dtype
+  float* lse;  // (rows, sq)
+
+  template <int NA>
+  __device__ __forceinline__ void init(int64_t, const int (&)[NA], int,
+                                       float& m, float& l,
+                                       float (&acc)[NA]) const {
+    m = kNegInf;
+    l = 0.f;
+#pragma unroll
+    for (int c = 0; c < NA; ++c) acc[c] = 0.f;
+  }
+
+  template <int NA>
+  __device__ __forceinline__ void store(int64_t row, const int (&col)[NA],
+                                        int d, bool stats, float m, float l,
+                                        const float (&acc)[NA]) const {
+    const float li = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int c = 0; c < NA; ++c)
+      if (col[c] < d) store_from_f32(out + row * d + col[c], acc[c] / li);
+    if (stats) lse[row] = m + logf(li);
+  }
 };
 
-template <typename T, int D, bool kExact>
-__global__ void __launch_bounds__(Tiles<D>::kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int heads, int group, int64_t L,
-                 int d_in, int causal, int64_t window, float scale) {
-  // the row stride; the compiled width itself when d is one of them
-  const int d = kExact ? D : d_in;
-  using C = Tiles<D>;
-  constexpr int TX = C::TX, kRows = C::kRows, NC = C::NC, kCols = C::NA;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;
-  float* kt = qt + D * kPadQ;
-  float* vs = kt + D * kPadK;
-  float* pt = vs + kBK * D;
-
-  const int tid = threadIdx.x;
-  const int ty = tid / TX, tx = tid % TX;
-  const int64_t bh = blockIdx.x;
-  const int64_t batch = bh / heads, head = bh % heads;
-  const int64_t kv_row = batch * (heads / group) + head / group;
-  const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * kBQ;
-  const T* qp = q + bh * L * d;
-  const T* kp = k + kv_row * L * d;
-  const T* vp = v + kv_row * L * d;
-
-  for (int idx = tid; idx < kBQ * D; idx += C::kThreads) {
-    const int r = idx / D, c = idx % D;
-    qt[c * kPadQ + r] = load_or_zero<kExact>(qp, q0 + r, L, c, d);
-  }
-
-  float m[kRows], l[kRows], acc[kRows][kCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
-  // the kv tiles _block_needed keeps
-  int64_t kv_begin, kv_end;
-  kv_tiles_for_q<kBQ, kBK>(q0, L, causal, window, &kv_begin, &kv_end);
-
-  for (int64_t j = kv_begin; j < kv_end; ++j) {
-    const int64_t k0 = j * kBK;
-    __syncthreads();  // the Q tile is in; the last tile's readers are done
-    for (int idx = tid; idx < kBK * D; idx += C::kThreads) {
-      const int r = idx / D, c = idx % D;
-      kt[c * kPadK + r] = load_or_zero<kExact>(kp, k0 + r, L, c, d);
-      vs[r * D + c] = load_or_zero<kExact>(vp, k0 + r, L, c, d);
-    }
-    __syncthreads();
-
-    float s[kRows][NC];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int jj = 0; jj < NC; ++jj) s[i][jj] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float4 qa = *reinterpret_cast<const float4*>(qt + c * kPadQ + ty * 8);
-      const float4 qb =
-          *reinterpret_cast<const float4*>(qt + c * kPadQ + ty * 8 + 4);
-      const float qv[kRows] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-      float kv[NC];
-#pragma unroll
-      for (int jj = 0; jj < NC; ++jj) kv[jj] = kt[c * kPadK + tx + TX * jj];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int jj = 0; jj < NC; ++jj) s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int64_t qpos = q0 + ty * 8 + i;
-      float rmax = kNegInf;
-#pragma unroll
-      for (int jj = 0; jj < NC; ++jj) {
-        s[i][jj] = keep(qpos, k0 + tx + TX * jj, L, causal, window)
-                       ? s[i][jj] * scale
-                       : kNegInf;
-        rmax = fmaxf(rmax, s[i][jj]);
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < NC; ++jj) {
-        s[i][jj] = expf(s[i][jj] - m_new);
-        rsum += s[i][jj];
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * alpha + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int jj = 0; jj < NC; ++jj)
-        pt[(tx + TX * jj) * kPadQ + ty * 8 + i] = s[i][jj];
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 pa = *reinterpret_cast<const float4*>(pt + kk * kPadQ + ty * 8);
-      const float4 pb =
-          *reinterpret_cast<const float4*>(pt + kk * kPadQ + ty * 8 + 4);
-      const float pv[kRows] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-      float vv[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = vs[kk * D + tx + TX * c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int64_t qpos = q0 + ty * 8 + i;
-    if (qpos < L) {
-      const float li = fmaxf(l[i], 1e-30f);
-      T* op = out + (bh * L + qpos) * d;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        if (kExact || tx + TX * c < d)
-          store_from_f32(op + tx + TX * c, acc[i][c] / li);
-      if (tx == 0) lse[bh * L + qpos] = m[i] + logf(li);
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int64_t batch, int heads, int kv_heads,
-                   int64_t L, int d, int causal, int64_t window, float scale,
-                   cudaStream_t stream) {
-  using C = Tiles<D>;
-  constexpr size_t smem = C::smem;
-  // a head dim equal to the compiled width takes the instantiation with
-  // compile-time strides and no column checks
-  const auto kernel = d == D ? flash_fwd_kernel<T, D, true>
-                              : flash_fwd_kernel<T, D, false>;
-  // above 48 KB a block's dynamic shared memory must be allowed first
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(batch * heads), (unsigned)((L + kBQ - 1) / kBQ));
-  kernel<<<grid, C::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, heads,
-      heads / kv_heads, L, d, causal, window, scale);
-  return cudaGetLastError();
-}
-
 template <typename T>
-cudaError_t dispatch_dim(int d, const void* q, const void* k, const void* v,
-                         void* out, float* lse, int64_t batch, int heads,
-                         int kv_heads, int64_t L, int causal, int64_t window,
-                         float scale, cudaStream_t s) {
-  switch (compiled_width(d)) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
-                           causal, window, scale, s);
-    case 32:
-      return launch<T, 32>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
-                           causal, window, scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
-                           causal, window, scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
-                            causal, window, scale, s);
-    case 256:
-      return launch<T, 256>(q, k, v, out, lse, batch, heads, kv_heads, L, d,
-                            causal, window, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t run(const void* q, const void* k, const void* v, void* out,
+                float* lse, long long rows, const Geometry& g,
+                cudaStream_t s) {
+  return launch_fwd<T>(q, k, v, rows, g,
+                       FlashFwdOut<T>{static_cast<T*>(out), lse}, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; 1 <= d <= 256; kv_heads divides heads;
+// dtype: 0 = float32, 1 = bfloat16; d >= 1; kv_heads divides heads;
 // window > 0 only with causal. q, out (batch, heads, L, d), k, v (batch,
 // kv_heads, L, d), lse (batch, heads, L) f32, all contiguous. Returns the
 // cudaError_t of the launch (0 = success). Launches on `stream` and does
@@ -277,17 +118,16 @@ int cxxnet_flash_fwd(const void* q, const void* k, const void* v, void* out,
                      int kv_heads, long long L, int d, int causal,
                      long long window, float scale, void* stream) {
   if (batch <= 0 || L <= 0) return 0;
-  const cudaError_t bad =
-      check_args(batch, heads, kv_heads, L, d, causal, window);
+  if (heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0)
+    return (int)cudaErrorInvalidValue;
+  const Geometry g{L, L, 0, 0, heads / kv_heads, d, causal, window, scale};
+  const long long rows = batch * heads;
+  const cudaError_t bad = check_geometry(rows, g);
   if (bad != cudaSuccess) return (int)bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_dim<float>(d, q, k, v, out, lse, batch, heads,
-                                    kv_heads, L, causal, window, scale, s);
+  if (dtype == 0) return (int)run<float>(q, k, v, out, lse, rows, g, s);
   if (dtype == 1)
-    return (int)dispatch_dim<__nv_bfloat16>(d, q, k, v, out, lse, batch,
-                                            heads, kv_heads, L, causal,
-                                            window, scale, s);
+    return (int)run<__nv_bfloat16>(q, k, v, out, lse, rows, g, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -175,6 +175,10 @@ class ApplyContext:
     # [decode_pos, decode_pos + L) and records in cache_updates
     kv_cache: Dict = field(default_factory=dict)
     cache_updates: Dict = field(default_factory=dict)
+    # sequence parallelism (the trainer's seq_parallel): attention of a
+    # full-sequence forward runs over this many virtual ranks of the
+    # sequence, where the JAX package passes a mesh with an "sp" axis
+    seq_parallel: int = 1
 
 
 _MASK64 = (1 << 64) - 1

@@ -30,6 +30,7 @@ import torch
 from .. import ops
 from ..ops import flash_attn
 from ..ops.attention import attention_reference
+from ..parallel import ring
 from .base import ApplyContext, Layer, check
 
 
@@ -724,10 +725,14 @@ class AttentionLayer(Layer):
     float32), ``nkvhead`` (grouped-query attention: k/v carry fewer heads)
     and ``attn_window`` (sliding window, causal only). A sequence the flash
     kernel takes (ops.flash_attn.supports) goes to it, any other to dense
-    attention. In a KV-cached decode forward the layer writes its k/v into
-    the caches at ``decode_pos``; the prefill (position 0) attends within
-    its own chunk, through the flash kernel where it takes the shape, and a
-    one-token step attends densely against the whole cache."""
+    attention. Under the trainer's ``seq_parallel = n`` (the apply
+    context's ``seq_parallel``) a full-sequence forward runs ring or
+    Ulysses attention (``sp_mode``) over n virtual ranks of the sequence
+    (parallel/ring.py; cxxnet_tpu/layer/layers.py:1334-1364). In a
+    KV-cached decode forward the layer writes its k/v into the caches at
+    ``decode_pos``; the prefill (position 0) attends within its own chunk,
+    through the flash kernel where it takes the shape, and a one-token step
+    attends densely against the whole cache."""
 
     type_name = "attention"
 
@@ -739,6 +744,7 @@ class AttentionLayer(Layer):
         self.rope_base = 10000.0
         self.nkvhead = 0          # 0 -> nhead (classic MHA)
         self.attn_window = 0
+        self.sp_mode = "ring"     # sequence parallelism: ring or ulysses
 
     def set_param(self, name, val):
         super().set_param(name, val)
@@ -760,8 +766,7 @@ class AttentionLayer(Layer):
         if name == "sp_mode":
             check(val in ("ring", "ulysses"),
                   "sp_mode must be ring or ulysses")
-            check(False, "attention sp_mode (sequence parallelism) is not "
-                  "ported yet")
+            self.sp_mode = val
 
     def infer_shape(self, in_shapes):
         check(len(in_shapes) == 1,
@@ -829,6 +834,29 @@ class AttentionLayer(Layer):
         return attention_reference(q, k, v, causal=causal, scale=dh ** -0.5,
                                    window=self.attn_window)
 
+    def _attend_seq_parallel(self, q, k, v, sp: int):
+        """Attention over sp sequence shards (the JAX package's mesh
+        branch, cxxnet_tpu/layer/layers.py:1334-1364): q, k and v were
+        computed, and rotated, over the whole sequence before the split."""
+        nh, nkv, L = q.shape[1], k.shape[1], q.shape[2]
+        check(L % sp == 0, "attention: seq length %d must be divisible by "
+              "seq_parallel %d" % (L, sp))
+        if self.sp_mode == "ulysses":
+            check(nh % sp == 0, "ulysses: nhead %d must be divisible by "
+                  "seq_parallel %d" % (nh, sp))
+            if nkv != nh and nkv % sp != 0:
+                # ulysses' head-split all-to-all needs sp | kv heads;
+                # broadcast up front when the grouping doesn't divide
+                k = k.repeat_interleave(nh // nkv, 1)
+                v = v.repeat_interleave(nh // nkv, 1)
+            fn = ring.ulysses_attention
+        else:
+            # the ring takes grouped k/v as they are: the blocks that
+            # rotate are nkvhead-sized
+            fn = ring.ring_attention
+        return fn(q, k, v, n=sp, causal=bool(self.causal),
+                  window=self.attn_window)
+
     def forward(self, params, inputs, ctx):
         x = inputs[0]
         b, d, _, L = x.shape
@@ -870,6 +898,8 @@ class AttentionLayer(Layer):
                                           scale=dh ** -0.5,
                                           window=self.attn_window,
                                           q_offset=pos)
+        elif ctx.seq_parallel > 1:
+            out = self._attend_seq_parallel(q, k, v, ctx.seq_parallel)
         else:
             out = self._attend(q, k, v, bool(self.causal), dh)
         out = out.transpose(1, 2).reshape(b, L, d) @ params["wo"]

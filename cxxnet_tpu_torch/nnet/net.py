@@ -28,15 +28,18 @@ Params = List[Dict[str, torch.Tensor]]
 class NeuralNet:
     def __init__(self, cfg: NetConfig, batch_size: int,
                  infer_shapes: bool = True, input_scale: float = 1.0,
-                 input_mean=None):
+                 input_mean=None, seq_parallel: int = 1):
         """infer_shapes=False skips shape inference, for a net whose layer
         params come from a model file first (load_model_blob restores each
         layer's LayerParam, then the caller runs infer_shapes).
 
         input_scale/input_mean (trainer keys input_divideby / input_scale /
         input_mean_value) apply ``(x - mean) * scale`` on the device to the
-        data node."""
+        data node. seq_parallel (the trainer key) reaches every layer
+        through the apply context: attention then runs over that many
+        virtual ranks of the sequence."""
         self.cfg = cfg
+        self.seq_parallel = int(seq_parallel)
         self.max_batch = batch_size
         self.input_scale = float(input_scale)
         self.input_mean = None if input_mean is None else \
@@ -174,7 +177,8 @@ class NeuralNet:
                   % (tuple(values[0].shape[1:]),
                      tuple(self.node_shapes[0][1:])))
         ctx = ApplyContext(train=train, labels=labels, epoch=epoch,
-                           decode_pos=decode_pos, kv_cache=kv_cache or {})
+                           decode_pos=decode_pos, kv_cache=kv_cache or {},
+                           seq_parallel=self.seq_parallel)
         base_seed = gen.initial_seed() if gen is not None else 0
         for i, info in enumerate(cfg.layers):
             pidx = info.primary_layer_index if self.is_shared[i] else i

@@ -7,9 +7,12 @@ optimizer-state section, prediction and feature extraction, the training
 step (``update``: forward, autograd backward, ``update_period``
 accumulation, ``clip_global_norm``, one updater per weight tensor,
 train metrics accumulated on the device), ``evaluate``,
-``copy_model_from`` and greedy KV-cached ``generate`` for sequence nets.
-Device meshes, the health monitor, batch-norm state updates, sampling,
-beam search and the training-state section belong to later slices.
+``copy_model_from`` and greedy KV-cached ``generate`` for sequence nets,
+and sequence parallelism (``seq_parallel = n``: the device runs n virtual
+ranks of the sequence in every attention layer, and the result equals the
+single-device run). Meshes over several devices, the health monitor,
+batch-norm state updates, sampling, beam search and the training-state
+section belong to later slices.
 """
 
 from __future__ import annotations
@@ -56,6 +59,9 @@ class Trainer:
         self.input_scale = 1.0      # device-side input normalization
         self.input_mean = None
         self.clip_global_norm = 0.0  # 0 -> off
+        # sequence parallelism: the device runs this many virtual ranks of
+        # the sequence in every attention layer (doc/multichip.md:162-193)
+        self.seq_parallel = 1
         self.metric = MetricSet()
         self.train_metric = MetricSet()
         self.eval_node_names: List[Optional[str]] = []  # None -> last node
@@ -93,7 +99,10 @@ class Trainer:
         if name == "compute_dtype":
             check(val == "float32",
                   "compute_dtype %s is not ported yet (float32 only)" % val)
-        if name in ("model_parallel", "seq_parallel", "pipeline_parallel",
+        if name == "seq_parallel":
+            self.seq_parallel = int(val)
+            check(self.seq_parallel >= 1, "seq_parallel must be >= 1")
+        if name in ("model_parallel", "pipeline_parallel",
                     "expert_parallel"):
             check(int(val) == 1, "%s > 1 is not ported yet" % name)
         if name == "health_monitor":
@@ -120,7 +129,8 @@ class Trainer:
                  infer_shapes: bool) -> NeuralNet:
         return NeuralNet(cfg, batch_size, infer_shapes=infer_shapes,
                          input_scale=self.input_scale,
-                         input_mean=self.input_mean)
+                         input_mean=self.input_mean,
+                         seq_parallel=self.seq_parallel)
 
     def _resolve_eval_nodes(self) -> None:
         self.eval_nodes = [self.net_cfg.param.num_nodes - 1 if nm is None

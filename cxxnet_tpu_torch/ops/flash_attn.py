@@ -7,9 +7,9 @@ launched at :284), ``_dq_kernel`` (:123, launched at :337) and
 (:213-216). The kernels are ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu``
 and ``csrc/flash_bwd_dkv.cu``, built with nvcc at first use and bound with
 ctypes; their source comments state the design and the bound. They take
-any head dim up to 256 (run in the next compiled width with zero-filled
-columns); the JAX package's gate takes larger multiples of 8 too, which
-raise here.
+every head dim the gate admits: up to 256 in the next compiled width with
+zero-filled columns, above 256 in slices of 256 columns
+(csrc/flash_common.cuh).
 
 ``flash_attention`` goes through ``FlashAttention``: for a CUDA tensor the
 forward launches the forward kernel and keeps its lse, and the backward
@@ -36,9 +36,6 @@ dkv_launches = 0
 # finite stand-in for -inf: exp(NEG_INF - m) is 0 and never NaN (the TPU
 # kernel's rule, cxxnet_tpu/ops/flash_attn.py:46)
 NEG_INF = -1e30
-# the kernels are compiled for head dims 16, 32, 64, 128 and 256; a smaller
-# one runs in the next of them, its extra columns zero-filled
-KERNEL_MAX_HEAD_DIM = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # after the tensor pointers: dtype, batch, heads, kv_heads, L, d, causal,
@@ -168,7 +165,7 @@ def check_kernel_input(q, k, v, causal: bool, window: int,
                        name: str = "flash_fwd") -> None:
     """What the kernels take: q (b, h, L, d) and k/v (b, nkv, L, d),
     contiguous, float32 or bfloat16 alike, on one CUDA device, with
-    nkv | h, 1 <= d <= 256 and window only with causal."""
+    nkv | h, d >= 1 and window only with causal."""
     for nm, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError("%s kernel needs CUDA tensors, got %s on %s"
@@ -182,10 +179,8 @@ def check_kernel_input(q, k, v, causal: bool, window: int,
         if t.device != q.device:
             raise ValueError("%s kernel needs q, k, v on one device" % name)
     _check_shapes(q, k, v, causal, window)
-    d = q.shape[3]
-    if not 0 < d <= KERNEL_MAX_HEAD_DIM:
-        raise ValueError("%s kernel takes head dims up to %d, not %d"
-                         % (name, KERNEL_MAX_HEAD_DIM, d))
+    if q.shape[3] < 1:
+        raise ValueError("%s kernel needs a head dim >= 1" % name)
 
 
 def _shape_args(q, k, causal, scale, window):

@@ -43,6 +43,8 @@ from cxxnet_tpu_torch import api, models, ops
 from cxxnet_tpu_torch.io import DataBatch
 from cxxnet_tpu_torch.ops import flash_attn, lrn
 from cxxnet_tpu_torch.ops import random as trandom
+from cxxnet_tpu_torch.ops import ring_flash
+from cxxnet_tpu_torch.parallel import ring
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -175,6 +177,8 @@ FLASH_SHAPES = [
     (2, 2, 2, 1024, 256, True, 0),      # head dim 256 (its own layout)
     (1, 4, 2, 300, 256, True, 100),
     (1, 2, 1, 200, 200, False, 0),      # run in width 256
+    (1, 4, 2, 300, 264, True, 100),     # above 256: two slices
+    (2, 2, 1, 256, 512, True, 0),
 ]
 
 
@@ -226,12 +230,20 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="needs causal"):
         flash_attn.flash_fwd_cuda(q, k, v, False, None, 16)
     # supports() takes any head dim that is a multiple of 8, as the JAX gate
-    # does; the kernels take those up to 256 and name any larger one
-    assert flash_attn.supports(128, 264)
-    qd, kd, vd = _flash_inputs(card, (1, 2, 2, 128, 264, True, 0),
-                               torch.float32)
-    with pytest.raises(ValueError, match="up to 256, not 264"):
-        flash_attn.flash_fwd_cuda(qd, kd, vd, True)
+    # does, and so do the kernels: d 264 and 512 run in slices of 256
+    for d in (264, 512):
+        assert flash_attn.supports(128, d)
+        qd, kd, vd = _flash_inputs(card, (1, 2, 2, 128, d, True, 0),
+                                   torch.float32)
+        out, lse = flash_attn.flash_fwd_cuda(qd, kd, vd, True)
+        ref_out, ref_lse = flash_attn.flash_fwd_ref(qd, kd, vd, True)
+        eps = torch.finfo(torch.float32).eps
+        torch.testing.assert_close(
+            out, ref_out, rtol=1e-5,
+            atol=8 * eps * float(ref_out.abs().max()))
+        torch.testing.assert_close(
+            lse, ref_lse, rtol=1e-5,
+            atol=8 * eps * float(ref_lse.abs().max()))
 
 
 @pytest.mark.cuda
@@ -277,6 +289,8 @@ FLASH_BWD_SHAPES = [
     (2, 2, 2, 1024, 256, True, 0),      # head dim 256: 32-key tiles
     (1, 4, 2, 300, 256, True, 100),
     (1, 2, 1, 200, 200, False, 0),      # run in width 256
+    (1, 4, 2, 300, 264, True, 100),     # above 256: two slices
+    (2, 2, 1, 256, 512, True, 0),
 ]
 
 
@@ -540,3 +554,175 @@ def test_rrelu_alexnet_step_card_matches_cpu(card, tmp_path):
             torch.testing.assert_close(got, want, rtol=1e-5,
                                        atol=1e-4 * step,
                                        msg="layer %d %s" % (i, k))
+
+
+# (bh, bkv, sq, skv, d, (q_off, kv_off), causal, window): every class of
+# offsets a ring step meets, grouped k/v, sq != skv and head dims above 256
+RING_STEPS = [
+    (16, 16, 512, 512, 64, (512, 512), True, 0),     # the diagonal block
+    (16, 4, 256, 512, 64, (1024, 0), True, 0),       # wholly visible
+    (8, 8, 256, 256, 64, (0, 256), True, 0),         # wholly masked
+    (8, 2, 256, 256, 64, (768, 256), True, 300),     # cut by the window
+    (8, 8, 256, 384, 64, (0, 768), False, 0),        # non-causal
+    (4, 4, 128, 256, 264, (256, 128), True, 0),      # above 256: slices
+    (4, 2, 256, 128, 512, (256, 256), True, 100),
+]
+
+
+def _ring_step_inputs(card, case, dtype):
+    """q, k, v, dO in dtype and the f32 carries of an earlier step (every
+    third row still at (NEG_INF, 0, 0); dK/dV at query-head resolution)."""
+    bh, bkv, sq, skv, d = case[:5]
+    rng = np.random.RandomState(5)
+
+    def mk(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(card)
+    q, do = mk(bh, sq, d).to(dtype), mk(bh, sq, d).to(dtype)
+    k, v = mk(bkv, skv, d).to(dtype), mk(bkv, skv, d).to(dtype)
+    m, l, acc = mk(bh, sq, 1), mk(bh, sq, 1).abs() + 0.5, mk(bh, sq, d)
+    m[:, ::3], l[:, ::3], acc[:, ::3] = flash_attn.NEG_INF, 0.0, 0.0
+    lse, delta = mk(bh, sq, 1).abs() + 3.0, mk(bh, sq, 1)
+    return (q, k, v, do), (m, l, acc), (lse, delta), \
+        (mk(bh, sq, d), mk(bh, skv, d), mk(bh, skv, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", RING_STEPS, ids=str)
+def test_ring_step_kernels_match_plain(card, case, dtype, tol):
+    # the carries within 1e-5 (m, l) and tol (acc, dq, dk, dv) of their
+    # largest magnitude: kernel and plain version read the same inputs in
+    # f32 and differ by their order of summation; a wholly masked step
+    # leaves every carry bitwise as it was
+    offs, causal, window = case[5:]
+    kw = dict(causal=causal, scale=case[4] ** -0.5, window=window)
+    (q, k, v, do), (m, l, acc), (lse, delta), (dq, dk, dv) = \
+        _ring_step_inputs(card, case, dtype)
+    before = (ring_flash.fwd_launches, ring_flash.dq_launches,
+              ring_flash.dkv_launches)
+    want = ring_flash.fwd_step_ref(q, k, v, m, l, acc, offs, **kw)
+    got = ring_flash.fwd_step_cuda(q, k, v, m, l, acc.clone(), offs, **kw)
+    want_dq = ring_flash.dq_step_ref(q, k, v, do, lse, delta, dq, offs, **kw)
+    got_dq = ring_flash.dq_step_cuda(q, k, v, do, lse, delta, dq.clone(),
+                                     offs, **kw)
+    want_dkv = ring_flash.dkv_step_ref(q, k, v, do, lse, delta, dk, dv, offs,
+                                       **kw)
+    got_dkv = ring_flash.dkv_step_cuda(q, k, v, do, lse, delta, dk.clone(),
+                                       dv.clone(), offs, **kw)
+    torch.cuda.synchronize()
+    assert (ring_flash.fwd_launches, ring_flash.dq_launches,
+            ring_flash.dkv_launches) == tuple(n + 1 for n in before)
+    for g, w, t in zip(got + (got_dq,) + got_dkv,
+                       want + (want_dq,) + want_dkv,
+                       (1e-5, 1e-5) + (tol,) * 4):
+        torch.testing.assert_close(g, w, rtol=t, atol=t * float(
+            w[w > 0.5 * flash_attn.NEG_INF].abs().max()))
+    if offs == (0, 256):
+        for g, start in zip(got + (got_dq,) + got_dkv,
+                            (m, l, acc, dq, dk, dv)):
+            assert torch.equal(g, start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, shape", [
+    (4, (2, 8, 2, 2048, 64, True, 1024)),    # the long recipe's ring, cut
+    (4, (2, 4, 4, 1024, 64, False, 0)),
+    (2, (1, 2, 1, 512, 512, True, 200)),     # head dim 512
+])
+def test_ring_steps_reproduce_the_flash_kernels(card, n, shape):
+    # n ring steps over the whole sequence give the flash kernels' out and
+    # lse, and the backward ring pass their dq, dk, dv, within 1e-5 of the
+    # largest magnitude; each step kernel launches n^2 times
+    q, k, v = _flash_inputs(card, shape, torch.float32)
+    dout = _flash_inputs(card, shape, torch.float32, seed=4)[0]
+    causal, window = shape[5], shape[6]
+    scale = shape[4] ** -0.5
+    out, lse = flash_attn.flash_fwd_cuda(q, k, v, causal, None, window)
+    want = flash_attn.flash_bwd_cuda(q, k, v, out, lse, dout, causal, None,
+                                     window)
+    before = (ring_flash.fwd_launches, ring_flash.dq_launches,
+              ring_flash.dkv_launches)
+    ranks = ring._Ranks(n, None)
+    r_out, r_lse = ring._ring_flash_fwd(q, k, v, ranks, causal, scale,
+                                        window)
+    got = ring._ring_flash_bwd(q, k, v, r_out, r_lse, dout, ranks, causal,
+                               scale, window)
+    torch.cuda.synchronize()
+    assert (ring_flash.fwd_launches, ring_flash.dq_launches,
+            ring_flash.dkv_launches) == tuple(c + n * n for c in before)
+    b, h, L, _ = q.shape
+    r_lse = r_lse.reshape(n, b, h, L // n).permute(1, 2, 0, 3).reshape(b, h,
+                                                                       L)
+    for g, w in zip((r_out, r_lse) + got, (out, lse) + want):
+        _assert_grad_close(g, w, 1e-5)
+
+
+@pytest.mark.cuda
+def test_ring_step_kernels_refuse_what_they_do_not_take(card):
+    case = (4, 2, 128, 128, 64, (0, 0), True, 0)
+    (q, k, v, do), (m, l, acc), (lse, delta), (dq, dk, dv) = \
+        _ring_step_inputs(card, case, torch.float32)
+    kw = dict(causal=True, scale=0.125)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ring_flash.fwd_step_cuda(q.cpu(), k, v, m, l, acc, (0, 0), **kw)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        ring_flash.fwd_step_cuda(q[:, :100].contiguous(), k, v,
+                                 m[:, :100].contiguous(),
+                                 l[:, :100].contiguous(),
+                                 acc[:, :100].contiguous(), (0, 0), **kw)
+    with pytest.raises(ValueError, match="bkv dividing"):
+        k3 = torch.zeros(3, 128, 64, device=card)
+        ring_flash.fwd_step_cuda(q, k3, k3, m, l, acc, (0, 0), **kw)
+    with pytest.raises(ValueError, match="float32 acc"):
+        ring_flash.fwd_step_cuda(q, k, v, m, l, acc.bfloat16(), (0, 0), **kw)
+    with pytest.raises(ValueError, match="float32 dq"):
+        ring_flash.dq_step_cuda(q, k, v, do, lse, delta, dq[:, :64], (0, 0),
+                                **kw)
+    with pytest.raises(ValueError, match="float32 dv"):
+        ring_flash.dkv_step_cuda(q, k, v, do, lse, delta, dk, dv.cpu(),
+                                 (0, 0), **kw)
+    with pytest.raises(ValueError, match="needs causal"):
+        ring_flash.dkv_step_cuda(q, k, v, do, lse, delta, dk, dv, (0, 0),
+                                 causal=False, scale=0.125, window=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp_mode, extra", [
+    ("ring", ""), ("ring", "nkvhead = 1\nattn_window = 100\nrope = 1\n"),
+    ("ulysses", "nkvhead = 1\nattn_window = 100\nrope = 1\n")])
+def test_seq_parallel_update_matches_one_rank(card, tmp_path, sp_mode,
+                                              extra):
+    # seq_parallel = 2 on the card gives the single-rank run's loss and
+    # gradients (1e-5 relative, 1e-4 of each tensor's largest); one update
+    # launches each ring kernel n^2 = 4 times per layer (ring), or each
+    # flash kernel n = 2 times per layer (ulysses)
+    cfg = models.transformer_lm_config(
+        vocab=64, seq=256, batch_size=2, dim=64, nhead=4, nlayer=2,
+        dev="gpu", attn_extra=extra + "sp_mode = %s\n" % sp_mode)
+    one = api.Net(dev="gpu", cfg=cfg + "seed = 1\n")
+    one.init_model()
+    fname = str(tmp_path / "lm.model")
+    one.save_model(fname)
+    sp = api.Net(dev="gpu", cfg=cfg + "seq_parallel = 2\n")
+    sp.load_model(fname)
+    rng = np.random.RandomState(3)
+    x = rng.randint(0, 64, (2, 1, 1, 256)).astype(np.float32)
+    y = rng.randint(0, 64, (2, 256)).astype(np.float32)
+    batch = DataBatch()
+    batch.data, batch.label, batch.batch_size = x, y, 2
+    loss1, grads1 = one.net_.loss_and_grads(batch)
+    loss2, grads2 = sp.net_.loss_and_grads(batch)
+    assert abs(float(loss2) - float(loss1)) <= 1e-5 * abs(float(loss1))
+    for g, w in zip(grads2, grads1):
+        for key in g:
+            _assert_grad_close(g[key], w[key], 1e-4)
+    mod = ring_flash if sp_mode == "ring" else flash_attn
+    names = ("fwd_launches", "dq_launches", "dkv_launches") \
+        if sp_mode == "ring" else ("launches", "dq_launches", "dkv_launches")
+    before = [getattr(mod, nm) for nm in names]
+    sp.update(x, y)
+    torch.cuda.synchronize()
+    per_layer = 4 if sp_mode == "ring" else 2
+    assert [getattr(mod, nm) - b for nm, b in zip(names, before)] == \
+        [2 * per_layer] * 3

@@ -191,8 +191,11 @@ def test_attention_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="not ported yet"):
         lay.set_param("decode_chunk", "256")
     lay.set_param("decode_chunk", "0")
-    with pytest.raises(ValueError, match="not ported yet"):
-        lay.set_param("sp_mode", "ring")
+    # sequence parallelism is ported: both modes are taken, others named
+    lay.set_param("sp_mode", "ring")
+    assert lay.sp_mode == "ring"
+    lay.set_param("sp_mode", "ulysses")
+    assert lay.sp_mode == "ulysses"
     with pytest.raises(ValueError, match="ring or ulysses"):
         lay.set_param("sp_mode", "bogus")
     _, tl, _, tp, rng = _attention_case(8, {"causal": 1}, 5)
