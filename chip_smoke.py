@@ -61,6 +61,10 @@ NET_DEV = "gpu"
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# fp32-accurate products on the tensor cores: 3xTF32, three TF32 products
+# (495 TFLOP/s dense) per fp32 product. The rate of the flash backward
+# kernels' fp32 bound; FP32_OPS_PER_S stays the bound of the SIMT kernels
+FP32_3XTF32_OPS_PER_S = 495e12 / 3
 # dense bf16 on the tensor cores: the least time for bf16 attention inputs
 BF16_OPS_PER_S = 989e12
 # LRN forward per element: square, window add and subtract, scale and
@@ -1336,6 +1340,25 @@ def flash_bwd_work(b, h, nkv, L, d, causal, window, esize):
             (8 * d * pairs, esize * (2 * q_elems + 4 * kv_elems) + rows))
 
 
+def tensor_core_instructions():
+    """HMMA (tensor-core) instructions in the built flash_bwd_dq and
+    flash_bwd_dkv libraries, counted in cuobjdump's SASS; raises if either
+    has none (the kernels would then run outside the tensor cores)."""
+    from cxxnet_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    counts = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        path = _build.build_kernels([name])[name]
+        sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts[name] = sum(1 for ln in sass.splitlines() if "HMMA" in ln)
+    log("  tensor-core instructions (HMMA lines in cuobjdump -sass): %s"
+        % ", ".join("%s %d" % kv for kv in counts.items()))
+    if not all(counts.values()):
+        raise AssertionError("a flash backward library has no HMMA "
+                             "instruction")
+
+
 def sdpa_bwd_ms(F, q, k, v, dout, causal, window, ref):
     """Time of the backward of F.scaled_dot_product_attention on the same
     inputs (autograd.grad of dq, dk, dv over a kept graph), a yardstick the
@@ -1368,9 +1391,14 @@ def phase_flash_bwd_kernel(flash, shapes=None, phase="flash_bwd_kernel"):
     returns the per-kernel records of the first shape (the main path's:
     one fp32 launch each). The plain and library times are those of the
     whole backward (dq, dk and dv in one call). Every fp32 time lands in
-    KERNEL_MS."""
+    KERNEL_MS. The fp32 bound is reckoned at the 3xTF32 rate of the
+    kernels' tensor-core products, the FMA-rate bound printed beside it;
+    the default run first counts the libraries' tensor-core instructions
+    and fails without them."""
     import torch.nn.functional as F
     log("phase %s" % phase)
+    if shapes is None:
+        tensor_core_instructions()
     shapes = shapes or FLASH_BWD_SHAPES
     recs = {"dq": _new_rec(), "dkv": _new_rec()}
     rng = np.random.RandomState(SEED + 8)
@@ -1411,8 +1439,8 @@ def phase_flash_bwd_kernel(flash, shapes=None, phase="flash_bwd_kernel"):
             plain_ms = time_ms(lambda: flash.flash_bwd_ref(
                 q, k, v, out, lse, dout, *args), iters=3, warmup=1)
             library_ms = sdpa_bwd_ms(F, q, k, v, dout, causal, window, ref)
-            peak = FP32_OPS_PER_S if dtype == torch.float32 \
-                else BF16_OPS_PER_S
+            fp32 = dtype == torch.float32
+            peak = FP32_3XTF32_OPS_PER_S if fp32 else BF16_OPS_PER_S
             works = flash_bwd_work(b, h, nkv, L, d, causal, window,
                                    q.element_size())
             for key, ms, (ops_n, nbytes) in (("dq", dq_ms, works[0]),
@@ -1421,10 +1449,15 @@ def phase_flash_bwd_kernel(flash, shapes=None, phase="flash_bwd_kernel"):
                 bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
                 bound_ms = max(ops_ms, bytes_ms)
                 bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+                # the fp32 FMA-rate bound the SIMT kernels were held to
+                fma_ms = max(ops_n / FP32_OPS_PER_S * 1e3, bytes_ms)
                 log("  %s kernel_ms %.4f bound_ms %.4f (%s: %.3e operations "
-                    "at %.0f TFLOP/s, %d bytes, %.4f ms) kernel/bound %.2f"
+                    "at %.0f TFLOP/s, %d bytes, %.4f ms) kernel/bound %.2f%s"
                     % (key, ms, bound_ms, bound_by, ops_n, peak / 1e12,
-                       nbytes, bytes_ms, ms / bound_ms))
+                       nbytes, bytes_ms, ms / bound_ms,
+                       "; fp32 FMA-rate bound %.4f ms (%.0f TFLOP/s), "
+                       "kernel/that %.2f" % (fma_ms, FP32_OPS_PER_S / 1e12,
+                                             ms / fma_ms) if fp32 else ""))
                 if name == shapes[0][0] and dtype == torch.float32:
                     _add_fp32(recs[key], ms, plain_ms, library_ms, bound_ms,
                               bound_by)

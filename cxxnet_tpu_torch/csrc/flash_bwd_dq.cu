@@ -13,45 +13,76 @@
 // when causal, qpos >= kpos and (window > 0) qpos - kpos < window). Every
 // sum is f32 whatever the input dtype; dq is stored in the input dtype.
 //
-// Design. The forward's layout (flash_fwd.cu): one block owns 64 query
-// rows of one (batch, head) and loops over the 64-key tiles _block_needed
-// keeps, the same loop bounds as the forward. Q and dO are staged once,
-// transposed, so that a thread's 8 rows are two float4 loads; lse and D
-// of its rows sit in registers. Per kv tile the block stages K^T and V^T,
-// recomputes the 64 x 64 scores and dP in one pass over the head dim
-// (thread (ty, tx) owns rows ty*8 .. ty*8+7 and columns tx + TX j), forms
-// dS = P (dP - D) scale in registers, writes it transposed to shared
-// memory, and accumulates dQ += dS K in registers (columns tx + TX c of
-// the head dim, K read from the same transposed tile: the lanes read a
-// stride of 65 words, 32 distinct banks). dQ is written once. A masked
-// (query, key) gets p = 0 outright, so a wholly masked tile adds exact
-// zeros and exp never sees NEG_INF; a tile wholly inside the mask skips
-// the per-pair test. The ragged last tiles are masked in
-// place: keys and query rows past L are staged as zeros and rows past L
-// are never stored. No atomics: a backward is bitwise repeatable. The
-// last q tiles, which have the most kv tiles under a causal mask, are
-// scheduled first. Head dim 128 runs 256 threads (32 column lanes) so
-// that the accumulators stay at 4 x 8 registers. Head dim 256 keeps the 32
-// lanes (8 x 8 accumulator registers) and halves the key tile to 32: at 64
-// keys its Q^T, dO^T, K^T, V^T and dS^T tiles would take 283 KB of shared
-// memory, over the 227 KB a block may opt into; at 32 they take 211 KB.
+// Design. One block owns 64 query rows of one (batch, head) and loops over
+// the kv tiles _block_needed keeps, the last q tiles (the most kv tiles
+// under a causal mask) scheduled first. Each of its 4 warps owns 16 rows.
+// Every product runs on the tensor cores as m16n8k8 TF32 mma.sync
+// (flash_mma.cuh states the fragment layouts):
+//   S = Q K^T and dP = dO V^T: A = the warp's Q / dO rows, B = the K / V
+//   tile, both read from row-major shared tiles with ldmatrix (rows padded
+//   by 16 bytes: the 8 rows of a ldmatrix hit 8 distinct bank groups);
+//   dQ += dS K: A = dS straight from S's accumulator registers (the C
+//   fragment read as an A fragment in the k order (2t, 2t + 1)), B = K read
+//   at the matching rows 8 j + 2t, 8 j + 2t + 1 (conflict-free with the
+//   same padding). P and dS never leave registers.
+// fp32 operands are split in registers at fragment load, big = rna(x) and
+// small = x - big, and each product is three TF32 products (3xTF32,
+// flash_mma.cuh), so shared memory holds each tile once, as fp32. bf16
+// operands are exact in TF32: S and dP are one TF32 product of the bf16
+// words and dQ two (dS split, K exact), with the tiles bf16 in shared
+// memory. That route keeps one fragment layout for both dtypes and forms
+// every product of bf16 inputs exactly, where a bf16 mma would round P
+// and dS to bf16; bf16 products on the bf16 tensor-core rate are later
+// work.
+// The tensor cores round their sums toward zero. Fed back as the mma's C
+// over a whole sequence, dQ drifted toward zero beyond the 1e-5 bar at
+// L 2,048 on the card; so dQ takes every pair of
+// k-steps (6 products) in a fresh accumulator and adds it with one
+// rounded f32 addition, while S and dP, sums over at most 64 columns
+// (24 products), go straight into their accumulators (within 24 ulps).
+// Q and dO are copied once; K and V stream through a ring of two stages
+// of BK keys: the copy of tile j + 1 (16-byte cp.async.cg, one commit
+// group a tile) is in flight while the warps compute on tile j, one
+// barrier a tile. Keys and query rows past L and columns past d land as
+// zeros through the copy's zero fill (src-size 0), so every product over
+// them adds exact zeros; rows that are not a multiple of 16 bytes take
+// 4-byte copies, and a bf16 tensor of odd head dim plain loads. A masked
+// (query, key) gets p = 0 outright; a tile wholly inside the mask skips
+// the per-pair test. dQ is accumulated in registers over every tile and
+// written once. No atomics: a backward is bitwise repeatable.
 //
-// Bound. With TF32 off the port's fp32 runs outside the tensor cores: 6 d
-// flops per (query, key) pair the mask keeps (S, dP, dQ), at 67 TFLOP/s.
-// For the bench.py LM's step (b 8, h 8, L 2048, d 64, causal) that is
-// 134 M pairs, 51.6 GFLOP -> 0.77 ms; the bytes (q, k, v, dO, lse, D read
-// once, dq written once: 0.2 GB, 0.06 ms) are far below it. Per kv tile a
-// thread issues 12 shared loads per 64 FMAs in the S/dP pass and 2 + D/TX
-// per 8 D/TX in the dQ pass, plus an exp per score and three barriers;
-// mma.sync / wgmma on bf16 inputs and a pipelined K/V ring are later work.
+// Per width (fp32 shared memory; bf16 a little over half):
+//   d <= 64 (widths 16, 32, 64): BK 32, 2 stages; 20 / 36 / 68 KB, three
+//     blocks an SM at width 64 (130 registers a thread, no spill)
+//   128: BK 16, 2 stages, 99 KB: two blocks an SM
+//   256: BK 32, one stage, 195 KB: Q and dO alone take 130 KB; one stage
+//     of 32 keys ran faster than two of 16, whose every tile re-splits
+//     the Q and dO fragments for half the keys
+//   above 256, in slices of 256 columns: the tiles of 256; every (kv tile,
+//     256-column chunk) restages Q, dO, K and V chunks, the block's own
+//     slice last, so that the stage holds its K for the dQ product.
+// Registers and spills per instantiation are in the build log (-Xptxas -v,
+// chip_smoke.py prints them).
 //
-// The kernel body is flash_bwd_dq.cuh, which ring_dq_step.cu runs too;
-// this file holds what only the flash dQ does: dQ starts at 0 and is
-// stored once in the input dtype. A head dim above 256 runs in slices of
-// 256 dQ columns (flash_common.cuh): each slice's block streams the S / dP
-// pass over the whole head dim in chunks of 256, its own chunk last.
+// Bound. 6 d flops per (query, key) pair the mask keeps (S, dP, dQ). In
+// fp32 the tensor cores reach fp32 accuracy at 495 / 3 = 165 TFLOP/s
+// (3xTF32): for the bench.py LM's step (b 8, h 8, L 2048, d 64, causal)
+// 134 M pairs, 51.6 GFLOP -> 0.313 ms (0.77 ms at the 67 TFLOP/s of fp32
+// FMA); in bf16, at 989 TFLOP/s, 0.052 ms. The bytes (q, k, v, dO, lse, D
+// read once, dq written once: 0.17 GB, 0.05 ms) are far below it. What
+// the kernel spends beyond the products is the issue of the instructions
+// around them: per 8 x 8 x 8 step of the dQ product a lane loads and
+// splits two B values (three instructions each) and adds the fresh
+// accumulator, beside the three mma, and per score an exp.
+//
+// The kernel body is flash_bwd_dq_tc.cuh; this file holds what only the
+// flash dQ does: dQ starts at 0 and is stored once in the input dtype.
+// ring_dq_step.cu keeps the SIMT body of flash_bwd_dq.cuh, whose header
+// points here for a layout and bound that were its own: 64-key tiles
+// staged transposed, each thread 8 rows x BK / TX keys of FMA, bound at
+// the 67 TFLOP/s of fp32 FMA.
 
-#include "flash_bwd_dq.cuh"
+#include "flash_bwd_dq_tc.cuh"
 
 namespace {
 
@@ -62,19 +93,15 @@ template <typename T>
 struct FlashDqOut {
   T* dq;  // (rows, sq, d)
 
-  template <int NA>
-  __device__ __forceinline__ void init(int64_t, const int (&)[NA], int,
-                                       float (&acc)[NA]) const {
-#pragma unroll
-    for (int c = 0; c < NA; ++c) acc[c] = 0.f;
+  __device__ __forceinline__ void init(int64_t, int, int,
+                                       float (&acc)[2]) const {
+    acc[0] = acc[1] = 0.f;
   }
 
-  template <int NA>
-  __device__ __forceinline__ void store(int64_t row, const int (&col)[NA],
-                                        int d, const float (&acc)[NA]) const {
-#pragma unroll
-    for (int c = 0; c < NA; ++c)
-      if (col[c] < d) store_from_f32(dq + row * d + col[c], acc[c]);
+  __device__ __forceinline__ void store(int64_t row, int col, int d,
+                                        const float (&acc)[2]) const {
+    if (col < d) store_from_f32(dq + row * d + col, acc[0]);
+    if (col + 1 < d) store_from_f32(dq + row * d + col + 1, acc[1]);
   }
 };
 
@@ -82,8 +109,8 @@ template <typename T>
 cudaError_t run(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 void* dq, long long rows, const Geometry& g, cudaStream_t s) {
-  return launch_dq<T>(q, k, v, dout, lse, delta, rows, g,
-                      FlashDqOut<T>{static_cast<T*>(dq)}, s);
+  return launch_dq_tc<T>(q, k, v, dout, lse, delta, rows, g,
+                         FlashDqOut<T>{static_cast<T*>(dq)}, s);
 }
 
 }  // namespace

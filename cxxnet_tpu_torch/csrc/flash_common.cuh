@@ -1,8 +1,10 @@
 // Shared pieces of the attention kernels: the flash kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu) and the ring steps (ring_fwd_step.cu,
-// ring_dq_step.cu, ring_dkv_step.cu), which run the same kernel bodies
-// (flash_fwd.cuh, flash_bwd_dq.cuh, flash_bwd_dkv.cuh) with other inputs
-// and outputs: tile sizes, the finite NEG_INF, the fp32/bf16 load and
+// ring_dq_step.cu, ring_dkv_step.cu). The flash forward and the ring steps
+// run the same kernel bodies (flash_fwd.cuh, flash_bwd_dq.cuh,
+// flash_bwd_dkv.cuh) with other inputs and outputs; the flash backward
+// runs its tensor-core bodies (flash_bwd_dq_tc.cuh, flash_bwd_dkv_tc.cuh).
+// Here: tile sizes, the finite NEG_INF, the fp32/bf16 load and
 // store, the geometry of one launch, the mask at global positions, the
 // tile ranges that _block_needed / _tile_needed keep
 // (cxxnet_tpu/ops/flash_attn.py:66-79, cxxnet_tpu/ops/ring_flash.py:66-82),

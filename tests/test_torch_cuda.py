@@ -333,6 +333,50 @@ def test_flash_bwd_kernels_are_bitwise_repeatable(card):
         assert torch.equal(a, b)
 
 
+# (b, h, nkv, L, d, causal, window) at the edges of the tensor-core
+# backward's tiles: L one short of and one past a multiple of each tile
+# (dQ: q tiles of 64 rows, kv tiles of 32 keys, 16 at widths 128 and 256;
+# dK/dV: blocks of 64 keys, q tiles of 64 rows, 16 at widths 128 and 256,
+# 32 above 256), head dims between and above the compiled widths, one kv
+# head, window 64; and rows that are not a multiple of 16 bytes (d 6:
+# 4-byte copies; d 5 in bf16: element by element)
+FLASH_BWD_EDGES = [
+    (2, 4, 1, 63, 8, True, 0),
+    (2, 4, 1, 65, 8, True, 64),
+    (1, 4, 2, 31, 24, True, 0),
+    (1, 4, 2, 33, 24, False, 0),
+    (1, 4, 1, 15, 128, True, 0),
+    (1, 4, 2, 17, 128, True, 64),
+    (1, 2, 2, 127, 200, True, 64),
+    (1, 2, 1, 129, 200, False, 0),
+    (1, 2, 2, 15, 256, True, 0),
+    (1, 2, 1, 97, 256, True, 64),
+    (1, 2, 1, 95, 264, True, 0),
+    (1, 4, 2, 161, 264, True, 64),
+    (2, 8, 1, 1023, 64, True, 64),
+    (2, 8, 2, 1025, 64, True, 0),
+    (1, 2, 1, 70, 6, True, 0),
+    (1, 2, 1, 70, 5, False, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", FLASH_BWD_EDGES, ids=str)
+def test_flash_bwd_kernels_at_the_tile_edges(card, shape, dtype, tol):
+    # the bars of test_flash_bwd_kernels_match_plain, and two runs bitwise
+    # equal
+    (q, k, v, out, lse, dout), args = _bwd_case(card, shape, dtype)
+    first = flash_attn.flash_bwd_cuda(q, k, v, out, lse, dout, *args)
+    second = flash_attn.flash_bwd_cuda(q, k, v, out, lse, dout, *args)
+    torch.cuda.synchronize()
+    want = flash_attn.flash_bwd_ref(q, k, v, out, lse, dout, *args)
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, b)
+        _assert_grad_close(a, w, tol)
+
+
 @pytest.mark.cuda
 def test_flash_bwd_kernels_refuse_what_they_do_not_take(card):
     (q, k, v, out, lse, dout), _ = _bwd_case(
