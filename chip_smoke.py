@@ -62,8 +62,9 @@ NET_DEV = "gpu"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # fp32-accurate products on the tensor cores: 3xTF32, three TF32 products
-# (495 TFLOP/s dense) per fp32 product. The rate of the flash backward
-# kernels' fp32 bound; FP32_OPS_PER_S stays the bound of the SIMT kernels
+# (495 TFLOP/s dense) per fp32 product. The rate of the fp32 bound of the
+# tensor-core kernels (the flash forward and backward, the ring's forward
+# step); FP32_OPS_PER_S stays the bound of the SIMT kernels
 FP32_3XTF32_OPS_PER_S = 495e12 / 3
 # dense bf16 on the tensor cores: the least time for bf16 attention inputs
 BF16_OPS_PER_S = 989e12
@@ -313,8 +314,8 @@ SP_STEPS = 2
 # fp32 kernel times by (kernel, shape name), filled by the kernel phases
 KERNEL_MS = {}
 # what names a kernel in a profile where its symbol does not: the flash
-# kernels and the ring steps share their bodies (attn_fwd_kernel, ...) and
-# differ by the IO policy in the template's arguments
+# kernels and the ring steps share their bodies (attn_fwd_tc_kernel, ...)
+# and differ by the IO policy in the template's arguments
 KERNEL_SYMBOLS = {"flash_fwd": "FlashFwdOut", "flash_bwd_dq": "FlashDqOut",
                   "flash_bwd_dkv": "FlashDkvOut",
                   "ring_fwd_step": "RingFwdCarry",
@@ -337,21 +338,23 @@ def nvidia_smi() -> str:
 
 def ptxas_summary(text: str) -> str:
     """Registers and spills per kernel instantiation from nvcc's -Xptxas -v
-    output, each named by its element type, head dim, exact-width flag and
-    the wide flag (a head dim above 256, in slices) where the mangled name
-    carries them (``float/64/exact``, ``float/256/padded/wide``)."""
+    output, each named by its element type, head dim, exact-width flag, the
+    wide flag (a head dim above the widest compiled width, in slices) and
+    the flash forward's multi-chunk flag where the mangled name carries
+    them (``float/64/exact``, ``float/128/padded/wide``)."""
     import re
     out, inst = [], "?"
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             t = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?(?:Lb([01])E)?"
-                          r"(?:Lb([01])E)?", m.group(1))
+                          r"(?:Lb([01])E)?(?:Lb([01])E)?", m.group(1))
             inst = "?" if not t else "/".join(
                 [("float" if t.group(1) == "f" else "bf16")] +
                 ([t.group(2)] if t.group(2) else []) +
                 ([("exact", "padded")[t.group(3) == "0"]] if t.group(3)
-                 else []) + (["wide"] if t.group(4) == "1" else []))
+                 else []) + (["wide"] if t.group(4) == "1" else []) +
+                (["multi"] if t.group(5) == "1" else []))
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = m.group(1)
@@ -1012,9 +1015,15 @@ def phase_flash_fwd_kernel(flash, shapes=None, phase="flash_fwd_kernel"):
     ``shapes`` (by default the LM's and the edge shapes: ragged L,
     non-causal, d 8-256, grouped kv heads with a window), fp32 and bf16;
     returns the per-kernel record of the first shape (the main path's: one
-    launch, fp32). Every fp32 time lands in KERNEL_MS."""
+    launch, fp32). Every fp32 time lands in KERNEL_MS. The fp32 bound is
+    reckoned at the 3xTF32 rate of the kernel's tensor-core products, the
+    FMA-rate bound printed beside it; the default run first counts the
+    tensor-core instructions of the flash forward's and the ring forward
+    step's libraries (one kernel body) and fails without them."""
     import torch.nn.functional as F
     log("phase %s" % phase)
+    if shapes is None:
+        tensor_core_instructions(("flash_fwd", "ring_fwd_step"))
     shapes = shapes or FLASH_SHAPES
     rec = _new_rec()
     rng = np.random.RandomState(SEED + 4)
@@ -1045,17 +1054,22 @@ def phase_flash_fwd_kernel(flash, shapes=None, phase="flash_fwd_kernel"):
             library_ms = sdpa_ms(F, q, k, v, causal, window, out)
             ops_n, nbytes = flash_work(b, h, nkv, L, d, causal, window,
                                        q.element_size())
-            peak = FP32_OPS_PER_S if dtype == torch.float32 \
-                else BF16_OPS_PER_S
+            fp32 = dtype == torch.float32
+            peak = FP32_3XTF32_OPS_PER_S if fp32 else BF16_OPS_PER_S
             ops_ms = ops_n / peak * 1e3
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             bound_ms = max(ops_ms, bytes_ms)
             bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+            # the fp32 FMA-rate bound the SIMT kernel was held to
+            fma_ms = max(ops_n / FP32_OPS_PER_S * 1e3, bytes_ms)
             log("  kernel_ms %.4f plain_ms %.4f library_ms %s bound_ms %.4f "
                 "(%s: %.3e operations at %.0f TFLOP/s, %d bytes) "
-                "kernel/bound %.2f"
+                "kernel/bound %.2f%s"
                 % (kernel_ms, plain_ms, library_ms, bound_ms, bound_by,
-                   ops_n, peak / 1e12, nbytes, kernel_ms / bound_ms))
+                   ops_n, peak / 1e12, nbytes, kernel_ms / bound_ms,
+                   "; fp32 FMA-rate bound %.4f ms (%.0f TFLOP/s), "
+                   "kernel/that %.2f" % (fma_ms, FP32_OPS_PER_S / 1e12,
+                                         kernel_ms / fma_ms) if fp32 else ""))
             if name == shapes[0][0] and dtype == torch.float32:
                 _add_fp32(rec, kernel_ms, plain_ms, library_ms, bound_ms,
                           bound_by)
@@ -1340,14 +1354,14 @@ def flash_bwd_work(b, h, nkv, L, d, causal, window, esize):
             (8 * d * pairs, esize * (2 * q_elems + 4 * kv_elems) + rows))
 
 
-def tensor_core_instructions():
-    """HMMA (tensor-core) instructions in the built flash_bwd_dq and
-    flash_bwd_dkv libraries, counted in cuobjdump's SASS; raises if either
-    has none (the kernels would then run outside the tensor cores)."""
+def tensor_core_instructions(names):
+    """HMMA (tensor-core) instructions in the built libraries ``names``,
+    counted in cuobjdump's SASS; raises if any has none (its kernels would
+    then run outside the tensor cores)."""
     from cxxnet_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     counts = {}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in names:
         path = _build.build_kernels([name])[name]
         sass = subprocess.run([tool, "-sass", path], capture_output=True,
                               text=True, timeout=300, check=True).stdout
@@ -1355,7 +1369,7 @@ def tensor_core_instructions():
     log("  tensor-core instructions (HMMA lines in cuobjdump -sass): %s"
         % ", ".join("%s %d" % kv for kv in counts.items()))
     if not all(counts.values()):
-        raise AssertionError("a flash backward library has no HMMA "
+        raise AssertionError("a tensor-core library has no HMMA "
                              "instruction")
 
 
@@ -1398,7 +1412,7 @@ def phase_flash_bwd_kernel(flash, shapes=None, phase="flash_bwd_kernel"):
     import torch.nn.functional as F
     log("phase %s" % phase)
     if shapes is None:
-        tensor_core_instructions()
+        tensor_core_instructions(("flash_bwd_dq", "flash_bwd_dkv"))
     shapes = shapes or FLASH_BWD_SHAPES
     recs = {"dq": _new_rec(), "dkv": _new_rec()}
     rng = np.random.RandomState(SEED + 8)
@@ -2201,6 +2215,16 @@ def ring_step_work(kernel, bh, bkv, sq, skv, d, q_off, kv_off, causal,
     return 8 * d * pairs, 2 * q_b + 2 * kv_b + 2 * rows + 4 * kv_f32
 
 
+def ring_peak(kernel, dtype):
+    """The operation rate of a ring step kernel's bound: bf16 on the tensor
+    cores; fp32 at the 3xTF32 rate for the forward step (the flash
+    forward's tensor-core body), at the FMA rate for the SIMT dQ and dK/dV
+    steps."""
+    if dtype != torch.float32:
+        return BF16_OPS_PER_S
+    return FP32_3XTF32_OPS_PER_S if kernel == "fwd" else FP32_OPS_PER_S
+
+
 def ring_step_inputs(bh, bkv, sq, skv, d, dtype, rng):
     """q, k, v, dO in dtype, the f32 forward carry of an earlier step
     (every third row still at (NEG_INF, 0, 0)), lse and D, and the f32
@@ -2265,18 +2289,19 @@ def ring_step_case(rf, case, dtype, rng):
                 lambda: rf.dkv_step_ref(q, k, v, do, lse, delta, dk, dv,
                                         offs, **kw))}
     times = {}
-    peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
     for key, (kern, plain) in calls.items():
         ms, plain_ms = time_ms(kern), time_ms(plain, iters=3, warmup=1)
         ops_n, nbytes = ring_step_work(key, bh, bkv, sq, skv, d, q_off,
                                        kv_off, causal, window,
                                        q.element_size())
+        peak = ring_peak(key, dtype)
         bound_ms, bound_by = max((ops_n / peak * 1e3, "operations"),
                                  (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
         times[key] = (ms, plain_ms, bound_ms, bound_by)
         log("  %s kernel_ms %.4f plain_ms %.4f bound_ms %.4f (%s: %.3e "
-            "operations, %d bytes, %d pairs kept a head)%s"
-            % (key, ms, plain_ms, bound_ms, bound_by, ops_n, nbytes, pairs,
+            "operations at %.0f TFLOP/s, %d bytes, %d pairs kept a head)%s"
+            % (key, ms, plain_ms, bound_ms, bound_by, ops_n, peak / 1e12,
+               nbytes, pairs,
                "" if not bound_ms else " kernel/bound %.2f" % (ms / bound_ms)))
     return err, times
 
@@ -2306,14 +2331,16 @@ def ring_main_path(rf, dtype, rng):
         ms = time_ms(lambda: [call(kern, o) for o in steps], iters=5)
         plain_ms = time_ms(lambda: [call(plain, o) for o in steps], iters=2,
                            warmup=1)
-        bound_ms = ops_ms = bytes_ms = 0.0
+        peak = ring_peak(key, torch.float32)
+        bound_ms = ops_ms = bytes_ms = fma_ms = 0.0
         for o in steps:
             ops_n, nbytes = ring_step_work(key, bh, bkv, sq, skv, d, o[0],
                                            o[1], True, window, 4)
-            ops_ms += ops_n / FP32_OPS_PER_S * 1e3
+            ops_ms += ops_n / peak * 1e3
             bytes_ms += nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ms += max(ops_n / FP32_OPS_PER_S,
-                            nbytes / HBM_BYTES_PER_S) * 1e3
+            bound_ms += max(ops_n / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+            fma_ms += max(ops_n / FP32_OPS_PER_S,
+                          nbytes / HBM_BYTES_PER_S) * 1e3
         rec = _new_rec()
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
@@ -2321,9 +2348,12 @@ def ring_main_path(rf, dtype, rng):
         recs[key] = rec
         log("  one layer's ring of %d %s launches (bh %d, bkv %d, shards "
             "of %d, d %d, window %d): kernels %.4f ms, plain %.4f ms, bound "
-            "%.4f ms (the sum of each launch's), kernel/bound %.2f"
+            "%.4f ms (the sum of each launch's, at %.0f TFLOP/s), "
+            "kernel/bound %.2f%s"
             % (len(steps), key, bh, bkv, sq, d, window, ms, plain_ms,
-               bound_ms, ms / bound_ms))
+               bound_ms, peak / 1e12, ms / bound_ms,
+               "; fp32 FMA-rate bound %.4f ms, kernel/that %.2f"
+               % (fma_ms, ms / fma_ms) if peak != FP32_OPS_PER_S else ""))
     return recs
 
 

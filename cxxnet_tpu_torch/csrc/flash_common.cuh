@@ -1,35 +1,37 @@
 // Shared pieces of the attention kernels: the flash kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu) and the ring steps (ring_fwd_step.cu,
-// ring_dq_step.cu, ring_dkv_step.cu). The flash forward and the ring steps
-// run the same kernel bodies (flash_fwd.cuh, flash_bwd_dq.cuh,
-// flash_bwd_dkv.cuh) with other inputs and outputs; the flash backward
-// runs its tensor-core bodies (flash_bwd_dq_tc.cuh, flash_bwd_dkv_tc.cuh).
+// ring_dq_step.cu, ring_dkv_step.cu). The flash forward and the ring's
+// forward step run one tensor-core body (flash_fwd_tc.cuh) with other
+// inputs and outputs; the flash backward runs its tensor-core bodies
+// (flash_bwd_dq_tc.cuh, flash_bwd_dkv_tc.cuh), the ring's backward steps
+// the SIMT bodies flash_bwd_dq.cuh and flash_bwd_dkv.cuh.
 // Here: tile sizes, the finite NEG_INF, the fp32/bf16 load and
 // store, the geometry of one launch, the mask at global positions, the
 // tile ranges that _block_needed / _tile_needed keep
 // (cxxnet_tpu/ops/flash_attn.py:66-79, cxxnet_tpu/ops/ring_flash.py:66-82),
 // the compiled head widths and the dispatch over them.
 //
-// Head dims. The kernels are compiled for the widths 16, 32, 64, 128 and
-// 256; a head dim d <= 256 runs in the smallest width W >= d. Loads
+// Head dims. The backward kernels are compiled for the widths 16, 32, 64,
+// 128 and 256; a head dim d <= 256 runs in the smallest width W >= d. Loads
 // zero-fill the columns d .. W-1 and stores skip them, so every dot product
 // over the head dim gains only zero terms and the result is exact. Tensors
 // keep their own row stride d. Width 256 takes a layout of its own in each
 // kernel (more column lanes, and in the backward a 32-key tile), so that
 // its accumulators stay in registers and its tiles within the 227 KB of
-// shared memory a block may opt into.
+// shared memory a block may opt into. The forward's widths stop at 128;
+// above that it runs slices of 128 in thread-block clusters that share the
+// score product (flash_fwd_tc.cuh).
 //
-// A head dim above 256 runs in width 256 in slices: the output columns are
-// cut into n_slices(d) slices of 256 (the last one zero-filled past d), one
-// more grid axis, and a block owns one slice of the accumulator. The
-// score-like products (S = Q K^T, and dP = dO V^T in the backward) need the
-// whole head dim: the block streams them over d in chunks of 256 columns
-// through the same shared buffers the width-256 layout has, so shared
-// memory and registers stay those of width 256. Every slice recomputes the
-// scores, ceil(d / 256) times the score work; the forward's slices take the
-// chunks in one order, so that they compute the same row statistics, and
-// slice 0 alone writes them. The backward takes its own slice's chunk last,
-// so that the chunk its dQ / dK / dV product reads is the one still staged.
+// In the backward kernels a head dim above 256 runs in width 256 in
+// slices: the output columns are cut into n_slices(d) slices of 256 (the
+// last one zero-filled past d), one more grid axis, and a block owns one
+// slice of the accumulator. The score-like products (S = Q K^T and
+// dP = dO V^T) need the whole head dim: the block streams them over d in
+// chunks of 256 columns through the same shared buffers the width-256
+// layout has, so shared memory and registers stay those of width 256.
+// Every slice recomputes the scores, ceil(d / 256) times the score work,
+// and takes its own slice's chunk last, so that the chunk its dQ / dK / dV
+// product reads is the one still staged.
 
 #pragma once
 

@@ -1,7 +1,8 @@
-// Tensor-core and asynchronous-copy pieces of the flash backward kernels
-// (flash_bwd_dq_tc.cuh, flash_bwd_dkv_tc.cuh), for sm_90a: the 3xTF32
-// split, the m16n8k8 TF32 product, ldmatrix fragment loads and the
-// cp.async tile copy with zero fill.
+// Tensor-core and asynchronous-copy pieces of the flash kernels (the
+// forward body flash_fwd_tc.cuh, the backward bodies flash_bwd_dq_tc.cuh
+// and flash_bwd_dkv_tc.cuh), for sm_90a: the 3xTF32 split, the m16n8k8
+// TF32 product, ldmatrix fragment loads and the cp.async tile copy with
+// zero fill.
 //
 // m16n8k8 TF32 fragments (PTX ISA, mma.m16n8k8 .tf32), lane l, grp = l / 4,
 // t = l % 4:
@@ -15,7 +16,7 @@
 //  - the C fragment of one product is the A fragment of the next with the
 //    k order (2t, 2t + 1) in place of (t, t + 4): a = {c0, c2, c1, c3},
 //    B then read at the rows 2t and 2t + 1 of the k-step, so P and dS
-//    never leave registers;
+//    never leave registers (mma_p_x);
 //  - a bf16 tile read with ldmatrix gives each lane the pair (2t, 2t + 1)
 //    of its row in one register: the same k order again.
 //

@@ -17,14 +17,17 @@
 // k/v row r / (rows / kv_rows), so grouped k/v are read in place. Every sum
 // is f32 whatever the input dtype.
 //
-// Design. The flash forward's body (flash_fwd.cuh; its layout, register
-// tiling and bound in flash_fwd.cu), run with this file's IO policy:
+// Design. The flash forward's tensor-core body (flash_fwd_tc.cuh; its
+// layout per width, fragments and bound in flash_fwd.cu), run with this
+// file's IO policy:
 //  - the carry crosses launches. Each block reads its rows' (m, l) and its
-//    slice of acc from the previous step and writes them back; it never
-//    starts from (NEG_INF, 0, 0). acc is updated in place (each block reads
-//    and writes only its own rows and columns, as JAX aliases it); m and l
-//    go to separate outputs, because at a head dim above 256 every slice's
-//    block reads the rows' statistics while slice 0 writes them.
+//    slice of acc from the previous step, in the C-fragment layout of its
+//    warps (rows grp and grp + 8, columns 2t and 2t + 1 of each 8-column
+//    tile), and writes them back; it never starts from (NEG_INF, 0, 0).
+//    acc is updated in place (each block reads and writes only its own rows
+//    and columns, as JAX aliases it); m and l go to separate outputs,
+//    because above head dim 128 every slice's block reads the rows'
+//    statistics while slice 0 writes them.
 //  - masked mass is zeroed outright (_fwd_step_kernel, :111-114): the flash
 //    kernel's old rule, p = 1 on a wholly masked leading tile rescaled to 0
 //    by the first real key, would leave that mass in l between steps. So a
@@ -38,14 +41,15 @@
 //  - one launch per (device, step), as JAX runs one call per device per
 //    step: n^2 launches per layer and forward for a ring of n.
 //
-// Bound. fp32 runs outside the tensor cores: 4 d flops per (query, key)
-// pair the step's mask keeps, at 67 TFLOP/s (H100 SXM). A step whose pairs
+// Bound. 4 d flops per (query, key) pair the step's mask keeps, in fp32 at
+// the 3xTF32 rate of 495 / 3 = 165 TFLOP/s (H100 SXM); the f32 carry (m, l
+// and acc) is read and written once beside q, k and v. A step whose pairs
 // are all masked has only its bytes: (m, l) read and written, the kernel's
 // launch. For the long recipe's ring (2 x 8192 over 4 devices, 8 heads,
 // d 64, window 1024) the diagonal step of a device keeps 1.6 M pairs per
 // head; most other steps keep none.
 
-#include "flash_fwd.cuh"
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
@@ -59,28 +63,29 @@ struct RingFwdCarry {
   float* l_out;       // (rows, sq)
   float* acc;         // (rows, sq, d), updated in place
 
-  template <int NA>
-  __device__ __forceinline__ void init(int64_t row, const int (&col)[NA],
-                                       int d, float& m, float& l,
-                                       float (&a)[NA]) const {
+  __device__ __forceinline__ void init_stats(int64_t row, float& m,
+                                             float& l) const {
     m = m_in[row];
     l = l_in[row];
-#pragma unroll
-    for (int c = 0; c < NA; ++c)
-      a[c] = col[c] < d ? acc[row * d + col[c]] : 0.f;
   }
 
-  template <int NA>
-  __device__ __forceinline__ void store(int64_t row, const int (&col)[NA],
-                                        int d, bool stats, float m, float l,
-                                        const float (&a)[NA]) const {
-#pragma unroll
-    for (int c = 0; c < NA; ++c)
-      if (col[c] < d) acc[row * d + col[c]] = a[c];
-    if (stats) {
-      m_out[row] = m;
-      l_out[row] = l;
-    }
+  __device__ __forceinline__ void init_acc(int64_t row, int col, int d,
+                                           float (&a)[2]) const {
+    if (col < d) a[0] = acc[row * d + col];
+    if (col + 1 < d) a[1] = acc[row * d + col + 1];
+  }
+
+  __device__ __forceinline__ void store_acc(int64_t row, int col, int d,
+                                            float,
+                                            const float (&a)[2]) const {
+    if (col < d) acc[row * d + col] = a[0];
+    if (col + 1 < d) acc[row * d + col + 1] = a[1];
+  }
+
+  __device__ __forceinline__ void store_stats(int64_t row, float m,
+                                              float l) const {
+    m_out[row] = m;
+    l_out[row] = l;
   }
 };
 
@@ -110,9 +115,9 @@ int cxxnet_ring_fwd_step(const void* q, const void* k, const void* v,
   if (bad != cudaSuccess) return (int)bad;
   const RingFwdCarry io{m_in, l_in, m_out, l_out, acc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_fwd<float>(q, k, v, rows, g, io, s);
+  if (dtype == 0) return (int)launch_fwd_tc<float>(q, k, v, rows, g, io, s);
   if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16>(q, k, v, rows, g, io, s);
+    return (int)launch_fwd_tc<__nv_bfloat16>(q, k, v, rows, g, io, s);
   return (int)cudaErrorInvalidValue;
 }
 

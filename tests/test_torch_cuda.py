@@ -212,6 +212,58 @@ def test_flash_kernel_matches_plain(card, shape, dtype, rtol):
                                atol=8 * eps * float(ref_lse.abs().max()))
 
 
+# (b, h, nkv, L, d, causal, window) at the edges of the tensor-core
+# forward's tiles: L one short of and one past a multiple of the 64-row q
+# tile and of the kv tiles (64 keys up to width 64, 32 above), head dims
+# between the compiled widths (16, 32, 64, 128) and above 128 in slices of
+# 128 columns, a cluster of 2, 3 or 5 blocks sharing the score product,
+# and 10 slices in clusters of 5, each block forming the scores over two
+# chunks; one kv head, window 64, and rows that are not a multiple of 16
+# bytes (d 6: 4-byte copies; d 5 in bf16: element by element)
+FLASH_FWD_EDGES = [
+    (2, 4, 1, 63, 8, True, 0),
+    (2, 4, 1, 65, 8, True, 64),
+    (1, 4, 2, 31, 24, True, 0),
+    (1, 4, 2, 97, 40, False, 0),
+    (1, 4, 1, 127, 64, True, 64),
+    (2, 8, 1, 129, 64, True, 0),
+    (1, 4, 2, 33, 128, True, 0),
+    (1, 4, 1, 95, 96, True, 64),
+    (1, 2, 2, 127, 136, True, 64),
+    (1, 2, 1, 129, 256, False, 0),
+    (1, 2, 1, 95, 264, True, 0),
+    (1, 4, 2, 161, 384, True, 64),
+    (1, 2, 1, 65, 520, True, 0),
+    (1, 1, 1, 70, 1160, True, 0),
+    (2, 8, 2, 1025, 64, True, 0),
+    (1, 2, 1, 70, 6, True, 0),
+    (1, 2, 1, 70, 5, False, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol", [(torch.float32, 1e-5),
+                                         (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", FLASH_FWD_EDGES, ids=str)
+def test_flash_fwd_kernel_at_the_tile_edges(card, shape, dtype, rtol):
+    # the bars of test_flash_kernel_matches_plain, and two runs bitwise
+    # equal
+    q, k, v = _flash_inputs(card, shape, dtype)
+    causal, window = shape[5], shape[6]
+    out, lse = flash_attn.flash_fwd_cuda(q, k, v, causal, None, window)
+    again = flash_attn.flash_fwd_cuda(q, k, v, causal, None, window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref_out, ref_lse = flash_attn.flash_fwd_ref(q, k, v, causal, None,
+                                                window)
+    eps = torch.finfo(torch.float32).eps
+    torch.testing.assert_close(
+        out.float(), ref_out.float(), rtol=rtol,
+        atol=8 * eps * float(ref_out.float().abs().max()))
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5,
+                               atol=8 * eps * float(ref_lse.abs().max()))
+
+
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(card):
     q, k, v = _flash_inputs(card, (1, 4, 2, 128, 64, True, 0), torch.float32)
@@ -665,6 +717,46 @@ def test_ring_step_kernels_match_plain(card, case, dtype, tol):
     if offs == (0, 256):
         for g, start in zip(got + (got_dq,) + got_dkv,
                             (m, l, acc, dq, dk, dv)):
+            assert torch.equal(g, start)
+
+
+# (bh, bkv, sq, skv, d, (q_off, kv_off), causal, window): the forward
+# step in every class of offsets a ring step meets (chip_smoke.py's
+# RING_CLASSES: diagonal, wholly visible, wholly masked, cut by the window,
+# non-causal) at the tensor-core forward's tile edges: offsets off the
+# 64-row and 64-key tile grid (the wrapper takes lengths in multiples of
+# 128), sq != skv, head dims between the compiled widths and above 128
+# (clusters of 2, 3 and 5 slices), grouped k/v
+RING_FWD_EDGES = [
+    (8, 2, 256, 256, 64, (200, 200), True, 64),      # diagonal
+    (8, 8, 128, 384, 40, (500, 0), True, 0),         # wholly visible
+    (4, 4, 128, 128, 264, (0, 130), True, 50),       # wholly masked
+    (8, 2, 256, 128, 136, (300, 100), True, 120),    # cut by the window
+    (4, 1, 128, 256, 520, (0, 300), False, 0),       # non-causal
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", RING_FWD_EDGES, ids=str)
+def test_ring_fwd_step_kernel_at_the_tile_edges(card, case, dtype, tol):
+    # the bars of test_ring_step_kernels_match_plain for (m, l, acc); two
+    # runs from the same carry bitwise equal; a wholly masked step leaves
+    # the carry bitwise as it was
+    offs, causal, window = case[5:]
+    kw = dict(causal=causal, scale=case[4] ** -0.5, window=window)
+    (q, k, v, _), (m, l, acc), _, _ = _ring_step_inputs(card, case, dtype)
+    got = ring_flash.fwd_step_cuda(q, k, v, m, l, acc.clone(), offs, **kw)
+    again = ring_flash.fwd_step_cuda(q, k, v, m, l, acc.clone(), offs, **kw)
+    torch.cuda.synchronize()
+    want = ring_flash.fwd_step_ref(q, k, v, m, l, acc, offs, **kw)
+    for g, a, w, t in zip(got, again, want, (1e-5, 1e-5, tol)):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=t, atol=t * float(
+            w[w > 0.5 * flash_attn.NEG_INF].abs().max()))
+    if offs == (0, 130):
+        for g, start in zip(got, (m, l, acc)):
             assert torch.equal(g, start)
 
 
