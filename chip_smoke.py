@@ -62,9 +62,10 @@ NET_DEV = "gpu"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # fp32-accurate products on the tensor cores: 3xTF32, three TF32 products
-# (495 TFLOP/s dense) per fp32 product. The rate of the fp32 bound of the
-# tensor-core kernels (the flash forward and backward, the ring's forward
-# step); FP32_OPS_PER_S stays the bound of the SIMT kernels
+# (495 TFLOP/s dense) per fp32 product. The rate of the fp32 bound of
+# every attention kernel (the flash forward and backward, the ring steps),
+# all on the tensor cores; the bound at FP32_OPS_PER_S is printed beside
+# it, for comparison with the SIMT kernels they replaced
 FP32_3XTF32_OPS_PER_S = 495e12 / 3
 # dense bf16 on the tensor cores: the least time for bf16 attention inputs
 BF16_OPS_PER_S = 989e12
@@ -1407,12 +1408,14 @@ def phase_flash_bwd_kernel(flash, shapes=None, phase="flash_bwd_kernel"):
     whole backward (dq, dk and dv in one call). Every fp32 time lands in
     KERNEL_MS. The fp32 bound is reckoned at the 3xTF32 rate of the
     kernels' tensor-core products, the FMA-rate bound printed beside it;
-    the default run first counts the libraries' tensor-core instructions
-    and fails without them."""
+    the default run first counts the tensor-core instructions of these
+    libraries and of the ring's dQ and dK/dV steps, which run the same
+    bodies, and fails without them."""
     import torch.nn.functional as F
     log("phase %s" % phase)
     if shapes is None:
-        tensor_core_instructions(("flash_bwd_dq", "flash_bwd_dkv"))
+        tensor_core_instructions(("flash_bwd_dq", "flash_bwd_dkv",
+                                  "ring_dq_step", "ring_dkv_step"))
     shapes = shapes or FLASH_BWD_SHAPES
     recs = {"dq": _new_rec(), "dkv": _new_rec()}
     rng = np.random.RandomState(SEED + 8)
@@ -2215,14 +2218,11 @@ def ring_step_work(kernel, bh, bkv, sq, skv, d, q_off, kv_off, causal,
     return 8 * d * pairs, 2 * q_b + 2 * kv_b + 2 * rows + 4 * kv_f32
 
 
-def ring_peak(kernel, dtype):
-    """The operation rate of a ring step kernel's bound: bf16 on the tensor
-    cores; fp32 at the 3xTF32 rate for the forward step (the flash
-    forward's tensor-core body), at the FMA rate for the SIMT dQ and dK/dV
-    steps."""
-    if dtype != torch.float32:
-        return BF16_OPS_PER_S
-    return FP32_3XTF32_OPS_PER_S if kernel == "fwd" else FP32_OPS_PER_S
+def ring_peak(dtype):
+    """The operation rate of a ring step kernel's bound: every step runs a
+    tensor-core body, fp32 at the 3xTF32 rate, bf16 at the bf16 rate."""
+    return FP32_3XTF32_OPS_PER_S if dtype == torch.float32 else \
+        BF16_OPS_PER_S
 
 
 def ring_step_inputs(bh, bkv, sq, skv, d, dtype, rng):
@@ -2294,7 +2294,7 @@ def ring_step_case(rf, case, dtype, rng):
         ops_n, nbytes = ring_step_work(key, bh, bkv, sq, skv, d, q_off,
                                        kv_off, causal, window,
                                        q.element_size())
-        peak = ring_peak(key, dtype)
+        peak = ring_peak(dtype)
         bound_ms, bound_by = max((ops_n / peak * 1e3, "operations"),
                                  (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
         times[key] = (ms, plain_ms, bound_ms, bound_by)
@@ -2331,7 +2331,7 @@ def ring_main_path(rf, dtype, rng):
         ms = time_ms(lambda: [call(kern, o) for o in steps], iters=5)
         plain_ms = time_ms(lambda: [call(plain, o) for o in steps], iters=2,
                            warmup=1)
-        peak = ring_peak(key, torch.float32)
+        peak = ring_peak(torch.float32)
         bound_ms = ops_ms = bytes_ms = fma_ms = 0.0
         for o in steps:
             ops_n, nbytes = ring_step_work(key, bh, bkv, sq, skv, d, o[0],
@@ -2349,11 +2349,10 @@ def ring_main_path(rf, dtype, rng):
         log("  one layer's ring of %d %s launches (bh %d, bkv %d, shards "
             "of %d, d %d, window %d): kernels %.4f ms, plain %.4f ms, bound "
             "%.4f ms (the sum of each launch's, at %.0f TFLOP/s), "
-            "kernel/bound %.2f%s"
+            "kernel/bound %.2f; fp32 FMA-rate bound %.4f ms, kernel/that "
+            "%.2f"
             % (len(steps), key, bh, bkv, sq, d, window, ms, plain_ms,
-               bound_ms, peak / 1e12, ms / bound_ms,
-               "; fp32 FMA-rate bound %.4f ms, kernel/that %.2f"
-               % (fma_ms, ms / fma_ms) if peak != FP32_OPS_PER_S else ""))
+               bound_ms, peak / 1e12, ms / bound_ms, fma_ms, ms / fma_ms))
     return recs
 
 

@@ -82,10 +82,8 @@
 //
 // The kernel body is flash_bwd_dkv_tc.cuh; this file holds what only the
 // flash dK/dV does: both start at 0 and are stored once in the input
-// dtype. ring_dkv_step.cu keeps the SIMT body of flash_bwd_dkv.cuh, whose
-// header points here for a layout and bound that were its own: K^T and V^T
-// staged transposed, Q and dO per q tile, each thread 8 keys x 64 / TX
-// queries of FMA, bound at the 67 TFLOP/s of fp32 FMA.
+// dtype. ring_dkv_step.cu runs the same body with the ring's f32 carries
+// in place, one query row a block.
 
 #include "flash_bwd_dkv_tc.cuh"
 
@@ -98,6 +96,7 @@ template <typename T>
 struct FlashDkvOut {
   T* dk;  // (kv_rows, skv, d)
   T* dv;
+  static constexpr bool kInPlace = false;  // every block stores
 
   __device__ __forceinline__ void init(int64_t, int, int, float (&ak)[2],
                                        float (&av)[2]) const {

@@ -1,18 +1,26 @@
-// The tensor-core dK/dV kernel body of flash_bwd_dkv.cu: one block owns
-// 64 keys of one (batch, kv head) row and one slice of the head dim, loops
-// over rows_per_block of the query rows that share the kv row (the whole
-// GQA group, summed in the block) and, for each, over the q tiles the mask
-// keeps. Each warp owns 16 of the keys and D / NW of the columns, and
+// The tensor-core dK/dV kernel body shared by flash_bwd_dkv.cu (the flash
+// backward's dK and dV) and ring_dkv_step.cu (one ring step's dK/dV
+// contribution): one block owns 64 keys of one (batch, kv head) row and
+// one slice of the head dim, loops over rows_per_block of the query rows
+// that share the kv row (the flash: the whole GQA group, summed in the
+// block; a ring step: one) and, for each, over the q tiles the mask keeps.
+// Each warp owns 16 of the keys and D / NW of the columns, and
 // accumulates dV += P^T dO and dK += scale dS^T Q for them in registers.
 // Every product runs on the tensor cores as m16n8k8 TF32 mma.sync, fp32
 // operands in 3xTF32 (flash_mma.cuh). Where the accumulators start and
-// where they go is the IO policy's. flash_bwd_dkv.cu's header states the
-// layout per width and the bound.
+// where they go is the IO policy's: the flash's start from 0 and are
+// stored in the input dtype; a ring step reads its f32 carries and writes
+// them back. flash_bwd_dkv.cu's header states the layout per width and
+// the bound, ring_dkv_step.cu's what the ring changes.
 //
 // The IO policy provides, for a key row `row` of the block's output rows
 // (b nkv skv) and the two columns col, col + 1 a lane holds:
 //   init(row, col, d, acc_k[2], acc_v[2])   the accumulators' start
 //   store(row, col, d, acc_k[2], acc_v[2])  the row's result (col < d)
+//   kInPlace  true when store writes back where init read: a block that
+//             feeds no q tile then returns at once (a ring step's
+//             carries); false, it stores its start (the flash dK/dV's
+//             zeros)
 
 #pragma once
 
@@ -121,6 +129,16 @@ attn_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + bkv * g.skv * d;
   const T* vp = v + bkv * g.skv * d;
 
+  int64_t q_begin, q_end;
+  q_tiles_for_kv<BQ, BK>(g.kv_off + k0, g.q_off, g.sq, g.causal, g.window,
+                         &q_begin, &q_end);
+  const int qb = (int)q_begin, qe = (int)q_end;
+  const int n_items = qe > qb ? rows_per_block * (qe - qb) * n_chunks : 0;
+  // in-place carries whose block feeds no q tile stay as they are, unread
+  if constexpr (IO::kInPlace) {
+    if (n_items == 0) return;
+  }
+
   float acc_k[NO][4], acc_v[NO][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -137,11 +155,6 @@ attn_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  int64_t q_begin, q_end;
-  q_tiles_for_kv<BQ, BK>(g.kv_off + k0, g.q_off, g.sq, g.causal, g.window,
-                         &q_begin, &q_end);
-  const int qb = (int)q_begin, qe = (int)q_end;
-  const int n_items = qe > qb ? rows_per_block * (qe - qb) * n_chunks : 0;
   // an item of the ring: query row gi of the block's rows, q tile t, chunk
   // ch; the items run chunk fastest, then q tile, then query row
   struct Item {

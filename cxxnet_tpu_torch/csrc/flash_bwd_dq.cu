@@ -77,10 +77,7 @@
 //
 // The kernel body is flash_bwd_dq_tc.cuh; this file holds what only the
 // flash dQ does: dQ starts at 0 and is stored once in the input dtype.
-// ring_dq_step.cu keeps the SIMT body of flash_bwd_dq.cuh, whose header
-// points here for a layout and bound that were its own: 64-key tiles
-// staged transposed, each thread 8 rows x BK / TX keys of FMA, bound at
-// the 67 TFLOP/s of fp32 FMA.
+// ring_dq_step.cu runs the same body with the ring's f32 carry in place.
 
 #include "flash_bwd_dq_tc.cuh"
 
@@ -92,6 +89,7 @@ using namespace flash;
 template <typename T>
 struct FlashDqOut {
   T* dq;  // (rows, sq, d)
+  static constexpr bool kInPlace = false;  // every block stores
 
   __device__ __forceinline__ void init(int64_t, int, int,
                                        float (&acc)[2]) const {

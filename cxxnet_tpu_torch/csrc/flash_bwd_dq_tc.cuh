@@ -1,16 +1,22 @@
-// The tensor-core dQ kernel body of flash_bwd_dq.cu: one block owns 64
-// query rows of one (batch, head) row and one slice of the head dim; each
-// of its 4 warps owns 16 of the rows and accumulates
+// The tensor-core dQ kernel body shared by flash_bwd_dq.cu (the flash
+// backward's dQ) and ring_dq_step.cu (one ring step's dQ contribution):
+// one block owns 64 query rows of one (batch, head) row and one slice of
+// the head dim; each of its 4 warps owns 16 of the rows and accumulates
 // dQ += scale (P o (dP - D)) K for them in registers over the kv tiles the
 // mask keeps. Every product runs on the tensor cores as m16n8k8 TF32
 // mma.sync, fp32 operands in 3xTF32 (flash_mma.cuh). Where the accumulator
-// starts and where it goes is the IO policy's. flash_bwd_dq.cu's header
-// states the layout per width and the bound.
+// starts and where it goes is the IO policy's: the flash dQ starts from 0
+// and stores in the input dtype; a ring step reads its f32 carry and
+// writes it back. flash_bwd_dq.cu's header states the layout per width
+// and the bound, ring_dq_step.cu's what the ring changes.
 //
 // The IO policy provides, for a query row `row` of the flattened (b h sq)
 // axis and the two columns col, col + 1 a lane holds:
 //   init(row, col, d, acc[2])   the accumulator the row starts from
 //   store(row, col, d, acc[2])  the row's result (columns < d only)
+//   kInPlace  true when store writes back where init read: a block that
+//             keeps no kv tile then returns at once (a ring step's carry);
+//             false, it stores its start (the flash dQ's zeros)
 
 #pragma once
 
@@ -100,6 +106,16 @@ attn_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = warp * 16;  // the warp's rows in the tile
   const int64_t row = q0 + r0 + grp;
 
+  int64_t kv_begin, kv_end;
+  kv_tiles_for_q<kBQ, BK>(g.q_off + q0, g.kv_off, g.skv, g.causal, g.window,
+                          &kv_begin, &kv_end);
+  const int kb = (int)kv_begin;
+  const int n_items = kv_end > kv_begin ? ((int)kv_end - kb) * n_chunks : 0;
+  // an in-place carry whose block keeps no tile stays as it is, unread
+  if constexpr (IO::kInPlace) {
+    if (n_items == 0) return;
+  }
+
   // lse and D of the lane's rows; rows past sq take 0 and are not stored
   float lse_r[2], dl_r[2], acc[NO][4];
 #pragma unroll
@@ -116,11 +132,6 @@ attn_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  int64_t kv_begin, kv_end;
-  kv_tiles_for_q<kBQ, BK>(g.q_off + q0, g.kv_off, g.skv, g.causal, g.window,
-                          &kv_begin, &kv_end);
-  const int kb = (int)kv_begin;
-  const int n_items = kv_end > kv_begin ? ((int)kv_end - kb) * n_chunks : 0;
   // an item of the ring: kv tile j, chunk ch, chunk fastest
   struct Item {
     int j, ch;

@@ -1,12 +1,11 @@
 // Shared pieces of the attention kernels: the flash kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu) and the ring steps (ring_fwd_step.cu,
-// ring_dq_step.cu, ring_dkv_step.cu). The flash forward and the ring's
-// forward step run one tensor-core body (flash_fwd_tc.cuh) with other
-// inputs and outputs; the flash backward runs its tensor-core bodies
-// (flash_bwd_dq_tc.cuh, flash_bwd_dkv_tc.cuh), the ring's backward steps
-// the SIMT bodies flash_bwd_dq.cuh and flash_bwd_dkv.cuh.
-// Here: tile sizes, the finite NEG_INF, the fp32/bf16 load and
-// store, the geometry of one launch, the mask at global positions, the
+// ring_dq_step.cu, ring_dkv_step.cu). Each direction has one tensor-core
+// body that both run with other inputs and outputs: the forward
+// flash_fwd_tc.cuh, the backward flash_bwd_dq_tc.cuh and
+// flash_bwd_dkv_tc.cuh.
+// Here: the query tile, the finite NEG_INF, the store from f32,
+// the geometry of one launch, the mask at global positions, the
 // tile ranges that _block_needed / _tile_needed keep
 // (cxxnet_tpu/ops/flash_attn.py:66-79, cxxnet_tpu/ops/ring_flash.py:66-82),
 // the compiled head widths and the dispatch over them.
@@ -16,9 +15,9 @@
 // zero-fill the columns d .. W-1 and stores skip them, so every dot product
 // over the head dim gains only zero terms and the result is exact. Tensors
 // keep their own row stride d. Width 256 takes a layout of its own in each
-// kernel (more column lanes, and in the backward a 32-key tile), so that
-// its accumulators stay in registers and its tiles within the 227 KB of
-// shared memory a block may opt into. The forward's widths stop at 128;
+// backward body (one stage; 32-key tiles in the dQ, two warps to every 16
+// keys in the dK/dV), so that its accumulators stay in registers and its
+// tiles within the 227 KB of shared memory a block may opt into. The forward's widths stop at 128;
 // above that it runs slices of 128 in thread-block clusters that share the
 // score product (flash_fwd_tc.cuh).
 //
@@ -41,30 +40,14 @@
 
 namespace flash {
 
-constexpr int kBQ = 64;          // query rows per tile
-constexpr int kBK = 64;          // keys per tile (32 in the backward at 256)
+constexpr int kBQ = 64;          // query rows per tile (the dQ and forward)
 constexpr int kMinTile = 32;     // the smallest tile any kernel's grid walks
-constexpr int kPadQ = kBQ + 4;   // row stride of a transposed 64-row tile
-constexpr int kPadK = kBK + 1;   // row stride of a transposed 64-key tile
 constexpr float kNegInf = -1e30f;
 constexpr int kSliceWidth = 256; // the widest compiled width; wider in slices
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// element (row, c) of a (rows, d) matrix, 0 past the row count or the
-// head dim (the zero-filled columns of the compiled width); kExact: d is
-// the compiled width, so every column is inside
-template <bool kExact, typename T>
-__device__ __forceinline__ float load_or_zero(const T* base, int64_t row,
-                                              int64_t rows, int c, int d) {
-  return (row < rows && (kExact || c < d)) ? to_f32(base[row * d + c]) : 0.f;
 }
 
 // What one launch computes over. q holds sq rows per (batch, head) row of

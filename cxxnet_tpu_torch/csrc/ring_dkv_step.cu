@@ -14,32 +14,42 @@
 // with the ring forward's mask at the global positions q_off + i and
 // kv_off + j. After n steps every block is home with every device's share.
 //
-// Design. The flash dK/dV body (flash_bwd_dkv.cuh; its layout and register
-// tiling in flash_bwd_dkv.cu), run with this file's IO policy: each block
-// owns BK keys of one k/v row, keeps its K^T and V^T tiles resident while
-// the q tiles of its query rows stream, and starts from and writes back
-// its keys' and slice's carries, in place. Grouped K/V are read in place
-// through the row map (JAX expands them to the query heads for each call,
-// cxxnet_tpu/parallel/ring.py:279-285). Departure from the flash dK/dV,
-// which sums a kv head's group in one block: here a block serves one query
-// row (rows_per_block 1), h / nkv times the blocks. A ring shard is short
-// (2048 keys of 2 kv heads at batch 2 give 128 blocks of 128 threads, one
-// per SM, when the group is summed in the block; that ring took 6.9 ms a
-// layer against 3.6 ms this way), so the carries stay at query-head
-// resolution and parallel/ring.py sums each group once, after the ring
-// (JAX sums after every step, :330-333). No atomics: the step is bitwise
-// repeatable. The offsets come
-// by value at launch and each block walks only the q tiles its keys feed
-// (q_tiles_for_kv, flash_common.cuh); a block that feeds none leaves its
-// carries as they were. One launch per (device, step): n^2 per layer and
-// backward.
+// Design. The flash dK/dV's tensor-core body (flash_bwd_dkv_tc.cuh; its
+// layout per width, fragments and rounding in flash_bwd_dkv.cu), run with
+// this file's IO policy:
+//  - the carries cross launches and devices. Each block starts dK and dV
+//    of its 64 keys and slice from the f32 carries, read in the
+//    C-fragment layout of its warps (keys grp and grp + 8, columns 2t and
+//    2t + 1 of each 8-column tile), and writes them back in place. Grouped
+//    K/V are read in place through the row map (JAX expands them to the
+//    query heads for each call, cxxnet_tpu/parallel/ring.py:279-285).
+//  - the tensor cores round their sums toward zero, and n launches add to
+//    each carry: every pair of k-steps of P^T dO and dS^T Q is summed in a
+//    fresh accumulator and reaches the carry by one rounded f32 addition,
+//    never as the mma's C.
+//  - departure from the flash dK/dV, which sums a kv head's group in one
+//    block: here a block serves one query row (rows_per_block 1), h / nkv
+//    times the blocks. A ring shard is short: 2048 keys of 2 kv heads at
+//    batch 2 give 128 blocks of 64 keys, under one per SM, when the group
+//    is summed in the block (the SIMT body this step ran before took 6.9
+//    ms a layer that way against 3.6 ms at query-head resolution). So the
+//    carries stay at query-head resolution, and parallel/ring.py sums each
+//    group once, after the ring (JAX sums after every step, :330-333).
+//  - the offsets come by value at launch and each block walks only the q
+//    tiles its keys feed (q_tiles_for_kv, flash_common.cuh). A tile wholly
+//    inside the mask skips the per-pair test at any offset, the others
+//    take it. A block that feeds none returns before it reads its carries
+//    (kInPlace), which stay bitwise as they were.
+//  - no atomics: the step is bitwise repeatable. One launch per (device,
+//    step): n^2 per layer and backward.
 //
 // Bound. 8 d flops per (query, key) pair the step's mask keeps (S, P^T dO,
-// dP, dS^T Q) at the fp32 rate, 67 TFLOP/s; the bytes (q, dO, k, v, lse,
-// D read once, the carries read and written) are far below that whenever
-// a tile is kept.
+// dP, dS^T Q), in fp32 at the 3xTF32 rate of 495 / 3 = 165 TFLOP/s (H100
+// SXM), in bf16 at 989 TFLOP/s; the bytes (q, dO, k, v, lse, D read once,
+// the carries read and written) are far below that whenever a tile is
+// kept. A step that keeps no pair has only its launch.
 
-#include "flash_bwd_dkv.cuh"
+#include "flash_bwd_dkv_tc.cuh"
 
 namespace {
 
@@ -49,28 +59,27 @@ using namespace flash;
 struct RingDkvCarry {
   float* dk;  // (rows, skv, d)
   float* dv;
+  static constexpr bool kInPlace = true;
 
-  template <int NA>
-  __device__ __forceinline__ void init(int64_t row, const int (&col)[NA],
-                                       int d, float (&ak)[NA],
-                                       float (&av)[NA]) const {
+  __device__ __forceinline__ void init(int64_t row, int col, int d,
+                                       float (&ak)[2], float (&av)[2]) const {
 #pragma unroll
-    for (int c = 0; c < NA; ++c) {
-      const bool in = col[c] < d;
-      ak[c] = in ? dk[row * d + col[c]] : 0.f;
-      av[c] = in ? dv[row * d + col[c]] : 0.f;
+    for (int i = 0; i < 2; ++i) {
+      if (col + i < d) {
+        ak[i] = dk[row * d + col + i];
+        av[i] = dv[row * d + col + i];
+      }
     }
   }
 
-  template <int NA>
-  __device__ __forceinline__ void store(int64_t row, const int (&col)[NA],
-                                        int d, const float (&ak)[NA],
-                                        const float (&av)[NA]) const {
+  __device__ __forceinline__ void store(int64_t row, int col, int d,
+                                        const float (&ak)[2],
+                                        const float (&av)[2]) const {
 #pragma unroll
-    for (int c = 0; c < NA; ++c) {
-      if (col[c] < d) {
-        dk[row * d + col[c]] = ak[c];
-        dv[row * d + col[c]] = av[c];
+    for (int i = 0; i < 2; ++i) {
+      if (col + i < d) {
+        dk[row * d + col + i] = ak[i];
+        dv[row * d + col + i] = av[i];
       }
     }
   }
@@ -103,11 +112,11 @@ int cxxnet_ring_dkv_step(const void* q, const void* k, const void* v,
   const RingDkvCarry io{dk, dv};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_dkv<float>(q, k, v, dout, lse, delta, rows, rows, g,
-                                  io, s);
+    return (int)launch_dkv_tc<float>(q, k, v, dout, lse, delta, rows,
+                                     /*out_rows=*/rows, g, io, s);
   if (dtype == 1)
-    return (int)launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, rows,
-                                          rows, g, io, s);
+    return (int)launch_dkv_tc<__nv_bfloat16>(q, k, v, dout, lse, delta, rows,
+                                             /*out_rows=*/rows, g, io, s);
   return (int)cudaErrorInvalidValue;
 }
 

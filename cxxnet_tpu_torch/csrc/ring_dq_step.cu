@@ -14,23 +14,38 @@
 // row r reads k/v row r / (rows / kv_rows): grouped k/v in place. Every
 // sum is f32.
 //
-// Design. The flash dQ body (flash_bwd_dq.cuh; its layout and register
-// tiling in flash_bwd_dq.cu), run with this file's IO policy: each block
-// starts from its rows' and slice's dQ carry and writes it back in place
-// (it reads and writes only its own rows and columns, as JAX aliases the
-// carry). dQ stays on its device for the whole ring pass. The offsets come
-// by value at launch and each block loads only the kv tiles its rows need
-// (kv_tiles_for_q, flash_common.cuh); a block that needs none leaves its
-// carry as it was. A masked pair gets p = 0 outright. No atomics: the
-// step is bitwise repeatable. One launch per (device, step): n^2 per layer
-// and backward for a ring of n.
+// Design. The flash dQ's tensor-core body (flash_bwd_dq_tc.cuh; its
+// layout per width, fragments and rounding in flash_bwd_dq.cu), run with
+// this file's IO policy:
+//  - the carry crosses launches. Each block starts its accumulators from
+//    its rows' and slice's f32 dQ carry, read in the C-fragment layout of
+//    its warps (rows grp and grp + 8, columns 2t and 2t + 1 of each
+//    8-column tile), and writes them back in place (each block reads and
+//    writes only its own rows and columns, as JAX aliases the carry). dQ
+//    stays on its device for the whole ring pass.
+//  - the tensor cores round their sums toward zero, and up to n launches
+//    add to one carry: every pair of k-steps of dS K is summed in a fresh
+//    accumulator and reaches the carry by one rounded f32 addition, never
+//    as the mma's C.
+//  - the offsets are known only at launch, by value: each block computes
+//    its own range of kv tiles from its rows' global start
+//    (kv_tiles_for_q, flash_common.cuh) and loads no other. A tile wholly
+//    inside the mask skips the per-pair test at any offset, the others
+//    take it, and a masked pair gets p = 0 outright. A block that keeps no
+//    tile returns before it reads its carry (kInPlace), which stays
+//    bitwise as it was; under a causal ring about half the steps of a
+//    device keep none.
+//  - no atomics: the step is bitwise repeatable. One launch per (device,
+//    step): n^2 per layer and backward for a ring of n.
 //
 // Bound. 6 d flops per (query, key) pair the step's mask keeps (S, dP,
-// dS K) at the fp32 rate, 67 TFLOP/s; the bytes (q, dO, the block's k and
-// v, lse and D read once, the carry read and written) are far below that
-// at the ring's shapes whenever a tile is kept.
+// dS K), in fp32 at the 3xTF32 rate of 495 / 3 = 165 TFLOP/s (H100 SXM),
+// in bf16 at 989 TFLOP/s; the bytes (q, dO, the block's k and v, lse and
+// D read once, the carry read and written) are far below that at the
+// ring's shapes whenever a tile is kept. A step that keeps no pair has
+// only its launch.
 
-#include "flash_bwd_dq.cuh"
+#include "flash_bwd_dq_tc.cuh"
 
 namespace {
 
@@ -39,21 +54,18 @@ using namespace flash;
 // the ring's dQ carry, f32, read and written in place
 struct RingDqCarry {
   float* dq;  // (rows, sq, d)
+  static constexpr bool kInPlace = true;
 
-  template <int NA>
-  __device__ __forceinline__ void init(int64_t row, const int (&col)[NA],
-                                       int d, float (&acc)[NA]) const {
-#pragma unroll
-    for (int c = 0; c < NA; ++c)
-      acc[c] = col[c] < d ? dq[row * d + col[c]] : 0.f;
+  __device__ __forceinline__ void init(int64_t row, int col, int d,
+                                       float (&acc)[2]) const {
+    if (col < d) acc[0] = dq[row * d + col];
+    if (col + 1 < d) acc[1] = dq[row * d + col + 1];
   }
 
-  template <int NA>
-  __device__ __forceinline__ void store(int64_t row, const int (&col)[NA],
-                                        int d, const float (&acc)[NA]) const {
-#pragma unroll
-    for (int c = 0; c < NA; ++c)
-      if (col[c] < d) dq[row * d + col[c]] = acc[c];
+  __device__ __forceinline__ void store(int64_t row, int col, int d,
+                                        const float (&acc)[2]) const {
+    if (col < d) dq[row * d + col] = acc[0];
+    if (col + 1 < d) dq[row * d + col + 1] = acc[1];
   }
 };
 
@@ -84,10 +96,11 @@ int cxxnet_ring_dq_step(const void* q, const void* k, const void* v,
   const RingDqCarry io{dq};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_dq<float>(q, k, v, dout, lse, delta, rows, g, io, s);
+    return (int)launch_dq_tc<float>(q, k, v, dout, lse, delta, rows, g,
+                                    io, s);
   if (dtype == 1)
-    return (int)launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, rows, g,
-                                         io, s);
+    return (int)launch_dq_tc<__nv_bfloat16>(q, k, v, dout, lse, delta, rows,
+                                            g, io, s);
   return (int)cudaErrorInvalidValue;
 }
 

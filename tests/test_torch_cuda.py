@@ -760,6 +760,45 @@ def test_ring_fwd_step_kernel_at_the_tile_edges(card, case, dtype, tol):
             assert torch.equal(g, start)
 
 
+# the backward steps at the same edges and at width 128 (d 120: the dQ
+# body's 16-key tiles, the dK/dV body's 16-row q tiles), sq > skv, the
+# diagonal crossing the block off the 16-row grid
+RING_BWD_EDGES = RING_FWD_EDGES + [
+    (8, 4, 384, 128, 120, (170, 90), True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", RING_BWD_EDGES, ids=str)
+def test_ring_bwd_step_kernels_at_the_tile_edges(card, case, dtype, tol):
+    # dq, dk, dv from carries that are not zero within tol of their largest
+    # magnitude against the plain versions; two runs from the same carries
+    # bitwise equal; a wholly masked step leaves every carry bitwise as it
+    # was
+    offs, causal, window = case[5:]
+    kw = dict(causal=causal, scale=case[4] ** -0.5, window=window)
+    (q, k, v, do), _, (lse, delta), (dq, dk, dv) = \
+        _ring_step_inputs(card, case, dtype)
+    runs = [(ring_flash.dq_step_cuda(q, k, v, do, lse, delta, dq.clone(),
+                                     offs, **kw),)
+            + ring_flash.dkv_step_cuda(q, k, v, do, lse, delta, dk.clone(),
+                                       dv.clone(), offs, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    want = (ring_flash.dq_step_ref(q, k, v, do, lse, delta, dq, offs,
+                                   **kw),) + \
+        ring_flash.dkv_step_ref(q, k, v, do, lse, delta, dk, dv, offs, **kw)
+    for g, a, w in zip(*runs, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=tol,
+                                   atol=tol * float(w.abs().max()))
+    if offs == (0, 130):
+        for g, start in zip(runs[0], (dq, dk, dv)):
+            assert torch.equal(g, start)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, shape", [
     (4, (2, 8, 2, 2048, 64, True, 1024)),    # the long recipe's ring, cut

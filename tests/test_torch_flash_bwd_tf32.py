@@ -18,13 +18,25 @@ TF32 product per term (the operands rounded once) misses the 1e-5 bar:
 that is why the kernels take three. The order and rounding of the f32
 sums are the card's and are held there (tests/test_torch_cuda.py,
 chip_smoke.py).
+
+The ring's dQ and dK/dV steps (ring_dq_step.cu, ring_dkv_step.cu) run the
+same bodies with f32 carries read and written in place. Their ring is
+emulated with the tensor cores' sums as well: each mma rounds toward zero
+to f32, S and dP go straight into their accumulators, and every pair of
+k-steps of dQ, dK and dV is summed in a fresh accumulator and added to the
+carry by one rounded f32 addition (the paired products of
+tests/test_torch_flash_fwd_tf32.py).
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from cxxnet_tpu_torch.ops import flash_attn
+from cxxnet_tpu_torch.ops import _build, flash_attn
+from tests.test_torch_flash_fwd_tf32 import mask, products
 
 BAR = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -231,3 +243,121 @@ def test_reference_is_the_ports_plain_backward():
     for g, w in zip(got, want):
         assert float(np.abs(g.double().numpy() - w).max()) <= \
             1e-5 * float(np.abs(w).max())
+
+
+def q_tiles_for_kv(ks, q_off, sq, bq, bk, window):
+    """q tiles [begin, end) of bq rows the causal key tile at global
+    position ks feeds (flash_common.cuh's q_tiles_for_kv)."""
+    begin = max((ks - q_off) // bq, 0)
+    end = -(-sq // bq)
+    if window > 0:
+        end = min((ks - q_off + bk - 2 + window) // bq + 1, end)
+    return begin, end
+
+
+def kv_tiles_for_q(qs, kv_off, skv, bq, bk, window):
+    """kv tiles [begin, end) of bk keys the causal q tile at global
+    position qs needs (flash_common.cuh's kv_tiles_for_q)."""
+    end = min((qs + bq - 1 - kv_off) // bk + 1, -(-skv // bk))
+    begin = 0
+    if window > 0:
+        lo = qs - window - bk + 2 - kv_off
+        begin = 0 if lo <= 0 else -(-lo // bk)
+    return begin, end
+
+
+def ring_bwd_step(q, k, v, do, lse, delta, dq, dk, dv, offs, window):
+    """One causal ring step of the backward bodies on fp32 inputs: q, dO
+    (b, h, sq, d), the block k, v (b, nkv, skv, d), the carries dq (b, h,
+    sq, d) and dk, dv at query-head resolution (b, h, skv, d). The dQ body
+    walks 64-row q tiles over the kv tiles they need, the dK/dV body
+    64-key blocks over the q tiles they feed; a block with none leaves its
+    carry as it is. Returns the new carries."""
+    b, h, sq, d = q.shape
+    g = h // k.shape[1]
+    skv = k.shape[2]
+    kk, vv = np.repeat(k, g, axis=1), np.repeat(v, g, axis=1)
+    scale = np.float32(d ** -0.5)
+    zero = np.zeros((b, h, sq, skv), np.float32)
+    s = products(zero, q, np.swapaxes(kk, -1, -2), True, True, paired=False)
+    dp = products(zero, do, np.swapaxes(vv, -1, -2), True, True,
+                  paired=False)
+    keep = mask(sq, skv, offs[0], offs[1], True, window)
+    p = np.where(keep, np.exp(s * scale - lse[..., None]), 0)
+    p = p.astype(np.float32)
+    ds = (p * (dp - delta[..., None]) * scale).astype(np.float32)
+    dq, dk, dv = (np.array(t, np.float32) for t in (dq, dk, dv))
+    bk = 16 if d == 128 else 32  # the dQ body's kv tile
+    for q0 in range(0, sq, 64):
+        kb, ke = kv_tiles_for_q(offs[0] + q0, offs[1], skv, 64, bk, window)
+        if ke > kb:
+            rows, keys = slice(q0, q0 + 64), slice(kb * bk, ke * bk)
+            dq[:, :, rows] = products(dq[:, :, rows], ds[:, :, rows, keys],
+                                      kk[:, :, keys], True, True)
+    bq = 64 if d <= 64 else 16 if d == 128 else 32  # the dK/dV body's
+    for k0 in range(0, skv, 64):
+        qb, qe = q_tiles_for_kv(offs[1] + k0, offs[0], sq, bq, 64, window)
+        if qe > qb:
+            keys, rows = slice(k0, k0 + 64), slice(qb * bq, qe * bq)
+            pt = np.swapaxes(p[:, :, rows, keys], -1, -2)
+            dst = np.swapaxes(ds[:, :, rows, keys], -1, -2)
+            dv[:, :, keys] = products(dv[:, :, keys], pt, do[:, :, rows],
+                                      True, True)
+            dk[:, :, keys] = products(dk[:, :, keys], dst, q[:, :, rows],
+                                      True, True)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("n, L, d, h, nkv, window", [
+    (4, 256, 64, 4, 2, 100),
+    (2, 128, 256, 2, 1, 0),
+])
+def test_ring_steps_carry_the_backward(n, L, d, h, nkv, window):
+    # n ring steps: device i carries its dq in place over the blocks of
+    # devices i, i - 1, ...; block j carries dk, dv at query-head
+    # resolution over devices j, j + 1, ..., summed per group after the
+    # ring. Together they give the whole sequence's gradients; a step whose
+    # block keeps no pair leaves every carry bitwise as it was
+    q, k, v, do = inputs(L, d, h, nkv, "float32", seed=n + d)
+    lse, delta = forward_stats(q, k, v, do, True, window)
+    want = backward(q, k, v, do, lse, delta, True, window, False, True)
+    sh = L // n
+    b, g = q.shape[0], h // nkv
+    rows = [slice(i * sh, (i + 1) * sh) for i in range(n)]
+    zero = np.zeros((b, h, sh, d), np.float32)
+    dq = [zero] * n
+    dkv = [(zero, zero)] * n  # the carries of block j
+    for t in range(n):
+        for i in range(n):
+            j = (i - t) % n  # device i holds block j
+            qi, kj = rows[i], rows[j]
+            new = ring_bwd_step(q[:, :, qi], k[:, :, kj], v[:, :, kj],
+                                do[:, :, qi], lse[:, :, qi],
+                                delta[:, :, qi], dq[i], *dkv[j],
+                                (i * sh, j * sh), window)
+            if not mask(sh, sh, i * sh, j * sh, True, window).any():
+                for a, c in zip(new, (dq[i],) + dkv[j]):
+                    np.testing.assert_array_equal(a, c)
+            dq[i], dkv[j] = new[0], new[1:]
+    got = (np.concatenate(dq, axis=2),) + tuple(
+        np.concatenate([c[e].reshape(b, nkv, g, sh, d).sum(2) for c in dkv],
+                       axis=2) for e in range(2))
+    for name, gg, w in zip(("dq", "dk", "dv"), got, want):
+        err = float(np.abs(gg - w).max() / np.abs(w).max())
+        assert err <= BAR["float32"], (name, err)
+
+
+SOURCES = sorted(f for f in os.listdir(_build.CSRC_DIR)
+                 if f.endswith((".cu", ".cuh")))
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_csrc_includes_name_sources_that_exist(name):
+    # every local #include of a kernel source names a file of csrc/, and
+    # none names the SIMT attention bodies the tensor-core bodies replaced
+    with open(os.path.join(_build.CSRC_DIR, name)) as f:
+        text = f.read()
+    for inc in re.findall(r'^#include "([^"]+)"', text, re.M):
+        assert inc in SOURCES, (name, inc)
+    for gone in ("flash_bwd_dq.cuh", "flash_bwd_dkv.cuh"):
+        assert gone not in text, (name, gone)
