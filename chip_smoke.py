@@ -89,8 +89,8 @@ NORM_RTOL = 1e-5
 # absolute 8 f32 epsilons of the largest |dx|. dx is the difference of two
 # terms that can cancel, so an element can pass near zero where its terms
 # do not; there the few ulps by which the two versions' terms differ (the
-# kernel sums the window in double, the plain version in f32) are a large
-# relative error but a tiny absolute one
+# kernel's powf and PyTorch's pow may round apart) are a large relative
+# error but a tiny absolute one
 BWD_ATOL_EPS = 8
 # AlexNet top[-1] (softmax probabilities) with the kernel vs with the plain
 # LRN swapped in, on the card: same convs, same order, so only the LRN's
@@ -472,11 +472,12 @@ def _new_rec():
 
 def phase_lrn_kernel(lrn):
     """The LRN kernel against lrn_ref at the main path's shapes, fp32 and
-    bf16; returns the per-kernel record (sums over the two fp32 main-path
-    shapes, i.e. one forward's worth of LRN work)."""
+    bf16 (the f32 norm bitwise), and its no-norm form (inference) against
+    its own bound; returns the per-kernel record (sums over the two fp32
+    main-path shapes, i.e. one forward's worth of LRN work)."""
     import torch.nn.functional as F
     log("phase lrn_kernel")
-    rec = _new_rec()
+    rec = dict(_new_rec(), no_norm_ms=0.0, no_norm_bound_ms=0.0)
     a = LRN_ARGS
     rng = np.random.RandomState(SEED)
     for name, shape in LRN_SHAPES.items():
@@ -490,6 +491,12 @@ def phase_lrn_kernel(lrn):
             log(" " + tag)
             err = check_close("out vs lrn_ref", out, ref_out, RTOL[dtype])
             check_close("norm vs lrn_ref", norm, ref_norm, NORM_RTOL)
+            # the kernel sums each window in the plain version's order
+            same = bool(torch.equal(norm, ref_norm))
+            log("  norm bitwise equal to lrn_ref's: %s" % same)
+            if not same:
+                raise AssertionError("the f32 norm is not bitwise the plain "
+                                     "version's")
             kernel_ms = time_ms(lambda: lrn.lrn_fwd_cuda(x, **a))
             plain_ms = time_ms(lambda: lrn.lrn_ref_with_norm(x, **a))
             library_ms = library(F, x, ref_out)
@@ -501,11 +508,27 @@ def phase_lrn_kernel(lrn):
                 "%.4f (%d bytes; ops bound %.4f ms) kernel/bound %.2f"
                 % (kernel_ms, plain_ms, library_ms, bound_ms, nbytes, ops_ms,
                    kernel_ms / bound_ms))
+            # inference: the same kernel storing no norm (predict's path)
+            out_nn, none = lrn.lrn_fwd_cuda(x, **a, with_norm=False)
+            torch.cuda.synchronize()
+            if none is not None or not torch.equal(out_nn, out):
+                raise AssertionError("the no-norm forward's out differs from "
+                                     "the training forward's")
+            nn_ms = time_ms(lambda: lrn.lrn_fwd_cuda(x, **a, with_norm=False))
+            nn_bound, nn_by, _, _ = _bound(n, n * 2 * x.element_size(),
+                                           LRN_OPS_PER_ELEM)
+            log("  no-norm kernel_ms %.4f bound_ms %.4f (%d bytes) "
+                "kernel/bound %.2f; out bitwise the training forward's"
+                % (nn_ms, nn_bound, n * 2 * x.element_size(),
+                   nn_ms / nn_bound))
             if dtype == torch.float32:
                 _add_fp32(rec, kernel_ms, plain_ms, library_ms, bound_ms,
                           bound_by)
+                rec["no_norm_ms"] += nn_ms
+                rec["no_norm_bound_ms"] += nn_bound
+                rec["no_norm_bound_by"] = nn_by
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            del x, out, norm, ref_out, ref_norm
+            del x, out, norm, ref_out, ref_norm, out_nn
     torch.cuda.empty_cache()
     return rec
 
@@ -584,15 +607,17 @@ def phase_alexnet_pred(lrn, api):
         np.float32)
 
     # the main path: the counts start at 0 here and are read right after
-    lrn.launches = 0
+    lrn.launches = lrn.no_norm_launches = 0
     pred = net.predict(x)
     top = net.extract(x, "top[-1]")
     torch.cuda.synchronize()
-    launches = lrn.launches
-    log("  lrn_fwd launches: %d over 2 forwards" % launches)
-    if launches != 4:
+    launches, no_norm = lrn.launches, lrn.no_norm_launches
+    log("  lrn_fwd launches: %d over 2 forwards, %d of them storing no norm"
+        % (launches, no_norm))
+    if launches != 4 or no_norm != 4:
         raise AssertionError("expected 2 LRN kernel launches per forward, "
-                             "counted %d over 2" % launches)
+                             "none storing a norm; counted %d over 2, %d "
+                             "without a norm" % (launches, no_norm))
     if pred.shape != (BATCH,) or top.shape != (BATCH, 1, 1, 1000):
         raise AssertionError("shapes %s %s" % (pred.shape, top.shape))
     if not np.isfinite(top).all():
@@ -2680,6 +2705,11 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
+        if name == "lrn_fwd":
+            kernels[-1]["inference"] = {
+                "ms": rec["no_norm_ms"], "bound_ms": rec["no_norm_bound_ms"],
+                "bound_by": rec["no_norm_bound_by"],
+                "covers": "the forward storing no norm (predict's path)"}
         if name.startswith("flash_bwd"):
             kernels[-1]["plain_and_library_cover"] = \
                 "the whole backward: dq, dk and dv in one call"

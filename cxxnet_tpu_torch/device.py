@@ -1,9 +1,13 @@
 """``dev=`` spec parsing: the counterpart of cxxnet_tpu/parallel/mesh.py:18-30.
 
-``gpu`` / ``cuda`` / ``gpu:0`` select a CUDA card, ``cpu`` the host. The port
-runs on one device, so a list of ids (``gpu:0-3``) takes its first id. A GPU
-spec with no card present raises: the port never falls back to the CPU
-quietly.
+``cpu`` selects the host; every other kind (``gpu``, ``cuda``, ``tpu``, with
+or without ids) selects the card, as the JAX package runs every kind but
+``cpu`` on its default accelerator (cxxnet_tpu/nnet/trainer.py:252-255). The
+port runs on one device, so a list of ids (``gpu:0-3``) takes its first id,
+and an id the machine does not have falls back to card 0, as the JAX
+package falls back to the first devices when ids do not resolve
+(cxxnet_tpu/parallel/mesh.py:80-86). A card spec with no card present
+raises: the port never falls back to the CPU quietly.
 """
 
 from __future__ import annotations
@@ -26,15 +30,17 @@ def parse_device_spec(spec: str) -> Tuple[str, List[int]]:
 
 
 def resolve_device(spec: str) -> torch.device:
-    """The torch device a ``dev=`` spec names. Raises ValueError for a kind
-    the port does not run on and RuntimeError for a GPU spec without a
-    card."""
+    """The torch device a ``dev=`` spec names: the host for ``cpu``, else
+    the card of the spec's first id when the machine has it and card 0
+    when it does not (the JAX rule, cxxnet_tpu/nnet/trainer.py:252-255 and
+    cxxnet_tpu/parallel/mesh.py:80-86). Raises RuntimeError for a card
+    spec without a card."""
     kind, ids = parse_device_spec(spec)
     if kind == "cpu":
         return torch.device("cpu")
-    if kind not in ("gpu", "cuda"):
-        raise ValueError("dev=%s: the port runs on gpu or cpu" % spec)
     if not torch.cuda.is_available():
         raise RuntimeError("dev=%s but no CUDA device is available; pass "
                            "dev=cpu to run on the host" % spec)
-    return torch.device("cuda", ids[0] if ids else 0)
+    first = ids[0] if ids else 0
+    return torch.device("cuda", first
+                        if 0 <= first < torch.cuda.device_count() else 0)

@@ -5,19 +5,23 @@ Replaces the TPU kernels ``_lrn_fwd_kernel`` / ``_lrn_call`` and
 ``_lrn_bwd_kernel`` / ``_lrn_bwd_call``
 (cxxnet_tpu/ops/pallas_kernels.py:49-104). The kernels are
 ``csrc/lrn_fwd.cu`` and ``csrc/lrn_bwd.cu``, built with nvcc at first use and
-bound with ctypes; their source comments state the design and the bound
-(bytes moved / 3.35 TB/s).
+bound with ctypes; their source comments state the design (channel tiles of
+``CHANNEL_TILE`` staged with their halo in shared memory, each window summed
+directly in ascending channel order) and the bound (bytes moved / 3.35
+TB/s).
 
-``forward`` goes through ``LRNFunction``, whose forward saves the f32 norm
-and whose backward takes it: the kernels for a tensor on a CUDA card, the
-plain versions for a tensor on the CPU. A failed build or launch raises:
-nothing falls back to a plain version for a CUDA tensor.
+``forward`` on a CUDA tensor that needs no gradient (``torch.no_grad()``,
+or x not requiring one) launches the forward kernel without the norm and
+builds no graph; otherwise it goes through ``LRNFunction``, whose forward
+saves the f32 norm and whose backward takes it: the kernels for a tensor on
+a CUDA card, the plain versions for a tensor on the CPU. A failed build or
+launch raises: nothing falls back to a plain version for a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,9 +29,19 @@ import torch.nn.functional as F
 from . import _build
 
 # launches of the CUDA kernels, counted in lrn_fwd_cuda / lrn_bwd_cuda
-# where each launches
+# where each launches; no_norm_launches counts the forward's launches that
+# store no norm (inference), which launches counts as well
 launches = 0
+no_norm_launches = 0
 bwd_launches = 0
+
+# channels a block of either kernel owns (kChannelTile in
+# csrc/lrn_tile.cuh); the kernels sum each window over this partition
+CHANNEL_TILE = 16
+# the widest window the kernels take: the backward stages
+# (CHANNEL_TILE + nsize - 1) rows of 128 positions at 12 bytes each, within
+# the 227 KB (232,448 bytes) of shared memory a block may use
+MAX_NSIZE = 232448 // (128 * 12) - CHANNEL_TILE + 1
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -99,7 +113,7 @@ _ARGTYPES = {
 def check_kernel_input(x: torch.Tensor, nsize: int,
                        kernel: str = "lrn_fwd") -> None:
     """What the kernels take: a contiguous 4-D (B, C, H, W) float32 or
-    bfloat16 tensor on a CUDA device, and nsize >= 1."""
+    bfloat16 tensor on a CUDA device, and 1 <= nsize <= MAX_NSIZE."""
     if x.device.type != "cuda":
         raise ValueError("%s kernel needs a CUDA tensor, got one on %s"
                          % (kernel, x.device))
@@ -113,26 +127,35 @@ def check_kernel_input(x: torch.Tensor, nsize: int,
         raise ValueError("%s kernel needs a contiguous NCHW tensor" % kernel)
     if nsize < 1:
         raise ValueError("lrn local_size must be >= 1, got %d" % nsize)
+    if nsize > MAX_NSIZE:
+        raise ValueError("%s kernel takes local_size <= %d, got %d"
+                         % (kernel, MAX_NSIZE, nsize))
 
 
 def lrn_fwd_cuda(x: torch.Tensor, nsize: int, alpha: float, beta: float,
-                 knorm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                 knorm: float, with_norm: bool = True
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the CUDA kernel on the current stream: returns (out in x's
-    dtype, f32 norm). Raises on an input it does not take or a failed
-    launch."""
-    global launches
+    dtype, f32 norm), or (out, None) with ``with_norm=False``, which
+    allocates and stores no norm. Raises on an input it does not take or a
+    failed launch."""
+    global launches, no_norm_launches
     check_kernel_input(x, nsize)
     out = torch.empty_like(x)
-    norm = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    norm = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
+        if with_norm else None
     if x.numel() == 0:
         return out, norm
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
         _build.launch("lrn_fwd", _ARGTYPES["lrn_fwd"], x.data_ptr(),
-                      out.data_ptr(), norm.data_ptr(), _DTYPE_CODE[x.dtype],
-                      b, c, h * w, nsize, alpha / nsize, beta, knorm,
+                      out.data_ptr(), norm.data_ptr() if with_norm else None,
+                      _DTYPE_CODE[x.dtype], b, c, h * w, nsize,
+                      alpha / nsize, beta, knorm,
                       torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
+    if not with_norm:
+        no_norm_launches += 1
     return out, norm
 
 
@@ -198,8 +221,12 @@ class LRNFunction(torch.autograd.Function):
 def forward(x: torch.Tensor, nsize: int, alpha: float, beta: float,
             knorm: float) -> torch.Tensor:
     """LRN over the channels of an NCHW tensor, differentiable: the CUDA
-    kernels for a CUDA tensor, the plain versions for a CPU tensor."""
+    kernels for a CUDA tensor (the forward without its norm, and no graph,
+    where no gradient is needed), the plain versions for a CPU tensor."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError("lrn forward: no implementation for a tensor on %s"
                          % x.device)
+    if x.device.type == "cuda" and not (torch.is_grad_enabled()
+                                        and x.requires_grad):
+        return lrn_fwd_cuda(x, nsize, alpha, beta, knorm, with_norm=False)[0]
     return LRNFunction.apply(x, nsize, alpha, beta, knorm)

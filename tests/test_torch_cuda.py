@@ -8,11 +8,13 @@ also runs where JAX is not installed:
 Tolerances: fp32 to relative 1e-5 (the reference's PairTest bar); the bf16
 output to 2e-2 (kernel and plain version round the same f32 value to bf16,
 and an f32 ulp of difference can move that by one bf16 ulp, 2^-8); the f32
-norm always to 1e-5. The backward's dx gets, beside these, an absolute
-8 f32 epsilons of its largest magnitude: dx is the difference of two terms
-that can cancel, and where an element passes near zero the few ulps by
-which the two versions' terms differ (the kernel sums the window in
-double, the plain version in f32) are a large relative error.
+norm always to 1e-5, and bit for bit where a test says so (the kernel
+sums each window in the plain version's order). The backward's dx gets,
+beside these, an absolute 8 f32 epsilons of its largest magnitude: dx is
+the difference of two terms that can cancel, and where an element passes
+near zero the few ulps by which the two versions' terms differ (the
+kernel's powf and PyTorch's pow may round apart) are a large relative
+error.
 
 The flash attention kernel against flash_fwd_ref: out to the same rtol
 (1e-5 fp32, 2e-2 bf16) plus 8 f32 epsilons of its largest magnitude (out
@@ -161,6 +163,134 @@ def test_lrn_kernel_refuses_what_it_does_not_take(card):
                          .transpose(1, 3), **ARGS)
     with pytest.raises(ValueError, match="4-D"):
         lrn.lrn_fwd_cuda(torch.zeros(4, 2, 2, device=card), **ARGS)
+
+
+# every shape the LRN tests above take
+LRN_SHAPES = [(4, 96, 27, 27), (4, 256, 13, 13), (3, 7, 5, 5), (2, 1, 1, 33),
+              (2, 7, 5, 5), (2, 16, 3, 4)]
+CT = lrn.CHANNEL_TILE
+# channel counts around the kernels' channel tile, B = 1, and windows of 9,
+# 17 and wider than C
+LRN_EDGES = [(1, CT - 1, 5, 5), (1, CT, 3, 3), (2, CT + 1, 3, 5),
+             (1, 2 * CT + 1, 7, 7), (1, 5, 3, 3), (1, 1, 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LRN_SHAPES, ids=str)
+@pytest.mark.parametrize("nsize", [1, 2, 3, 4, 5])
+def test_lrn_norm_is_bitwise_the_plain_version(card, shape, dtype, nsize):
+    # the kernel sums each window in f32 in ascending channel order, as
+    # _window_sum does, and forms (s * salpha) + knorm without contraction
+    x = torch.from_numpy(np.random.RandomState(11).randn(*shape)
+                         .astype(np.float32) * 3).to(card, dtype)
+    for alpha, knorm in ((0.001, 1.0), (1.0, 0.1)):
+        _, norm = lrn.lrn_fwd_cuda(x, nsize, alpha, 0.75, knorm)
+        torch.cuda.synchronize()
+        _, ref = lrn.lrn_ref_with_norm(x, nsize, alpha, 0.75, knorm)
+        assert torch.equal(norm, ref), float((norm - ref).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol", [(torch.float32, 1e-5),
+                                         (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", LRN_EDGES, ids=str)
+@pytest.mark.parametrize("nsize", [9, 17])
+def test_lrn_kernels_at_the_tile_edges(card, shape, dtype, rtol, nsize):
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3) \
+        .to(card, dtype)
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(card, dtype)
+    out, norm = lrn.lrn_fwd_cuda(x, nsize, 1.0, 0.75, 0.1)
+    dx = lrn.lrn_bwd_cuda(x, norm, g, nsize, 1.0, 0.75)
+    torch.cuda.synchronize()
+    ref_out, ref_norm = lrn.lrn_ref_with_norm(x, nsize, 1.0, 0.75, 0.1)
+    assert torch.equal(norm, ref_norm)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=rtol,
+                               atol=0)
+    _assert_dx_close(dx, lrn.lrn_bwd_ref(x, norm, g, nsize, 1.0, 0.75), rtol)
+
+
+@pytest.mark.cuda
+def test_lrn_kernels_at_the_widest_window(card):
+    # MAX_NSIZE stages rows in more than 48 KB of shared memory (the
+    # opt-in path); one more is refused before any launch
+    n = lrn.MAX_NSIZE
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(rng.randn(2, 2 * n, 3, 3).astype(np.float32) * 3) \
+        .to(card)
+    g = torch.from_numpy(rng.randn(2, 2 * n, 3, 3).astype(np.float32)) \
+        .to(card)
+    out, norm = lrn.lrn_fwd_cuda(x, n, 1.0, 0.75, 0.1)
+    dx = lrn.lrn_bwd_cuda(x, norm, g, n, 1.0, 0.75)
+    torch.cuda.synchronize()
+    ref_out, ref_norm = lrn.lrn_ref_with_norm(x, n, 1.0, 0.75, 0.1)
+    assert torch.equal(norm, ref_norm)
+    torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=0)
+    _assert_dx_close(dx, lrn.lrn_bwd_ref(x, norm, g, n, 1.0, 0.75), 1e-5)
+    before = (lrn.launches, lrn.bwd_launches)
+    with pytest.raises(ValueError, match="local_size <= %d" % n):
+        lrn.lrn_fwd_cuda(x, n + 1, 1.0, 0.75, 0.1)
+    with pytest.raises(ValueError, match="local_size <= %d" % n):
+        lrn.lrn_bwd_cuda(x, norm, g, n + 1, 1.0, 0.75)
+    assert (lrn.launches, lrn.bwd_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 96, 27, 27), (4, 256, 13, 13),
+                                   (2, CT + 1, 3, 5)], ids=str)
+def test_lrn_forward_without_norm(card, shape, dtype):
+    x = torch.from_numpy(np.random.RandomState(19).randn(*shape)
+                         .astype(np.float32) * 3).to(card, dtype)
+    want, _ = lrn.lrn_fwd_cuda(x, 5, 0.001, 0.75, 1.0)
+    torch.cuda.synchronize()
+    before = (lrn.launches, lrn.no_norm_launches)
+    live = torch.cuda.memory_stats(card)["allocation.all.current"]
+    out, norm = lrn.lrn_fwd_cuda(x, 5, 0.001, 0.75, 1.0, with_norm=False)
+    torch.cuda.synchronize()
+    # out is the one tensor it allocates
+    assert norm is None
+    assert torch.cuda.memory_stats(card)["allocation.all.current"] == live + 1
+    assert (lrn.launches, lrn.no_norm_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_lrn_forward_under_no_grad_builds_no_graph(card):
+    x = torch.randn(2, 8, 3, 3, device=card, requires_grad=True)
+    before = (lrn.launches, lrn.no_norm_launches, lrn.bwd_launches)
+    with torch.no_grad():
+        out = lrn.forward(x, 5, 0.001, 0.75, 1.0)
+    torch.cuda.synchronize()
+    assert out.grad_fn is None and not out.requires_grad
+    assert (lrn.launches, lrn.no_norm_launches, lrn.bwd_launches) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    torch.testing.assert_close(out, lrn.lrn_ref(x.detach(), 5, 0.001, 0.75,
+                                                1.0), rtol=1e-5, atol=0)
+    # a tensor that needs no gradient takes the same path outside no_grad
+    out = lrn.forward(x.detach(), 5, 0.001, 0.75, 1.0)
+    assert out.grad_fn is None
+    assert lrn.no_norm_launches == before[1] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conf, want", [
+    ("example/transformer/lm.conf", 0),       # dev = tpu
+    ("example/kaggle_bowl/bowl.conf", 1)])    # dev = gpu:1
+def test_config_dev_specs_land_on_the_card(card, conf, want):
+    from cxxnet_tpu_torch.nnet.trainer import Trainer
+    from cxxnet_tpu_torch.utils.config import parse_config_file
+    trainer = Trainer()
+    for k, v in parse_config_file(os.path.join(REPO, conf)):
+        trainer.set_param(k, v)
+    trainer.init_model()
+    # the JAX rule: an id the machine lacks is card 0
+    want = torch.device("cuda", want if want < torch.cuda.device_count()
+                        else 0)
+    assert trainer.dev == want
+    assert all(p.device == want for ps in trainer.params for p in ps.values())
 
 
 # (b, h, nkv, L, d, causal, window)

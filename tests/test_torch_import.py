@@ -88,10 +88,21 @@ def test_device_spec_parse(spec, want):
         assert device.resolve_device(spec) == torch.device("cpu")
 
 
-def test_tpu_spec_is_refused():
+@pytest.mark.parametrize("spec, n_cards, want", [
+    ("tpu", 1, "cuda:0"), ("tpu:0-3", 1, "cuda:0"), ("gpu:1", 1, "cuda:0"),
+    ("gpu:0,2", 1, "cuda:0"), ("cuda", 1, "cuda:0"), ("gpu", 1, "cuda:0"),
+    ("gpu:1", 4, "cuda:1"), ("tpu", 0, None)])
+def test_card_specs_follow_the_jax_rule(monkeypatch, spec, n_cards, want):
+    # every kind but cpu is the card; an id the machine lacks is card 0
+    # (cxxnet_tpu/nnet/trainer.py:252-255, cxxnet_tpu/parallel/mesh.py:80-86)
     from cxxnet_tpu_torch import device
-    with pytest.raises(ValueError, match="gpu or cpu"):
-        device.resolve_device("tpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: n_cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+    if want is None:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            device.resolve_device(spec)
+    else:
+        assert device.resolve_device(spec) == torch.device(want)
 
 
 def test_fp32_means_fp32_on_the_card():
