@@ -10,7 +10,15 @@ batch 256, random weights from a seed) in inference (``predict`` /
 ``extract``) and in training (``update`` steps with the config's own SGD
 settings and dropout on) and its RReLU form (every relu made insanity,
 every max_pooling insanity_max_pooling, trained the same way, its noise
-drawn by the Philox kernel); then the transformer LM that bench.py
+drawn by the Philox kernel); then the command line (bin/cxxnet_torch,
+``cxxnet_tpu_torch.learn_task.main``) on the repo's own configs:
+example/MNIST/MNIST_CONV.conf trained for its 15 rounds on synthetic MNIST,
+ImageNet.conf trained for 2 rounds from a synthetic 256x256 PPM pack
+(imgbin + threadbuffer, the mean image made on first use, both LRN
+kernels) and held to api.Net.update on the same batches, then pred /
+extract / pred_raw from its model held to api.Net, and
+example/kaggle_bowl/pred.conf's pred_raw with a padded last batch; then
+the transformer LM that bench.py
 measures (vocab 8192, d_model 512, 8 heads, 4 blocks, 2048 positions,
 fp32, random weights from a seed) served through KV-cached ``generate``
 and a full-sequence ``predict_device``, and its long-context recipe (8192
@@ -27,7 +35,8 @@ card or any phase fails.
 Output, in order: the card's name and power limit (nvidia-smi), the build
 time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``alexnet_train``, ``uniform_kernel``, ``rrelu_alexnet_train``,
-``flash_fwd_kernel``, ``lm_serve``, ``lm_serve_long``,
+``cli_mnist_conv``, ``cli_imagenet_train``, ``cli_imagenet_pred``,
+``cli_bowl_pred_raw``, ``flash_fwd_kernel``, ``lm_serve``, ``lm_serve_long``,
 ``flash_bwd_kernel``, ``lm_train``, ``lm_train_long``, ``lm_hd256``,
 ``lm_hd512``, ``ring_step_kernels``, ``lm_sp_train_long_ring``,
 ``lm_sp_train_long_ulysses`` and ``lm_sp_train_ring`` (kernel checks, the
@@ -39,8 +48,10 @@ line ``{"kernels": [...]}`` and, last, the JSON result line
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2137,6 +2148,399 @@ def phase_rrelu_alexnet_train(rnd, lrn, api, ops, models):
     return counts
 
 
+# ---------------------------------------------------------------- the CLI
+# the synthetic ImageNet pack of cli_imagenet_train / cli_imagenet_pred:
+# 256x256 PPM records, labels i % 1000, made from SEED with numpy
+CLI_TRAIN_IMAGES, CLI_TEST_IMAGES, CLI_HW = 1024, 256, 256
+CLI_ROUNDS = 2
+# rounds of each io-only (test_io) run of the ImageNet pack
+IO_ROUNDS = 5
+# MNIST_CONV.conf on tests/synth_mnist.make_dataset data: every round of
+# the file (15) must end at test error 0, the bar .claude/skills/verify
+# states for the JAX package on this data
+MNIST_TRAIN, MNIST_TEST = 600, 200
+# kaggle_bowl/pred.conf's test pack: 48x48 records, 121 classes; 200
+# images at batch 64 leave a last batch of 8 rows and 56 padding rows
+BOWL_IMAGES, BOWL_HW, BOWL_CLASSES = 200, 48, 121
+# the CLI's pred_raw / extract files print "%g" (6 significant digits)
+CLI_PRED_RTOL = 1e-5
+# the node cli_imagenet_pred extracts: fc6's output, behind both LRNs
+CLI_EXTRACT_NODE = "17"
+ROUND_RE = re.compile(r"round (\d+): input-wait ([\d.]+)% \(io ([\d.]+|inf) "
+                      r"img/s when blocked, step ([\d.]+|inf) img/s\)")
+IO_RE = re.compile(r"round (\d+): io-only ([\d.]+) images/sec")
+
+
+@contextlib.contextmanager
+def in_dir(path):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+@contextlib.contextmanager
+def scratch_dir(name):
+    """A fresh directory under build/cxxnet_tpu_torch/, removed after."""
+    import shutil
+    d = scratch_file(name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    try:
+        yield d
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def run_cli(learn_task, cwd, argv, echo=("[", "round ", "update round")):
+    """Run the port's command line (learn_task.main, as bin/cxxnet_torch
+    does) in ``cwd``; echoes its lines that start with one of ``echo``
+    and returns (stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with in_dir(cwd), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = learn_task.main(argv)
+    log("  bin/cxxnet_torch %s" % " ".join(
+        os.path.relpath(a, REPO) if a.startswith(REPO) else a for a in argv))
+    for ln in (out.getvalue() + err.getvalue()).splitlines():
+        if ln.startswith(echo):
+            log("    | " + ln.replace("\t", " "))
+    if rc != 0:
+        raise AssertionError("the CLI returned %d" % rc)
+    return out.getvalue(), err.getvalue()
+
+
+def round_rates(out):
+    """[(input-wait %, io img/s, step img/s)] of the CLI's round lines."""
+    return [tuple(float(v) for v in m.groups()[1:])
+            for m in ROUND_RE.finditer(out)]
+
+
+def write_image_pack(lst, binp, n, hw, n_class, seed):
+    from cxxnet_tpu_torch.io import synth
+    synth.write_pack(((lab, synth.ppm_bytes(img)) for lab, img in
+                      synth.images(n, hw, n_class, seed)), lst, binp)
+
+
+def phase_cli_mnist_conv(learn_task):
+    """example/MNIST/MNIST_CONV.conf through the CLI on the card, all 15
+    rounds at its own widths and batch 100, on synthetic MNIST."""
+    log("phase cli_mnist_conv")
+    t0 = time.perf_counter()
+    from tests.synth_mnist import make_dataset
+    with scratch_dir("cli_mnist") as d:
+        make_dataset(os.path.join(d, "data"), n_train=MNIST_TRAIN,
+                     n_test=MNIST_TEST, seed=SEED)
+        t = time.perf_counter()
+        _, err = run_cli(learn_task, d, [os.path.join(
+            REPO, "example/MNIST/MNIST_CONV.conf"), "dev=" + NET_DEV])
+        lines = [ln for ln in err.splitlines() if ln.startswith("[")]
+        log("  15 rounds in %.2f s" % (time.perf_counter() - t))
+        m = re.search(r"test-error:([\d.e+-]+)", lines[-1]) if lines else None
+        if len(lines) != 15 or m is None or float(m.group(1)) != 0.0:
+            raise AssertionError("MNIST_CONV.conf did not end at test "
+                                 "error 0 after 15 rounds: %r" % lines[-1:])
+        log("  final test error 0 after 15 rounds (bar: 0)")
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+
+
+def pinned_numpy_rates(net, x, y):
+    """AlexNet training images/s fed from numpy three ways, in turns: the
+    batch copied to the card synchronously before each step (the feed
+    before the staging ring); Net.update(x, y), whose batch crosses
+    through the trainer's page-locked staging ring and an asynchronous
+    copy; and the batch already on the card."""
+    from cxxnet_tpu_torch.io import DataBatch
+
+    def on_card():
+        b = DataBatch()
+        b.data = torch.from_numpy(x).to(DEV)
+        b.label = torch.from_numpy(y.reshape(-1, 1)).to(DEV)
+        b.batch_size = BATCH
+        return b
+    resident = on_card()
+    steps = {"sync": lambda: net.net_.update(on_card()),
+             "staged": lambda: net.update(x, y),
+             "card": lambda: net.net_.update(resident)}
+
+    def images_per_s(step, iters=8):
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        return BATCH * iters / (time.perf_counter() - t)
+    rates = {k: [] for k in steps}
+    for which in ("sync", "staged", "card", "card", "staged", "sync"):
+        rates[which].append(images_per_s(steps[which]))
+    log("  AlexNet fp32 training batch %d, images/s in turns (sync, staged, "
+        "card, card, staged, sync; no synchronise between steps): the "
+        "batch copied synchronously before each step %s, Net.update on "
+        "numpy through the staging ring and the asynchronous copy %s, "
+        "batch already on the card %s"
+        % (BATCH, " / ".join("%.1f" % r for r in rates["sync"]),
+           " / ".join("%.1f" % r for r in rates["staged"]),
+           " / ".join("%.1f" % r for r in rates["card"])))
+    return rates
+
+
+def imagenet_pack(root):
+    """The conf's own relative paths resolve from root/a/b: the pack lies
+    at root/NameList.train, root/TRAIN.BIN, root/NameList.test and
+    root/TEST.BIN (ImageNet.conf's ../../ names), read unchanged."""
+    t = time.perf_counter()
+    write_image_pack(os.path.join(root, "NameList.train"),
+                     os.path.join(root, "TRAIN.BIN"), CLI_TRAIN_IMAGES,
+                     CLI_HW, 1000, SEED)
+    write_image_pack(os.path.join(root, "NameList.test"),
+                     os.path.join(root, "TEST.BIN"), CLI_TEST_IMAGES,
+                     CLI_HW, 1000, SEED + 1)
+    cwd = os.path.join(root, "a", "b")
+    os.makedirs(cwd)
+    log("  pack: %d + %d PPM images %dx%d (seed %d) in %.2f s"
+        % (CLI_TRAIN_IMAGES, CLI_TEST_IMAGES, CLI_HW, CLI_HW, SEED,
+           time.perf_counter() - t))
+    return cwd
+
+
+def imagenet_section(name, extra=""):
+    """The conf's ``name`` iterator section as a DataIter string, with the
+    global keys that the CLI applies to every chain and that the image
+    chain reads."""
+    text = open(os.path.join(REPO, "example/ImageNet/ImageNet.conf")).read()
+    start = text.index("%s\niter = imgbin" % name)
+    body = text[start + len(name) + 1: text.index("iter = end", start)]
+    return body + extra + "input_shape = 3,227,227\nbatch_size = %d\n" \
+        "iter = end\n" % BATCH
+
+
+def phase_cli_imagenet(lrn, learn_task, api):
+    """example/ImageNet/ImageNet.conf through the CLI on the card at full
+    width (imgbin + threadbuffer, random crops and mirrors, the mean image
+    created on first use): two training rounds held to the same batches
+    driven through api.Net.update, the input pipeline's rates, then
+    task=pred / extract / pred_raw from the round-2 model held to
+    api.Net.predict / extract. Returns the LRN (forward, backward)
+    launches counted on the training path and the forward launches on the
+    prediction path."""
+    log("phase cli_imagenet_train")
+    t0 = time.perf_counter()
+    conf = os.path.join(REPO, "example/ImageNet/ImageNet.conf")
+    conf_text = imagenet_cfg()
+    with scratch_dir("cli_imagenet") as root:
+        cwd = imagenet_pack(root)
+        args = [conf, "num_round=%d" % CLI_ROUNDS,
+                "max_round=%d" % CLI_ROUNDS, "dev=" + NET_DEV]
+        steps = CLI_ROUNDS * (CLI_TRAIN_IMAGES // BATCH)
+        evals = CLI_ROUNDS * (CLI_TEST_IMAGES // BATCH)
+
+        # the main path: the counts start at 0 here and are read right after
+        lrn.launches = lrn.no_norm_launches = lrn.bwd_launches = 0
+        t = time.perf_counter()
+        out, err = run_cli(learn_task, cwd, args)
+        wall = time.perf_counter() - t
+        train = (lrn.launches, lrn.bwd_launches, lrn.no_norm_launches)
+        log("  %d rounds in %.2f s wall (mean image, init and eval "
+            "included); lrn_fwd launches %d (%d storing no norm), lrn_bwd "
+            "launches %d" % (CLI_ROUNDS, wall, train[0], train[2], train[1]))
+        if train != (2 * steps + 2 * evals, 2 * steps, 2 * evals):
+            raise AssertionError(
+                "expected 2 + 2 LRN launches in each of %d steps and 2 "
+                "without a norm in each of %d eval batches; counted %s"
+                % (steps, evals, train))
+        if len([ln for ln in err.splitlines() if ln.startswith("[")]) \
+                != CLI_ROUNDS:
+            raise AssertionError("expected %d eval lines" % CLI_ROUNDS)
+        rates = round_rates(out)
+        log("  rounds (input-wait %%, io img/s when blocked, step img/s): "
+            "%s" % rates)
+
+        # the CLI again and the same batches through api.Net.update, both
+        # with cuDNN off: cuDNN's algorithms need not sum in one order from
+        # call to call, and over these 8 steps (random labels, dropout on)
+        # such differences grew to 8% of the largest update (run 1), while
+        # PyTorch's native convolutions repeat bit for bit. The same seed
+        # gives the same initial weights; each side makes its own mean
+        # image (image_mean), drawing the crops and mirrors of that pass
+        net = api.Net(dev=NET_DEV, cfg=conf_text)
+        with cudnn_off():
+            run_cli(learn_task, cwd, args + ["model_dir=models_det",
+                                             "image_mean=models_det/mean",
+                                             "save_model=%d" % CLI_ROUNDS])
+            net.init_model()
+            start = _params(net)
+            with in_dir(cwd):
+                it = api.DataIter(imagenet_section(
+                    "data = train", 'image_mean = "mean_api"\n'))
+                means = [open(f, "rb").read() for f in (
+                    "models/image_net_mean.bin", "models_det/mean",
+                    "mean_api")]
+                if means[1:] != means[:2]:
+                    raise AssertionError("the DataIter's mean image "
+                                         "differs from the CLI's")
+                log("  the DataIter's mean image is byte-identical to the "
+                    "CLI's (both runs)")
+                for r in range(CLI_ROUNDS):
+                    net.start_round(r + 1)
+                    it.before_first()
+                    while it.next():
+                        net.update(it)
+                it.close()
+        cli_net = api.Net(dev=NET_DEV, cfg=conf_text)
+        cli_net.load_model(os.path.join(cwd, "models_det/%04d.model"
+                                        % CLI_ROUNDS))
+        compare_params("round-%d model of the CLI vs the same batches "
+                       "through api.Net.update (cuDNN off on both)"
+                       % CLI_ROUNDS, _params(cli_net), _params(net), start,
+                       STEP_RTOL, STEP_ATOL_UPDATE)
+        del cli_net, start
+        torch.cuda.empty_cache()
+
+        # the host pipeline alone (test_io), with one and four decode
+        # threads (imgbinx's pool) in turns, IO_ROUNDS rounds a run, the
+        # first round of each run (the loader's start) set apart; then
+        # four trained under the profiler; none of these runs saves a model
+        io_only = {1: [], 4: []}
+        for threads in (1, 4, 1, 4):
+            o, _ = run_cli(learn_task, cwd, args + [
+                "num_round=%d" % IO_ROUNDS, "max_round=%d" % IO_ROUNDS,
+                "test_io=1", "save_model=0", "decode_thread=%d" % threads],
+                echo=("[",))
+            io_only[threads].append([float(m.group(2))
+                                     for m in IO_RE.finditer(o)])
+        for threads, runs in io_only.items():
+            rest = sorted(r for run in runs for r in run[1:])
+            log("  io-only images/s, decode_thread %d, %d runs of %d "
+                "rounds of %d images: rounds 2-%d median %.1f (%.1f-%.1f, "
+                "%d rounds); first rounds %s"
+                % (threads, len(runs), IO_ROUNDS, CLI_TRAIN_IMAGES,
+                   IO_ROUNDS, float(np.median(rest)), rest[0], rest[-1],
+                   len(rest), " / ".join("%.1f" % run[0] for run in runs)))
+        outs = []
+        profile_forward(lambda: outs.append(run_cli(
+            learn_task, cwd, args + ["save_model=0",
+                                     "decode_thread=4"])[0]),
+            iters=1, warmup=False, top=6, unit="CLI run",
+            shares=("lrn_fwd", "lrn_bwd"))
+        log("  decode_thread 4 rounds (input-wait %%, io img/s, step "
+            "img/s), profiled: %s" % round_rates(outs[0]))
+        x = np.random.RandomState(SEED + 3).randn(BATCH, 3, 227, 227) \
+            .astype(np.float32)
+        y = np.random.RandomState(SEED + 4).randint(0, 1000, BATCH) \
+            .astype(np.float32)
+        pinned_numpy_rates(net, x, y)
+        del net
+        torch.cuda.empty_cache()
+
+        log("  phase wall %.1f s" % (time.perf_counter() - t0))
+        log("phase cli_imagenet_pred")
+        t0 = time.perf_counter()
+        model = os.path.join(cwd, "models/%04d.model" % CLI_ROUNDS)
+        pred_section = ["pred=%s", "iter=imgbin",
+                        "image_list=../../NameList.test",
+                        "image_bin=../../TEST.BIN",
+                        "image_mean=models/image_net_mean.bin", "iter=end"]
+        tasks = (("pred", []), ("extract", ["extract_node_name=%s"
+                                            % CLI_EXTRACT_NODE]),
+                 ("pred_raw", []))
+        lrn.launches = lrn.no_norm_launches = 0
+        for task, extra in tasks:
+            run_cli(learn_task, cwd, [conf, "dev=" + NET_DEV, "task=" + task,
+                                      "model_in=" + model] + extra
+                    + [pred_section[0] % (task + ".txt")] + pred_section[1:])
+        pred = (lrn.launches, lrn.no_norm_launches)
+        log("  lrn_fwd launches over pred, extract and pred_raw: %d, %d of "
+            "them storing no norm" % pred)
+        if pred != (3 * 2 * (CLI_TEST_IMAGES // BATCH),) * 2:
+            raise AssertionError("expected 2 LRN launches without a norm "
+                                 "per batch and task; counted %s" % (pred,))
+        net = api.Net(dev=NET_DEV, cfg=conf_text)
+        net.load_model(model)
+        want = {"pred": [], "extract": [], "pred_raw": []}
+        with in_dir(cwd):
+            it = api.DataIter(imagenet_section("eval = test"))
+            it.before_first()
+            while it.next():
+                want["pred"].append(net.predict(it))
+                want["extract"].append(net.extract(it, CLI_EXTRACT_NODE)
+                                       .reshape(BATCH, -1))
+                want["pred_raw"].append(net.extract(it, "top[-1]")
+                                        .reshape(BATCH, -1))
+            it.close()
+        want = {k: np.concatenate(v) for k, v in want.items()}
+        got = np.array([float(v) for v in
+                        open(os.path.join(cwd, "pred.txt")).read().split()])
+        if not np.array_equal(got, want["pred"]):
+            raise AssertionError("task=pred differs from api.Net.predict")
+        log("  task=pred: %d rows, bitwise api.Net.predict" % len(got))
+        meta = open(os.path.join(cwd, "extract.txt.meta")).read().strip()
+        log("  extract.txt.meta: %s" % meta)
+        for task in ("extract", "pred_raw"):
+            rows = np.array([[float(v) for v in ln.split()] for ln in open(
+                os.path.join(cwd, task + ".txt")).read().splitlines()])
+            check_close("task=%s vs api.Net.extract (%s)"
+                        % (task, rows.shape,), torch.from_numpy(rows),
+                        torch.from_numpy(want[task].astype(np.float64)),
+                        CLI_PRED_RTOL, 1e-30)
+        del net
+        torch.cuda.empty_cache()
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+    return train, pred
+
+
+def phase_cli_bowl_pred_raw(learn_task, api):
+    """example/kaggle_bowl/pred.conf (task = pred_raw, round_batch = 1) on
+    the card with dev=gpu, from a model that api.Net initialised from the
+    same netconfig, over a 200-image pack whose last batch is padded."""
+    log("phase cli_bowl_pred_raw")
+    t0 = time.perf_counter()
+    conf = os.path.join(REPO, "example/kaggle_bowl/pred.conf")
+    conf_text = open(conf).read()
+    with scratch_dir("cli_bowl") as d:
+        write_image_pack(os.path.join(d, "test.lst"),
+                         os.path.join(d, "test.bin"), BOWL_IMAGES, BOWL_HW,
+                         BOWL_CLASSES, SEED)
+        os.makedirs(os.path.join(d, "models"))
+        net = api.Net(dev=NET_DEV, cfg=conf_text)
+        net.init_model()
+        net.save_model(os.path.join(d, "models/0100.model"))
+        run_cli(learn_task, d, [conf, "dev=" + NET_DEV])
+        rows = np.array([[float(v) for v in ln.split()] for ln in
+                         open(os.path.join(d, "test.txt")).read()
+                         .splitlines()])
+        if rows.shape != (BOWL_IMAGES, BOWL_CLASSES):
+            raise AssertionError("pred_raw wrote %s rows, want %s"
+                                 % (rows.shape, (BOWL_IMAGES, BOWL_CLASSES)))
+        it = api.DataIter(
+            'iter = imgbin\nimage_list = "%s/test.lst"\n'
+            'image_bin = "%s/test.bin"\nimage_mean = "%s/models/'
+            'image_mean.bin"\niter = threadbuffer\ninput_shape = 3,40,40\n'
+            'batch_size = 64\nround_batch = 1\niter = end\n' % (d, d, d))
+        want, pads = [], []
+        it.before_first()
+        while it.next():
+            b = it.check_valid()
+            out = net.extract(it, "top[-1]").reshape(64, -1)
+            want.append(out[:64 - b.num_batch_padd])
+            pads.append(b.num_batch_padd)
+        it.close()
+        log("  %d rows x %d classes written; batches padded %s rows "
+            "(dropped)" % (rows.shape + (pads,)))
+        if pads[-1] != 64 * len(pads) - BOWL_IMAGES:
+            raise AssertionError("the last batch is not padded as expected")
+        check_close("pred_raw rows vs api.Net.extract (padding dropped)",
+                    torch.from_numpy(rows),
+                    torch.from_numpy(np.concatenate(want).astype(np.float64)),
+                    CLI_PRED_RTOL, 1e-30)
+        del net
+        torch.cuda.empty_cache()
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+
+
 def phase_lm_head_dim(flash, api, models, phase):
     """A wide head dim (HD_PHASES: 256, or 512 in two slices): the three
     flash kernels against their plain versions at the LM's shape, fp32 and
@@ -2570,18 +2974,28 @@ def phase_lm_sp_train(flash, rf, api, models, phase, seq, batch, extra,
     return tuple(a + b for a, b in zip(pred, steps))
 
 
+def device_us(e) -> float:
+    """A profiler event's self device time in us, under either name that
+    torch versions give it."""
+    v = getattr(e, "self_device_time_total", None)
+    return v if v is not None else e.self_cuda_time_total
+
+
 def profile_forward(forward, iters: int = 3, top: int = 8,
-                    unit: str = "forward", shares=("lrn_fwd",)) -> None:
-    """Where a forward's (or a training step's, or a request's) device
-    time goes: torch.profiler over ``iters`` synchronised calls; prints
-    kernel time per call, the device's busy share of the wall time (the
+                    unit: str = "forward", shares=("lrn_fwd",),
+                    warmup: bool = True) -> None:
+    """Where a forward's (or a training step's, a request's, a CLI run's)
+    device time goes: torch.profiler over ``iters`` synchronised calls,
+    after one unprofiled call unless ``warmup`` is off; prints kernel and
+    copy time per call, the device's busy share of the wall time (the
     profiler's own overhead included), the largest kernels by self device
     time, and the share of the port's kernels named in ``shares``; returns
-    the device kernel time per call (None where none was recorded)."""
+    the device time per call (None where none was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    forward()
-    torch.cuda.synchronize()
+    if warmup:
+        forward()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -2590,12 +3004,9 @@ def profile_forward(forward, iters: int = 3, top: int = 8,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / iters
 
-    def dev_us(e):
-        v = getattr(e, "self_device_time_total", None)
-        return v if v is not None else e.self_cuda_time_total
-
-    kernels = [(dev_us(e) / 1e3 / iters, e.key) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    kernels = [(device_us(e) / 1e3 / iters, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     if not kernels:
         log("  profile: no device time recorded (not measured)")
         return None
@@ -2619,7 +3030,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    from cxxnet_tpu_torch import api, models, ops
+    from cxxnet_tpu_torch import api, learn_task, models, ops
     from cxxnet_tpu_torch.ops import _build, flash_attn, lrn
     from cxxnet_tpu_torch.ops import random as rnd
     from cxxnet_tpu_torch.ops import ring_flash
@@ -2641,6 +3052,9 @@ def main() -> int:
     train_fwd, train_bwd = phase_alexnet_train(lrn, api, ops)
     uniform_rec = phase_uniform_kernel(rnd)
     rrelu = phase_rrelu_alexnet_train(rnd, lrn, api, ops, models)
+    phase_cli_mnist_conv(learn_task)
+    cli_train, cli_pred = phase_cli_imagenet(lrn, learn_task, api)
+    phase_cli_bowl_pred_raw(learn_task, api)
     flash_rec = phase_flash_fwd_kernel(flash_attn)
     serve_launches = phase_lm_serve(flash_attn, api, models)
     long_launches = phase_lm_serve_long(flash_attn, api, models)
@@ -2666,10 +3080,13 @@ def main() -> int:
     for name, rec, replaces, by_path, per in (
             ("lrn_fwd", fwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:78",
              {"alexnet_pred": pred_launches, "alexnet_train": train_fwd,
-              "rrelu_alexnet_train": rrelu[1]},
+              "rrelu_alexnet_train": rrelu[1],
+              "cli_imagenet_train": cli_train[0],
+              "cli_imagenet_pred": cli_pred[0]},
              {"train_step": train_fwd // TRAIN_STEPS}),
             ("lrn_bwd", bwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:98",
-             {"alexnet_train": train_bwd, "rrelu_alexnet_train": rrelu[2]},
+             {"alexnet_train": train_bwd, "rrelu_alexnet_train": rrelu[2],
+              "cli_imagenet_train": cli_train[1]},
              {"train_step": train_bwd // TRAIN_STEPS}),
             ("uniform", uniform_rec, "cxxnet_tpu/ops/pallas_kernels.py:169",
              {"rrelu_alexnet_train": rrelu[0]},

@@ -1,5 +1,6 @@
 """The layers of the port: the AlexNet set (conv, relu, max_pooling, lrn,
 flatten, fullc, dropout, softmax), in eval and in training mode, the
+sigmoid of the MNIST nets, the
 leaky and noisy activations of the RReLU nets (xelu, insanity, prelu,
 insanity_max_pooling), and the transformer LM set (embed, attention,
 split, add, softmax ``seq = 1``).
@@ -10,9 +11,9 @@ parameter layout and model-file fields, so model files move between the two
 packages unchanged. ``forward(params, inputs, ctx)`` runs on torch tensors;
 in training (``ctx.train``) dropout draws its mask from the layer's own
 generator, and the loss layer appends its loss term to ``ctx.losses``,
-whose gradient autograd takes. Conv, fullc, relu, max-pool and flatten are
-differentiated by autograd (cuDNN and PyTorch's own backward kernels, as
-the JAX package left them to XLA); the LRN backward is a kernel
+whose gradient autograd takes. Conv, fullc, relu, sigmoid, max-pool and
+flatten are differentiated by autograd (cuDNN and PyTorch's own backward
+kernels, as the JAX package left them to XLA); the LRN backward is a kernel
 (ops/lrn.py). The noisy layers draw their noise through ``draw_uniform``
 (ops/random.py: a Philox kernel on the card, the same bits on the CPU).
 Attention sends a sequence the flash kernel takes to it
@@ -204,6 +205,21 @@ class ReluLayer(Layer):
 
     def forward(self, params, inputs, ctx):
         return [torch.relu(inputs[0])]
+
+
+class SigmoidLayer(Layer):
+    """Elementwise logistic 1 / (1 + e^-x) (src/layer/activation_layer-inl.hpp;
+    the JAX SigmoidLayer, cxxnet_tpu/layer/layers.py:298-300)."""
+
+    type_name = "sigmoid"
+
+    def infer_shape(self, in_shapes):
+        check(len(in_shapes) == 1,
+              "ActivationLayer only support 1-1 connection")
+        return [in_shapes[0]]
+
+    def forward(self, params, inputs, ctx):
+        return [torch.sigmoid(inputs[0])]
 
 
 class XeluLayer(Layer):
@@ -908,7 +924,8 @@ class AttentionLayer(Layer):
 
 LAYER_CLASSES: Dict[str, type] = {
     cls.type_name: cls for cls in (
-        FullConnectLayer, ConvolutionLayer, ReluLayer, XeluLayer,
-        InsanityLayer, PReluLayer, MaxPoolingLayer, InsanityPoolingLayer,
+        FullConnectLayer, ConvolutionLayer, ReluLayer, SigmoidLayer,
+        XeluLayer, InsanityLayer, PReluLayer, MaxPoolingLayer,
+        InsanityPoolingLayer,
         LRNLayer, FlattenLayer, DropoutLayer, SoftmaxLayer, SplitLayer,
         AddLayer, EmbedLayer, AttentionLayer)}

@@ -10,7 +10,10 @@ train metrics accumulated on the device), ``evaluate``,
 ``copy_model_from`` and greedy KV-cached ``generate`` for sequence nets,
 and sequence parallelism (``seq_parallel = n``: the device runs n virtual
 ranks of the sequence in every attention layer, and the result equals the
-single-device run). Meshes over several devices, the health monitor,
+single-device run). On a card, a training batch from host memory goes
+through the trainer's own ring of page-locked buffers and an asynchronous
+copy on a stream of its own (``StagingRing``, ``_batch_tensors``). Meshes
+over several devices, the health monitor,
 batch-norm state updates, sampling, beam search and the training-state
 section belong to later slices.
 """
@@ -39,6 +42,43 @@ OPT_MAGIC = b"CXNOPT01"
 STATE_MAGIC = b"CXTSTA01"
 
 OptState = List[Dict[str, Dict[str, torch.Tensor]]]
+
+
+class StagingRing:
+    """Page-locked host buffers for training batches on their way to the
+    card. ``fill`` copies a batch's arrays into the next slot, after
+    waiting on the event recorded behind that slot's last copy (``record``),
+    so a buffer is never refilled while the card may still be reading it;
+    the caller's arrays are free again as soon as ``fill`` returns."""
+
+    def __init__(self, n: int = 2, pin: bool = True):
+        self.pin = pin
+        self._tensors: List[List[torch.Tensor]] = [[] for _ in range(n)]
+        self._events: list = [None] * n
+        self._next = self._last = 0
+
+    def fill(self, arrays) -> List[torch.Tensor]:
+        k = self._next
+        self._next = (k + 1) % len(self._tensors)
+        if self._events[k] is not None:
+            self._events[k].synchronize()
+            self._events[k] = None
+        slot = self._tensors[k]
+        for i, arr in enumerate(arrays):
+            arr = np.ascontiguousarray(arr)
+            if i == len(slot) or slot[i].shape != arr.shape \
+                    or slot[i].numpy().dtype != arr.dtype:
+                t = torch.empty(arr.shape, pin_memory=self.pin,
+                                dtype=torch.from_numpy(arr[:0]).dtype)
+                slot[i:i + 1] = [t]
+            # torch's copy splits a large batch over the intra-op threads
+            slot[i].copy_(torch.from_numpy(arr))
+        self._last = k
+        return slot[:len(arrays)]
+
+    def record(self, event) -> None:
+        """The event behind the copies out of the slot ``fill`` filled last."""
+        self._events[self._last] = event
 
 
 class Trainer:
@@ -74,6 +114,9 @@ class Trainer:
         self._rng_counter = 0
         self.round = 0
         self.dev: Optional[torch.device] = None
+        # the host-to-card feed of training batches (on a card only)
+        self._staging: Optional[StagingRing] = None
+        self._copy_stream = None
         # generate's nets: the one-token decode net for a batch size, and
         # the prefill nets of that batch size by prompt length
         self._decode_net = None
@@ -291,9 +334,7 @@ class Trainer:
         of one training forward with the loss on ``batch``."""
         check(self.net is not None, "model not initialized")
         check(batch.label is not None, "update needs labels")
-        data = self._input(batch.data)
-        label = torch.as_tensor(batch.label).to(device=self.dev,
-                                                dtype=torch.float32)
+        data, label = self._batch_tensors(batch)
         labels = self.net.label_info_from(label)
         leaves = [self.params[i][k].requires_grad_() for i, k in keys]
         values, loss = self.net.forward(self.params, data, labels=labels,
@@ -360,6 +401,11 @@ class Trainer:
             self.sample_counter = 0
             self.epoch_counter += 1
 
+    def synchronize(self) -> None:
+        """Wait until the device has finished the work queued so far."""
+        if self.dev is not None and self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
     def evaluate(self, iter_eval, data_name: str) -> str:
         """The train metrics gathered since the last call, then the
         metrics over ``iter_eval`` (any object with before_first / next /
@@ -391,6 +437,36 @@ class Trainer:
         ret += self.metric.print_str(data_name)
         return ret
 
+    def _batch_tensors(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(data, label) of a training batch on the device. On a card, a
+        batch in host memory is copied into the staging ring and from
+        there on a stream of its own, overlapping the steps queued before
+        it; the step waits on the copy's event, which the ring waits on
+        before it refills the slot. A batch already on the device, or a
+        device that is not a card, is taken as it is."""
+        data, label = batch.data, batch.label
+        if self.dev.type != "cuda" or (isinstance(data, torch.Tensor)
+                                       and data.is_cuda):
+            return (self._input(data),
+                    torch.as_tensor(label).to(device=self.dev,
+                                              dtype=torch.float32))
+        if self._staging is None:
+            self._staging = StagingRing()
+            self._copy_stream = torch.cuda.Stream(self.dev)
+        host = self._staging.fill((np.asarray(data), np.asarray(label)))
+        compute = torch.cuda.current_stream(self.dev)
+        with torch.cuda.stream(self._copy_stream):
+            data, label = (t.to(self.dev, non_blocking=True) for t in host)
+            copied = torch.cuda.Event()
+            copied.record()
+        compute.wait_event(copied)
+        # the copies were allocated on the copy stream: keep the allocator
+        # from handing their memory out again before the step has used it
+        data.record_stream(compute)
+        label.record_stream(compute)
+        self._staging.record(copied)
+        return self._input(data), label.float()
+
     # inference (reference Predict / ExtractFeature, nnet_impl-inl.hpp:186-299)
     def _input(self, data) -> torch.Tensor:
         x = torch.as_tensor(data)
@@ -398,10 +474,13 @@ class Trainer:
             x = x.reshape(x.shape[0], 1, 1, x.shape[1])
         check(x.dim() == 4, "data must be 2-D or 4-D, got shape %s"
               % (tuple(x.shape),))
+        # the batch crosses in its own dtype (a uint8 batch moves a quarter
+        # of the bytes) and becomes float32 on the device
+        x = x.to(device=self.dev)
         if 0 in self.net.id_nodes and not x.is_floating_point():
             # token ids for an embed input stay integer
-            return x.to(device=self.dev)
-        return x.to(device=self.dev, dtype=torch.float32)
+            return x
+        return x.to(dtype=torch.float32)
 
     def _forward_nodes(self, data, node_ids: Tuple[int, ...]):
         check(self.net is not None, "model not initialized")

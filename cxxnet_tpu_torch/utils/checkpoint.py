@@ -1,7 +1,8 @@
-"""Integrity framing of model files: the read side of
+"""Integrity framing of model files: the framing and the read side of
 cxxnet_tpu/utils/checkpoint.py (``frame``, ``split_footer``, ``verify_blob``,
 ``read_verified``), enough to load a CRC-framed model file that the JAX
-package wrote.
+package wrote, and ``write_framed`` to write one that it loads (a plain
+write: the JAX package's atomic, retried write is not ported yet).
 
 Framed files are ``CXCKHDR1 + payload + footer`` where the 20-byte footer is
 ``<IQ8s``: CRC32(payload), payload length, magic ``CXCKPT01``. A file without
@@ -35,6 +36,12 @@ def frame(payload: bytes) -> bytes:
     return (HEADER_MAGIC + payload
             + struct.pack(_FOOTER_FMT, crc32(payload), len(payload),
                           FOOTER_MAGIC))
+
+
+def write_framed(path: str, payload: bytes) -> None:
+    """Write ``payload`` to ``path`` inside the v1 integrity framing."""
+    with open(path, "wb") as f:
+        f.write(frame(payload))
 
 
 def split_footer(blob: bytes) -> Tuple[bytes, str]:

@@ -164,7 +164,10 @@ class MetricRecall(IMetric):
 
     def device_stats(self, pred, labels):
         self._check_width(pred.shape[1])
-        top = torch.topk(pred, self.topn, dim=1).indices          # (n, topn)
+        # tied scores rank by ascending index, as jax.lax.top_k ranks them
+        # (a row of equal scores, e.g. behind dead ReLUs, is common early)
+        top = torch.sort(pred, dim=1, descending=True,
+                         stable=True).indices[:, :self.topn]      # (n, topn)
         lab = labels.long()                                       # (n, lw)
         hit = (lab[:, :, None] == top[:, None, :]).any(-1)        # (n, lw)
         return hit.float().mean(dim=1).sum(), _count(pred)

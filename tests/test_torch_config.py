@@ -83,14 +83,15 @@ def test_unported_layer_types_parse_but_do_not_build():
     # GoogLeNet's structure (ch_concat, avg_pooling) loads and saves
     # through the port's NetConfig above; building such a layer names it
     for name in ("ch_concat", "avg_pooling", "batch_norm", "moe",
-                 "im2seq", "sigmoid"):
+                 "im2seq", "tanh"):
         tid = tfactory.get_layer_type(name)
         assert tid == jfactory.get_layer_type(name)
         with pytest.raises(ValueError, match=name):
             tfactory.create_layer(tid)
     for name in ("conv", "relu", "max_pooling", "lrn", "flatten", "fullc",
                  "dropout", "softmax", "split", "add", "embed", "attention",
-                 "xelu", "insanity", "insanity_max_pooling", "prelu"):
+                 "xelu", "insanity", "insanity_max_pooling", "prelu",
+                 "sigmoid"):
         tid = tfactory.get_layer_type(name)
         assert tid == jfactory.get_layer_type(name)
         assert tfactory.create_layer(tid).type_name == name

@@ -32,7 +32,13 @@ bitwise (both compute the same integer function of (seed, index)). One
 RReLU AlexNet step on the card against the CPU path, noise on (both draw
 the same bits), dropout off: every parameter within relative 1e-5 plus
 1e-4 of the tensor's largest update (cuDNN and the CPU sum every conv and
-fullc in other orders).
+fullc in other orders). The pinned feed: a step on a numpy batch, which
+crosses through the trainer's staging ring, bitwise the step on the same
+batch copied to the card synchronously (fp32 and uint8, cuDNN
+deterministic); a ring slot never refilled before its copy ran.
+The command line on a small imgbin + LRN config held to api.Net.update on
+the same batches to relative 1e-5 plus 1e-5 of each tensor's largest
+update.
 """
 
 import os
@@ -1031,3 +1037,179 @@ def test_seq_parallel_update_matches_one_rank(card, tmp_path, sp_mode,
     per_layer = 4 if sp_mode == "ring" else 2
     assert [getattr(mod, nm) - b for nm, b in zip(names, before)] == \
         [2 * per_layer] * 3
+
+
+# ------------------------------------------------- the pinned feed, the CLI
+PINNED_NET = """
+netconfig=start
+layer[0->1] = conv
+  kernel_size = 3
+  nchannel = 8
+layer[1->2] = relu
+layer[2->3] = lrn
+  local_size = 5
+  alpha = 0.001
+  beta = 0.75
+  knorm = 1
+layer[3->4] = flatten
+layer[4->5] = fullc
+  nhidden = 10
+layer[5->5] = softmax
+netconfig=end
+input_shape = 3,16,16
+batch_size = 32
+momentum = 0.9
+eta = 0.01
+"""
+
+
+def _numpy_batches(n, dtype, seed=3):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        b = DataBatch()
+        b.data = (rng.randint(0, 256, (32, 3, 16, 16)).astype(dtype)
+                  if dtype == np.uint8
+                  else rng.randn(32, 3, 16, 16).astype(dtype))
+        b.label = rng.randint(0, 10, (32, 1)).astype(np.float32)
+        b.batch_size = 32
+        out.append(b)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_pinned_async_step_equals_the_synchronous_step(card, tmp_path,
+                                                       dtype):
+    """Bitwise: a numpy batch, staged in page-locked memory and copied
+    asynchronously, feeds the step the very values of a synchronous copy
+    (a uint8 batch crosses as uint8)."""
+    cfg = PINNED_NET + ("input_divideby = 255\n" if dtype == np.uint8
+                        else "")
+    batches = _numpy_batches(5, dtype)
+    fname = str(tmp_path / "p.model")
+    net = api.Net(dev="gpu", cfg=cfg)
+    net.init_model()
+    net.save_model(fname)
+    torch.backends.cudnn.deterministic = True
+    try:
+        sync, pinned = api.Net(dev="gpu", cfg=cfg), api.Net(dev="gpu", cfg=cfg)
+        sync.load_model(fname)
+        pinned.load_model(fname)
+        for b in batches:
+            on_card = b.shallow_copy()
+            on_card.data = torch.from_numpy(b.data).to(card)
+            on_card.label = torch.from_numpy(b.label).to(card)
+            sync.net_.update(on_card)
+            pinned.net_.update(b)
+        assert sync.net_._staging is None
+        assert pinned.net_._staging is not None
+        for p, q in zip(sync.net_.params, pinned.net_.params):
+            for k in p:
+                assert torch.equal(p[k], q[k]), k
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_a_pinned_buffer_is_refilled_only_after_its_copy(card):
+    """A loader overwrites its one buffer as soon as each batch is handed
+    over; the staging ring refills a slot only after the copy out of it
+    completed. The copy stream is held up behind a spin, so a refill that
+    did not wait would overwrite batch k before the card read it."""
+    from cxxnet_tpu_torch.nnet.trainer import Trainer
+    tr = Trainer()
+    tr.dev = card
+    tr.net = type("N", (), {"id_nodes": ()})()
+    b = DataBatch()
+    b.data = np.empty((64, 3, 64, 64), np.float32)
+    b.label = np.empty((64, 1), np.float32)
+    b.batch_size = 64
+    got = []
+    for k in range(12):
+        b.data[:] = k
+        b.label[:] = k
+        if tr._copy_stream is not None:
+            with torch.cuda.stream(tr._copy_stream):
+                torch.cuda._sleep(20_000_000)
+        got.append(tr._batch_tensors(b))
+    torch.cuda.synchronize()
+    for k, (data, label) in enumerate(got):
+        assert bool((data == k).all()) and bool((label == k).all()), k
+
+
+def _image_cli_conf(d, dev):
+    from cxxnet_tpu_torch.io import synth
+    synth.make_ppm_pack(d, "tr", 64, 36, 10, seed=0, page_ints=1 << 14)
+    conf = os.path.join(d, "task.conf")
+    with open(conf, "w") as f:
+        f.write(PINNED_NET.replace("input_shape = 3,16,16",
+                                   "input_shape = 3,32,32")
+                .replace("batch_size = 32", "batch_size = 16")
+                + "data = train\niter = imgbin\n  image_list = \"tr.lst\"\n"
+                "  image_bin = \"tr.bin\"\n  image_mean = \"mean.bin\"\n"
+                "  page_size = 16384\n  rand_crop = 1\n  rand_mirror = 1\n"
+                "iter = threadbuffer\niter = end\nmetric = error\n"
+                "dev = %s\n" % dev)
+    return conf
+
+
+@pytest.mark.cuda
+def test_cli_image_config_on_the_card_matches_api_net(card, tmp_path):
+    """The CLI (imgbin + threadbuffer, staging ring, LRN kernels) against
+    the same batches through api.Net.update on the card: relative 1e-5
+    plus 1e-5 of each tensor's largest update (chip_smoke's card-vs-card
+    step bar)."""
+    from cxxnet_tpu_torch import learn_task
+    d = str(tmp_path)
+    conf = _image_cli_conf(d, "gpu")
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        lt = learn_task.LearnTask()
+        before = lrn.bwd_launches
+        assert lt.run([conf, "num_round=2", "silent=1"]) == 0
+        assert lt.net_trainer.dev.type == "cuda"
+        assert lrn.bwd_launches == before + 2 * 4
+        net = api.Net(dev="gpu", cfg=open(conf).read())
+        net.init_model()
+        start = [{k: v.clone() for k, v in p.items()}
+                 for p in net.net_.params]
+        it = api.DataIter(
+            'iter = imgbin\nimage_list = "tr.lst"\nimage_bin = "tr.bin"\n'
+            'image_mean = "mean2.bin"\npage_size = 16384\nrand_crop = 1\n'
+            'rand_mirror = 1\niter = threadbuffer\ninput_shape = 3,32,32\n'
+            'batch_size = 16\niter = end\n')
+        for r in range(2):
+            net.start_round(r + 1)
+            it.before_first()
+            while it.next():
+                net.update(it)
+        it.close()
+        cli = api.Net(dev="gpu", cfg=open(conf).read())
+        cli.load_model("models/0002.model")
+    finally:
+        os.chdir(cwd)
+    for p, q, s in zip(cli.net_.params, net.net_.params, start):
+        for k in p:
+            bound = 1e-5 * q[k].abs() + 1e-5 * (q[k] - s[k]).abs().max()
+            assert bool(((p[k] - q[k]).abs() <= bound).all()), k
+
+
+@pytest.mark.cuda
+def test_config_dev_cpu_stays_and_command_line_dev_gpu_moves(card,
+                                                             tmp_path):
+    from cxxnet_tpu_torch import learn_task
+    d = str(tmp_path)
+    conf = _image_cli_conf(d, "cpu")
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        for args, want in (([], "cpu"), (["dev=gpu"], "cuda")):
+            lt = learn_task.LearnTask()
+            assert lt.run([conf, "num_round=1", "silent=1",
+                           "model_dir=m_%s" % want] + args) == 0
+            assert lt.net_trainer.dev.type == want
+            assert (lt.net_trainer._staging is None) == (want == "cpu")
+    finally:
+        os.chdir(cwd)

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it loads neither jax nor any module of
-the JAX package, no file of it imports them, and a GPU device spec without
-a card raises instead of running on the CPU."""
+"""The port stands alone: importing it (every module, chip_smoke.py and
+bin/cxxnet_torch) loads neither jax nor any module of the JAX package, no
+file of it imports them, and a GPU device spec without a card raises
+instead of running on the CPU."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ PORT = os.path.join(REPO, "cxxnet_tpu_torch")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "bin", "cxxnet_torch")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -25,7 +27,7 @@ def _module_names():
     names = []
     for path in _port_files():
         rel = os.path.relpath(path, REPO)
-        if rel == "chip_smoke.py":
+        if not rel.endswith(".py") or rel == "chip_smoke.py":
             continue
         mod = rel[:-3].replace(os.sep, ".")
         names.append(mod[:-len(".__init__")] if mod.endswith(".__init__")
@@ -38,6 +40,8 @@ def test_import_loads_no_jax():
             "for m in %r:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n"
+            "import runpy\n"
+            "runpy.run_path('bin/cxxnet_torch', run_name='cxxnet_torch')\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'cxxnet_tpu' or "
             "m.startswith('cxxnet_tpu.'))\n"

@@ -92,6 +92,23 @@ def test_device_path_agrees_with_host_path():
         np.testing.assert_allclose(d.get(), h.get(), rtol=1e-6)
 
 
+@pytest.mark.parametrize("k", [1, 5])
+def test_device_rec_at_k_ranks_ties_like_jax(k):
+    """Tied scores (a softmax row underflowed to zeros, or equal logits)
+    rank by ascending index on both sides, as jax.lax.top_k ranks them."""
+    rng = np.random.RandomState(3)
+    probs = np.zeros((64, K), np.float32)
+    probs[16:32] = 0.25
+    probs[32:48, ::3] = 0.5
+    probs[48:] = rng.rand(16, K).astype(np.float32)
+    labels = np.tile(np.arange(K, dtype=np.float32), 7)[:64, None]
+    jm, tm = jmetric.MetricRecall("rec@%d" % k), \
+        tmetric.MetricRecall("rec@%d" % k)
+    want = np.asarray(jm.device_stats(probs, labels))
+    got = tm.device_stats(torch.from_numpy(probs), torch.from_numpy(labels))
+    np.testing.assert_array_equal(np.asarray([float(g) for g in got]), want)
+
+
 @pytest.mark.parametrize("name", ["error", "logloss"])
 def test_one_wide_predictions(name):
     rng = np.random.RandomState(3)

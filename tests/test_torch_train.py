@@ -360,3 +360,36 @@ def test_train_step_on_cpu_never_launches_kernels(model_file):
 def test_unported_training_keys_raise(key, val):
     with pytest.raises(ValueError, match="not ported|update_period"):
         ttrainer.Trainer().set_param(key, val)
+
+
+def test_staging_ring_refills_a_slot_only_after_its_copy():
+    """The trainer's host-to-card staging ring on the CPU, in ordinary
+    memory and with a stand-in event: a slot is refilled only after the
+    event recorded behind its last copy is waited on, the caller's arrays
+    are copied (free again at once), and a batch of another dtype or shape
+    gets buffers of its own."""
+    waited = []
+
+    class Event:
+        def __init__(self, k):
+            self.k = k
+
+        def synchronize(self):
+            waited.append(self.k)
+
+    ring = ttrainer.StagingRing(n=2, pin=False)
+    data = np.zeros((4, 3), np.float32)
+    label = np.zeros((4, 1), np.float32)
+    slots = []
+    for k in range(1, 6):
+        data[:] = k
+        label[:] = -k
+        host = ring.fill((data, label))
+        data[:] = 0          # the loader reuses its buffer at once
+        assert float(host[0][0, 0]) == k and float(host[1][0, 0]) == -k
+        slots.append(host[0].data_ptr())
+        ring.record(Event(k))
+    assert waited == [1, 2, 3]
+    assert len(set(slots)) == 2 and slots[0] == slots[2] == slots[4]
+    host = ring.fill((np.ones((4, 3), np.uint8), label))
+    assert host[0].dtype == torch.uint8 and waited == [1, 2, 3, 4]
