@@ -18,6 +18,14 @@ ImageNet.conf trained for 2 rounds from a synthetic 256x256 PPM pack
 kernels) and held to api.Net.update on the same batches, then pred /
 extract / pred_raw from its model held to api.Net, and
 example/kaggle_bowl/pred.conf's pred_raw with a padded last batch; then
+mixed precision (``compute_dtype = bfloat16``): the LRN kernels at
+GoogLeNet's shapes, GoogLeNet trained and served in bf16 at batch 128
+(models.googlenet_config, bench.py's recipe), example/ImageNet/
+GoogLeNet.conf read unchanged by the command line for one round and pred,
+VGG-16 with ``remat = 1`` at batch 64 (remat on against off), ResNet-18
+at batch 128 (batch-norm), and bench.py's bf16 AlexNet and LM, each bf16
+run held to the f32 run of the same weights and batch and, at a reduced
+size, to the port's CPU path's bf16-versus-f32 gap; then
 the transformer LM that bench.py
 measures (vocab 8192, d_model 512, 8 heads, 4 blocks, 2048 positions,
 fp32, random weights from a seed) served through KV-cached ``generate``
@@ -36,13 +44,17 @@ Output, in order: the card's name and power limit (nvidia-smi), the build
 time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``alexnet_train``, ``uniform_kernel``, ``rrelu_alexnet_train``,
 ``cli_mnist_conv``, ``cli_imagenet_train``, ``cli_imagenet_pred``,
-``cli_bowl_pred_raw``, ``flash_fwd_kernel``, ``lm_serve``, ``lm_serve_long``,
+``cli_bowl_pred_raw``, ``lrn_kernel_googlenet``,
+``lrn_bwd_kernel_googlenet``, ``googlenet_bf16_train``,
+``googlenet_bf16_pred``, ``cli_googlenet``, ``vgg16_bf16_remat``,
+``resnet18_bf16_train``, ``bench_bf16``, ``flash_fwd_kernel``,
+``lm_serve``, ``lm_serve_long``,
 ``flash_bwd_kernel``, ``lm_train``, ``lm_train_long``, ``lm_hd256``,
 ``lm_hd512``, ``ring_step_kernels``, ``lm_sp_train_long_ring``,
 ``lm_sp_train_long_ulysses`` and ``lm_sp_train_ring`` (kernel checks, the
 main paths' checks, throughput and profiles), the wall time, then a JSON
-line ``{"kernels": [...]}`` and, last, the JSON result line
-``{"ok": true, "device": {...}}``.
+line ``{"kernels": [...]}`` (each row's bf16 times under "bf16") and,
+last, the JSON result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -325,6 +337,31 @@ SP_STEPS = 2
 
 # fp32 kernel times by (kernel, shape name), filled by the kernel phases
 KERNEL_MS = {}
+
+# slice 11: compute_dtype = bfloat16. GoogLeNet and ResNet-18 at bench.py's
+# batch 128, VGG-16 at its 64 (VGG.conf's), all 224x224, 1000 classes
+BF16 = "compute_dtype = bfloat16\n"
+IMG_HW = 224
+GNET_BATCH, RESNET_BATCH, VGG_BATCH = 128, 128, 64
+# example/ImageNet/GoogLeNet.conf's own batch_size
+GNET_CONF_BATCH = 128
+BF16_STEPS = 4
+# GoogLeNet's LRN inputs at batch 128: after pool1 and after conv2
+GNET_LRN_SHAPES = {"gnet_lrn1": (GNET_BATCH, 64, 56, 56),
+                   "gnet_lrn2": (GNET_BATCH, 192, 56, 56)}
+GNET_LRN_ARGS = dict(nsize=5, alpha=0.0001, beta=0.75, knorm=1.0)
+# the flash kernels' bf16 row: the bench.py LM's bf16 training step (the
+# forward at the full sequence, the backward at the training shape)
+BF16_FLASH_FWD = "lm_full_sequence"
+# a bf16 run against the f32 run of the same weights and batch. At a
+# reduced size the card's gap (features: largest difference over the
+# largest f32 magnitude; gradients: L2 of the difference over L2 of the
+# f32 gradients) must be within GAP_FACTOR times the port's CPU path's
+# plus GAP_SLACK. At full size the features and the loss must be within
+# FULL_GAP: bf16 keeps 8 significant bits, and the bar catches a wrong
+# cast or a broken layer, not rounding
+GAP_FACTOR, GAP_SLACK = 2.0, 1e-3
+FULL_GAP = 0.25
 # what names a kernel in a profile where its symbol does not: the flash
 # kernels and the ring steps share their bodies (attn_fwd_tc_kernel, ...)
 # and differ by the IO policy in the template's arguments
@@ -414,11 +451,11 @@ def check_close(what, got, want, rtol, atol=0.0):
     return max_abs
 
 
-def library(F, x, ref_out):
-    """Time of F.local_response_norm on x (same size, alpha, beta, k; the
-    same window as cxxnet's for odd nsize), a yardstick the port never
-    calls; None where PyTorch has no such kernel for x's dtype."""
-    a = LRN_ARGS
+def library(F, x, ref_out, a):
+    """Time of F.local_response_norm on x (same size, alpha, beta, k as
+    ``a``; the same window as cxxnet's for odd nsize), a yardstick the
+    port never calls; None where PyTorch has no such kernel for x's
+    dtype."""
 
     def call():
         return F.local_response_norm(x, a["nsize"], a["alpha"], a["beta"],
@@ -433,11 +470,11 @@ def library(F, x, ref_out):
     return time_ms(call)
 
 
-def library_bwd(F, x, g, ref_dx):
+def library_bwd(F, x, g, ref_dx, a):
     """Time of the backward of F.local_response_norm on x with upstream g
-    (autograd.grad over a kept graph), a yardstick the port never calls;
-    None where PyTorch has no such kernel for x's dtype."""
-    a = LRN_ARGS
+    (autograd.grad over a kept graph; LRN arguments ``a``), a yardstick the
+    port never calls; None where PyTorch has no such kernel for x's
+    dtype."""
     xl = x.detach().clone().requires_grad_()
     try:
         out = F.local_response_norm(xl, a["nsize"], a["alpha"], a["beta"],
@@ -481,17 +518,19 @@ def _new_rec():
             "max_abs_err": 0.0, "bound_by": "bytes"}
 
 
-def phase_lrn_kernel(lrn):
-    """The LRN kernel against lrn_ref at the main path's shapes, fp32 and
-    bf16 (the f32 norm bitwise), and its no-norm form (inference) against
-    its own bound; returns the per-kernel record (sums over the two fp32
-    main-path shapes, i.e. one forward's worth of LRN work)."""
+def phase_lrn_kernel(lrn, shapes=None, args=None, phase="lrn_kernel"):
+    """The LRN kernel against lrn_ref at the main path's shapes (AlexNet's
+    by default), fp32 and bf16 (the f32 norm bitwise), and its no-norm
+    form (inference) against its own bound; returns the per-kernel record
+    (sums over the fp32 shapes, i.e. one forward's worth of LRN work; the
+    bf16 sums under "bf16")."""
     import torch.nn.functional as F
-    log("phase lrn_kernel")
-    rec = dict(_new_rec(), no_norm_ms=0.0, no_norm_bound_ms=0.0)
-    a = LRN_ARGS
+    log("phase %s" % phase)
+    rec = dict(_new_rec(), no_norm_ms=0.0, no_norm_bound_ms=0.0,
+               bf16=_new_rec())
+    a = args or LRN_ARGS
     rng = np.random.RandomState(SEED)
-    for name, shape in LRN_SHAPES.items():
+    for name, shape in (shapes or LRN_SHAPES).items():
         host = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3)
         for dtype in (torch.float32, torch.bfloat16):
             x = host.to(DEV, dtype)
@@ -510,7 +549,7 @@ def phase_lrn_kernel(lrn):
                                      "version's")
             kernel_ms = time_ms(lambda: lrn.lrn_fwd_cuda(x, **a))
             plain_ms = time_ms(lambda: lrn.lrn_ref_with_norm(x, **a))
-            library_ms = library(F, x, ref_out)
+            library_ms = library(F, x, ref_out, a)
             n = x.numel()
             nbytes = n * (2 * x.element_size() + 4)   # x in; out, norm out
             bound_ms, bound_by, _, ops_ms = _bound(n, nbytes,
@@ -538,24 +577,31 @@ def phase_lrn_kernel(lrn):
                 rec["no_norm_ms"] += nn_ms
                 rec["no_norm_bound_ms"] += nn_bound
                 rec["no_norm_bound_by"] = nn_by
+            else:
+                _add_fp32(rec["bf16"], kernel_ms, plain_ms, library_ms,
+                          bound_ms, bound_by)
+                rec["bf16"]["max_abs_err"] = max(rec["bf16"]["max_abs_err"],
+                                                 err)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             del x, out, norm, ref_out, ref_norm, out_nn
     torch.cuda.empty_cache()
     return rec
 
 
-def phase_lrn_bwd_kernel(lrn):
+def phase_lrn_bwd_kernel(lrn, shapes=None, args=None,
+                         phase="lrn_bwd_kernel"):
     """The LRN backward kernel against lrn_bwd_ref at the main path's
-    shapes, fp32 and bf16, on x, the norm lrn_fwd_cuda saves for it and an
-    upstream gradient g; returns the per-kernel record (sums over the two
-    fp32 main-path shapes, i.e. one backward's worth of LRN work)."""
+    shapes (AlexNet's by default), fp32 and bf16, on x, the norm
+    lrn_fwd_cuda saves for it and an upstream gradient g; returns the
+    per-kernel record (sums over the fp32 shapes, i.e. one backward's
+    worth of LRN work; the bf16 sums under "bf16")."""
     import torch.nn.functional as F
-    log("phase lrn_bwd_kernel")
-    rec = _new_rec()
-    a = LRN_ARGS
+    log("phase %s" % phase)
+    rec = dict(_new_rec(), bf16=_new_rec())
+    a = args or LRN_ARGS
     b = dict(nsize=a["nsize"], alpha=a["alpha"], beta=a["beta"])
     rng = np.random.RandomState(SEED + 3)
-    for name, shape in LRN_SHAPES.items():
+    for name, shape in (shapes or LRN_SHAPES).items():
         host_x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3)
         host_g = torch.from_numpy(rng.randn(*shape).astype(np.float32))
         for dtype in (torch.float32, torch.bfloat16):
@@ -573,7 +619,7 @@ def phase_lrn_bwd_kernel(lrn):
             err = check_close("dx vs lrn_bwd_ref", dx, ref, RTOL[dtype], atol)
             kernel_ms = time_ms(lambda: lrn.lrn_bwd_cuda(x, norm, g, **b))
             plain_ms = time_ms(lambda: lrn.lrn_bwd_ref(x, norm, g, **b))
-            library_ms = library_bwd(F, x, g, ref)
+            library_ms = library_bwd(F, x, g, ref, a)
             n = x.numel()
             # x, g and the f32 norm in; dx out
             nbytes = n * (3 * x.element_size() + 4)
@@ -586,6 +632,11 @@ def phase_lrn_bwd_kernel(lrn):
             if dtype == torch.float32:
                 _add_fp32(rec, kernel_ms, plain_ms, library_ms, bound_ms,
                           bound_by)
+            else:
+                _add_fp32(rec["bf16"], kernel_ms, plain_ms, library_ms,
+                          bound_ms, bound_by)
+                rec["bf16"]["max_abs_err"] = max(rec["bf16"]["max_abs_err"],
+                                                 err)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             del x, g, norm, dx, ref
     torch.cuda.empty_cache()
@@ -1110,6 +1161,10 @@ def phase_flash_fwd_kernel(flash, shapes=None, phase="flash_fwd_kernel"):
             if name == shapes[0][0] and dtype == torch.float32:
                 _add_fp32(rec, kernel_ms, plain_ms, library_ms, bound_ms,
                           bound_by)
+            if name == BF16_FLASH_FWD and dtype == torch.bfloat16:
+                rec["bf16"] = dict(_new_rec(), max_abs_err=err, at=name)
+                _add_fp32(rec["bf16"], kernel_ms, plain_ms, library_ms,
+                          bound_ms, bound_by)
             if dtype == torch.float32:
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 KERNEL_MS[("flash_fwd", name)] = kernel_ms
@@ -1514,6 +1569,11 @@ def phase_flash_bwd_kernel(flash, shapes=None, phase="flash_bwd_kernel"):
                 if name == shapes[0][0] and dtype == torch.float32:
                     _add_fp32(recs[key], ms, plain_ms, library_ms, bound_ms,
                               bound_by)
+                if name == shapes[0][0] and dtype == torch.bfloat16:
+                    recs[key]["bf16"] = dict(_new_rec(), max_abs_err=err,
+                                             at=name)
+                    _add_fp32(recs[key]["bf16"], ms, plain_ms, library_ms,
+                              bound_ms, bound_by)
                 if dtype == torch.float32:
                     recs[key]["max_abs_err"] = max(recs[key]["max_abs_err"],
                                                    err)
@@ -1539,13 +1599,14 @@ def plain_flash_backward(flash):
         flash.flash_bwd_cuda = kernel
 
 
-def lm_batch(x, y, dev):
+def data_batch(x, y, dev):
+    """A DataBatch of (x, y) on ``dev`` (1-D labels as a column)."""
     from cxxnet_tpu_torch.io import DataBatch
-    batch = DataBatch()
-    batch.data = torch.from_numpy(x).to(dev)
-    batch.label = torch.from_numpy(y).to(dev)
-    batch.batch_size = x.shape[0]
-    return batch
+    b = DataBatch()
+    b.data = torch.from_numpy(x).to(dev)
+    b.label = torch.from_numpy(y.reshape(y.shape[0], -1)).to(dev)
+    b.batch_size = x.shape[0]
+    return b
 
 
 def lm_loss(net, x, y) -> float:
@@ -1634,9 +1695,9 @@ def lm_card_vs_cpu(api, models, seq, batch, extra):
         "node's largest magnitude); the CPU run takes the card's masks"
         % (flips, total, worst))
     t = time.time()
-    loss_c, grads_c = cpu.net_.loss_and_grads(lm_batch(x, y, "cpu"))
+    loss_c, grads_c = cpu.net_.loss_and_grads(data_batch(x, y, "cpu"))
     cpu_s = time.time() - t
-    loss_g, grads_g = net.net_.loss_and_grads(lm_batch(x, y, DEV))
+    loss_g, grads_g = net.net_.loss_and_grads(data_batch(x, y, DEV))
     rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
     log("  card vs CPU path (seq %d, batch %d, every width kept; CPU step "
         "%.1f s): loss %.7f vs %.7f, relative %.3e (tolerance %.0e) %s"
@@ -1755,7 +1816,7 @@ def phase_lm_train(flash, api, models, ops, phase, seq, batch, extra,
                 raise AssertionError("layer %d %s not finite" % (i, k))
 
     # one step's gradients: kernels, kernels again, flash_bwd_ref swapped in
-    batch_dev = lm_batch(x, y, DEV)
+    batch_dev = data_batch(x, y, DEV)
     batch_dev.data = batch_dev.data.long()
     _, with_kernel = net.net_.loss_and_grads(batch_dev)
     _, again = net.net_.loss_and_grads(batch_dev)
@@ -2591,7 +2652,7 @@ def phase_lm_head_dim(flash, api, models, phase):
     y = rng.randint(0, LM_ARGS["vocab"], (LM_BATCH, LM_SEQ)).astype(
         np.float32)
     loss0 = lm_loss(net, x, y)
-    batch_dev = lm_batch(x, y, DEV)
+    batch_dev = data_batch(x, y, DEV)
     batch_dev.data = batch_dev.data.long()
 
     def hold_grads(when):
@@ -2909,7 +2970,7 @@ def phase_lm_sp_train(flash, rf, api, models, phase, seq, batch, extra,
         raise AssertionError("%s predict_device: %s launches, error %g"
                              % (phase, pred, err))
     del got, want
-    batch_dev = lm_batch(x, y, DEV)
+    batch_dev = data_batch(x, y, DEV)
     batch_dev.data = batch_dev.data.long()
     # the attention outputs of the two runs differ by their summation order,
     # and an FFN pre-activation within rounding of 0 can fall on the other
@@ -2972,6 +3033,695 @@ def phase_lm_sp_train(flash, rf, api, models, phase, seq, batch, extra,
     del one, sp, batch_dev
     torch.cuda.empty_cache()
     return tuple(a + b for a, b in zip(pred, steps))
+
+
+def bf16_cfg(cfg: str) -> str:
+    """``cfg`` computing in bf16 (explicit casts over float32 masters)."""
+    return cfg + BF16
+
+
+def image_batch(n, hw, seed, n_class=1000):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, 3, hw, hw).astype(np.float32),
+            rng.randint(0, n_class, n).astype(np.float32))
+
+
+def no_dropout(cfg: str) -> str:
+    """``cfg`` with every dropout threshold 0: two runs that draw in
+    different dtypes (bf16 and f32 masks differ) compare the same net."""
+    return re.sub(r"threshold = [0-9.]+", "threshold = 0", cfg)
+
+
+@contextlib.contextmanager
+def capture_calls(mod, name, keep):
+    """Wrap mod.<name> (a kernel wrapper, looked up by the port at call
+    time): every call's tensor dtypes are recorded, and the arguments of
+    the first ``keep`` calls are kept, tensors cloned. Yields
+    (dtypes, kept)."""
+    fn = getattr(mod, name)
+    dtypes, kept = [], []
+
+    def wrapper(*args, **kw):
+        dtypes.append(next(a.dtype for a in args if torch.is_tensor(a)))
+        if len(kept) < keep:
+            kept.append(([a.detach().clone() if torch.is_tensor(a) else a
+                          for a in args], dict(kw)))
+        return fn(*args, **kw)
+    setattr(mod, name, wrapper)
+    try:
+        yield dtypes, kept
+    finally:
+        setattr(mod, name, fn)
+
+
+def require_dtype(what, dtypes, want):
+    got = sorted(set(str(d)[6:] for d in dtypes))
+    log("  %s: %d calls, input dtypes %s" % (what, len(dtypes), got))
+    if not dtypes or got != [str(want)[6:]]:
+        raise AssertionError("%s: expected %s inputs, got %s"
+                             % (what, want, got))
+
+
+def lrn_layers_vs_plain(lrn, calls):
+    """The LRN kernels against their plain versions on the inputs a net's
+    LRN layers took (captured lrn_fwd_cuda calls, bf16): out and the f32
+    norm, then the backward with a seeded upstream gradient."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    worst = 0.0
+    for i, (args, kw) in enumerate(calls):
+        x, nsize, alpha, beta, knorm = args[:5]
+        dt = x.dtype
+        out, norm = lrn.lrn_fwd_cuda(x, nsize, alpha, beta, knorm)
+        ref_out, ref_norm = lrn.lrn_ref_with_norm(x, nsize, alpha, beta,
+                                                  knorm)
+        tag = "layer input %d %s %s" % (i, tuple(x.shape), str(dt)[6:])
+        worst = max(worst, check_close(tag + " out vs lrn_ref", out,
+                                       ref_out, RTOL[dt]))
+        check_close(tag + " norm vs lrn_ref", norm, ref_norm, NORM_RTOL)
+        g = torch.randn(x.shape, generator=gen, device=DEV).to(dt)
+        dx = lrn.lrn_bwd_cuda(x, norm, g, nsize, alpha, beta)
+        ref = lrn.lrn_bwd_ref(x, norm, g, nsize, alpha, beta)
+        atol = BWD_ATOL_EPS * torch.finfo(torch.float32).eps \
+            * float(ref.float().abs().max())
+        check_close(tag + " dx vs lrn_bwd_ref", dx, ref, RTOL[dt], atol)
+        del out, norm, ref_out, ref_norm, g, dx, ref
+    return worst
+
+
+def flash_layers_vs_plain(flash, calls):
+    """The flash kernels against their plain versions on the q, k, v a
+    net's attention layers took (captured flash_fwd_cuda calls, bf16):
+    out and lse, then the backward with a seeded upstream gradient."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    eps = torch.finfo(torch.float32).eps
+    for i, (args, kw) in enumerate(calls):
+        q, k, v = args[:3]
+        rest = tuple(args[3:])
+        dt = q.dtype
+        tag = "layer input %d q %s %s" % (i, tuple(q.shape), str(dt)[6:])
+        out, lse = flash.flash_fwd_cuda(q, k, v, *rest, **kw)
+        ref_out, ref_lse = flash.flash_fwd_ref(q, k, v, *rest, **kw)
+        check_close(tag + " out vs flash_fwd_ref", out, ref_out, RTOL[dt],
+                    FLASH_ATOL_EPS * eps * float(ref_out.float().abs().max()))
+        check_close(tag + " lse vs flash_fwd_ref", lse, ref_lse, NORM_RTOL,
+                    FLASH_ATOL_EPS * eps * float(ref_lse.abs().max()))
+        dout = torch.randn(q.shape, generator=gen, device=DEV).to(dt)
+        got = flash.flash_bwd_cuda(q, k, v, out, lse, dout, *rest, **kw)
+        want = flash.flash_bwd_ref(q, k, v, out, lse, dout, *rest, **kw)
+        for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+            check_close(tag + " %s vs flash_bwd_ref" % nm, a, b, 0.0,
+                        FLASH_BWD_TOL[dt] * float(b.float().abs().max()))
+        del out, lse, ref_out, ref_lse, dout, got, want
+
+
+def bf16_gap(api, cfg, fname, x, y, feat, dev):
+    """The net of ``cfg`` loaded from ``fname`` on ``dev`` in float32 and
+    in bf16, on the batch (x, y): {"features": max |bf16 - f32| over max
+    |f32| of node ``feat`` (eval forward), "gradients": the L2 norm of the
+    difference over the L2 norm of the f32 gradients, all weights
+    together, "loss": (f32, bf16) losses}."""
+    res = {}
+    for tag, c in (("f32", cfg), ("bf16", bf16_cfg(cfg))):
+        net = api.Net(dev=dev, cfg=c)
+        net.load_model(fname)
+        feats = torch.from_numpy(net.extract(x, feat)).double()
+        loss, grads = net.net_.loss_and_grads(
+            data_batch(x, y, "cpu" if dev == "cpu" else DEV))
+        flat = [g.double() for p in grads for g in p.values()]
+        if tag == "f32":
+            res["f32"] = (feats, float(loss), flat)
+        else:
+            f_feats, f_loss, f_flat = res.pop("f32")
+            res["features"] = float((feats - f_feats).abs().max()
+                                    / f_feats.abs().max())
+            num = sum(float(((a - b) ** 2).sum()) for a, b in zip(flat,
+                                                                  f_flat))
+            den = sum(float((b ** 2).sum()) for b in f_flat)
+            res["gradients"] = (num / den) ** 0.5
+            res["loss"] = (f_loss, float(loss))
+            finite = all(bool(torch.isfinite(a).all()) for a in flat)
+            if not finite or not np.isfinite(float(loss)):
+                raise AssertionError("bf16 loss or gradients not finite")
+        del net, grads, flat
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    return res
+
+
+def log_gap(what, gap):
+    log("  %s: bf16 vs f32 features %.4e of their largest, gradients %.4e "
+        "(L2, all weights), loss %.6f vs %.6f"
+        % (what, gap["features"], gap["gradients"], gap["loss"][0],
+           gap["loss"][1]))
+
+
+def full_size_gap(api, cfg, fname, x, y, feat):
+    """The card's bf16 run against its f32 run at full size, dropout off:
+    the features and the loss within FULL_GAP (a sanity bar that catches
+    a wrong cast or a broken layer; the precision rule is gap_rule's)."""
+    gap = bf16_gap(api, no_dropout(cfg), fname, x, y, feat, NET_DEV)
+    log_gap("full size on the card", gap)
+    lf, lb = gap["loss"]
+    if gap["features"] > FULL_GAP or abs(lb - lf) > FULL_GAP * abs(lf):
+        raise AssertionError("bf16 run beyond the sanity bar %g of the f32 "
+                             "run" % FULL_GAP)
+    return gap
+
+
+def gap_rule(api, cfg, x, y, feat):
+    """At a reduced size (``cfg`` on the card, weights from SEED), the
+    card's bf16-versus-f32 gap against the port's CPU path's on the same
+    weights and batch: features and gradients within GAP_FACTOR times the
+    CPU's plus GAP_SLACK."""
+    cfg = no_dropout(cfg)
+    init = api.Net(dev="cpu", cfg=cfg)
+    init.init_model()
+    fname = scratch_file("chip_smoke_gap.model")
+    init.save_model(fname)
+    t = time.perf_counter()
+    card = bf16_gap(api, cfg, fname, x, y, feat, NET_DEV)
+    cpu = bf16_gap(api, cfg, fname, x, y, feat, "cpu")
+    os.remove(fname)
+    log_gap("reduced size (batch %d, %dx%d) on the card"
+            % (x.shape[0], x.shape[2], x.shape[3]), card)
+    log_gap("the same on the CPU path (%.1f s for both)"
+            % (time.perf_counter() - t), cpu)
+    for key in ("features", "gradients"):
+        bar = GAP_FACTOR * cpu[key] + GAP_SLACK
+        ok = card[key] <= bar
+        log("  %s gap: card %.4e, bar %.4e (%g x the CPU's + %g) %s"
+            % (key, card[key], bar, GAP_FACTOR, GAP_SLACK,
+               "ok" if ok else "FAILED"))
+        if not ok:
+            raise AssertionError("the card's bf16 %s gap exceeds the CPU "
+                                 "rule" % key)
+
+
+def per_s(step, units, iters=5, warmup=2):
+    """units per second of ``step`` (each call synchronised)."""
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        step()
+        torch.cuda.synchronize()
+    return units * iters / (time.perf_counter() - t)
+
+
+def numpy_card_rates(what, numpy_step, card_step, units, unit="images",
+                     iters=5):
+    """units/s of ``numpy_step`` (fed from numpy) and ``card_step`` (the
+    batch already on the card), in turns numpy, card, card, numpy."""
+    rates = {"numpy": [], "card": []}
+    for which in ("numpy", "card", "card", "numpy"):
+        rates[which].append(per_s(card_step if which == "card"
+                                  else numpy_step, units, iters))
+    log("  %s: %s %s/s fed from numpy, %s with the batch on the card (in "
+        "turns)" % (what, " / ".join("%.1f" % r for r in rates["numpy"]),
+                    unit, " / ".join("%.1f" % r for r in rates["card"])))
+
+
+def image_rates(what, net, x, y):
+    """Training images/s from numpy (Net.update: the staging ring) and with
+    the batch on the card; returns the on-card step."""
+    resident = data_batch(x, y, DEV)
+
+    def card_step():
+        net.net_.update(resident)
+    numpy_card_rates(what, lambda: net.update(x, y), card_step, x.shape[0])
+    return card_step
+
+
+def check_params_finite(net):
+    for i, p in enumerate(net.net_.params):
+        for k, v in p.items():
+            if v.dtype != torch.float32 or not bool(torch.isfinite(v).all()):
+                raise AssertionError("layer %d %s: %s master not finite"
+                                     % (i, k, v.dtype))
+    log("  every master weight float32 and finite")
+
+
+def image_train_phase(phase, api, cfg, x, y, feat, small_cfg, small,
+                      lrn=None, loss_must_fall=True):
+    """One bf16 image net through api.Net(dev="gpu").update: BF16_STEPS
+    steps (LRN launches counted and their inputs bf16, where the net has
+    LRN layers), the loss, the full-size bf16-vs-f32 gap, the reduced-size
+    rule, the LRN layers against the plain versions, images/s and a step
+    profile; returns the LRN (forward, backward) launches of the main
+    path."""
+    t0 = time.perf_counter()
+    net = api.Net(dev=NET_DEV, cfg=bf16_cfg(cfg))
+    net.init_model()
+    if net.net_.net.compute_dtype != torch.bfloat16:
+        raise AssertionError("the net does not compute in bf16")
+    fname = scratch_file("chip_smoke_%s.model" % phase)
+    net.save_model(fname)
+    loss0 = cross_entropy(net.extract(x, "top[-1]"), y)
+    fwd = bwd = 0
+    ctx = capture_calls(lrn, "lrn_fwd_cuda", 2) if lrn is not None \
+        else contextlib.nullcontext((None, None))
+    torch.cuda.reset_peak_memory_stats()
+    with ctx as (dtypes, kept):
+        # the main path: the counts start at 0 here and are read right after
+        if lrn is not None:
+            lrn.launches = lrn.bwd_launches = 0
+        t = time.perf_counter()
+        for _ in range(BF16_STEPS):
+            net.update(x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if lrn is not None:
+            fwd, bwd = lrn.launches, lrn.bwd_launches
+    log("  %d bf16 update steps in %.2f s (first steps included); peak "
+        "memory %.2f GB" % (BF16_STEPS, wall,
+                            torch.cuda.max_memory_allocated() / 1e9))
+    if lrn is not None:
+        log("  lrn_fwd launches %d, lrn_bwd launches %d (2 + 2 per step "
+            "expected)" % (fwd, bwd))
+        if (fwd, bwd) != (2 * BF16_STEPS,) * 2:
+            raise AssertionError("expected 2 + 2 LRN launches per step")
+        require_dtype("lrn_fwd_cuda on the main path", dtypes,
+                      torch.bfloat16)
+    loss1 = cross_entropy(net.extract(x, "top[-1]"), y)
+    log("  fixed-batch cross-entropy %.6f before, %.6f after %d steps"
+        % (loss0, loss1, BF16_STEPS))
+    if not np.isfinite(loss1) or (loss_must_fall and not loss1 < loss0):
+        raise AssertionError("bf16 training loss did not fall: %r -> %r"
+                             % (loss0, loss1))
+    check_params_finite(net)
+    if lrn is not None:
+        lrn_layers_vs_plain(lrn, kept)
+    del kept
+    step = image_rates("%s bf16 training batch %d" % (phase, x.shape[0]),
+                          net, x, y)
+    profile_forward(step, unit="step", top=8,
+                    shares=("lrn_fwd", "lrn_bwd") if lrn else ())
+    del net, step
+    torch.cuda.empty_cache()
+    full_size_gap(api, cfg, fname, x, y, feat)
+    os.remove(fname)
+    gap_rule(api, small_cfg, *small, feat)
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+    return fwd, bwd
+
+
+def gnet_cfg(models, batch, hw, dev=None):
+    return models.googlenet_config(batch_size=batch, input_hw=hw,
+                                   dev=dev or NET_DEV) + "seed = %d\n" % SEED
+
+
+def phase_googlenet_bf16_train(lrn, api, models):
+    """GoogLeNet (models.googlenet_config: bench.py's recipe, 224x224, 1000
+    classes) trained in bf16 at batch 128 (image_train_phase)."""
+    log("phase googlenet_bf16_train")
+    x, y = image_batch(GNET_BATCH, IMG_HW, SEED + 20)
+    return image_train_phase(
+        "googlenet", api, gnet_cfg(models, GNET_BATCH, IMG_HW), x, y, "gp",
+        gnet_cfg(models, 4, 64), image_batch(4, 64, SEED + 21), lrn=lrn)
+
+
+def phase_googlenet_bf16_pred(lrn, api, models):
+    """GoogLeNet in bf16 served at batch 128 through predict / extract: 2
+    LRN launches per forward without the norm, on bf16 inputs; the softmax
+    against the f32 net's on the same weights; the LRN layers against the
+    plain versions; images/s and a profile. Returns the main path's LRN
+    launches."""
+    log("phase googlenet_bf16_pred")
+    cfg = gnet_cfg(models, GNET_BATCH, IMG_HW)
+    net = api.Net(dev=NET_DEV, cfg=bf16_cfg(cfg))
+    net.init_model()
+    x, _ = image_batch(GNET_BATCH, IMG_HW, SEED + 22)
+    with capture_calls(lrn, "lrn_fwd_cuda", 2) as (dtypes, kept):
+        # the main path: the counts start at 0 here and are read right after
+        lrn.launches = lrn.no_norm_launches = 0
+        pred = net.predict(x)
+        top = net.extract(x, "top[-1]")
+        torch.cuda.synchronize()
+        launches, no_norm = lrn.launches, lrn.no_norm_launches
+    log("  lrn_fwd launches %d over 2 forwards, %d storing no norm"
+        % (launches, no_norm))
+    if (launches, no_norm) != (4, 4):
+        raise AssertionError("expected 2 LRN launches per forward without "
+                             "the norm")
+    require_dtype("lrn_fwd_cuda on the main path", dtypes, torch.bfloat16)
+    if top.dtype != np.float32 or pred.shape != (GNET_BATCH,) \
+            or top.shape != (GNET_BATCH, 1, 1, 1000):
+        raise AssertionError("outputs %s %s %s" % (top.dtype, pred.shape,
+                                                   top.shape))
+    row_err = float(np.abs(top.sum(axis=3) - 1.0).max())
+    log("  softmax rows (float32 over the bf16 logits) sum to 1 within "
+        "%.3e (tolerance 1e-5)" % row_err)
+    if row_err > 1e-5 or not (pred == top.reshape(GNET_BATCH, -1)
+                              .argmax(axis=1)).all():
+        raise AssertionError("softmax rows or predict vs argmax")
+    lrn_layers_vs_plain(lrn, kept)
+    del kept
+    fname = scratch_file("chip_smoke_gnet_pred.model")
+    net.save_model(fname)
+    f32 = api.Net(dev=NET_DEV, cfg=cfg)
+    f32.load_model(fname)
+    os.remove(fname)
+    top32 = f32.extract(x, "top[-1]")
+    agree = float((f32.predict(x) == pred).mean())
+    gap = float(np.abs(top - top32).max() / np.abs(top32).max())
+    log("  bf16 vs f32 on the same weights: softmax %.4e of its largest, "
+        "top-1 agreement %.4f" % (gap, agree))
+    if gap > FULL_GAP:
+        raise AssertionError("bf16 softmax beyond the sanity bar")
+    del f32
+    xs = torch.from_numpy(x).to(DEV)
+    numpy_card_rates("GoogLeNet bf16 inference batch %d" % GNET_BATCH,
+                     lambda: net.predict(x), lambda: net.predict_device(xs),
+                     GNET_BATCH, iters=10)
+    profile_forward(lambda: net.predict_device(xs), top=8)
+    del net, xs
+    torch.cuda.empty_cache()
+    gap_rule(api, gnet_cfg(models, 4, 64), *image_batch(4, 64, SEED + 30),
+             "gp")
+    return launches
+
+
+def phase_cli_googlenet(lrn, learn_task, api):
+    """example/ImageNet/GoogLeNet.conf read unchanged by the CLI (its own
+    dev and compute_dtype = bfloat16): one round (num_round and max_round
+    cut on the command line) from a synthetic PPM pack through imgbinx,
+    threadbuffer and the mean image, then task=pred from the saved model
+    held to api.Net.predict on the same iterator. Returns the LRN
+    (forward, backward) launches of training and the forward launches of
+    pred."""
+    log("phase cli_googlenet")
+    t0 = time.perf_counter()
+    conf = os.path.join(REPO, "example/ImageNet/GoogLeNet.conf")
+    batches, evals = CLI_TRAIN_IMAGES // GNET_CONF_BATCH, \
+        CLI_TEST_IMAGES // GNET_CONF_BATCH
+    with scratch_dir("cli_googlenet") as root:
+        cwd = imagenet_pack(root)
+        with capture_calls(lrn, "lrn_fwd_cuda", 2) as (dtypes, kept):
+            # the main path: the counts start at 0 here, read right after
+            lrn.launches = lrn.no_norm_launches = lrn.bwd_launches = 0
+            out, err = run_cli(learn_task, cwd, [conf, "num_round=1",
+                                                 "max_round=1"])
+            train = (lrn.launches, lrn.bwd_launches, lrn.no_norm_launches)
+        log("  lrn_fwd launches %d (%d storing no norm), lrn_bwd %d"
+            % (train[0], train[2], train[1]))
+        if train != (2 * batches + 2 * evals, 2 * batches, 2 * evals):
+            raise AssertionError("expected 2 + 2 LRN launches in each of %d "
+                                 "steps and 2 in each of %d eval batches"
+                                 % (batches, evals))
+        require_dtype("lrn_fwd_cuda on the CLI's path", dtypes,
+                      torch.bfloat16)
+        lrn_layers_vs_plain(lrn, kept)
+        del kept
+        if len([ln for ln in err.splitlines() if ln.startswith("[")]) != 1:
+            raise AssertionError("expected one eval line")
+        log("  round (input-wait %%, io img/s when blocked, step img/s): %s"
+            % round_rates(out))
+        model = os.path.join(cwd, "models/0001.model")
+        section = ["iter=imgbinx", "image_list=../../NameList.test",
+                   "image_bin=../../TEST.BIN",
+                   "image_mean=models/image_net_mean.bin", "iter=end"]
+        lrn.launches = lrn.no_norm_launches = 0
+        run_cli(learn_task, cwd, [conf, "task=pred", "model_in=" + model,
+                                  "pred=pred.txt"] + section)
+        pred_launches = (lrn.launches, lrn.no_norm_launches)
+        if pred_launches != (2 * evals,) * 2:
+            raise AssertionError("pred: expected 2 LRN launches without the "
+                                 "norm per batch, counted %s"
+                                 % (pred_launches,))
+        text = open(conf).read()
+        net = api.Net(dev=NET_DEV, cfg=text)
+        net.load_model(model)
+        if net.net_.compute_dtype != torch.bfloat16:
+            raise AssertionError("GoogLeNet.conf's model is not bf16")
+        want = []
+        with in_dir(cwd):
+            it = api.DataIter("\n".join(section[:-1]) +
+                              "\ninput_shape = 3,224,224\nbatch_size = %d\n"
+                              "iter = end\n" % GNET_CONF_BATCH)
+            it.before_first()
+            while it.next():
+                want.append(net.predict(it))
+            it.close()
+        want = np.concatenate(want)
+        got = np.array([float(v) for v in
+                        open(os.path.join(cwd, "pred.txt")).read().split()])
+        if not np.array_equal(got, want):
+            raise AssertionError("task=pred differs from api.Net.predict")
+        log("  task=pred: %d rows, bitwise api.Net.predict" % len(got))
+        # the CLI's model in f32 on the first test batch of the same chain
+        f32 = api.Net(dev=NET_DEV, cfg=text)
+        f32.set_param("compute_dtype", "float32")
+        f32.load_model(model)
+        with in_dir(cwd):
+            it = api.DataIter("\n".join(section[:-1]) +
+                              "\ninput_shape = 3,224,224\nbatch_size = %d\n"
+                              "iter = end\n" % GNET_CONF_BATCH)
+            it.before_first()
+            it.next()
+            xb = np.array(it.check_valid().data)
+            it.close()
+        top, top32 = net.extract(xb, "top[-1]"), f32.extract(xb, "top[-1]")
+        gap = float(np.abs(top - top32).max() / np.abs(top32).max())
+        agree = float((net.predict(xb) == f32.predict(xb)).mean())
+        log("  the CLI's model, bf16 vs f32 on a test batch: softmax %.4e "
+            "of its largest, top-1 agreement %.4f" % (gap, agree))
+        if gap > FULL_GAP:
+            raise AssertionError("bf16 softmax beyond the sanity bar")
+        xs = torch.from_numpy(xb).to(DEV)
+        log("  GoogLeNet.conf's model, bf16 inference batch %d: %.1f "
+            "images/s from numpy, %.1f with the batch on the card"
+            % (GNET_CONF_BATCH, per_s(lambda: net.predict(xb),
+                                      GNET_CONF_BATCH, iters=10),
+               per_s(lambda: net.predict_device(xs), GNET_CONF_BATCH,
+                     iters=10)))
+        profile_forward(lambda: net.predict_device(xs), top=6)
+        del net, f32, xs
+        torch.cuda.empty_cache()
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+    return train, pred_launches[0]
+
+
+def vgg_cfg(models, batch, hw, remat, fc_dim=4096, dev=None):
+    return models.vgg_config(batch_size=batch, input_hw=hw, remat=remat,
+                             fc_dim=fc_dim, dev=dev or NET_DEV) \
+        + "seed = %d\n" % SEED
+
+
+def phase_vgg16_bf16_remat(api, models):
+    """VGG-16 (VGG.conf's net: vgg_config(remat=1), batch 64, 224x224) in
+    bf16: steps with remat on, the peak device memory of a step with
+    remat on and off from the same weights and batch (remat must lower
+    it), the gradients of the two against each other, the bf16-vs-f32
+    gaps, images/s and a profile."""
+    log("phase vgg16_bf16_remat")
+    t0 = time.perf_counter()
+    x, y = image_batch(VGG_BATCH, IMG_HW, SEED + 23)
+    cfg = vgg_cfg(models, VGG_BATCH, IMG_HW, 1)
+    net = api.Net(dev=NET_DEV, cfg=bf16_cfg(cfg))
+    net.init_model()
+    if not all(lay.remat for lay in net.net_.net.layers):
+        raise AssertionError("remat is not on in every layer")
+    fname = scratch_file("chip_smoke_vgg.model")
+    net.save_model(fname)
+    loss0 = cross_entropy(net.extract(x, "top[-1]"), y)
+    t = time.perf_counter()
+    for _ in range(BF16_STEPS):
+        net.update(x, y)
+    torch.cuda.synchronize()
+    loss1 = cross_entropy(net.extract(x, "top[-1]"), y)
+    log("  %d bf16 update steps with remat in %.2f s; fixed-batch "
+        "cross-entropy %.6f before, %.6f after"
+        % (BF16_STEPS, time.perf_counter() - t, loss0, loss1))
+    if not (np.isfinite(loss1) and loss1 < loss0):
+        raise AssertionError("VGG bf16 training loss did not fall")
+    check_params_finite(net)
+    step = image_rates("VGG-16 bf16 remat training batch %d"
+                          % VGG_BATCH, net, x, y)
+    profile_forward(step, unit="step", top=8, shares=())
+    del net, step
+    torch.cuda.empty_cache()
+
+    # remat on and off: one step's peak memory and gradients, same weights,
+    # batch and dropout draw, cuDNN in its deterministic mode so that the
+    # recompute repeats the forward's sums; then the rate of each, in turns
+    peak, grads, rates = {}, {}, {}
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (1, 0, 0, 1):
+            n = api.Net(dev=NET_DEV, cfg=bf16_cfg(
+                vgg_cfg(models, VGG_BATCH, IMG_HW, remat)))
+            n.load_model(fname)
+            b = data_batch(x, y, DEV)
+            n.net_.loss_and_grads(b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _, g = n.net_.loss_and_grads(b)
+            torch.cuda.synchronize()
+            peak.setdefault(remat, []).append(
+                (torch.cuda.max_memory_allocated() - base) / 1e9)
+            grads.setdefault(remat, g)
+            del g
+            rates.setdefault(remat, []).append(
+                per_s(lambda: n.net_.update(b), VGG_BATCH, iters=3))
+            del n, b
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = was
+    log("  peak device memory of a forward and backward above the resident "
+        "state: remat on %s GB, off %s GB; training %s images/s with remat "
+        "on, %s off (in turns on, off, off, on; cuDNN deterministic)"
+        % (" / ".join("%.2f" % p for p in peak[1]),
+           " / ".join("%.2f" % p for p in peak[0]),
+           " / ".join("%.1f" % r for r in rates[1]),
+           " / ".join("%.1f" % r for r in rates[0])))
+    if max(peak[1]) >= min(peak[0]):
+        raise AssertionError("remat saved no device memory")
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(grads[1], grads[0])
+               for k in a)
+    worst = max(float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(
+        1e-30)) for a, b in zip(grads[1], grads[0]) for k in a)
+    log("  gradients remat on vs off: bitwise equal %s, worst %.3e of a "
+        "tensor's largest (bar %.0e)" % (same, worst, RTOL[torch.bfloat16]))
+    if worst > RTOL[torch.bfloat16]:
+        raise AssertionError("remat: gradients on and off differ")
+    del grads
+    torch.cuda.empty_cache()
+    full_size_gap(api, cfg, fname, x, y, "pool5")
+    os.remove(fname)
+    gap_rule(api, vgg_cfg(models, 4, 32, 1, fc_dim=64),
+             *image_batch(4, 32, SEED + 24), "pool5")
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+
+
+def phase_resnet18_bf16_train(api, models):
+    """ResNet-18 (models.resnet_config: bench.py's recipe, batch 128,
+    224x224, batch_norm) trained in bf16 (image_train_phase); the recipe's
+    eta 0.1 on a saturated softmax need not lower a fixed batch's loss in
+    3 steps, so the loss is reported, not required to fall."""
+    log("phase resnet18_bf16_train")
+    x, y = image_batch(RESNET_BATCH, IMG_HW, SEED + 25)
+    cfg = models.resnet_config(batch_size=RESNET_BATCH, input_hw=IMG_HW,
+                               dev=NET_DEV) + "seed = %d\n" % SEED
+    small = models.resnet_config(batch_size=8, input_hw=32, dev=NET_DEV) \
+        + "seed = %d\n" % SEED
+    image_train_phase("resnet18", api, cfg, x, y, "gap", small,
+                      image_batch(8, 32, SEED + 26), loss_must_fall=False)
+
+
+def phase_bench_bf16(lrn, flash, api, models):
+    """bench.py's bf16 AlexNet (ImageNet.conf, batch 256) and bf16 LM
+    (8 x 2048): AlexNet trained (image_train_phase) and served; the LM
+    trained (4 + 4 + 4 flash launches a step on bf16 inputs, the flash
+    layers against the plain versions, the gaps, tokens/s) and served
+    (4 flash launches a request, time to first token, decode tokens/s).
+    Returns {path: launches} for the LRN and flash kernels."""
+    log("phase bench_bf16")
+    t0 = time.perf_counter()
+    cfg = imagenet_cfg()
+    x, y = image_batch(BATCH, 227, SEED + 27)
+    small_cfg = cfg.replace("batch_size = %d" % BATCH, "batch_size = 4")
+    alex_fwd, alex_bwd = image_train_phase(
+        "alexnet", api, cfg, x, y, "17", small_cfg,
+        image_batch(4, 227, SEED + 28), lrn=lrn)
+    net = api.Net(dev=NET_DEV, cfg=bf16_cfg(cfg))
+    net.init_model()
+    xs = torch.from_numpy(x).to(DEV)
+    lrn.launches = lrn.no_norm_launches = 0
+    net.predict_device(xs)
+    torch.cuda.synchronize()
+    alex_pred = lrn.launches
+    if (alex_pred, lrn.no_norm_launches) != (2, 2):
+        raise AssertionError("AlexNet bf16 predict: 2 LRN launches without "
+                             "the norm expected")
+    numpy_card_rates("AlexNet bf16 inference batch %d" % BATCH,
+                     lambda: net.predict(x), lambda: net.predict_device(xs),
+                     BATCH, iters=10)
+    profile_forward(lambda: net.predict_device(xs), top=6)
+    del net, xs
+    torch.cuda.empty_cache()
+
+    # the LM
+    vocab, nlayer = LM_ARGS["vocab"], LM_ARGS["nlayer"]
+    lcfg = bf16_cfg(lm_cfg(models, LM_SEQ, LM_BATCH))
+    net = api.Net(dev=NET_DEV, cfg=lcfg)
+    net.init_model()
+    rng = np.random.RandomState(SEED + 29)
+    tx = rng.randint(0, vocab, (LM_BATCH, 1, 1, LM_SEQ)).astype(np.float32)
+    ty = rng.randint(0, vocab, (LM_BATCH, LM_SEQ)).astype(np.float32)
+    fname = scratch_file("chip_smoke_lm_bf16.model")
+    net.save_model(fname)
+    with capture_calls(flash, "flash_fwd_cuda", 1) as (dtypes, kept):
+        # the main path: the counts start at 0 here and are read right after
+        flash.launches = flash.dq_launches = flash.dkv_launches = 0
+        for _ in range(BF16_STEPS):
+            net.update(tx, ty)
+        torch.cuda.synchronize()
+        lm_train = (flash.launches, flash.dq_launches, flash.dkv_launches)
+    log("  LM bf16: flash_fwd, flash_bwd_dq, flash_bwd_dkv launches %s over "
+        "%d steps (%d each per step expected)"
+        % (lm_train, BF16_STEPS, nlayer))
+    if lm_train != (nlayer * BF16_STEPS,) * 3:
+        raise AssertionError("LM bf16 flash launches")
+    require_dtype("flash_fwd_cuda on the LM's training path", dtypes,
+                  torch.bfloat16)
+    check_params_finite(net)
+    flash_layers_vs_plain(flash, kept)
+    del kept
+    resident = data_batch(tx, ty, DEV)
+    resident.data = resident.data.long()
+    numpy_card_rates("LM bf16 training %d x %d" % (LM_BATCH, LM_SEQ),
+                     lambda: net.update(tx, ty),
+                     lambda: net.net_.update(resident), LM_BATCH * LM_SEQ,
+                     unit="tokens")
+    profile_forward(lambda: net.net_.update(resident), unit="step",
+                    shares=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    del resident
+    prompts = rng.randint(0, vocab, (LM_BATCH, LM_PROMPT))
+    with capture_calls(flash, "flash_fwd_cuda", 0) as (dtypes, _):
+        flash.launches = 0
+        got = net.generate(prompts, LM_NEW)
+        torch.cuda.synchronize()
+        lm_serve = flash.launches
+    if lm_serve != nlayer or got.shape != (LM_BATCH, LM_NEW) \
+            or got.min() < 0 or got.max() >= vocab:
+        raise AssertionError("LM bf16 generate: %d flash launches, tokens "
+                             "%s" % (lm_serve, got.shape))
+    require_dtype("flash_fwd_cuda on the LM's serving path", dtypes,
+                  torch.bfloat16)
+    caches = net.net_._decode_net[1]._last_cache_updates
+    cache_dtypes = sorted(set(str(c.dtype)[6:] for c in caches.values()))
+    log("  LM bf16 request: %d flash_fwd launches, %d tokens in range; %d "
+        "KV caches in %s" % (lm_serve, got.size, len(caches), cache_dtypes))
+    if cache_dtypes != ["bfloat16"]:
+        raise AssertionError("the KV caches are not bf16")
+    ttft = min(time_generate(net, prompts, None, 1))
+    full = min(time_generate(net, prompts, None, LM_NEW))
+    log("  LM bf16 serving batch %d, prompts %d: time to first token %.2f "
+        "ms, request of %d tokens %.2f ms, decode %.1f tokens/s (best of 3)"
+        % (LM_BATCH, LM_PROMPT, ttft * 1e3, LM_NEW, full * 1e3,
+           LM_BATCH * (LM_NEW - 1) / (full - ttft)))
+    del net
+    torch.cuda.empty_cache()
+    gap = bf16_gap(api, lm_cfg(models, LM_SEQ, LM_BATCH), fname, tx, ty,
+                   "top[-1]", NET_DEV)
+    log_gap("LM full size on the card", gap)
+    if gap["features"] > FULL_GAP:
+        raise AssertionError("LM bf16 beyond the sanity bar")
+    os.remove(fname)
+    sx = tx[:2, :, :, :256].copy()
+    sy = ty[:2, :256].copy()
+    gap_rule(api, lm_cfg(models, 256, 2), sx, sy, "top[-1]")
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+    return ({"bench_bf16_alexnet_train": alex_fwd,
+             "bench_bf16_alexnet_pred": alex_pred},
+            {"bench_bf16_alexnet_train": alex_bwd},
+            {"bench_bf16_lm_train": lm_train[0],
+             "bench_bf16_lm_serve": lm_serve},
+            {"bench_bf16_lm_train": lm_train[1]},
+            {"bench_bf16_lm_train": lm_train[2]})
 
 
 def device_us(e) -> float:
@@ -3055,6 +3805,16 @@ def main() -> int:
     phase_cli_mnist_conv(learn_task)
     cli_train, cli_pred = phase_cli_imagenet(lrn, learn_task, api)
     phase_cli_bowl_pred_raw(learn_task, api)
+    gnet_fwd_rec = phase_lrn_kernel(lrn, GNET_LRN_SHAPES, GNET_LRN_ARGS,
+                                    "lrn_kernel_googlenet")
+    gnet_bwd_rec = phase_lrn_bwd_kernel(lrn, GNET_LRN_SHAPES, GNET_LRN_ARGS,
+                                        "lrn_bwd_kernel_googlenet")
+    gnet_train = phase_googlenet_bf16_train(lrn, api, models)
+    gnet_pred = phase_googlenet_bf16_pred(lrn, api, models)
+    gnet_cli_train, gnet_cli_pred = phase_cli_googlenet(lrn, learn_task, api)
+    phase_vgg16_bf16_remat(api, models)
+    phase_resnet18_bf16_train(api, models)
+    bench = phase_bench_bf16(lrn, flash_attn, api, models)
     flash_rec = phase_flash_fwd_kernel(flash_attn)
     serve_launches = phase_lm_serve(flash_attn, api, models)
     long_launches = phase_lm_serve_long(flash_attn, api, models)
@@ -3082,11 +3842,17 @@ def main() -> int:
              {"alexnet_pred": pred_launches, "alexnet_train": train_fwd,
               "rrelu_alexnet_train": rrelu[1],
               "cli_imagenet_train": cli_train[0],
-              "cli_imagenet_pred": cli_pred[0]},
+              "cli_imagenet_pred": cli_pred[0],
+              "googlenet_bf16_train": gnet_train[0],
+              "googlenet_bf16_pred": gnet_pred,
+              "cli_googlenet_train": gnet_cli_train[0],
+              "cli_googlenet_pred": gnet_cli_pred, **bench[0]},
              {"train_step": train_fwd // TRAIN_STEPS}),
             ("lrn_bwd", bwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:98",
              {"alexnet_train": train_bwd, "rrelu_alexnet_train": rrelu[2],
-              "cli_imagenet_train": cli_train[1]},
+              "cli_imagenet_train": cli_train[1],
+              "googlenet_bf16_train": gnet_train[1],
+              "cli_googlenet_train": gnet_cli_train[1], **bench[1]},
              {"train_step": train_bwd // TRAIN_STEPS}),
             ("uniform", uniform_rec, "cxxnet_tpu/ops/pallas_kernels.py:169",
              {"rrelu_alexnet_train": rrelu[0]},
@@ -3094,15 +3860,15 @@ def main() -> int:
             ("flash_fwd", flash_rec, "cxxnet_tpu/ops/flash_attn.py:284",
              {"lm_serve": serve_launches, "lm_serve_long": long_launches,
               **serve_wide,
-              **{p: c[0] for p, c in train.items()}},
+              **{p: c[0] for p, c in train.items()}, **bench[2]},
              {"generate_request": LM_ARGS["nlayer"],
               "full_sequence_forward": LM_ARGS["nlayer"], **per_step}),
             ("flash_bwd_dq", bwd_recs["dq"],
              "cxxnet_tpu/ops/flash_attn.py:337",
-             {p: c[1] for p, c in train.items()}, per_step),
+             {**{p: c[1] for p, c in train.items()}, **bench[3]}, per_step),
             ("flash_bwd_dkv", bwd_recs["dkv"],
              "cxxnet_tpu/ops/flash_attn.py:363",
-             {p: c[2] for p, c in train.items()}, per_step),
+             {**{p: c[2] for p, c in train.items()}, **bench[4]}, per_step),
             ("ring_fwd_step", ring_recs["fwd"],
              "cxxnet_tpu/ops/ring_flash.py:191",
              {p: c[0] for p, c in ring_paths.items()}, ring_per),
@@ -3122,6 +3888,16 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
+        bf16 = {"lrn_fwd": gnet_fwd_rec["bf16"],
+                "lrn_bwd": gnet_bwd_rec["bf16"]}.get(name, rec.get("bf16"))
+        if bf16 is not None:
+            kernels[-1]["bf16"] = dict(
+                {k: bf16[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "max_abs_err")},
+                at=("GoogLeNet's two LRN inputs at batch 128, summed"
+                    if name.startswith("lrn") else
+                    "the bench.py LM's bf16 step (b 8, h 8, L 2048, d 64)"))
         if name == "lrn_fwd":
             kernels[-1]["inference"] = {
                 "ms": rec["no_norm_ms"], "bound_ms": rec["no_norm_bound_ms"],

@@ -175,6 +175,10 @@ class ApplyContext:
     # [decode_pos, decode_pos + L) and records in cache_updates
     kv_cache: Dict = field(default_factory=dict)
     cache_updates: Dict = field(default_factory=dict)
+    # non-gradient parameter updates of a training forward (batch-norm
+    # running statistics), keyed (params slot, param key); the trainer
+    # writes them into the params after the optimizer step
+    state_updates: Dict = field(default_factory=dict)
     # sequence parallelism (the trainer's seq_parallel): attention of a
     # full-sequence forward runs over this many virtual ranks of the
     # sequence, where the JAX package passes a mesh with an "sp" axis
@@ -202,11 +206,18 @@ class Layer:
     # True for layers whose inputs are integer ids stored as floats (embed):
     # the net never casts such nodes
     integer_inputs = False
+    # loss layers: the net feeds them float32 whatever the compute dtype
+    is_loss = False
 
     def __init__(self):
         self.param = LayerParam()
+        # config key ``remat``: recompute this layer's activations in the
+        # backward instead of keeping them (cxxnet_tpu/layer/base.py:234-243)
+        self.remat = 0
 
     def set_param(self, name: str, val: str) -> None:
+        if name == "remat":
+            self.remat = int(val)
         self.param.set_param(name, val)
 
     def infer_shape(self, in_shapes: List[Shape4]) -> List[Shape4]:
@@ -238,6 +249,11 @@ class Layer:
         """(tag, param-key) pairs exposed to get_weight/set_weight,
         mirroring the reference's ApplyVisitor order."""
         return []
+
+    def state_keys(self) -> Tuple[str, ...]:
+        """Param keys that are state, not weights (batch-norm running
+        statistics): no updater, no compute-dtype cast, no remat."""
+        return ()
 
 
 def check(cond: bool, msg: str, *args) -> None:

@@ -2,23 +2,24 @@
 flatten, fullc, dropout, softmax), in eval and in training mode, the
 sigmoid of the MNIST nets, the
 leaky and noisy activations of the RReLU nets (xelu, insanity, prelu,
-insanity_max_pooling), and the transformer LM set (embed, attention,
-split, add, softmax ``seq = 1``).
+insanity_max_pooling), the transformer LM set (embed, attention,
+split, add, softmax ``seq = 1``), and the GoogLeNet, VGG and ResNet set
+(sum, avg and relu_max pooling, concat, ch_concat, batch_norm).
 
 Each class is the counterpart of the class of the same name in
 cxxnet_tpu/layer/layers.py and keeps its config keys, shape inference,
 parameter layout and model-file fields, so model files move between the two
-packages unchanged. ``forward(params, inputs, ctx)`` runs on torch tensors;
-in training (``ctx.train``) dropout draws its mask from the layer's own
-generator, and the loss layer appends its loss term to ``ctx.losses``,
-whose gradient autograd takes. Conv, fullc, relu, sigmoid, max-pool and
-flatten are differentiated by autograd (cuDNN and PyTorch's own backward
-kernels, as the JAX package left them to XLA); the LRN backward is a kernel
-(ops/lrn.py). The noisy layers draw their noise through ``draw_uniform``
-(ops/random.py: a Philox kernel on the card, the same bits on the CPU).
-Attention sends a sequence the flash kernel takes to it
-(ops/flash_attn.py) and the rest, and every KV-cached decode step, to
-dense attention (ops/attention.py).
+packages unchanged. ``forward(params, inputs, ctx)`` runs on torch
+tensors; in training (``ctx.train``) dropout draws its mask from the
+layer's own generator, and the loss layer appends its loss term to
+``ctx.losses``, whose gradient autograd takes. Conv, fullc, relu,
+sigmoid, pooling, concat, batch-norm and flatten are differentiated by
+autograd (cuDNN and PyTorch's own backward kernels, as the JAX package
+left them to XLA); the LRN backward is a kernel (ops/lrn.py). The noisy
+layers draw their noise through ``draw_uniform`` (ops/random.py: a
+Philox kernel on the card, the same bits on the CPU). Attention sends a
+sequence the flash kernel takes to it (ops/flash_attn.py) and the rest,
+and every KV-cached decode step, to dense attention (ops/attention.py).
 """
 
 from __future__ import annotations
@@ -363,11 +364,11 @@ class PReluLayer(Layer):
         return {"slope": r.read_tensor()}
 
 
-class MaxPoolingLayer(Layer):
-    """Max pooling with the reference's ceil-mode shapes
-    (src/layer/pooling_layer-inl.hpp:17)."""
+class PoolingLayer(Layer):
+    """Max, sum or avg pooling with the reference's ceil-mode shapes
+    (src/layer/pooling_layer-inl.hpp:17); ``pad`` pads the input first."""
 
-    type_name = "max_pooling"
+    mode = "max"
 
     def infer_shape(self, in_shapes):
         p = self.param
@@ -381,11 +382,38 @@ class MaxPoolingLayer(Layer):
         ow = ops.pool_out_dim(w2, p.kernel_width, p.stride)
         return [(b, c, oh, ow)]
 
+    def _pre(self, x):
+        return x
+
     def forward(self, params, inputs, ctx):
         p = self.param
-        return [ops.pool2d(inputs[0], "max",
+        return [ops.pool2d(self._pre(inputs[0]), self.mode,
                            (p.kernel_height, p.kernel_width), p.stride,
                            pad=(p.pad_y, p.pad_x))]
+
+
+class MaxPoolingLayer(PoolingLayer):
+    type_name = "max_pooling"
+    mode = "max"
+
+
+class SumPoolingLayer(PoolingLayer):
+    type_name = "sum_pooling"
+    mode = "sum"
+
+
+class AvgPoolingLayer(PoolingLayer):
+    """The window's sum over kh kw, padding included (ops.pool2d)."""
+    type_name = "avg_pooling"
+    mode = "avg"
+
+
+class ReluMaxPoolingLayer(MaxPoolingLayer):
+    """relu, then max pooling (layer_impl-inl.hpp:55-56)."""
+    type_name = "relu_max_pooling"
+
+    def _pre(self, x):
+        return torch.relu(x)
 
 
 class InsanityPoolingLayer(MaxPoolingLayer):
@@ -512,6 +540,112 @@ class DropoutLayer(Layer):
         return [x * ((u < pkeep).to(x.dtype) / pkeep)]
 
 
+class BatchNormLayer(Layer):
+    """Batch normalization (src/layer/batch_norm_layer-inl.hpp:14;
+    cxxnet_tpu/layer/layers.py:844-950): over (batch, h, w) per channel of
+    a conv node, or per feature of a flat (b, 1, 1, n) node. By default
+    eval normalizes with the minibatch's own statistics too (the
+    reference's behaviour). ``moving_average = 1`` keeps float32
+    ``running_mean`` / ``running_var``: training records their EMA update
+    (``bn_momentum``, default 0.9) in ``ctx.state_updates``, which the
+    trainer writes into the params after the step, and eval normalizes
+    with them. ``slope`` is visited under the ``wmat`` tag and ``bias``
+    under ``bias``; the running statistics are state (``state_keys``)."""
+
+    type_name = "batch_norm"
+
+    def __init__(self):
+        super().__init__()
+        self.init_slope = 1.0
+        self.init_bias = 0.0
+        self.eps = 1e-10
+        self.moving_average = 0
+        self.bn_momentum = 0.9
+        self.is_fc = False
+        self.channel = 0
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "init_slope":
+            self.init_slope = float(val)
+        if name == "init_bias":
+            self.init_bias = float(val)
+        if name == "eps":
+            self.eps = float(val)
+        if name == "moving_average":
+            self.moving_average = int(val)
+        if name == "bn_momentum":
+            self.bn_momentum = float(val)
+
+    def infer_shape(self, in_shapes):
+        b, c, h, w = in_shapes[0]
+        self.is_fc = c == 1
+        self.channel = w if self.is_fc else c
+        return [in_shapes[0]]
+
+    def param_shapes(self):
+        keys = ("slope", "bias") + self.state_keys()
+        return {k: (self.channel,) for k in keys}
+
+    def init_params(self, gen):
+        f32 = dict(dtype=torch.float32)
+        out = {"slope": torch.full((self.channel,), self.init_slope, **f32),
+               "bias": torch.full((self.channel,), self.init_bias, **f32)}
+        if self.moving_average:
+            out["running_mean"] = torch.zeros((self.channel,), **f32)
+            out["running_var"] = torch.ones((self.channel,), **f32)
+        return out
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        xf = x.float()
+        if self.is_fc:
+            dims, bshape = (0, 1, 2), (1, 1, 1, self.channel)
+        else:
+            dims, bshape = (0, 2, 3), (1, self.channel, 1, 1)
+        if self.moving_average and not ctx.train:
+            mean = params["running_mean"].reshape(bshape).to(x.dtype)
+            var = params["running_var"].reshape(bshape).to(x.dtype)
+        else:
+            # the statistics summed in f32 and rounded to x's dtype, as
+            # jnp.mean of bf16 gives them
+            mean = xf.mean(dim=dims, keepdim=True).to(x.dtype)
+            var = torch.square(xf - mean.float()).mean(
+                dim=dims, keepdim=True).to(x.dtype)
+        if self.moving_average and ctx.train:
+            m = self.bn_momentum
+            # a share-tied BN folds every application's statistics in turn
+            km = (ctx.layer_index, "running_mean")
+            kv = (ctx.layer_index, "running_var")
+            base_mean = ctx.state_updates.get(km, params["running_mean"])
+            base_var = ctx.state_updates.get(kv, params["running_var"])
+            ctx.state_updates[km] = (
+                m * base_mean + (1 - m) * mean.reshape(-1).float()).detach()
+            ctx.state_updates[kv] = (
+                m * base_var + (1 - m) * var.reshape(-1).float()).detach()
+        # the elementwise normalization in f32, rounded once to x's dtype:
+        # what XLA's fusion of it computes for a bf16 x
+        xhat = (xf - mean.float()) / torch.sqrt(var.float() + self.eps)
+        y = xhat * params["slope"].reshape(bshape).float() \
+            + params["bias"].reshape(bshape).float()
+        return [y.to(x.dtype)]
+
+    def visit_order(self):
+        return [("wmat", "slope"), ("bias", "bias")]
+
+    def state_keys(self):
+        return ("running_mean", "running_var") if self.moving_average \
+            else ()
+
+    def save_model(self, w, params):
+        for k in ("slope", "bias") + self.state_keys():
+            w.write_tensor(params[k])
+
+    def load_model(self, r):
+        return {k: r.read_tensor()
+                for k in ("slope", "bias") + self.state_keys()}
+
+
 class LossLayerBase(Layer):
     """Loss layers, self-loop (src/layer/loss/loss_layer_base-inl.hpp):
     the forward writes the transformed node, and with labels present it
@@ -519,6 +653,8 @@ class LossLayerBase(Layer):
     (transformed - target) * grad_scale / (batch_size * update_period).
     ``batch_size`` is the configured one, which reaches the layer through
     the global config, not the rows of the batch."""
+
+    is_loss = True
 
     def __init__(self):
         super().__init__()
@@ -617,6 +753,36 @@ class SoftmaxLayer(LossLayerBase):
             tgt = logp.gather(2, label.long()[..., None])[..., 0]
             ctx.losses.append(self._ce(logp, tgt).sum() / L * self._scale())
         return [out.transpose(1, 2).reshape(b, v, 1, L)]
+
+
+class ConcatLayer(Layer):
+    """2-4 inputs concatenated along dim 3 (src/layer/concat_layer-inl.hpp:12);
+    every other dim must match."""
+
+    type_name = "concat"
+    dim = 3
+
+    def infer_shape(self, in_shapes):
+        check(1 < len(in_shapes) <= 4, "Concat layer supports 2-4 inputs")
+        oshape = list(in_shapes[0])
+        total = 0
+        for s in in_shapes:
+            total += s[self.dim]
+            for j in range(4):
+                if j != self.dim:
+                    check(s[j] == oshape[j], "Concat shape doesn't match")
+        oshape[self.dim] = total
+        return [tuple(oshape)]
+
+    def forward(self, params, inputs, ctx):
+        return [torch.cat(inputs, dim=self.dim)]
+
+
+class ChConcatLayer(ConcatLayer):
+    """Concat along the channel dim (layer_impl-inl.hpp:62): the inception
+    module's join."""
+    type_name = "ch_concat"
+    dim = 1
 
 
 class SplitLayer(Layer):
@@ -926,6 +1092,7 @@ LAYER_CLASSES: Dict[str, type] = {
     cls.type_name: cls for cls in (
         FullConnectLayer, ConvolutionLayer, ReluLayer, SigmoidLayer,
         XeluLayer, InsanityLayer, PReluLayer, MaxPoolingLayer,
-        InsanityPoolingLayer,
-        LRNLayer, FlattenLayer, DropoutLayer, SoftmaxLayer, SplitLayer,
-        AddLayer, EmbedLayer, AttentionLayer)}
+        SumPoolingLayer, AvgPoolingLayer, ReluMaxPoolingLayer,
+        InsanityPoolingLayer, LRNLayer, FlattenLayer, DropoutLayer,
+        BatchNormLayer, SoftmaxLayer, ConcatLayer, ChConcatLayer,
+        SplitLayer, AddLayer, EmbedLayer, AttentionLayer)}

@@ -5,17 +5,22 @@ CXXNetThreadTrainer, src/nnet/nnet_impl-inl.hpp:16-455) for the port's
 slices so far: configuration, model init, model files with their
 optimizer-state section, prediction and feature extraction, the training
 step (``update``: forward, autograd backward, ``update_period``
-accumulation, ``clip_global_norm``, one updater per weight tensor,
-train metrics accumulated on the device), ``evaluate``,
-``copy_model_from`` and greedy KV-cached ``generate`` for sequence nets,
-and sequence parallelism (``seq_parallel = n``: the device runs n virtual
-ranks of the sequence in every attention layer, and the result equals the
-single-device run). On a card, a training batch from host memory goes
-through the trainer's own ring of page-locked buffers and an asynchronous
-copy on a stream of its own (``StagingRing``, ``_batch_tensors``). Meshes
-over several devices, the health monitor,
-batch-norm state updates, sampling, beam search and the training-state
-section belong to later slices.
+accumulation, ``clip_global_norm``, one updater per weight tensor, train
+metrics accumulated on the device), ``evaluate``, ``copy_model_from``
+and greedy KV-cached ``generate`` for sequence nets, sequence
+parallelism (``seq_parallel = n``: the device runs n virtual ranks of
+the sequence in every attention layer, and the result equals the
+single-device run), mixed precision (``compute_dtype = bfloat16``: the
+nets compute in bf16 over float32 master weights, updaters and optimizer
+state) and batch-norm state updates. On a card, a training batch from
+host memory goes through the trainer's own ring of page-locked buffers
+and an asynchronous copy on a stream of its own (``StagingRing``,
+``_batch_tensors``). Meshes over several devices, the health monitor,
+sampling, beam search and the training-state section belong to later
+slices. Under bf16, ``predict``, ``extract_feature`` and ``evaluate``
+hand out float32 arrays that hold the bf16 values (the JAX package
+returns bf16 arrays through ml_dtypes, which the card's machine lacks;
+the conversion is exact).
 """
 
 from __future__ import annotations
@@ -102,6 +107,8 @@ class Trainer:
         # sequence parallelism: the device runs this many virtual ranks of
         # the sequence in every attention layer (doc/multichip.md:162-193)
         self.seq_parallel = 1
+        # the nets' compute dtype; None computes in float32
+        self.compute_dtype: Optional[torch.dtype] = None
         self.metric = MetricSet()
         self.train_metric = MetricSet()
         self.eval_node_names: List[Optional[str]] = []  # None -> last node
@@ -140,8 +147,10 @@ class Trainer:
         if name == "clip_global_norm":
             self.clip_global_norm = float(val)
         if name == "compute_dtype":
-            check(val == "float32",
-                  "compute_dtype %s is not ported yet (float32 only)" % val)
+            check(val in ("float32", "bfloat16", "bf16"),
+                  "compute_dtype must be float32 or bfloat16")
+            self.compute_dtype = (torch.bfloat16 if val in ("bfloat16", "bf16")
+                                  else None)
         if name == "seq_parallel":
             self.seq_parallel = int(val)
             check(self.seq_parallel >= 1, "seq_parallel must be >= 1")
@@ -173,7 +182,8 @@ class Trainer:
         return NeuralNet(cfg, batch_size, infer_shapes=infer_shapes,
                          input_scale=self.input_scale,
                          input_mean=self.input_mean,
-                         seq_parallel=self.seq_parallel)
+                         seq_parallel=self.seq_parallel,
+                         compute_dtype=self.compute_dtype)
 
     def _resolve_eval_nodes(self) -> None:
         self.eval_nodes = [self.net_cfg.param.num_nodes - 1 if nm is None
@@ -339,7 +349,8 @@ class Trainer:
         leaves = [self.params[i][k].requires_grad_() for i, k in keys]
         values, loss = self.net.forward(self.params, data, labels=labels,
                                         train=True, gen=gen,
-                                        epoch=self.epoch_counter)
+                                        epoch=self.epoch_counter,
+                                        keep=self.eval_nodes)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
@@ -365,9 +376,12 @@ class Trainer:
         summed gradients. Train metrics stay on the device until
         ``evaluate`` reads them; nothing here waits for the device."""
         need_update = (self.sample_counter + 1) % self.update_period == 0
-        keys = [(i, k) for i, p in enumerate(self.params) for k in p]
+        # the weights the updaters step; state (BN running stats) has none
+        keys = [(i, k) for i, p in enumerate(self.params) for k in p
+                if k in self.updaters[i]]
         values, labels, _, grads = self._forward_backward(
             batch, self._next_gen(), keys)
+        state_ups = self.net._last_state_updates
         if self.eval_train != 0 and len(self.train_metric) > 0:
             with torch.no_grad():
                 outs = [values[n].reshape(values[n].shape[0], -1).float()
@@ -396,6 +410,10 @@ class Trainer:
                                           self.opt_state[i][k],
                                           self.epoch_counter)
             self.grad_accum = None
+        # non-gradient updates (BN running stats), every batch, after the
+        # step (cxxnet_tpu/nnet/trainer.py:1061-1066)
+        for (i, k), v in state_ups.items():
+            self.params[i][k] = v
         self.sample_counter += 1
         if self.sample_counter >= self.update_period:
             self.sample_counter = 0
@@ -429,8 +447,8 @@ class Trainer:
                 outs = self._forward_nodes(batch.data,
                                            tuple(self.eval_nodes))
                 keep = batch.data.shape[0] - batch.num_batch_padd
-                scores = [o.reshape(o.shape[0], -1)[:keep].cpu().numpy()
-                          for o in outs]
+                scores = [o.reshape(o.shape[0], -1)[:keep].float().cpu()
+                          .numpy() for o in outs]
                 labels = self.net.label_info_from(
                     np.asarray(batch.label)[:keep])
                 self.metric.add_eval(scores, labels)
@@ -495,7 +513,7 @@ class Trainer:
         out = out.reshape(out.shape[0], -1)
         if out.shape[1] != 1:
             return torch.argmax(out, dim=1).float()
-        return out[:, 0]
+        return out[:, 0].float()
 
     def predict(self, data) -> np.ndarray:
         return self.predict_device(data).cpu().numpy()
@@ -515,10 +533,14 @@ class Trainer:
         return self.net_cfg.node_name_map[node_name]
 
     def extract_feature_device(self, data, node_name: str) -> torch.Tensor:
+        """The node's values on the device, in the compute dtype."""
         return self._forward_nodes(data, (self._resolve_node(node_name),))[0]
 
     def extract_feature(self, data, node_name: str) -> np.ndarray:
-        return self.extract_feature_device(data, node_name).cpu().numpy()
+        """The node's values as a float32 host array (bf16 values under
+        bf16, exactly)."""
+        return self.extract_feature_device(data, node_name).float().cpu() \
+            .numpy()
 
     # KV-cached generation (the JAX package's Trainer.generate,
     # cxxnet_tpu/nnet/trainer.py:1405-1610)
@@ -589,7 +611,10 @@ class Trainer:
             self._prefill_nets[plen] = self._seq_net(b, plen)
         pre_net = self._prefill_nets[plen]
         _, keys, shapes = self._decode_cache_specs(net2, b, l_max)
-        caches = {k: torch.zeros(sh, dtype=torch.float32, device=toks.device)
+        # the caches hold k and v in the compute dtype
+        # (cxxnet_tpu/nnet/trainer.py:1694)
+        caches = {k: torch.zeros(sh, dtype=net2.compute_dtype or torch.float32,
+                                 device=toks.device)
                   for k, sh in zip(keys, shapes)}
         last = net2.cfg.param.num_nodes - 1
 

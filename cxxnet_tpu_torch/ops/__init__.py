@@ -1,7 +1,7 @@
 """Op library of the port: the counterpart of cxxnet_tpu/ops/__init__.py.
 
 conv2d          <- unpack_patch2col + dot + swapaxis   (src/layer/convolution_layer-inl.hpp:79-105)
-pool2d          <- pool<Reducer>                       (src/layer/pooling_layer-inl.hpp)
+pool2d          <- pool<Reducer>, max / sum / avg      (src/layer/pooling_layer-inl.hpp)
 chpool_sum/lrn  <- chpool<red::sum>                    (src/layer/lrn_layer-inl.hpp:55-60)
 softmax         <- mshadow::Softmax                    (src/layer/loss/softmax_layer-inl.hpp)
 xelu / mxelu    <- op::xelu, op::mxelu                 (src/layer/op.h:56-60, src/layer/prelu_layer-inl.hpp:10-14)
@@ -58,10 +58,16 @@ def conv2d_weight(x: torch.Tensor, w_shape: Tuple[int, ...],
     input, copied once per batch chunk (the chunk's unfolded input stays
     under UNFOLD_BYTES), and the sum is batched matrix products over
     groups of s images (s P ~ SUM_TERMS products per row) whose partial
-    sums are then added, in the input's dtype (full fp32 on the card,
-    where TF32 is off). cuDNN's fp32 weight gradient of AlexNet's conv2
-    (5x5, pad 2, two groups) is 6e-3 to 9e-3 of its largest element off
-    float64; this one reaches the reference's 1e-5."""
+    sums are then added in a float32 accumulator, rounded once to the
+    input's dtype at the end (full fp32 on the card, where TF32 is off). In
+    bf16 each group's matrix product is summed in f32 and rounded to bf16
+    once, and the groups are added in float32 without a float32 copy of
+    the product, where a bf16 accumulator would round at every add: dw
+    takes one rounding per group of s images and one at the end, where
+    XLA's conv backward sums in f32 and rounds once.
+    cuDNN's fp32 weight gradient of AlexNet's conv2 (5x5, pad 2, two
+    groups) is 6e-3 to 9e-3 of its largest element off float64; this one
+    reaches the reference's 1e-5."""
     n = x.shape[0]
     o, cg, kh, kw = w_shape
     og = o // groups
@@ -72,7 +78,8 @@ def conv2d_weight(x: torch.Tensor, w_shape: Tuple[int, ...],
     chunk = max(1, UNFOLD_BYTES // max(per_image, 1)) // s * s or s
     win = F.pad(x, (pad[1], pad[1], pad[0], pad[0])) \
         .unfold(2, kh, stride).unfold(3, kw, stride)  # (n, c, oh, ow, kh, kw)
-    dw = torch.zeros((groups, og, k_len), dtype=x.dtype, device=x.device)
+    dw = torch.zeros((groups, og, k_len), dtype=torch.float32,
+                     device=x.device)
     for gi in range(groups):
         for n0 in range(0, n, chunk):
             xs = win[n0:n0 + chunk, gi * cg:(gi + 1) * cg]
@@ -85,8 +92,8 @@ def conv2d_weight(x: torch.Tensor, w_shape: Tuple[int, ...],
                 gm = gs[b0:b0 + nb * m].reshape(nb, m, og, p_out) \
                     .transpose(1, 2).reshape(nb, og, m * p_out)
                 cm = cols[b0:b0 + nb * m].reshape(nb, m * p_out, k_len)
-                dw[gi] += torch.bmm(gm, cm).sum(0)
-    return dw.reshape(w_shape)
+                dw[gi] += torch.bmm(gm, cm).sum(0, dtype=torch.float32)
+    return dw.reshape(w_shape).to(x.dtype)
 
 
 class Conv2dFunction(torch.autograd.Function):
@@ -132,18 +139,29 @@ def _pool_padding(h: int, w: int, k: Tuple[int, int], s: int):
 
 def pool2d(x: torch.Tensor, mode: str, kernel: Tuple[int, int], stride: int,
            pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """Max pooling with the reference's ceil-mode output shape. ``pad`` adds
-    symmetric input padding first; padding is -inf, so it never wins the
-    max. Sum and avg pooling belong to a later slice of the port."""
-    if mode != "max":
-        raise ValueError("pool2d: mode %r is not ported yet (max only)"
-                         % mode)
+    """Pooling with the reference's ceil-mode output shape; mode 'max',
+    'sum' or 'avg'. ``pad`` adds symmetric input padding first, and the
+    ceil-mode windows that run past the input take the extra bottom/right
+    padding: -inf for max, so padding never wins, and zeros for sum and
+    avg. avg is the window's sum times 1/(kh kw) whatever the padding, as
+    the reference (src/layer/pooling_layer-inl.hpp:44-46) and the JAX
+    package (cxxnet_tpu/ops/__init__.py:189-192) compute it; F.avg_pool2d
+    with ceil_mode would leave the ceil-mode extra out of its divisor."""
+    if mode not in ("max", "sum", "avg"):
+        raise ValueError("unknown pooling mode %s" % mode)
     _, _, h, w = x.shape
     py, px = pad
     _, (ph, pw) = _pool_padding(h + 2 * py, w + 2 * px, kernel, stride)
     if py or px or ph or pw:
-        x = F.pad(x, (px, px + pw, py, py + ph), value=float("-inf"))
-    return F.max_pool2d(x, kernel, stride)
+        x = F.pad(x, (px, px + pw, py, py + ph),
+                  value=float("-inf") if mode == "max" else 0.0)
+    if mode == "max":
+        return F.max_pool2d(x, kernel, stride)
+    # the window sum (a divisor of 1), rounded once to x's dtype
+    out = F.avg_pool2d(x, kernel, stride, divisor_override=1)
+    if mode == "avg":
+        out = out * (1.0 / (kernel[0] * kernel[1]))
+    return out
 
 
 def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:

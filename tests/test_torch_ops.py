@@ -67,8 +67,10 @@ def test_conv_out_dim(x, k, s, p, want):
 
 
 def test_pool2d_other_modes_not_ported():
-    with pytest.raises(ValueError, match="avg"):
-        tops.pool2d(torch.zeros(1, 1, 4, 4), "avg", (2, 2), 2)
+    # max, sum and avg are ported (tests/test_torch_pool_concat.py); any
+    # other mode is refused by name
+    with pytest.raises(ValueError, match="min"):
+        tops.pool2d(torch.zeros(1, 1, 4, 4), "min", (2, 2), 2)
 
 
 def test_softmax_matches_jax():
