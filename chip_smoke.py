@@ -30,7 +30,12 @@ the transformer LM that bench.py
 measures (vocab 8192, d_model 512, 8 heads, 4 blocks, 2048 positions,
 fp32, random weights from a seed) served through KV-cached ``generate``
 and a full-sequence ``predict_device``, and its long-context recipe (8192
-positions, 2 kv heads, window 1024, RoPE); then both LMs trained through
+positions, 2 kv heads, window 1024, RoPE); then the serving engine on the
+bench.py LM in bf16: 24 requests through a dense and a paged
+``decode_session`` (8 slots, greedy and sampled, a shared 512-token system
+prompt reused by the paged cache), each request held to its solo
+``generate``, beam search and ``decode_chunk``, and ``task = generate``
+from the command line; then both LMs trained through
 ``update`` (the config's Adam, batch 8 and 2); the bench.py LM with 2
 heads (head dim 256) and with 1 head (head dim 512) served and trained;
 last sequence parallelism: the ring-step kernels against their plain
@@ -42,13 +47,14 @@ card or any phase fails.
 
 Output, in order: the card's name and power limit (nvidia-smi), the build
 time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
-``alexnet_train``, ``uniform_kernel``, ``rrelu_alexnet_train``,
+``alexnet_train``, ``uniform_kernel``, ``uniform_rows_kernel``,
+``rrelu_alexnet_train``,
 ``cli_mnist_conv``, ``cli_imagenet_train``, ``cli_imagenet_pred``,
 ``cli_bowl_pred_raw``, ``lrn_kernel_googlenet``,
 ``lrn_bwd_kernel_googlenet``, ``googlenet_bf16_train``,
 ``googlenet_bf16_pred``, ``cli_googlenet``, ``vgg16_bf16_remat``,
 ``resnet18_bf16_train``, ``bench_bf16``, ``flash_fwd_kernel``,
-``lm_serve``, ``lm_serve_long``,
+``lm_serve``, ``lm_serve_long``, ``lm_serve_session``, ``cli_lm_generate``,
 ``flash_bwd_kernel``, ``lm_train``, ``lm_train_long``, ``lm_hd256``,
 ``lm_hd512``, ``ring_step_kernels``, ``lm_sp_train_long_ring``,
 ``lm_sp_train_long_ulysses`` and ``lm_sp_train_ring`` (kernel checks, the
@@ -341,6 +347,33 @@ KERNEL_MS = {}
 # slice 11: compute_dtype = bfloat16. GoogLeNet and ResNet-18 at bench.py's
 # batch 128, VGG-16 at its 64 (VGG.conf's), all 224x224, 1000 classes
 BF16 = "compute_dtype = bfloat16\n"
+# the serving engine (slice 12), on the bench.py LM in bf16: 24 requests of
+# 256-1024 prompt tokens, 12 of them behind one 512-token system prompt
+# (their own tails 64-512 tokens), 64 new tokens each, through sessions of
+# 8 slots, greedy then sampled at (temperature, top_k); the paged cache in
+# blocks of 16 rows
+SESS_REQUESTS, SESS_SLOTS, SESS_NEW = 24, 8, 64
+SESS_PROMPT, SESS_PREFIX, SESS_TAIL = (256, 1024), 512, (64, 512)
+SESS_BLOCK = 16
+SESS_SAMPLING = (0.8, 40)
+# a divergence from the reference run is allowed only at a near-tie of the
+# reference at the first diverging position: its top-two probabilities
+# within NEAR_TIE of each other, relative (one bf16 ulp, 2^-8); sampling,
+# the top-two pick scores within the same gap (log-probabilities over the
+# temperature, plus the draw's Gumbel noise). decode_chunk accumulates its
+# attention in f32 where the dense step scores in bf16, as in the JAX
+# package, and its tokens were measured two bf16 ulps of a logit off the
+# dense decode's (a logit in [2, 4) has the ulp 2^-6): it is held to the
+# dense decode by CHUNK_TIE, 2^-4 relative, four such ulps
+NEAR_TIE, CHUNK_TIE = 2.0 ** -8, 2.0 ** -4
+# beam search: width, batch, prompt, new tokens
+BEAM_W, BEAM_B, BEAM_PROMPT, BEAM_NEW = 4, 2, 512, 16
+DECODE_CHUNK = 256
+# the per-row draw: (name, rows, width), the first a sampling step's
+UNIFORM_ROWS = [("lm_step", SESS_SLOTS, 8192), ("one_row", 1, 8192),
+                ("ragged_width", 5, 4001), ("many_rows", 300, 12)]
+# task = generate from the command line: ragged prompt lines, new tokens
+CLI_GEN_LENS, CLI_GEN_NEW = (300, 517, 256, 400), 32
 IMG_HW = 224
 GNET_BATCH, RESNET_BATCH, VGG_BATCH = 128, 128, 64
 # example/ImageNet/GoogLeNet.conf's own batch_size
@@ -369,7 +402,8 @@ KERNEL_SYMBOLS = {"flash_fwd": "FlashFwdOut", "flash_bwd_dq": "FlashDqOut",
                   "flash_bwd_dkv": "FlashDkvOut",
                   "ring_fwd_step": "RingFwdCarry",
                   "ring_dq_step": "RingDqCarry",
-                  "ring_dkv_step": "RingDkvCarry"}
+                  "ring_dkv_step": "RingDkvCarry",
+                  "uniform_rows": "uniform_rows_kernel"}
 
 
 def log(msg: str) -> None:
@@ -1401,6 +1435,422 @@ def phase_lm_serve(flash, api, models):
     del net
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_uniform_rows_kernel(rnd):
+    """The uniform kernel's per-row entry point (a sampling step's draw)
+    against uniform_rows_ref on the card, bitwise, at a session step's
+    (8, 8192) and at ragged seeds (one above 2^63), positions, row ids and
+    widths; timed at (8, 8192) against its bound, the plain version and
+    torch.rand of the same shape. Returns the record of (8, 8192)."""
+    log("phase uniform_rows_kernel")
+    rec = _new_rec()
+    rng = np.random.RandomState(SEED + 12)
+    for name, rows, n in UNIFORM_ROWS:
+        seeds = torch.tensor([rnd.seed_word(int(v)) for v in rng.randint(
+            0, 1 << 62, rows, dtype=np.int64)], dtype=torch.int64)
+        seeds[0] = rnd.seed_word((1 << 64) - 3)
+        pos = torch.from_numpy(rng.randint(0, LM_SEQ, rows).astype(np.int64))
+        rowid = torch.from_numpy(rng.randint(0, 4, rows).astype(np.int64))
+        seeds, pos, rowid = seeds.to(DEV), pos.to(DEV), rowid.to(DEV)
+        got = rnd.uniform_rows_cuda(seeds, pos, rowid, n)
+        torch.cuda.synchronize()
+        same = torch.equal(got, rnd.uniform_rows_ref(seeds, pos, rowid, n))
+        log(" %s (%d, %d): kernel vs uniform_rows_ref bitwise %s"
+            % (name, rows, n, "equal" if same else "DIFFERENT"))
+        if not same:
+            raise AssertionError("uniform_rows kernel differs from its "
+                                 "plain version")
+        if name != UNIFORM_ROWS[0][0]:
+            continue
+        u = got.double()
+        log("  range [%.9f, %.9f], mean %.6f (1/2)" % (
+            float(u.min()), float(u.max()), float(u.mean())))
+        kernel_ms = time_ms(lambda: rnd.uniform_rows_cuda(seeds, pos, rowid,
+                                                          n), iters=200)
+        plain_ms = time_ms(lambda: rnd.uniform_rows_ref(seeds, pos, rowid,
+                                                        n), iters=20)
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        library_ms = time_ms(lambda: torch.rand((rows, n), generator=gen,
+                                                device=DEV), iters=200)
+        nbytes = 4 * rows * n + 3 * 8 * rows
+        bound_ms, bound_by, bytes_ms, ops_ms = _bound(
+            rows * n, nbytes, UNIFORM_OPS_PER_ELEM)
+        log("  kernel_ms %.4f plain_ms %.4f library_ms %.4f (torch.rand of "
+            "the shape) bound_ms %.6f (%s: %d bytes, %.6f ms; %d operations, "
+            "%.6f ms) kernel/bound %.1f: a launch, not the stores, bounds "
+            "a draw this small"
+            % (kernel_ms, plain_ms, library_ms, bound_ms, bound_by, nbytes,
+               bytes_ms, rows * n * UNIFORM_OPS_PER_ELEM, ops_ms,
+               kernel_ms / bound_ms))
+        rec.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+    return rec
+
+
+def serve_requests(rng, vocab):
+    """The session phase's 24 prompts: every other one behind the shared
+    system prompt; returns (prompts, shares the prefix)."""
+    prefix = rng.randint(0, vocab, SESS_PREFIX).tolist()
+    prompts, shared = [], []
+    for i in range(SESS_REQUESTS):
+        if i % 2:
+            n = rng.randint(SESS_TAIL[0], SESS_TAIL[1] + 1)
+            prompts.append(prefix + rng.randint(0, vocab, n).tolist())
+        else:
+            n = rng.randint(SESS_PROMPT[0], SESS_PROMPT[1] + 1)
+            prompts.append(rng.randint(0, vocab, n).tolist())
+        shared.append(bool(i % 2))
+    return prompts, shared
+
+
+def drive_session(sess, prompts, seed0):
+    """Serve ``prompts`` through the session: each waiting request is
+    admitted as soon as a slot frees, every slot steps, a finished slot
+    retires. Returns each request's tokens."""
+    got, live, nxt = {}, {}, 0
+    while nxt < len(prompts) or live:
+        for s in sess.free_slots():
+            if nxt == len(prompts):
+                break
+            tok, done = sess.prefill(s, prompts[nxt], seed0 + nxt)
+            live[s] = (nxt, [tok])
+            nxt += 1
+            if done:
+                i, toks = live.pop(s)
+                got[i] = toks
+                sess.retire(s)
+        for s, tok, done in sess.step():
+            live[s][1].append(tok)
+            if done:
+                i, toks = live.pop(s)
+                got[i] = toks
+                sess.retire(s)
+    return [got[i] for i in range(len(prompts))]
+
+
+def pick_scores(rnd, probs, temperature, top_k, seed, pos, row):
+    """The scores a pick takes its argmax of: log-probabilities (greedy),
+    or the temperature-scaled, top-k masked log-probabilities plus the
+    Gumbel noise of the row's draw (sampling), as the port's sample_pick
+    forms them."""
+    from cxxnet_tpu_torch.nnet.trainer import topk_mask
+    lg = torch.log(probs.float().clamp_min(1e-30))[None]
+    if temperature <= 0:
+        return lg[0]
+    lg = lg / temperature
+    if top_k:
+        lg = lg.masked_fill(~topk_mask(lg, top_k), float("-inf"))
+    one = lambda v: torch.tensor([v], dtype=torch.int64, device=DEV)
+    u = rnd.uniform_rows(one(rnd.seed_word(seed)), one(pos), one(row),
+                         lg.shape[1])
+    return (lg - torch.log(-torch.log(u)))[0]
+
+
+def ref_probs(net, toks, lens, n_new, where):
+    """The reference run's probabilities at ``where`` {(row, position)},
+    from its decode loop teacher-forced on its own tokens ``toks`` (b,
+    l_max) through the decode's ``on_probs`` hook: the same computation
+    as the run that made them, bitwise."""
+    b = toks.shape[0]
+    plen, total = int(min(lens)), int(max(lens)) + n_new
+    out = {}
+
+    def record(t0, probs):
+        for (r, t) in where:
+            if t0 <= t < t0 + probs.shape[2]:
+                out[(r, t)] = probs[r, :, t - t0].clone()
+    net.net_.decode(torch.from_numpy(toks).to(DEV),
+                    torch.full((b,), total, dtype=torch.int32, device=DEV),
+                    plen, total, on_probs=record)
+    return out
+
+
+def hold_tokens(what, rnd, net, got, ref, prompts, sampling, seeds, rows,
+                tie, batched=False):
+    """Hold each request's tokens ``got`` to the reference run's ``ref``
+    token for token; a request may diverge only where the reference's
+    top-two pick scores at the first diverging position are within ``tie``
+    of each other as probabilities, relative (log-gap -log(1 - tie), over
+    the temperature when sampling); its later tokens are not compared.
+    ``batched``: the reference ran all requests as one batch (uniform
+    prompts); else each alone. Returns the number of near-tie
+    divergences; raises on any other."""
+    temperature, top_k = sampling
+    l_max = net.net_.net_cfg.param.input_shape[2]
+    firsts = []
+    for i, (g, w) in enumerate(zip(got, ref)):
+        diff = [j for j in range(len(w)) if g[j] != w[j]]
+        if diff:
+            firsts.append((i, diff[0]))
+
+    def forced(i):          # prompt i followed by its reference tokens
+        toks = np.zeros((1, l_max), np.int64)
+        toks[0, :len(prompts[i])] = prompts[i]
+        toks[0, len(prompts[i]):len(prompts[i]) + len(ref[i])] = ref[i]
+        return toks
+    if firsts and batched:
+        probs = ref_probs(net, np.concatenate([forced(i) for i in
+                                               range(len(prompts))]),
+                          [len(p) for p in prompts], len(ref[0]),
+                          [(i, len(prompts[i]) - 1 + j) for i, j in firsts])
+    bar = -np.log1p(-tie) / (temperature or 1.0)
+    for i, j in firsts:
+        pos = len(prompts[i]) - 1 + j
+        p = probs[(i, pos)] if batched else ref_probs(
+            net, forced(i), [len(prompts[i])], len(ref[i]),
+            [(0, pos)])[(0, pos)]
+        top2 = pick_scores(rnd, p, temperature, top_k, seeds[i], pos,
+                           rows[i]).topk(2)
+        gap = float(top2.values[0] - top2.values[1])
+        log("  %s: request %d diverges at new token %d (position %d): the "
+            "reference's top-two pick scores %.3e apart (probabilities "
+            "%.6g, %.6g), %s (bar %.3e)"
+            % (what, i, j, pos, gap, *(float(p[k]) for k in top2.indices),
+               "a near-tie" if gap <= bar else "NOT a near-tie", bar))
+        if gap > bar:
+            raise AssertionError("%s: request %d diverges where the "
+                                 "reference has no near-tie" % (what, i))
+    equal = sum(1 for g, w in zip(got, ref) if g == w)
+    log("  %s: %d of %d requests token for token equal, %d diverge at a "
+        "near-tie of the reference" % (what, equal, len(got), len(firsts)))
+    return len(firsts)
+
+
+def run_solo(net, prompts, n_new, sampling, seed0):
+    temperature, top_k = sampling
+    return [list(net.generate(np.asarray([p]), n_new,
+                              temperature=temperature, top_k=top_k,
+                              seed=seed0 + i)[0])
+            for i, p in enumerate(prompts)]
+
+
+def phase_lm_serve_session(flash, rnd, api, models):
+    """The serving engine on the bench.py LM in bf16 through
+    api.Net(dev="gpu"): 24 requests through a dense session of 8 slots
+    (each waiting request admitted as a slot frees), greedy and sampled,
+    each request held to its solo generate; the same requests through a
+    paged session (block 16, half of them reusing a 512-token system
+    prompt) held token for token to the dense one; beam search (beam 4 at
+    b 2; beam 1 against greedy generate); generate under decode_chunk
+    against the dense decode. Prints the session's and solo generate's
+    tokens/s and busy shares. Returns (uniform_rows launches, flash_fwd
+    launches) of the sessions' run, the main path."""
+    log("phase lm_serve_session (bench.py LM, bf16, %d requests, %d slots, "
+        "%d new tokens)" % (SESS_REQUESTS, SESS_SLOTS, SESS_NEW))
+    t_phase = time.perf_counter()
+    vocab, nlayer = LM_ARGS["vocab"], LM_ARGS["nlayer"]
+    net = api.Net(dev=NET_DEV, cfg=bf16_cfg(lm_cfg(models, LM_SEQ,
+                                                   LM_BATCH)))
+    net.init_model()
+    tr = net.net_
+    rng = np.random.RandomState(SEED + 14)
+    prompts, shared = serve_requests(rng, vocab)
+    log("  prompts %d-%d tokens (%d in all), %d behind the %d-token system "
+        "prompt" % (min(map(len, prompts)), max(map(len, prompts)),
+                    sum(map(len, prompts)), sum(shared), SESS_PREFIX))
+    modes = (("greedy", (0.0, 0)), ("sampled", SESS_SAMPLING))
+    seeds = [100 + i for i in range(SESS_REQUESTS)]
+    rows0 = [0] * SESS_REQUESTS
+    n_tok = SESS_REQUESTS * SESS_NEW
+
+    # warm-up before any timing: the libraries' kernels' first uses, and
+    # the decode nets of every prompt length, which solo generate and the
+    # sessions' prefills share
+    run_solo(net, prompts, 2, SESS_SAMPLING, 100)
+    drive_session(tr.decode_session(SESS_SLOTS, 2, temperature=1.0),
+                  prompts[:2], 100)
+    solo, solo_s = {}, {}
+    for mode, sampling in modes:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solo[mode] = run_solo(net, prompts, SESS_NEW, sampling, 100)
+        solo_s[mode] = time.perf_counter() - t
+
+    # the main path: the counts start at 0 here and are read right after
+    rnd.rows_launches = 0
+    flash.launches = 0
+    dense, dense_s, paged, books = {}, {}, {}, {}
+    for mode, sampling in modes:
+        sess = tr.decode_session(SESS_SLOTS, SESS_NEW,
+                                 temperature=sampling[0], top_k=sampling[1])
+        t = time.perf_counter()
+        dense[mode] = drive_session(sess, prompts, 100)
+        dense_s[mode] = time.perf_counter() - t
+        acct = sess.kv_account()
+        sess.close()
+        # a fresh pool for each mode: only the system prompt is shared
+        pool = tr.decode_kv_pool(SESS_BLOCK,
+                                 pool_tokens=SESS_SLOTS * LM_SEQ)
+        psess = tr.decode_session(SESS_SLOTS, SESS_NEW,
+                                  temperature=sampling[0],
+                                  top_k=sampling[1], kv_pool=pool)
+        paged[mode] = drive_session(psess, prompts, 100)
+        psess.close()
+        books[mode] = (pool.account(), pool.nbytes)
+        tr.release_kv_pool()
+    torch.cuda.synchronize()
+    rows_launches, flash_launches = rnd.rows_launches, flash.launches
+    n_adm = 2 * len(modes) * SESS_REQUESTS
+    log("  solo runs and the 4 session runs done %.1f s into the phase"
+        % (time.perf_counter() - t_phase))
+    log("  launches over the 4 session runs: uniform_rows %d (the sampled "
+        "runs' steps and admissions), flash_fwd %d (%d per admission; %d "
+        "admissions)" % (rows_launches, flash_launches,
+                         flash_launches // n_adm, n_adm))
+    if rows_launches == 0 or flash_launches == 0:
+        raise AssertionError("the session path did not launch the "
+                             "uniform_rows or the flash_fwd kernel")
+    log("  dense session KV: %d bytes allocated (%d slots x %d rows)"
+        % (acct["kv_bytes"], SESS_SLOTS, LM_SEQ))
+
+    for mode, sampling in modes:
+        for what, got in (("dense session vs solo", dense[mode]),):
+            for toks in got:
+                if len(toks) != SESS_NEW or min(toks) < 0 \
+                        or max(toks) >= vocab:
+                    raise AssertionError("%s: bad tokens" % what)
+            hold_tokens("%s (%s)" % (what, mode), rnd, net, got, solo[mode],
+                        prompts, sampling, seeds, rows0, NEAR_TIE)
+        same = paged[mode] == dense[mode]
+        log("  paged session vs dense (%s): token for token %s (%d "
+            "requests)" % (mode, "EQUAL" if same else "DIFFERENT",
+                           SESS_REQUESTS))
+        if not same:
+            bad = [i for i in range(SESS_REQUESTS)
+                   if paged[mode][i] != dense[mode][i]]
+            log("  requests that differ: %s (behind the system prompt: %s)"
+                % (bad, [shared[i] for i in bad]))
+            raise AssertionError("the paged session differs from the "
+                                 "dense one")
+        rate_s = n_tok / dense_s[mode]
+        rate_1 = n_tok / solo_s[mode]
+        log("  %s: session %.1f tokens/s (%.2f s for %d tokens), solo "
+            "generate %.1f tokens/s (%.2f s); session / solo %.2f"
+            % (mode, rate_s, dense_s[mode], n_tok, rate_1, solo_s[mode],
+               rate_s / rate_1))
+    for mode, (a, nbytes) in books.items():
+        hit = a["prefix_hit_tokens"] / max(1, a["prompt_tokens"])
+        log("  paged pool (%s): %d blocks of %d rows, pool_bytes %d (%.1f "
+            "MB, the tensors' nbytes), prefix hits %d of %d admissions, hit "
+            "rate %.3f of prompt tokens (%d of %d not prefilled again), "
+            "copy-on-write %d" % (mode, a["blocks_total"], SESS_BLOCK,
+                                  a["pool_bytes"], a["pool_bytes"] / 1e6,
+                                  a["prefix_hits"], a["prefix_queries"],
+                                  hit, a["prefix_hit_tokens"],
+                                  a["prompt_tokens"], a["cow_copies"]))
+        if a["prefix_hits"] == 0 or a["pool_bytes"] != nbytes:
+            raise AssertionError("no prefix reuse, or the pool account is "
+                                 "off")
+
+    log("  checks done %.1f s into the phase" % (time.perf_counter() - t_phase))
+    # busy share of the session's and of solo generate's device time
+    sub = prompts[:SESS_SLOTS]
+    log(" profile: a dense greedy session over %d requests" % len(sub))
+    profile_forward(lambda: drive_session(tr.decode_session(
+        SESS_SLOTS, SESS_NEW), sub, 100), iters=1, warmup=False,
+        unit="session run", shares=("flash_fwd",))
+    # (two of them: the profiler's own processing of a solo run's many
+    # small launches takes most of the phase's time otherwise)
+    log(" profile: solo greedy generate of 2 of the same requests")
+    profile_forward(lambda: run_solo(net, sub[:2], SESS_NEW, (0.0, 0), 100),
+                    iters=1, warmup=False, unit="solo run",
+                    shares=("flash_fwd",))
+    log(" profile: a dense sampled session over %d requests" % len(sub))
+    profile_forward(lambda: drive_session(tr.decode_session(
+        SESS_SLOTS, SESS_NEW, temperature=SESS_SAMPLING[0],
+        top_k=SESS_SAMPLING[1]), sub, 100), iters=1, warmup=False,
+        unit="session run", shares=("flash_fwd", "uniform_rows"))
+
+    log("  profiles done %.1f s into the phase"
+        % (time.perf_counter() - t_phase))
+    # beam search
+    bp = rng.randint(0, vocab, (BEAM_B, BEAM_PROMPT))
+    b4 = net.beam_generate(bp, BEAM_NEW, beam=BEAM_W)
+    again = net.beam_generate(bp, BEAM_NEW, beam=BEAM_W)
+    if b4.shape != (BEAM_B, BEAM_NEW) or b4.min() < 0 or b4.max() >= vocab \
+            or not np.array_equal(b4, again):
+        raise AssertionError("beam search: shape %s, or not repeatable"
+                             % (b4.shape,))
+    b1 = net.beam_generate(bp, BEAM_NEW, beam=1)
+    greedy = net.generate(bp, BEAM_NEW)
+    log("  beam %d at b %d (prompt %d, %d new): repeatable; beam 1 vs greedy "
+        "generate: %s; beam %d equals greedy in %d of %d tokens"
+        % (BEAM_W, BEAM_B, BEAM_PROMPT, BEAM_NEW,
+           "EQUAL" if np.array_equal(b1, greedy) else "DIFFERENT", BEAM_W,
+           int((b4 == greedy).sum()), greedy.size))
+    if not np.array_equal(b1, greedy):
+        raise AssertionError("beam 1 differs from greedy generate")
+
+    # generate under decode_chunk against the dense decode
+    cnet = api.Net(dev=NET_DEV, cfg=bf16_cfg(lm_cfg(
+        models, LM_SEQ, LM_BATCH, attn_extra="decode_chunk = %d\n"
+        % DECODE_CHUNK)))
+    cnet.init_model()
+    cnet.net_.params = tr.params
+    cp = rng.randint(0, vocab, (LM_BATCH, LM_PROMPT))
+    want = net.generate(cp, LM_NEW)
+    t = time.perf_counter()
+    got = cnet.generate(cp, LM_NEW)
+    t_chunk = time.perf_counter() - t
+    t = time.perf_counter()
+    net.generate(cp, LM_NEW)
+    t_dense = time.perf_counter() - t
+    hold_tokens("decode_chunk %d vs the dense decode" % DECODE_CHUNK, rnd,
+                net, [list(r) for r in got], [list(r) for r in want],
+                [list(r) for r in cp], (0.0, 0), [0] * LM_BATCH,
+                list(range(LM_BATCH)), CHUNK_TIE, batched=True)
+    log("  generate b %d, prompt %d, %d new: decode_chunk %.1f ms, dense "
+        "%.1f ms (one call each)" % (LM_BATCH, LM_PROMPT, LM_NEW,
+                                     t_chunk * 1e3, t_dense * 1e3))
+    del net, cnet, tr
+    torch.cuda.empty_cache()
+    log("  phase wall %.1f s" % (time.perf_counter() - t_phase))
+    return rows_launches, flash_launches
+
+
+def phase_cli_lm_generate(learn_task, api, models):
+    """task = generate from the command line: a model file of the bench.py
+    LM in bf16 written here, ragged prompt lines, gen_out held to
+    api.Net.generate of the same model and prompts, token for token."""
+    log("phase cli_lm_generate")
+    vocab = LM_ARGS["vocab"]
+    cfg = bf16_cfg(lm_cfg(models, LM_SEQ, LM_BATCH))
+    rng = np.random.RandomState(SEED + 15)
+    lines = [rng.randint(0, vocab, n).tolist() for n in CLI_GEN_LENS]
+    with scratch_dir("cli_lm_generate") as d:
+        net = api.Net(dev=NET_DEV, cfg=cfg)
+        net.init_model()
+        model = os.path.join(d, "lm.model")
+        net.save_model(model)
+        with open(os.path.join(d, "prompts.txt"), "w") as f:
+            for r in lines:
+                f.write(" ".join(map(str, r)) + "\n")
+        with open(os.path.join(d, "gen.conf"), "w") as f:
+            f.write(cfg + "task = generate\nmodel_in = lm.model\n"
+                    "prompt_in = prompts.txt\ngen_out = gen.txt\n"
+                    "gen_new = %d\n" % CLI_GEN_NEW)
+        out, _ = run_cli(learn_task, d, [os.path.join(d, "gen.conf")],
+                         echo=("generated",))
+        with open(os.path.join(d, "gen.txt")) as f:
+            got = np.asarray([[int(t) for t in ln.split()] for ln in f])
+        ref = api.Net(dev=NET_DEV, cfg=cfg)
+        ref.load_model(model)
+        prompts = np.zeros((len(lines), max(CLI_GEN_LENS)), np.int64)
+        for i, r in enumerate(lines):
+            prompts[i, :len(r)] = r
+        want = ref.generate(prompts, CLI_GEN_NEW,
+                            prompt_lens=list(CLI_GEN_LENS))
+        same = got.shape == want.shape and np.array_equal(got, want)
+        log("  gen_out (%d ragged prompts of %s tokens, %d new) vs "
+            "api.Net.generate of the same model file: %s"
+            % (len(lines), list(CLI_GEN_LENS), CLI_GEN_NEW,
+               "EQUAL" if same else "DIFFERENT"))
+        if not same:
+            raise AssertionError("task = generate differs from "
+                                 "api.Net.generate")
+        del net, ref
+    torch.cuda.empty_cache()
 
 
 def phase_lm_serve_long(flash, api, models):
@@ -3691,7 +4141,7 @@ def phase_bench_bf16(lrn, flash, api, models):
                              "%s" % (lm_serve, got.shape))
     require_dtype("flash_fwd_cuda on the LM's serving path", dtypes,
                   torch.bfloat16)
-    caches = net.net_._decode_net[1]._last_cache_updates
+    caches = net.net_._net_for(LM_BATCH, 1)._last_cache_updates
     cache_dtypes = sorted(set(str(c.dtype)[6:] for c in caches.values()))
     log("  LM bf16 request: %d flash_fwd launches, %d tokens in range; %d "
         "KV caches in %s" % (lm_serve, got.size, len(caches), cache_dtypes))
@@ -3801,6 +4251,7 @@ def main() -> int:
     bwd_rec = phase_lrn_bwd_kernel(lrn)
     train_fwd, train_bwd = phase_alexnet_train(lrn, api, ops)
     uniform_rec = phase_uniform_kernel(rnd)
+    rows_rec = phase_uniform_rows_kernel(rnd)
     rrelu = phase_rrelu_alexnet_train(rnd, lrn, api, ops, models)
     phase_cli_mnist_conv(learn_task)
     cli_train, cli_pred = phase_cli_imagenet(lrn, learn_task, api)
@@ -3818,6 +4269,9 @@ def main() -> int:
     flash_rec = phase_flash_fwd_kernel(flash_attn)
     serve_launches = phase_lm_serve(flash_attn, api, models)
     long_launches = phase_lm_serve_long(flash_attn, api, models)
+    sess_rows, sess_flash = phase_lm_serve_session(flash_attn, rnd, api,
+                                                   models)
+    phase_cli_lm_generate(learn_task, api, models)
     bwd_recs = phase_flash_bwd_kernel(flash_attn)
     train = {spec[0]: phase_lm_train(flash_attn, api, models, ops, *spec)
              for spec in LM_TRAIN}
@@ -3855,13 +4309,16 @@ def main() -> int:
               "cli_googlenet_train": gnet_cli_train[1], **bench[1]},
              {"train_step": train_bwd // TRAIN_STEPS}),
             ("uniform", uniform_rec, "cxxnet_tpu/ops/pallas_kernels.py:169",
-             {"rrelu_alexnet_train": rrelu[0]},
-             {"train_step": rrelu[0] // TRAIN_STEPS}),
+             {"rrelu_alexnet_train": rrelu[0],
+              "lm_serve_session": sess_rows},
+             {"train_step": rrelu[0] // TRAIN_STEPS,
+              "sampled_step_or_admission": 1}),
             ("flash_fwd", flash_rec, "cxxnet_tpu/ops/flash_attn.py:284",
              {"lm_serve": serve_launches, "lm_serve_long": long_launches,
-              **serve_wide,
+              "lm_serve_session": sess_flash, **serve_wide,
               **{p: c[0] for p, c in train.items()}, **bench[2]},
              {"generate_request": LM_ARGS["nlayer"],
+              "session_admission": LM_ARGS["nlayer"],
               "full_sequence_forward": LM_ARGS["nlayer"], **per_step}),
             ("flash_bwd_dq", bwd_recs["dq"],
              "cxxnet_tpu/ops/flash_attn.py:337",
@@ -3912,6 +4369,15 @@ def main() -> int:
                     k: recs[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms",
                                                "max_abs_err")}
+        if name == "uniform":
+            kernels[-1]["uniform_rows"] = dict(
+                {k: rows_rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "max_abs_err")},
+                entry="cxxnet_uniform_rows", launches=sess_rows,
+                at="a sampling step's draw, (%d, %d)" % UNIFORM_ROWS[0][1:],
+                covers="the per-row entry point; launches on "
+                       "lm_serve_session only")
         if name.startswith("ring_"):
             kernels[-1]["times_cover"] = (
                 "one layer's ring on the main path: %d (rank, step) launches "

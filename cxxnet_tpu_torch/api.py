@@ -199,14 +199,21 @@ class Net:
     def generate(self, prompts: np.ndarray, n_new: int,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                  prompt_lens=None) -> np.ndarray:
-        """KV-cached greedy continuation for sequence nets: (batch,
-        prompt_len) token ids -> (batch, n_new) generated ids; ragged
-        batches via ``prompt_lens`` (see Trainer.generate). Sampling
-        (temperature > 0) is not ported yet."""
+        """KV-cached continuation for sequence nets: (batch, prompt_len)
+        token ids -> (batch, n_new) generated ids, greedy at temperature 0,
+        sampled above it (``top_k`` > 0 truncates, ``seed`` keys the
+        draws); ragged batches via ``prompt_lens`` (see
+        Trainer.generate)."""
         return self._trainer().generate(prompts, n_new,
                                         temperature=temperature,
                                         top_k=top_k, seed=seed,
                                         prompt_lens=prompt_lens)
+
+    def beam_generate(self, prompts: np.ndarray, n_new: int,
+                      beam: int = 4) -> np.ndarray:
+        """Width-``beam`` KV-cached beam search: each row's best
+        summed-log-probability continuation (see Trainer.beam_generate)."""
+        return self._trainer().beam_generate(prompts, n_new, beam=beam)
 
     # -- weight io ----------------------------------------------------
     def set_weight(self, weight: np.ndarray, layer_name: str,

@@ -1,4 +1,6 @@
 // Uniform random numbers in [0, 1) from Philox4x32-10, float32, for sm_90a.
+// Two entry points: cxxnet_uniform, one flat stream per seed (below), and
+// cxxnet_uniform_rows, one stream per row of a sampling step (at the end).
 //
 // Replaces the TPU kernel _uniform_kernel (cxxnet_tpu/ops/pallas_kernels.py
 // :138, launched by uniform at :169), the draw behind rrelu_mask (:180):
@@ -79,6 +81,61 @@ uniform_kernel(float* __restrict__ out, int64_t n, uint32_t k0, uint32_t k1) {
   }
 }
 
+// The per-row draw of a sampling step (Trainer.generate with temperature >
+// 0, DecodeSession.step): element j of row r is
+//
+//   out[r, j] = (word j % 4 of Philox4x32-10((j / 4, pos[r], rowid[r], 0),
+//                                            (seed[r] lo, seed[r] hi))
+//                >> 8) * 2^-24
+//
+// so that a row's draw depends on its request's seed, its position and its
+// row within the request alone, never on the slot it occupies or on the
+// other rows of the batch: the draw of a session's slot is the draw of the
+// same request run alone (ops/random.py uniform_rows_ref, bit for bit).
+// It replaces no TPU kernel: the JAX package draws its sampling noise with
+// jax.random.categorical (cxxnet_tpu/nnet/trainer.py:45-71, _sample_pick),
+// whose bits cannot be reproduced here, so the port samples by Gumbel-max
+// over this draw, with the same kernel body as the flat stream.
+//
+// Design: blockIdx.y is the row, each thread one counter of it (four
+// elements), a grid-stride loop over the counters of the row; a row whose
+// width is a multiple of 4 (every vocabulary the port serves) stores one
+// float4 per counter, any other width element by element. The row's seed,
+// position and row id are read once per thread from device arrays, so a
+// session step launches with no host-to-device copy.
+//
+// Bound: nothing to read but 3 words a row; 4 bytes written per element:
+// rows * n * 4 / 3.35 TB/s, 0.078 us for 8 rows of the bench.py LM's
+// vocabulary of 8192, far under the launch itself.
+constexpr int64_t kMaxRowBlocks = 64;
+
+__global__ void __launch_bounds__(kThreads)
+uniform_rows_kernel(float* __restrict__ out, int64_t n,
+                    const int64_t* __restrict__ seeds,
+                    const int64_t* __restrict__ pos,
+                    const int64_t* __restrict__ rowid) {
+  const int64_t r = blockIdx.y;
+  const uint64_t seed = (uint64_t)seeds[r];
+  const uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+  const uint32_t c1 = (uint32_t)pos[r], c2 = (uint32_t)rowid[r];
+  float* row = out + r * n;
+  const int64_t n_ctr = (n + 3) / 4, n_full = n / 4;
+  const bool vec = (n % 4) == 0;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n_ctr;
+       i += stride) {
+    const uint4 w = philox4x32_10(make_uint4((uint32_t)i, c1, c2, 0u), k0, k1);
+    if (vec) {
+      reinterpret_cast<float4*>(row)[i] =
+          make_float4(to_unit(w.x), to_unit(w.y), to_unit(w.z), to_unit(w.w));
+    } else {
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+      const int64_t m = i < n_full ? 4 : n - 4 * i;
+      for (int64_t j = 0; j < m; ++j) row[4 * i + j] = to_unit(ws[j]);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -96,6 +153,26 @@ int cxxnet_uniform(float* out, long long n, uint32_t key0, uint32_t key1,
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   uniform_kernel<<<(unsigned)blocks, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(out, n, key0, key1);
+  return (int)cudaGetLastError();
+}
+
+// out: rows x n float32, 16-byte aligned. seeds, pos, rowid: rows int64
+// each on the device (a seed's 64 bits as two's complement). Returns the
+// cudaError_t of the launch (0 = success). Launches on `stream` and does
+// not synchronise.
+int cxxnet_uniform_rows(float* out, long long rows, long long n,
+                        const int64_t* seeds, const int64_t* pos,
+                        const int64_t* rowid, void* stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  if (rows > 65535) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int64_t n_ctr = (n + 3) / 4;
+  int64_t blocks = (n_ctr + kThreads - 1) / kThreads;
+  if (blocks > kMaxRowBlocks) blocks = kMaxRowBlocks;
+  uniform_rows_kernel<<<dim3((unsigned)blocks, (unsigned)rows), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(out, n, seeds,
+                                                             pos, rowid);
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import math
 import struct
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -167,9 +167,14 @@ class ApplyContext:
     conn_index: int = -1
     # KV-cached decoding (Trainer.generate): the global position of the
     # input's first sequence slot, a host int (None = a full-sequence
-    # forward). Embed reads its position rows there, attention its RoPE
-    # angles, and attention attends against the cache
-    decode_pos: Optional[int] = None
+    # forward), or in a session step a (b,) int64 tensor on the device,
+    # each row's own position. Embed reads its position rows there,
+    # attention its RoPE angles, and attention attends against the cache
+    decode_pos: Optional[Union[int, torch.Tensor]] = None
+    # the (lowest, highest) of a tensor decode_pos, from the host's books:
+    # the bounds of loops over the cache (decode_chunk) never read the
+    # device
+    decode_span: Optional[Tuple[int, int]] = None
     # per-attention-connection k/v caches, keyed (conn_index, "k"/"v"):
     # (b, nkv, L_max, dh) tensors that attention writes in place at
     # [decode_pos, decode_pos + L) and records in cache_updates

@@ -893,9 +893,13 @@ class EmbedLayer(Layer):
         emb = params["wmat"][x.reshape(b, L).long()]          # (b, L, d)
         if self.pos_embed:
             pos = params["pos"]
-            if ctx.decode_pos is not None:
+            dp = ctx.decode_pos
+            if torch.is_tensor(dp):
+                # a session step: row r at its own position dp[r]
+                pos = pos[dp[:, None] + torch.arange(L, device=dp.device)]
+            elif dp is not None:
                 # a decode step covers positions [decode_pos, decode_pos + L)
-                pos = pos[ctx.decode_pos:ctx.decode_pos + L]
+                pos = pos[dp:dp + L]
             emb = emb + pos
         return [emb.transpose(1, 2).reshape(b, -1, 1, L)]
 
@@ -913,8 +917,14 @@ class AttentionLayer(Layer):
     (parallel/ring.py; cxxnet_tpu/layer/layers.py:1334-1364). In a
     KV-cached decode forward the layer writes its k/v into the caches at
     ``decode_pos``; the prefill (position 0) attends within its own chunk,
-    through the flash kernel where it takes the shape, and a one-token step
-    attends densely against the whole cache."""
+    through the flash kernel where it takes the shape; a suffix prefill (a
+    paged admission that reuses a resident prefix, at a position > 0)
+    attends against the live cache [0, pos + L) as the whole prompt's
+    prefill would; a one-token step attends against the whole cache,
+    densely in the activation dtype, or with ``decode_chunk > 0`` over its
+    live chunks, accumulating in float32
+    (parallel/ring.py ``decode_attention_chunked``). A session step gives
+    each row its own position (``decode_pos`` a (b,) tensor)."""
 
     type_name = "attention"
 
@@ -927,6 +937,9 @@ class AttentionLayer(Layer):
         self.nkvhead = 0          # 0 -> nhead (classic MHA)
         self.attn_window = 0
         self.sp_mode = "ring"     # sequence parallelism: ring or ulysses
+        # decode_chunk > 0: a one-token decode step reads the cache in
+        # chunks of this many rows, live ones only (flash-decode)
+        self.decode_chunk = 0
 
     def set_param(self, name, val):
         super().set_param(name, val)
@@ -943,8 +956,8 @@ class AttentionLayer(Layer):
         if name == "attn_window":
             self.attn_window = int(val)
         if name == "decode_chunk":
-            check(int(val) == 0, "attention decode_chunk > 0 (the chunked "
-                  "flash-decode step) is not ported yet")
+            self.decode_chunk = int(val)
+            check(self.decode_chunk >= 0, "decode_chunk must be >= 0")
         if name == "sp_mode":
             check(val in ("ring", "ulysses"),
                   "sp_mode must be ring or ulysses")
@@ -992,16 +1005,21 @@ class AttentionLayer(Layer):
     def visit_order(self):
         return [("wmat", "wqkv"), ("wo", "wo")]
 
-    def _apply_rope(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    def _apply_rope(self, x: torch.Tensor, offset=0) -> torch.Tensor:
         """Rotary embedding on (b, nh, L, dh): rotate the (first-half,
         second-half) feature pairs by angles (offset + position) *
         rope_base^(-i / half), computed in float32. ``offset`` is the
-        global position of row 0."""
+        global position of row 0: an int, or a (b,) tensor of one offset
+        per batch row (a session step)."""
         half = x.shape[-1] // 2
         f32 = dict(dtype=torch.float32, device=x.device)
-        pos = offset + torch.arange(x.shape[2], **f32)[:, None]
+        if torch.is_tensor(offset):
+            pos = offset.to(torch.float32).reshape(-1, 1, 1, 1) \
+                + torch.arange(x.shape[2], **f32)[:, None]   # (b, 1, L, 1)
+        else:
+            pos = offset + torch.arange(x.shape[2], **f32)[:, None]
         inv = torch.pow(self.rope_base, -torch.arange(half, **f32) / half)
-        ang = pos * inv                                       # (L, half)
+        ang = pos * inv                               # (L, half) or (b, ...)
         cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
         x1, x2 = x[..., :half], x[..., half:]
         return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -1039,6 +1057,59 @@ class AttentionLayer(Layer):
         return fn(q, k, v, n=sp, causal=bool(self.causal),
                   window=self.attn_window)
 
+    def _attend_cached(self, q, k, v, ctx, dh: int):
+        """KV-cached decode: write this input's k/v into the caches at
+        [pos, pos + L), in place (the JAX package returns updated copies),
+        record them as the updated caches, and attend
+        (cxxnet_tpu/layer/layers.py:1253-1310)."""
+        pos = ctx.decode_pos
+        li = ctx.conn_index
+        ck, cv = ctx.kv_cache[(li, "k")], ctx.kv_cache[(li, "v")]
+        b, L = q.shape[0], q.shape[2]
+        if torch.is_tensor(pos):
+            # a session step: row r writes its one position pos[r]
+            check(L == 1, "attention: a per-row decode position takes one "
+                  "token a row, not %d" % L)
+            rows = torch.arange(b, device=pos.device)
+            ck[rows, :, pos] = k[:, :, 0]
+            cv[rows, :, pos] = v[:, :, 0]
+        else:
+            ck[:, :, pos:pos + L] = k
+            cv[:, :, pos:pos + L] = v
+        ctx.cache_updates[(li, "k")] = ck
+        ctx.cache_updates[(li, "v")] = cv
+        scale = dh ** -0.5
+        if not torch.is_tensor(pos) and L > 1:
+            if pos == 0:
+                # prefill: attention within the chunk equals cache
+                # attention at offset 0 (later slots are causally masked)
+                return self._attend(q, k, v, True, dh)
+            # suffix prefill (a paged admission that reuses a resident
+            # prefix): positions [pos, pos + L) against the live cache
+            # [0, pos + L), by what the whole prompt's prefill takes at
+            # that width, so that its rows are the whole prefill's rows:
+            # the flash kernel over the live cache with the prefix's query
+            # rows left zero (each row of its output depends on its own
+            # query alone), dense attention of softmax width pos + L else
+            width = pos + L
+            if flash_attn.supports(width, dh):
+                qf = q.new_zeros(q.shape[:2] + (width, dh))
+                qf[:, :, pos:] = q
+                return self._attend(qf, ck[:, :, :width], cv[:, :, :width],
+                                    True, dh)[:, :, pos:]
+            return attention_reference(
+                q, ck[:, :, :width], cv[:, :, :width], causal=True,
+                scale=scale, window=self.attn_window, q_offset=pos)
+        if self.decode_chunk > 0 and ck.shape[2] % self.decode_chunk == 0:
+            # flash-decode: an online softmax over the live chunks only
+            return ring.decode_attention_chunked(
+                q, ck, cv, pos=pos, span=ctx.decode_span, scale=scale,
+                window=self.attn_window, chunk=self.decode_chunk)
+        # a one-position step against the whole cache, in the activation
+        # dtype as in the JAX package
+        return attention_reference(q, ck, cv, causal=True, scale=scale,
+                                   window=self.attn_window, q_offset=pos)
+
     def forward(self, params, inputs, ctx):
         x = inputs[0]
         b, d, _, L = x.shape
@@ -1059,27 +1130,7 @@ class AttentionLayer(Layer):
             off = pos if pos is not None else 0
             q, k = self._apply_rope(q, off), self._apply_rope(k, off)
         if pos is not None:
-            # KV-cached decode: write this input's k/v into the caches at
-            # [pos, pos + L), in place (the JAX package returns updated
-            # copies), and record them as the updated caches
-            li = ctx.conn_index
-            ck, cv = ctx.kv_cache[(li, "k")], ctx.kv_cache[(li, "v")]
-            ck[:, :, pos:pos + L] = k
-            cv[:, :, pos:pos + L] = v
-            ctx.cache_updates[(li, "k")] = ck
-            ctx.cache_updates[(li, "v")] = cv
-            if pos == 0 and L > 1:
-                # prefill: attention within the chunk equals cache
-                # attention at offset 0 (later slots are causally masked)
-                out = self._attend(q, k, v, True, dh)
-            else:
-                check(L == 1, "attention: a decode input of %d positions at "
-                      "position %d (the paged suffix prefill) is not ported "
-                      "yet" % (L, pos))
-                out = attention_reference(q, ck, cv, causal=True,
-                                          scale=dh ** -0.5,
-                                          window=self.attn_window,
-                                          q_offset=pos)
+            out = self._attend_cached(q, k, v, ctx, dh)
         elif ctx.seq_parallel > 1:
             out = self._attend_seq_parallel(q, k, v, ctx.seq_parallel)
         else:

@@ -1,15 +1,16 @@
 """The learn task driver of the port: train / finetune / pred / pred_raw /
-extract from a config file.
+extract / generate from a config file.
 
 Counterpart of cxxnet_tpu/learn_task.py (the reference's
-CXXNetLearnTask, src/cxxnet_main.cpp:16-478) for those five tasks: the
+CXXNetLearnTask, src/cxxnet_main.cpp:16-478) for those six tasks: the
 same config keys, the same sectioned iterator chains (``data =`` /
 ``eval =`` / ``pred =`` ... ``iter = end``, other keys applied to every
 chain), the same round loop and printed lines (progress on stdout, the
 ``[round]`` metric lines on stderr), checkpoint naming
 (``<model_dir>/%04d.model``, counter checked before it is incremented, the
 session's last round always saved) and pred / pred_raw / extract output
-formats. Model files are CRC-framed, as ``api.Net.save_model`` writes
+formats, and the JAX package's ``task = generate`` (prompt lines in,
+continuations out). Model files are CRC-framed, as ``api.Net.save_model`` writes
 them, and either package loads the other's.
 
 The net runs on the card unless the config or the command line says
@@ -48,8 +49,8 @@ _NOT_PORTED = {
     "ckpt_keep_last": lambda v: int(v) == 0,
     "ckpt_keep_every": lambda v: int(v) == 0,
 }
-_TASKS = ("train", "finetune", "pred", "pred_raw", "extract")
-_TASKS_NOT_PORTED = ("generate", "serve", "export", "route")
+_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "generate")
+_TASKS_NOT_PORTED = ("serve", "export", "route")
 
 
 class LearnTask:
@@ -75,6 +76,13 @@ class LearnTask:
         self.print_step = 100
         self.extract_node_name = ""
         self.output_format = 1
+        # task = generate (cxxnet_tpu/learn_task.py:272-273, 420-423)
+        self.name_prompt_in = "prompts.txt"
+        self.name_gen_out = "gen.txt"
+        self.gen_new = 16
+        self.gen_temperature = 0.0
+        self.gen_topk = 0
+        self.gen_seed = 0
         self.device = "gpu"
         self.cfg: List[Tuple[str, str]] = [("dev", "gpu")]
 
@@ -96,6 +104,8 @@ class LearnTask:
                 self.task_predict_raw()
             elif self.task == "extract":
                 self.task_extract_feature()
+            elif self.task == "generate":
+                self.task_generate()
         finally:
             self.close()
         return 0
@@ -148,6 +158,18 @@ class LearnTask:
             self.extract_node_name = val
         if name == "output_format":
             self.output_format = 1 if val == "txt" else 0
+        if name == "prompt_in":
+            self.name_prompt_in = val
+        if name == "gen_out":
+            self.name_gen_out = val
+        if name == "gen_new":
+            self.gen_new = int(val)
+        if name == "gen_temperature":
+            self.gen_temperature = float(val)
+        if name == "gen_topk":
+            self.gen_topk = int(val)
+        if name == "gen_seed":
+            self.gen_seed = int(val)
         self.cfg.append((name, val))
 
     # ------------------------------------------------------------------
@@ -246,10 +268,10 @@ class LearnTask:
                 continue
             if name == "iter" and val == "end":
                 assert flag != 0, "wrong configuration file"
-                if flag == 1 and self.task != "pred":
+                if flag == 1 and self.task not in ("pred", "generate"):
                     assert self.itr_train is None, "can only have one data"
                     self.itr_train = create_iterator(itcfg)
-                if flag == 2 and self.task != "pred":
+                if flag == 2 and self.task not in ("pred", "generate"):
                     self.itr_evals.append(create_iterator(itcfg))
                     self.eval_names.append(evname)
                 if flag == 3 and self.task in ("pred", "pred_raw", "extract"):
@@ -406,6 +428,41 @@ class LearnTask:
         with open(self.name_pred + ".meta", "w") as fm:
             fm.write("%d,%d,%d,%d\n" % (nrow, dshape[0], dshape[1], dshape[2]))
         print("finished prediction, write into %s" % self.name_pred)
+
+
+    def task_generate(self) -> None:
+        """task = generate (cxxnet_tpu/learn_task.py:1483-1518): KV-cached
+        continuation of token-id prompts. ``prompt_in`` is a text file of
+        space-separated integer token ids, one prompt per line; lines may
+        differ in length (a ragged batch through generate's prompt_lens).
+        ``gen_new`` tokens are appended per prompt, greedily by default
+        (gen_temperature / gen_topk / gen_seed sample), and written to
+        ``gen_out``, one space-separated id line per prompt."""
+        rows = []
+        with open(self.name_prompt_in) as f:
+            for line in f:
+                line = line.split()
+                if line:
+                    rows.append([int(t) for t in line])
+        assert rows, "prompt_in %s has no prompts" % self.name_prompt_in
+        vocab = max((lay.vocab_size for lay in self.net_trainer.net.layers
+                     if lay.type_name == "embed"), default=0)
+        if vocab:
+            bad = [t for r in rows for t in r if not 0 <= t < vocab]
+            assert not bad, (
+                "prompt_in contains token ids outside the net's vocab_size "
+                "%d (e.g. %d); wrong tokenizer?" % (vocab, bad[0]))
+        lens = [len(r) for r in rows]
+        max_p = max(lens)
+        prompts = [r + [0] * (max_p - len(r)) for r in rows]
+        out = self.net_trainer.generate(
+            prompts, self.gen_new, temperature=self.gen_temperature,
+            top_k=self.gen_topk, seed=self.gen_seed, prompt_lens=lens)
+        with open(self.name_gen_out, "w") as fo:
+            for row in out:
+                fo.write(" ".join(str(int(t)) for t in row) + "\n")
+        print("generated %d x %d tokens into %s"
+              % (out.shape[0], out.shape[1], self.name_gen_out))
 
 
 def main(argv: List[str]) -> int:

@@ -252,7 +252,7 @@ class NeuralNet:
     def forward(self, params: Params, data: torch.Tensor,
                 labels: Optional[LabelInfo] = None, train: bool = False,
                 gen: Optional[torch.Generator] = None, epoch: int = 0,
-                decode_pos: Optional[int] = None, kv_cache=None,
+                decode_pos=None, kv_cache=None, decode_span=None,
                 keep: Sequence[int] = ()
                 ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
         """Run the DAG; returns (node values, total loss). ``train`` turns
@@ -266,7 +266,9 @@ class NeuralNet:
         (Trainer.generate): the data covers sequence positions
         [decode_pos, decode_pos + L), attention layers write their k/v into
         the caches and attend against them, and the updated caches land in
-        ``self._last_cache_updates``. An id input node (embed's) keeps the
+        ``self._last_cache_updates``. ``decode_pos`` is an int, or in a
+        session step a (b,) int64 tensor of each row's position with
+        ``decode_span`` its (lowest, highest) from the host. An id input node (embed's) keeps the
         data's dtype; any other is taken as float32, normalized, then cast
         to the compute dtype. A training forward leaves its batch-norm
         state updates in ``self._last_state_updates``.
@@ -292,7 +294,8 @@ class NeuralNet:
                 values[0] = values[0].to(cdt)
             params = self._cast_params_compute(params)
         ctx = ApplyContext(train=train, labels=labels, epoch=epoch,
-                           decode_pos=decode_pos, kv_cache=kv_cache or {},
+                           decode_pos=decode_pos, decode_span=decode_span,
+                           kv_cache=kv_cache or {},
                            seq_parallel=self.seq_parallel)
         base_seed = gen.initial_seed() if gen is not None else 0
         segments = {seg.start: seg for seg in self.remat_segments()} \

@@ -6,9 +6,10 @@ at the repository root, where ``<hash>`` is taken from the source text, the
 headers of ``csrc/`` (``*.cuh``) and the flags, so an edited source or
 header builds anew and an unchanged one is reused.
 ``launch`` loads a library with ctypes at first use and calls its entry
-point ``cxxnet_<name>``, raising if the launch failed. ``nvcc``'s output,
-with ``-Xptxas -v`` (registers, shared memory and spills per kernel), is kept
-beside each library as ``lib<name>-<hash>.log``.
+point ``cxxnet_<name>`` (or another one it names), raising if the launch
+failed. ``nvcc``'s output, with ``-Xptxas -v`` (registers, shared memory
+and spills per kernel), is kept beside each library as
+``lib<name>-<hash>.log``.
 
 Nothing here runs at import: the CPU tests import every module and have no
 ``nvcc``.
@@ -96,27 +97,29 @@ def build_kernels(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _library(name: str, argtypes: Sequence) -> ctypes.CDLL:
-    """The ctypes library of csrc/<name>.cu, built at first use, with the
-    argument types of its entry point ``cxxnet_<name>`` declared."""
+def _entry(name: str, entry: str, argtypes: Sequence):
+    """The entry point ``entry`` of the ctypes library of csrc/<name>.cu,
+    built and loaded at first use, with its argument types declared."""
     if name not in _libs:
         lib = ctypes.CDLL(build_kernels([name])[name])
-        fn = getattr(lib, "cxxnet_" + name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
         lib.cxxnet_cuda_error_string.argtypes = [ctypes.c_int]
         lib.cxxnet_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
-    return _libs[name]
+    fn = getattr(_libs[name], entry)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
 
 
-def launch(name: str, argtypes: Sequence, *args) -> None:
-    """Call ``cxxnet_<name>(*args)`` of csrc/<name>.cu, which launches on
-    the stream it is given and returns a cudaError_t; raises if that is
-    not 0."""
-    lib = _library(name, argtypes)
-    err = getattr(lib, "cxxnet_" + name)(*args)
+def launch(name: str, argtypes: Sequence, *args,
+           entry: Optional[str] = None) -> None:
+    """Call ``cxxnet_<name>(*args)`` of csrc/<name>.cu, or its other entry
+    point ``entry``, which launches on the stream it is given and returns a
+    cudaError_t; raises if that is not 0."""
+    entry = entry or "cxxnet_" + name
+    err = _entry(name, entry, argtypes)(*args)
     if err != 0:
         raise RuntimeError("%s kernel launch failed: cudaError %d (%s)"
-                           % (name, err, lib.cxxnet_cuda_error_string(err)
-                              .decode()))
+                           % (entry, err, _libs[name]
+                              .cxxnet_cuda_error_string(err).decode()))

@@ -1,5 +1,7 @@
 """Sequence parallelism: ring attention and Ulysses attention, the
-counterpart of cxxnet_tpu/parallel/ring.py:146-488.
+counterpart of cxxnet_tpu/parallel/ring.py:146-488; and the chunked
+flash-decode step of a KV-cached decode (``decode_attention_chunked``,
+:70-140).
 
 A long sequence is cut into n shards along its axis, one per rank, and
 attention runs either as
@@ -35,12 +37,13 @@ versions, and a kernel that fails raises.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from ..layer.base import check
 from ..ops import attention, flash_attn
 from ..ops import ring_flash as rf
 from . import collectives
@@ -49,6 +52,70 @@ from . import collectives
 # the local block runs one query chunk at a time, each recomputed in the
 # backward (JAX's lax.map under jax.checkpoint)
 RING_Q_CHUNK = 1024
+
+
+def decode_attention_chunked(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *,
+                             pos: Union[int, torch.Tensor],
+                             span: Optional[Tuple[int, int]] = None,
+                             scale: Optional[float] = None, window: int = 0,
+                             chunk: int = 256) -> torch.Tensor:
+    """One-position cache attention that reads only the live chunks of the
+    cache: ``attention_reference(q, k, v, causal=True, q_offset=pos)`` for
+    a one-row query at position ``pos``, computed as an online softmax over
+    ``chunk``-row blocks of the cache, accumulated in float32 (the JAX
+    package's flash-decode step in plain XLA, here in plain PyTorch ops).
+
+    q: (b, nh, 1, d); k/v: (b, nkv, L_max, d) caches, GQA-sized. ``pos`` is
+    an int or a (b,) tensor of each row's position; ``span`` = (lowest,
+    highest) position of the rows, from the host's bookkeeping (required
+    for a tensor ``pos``: the chunk loop's bounds never read the device).
+    The loop runs over chunks [c_lo, hi // chunk], c_lo the first chunk
+    inside the window of the lowest row (0 without a window). A row meets
+    the chunks outside its own live range as wholly masked ones: before
+    its first live key its carry stays zero (the rescale of a -inf maximum
+    is guarded to 0, the weights of masked keys are 0), after its last one
+    it is rescaled by exp(0) = 1 and adds zeros, so each row's result is
+    bitwise the one its own loop over its own chunks gives."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, nh, sq, d = q.shape
+    check(sq == 1, "decode_attention_chunked is a single-position step")
+    nkv, l_max = k.shape[1], k.shape[2]
+    check(nh % nkv == 0, "query heads must be a multiple of kv heads")
+    check(l_max % chunk == 0, "cache length %d must be divisible by "
+          "decode_chunk %d" % (l_max, chunk))
+    if torch.is_tensor(pos):
+        check(span is not None, "decode_attention_chunked: a per-row pos "
+              "needs the host's span of positions")
+        lo, hi = span
+        pos_r = pos.reshape(b, 1, 1, 1)
+    else:
+        lo = hi = int(pos)
+        pos_r = pos
+    g = nh // nkv
+    qg = q.reshape(b, nkv, g, d).float()
+    c_lo = max(0, (lo - (window - 1)) // chunk) if window > 0 else 0
+    m = torch.full((b, nkv, g, 1), float("-inf"), device=q.device)
+    l_sum = torch.zeros((b, nkv, g, 1), device=q.device)
+    acc = torch.zeros((b, nkv, g, d), device=q.device)
+    for c in range(c_lo, hi // chunk + 1):
+        kc = k[:, :, c * chunk:(c + 1) * chunk].float()
+        vc = v[:, :, c * chunk:(c + 1) * chunk].float()
+        s = torch.einsum("bngd,bnkd->bngk", qg, kc) * scale
+        kpos = c * chunk + torch.arange(chunk, device=q.device)
+        keep = kpos <= pos_r
+        if window > 0:
+            keep = keep & (pos_r - kpos < window)
+        s = s.masked_fill(~keep, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new),
+                            torch.zeros_like(m))
+        p = torch.where(keep, torch.exp(s - m_new), torch.zeros_like(s))
+        l_sum = l_sum * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bngk,bnkd->bngd", p, vc)
+        m = m_new
+    return (acc / l_sum).reshape(b, nh, 1, d).to(q.dtype)
 
 
 class _Ranks:

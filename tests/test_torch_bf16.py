@@ -232,7 +232,7 @@ def test_bf16_decode_keeps_bf16_caches_and_float32_ids():
     prompts = _lm_batch()[0].reshape(2, 16)[:, :6].astype(np.int64)
     toks = net.generate(prompts, 4)
     assert toks.shape == (2, 4) and toks.dtype == np.int32
-    caches = net.net_._decode_net[1]._last_cache_updates
+    caches = net.net_._net_for(2, 1)._last_cache_updates
     assert caches and all(c.dtype == torch.bfloat16 for c in caches.values())
 
 

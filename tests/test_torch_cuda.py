@@ -27,8 +27,13 @@ the step with flash_bwd_ref swapped in within 1e-4 of each tensor's
 largest magnitude (the difference passes back through every block, and
 the embedding's gradient is a scatter-add whose order may change).
 The convolution's weight gradient (ops.conv2d_weight) against float64:
-1e-5 of its largest element. The uniform kernel against uniform_ref:
-bitwise (both compute the same integer function of (seed, index)). One
+1e-5 of its largest element. The uniform kernel against uniform_ref,
+and its per-row entry point against uniform_rows_ref: bitwise (both
+compute the same integer function of (seed, index), (seed, position, row,
+index)). A small LM's dense and paged sessions on the card equal solo
+generate token for token, greedy and sampled (fp32: near-ties are not
+expected at these margins; the bench.py LM's bf16 sessions, where they
+are, are checked in chip_smoke.py with their near-tie rule). One
 RReLU AlexNet step on the card against the CPU path, noise on (both draw
 the same bits), dropout off: every parameter within relative 1e-5 plus
 1e-4 of the tensor's largest update (cuDNN and the CPU sum every conv and
@@ -724,6 +729,71 @@ def test_uniform_kernel_is_bitwise_the_plain_version(card, seed, shape):
 def test_uniform_kernel_same_bits_as_the_cpu(card):
     got = trandom.uniform(2024, (7, 3001), card).cpu()
     assert torch.equal(got, trandom.uniform(2024, (7, 3001), "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, n", [(1, 1), (3, 5), (8, 8192), (5, 4001),
+                                     (300, 12)])
+def test_uniform_rows_kernel_is_bitwise_the_plain_version(card, rows, n):
+    rng = np.random.RandomState(rows + n)
+    seeds = torch.tensor([trandom.seed_word(int(s)) for s in
+                          rng.randint(0, 1 << 62, rows, dtype=np.int64)],
+                         dtype=torch.int64)
+    seeds[0] = trandom.seed_word((1 << 64) - 1)
+    pos = torch.from_numpy(rng.randint(0, 1 << 31, rows).astype(np.int64))
+    rowid = torch.from_numpy(rng.randint(0, 9, rows).astype(np.int64))
+    before = trandom.rows_launches
+    got = trandom.uniform_rows_cuda(seeds.to(card), pos.to(card),
+                                    rowid.to(card), n)
+    torch.cuda.synchronize()
+    assert trandom.rows_launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (rows, n)
+    assert torch.equal(got.cpu(), trandom.uniform_rows_ref(seeds, pos,
+                                                           rowid, n))
+
+
+@pytest.mark.cuda
+def test_lm_sessions_on_the_card_equal_solo_generate(card):
+    # a small fp32 LM: a dense and a paged session, greedy and sampled,
+    # against solo generate of each request (sampled draws launch the
+    # per-row kernel); the paged session's tokens are the dense one's
+    cfg = models.transformer_lm_config(vocab=64, seq=256, batch_size=2,
+                                       dim=64, nhead=4, nlayer=2, dev="gpu")
+    net = api.Net(dev="gpu", cfg=cfg + "seed = 1\n")
+    net.init_model()
+    tr = net.net_
+    rng = np.random.RandomState(4)
+    shared = rng.randint(0, 64, 144).tolist()
+    prompts = [shared + rng.randint(0, 64, n).tolist() for n in (3, 20, 40)] \
+        + [rng.randint(0, 64, n).tolist() for n in (130, 60)]
+    for temp, top_k in ((0.0, 0), (0.9, 8)):
+        solo = [list(tr.generate(np.asarray([p]), 6, temperature=temp,
+                                 top_k=top_k, seed=3 + i)[0])
+                for i, p in enumerate(prompts)]
+        runs = []
+        for pool in (None, tr.decode_kv_pool(16, pool_tokens=1024)):
+            before = trandom.rows_launches
+            sess = tr.decode_session(2, 6, temperature=temp, top_k=top_k,
+                                     kv_pool=pool)
+            got, live, nxt = {}, {}, 0
+            while nxt < len(prompts) or live:
+                for s in sess.free_slots()[:1]:
+                    if nxt < len(prompts):
+                        tok, _ = sess.prefill(s, prompts[nxt], 3 + nxt)
+                        live[s] = (nxt, [tok])
+                        nxt += 1
+                for s, tok, done in sess.step():
+                    live[s][1].append(tok)
+                    if done:
+                        i, toks = live.pop(s)
+                        got[i] = toks
+                        sess.retire(s)
+            sess.close()
+            runs.append([got[i] for i in range(len(prompts))])
+            assert (trandom.rows_launches > before) == (temp > 0)
+        assert runs[0] == runs[1]
+        assert runs[0] == solo
+    assert tr._kv_pool.alloc.prefix_hits > 0
 
 
 def _rrelu_alexnet_cfg(rows):

@@ -368,8 +368,7 @@ def test_model_name_without_counter_is_refused_for_training(trained,
     ("profile_dir", "prof"), ("health_monitor", "1"),
     ("watchdog_timeout", "5"), ("coordinator", "localhost:1234"),
     ("num_worker", "2"), ("ckpt_keep_last", "3"), ("ckpt_keep_every", "2"),
-    ("task", "generate"), ("task", "serve"), ("task", "export"),
-    ("task", "route")])
+    ("task", "serve"), ("task", "export"), ("task", "route")])
 def test_unported_keys_are_refused(key, val):
     lt = tlt.LearnTask()
     with pytest.raises(ValueError, match="not ported to cxxnet_tpu_torch"):
@@ -379,7 +378,7 @@ def test_unported_keys_are_refused(key, val):
 @pytest.mark.parametrize("key, val", [
     ("continue", "0"), ("telemetry_log", ""), ("status_port", "-1"),
     ("health_monitor", "0"), ("watchdog_timeout", "0"), ("num_worker", "1"),
-    ("ckpt_keep_last", "0"), ("task", "pred_raw")])
+    ("ckpt_keep_last", "0"), ("task", "pred_raw"), ("task", "generate")])
 def test_defaults_of_unported_keys_are_accepted(key, val):
     tlt.LearnTask().set_param(key, val)
 

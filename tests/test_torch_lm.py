@@ -187,9 +187,13 @@ def test_attention_decode_path_matches_jax(case):
 
 
 def test_attention_refuses_what_is_not_ported():
+    # the chunked flash-decode step and the suffix prefill are ported: the
+    # keys are taken, bad values refused, and a suffix computes
     lay = TL.AttentionLayer()
-    with pytest.raises(ValueError, match="not ported yet"):
-        lay.set_param("decode_chunk", "256")
+    lay.set_param("decode_chunk", "256")
+    assert lay.decode_chunk == 256
+    with pytest.raises(ValueError, match="decode_chunk must be >= 0"):
+        lay.set_param("decode_chunk", "-1")
     lay.set_param("decode_chunk", "0")
     # sequence parallelism is ported: both modes are taken, others named
     lay.set_param("sp_mode", "ring")
@@ -200,9 +204,16 @@ def test_attention_refuses_what_is_not_ported():
         lay.set_param("sp_mode", "bogus")
     _, tl, _, tp, rng = _attention_case(8, {"causal": 1}, 5)
     cache = {(0, n): torch.zeros(2, NHEAD, 16, DIM // NHEAD) for n in "kv"}
-    with pytest.raises(ValueError, match="paged suffix prefill"):
-        tl.forward(tp, [_t(rng.randn(2, DIM, 1, 8))],
-                   ApplyContext(decode_pos=4, kv_cache=cache, conn_index=0))
+    x = _t(rng.randn(2, DIM, 1, 12))
+    tl.forward(tp, [x[..., :4]],
+               ApplyContext(decode_pos=0, kv_cache=cache, conn_index=0))
+    got = tl.forward(tp, [x[..., 4:]],
+                     ApplyContext(decode_pos=4, kv_cache=cache, conn_index=0))
+    whole = tl.forward(tp, [x], ApplyContext(
+        decode_pos=0, conn_index=0,
+        kv_cache={(0, n): torch.zeros(2, NHEAD, 16, DIM // NHEAD)
+                  for n in "kv"}))
+    _close(got[0], whole[0][..., 4:].numpy(), "suffix prefill")
 
 
 # -- the whole net ----------------------------------------------------------
@@ -383,8 +394,10 @@ def test_generate_checks(lm_files):
     with pytest.raises(ValueError, match="exceeds the net's sequence"):
         tnet.generate(prompts[:, :56], 10, prompt_lens=[50, 56])
     assert tnet.generate(prompts, 0).shape == (2, 0)
-    with pytest.raises(ValueError, match="not ported yet"):
-        tnet.generate(prompts[:, :10], 4, temperature=0.7)
+    # sampling is ported: it runs, and a negative top_k is refused
+    assert tnet.generate(prompts[:, :10], 4, temperature=0.7).shape == (2, 4)
+    with pytest.raises(ValueError, match="top_k must be >= 0"):
+        tnet.generate(prompts[:, :10], 4, temperature=0.7, top_k=-1)
     with pytest.raises(ValueError, match="prompt_lens"):
         tnet.generate(prompts[:, :10], 4, prompt_lens=[0, 3])
     with pytest.raises(ValueError, match="prompts must be"):
