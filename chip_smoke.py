@@ -35,7 +35,13 @@ bench.py LM in bf16: 24 requests through a dense and a paged
 ``decode_session`` (8 slots, greedy and sampled, a shared 512-token system
 prompt reused by the paged cache), each request held to its solo
 ``generate``, beam search and ``decode_chunk``, and ``task = generate``
-from the command line; then both LMs trained through
+from the command line; then the serving frontend: the same 24 requests
+sent by 8 concurrent TCP clients through ``api.Net.serve``'s continuous
+batching (dense and paged greedy, dense sampled; answers held to solo
+``generate``, the books reconciled, a flood against a queue of 4, a drain
+with requests in flight), and ``task = serve`` from the command line on
+stdin and, in a process of its own, over TCP until SIGTERM; then both
+LMs trained through
 ``update`` (the config's Adam, batch 8 and 2); the bench.py LM with 2
 heads (head dim 256) and with 1 head (head dim 512) served and trained;
 last sequence parallelism: the ring-step kernels against their plain
@@ -55,8 +61,9 @@ time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``googlenet_bf16_pred``, ``cli_googlenet``, ``vgg16_bf16_remat``,
 ``resnet18_bf16_train``, ``bench_bf16``, ``flash_fwd_kernel``,
 ``lm_serve``, ``lm_serve_long``, ``lm_serve_session``, ``cli_lm_generate``,
-``flash_bwd_kernel``, ``lm_train``, ``lm_train_long``, ``lm_hd256``,
-``lm_hd512``, ``ring_step_kernels``, ``lm_sp_train_long_ring``,
+``lm_serve_frontend``, ``cli_lm_serve``, ``flash_bwd_kernel``,
+``lm_train``, ``lm_train_long``, ``lm_hd256``, ``lm_hd512``,
+``ring_step_kernels``, ``lm_sp_train_long_ring``,
 ``lm_sp_train_long_ulysses`` and ``lm_sp_train_ring`` (kernel checks, the
 main paths' checks, throughput and profiles), the wall time, then a JSON
 line ``{"kernels": [...]}`` (each row's bf16 times under "bf16") and,
@@ -70,8 +77,11 @@ import io
 import json
 import os
 import re
+import signal
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -374,6 +384,17 @@ UNIFORM_ROWS = [("lm_step", SESS_SLOTS, 8192), ("one_row", 1, 8192),
                 ("ragged_width", 5, 4001), ("many_rows", 300, 12)]
 # task = generate from the command line: ragged prompt lines, new tokens
 CLI_GEN_LENS, CLI_GEN_NEW = (300, 517, 256, 400), 32
+# the serving frontend (slice 13): the session phase's 24 requests through
+# api.Net.serve's continuous batching (buckets 1, 2, 4, 8) by 8 concurrent
+# closed-loop TCP clients; a flood of 32 at once against a queue of 4; a
+# drain with requests in flight (budget in ms); task = serve from the
+# command line on 8 prompts and a DEADLINE prompt, then over TCP with
+# buckets 1, 4
+FE_CLIENTS, FE_BUCKETS, FE_WINDOW_MS = 8, (1, 2, 4, 8), 2.0
+FE_FLOOD, FE_FLOOD_QUEUE = 32, 4
+FE_DRAIN_REQUESTS, FE_DRAIN_MS = 16, 300.0
+CLI_SERVE_LENS, CLI_SERVE_NEW = (160, 300, 517, 128, 256, 400, 200, 700,
+                                 333), 32
 IMG_HW = 224
 GNET_BATCH, RESNET_BATCH, VGG_BATCH = 128, 128, 64
 # example/ImageNet/GoogLeNet.conf's own batch_size
@@ -1851,6 +1872,474 @@ def phase_cli_lm_generate(learn_task, api, models):
                                  "api.Net.generate")
         del net, ref
     torch.cuda.empty_cache()
+
+
+def serve_clients(port, lines, nclients, timeout=600.0):
+    """``lines`` dealt round-robin to ``nclients`` closed-loop TCP clients
+    of the frontend on ``port``, one connection each, each line sent once
+    the client's previous answer is in. Returns (answers aligned with
+    ``lines``, None where none came; the wall seconds)."""
+    out = [None] * len(lines)
+    errors = []
+
+    def client(c):
+        try:
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=timeout) as conn:
+                f = conn.makefile("r", encoding="utf-8")
+                for i in range(c, len(lines), nclients):
+                    conn.sendall((lines[i] + "\n").encode("utf-8"))
+                    out[i] = f.readline().rstrip("\n") or None
+        except OSError as e:
+            errors.append(repr(e))
+    ts = [threading.Thread(target=client, args=(c,))
+          for c in range(nclients)]
+    t = time.perf_counter()
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join()
+    wall = time.perf_counter() - t
+    if errors:
+        log("  client errors: %s" % errors[:3])
+    return out, wall
+
+
+def reconciled(what, stats):
+    """The frontend's books: accepted == served + errors + shed +
+    deadline."""
+    ok = stats["accepted"] == (stats["served"] + stats["errors"]
+                               + stats["shed"] + stats["deadline"])
+    log("  %s books: accepted %d = served %d + errors %d + shed %d + "
+        "deadline %d: %s" % (what, stats["accepted"], stats["served"],
+                             stats["errors"], stats["shed"],
+                             stats["deadline"],
+                             "reconciled" if ok else "NOT RECONCILED"))
+    if not ok:
+        raise AssertionError("%s: the serving books do not reconcile"
+                             % what)
+
+
+def answer_tokens(what, line, n_new, vocab):
+    toks = [int(t) for t in (line or "").split()] \
+        if line and not line.startswith(("ERR", "OK")) else None
+    if toks is None or len(toks) != n_new or min(toks) < 0 \
+            or max(toks) >= vocab:
+        raise AssertionError("%s: bad answer %r" % (what, (line or "")[:80]))
+    return toks
+
+
+def pct(vals, p):
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(round(p / 100.0 * (len(vals) - 1))))]
+
+
+def phase_lm_serve_frontend(flash, rnd, api, models):
+    """The serving frontend (utils/servd.py) on the bench.py LM in bf16 at
+    full width through api.Net(dev="gpu").serve: the session phase's 24
+    requests (seed 14, 64 new tokens) by 8 concurrent TCP clients into
+    continuous batching over buckets 1, 2, 4, 8, dense greedy, paged greedy
+    (block 16, a fresh pool) and dense sampled at (0.8, 40); each answer
+    held to its solo generate (greedy) or to the solo generate at seed 100
+    + seq, seq the request's dispatch ordinal from its flight record
+    (sampled), up to the near-tie rule; the books reconciled. Prints the
+    frontend's tokens/s beside the bare decode_session's on the same
+    requests, TTFT and queue_wait p50 / p99 from the flight records, the
+    mean batch occupancy and the busy share of a profiled run; then a flood
+    of 32 at once against a queue of 4 (at least one ERR busy queue, one
+    answer each) and a drain with requests in flight (one line each).
+    Returns (uniform_rows launches, flash_fwd launches) of the three
+    served runs, the main path."""
+    log("phase lm_serve_frontend (bench.py LM, bf16, %d requests, %d TCP "
+        "clients, buckets %s, %d new tokens)"
+        % (SESS_REQUESTS, FE_CLIENTS, FE_BUCKETS, SESS_NEW))
+    t_phase = time.perf_counter()
+    vocab, nlayer = LM_ARGS["vocab"], LM_ARGS["nlayer"]
+    net = api.Net(dev=NET_DEV, cfg=bf16_cfg(lm_cfg(models, LM_SEQ,
+                                                   LM_BATCH)))
+    net.init_model()
+    tr = net.net_
+    prompts, _ = serve_requests(np.random.RandomState(SEED + 14), vocab)
+    lines = ["TRACE r%d %s" % (i, " ".join(map(str, p)))
+             for i, p in enumerate(prompts)]
+    n_tok = SESS_REQUESTS * SESS_NEW
+    opts = dict(port=0, n_new=SESS_NEW, seed=100, buckets=FE_BUCKETS,
+                batch_max=max(FE_BUCKETS), batch_window_ms=FE_WINDOW_MS,
+                drain_ms=60000.0)
+
+    # warm-up before any timing: the decode nets of every prompt length
+    # and of every bucket's step
+    run_solo(net, prompts, 2, SESS_SAMPLING, 100)
+    for b in FE_BUCKETS:
+        drive_session(tr.decode_session(b, 2), prompts[:b], 100)
+    bare = {}
+    for what, kv_block in (("dense", 0), ("paged", SESS_BLOCK)):
+        pool = tr.decode_kv_pool(SESS_BLOCK, pool_tokens=max(
+            FE_BUCKETS) * LM_SEQ) if kv_block else None
+        sess = tr.decode_session(SESS_SLOTS, SESS_NEW, kv_pool=pool)
+        steps = [0]
+        step = sess.step
+
+        def counted(step=step, steps=steps):
+            steps[0] += 1
+            return step()
+        sess.step = counted
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        drive_session(sess, prompts, 100)
+        torch.cuda.synchronize()
+        bare[what] = (time.perf_counter() - t, steps[0])
+        sess.close()
+        tr.release_kv_pool()
+    solo = run_solo(net, prompts, SESS_NEW, (0.0, 0), 100)
+
+    def serve(what, temperature=0.0, top_k=0, kv_block=0):
+        fe = net.serve(temperature=temperature, top_k=top_k,
+                       kv_block=kv_block, **opts)
+        try:
+            answers, wall = serve_clients(fe.port, lines, FE_CLIENTS)
+        finally:
+            stats = fe.drain()
+        reconciled(what, stats)
+        got = [answer_tokens("%s request %d" % (what, i), a, SESS_NEW,
+                             vocab) for i, a in enumerate(answers)]
+        recs = [fe.flight.get("r%d" % i) for i in range(SESS_REQUESTS)]
+        if stats["served"] != SESS_REQUESTS or any(
+                r is None or r["outcome"] != "served" for r in recs):
+            raise AssertionError("%s: not every request was served" % what)
+        buckets = sorted({r["bucket"] for r in recs})
+        return (got, wall, recs, fe.mean_occupancy(),
+                fe.batch_flight.iterations, buckets)
+
+    # the main path: the counts start at 0 here and are read right after
+    rnd.rows_launches = 0
+    flash.launches = 0
+    runs = {}
+    runs["dense greedy"] = serve("dense greedy")
+    tr.release_kv_pool()
+    runs["paged greedy"] = serve("paged greedy", kv_block=SESS_BLOCK)
+    pool_acct = tr._kv_pool.account() if tr._kv_pool is not None else None
+    tr.release_kv_pool()
+    runs["dense sampled"] = serve("dense sampled", *SESS_SAMPLING)
+    torch.cuda.synchronize()
+    rows_launches, flash_launches = rnd.rows_launches, flash.launches
+    n_adm = len(runs) * SESS_REQUESTS
+    log("  launches over the 3 served runs: flash_fwd %d (%d per admission "
+        "over %d admissions; %d expected), uniform_rows %d (the sampled "
+        "run's steps and admissions)"
+        % (flash_launches, flash_launches // n_adm, n_adm, nlayer * n_adm,
+           rows_launches))
+    if flash_launches != nlayer * n_adm or rows_launches == 0:
+        raise AssertionError("the frontend's path did not launch flash_fwd "
+                             "%d times or uniform_rows at all"
+                             % (nlayer * n_adm))
+    if pool_acct is not None:
+        log("  paged pool after the paged run: %d blocks, prefix hits %d of "
+            "%d admissions" % (pool_acct["blocks_total"],
+                               pool_acct["prefix_hits"],
+                               pool_acct["prefix_queries"]))
+
+    seeds0 = [100 + i for i in range(SESS_REQUESTS)]
+    rows0 = [0] * SESS_REQUESTS
+    for what in ("dense greedy", "paged greedy"):
+        hold_tokens("frontend %s vs solo" % what, rnd, net, runs[what][0],
+                    solo, prompts, (0.0, 0), seeds0, rows0, NEAR_TIE)
+    got, recs = runs["dense sampled"][0], runs["dense sampled"][2]
+    seqs = [r["seq"] for r in recs]
+    if sorted(seqs) != list(range(SESS_REQUESTS)):
+        raise AssertionError("sampled: dispatch ordinals %s" % seqs)
+    ref = [list(net.generate(np.asarray([p]), SESS_NEW,
+                             temperature=SESS_SAMPLING[0],
+                             top_k=SESS_SAMPLING[1], seed=100 + q)[0])
+           for p, q in zip(prompts, seqs)]
+    hold_tokens("frontend dense sampled vs solo at seed 100 + seq", rnd,
+                net, got, ref, prompts, SESS_SAMPLING,
+                [100 + q for q in seqs], rows0, NEAR_TIE)
+
+    for what, (bare_s, steps) in bare.items():
+        log("  bare %s decode_session(%d, %d) over the 24 requests (each "
+            "admitted as a slot frees): %.1f tokens/s (%.3f s, %d steps, "
+            "%.3f ms a step)" % (what, SESS_SLOTS, SESS_NEW, n_tok / bare_s,
+                                 bare_s, steps, 1e3 * bare_s / steps))
+    for what, (got, wall, recs, occ, iters, buckets) in runs.items():
+        bare_s, steps = bare["paged" if what.startswith("paged")
+                             else "dense"]
+        ttft = [r["ttft_s"] * 1e3 for r in recs]
+        qw = [r["phases"]["queue_wait"] * 1e3 for r in recs]
+        log("  frontend %s: %.1f tokens/s (%.3f s for %d tokens; frontend / "
+            "bare session %.3f); TTFT p50 %.2f ms p99 %.2f ms; queue_wait "
+            "p50 %.2f ms p99 %.2f ms; mean batch occupancy %.3f over %d "
+            "iterations (%.3f ms an iteration against the bare session's "
+            "%.3f a step); buckets used %s"
+            % (what, n_tok / wall, wall, n_tok, bare_s / wall,
+               pct(ttft, 50), pct(ttft, 99), pct(qw, 50), pct(qw, 99),
+               occ or 0.0, iters, 1e3 * wall / iters, 1e3 * bare_s / steps,
+               buckets))
+
+    log(" profile: the frontend serving the 24 requests (dense greedy)")
+    fe = net.serve(**opts)
+    try:
+        profile_forward(lambda: serve_clients(fe.port, lines, FE_CLIENTS),
+                        iters=1, warmup=False, unit="frontend run",
+                        shares=("flash_fwd",))
+    finally:
+        reconciled("profiled run", fe.drain())
+
+    # flood: 32 at once, one connection each, against a queue of 4
+    flood = [lines[i % SESS_REQUESTS].replace("TRACE r", "TRACE f%d-r" % i,
+                                              1) for i in range(FE_FLOOD)]
+    fe = net.serve(queue_size=FE_FLOOD_QUEUE, **opts)
+    try:
+        answers, wall = serve_clients(fe.port, flood, FE_FLOOD)
+    finally:
+        stats = fe.drain()
+    reconciled("flood", stats)
+    busy = sum(1 for a in answers if a and a.startswith("ERR busy queue"))
+    served = [i for i, a in enumerate(answers)
+              if a and not a.startswith("ERR")]
+    log("  flood of %d at once, queue %d: %d served, %d ERR busy queue, %d "
+        "other, %d unanswered (%.2f s)"
+        % (FE_FLOOD, FE_FLOOD_QUEUE, len(served), busy,
+           FE_FLOOD - len(served) - busy,
+           sum(1 for a in answers if a is None), wall))
+    if busy == 0 or any(a is None for a in answers) \
+            or stats["accepted"] != FE_FLOOD \
+            or stats["served"] != len(served):
+        raise AssertionError("flood: every request must be answered once "
+                             "and at least one shed ERR busy queue")
+    hold_tokens("flood's served answers vs solo", rnd, net,
+                [answer_tokens("flood", answers[i], SESS_NEW, vocab)
+                 for i in served], [solo[i % SESS_REQUESTS] for i in served],
+                [prompts[i % SESS_REQUESTS] for i in served], (0.0, 0),
+                [0] * len(served), [0] * len(served), NEAR_TIE)
+
+    # drain with requests in flight
+    dr = [lines[i].replace("TRACE r", "TRACE d", 1)
+          for i in range(FE_DRAIN_REQUESTS)]
+    fe = net.serve(**dict(opts, drain_ms=FE_DRAIN_MS))
+    out = {}
+    ts = [threading.Thread(target=lambda i=i: out.__setitem__(
+        i, serve_clients(fe.port, [dr[i]], 1, timeout=120)[0][0]))
+        for i in range(FE_DRAIN_REQUESTS)]
+    for th in ts:
+        th.start()
+    t = time.perf_counter() + 60
+    while (fe.stats()["accepted"] < FE_DRAIN_REQUESTS
+           or fe.stats()["served"] < 1) and time.perf_counter() < t:
+        time.sleep(0.001)
+    before = fe.stats()
+    stats = fe.drain()
+    for th in ts:
+        th.join()
+    reconciled("drain", stats)
+    answers = [out.get(i) for i in range(FE_DRAIN_REQUESTS)]
+    errs = [a for a in answers if a and a.startswith("ERR draining")]
+    log("  drain (budget %.0f ms) with %d accepted, %d served before it: "
+        "%d served, %d ERR draining (%s), %d unanswered"
+        % (FE_DRAIN_MS, before["accepted"], before["served"],
+           stats["served"], len(errs),
+           sorted({" ".join(e.split()[:3]) for e in errs}),
+           sum(1 for a in answers if a is None)))
+    if before["accepted"] != FE_DRAIN_REQUESTS or any(
+            a is None for a in answers) \
+            or stats["accepted"] != FE_DRAIN_REQUESTS \
+            or stats["served"] + len(errs) != FE_DRAIN_REQUESTS:
+        raise AssertionError("drain: every accepted request must get "
+                             "exactly one line")
+    del net, tr, fe
+    torch.cuda.empty_cache()
+    log("  phase wall %.1f s" % (time.perf_counter() - t_phase))
+    return rows_launches, flash_launches
+
+
+class PacedStdin:
+    """Lines for a serve run's stdin pump, waiting ``pause`` seconds before
+    each ADMIN line (and before the line after it) so the dispatcher has
+    published its books, or run a reload, in between; ``hooks[i]`` runs
+    just before line i is handed out."""
+
+    def __init__(self, lines, pause=0.5, hooks=None):
+        self.lines, self.pause, self.hooks = lines, pause, hooks or {}
+
+    def __iter__(self):
+        for i, line in enumerate(self.lines):
+            if line.startswith("ADMIN") or (
+                    i and self.lines[i - 1].startswith("ADMIN")):
+                time.sleep(self.pause)
+            if i in self.hooks:
+                self.hooks[i]()
+            yield line + "\n"
+
+
+def cli_serve_reload(learn_task, api, d, cfg, net, prompt, first):
+    """ADMIN reload in a paged, batched task = serve: the newer checkpoint
+    (another seed's weights) answers after it, and the old model's KV pool
+    and weights leave the card's memory with it."""
+    models_dir = os.path.join(d, "models")
+    os.makedirs(models_dir)
+    net.save_model(os.path.join(models_dir, "0001.model"))
+    newer = api.Net(dev=NET_DEV, cfg=cfg.replace("seed = %d\n" % SEED,
+                                                 "seed = %d\n" % (SEED + 1)))
+    newer.init_model()
+    line = " ".join(map(str, prompt))
+    mem = {}
+
+    def before_reload():
+        newer.save_model(os.path.join(models_dir, "0002.model"))
+        mem["with_pool"] = torch.cuda.memory_allocated()
+
+    def after_reload():
+        mem["reloaded"] = torch.cuda.memory_allocated()
+    conf = os.path.join(d, "reload.conf")
+    with open(conf, "w") as f:
+        f.write(cfg + "task = serve\nmodel_in = models/0001.model\n"
+                "model_dir = models\ngen_new = %d\nserve_buckets = 1,4\n"
+                "serve_kv_block = %d\n" % (CLI_SERVE_NEW, SESS_BLOCK))
+    old_stdin = sys.stdin
+    sys.stdin = PacedStdin([line, "ADMIN reload", line, "ADMIN stats"],
+                           pause=1.0, hooks={1: before_reload,
+                                             2: after_reload})
+    try:
+        out, _ = run_cli(learn_task, d, [conf], echo=("serve:",))
+    finally:
+        sys.stdin = old_stdin
+    got = out.splitlines()
+    want = [int(t) for t in first.split()]
+    want_new = list(newer.generate(np.asarray([prompt]), CLI_SERVE_NEW)[0])
+    freed = mem["with_pool"] - mem["reloaded"]
+    pool_bytes = 2 * LM_ARGS["nlayer"] * 4 * LM_SEQ * LM_ARGS["dim"] * 2
+    log("  ADMIN reload (serve_buckets = 1,4, serve_kv_block = %d): %s; "
+        "card memory %d bytes with the old model's pool, %d after the "
+        "reload (%d freed; the pool alone %d)"
+        % (SESS_BLOCK, " | ".join(ln[:40] for ln in got),
+           mem["with_pool"], mem["reloaded"], freed, pool_bytes))
+    toks = [answer_tokens("before reload", got[0], CLI_SERVE_NEW,
+                          LM_ARGS["vocab"]),
+            answer_tokens("after reload", got[2], CLI_SERVE_NEW,
+                          LM_ARGS["vocab"])]
+    for what, model, got_toks, ref in (("before", net, toks[0], want),
+                                       ("after", newer, toks[1], want_new)):
+        hold_tokens("reload: the answer %s it vs its model's solo generate"
+                    % what, None, model, [got_toks], [ref], [prompt],
+                    (0.0, 0), [0], [0], NEAR_TIE)
+    if got[1] != "OK reload scheduled" or "reloads=1 " not in got[3] \
+            or toks[0] == toks[1] or freed < pool_bytes:
+        raise AssertionError("ADMIN reload did not swap the model or did "
+                             "not free the old pool")
+    del newer
+
+
+def phase_cli_lm_serve(flash, learn_task, api, models):
+    """task = serve from the command line on a model file of the bench.py
+    LM in bf16 written here: stdin holds 8 prompts, a DEADLINE prompt, an
+    out-of-vocab line, an empty line and ADMIN stats; stdout has exactly one
+    line per input and the prompts' lines equal task = generate's for the
+    same prompts. Then bin/cxxnet_torch in a process of its own with
+    serve_port = 0 and serve_buckets = 1,4: one TCP answer held to the
+    solo generate, and exit 0 on SIGTERM. Returns the flash_fwd launches
+    of the stdin run."""
+    log("phase cli_lm_serve")
+    t_phase = time.perf_counter()
+    vocab = LM_ARGS["vocab"]
+    cfg = bf16_cfg(lm_cfg(models, LM_SEQ, LM_BATCH))
+    rng = np.random.RandomState(SEED + 16)
+    prompts = [rng.randint(0, vocab, n).tolist() for n in CLI_SERVE_LENS]
+    stdin = [" ".join(map(str, p)) for p in prompts[:-1]]
+    stdin += ["DEADLINE 60000 " + " ".join(map(str, prompts[-1])),
+              "1 %d 3" % vocab, "", "ADMIN stats"]
+    with scratch_dir("cli_lm_serve") as d:
+        net = api.Net(dev=NET_DEV, cfg=cfg)
+        net.init_model()
+        net.save_model(os.path.join(d, "lm.model"))
+        gen = []
+        for i, p in enumerate(prompts):
+            with open(os.path.join(d, "p%d.txt" % i), "w") as f:
+                f.write(" ".join(map(str, p)) + "\n")
+            with open(os.path.join(d, "gen%d.conf" % i), "w") as f:
+                f.write(cfg + "task = generate\nmodel_in = lm.model\n"
+                        "prompt_in = p%d.txt\ngen_out = g%d.txt\n"
+                        "gen_new = %d\nsilent = 1\n" % (i, i, CLI_SERVE_NEW))
+            run_cli(learn_task, d, [os.path.join(d, "gen%d.conf" % i)],
+                    echo=())
+            with open(os.path.join(d, "g%d.txt" % i)) as f:
+                gen.append(f.read().strip())
+        conf = os.path.join(d, "serve.conf")
+        with open(conf, "w") as f:
+            f.write(cfg + "task = serve\nmodel_in = lm.model\n"
+                    "gen_new = %d\n" % CLI_SERVE_NEW)
+        old_stdin = sys.stdin
+        sys.stdin = PacedStdin(stdin)
+        flash.launches = 0
+        try:
+            out, err = run_cli(learn_task, d, [conf],
+                               echo=("served", "serve:", "servd:"))
+        finally:
+            sys.stdin = old_stdin
+        torch.cuda.synchronize()
+        launches = flash.launches
+        got = out.splitlines()
+        log("  stdin: %d lines in, %d out; flash_fwd launches %d (%d "
+            "expected: %d a served prompt)"
+            % (len(stdin), len(got), launches,
+               LM_ARGS["nlayer"] * len(prompts), LM_ARGS["nlayer"]))
+        same = got[:len(prompts)] == gen
+        log("  the %d prompts' lines (the DEADLINE one included) vs task = "
+            "generate's: %s; then %r, %r, %r"
+            % (len(prompts), "EQUAL" if same else "DIFFERENT",
+               *(ln[:60] for ln in got[len(prompts):])))
+        if len(got) != len(stdin) or not same \
+                or not got[-3].startswith("ERR parse") \
+                or not got[-2].startswith("ERR empty") \
+                or not got[-1].startswith("OK accepted=11 ") \
+                or "served=9 " not in got[-1] \
+                or launches != LM_ARGS["nlayer"] * len(prompts):
+            raise AssertionError("task = serve's stdout is not one line "
+                                 "per input equal to task = generate's")
+
+        # TCP in a process of its own, then SIGTERM
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "bin", "cxxnet_torch"),
+             conf, "serve_port=0", "serve_buckets=1,4"], cwd=d,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            port = None
+            t_end = time.time() + 300
+            while port is None and time.time() < t_end:
+                ln = proc.stderr.readline()
+                if not ln:
+                    break
+                m = re.search(r"servd: serving on port (\d+)", ln)
+                port = int(m.group(1)) if m else None
+            if port is None:
+                raise AssertionError("bin/cxxnet_torch never listened")
+            answer = serve_clients(port, [stdin[0]], 1, timeout=300)[0][0]
+            toks = answer_tokens("cli tcp", answer, CLI_SERVE_NEW, vocab)
+            want = [int(t) for t in gen[0].split()]
+            log("  TCP answer (serve_port = 0, serve_buckets = 1,4) vs the "
+                "solo generate: %s" % ("EQUAL" if toks == want
+                                       else "DIFFERENT"))
+            hold_tokens("cli tcp vs solo", None, net, [toks], [want],
+                        [prompts[0]], (0.0, 0), [0], [0], NEAR_TIE)
+            proc.stdin.close()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            tail = proc.stderr.read()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log("  SIGTERM: exit %d; %s" % (rc, " | ".join(
+            ln for ln in tail.splitlines() if ln.startswith(("served",
+                                                             "serve:")))))
+        if rc != 0 or "served 1 prompts" not in tail:
+            raise AssertionError("bin/cxxnet_torch did not drain and exit "
+                                 "0 on SIGTERM")
+        cli_serve_reload(learn_task, api, d, cfg, net, prompts[0], gen[0])
+        del net
+    torch.cuda.empty_cache()
+    log("  phase wall %.1f s" % (time.perf_counter() - t_phase))
+    return launches
 
 
 def phase_lm_serve_long(flash, api, models):
@@ -4272,6 +4761,8 @@ def main() -> int:
     sess_rows, sess_flash = phase_lm_serve_session(flash_attn, rnd, api,
                                                    models)
     phase_cli_lm_generate(learn_task, api, models)
+    fe_rows, fe_flash = phase_lm_serve_frontend(flash_attn, rnd, api, models)
+    cli_serve_flash = phase_cli_lm_serve(flash_attn, learn_task, api, models)
     bwd_recs = phase_flash_bwd_kernel(flash_attn)
     train = {spec[0]: phase_lm_train(flash_attn, api, models, ops, *spec)
              for spec in LM_TRAIN}
@@ -4310,15 +4801,19 @@ def main() -> int:
              {"train_step": train_bwd // TRAIN_STEPS}),
             ("uniform", uniform_rec, "cxxnet_tpu/ops/pallas_kernels.py:169",
              {"rrelu_alexnet_train": rrelu[0],
-              "lm_serve_session": sess_rows},
+              "lm_serve_session": sess_rows,
+              "lm_serve_frontend": fe_rows},
              {"train_step": rrelu[0] // TRAIN_STEPS,
               "sampled_step_or_admission": 1}),
             ("flash_fwd", flash_rec, "cxxnet_tpu/ops/flash_attn.py:284",
              {"lm_serve": serve_launches, "lm_serve_long": long_launches,
-              "lm_serve_session": sess_flash, **serve_wide,
+              "lm_serve_session": sess_flash,
+              "lm_serve_frontend": fe_flash,
+              "cli_lm_serve": cli_serve_flash, **serve_wide,
               **{p: c[0] for p, c in train.items()}, **bench[2]},
              {"generate_request": LM_ARGS["nlayer"],
               "session_admission": LM_ARGS["nlayer"],
+              "frontend_admission": LM_ARGS["nlayer"],
               "full_sequence_forward": LM_ARGS["nlayer"], **per_step}),
             ("flash_bwd_dq", bwd_recs["dq"],
              "cxxnet_tpu/ops/flash_attn.py:337",
@@ -4374,10 +4869,10 @@ def main() -> int:
                 {k: rows_rec[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
                                           "max_abs_err")},
-                entry="cxxnet_uniform_rows", launches=sess_rows,
+                entry="cxxnet_uniform_rows", launches=sess_rows + fe_rows,
                 at="a sampling step's draw, (%d, %d)" % UNIFORM_ROWS[0][1:],
                 covers="the per-row entry point; launches on "
-                       "lm_serve_session only")
+                       "lm_serve_session and lm_serve_frontend only")
         if name.startswith("ring_"):
             kernels[-1]["times_cover"] = (
                 "one layer's ring on the main path: %d (rank, step) launches "

@@ -5,10 +5,10 @@ wrapper/cxxnet.py:64-307) for the port's slices so far: an iterator chain
 built from a config section (``DataIter``); a config-string-driven net
 that initializes or loads a model, trains it one ``update`` at a time on a
 DataIter's batch or on numpy (data, label), evaluates it over an iterator,
-runs prediction and feature extraction, and continues token sequences
-with a KV-cached ``generate`` (sequence nets), on the card (``dev =
-"gpu"``, the default) or, when asked, on the CPU; and the small driver
-loop ``train``. Model files are those of the JAX package: int32 net_type,
+runs prediction and feature extraction, continues token sequences with a
+KV-cached ``generate`` (sequence nets) and serves them online behind the
+serving frontend (``Net.serve``), on the card (``dev = "gpu"``, the
+default) or, when asked, on the CPU; and the small driver loop ``train``. Model files are those of the JAX package: int32 net_type,
 then the trainer's sections (optimizer state included), inside the CRC
 framing of utils/checkpoint.py.
 """
@@ -208,6 +208,56 @@ class Net:
                                         temperature=temperature,
                                         top_k=top_k, seed=seed,
                                         prompt_lens=prompt_lens)
+
+    def serve(self, port: int = 0, host: str = "", n_new: int = 16,
+              temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+              buckets=None, kv_block: int = 0, **opts):
+        """Start the serving frontend (``utils/servd.py``) around this
+        net on a TCP line protocol (cxxnet_tpu/api.py:213): a bounded
+        admission queue with ``ERR busy`` shedding, per-request ``DEADLINE
+        <ms>`` deadlines, backend supervision with a circuit breaker,
+        ``ADMIN stats`` / ``ADMIN reload`` and a graceful ``drain()``.
+        Returns the started, listening ``servd.ServeFrontend`` (``.port``
+        is the bound port; port 0 is ephemeral; loopback unless ``host``
+        widens it). Request ``seq`` (its dispatch ordinal) generates
+        ``n_new`` tokens with the seed ``seed + seq``, as ``generate``
+        would alone. ``buckets`` (slot counts, e.g. ``(1, 2, 4, 8)``) runs
+        the continuous-batching dispatcher over ``decode_session``s of
+        those sizes instead of one ``generate`` per request, paged over
+        the trainer's KV block pool when ``kv_block`` > 0; the tokens are
+        the same. ``opts`` pass through to ServeFrontend (queue_size,
+        deadline_ms, drain_ms, breaker_fails, breaker_cooldown_ms,
+        reload_fn, slo, flight_cap, batch_max, batch_window_ms, ...).
+        Every request gets a phase-attributed flight record in
+        ``fe.flight``, its TTFT split at the trainer's first-token mark.
+        The caller owns shutdown: ``.drain()`` answers every accepted
+        request before it returns."""
+        from .learn_task import _SlotBackendAdapter
+        from .utils import servd, statusd
+        vocab = servd.embed_vocab(self._trainer().net)
+
+        def backend(toks, seq):
+            # the net's trainer at each call: a reload_fn may swap it
+            tr = self.net_
+            with tr.on_device():
+                return tr.generate(np.asarray([toks]), n_new,
+                                   temperature=temperature, top_k=top_k,
+                                   seed=seed + seq)[0]
+
+        slot_backend = None
+        if buckets:
+            slot_backend = _SlotBackendAdapter(
+                lambda: self.net_, buckets, n_new, temperature=temperature,
+                top_k=top_k, seed=seed, kv_block=kv_block)
+        fe = servd.ServeFrontend(backend, vocab=vocab,
+                                 slot_backend=slot_backend, **opts)
+        fe.start()
+        fe.listen(port, host=host)
+        statusd.set_flight_recorder(fe.flight)
+        # unconditional: slo=None must also clear a tracker left behind by
+        # an earlier frontend
+        statusd.set_slo(fe.slo)
+        return fe
 
     def beam_generate(self, prompts: np.ndarray, n_new: int,
                       beam: int = 4) -> np.ndarray:

@@ -1,17 +1,19 @@
 """The learn task driver of the port: train / finetune / pred / pred_raw /
-extract / generate from a config file.
+extract / generate / serve from a config file.
 
 Counterpart of cxxnet_tpu/learn_task.py (the reference's
-CXXNetLearnTask, src/cxxnet_main.cpp:16-478) for those six tasks: the
+CXXNetLearnTask, src/cxxnet_main.cpp:16-478) for those seven tasks: the
 same config keys, the same sectioned iterator chains (``data =`` /
 ``eval =`` / ``pred =`` ... ``iter = end``, other keys applied to every
 chain), the same round loop and printed lines (progress on stdout, the
 ``[round]`` metric lines on stderr), checkpoint naming
 (``<model_dir>/%04d.model``, counter checked before it is incremented, the
 session's last round always saved) and pred / pred_raw / extract output
-formats, and the JAX package's ``task = generate`` (prompt lines in,
-continuations out). Model files are CRC-framed, as ``api.Net.save_model`` writes
-them, and either package loads the other's.
+formats, the JAX package's ``task = generate`` (prompt lines in,
+continuations out) and ``task = serve`` (the serving frontend,
+``utils/servd.py``, over stdin and optionally TCP, solo or continuously
+batched over decode sessions). Model files are CRC-framed, as
+``api.Net.save_model`` writes them, and either package loads the other's.
 
 The net runs on the card unless the config or the command line says
 ``dev = cpu``; there, every threadbuffer of the chains packs its batches
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import os
 import sys
+import threading
 import time
 from typing import List, Optional, Tuple
 
@@ -33,13 +36,34 @@ from .io import create_iterator
 from .nnet.trainer import Trainer, create_net
 from .utils import checkpoint as ckpt
 from .utils import serializer
+from .utils import statusd
+from .utils import telemetry
 from .utils.config import ConfigIterator
+
+# the fleet router's keys (task = route, cxxnet_tpu/utils/routerd.py) with
+# their defaults; route_tenants is the serving frontend's too, and ported
+_FLEET_DEFAULTS = {
+    "route_port": 0, "route_host": "", "route_replicas": "",
+    "route_probe_ms": 200.0, "route_retries": 2, "route_stall_s": 30.0,
+    "route_flight_cap": 256, "route_standby_replicas": "",
+    "route_scale_min": 0, "route_scale_max": 0, "route_scale_up_burn": 1.0,
+    "route_scale_down_idle_s": 30.0, "route_scale_cooldown_s": 10.0,
+    "route_replay": 1, "route_hedge_ms": 0.0, "route_hedge_max_pct": 10.0,
+    "fleet_federate_ms": 1000.0, "fleet_outlier_ratio": 3.0,
+    "fleet_outlier_min_n": 20,
+}
+
+
+def _is_default(default):
+    if isinstance(default, str):
+        return lambda v: v == default
+    return lambda v: type(default)(v) == default
+
 
 # keys whose features are not ported yet, with the test that a value is the
 # key's default (which is accepted)
 _NOT_PORTED = {
     "continue": lambda v: int(v) == 0,
-    "telemetry_log": lambda v: v == "",
     "status_port": lambda v: int(v) == -1,
     "profile_dir": lambda v: v == "",
     "health_monitor": lambda v: int(v) == 0,
@@ -48,9 +72,161 @@ _NOT_PORTED = {
     "num_worker": lambda v: int(v) <= 1,
     "ckpt_keep_last": lambda v: int(v) == 0,
     "ckpt_keep_every": lambda v: int(v) == 0,
+    # the perf ledger's warm-grid account (TPU program accounting)
+    "serve_plen_buckets": lambda v: v.replace(",", " ").split() == [],
+    "serve_warm_ready_pct": lambda v: float(v) == 0.0,
 }
-_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "generate")
-_TASKS_NOT_PORTED = ("serve", "export", "route")
+_NOT_PORTED.update({k: _is_default(d) for k, d in _FLEET_DEFAULTS.items()})
+_TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "generate",
+          "serve")
+_TASKS_NOT_PORTED = ("export", "route")
+
+
+class _SeededSession:
+    """Maps the dispatcher's per-request dispatch ordinal onto the conf
+    sampling seed (cxxnet_tpu/learn_task.py:30-66): ``seed = gen_seed +
+    seq``, exactly what the solo backend passes to ``generate``, so a
+    batched request's tokens equal its solo dispatch's. Every call runs
+    on the trainer's card (``Trainer.on_device``): the dispatcher calls
+    from its own thread, whose current device is thread-local."""
+
+    def __init__(self, inner, seed0: int, bind):
+        self._inner = inner
+        self._seed0 = int(seed0)
+        self._bind = bind
+        self.nslots = inner.nslots
+
+    @property
+    def closed(self):
+        return self._inner.closed
+
+    def prefill(self, slot, toks, seq):
+        with self._bind():
+            return self._inner.prefill(slot, toks, self._seed0 + int(seq))
+
+    def step(self):
+        with self._bind():
+            return self._inner.step()
+
+    def retire(self, slot):
+        with self._bind():
+            self._inner.retire(slot)
+
+    def free_slots(self):
+        return self._inner.free_slots()
+
+    def kv_account(self):
+        return self._inner.kv_account()
+
+    def close(self):
+        with self._bind():
+            self._inner.close()
+
+
+class _SlotBackendAdapter:
+    """Continuous-batching slot backend over ``Trainer.decode_session``
+    (cxxnet_tpu/learn_task.py:69-170): what servd's batching dispatcher
+    drives when ``serve_buckets`` is set. ``trainer()`` returns the trainer
+    to serve, read at every call so that a hot reload's swapped-in trainer
+    serves the next session (the dispatcher closes every session before a
+    reload). Each session generates ``n_new`` tokens at ``temperature`` /
+    ``top_k``, request ``seq`` drawing on ``seed + seq``. ``kv_block > 0``
+    arms the paged KV cache: every session shares the trainer's block
+    pool, sized at dense-equivalent capacity (the largest bucket times the
+    net's sequence length; the perf ledger's headroom cap is not ported)."""
+
+    def __init__(self, trainer, buckets, n_new: int,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 kv_block: int = 0, prefix_reuse: bool = True,
+                 retained_frac: float = 1.0):
+        self.trainer = trainer
+        self.buckets = list(buckets)
+        self.n_new = int(n_new)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.seed = int(seed)
+        self.kv_block = int(kv_block)
+        self.prefix_reuse = bool(prefix_reuse)
+        self.retained_frac = float(retained_frac)
+
+    def _l_max(self) -> int:
+        return self.trainer().net_cfg.param.input_shape[2]
+
+    def admits(self, toks):
+        if len(toks) + self.n_new > self._l_max():
+            return ("prompt len %d + gen_new %d exceeds the net's "
+                    "sequence length %d" % (len(toks), self.n_new,
+                                            self._l_max()))
+        return None
+
+    def _pool(self):
+        """The shared paged pool (made at first use, made anew after a
+        hot reload by ``decode_kv_pool``'s params-generation key). None
+        in dense mode."""
+        if self.kv_block <= 0:
+            return None
+        return self.trainer().decode_kv_pool(
+            self.kv_block, pool_tokens=max(self.buckets) * self._l_max(),
+            prefix_reuse=self.prefix_reuse,
+            retained_frac=self.retained_frac)
+
+    def _live_pool(self):
+        """The pool if it EXISTS and is open: the account and gate hooks
+        never make one (they run at every publish, idle ones too)."""
+        if self.kv_block <= 0:
+            return None
+        p = self.trainer()._kv_pool
+        return None if p is None or p.closed else p
+
+    def kv_pool_account(self):
+        p = self._live_pool()
+        return p.account() if p is not None else None
+
+    def kv_free_blocks(self):
+        """Admissible headroom for servd's gather budget (None disarms):
+        free PLUS evictable retained blocks."""
+        p = self._live_pool()
+        return p.alloc.available_blocks if p is not None else None
+
+    def kv_shed_retained(self, target_free):
+        p = self._live_pool()
+        if p is None:
+            return 0
+        return p.alloc.evict_retained(target_free=target_free)
+
+    def kv_fresh_blocks(self, toks):
+        """Blocks an admission would take off the free list right now
+        (prefix-credited): servd pops a queued request only when this
+        fits the budget."""
+        p = self._live_pool()
+        if p is None:
+            return None
+        return p.alloc.fresh_need(len(toks), self.n_new, toks)
+
+    def session(self, bucket):
+        tr = self.trainer()
+        with tr.on_device():
+            inner = tr.decode_session(
+                bucket, self.n_new, temperature=self.temperature,
+                top_k=self.top_k, kv_pool=self._pool())
+        return _SeededSession(inner, self.seed, tr.on_device)
+
+
+# the serve_* and slo_* keys, each read into the attribute of its name
+_SERVE_KEYS = (
+    ("serve_port", int), ("serve_host", str), ("serve_queue", int),
+    ("serve_deadline_ms", float), ("serve_drain_ms", float),
+    ("serve_breaker_fails", int), ("serve_breaker_cooldown_ms", float),
+    ("serve_stall_s", float), ("serve_buckets", str),
+    ("serve_batch_max", int), ("serve_batch_window_ms", float),
+    ("serve_kv_block", int), ("serve_prefix_reuse", int),
+    ("serve_retained_frac", float), ("serve_kv_pressure_pct", float),
+    ("serve_kv_pressure_clear_pct", float),
+    ("serve_batch_flight_cap", int), ("serve_convoy_iters", int),
+    ("serve_flight_cap", int), ("serve_tenant_default", str),
+    ("slo_ttft_ms", float), ("slo_p99_ms", float),
+    ("slo_availability", float), ("slo_window_s", float),
+)
 
 
 class LearnTask:
@@ -76,6 +252,35 @@ class LearnTask:
         self.print_step = 100
         self.extract_node_name = ""
         self.output_format = 1
+        # telemetry_log = <path>: the JSONL run log (utils/telemetry.py)
+        self.telemetry_log = ""
+        # task = serve (cxxnet_tpu/learn_task.py:274-419): the frontend's
+        # keys, read as the JAX command line reads them
+        self.serve_port = -1
+        self.serve_host = ""
+        self.serve_queue = 64
+        self.serve_deadline_ms = 0.0
+        self.serve_drain_ms = 5000.0
+        self.serve_breaker_fails = 5
+        self.serve_breaker_cooldown_ms = 1000.0
+        self.serve_stall_s = 120.0
+        self.serve_buckets = ""
+        self.serve_batch_max = 8
+        self.serve_batch_window_ms = 2.0
+        self.serve_kv_block = 0
+        self.serve_prefix_reuse = 1
+        self.serve_retained_frac = 1.0
+        self.serve_kv_pressure_pct = 10.0
+        self.serve_kv_pressure_clear_pct = 25.0
+        self.serve_batch_flight_cap = 256
+        self.serve_convoy_iters = 64
+        self.serve_flight_cap = 256
+        self.serve_tenant_default = "default"
+        self.route_tenants = ""
+        self.slo_ttft_ms = 0.0
+        self.slo_p99_ms = 0.0
+        self.slo_availability = 0.999
+        self.slo_window_s = 300.0
         # task = generate (cxxnet_tpu/learn_task.py:272-273, 420-423)
         self.name_prompt_in = "prompts.txt"
         self.name_gen_out = "gen.txt"
@@ -92,10 +297,18 @@ class LearnTask:
             return 0
         for name, val in ConfigIterator(argv[0], argv[1:]):
             self.set_param(name, val)
+        if self.telemetry_log:
+            telemetry.enable(self.telemetry_log)
+            telemetry.event({"ev": "run_meta", "task": self.task,
+                             "dev": self.device})
         try:
             self.init()
             if not self.silent:
-                print("initializing end, start working")
+                # serve's stdout carries exactly one response line per
+                # request: startup chatter goes to stderr there
+                print("initializing end, start working",
+                      file=sys.stderr if self.task == "serve"
+                      else sys.stdout)
             if self.task in ("train", "finetune"):
                 self.task_train()
             elif self.task == "pred":
@@ -106,8 +319,13 @@ class LearnTask:
                 self.task_extract_feature()
             elif self.task == "generate":
                 self.task_generate()
+            elif self.task == "serve":
+                self.task_serve()
         finally:
             self.close()
+            if self.telemetry_log:
+                telemetry.flush()
+                telemetry.disable()
         return 0
 
     def close(self) -> None:
@@ -170,6 +388,13 @@ class LearnTask:
             self.gen_topk = int(val)
         if name == "gen_seed":
             self.gen_seed = int(val)
+        if name == "telemetry_log":
+            self.telemetry_log = val
+        if name == "route_tenants":
+            self.route_tenants = val
+        for key, cast in _SERVE_KEYS:
+            if name == key:
+                setattr(self, key, cast(val))
         self.cfg.append((name, val))
 
     # ------------------------------------------------------------------
@@ -463,6 +688,253 @@ class LearnTask:
                 fo.write(" ".join(str(int(t)) for t in row) + "\n")
         print("generated %d x %d tokens into %s"
               % (out.shape[0], out.shape[1], self.name_gen_out))
+
+    def _sync_latest_model(self) -> int:
+        """Load the newest numbered checkpoint of model_dir that parses
+        (cxxnet_tpu/learn_task.py:772-855 without the emergency file and
+        quarantine, which are not ported): newest first, a file that fails
+        its CRC or does not parse is skipped with a warning. Returns 1 and
+        swaps in the new trainer, or 0 when no file loads."""
+        for counter, path in reversed(ckpt.scan_checkpoints(
+                self.name_model_dir)):
+            if counter < self.start_counter:
+                break
+            try:
+                r = self._read_model_file(path)
+                net_type = r.read_int32()
+                prev_type, self.net_type = self.net_type, net_type
+                try:
+                    net = self._create_net()
+                    net.load_model(r)
+                except Exception:
+                    self.net_type = prev_type
+                    raise
+            except Exception as e:
+                sys.stderr.write("WARNING: cannot load %s (%s); skipping\n"
+                                 % (path, e))
+                continue
+            self.net_trainer = net
+            self.start_counter = counter + 1
+            telemetry.event({"ev": "ckpt_restore", "path": path,
+                             "counter": counter, "batches_done": 0})
+            return 1
+        return 0
+
+    def task_serve(self) -> None:
+        """task = serve (cxxnet_tpu/learn_task.py:1519-1812): online serving
+        through the frontend (utils/servd.py). Each stdin line is one
+        prompt of space-separated token ids, answered on stdout with one
+        line (the gen_new-token continuation, or ``ERR <class> ...``), in
+        request order; ``DEADLINE <ms>``, ``TRACE``, ``TENANT`` and
+        ``ADMIN stats`` / ``ADMIN reload`` lines as the JAX package reads
+        them. Backend failures answer ``ERR backend`` and feed the circuit
+        breaker; ``ADMIN reload`` or SIGHUP loads the newest checkpoint of
+        model_dir between requests; SIGTERM / SIGINT drain (every accepted
+        request answered within serve_drain_ms) and exit 0. serve_port >=
+        0 also serves TCP clients with the same protocol; after stdin EOF
+        the process then serves until a drain signal. serve_buckets =
+        "1,2,4,8" runs the continuous-batching dispatcher over decode
+        sessions of those slot counts (serve_kv_block > 0: paged); without
+        it each request is one ``generate`` of batch 1."""
+        import signal
+
+        from .utils import servd
+
+        vocab = servd.embed_vocab(self.net_trainer.net)
+        statusd.update_progress(served=0, errors=0)
+
+        def backend(toks, seq):
+            # reads net_trainer THROUGH self so a hot reload's swapped-in
+            # trainer serves the very next request
+            tr = self.net_trainer
+            with tr.on_device():
+                return tr.generate(
+                    [toks], self.gen_new, temperature=self.gen_temperature,
+                    top_k=self.gen_topk, seed=self.gen_seed + seq)[0]
+
+        def newest_ckpt_sig():
+            # identity of the newest numbered checkpoint: a new or
+            # rewritten file changes it, so a matching one means a reload
+            # would load the very model being served
+            cands = ckpt.scan_checkpoints(self.name_model_dir)
+            if not cands:
+                return ()
+            try:
+                fst = os.stat(cands[-1][1])
+            except OSError:
+                return ()
+            return ((os.path.realpath(cands[-1][1]), fst.st_mtime_ns,
+                     fst.st_size),)
+
+        # seed the signature when the model being served IS the newest
+        # checkpoint, so a blind SIGHUP loop starts out free
+        served_sig = [newest_ckpt_sig()]
+        if served_sig[0] and served_sig[0][0][0] != os.path.realpath(
+                self.name_model_in):
+            served_sig[0] = None
+
+        def reload_fn():
+            sig = newest_ckpt_sig()
+            if sig and sig == served_sig[0]:
+                if not self.silent:
+                    print("serve: reload skipped — already serving the "
+                          "newest checkpoint", file=sys.stderr, flush=True)
+                return False
+            # every session is closed by now (the dispatcher reloads only
+            # between batches): free the old pool's device memory before
+            # the new trainer's params are loaded beside the old ones
+            self.net_trainer.release_kv_pool()
+            prev_counter = self.start_counter
+            self.start_counter = 0
+            with self.net_trainer.on_device():
+                loaded = self._sync_latest_model()
+            if loaded == 0:
+                self.start_counter = prev_counter
+                sys.stderr.write(
+                    "WARNING: serve reload: no valid checkpoint in %s; "
+                    "keeping the current model\n" % self.name_model_dir)
+                return False
+            served_sig[0] = sig
+            if not self.silent:
+                # stderr: stdout is the response stream
+                print("serve: reloaded model (round %d checkpoint)"
+                      % (self.start_counter - 1), file=sys.stderr,
+                      flush=True)
+            return True
+
+        slo = statusd.SLOTracker(
+            ttft_ms=self.slo_ttft_ms, p99_ms=self.slo_p99_ms,
+            availability=self.slo_availability, window_s=self.slo_window_s)
+        # multi-tenant QoS: one SLOTracker per tenant of route_tenants
+        tenants = servd.parse_tenants(self.route_tenants)
+        slo_tenants = {}
+        if tenants:
+            if self.serve_tenant_default not in tenants:
+                tenants[self.serve_tenant_default] = 1.0
+            slo_tenants = {
+                t: statusd.SLOTracker(
+                    ttft_ms=self.slo_ttft_ms, p99_ms=self.slo_p99_ms,
+                    availability=self.slo_availability,
+                    window_s=self.slo_window_s)
+                for t in tenants}
+            if not self.silent:
+                print("serve: multi-tenant QoS on (%s; default %r)"
+                      % (",".join("%s:%g" % kv
+                                  for kv in sorted(tenants.items())),
+                         self.serve_tenant_default),
+                      file=sys.stderr, flush=True)
+        slot_backend = None
+        bucket_list = [int(x) for x in
+                       str(self.serve_buckets).replace(",", " ").split()]
+        if bucket_list:
+            slot_backend = _SlotBackendAdapter(
+                lambda: self.net_trainer, bucket_list, self.gen_new,
+                temperature=self.gen_temperature, top_k=self.gen_topk,
+                seed=self.gen_seed, kv_block=self.serve_kv_block,
+                prefix_reuse=bool(self.serve_prefix_reuse),
+                retained_frac=self.serve_retained_frac)
+            if not self.silent:
+                print("serve: continuous batching on (buckets %s, "
+                      "batch_max %d, window %.1fms%s)"
+                      % (sorted(set(bucket_list)), self.serve_batch_max,
+                         self.serve_batch_window_ms,
+                         ", paged kv block %d" % self.serve_kv_block
+                         if self.serve_kv_block > 0 else ""),
+                      file=sys.stderr, flush=True)
+        fe = servd.ServeFrontend(
+            backend, queue_size=self.serve_queue,
+            deadline_ms=self.serve_deadline_ms,
+            drain_ms=self.serve_drain_ms,
+            breaker_fails=self.serve_breaker_fails,
+            breaker_cooldown_ms=self.serve_breaker_cooldown_ms,
+            stall_after_s=self.serve_stall_s,
+            vocab=vocab, reload_fn=reload_fn,
+            slo=slo, flight_cap=self.serve_flight_cap,
+            slot_backend=slot_backend,
+            batch_max=self.serve_batch_max,
+            batch_window_ms=self.serve_batch_window_ms,
+            batch_flight_cap=self.serve_batch_flight_cap,
+            convoy_iters=self.serve_convoy_iters,
+            kv_pressure_pct=self.serve_kv_pressure_pct,
+            kv_pressure_clear_pct=self.serve_kv_pressure_clear_pct,
+            tenants=tenants, tenant_default=self.serve_tenant_default,
+            slo_tenants=slo_tenants)
+        fe.start()
+        statusd.set_flight_recorder(fe.flight)
+        statusd.set_slo(slo)
+        statusd.set_slo_tenants(slo_tenants)
+        if slot_backend is not None:
+            statusd.set_batch(fe)
+        if self.serve_port >= 0:
+            try:
+                port = fe.listen(self.serve_port, host=self.serve_host)
+            except (OSError, OverflowError) as e:
+                # a taken port must not kill serving: warn, fall back to
+                # the stdin surface
+                sys.stderr.write(
+                    "WARNING: servd: cannot bind port %d (%s); TCP "
+                    "serving disabled, stdin loop only\n"
+                    % (self.serve_port, e))
+            else:
+                if not self.silent:
+                    # stderr, not stdout: stdout carries exactly one
+                    # response line per stdin request
+                    print("servd: serving on port %d (line protocol; "
+                          "DEADLINE/ADMIN prefixes, ERR classes)" % port,
+                          file=sys.stderr, flush=True)
+        statusd.register_probe("serving", fe.health_probe)
+        statusd.register_probe("serving.worker", fe.liveness_probe,
+                               liveness=True)
+        old_hup = None
+        try:
+            # SIGHUP = hot reload; the handler only sets a flag. Signal
+            # handlers install on the main thread only.
+            old_hup = signal.signal(
+                signal.SIGHUP, lambda s, f: fe.request_reload())
+        except (AttributeError, ValueError, OSError):
+            pass                 # no SIGHUP (platform) / not main thread
+        stdin_done = threading.Event()
+
+        def pump():
+            reply = lambda text: print(text, flush=True)  # noqa: E731
+            for line in sys.stdin:
+                # wait=True keeps responses in request order (the stdin
+                # contract) while still running the full engine path
+                fe.submit(line.rstrip("\n"), reply, wait=True)
+            stdin_done.set()
+
+        threading.Thread(target=pump, name="cxn-serve-stdin",
+                         daemon=True).start()
+        try:
+            with ckpt.PreemptionGuard() as guard:
+                # serve until drain is requested; a stdin EOF ends a
+                # pipe-driven run unless TCP clients are being served
+                while not guard.requested:
+                    if stdin_done.is_set() and not fe.listening:
+                        break
+                    time.sleep(0.1)
+                if guard.requested:
+                    telemetry.event({"ev": "preempt_signal",
+                                     "signum": guard.signum})
+                    if not self.silent:
+                        print("serve: drain requested (signal %s); "
+                              "finishing accepted requests"
+                              % guard.signum, file=sys.stderr, flush=True)
+        finally:
+            stats = fe.drain()
+            if old_hup is not None:
+                try:
+                    signal.signal(signal.SIGHUP, old_hup)
+                except (ValueError, OSError):
+                    pass
+        telemetry.event(dict({"ev": "serve_done"}, **stats))
+        print("served %d prompts (%d request errors)"
+              % (stats["served"], stats["errors"]),
+              file=sys.stderr, flush=True)
+        if stats["shed"] or stats["deadline"]:
+            print("  shed %d, deadline-expired %d (of %d accepted)"
+                  % (stats["shed"], stats["deadline"], stats["accepted"]),
+                  file=sys.stderr, flush=True)
 
 
 def main(argv: List[str]) -> int:

@@ -28,6 +28,7 @@ which the card's machine lacks; the conversion is exact).
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import re
 import weakref
@@ -40,7 +41,7 @@ from .. import device as device_mod
 from ..layer.base import check, fold_in
 from ..ops import random as oprandom
 from ..updater import Updater, create_updater
-from ..utils import kvblocks, serializer
+from ..utils import kvblocks, serializer, telemetry
 from ..utils.kvblocks import KVPoolExhausted
 from ..utils.metric import MetricSet
 from .config import NetConfig
@@ -483,6 +484,17 @@ class Trainer:
         if self.dev is not None and self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
 
+    def on_device(self):
+        """A context that makes the trainer's card the calling thread's
+        current device (a nullcontext on the CPU). The current device is
+        thread-local in torch: a thread other than the one that built the
+        net (the serving frontend's worker) enters it around every call,
+        so its launches go to the card and its default stream, where the
+        net's tensors and the kernels' launches live."""
+        if self.dev is None or self.dev.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.device(self.dev)
+
     def evaluate(self, iter_eval, data_name: str) -> str:
         """The train metrics gathered since the last call, then the
         metrics over ``iter_eval`` (any object with before_first / next /
@@ -686,6 +698,12 @@ class Trainer:
             if on_probs is not None:
                 on_probs(0, probs)
             place(plen - 1, probs[:, :, -1])
+            if telemetry.current_trace() is not None:
+                # a served request's TTFT boundary (servd's trace
+                # context): taken once the first token is on the host,
+                # so it is the card's time and not the launch queue's
+                toks[:, plen].cpu()
+            telemetry.mark("first_token")
             for t in range(plen, total - 1):
                 values, _ = net2.forward(
                     params, toks[:, t:t + 1].reshape(b, 1, 1, 1),
@@ -1191,6 +1209,8 @@ class DecodeSession:
                     self._tables[slot, :len(ticket.ids)] = torch.tensor(
                         ticket.ids, dtype=torch.int64, device=dev)
             first = int(first[0])              # waits: the first token
+            # the TTFT boundary the serving frontend's trace context reads
+            telemetry.mark("first_token")
         except Exception:
             # the session's (and a pool's) device state is unknown now
             self.closed = True

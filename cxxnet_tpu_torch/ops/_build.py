@@ -11,6 +11,12 @@ failed. ``nvcc``'s output, with ``-Xptxas -v`` (registers, shared memory
 and spills per kernel), is kept beside each library as
 ``lib<name>-<hash>.log``.
 
+The first use of a library in a process (its build when not built yet, and
+its load) is what stands in for a compile in the port: it is recorded
+through ``telemetry.record_compile`` as ``kernel:<name>``, cause
+``first_use``, so a serving request that sat through it carries it in its
+flight record's ``recompiles`` and ``compile_stall_s``.
+
 Nothing here runs at import: the CPU tests import every module and have no
 ``nvcc``.
 """
@@ -22,7 +28,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from typing import Dict, Iterable, Optional, Sequence
+
+from ..utils import telemetry
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -101,10 +110,13 @@ def _entry(name: str, entry: str, argtypes: Sequence):
     """The entry point ``entry`` of the ctypes library of csrc/<name>.cu,
     built and loaded at first use, with its argument types declared."""
     if name not in _libs:
+        t0 = time.perf_counter()
         lib = ctypes.CDLL(build_kernels([name])[name])
         lib.cxxnet_cuda_error_string.argtypes = [ctypes.c_int]
         lib.cxxnet_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
+        telemetry.record_compile("kernel:" + name, "first_use",
+                                 time.perf_counter() - t0)
     fn = getattr(_libs[name], entry)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)

@@ -4,6 +4,13 @@ cxxnet_tpu/utils/checkpoint.py (``frame``, ``split_footer``, ``verify_blob``,
 package wrote, and ``write_framed`` to write one that it loads (a plain
 write: the JAX package's atomic, retried write is not ported yet).
 
+For serving: ``scan_checkpoints`` lists a model directory's
+``<counter>.model`` files (the hot reload takes the newest one that
+parses), ``backoff_delay`` is the shared exponential schedule of the
+circuit breaker's cooldown, and ``PreemptionGuard`` turns SIGTERM / SIGINT
+into a drain request. The emergency file, quarantine and retention are not
+ported yet.
+
 Framed files are ``CXCKHDR1 + payload + footer`` where the 20-byte footer is
 ``<IQ8s``: CRC32(payload), payload length, magic ``CXCKPT01``. A file without
 the header is a legacy (unframed) model file and passes through as is.
@@ -11,15 +18,20 @@ the header is a legacy (unframed) model file and passes through as is.
 
 from __future__ import annotations
 
+import os
+import re
+import signal
 import struct
 import zlib
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 HEADER_MAGIC = b"CXCKHDR1"
 FOOTER_MAGIC = b"CXCKPT01"
 
 _FOOTER_FMT = "<IQ8s"   # crc32(payload), payload length, FOOTER_MAGIC
 FOOTER_SIZE = struct.calcsize(_FOOTER_FMT)
+
+_NAME_RE = re.compile(r"^(\d+)\.model$")
 
 
 class CheckpointCorruptError(Exception):
@@ -92,3 +104,76 @@ def read_verified(path: str) -> Tuple[bytes, str]:
         return split_footer(blob)
     except CheckpointCorruptError as e:
         raise CheckpointCorruptError("%s: %s" % (path, e)) from None
+
+
+def backoff_delay(attempt: int, base_delay: float = 0.05,
+                  cap: float = 30.0) -> float:
+    """The shared exponential-backoff schedule: ``base_delay`` doubled
+    per attempt, capped (cxxnet_tpu/utils/checkpoint.py:161). The serving
+    frontend's circuit-breaker cooldown follows it."""
+    return min(cap, base_delay * (2.0 ** max(0, int(attempt))))
+
+
+def scan_checkpoints(model_dir: str) -> List[Tuple[int, str]]:
+    """All ``<counter>.model`` files in ``model_dir``, sorted ascending by
+    counter; gaps in the numbering (save_period > 1) are fine."""
+    out: List[Tuple[int, str]] = []
+    try:
+        names = os.listdir(model_dir)
+    except OSError:
+        return out
+    for nm in names:
+        m = _NAME_RE.match(nm)
+        if m:
+            out.append((int(m.group(1)), os.path.join(model_dir, nm)))
+    out.sort()
+    return out
+
+
+class PreemptionGuard:
+    """Convert SIGTERM/SIGINT into a cooperative request to stop
+    (cxxnet_tpu/utils/checkpoint.py:354).
+
+    While installed, the FIRST signal sets ``requested`` (``task = serve``
+    polls it and drains) and immediately restores the previous handlers,
+    so a second signal gets default handling: an operator can still
+    hard-kill a hung drain. Installing outside the main thread is a silent
+    no-op (``signal.signal`` is main-thread-only); ``enabled=False``
+    builds an inert guard so call sites need no branching."""
+
+    def __init__(self, signals=None, enabled: bool = True):
+        self.signals = tuple(signals) if signals is not None else \
+            (signal.SIGTERM, signal.SIGINT)
+        self.enabled = enabled
+        self.requested = False
+        self.signum: Optional[int] = None
+        self._old = {}
+
+    def __enter__(self) -> "PreemptionGuard":
+        if not self.enabled:
+            return self
+        try:
+            for s in self.signals:
+                self._old[s] = signal.signal(s, self._handle)
+        except ValueError:        # not the main thread
+            self._restore()
+        return self
+
+    def _handle(self, signum, frame) -> None:
+        # async-signal-safe by construction: ONLY set flags; the loop that
+        # polls ``requested`` does the rest
+        self.requested = True
+        self.signum = int(signum)
+        self._restore()
+
+    def _restore(self) -> None:
+        for s, h in self._old.items():
+            try:
+                signal.signal(s, h)
+            except (ValueError, OSError):
+                pass
+        self._old = {}
+
+    def __exit__(self, *exc) -> bool:
+        self._restore()
+        return False

@@ -61,16 +61,16 @@ scratch block only ever covers masked positions).
 
 Thread model: single mutating owner (the thread that drives the
 sessions). The mutating entry points (``admit``/``free``/``register``/
-``evict_retained``) additionally serialize under one ``threading.Lock``;
-the JAX package takes a lock of its rank checker there (``kvblocks.evict``,
-rank 15 inside the serving frontend's queue lock), which waits in the
-port for the serving frontend whose locks it orders. Read-only queries
-(``match_prefix``/``fresh_need``/``reservable``/``account``) stay
-lockless under the single-owner model.
+``evict_retained``) additionally serialize under one ranked lock,
+``lockrank.lock("kvblocks.evict")`` (rank 15: it nests inside the serving
+frontend's queue lock, never the reverse), as in the JAX package.
+Read-only queries (``match_prefix``/``fresh_need``/``reservable``/
+``account``) stay lockless under the single-owner model.
 """
 
-import threading
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from . import lockrank
 
 __all__ = ["BlockAllocator", "AdmitTicket", "KVPoolExhausted"]
 
@@ -143,7 +143,7 @@ class BlockAllocator:
         # eviction); root (0) is not tracked
         self._children: Dict[int, int] = {}
         # serializes reservation+eviction+release (see module doc)
-        self._lock = threading.Lock()
+        self._lock = lockrank.lock("kvblocks.evict")
         # lifetime tallies (the cxxnet_decode_kv_block_* series) —
         # counted at admission SUCCESS only: a deferred ask retries
         # and must tally once, not once per attempt (alloc_failures

@@ -113,3 +113,46 @@ def test_fp32_means_fp32_on_the_card():
     import cxxnet_tpu_torch  # noqa: F401
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+# the serving frontend and its helpers: standard library and each other only
+SERVING_MODULES = ("servd", "lockrank", "telemetry", "health", "statusd",
+                   "autopsy", "checkpoint", "kvblocks")
+
+
+def test_serving_frontend_loads_no_jax():
+    code = ("import sys\n"
+            "import cxxnet_tpu_torch.utils.servd\n"
+            "import cxxnet_tpu_torch.learn_task\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cxxnet_tpu' or "
+            "m.startswith('cxxnet_tpu.'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("name", SERVING_MODULES)
+def test_serving_modules_are_standard_library_only(name):
+    path = os.path.join(PORT, "utils", name + ".py")
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                assert (node.module or "") == "" or \
+                    node.module in SERVING_MODULES, (path, node.module)
+                assert all(a.name in SERVING_MODULES for a in node.names
+                           if not node.module), (path, node.names)
+                continue
+            mods = [(node.module or "").split(".")[0]]
+        else:
+            continue
+        for m in mods:
+            if m == "cxxnet_tpu_torch":
+                continue             # the package's own copy of a module
+            assert m in sys.stdlib_module_names, "%s imports %s" % (path, m)
