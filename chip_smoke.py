@@ -15,8 +15,11 @@ drawn by the Philox kernel); then the command line (bin/cxxnet_torch,
 example/MNIST/MNIST_CONV.conf trained for its 15 rounds on synthetic MNIST,
 ImageNet.conf trained for 2 rounds from a synthetic 256x256 PPM pack
 (imgbin + threadbuffer, the mean image made on first use, both LRN
-kernels) and held to api.Net.update on the same batches, then pred /
-extract / pred_raw from its model held to api.Net, and
+kernels) and held to api.Net.update on the same batches, then, in
+processes of their own, stopped by SIGTERM mid-round and resumed with
+``continue = 1`` (its status pages scraped) to a model file equal bit for
+bit to the uninterrupted run's, a torn newest file quarantined, then pred
+/ extract / pred_raw from its model held to api.Net, and
 example/kaggle_bowl/pred.conf's pred_raw with a padded last batch; then
 mixed precision (``compute_dtype = bfloat16``): the LRN kernels at
 GoogLeNet's shapes, GoogLeNet trained and served in bf16 at batch 128
@@ -40,7 +43,8 @@ sent by 8 concurrent TCP clients through ``api.Net.serve``'s continuous
 batching (dense and paged greedy, dense sampled; answers held to solo
 ``generate``, the books reconciled, a flood against a queue of 4, a drain
 with requests in flight), and ``task = serve`` from the command line on
-stdin and, in a process of its own, over TCP until SIGTERM; then both
+stdin and, in a process of its own, over TCP with its status pages
+scraped until SIGTERM drains it; then both
 LMs trained through
 ``update`` (the config's Adam, batch 8 and 2); the bench.py LM with 2
 heads (head dim 256) and with 1 head (head dim 512) served and trained;
@@ -55,7 +59,8 @@ Output, in order: the card's name and power limit (nvidia-smi), the build
 time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``alexnet_train``, ``uniform_kernel``, ``uniform_rows_kernel``,
 ``rrelu_alexnet_train``,
-``cli_mnist_conv``, ``cli_imagenet_train``, ``cli_imagenet_pred``,
+``cli_mnist_conv``, ``cli_imagenet_train``, ``cli_imagenet_resume``,
+``cli_imagenet_pred``,
 ``cli_bowl_pred_raw``, ``lrn_kernel_googlenet``,
 ``lrn_bwd_kernel_googlenet``, ``googlenet_bf16_train``,
 ``googlenet_bf16_pred``, ``cli_googlenet``, ``vgg16_bf16_remat``,
@@ -2228,6 +2233,109 @@ def cli_serve_reload(learn_task, api, d, cfg, net, prompt, first):
                              "not free the old pool")
     del newer
 
+# requests in flight at cli_lm_serve's SIGTERM
+CLI_SERVE_FLOOD = 8
+
+
+def serve_clients_async(port, lines, timeout=300.0):
+    """One TCP client a line, started now; the returned call joins them
+    and gives the answers in order (None for a connection closed
+    unanswered)."""
+    out = [None] * len(lines)
+
+    def one(i):
+        try:
+            out[i] = serve_clients(port, [lines[i]], 1,
+                                   timeout=timeout)[0][0]
+        except (OSError, AssertionError):
+            out[i] = None
+    ts = [threading.Thread(target=one, args=(i,), daemon=True)
+          for i in range(len(lines))]
+    for t in ts:
+        t.start()
+
+    def join():
+        for t in ts:
+            t.join(timeout)
+        return out
+    return join
+
+
+def healthz_during_drain(sport, proc, timeout=60.0):
+    """Poll /healthz from the moment of a SIGTERM until the process ends:
+    (the first code other than 200, its body), or (None, ...) if the
+    pages went away without one."""
+    deadline = time.time() + timeout
+    while time.time() < deadline and proc.poll() is None:
+        try:
+            code, body = scrape(sport, "/healthz", timeout=5)
+        except OSError:
+            break
+        if code != 200:
+            return code, body.strip().replace("\n", "; ")
+        time.sleep(0.002)
+    return None, "no answer other than 200 before the pages closed"
+
+
+def status_pages(sport, port):
+    """Scrape a serving process's status pages once, at rest after its
+    first answer: each must answer 200 and parse (Prometheus text, JSON
+    or HTML), and the decode account on /metrics and /batchz must agree
+    with ADMIN stats. Returns a summary line."""
+    status = {}
+    code, text = scrape(sport, "/metrics")
+    series = prom_series(text)
+    status["/metrics"] = (code, "%d series" % len(series))
+    for path in ("/healthz", "/livez"):
+        code, body = scrape(sport, path)
+        status[path] = (code, body.strip())
+    code, page = scrape(sport, "/batchz")
+    status["/batchz"] = (code, "html" if "decode batch scheduler" in page
+                         else "?")
+    code, body = scrape(sport, "/batchz?json=1")
+    batch = json.loads(body)
+    code, body = scrape(sport, "/requestz?json=1")
+    recs = json.loads(body)["requests"]
+    status["/requestz"] = (code, "%d records" % len(recs))
+    rid = [r["id"] for r in recs if r.get("outcome") == "served"][0]
+    code, body = scrape(sport, "/trace?request=%s" % rid)
+    phases = [e["name"] for e in json.loads(body)["traceEvents"]
+              if e.get("ph") == "X"]
+    status["/trace"] = (code, "request %s: %s" % (rid, ",".join(
+        sorted(set(phases) & {"queue_wait", "dispatch", "prefill",
+                              "decode"}))))
+    code, body = scrape(sport, "/eventz?json=1")
+    status["/eventz"] = (code, "%d rows" % json.loads(body)["shown"])
+    code, page = scrape(sport, "/eventz")
+    admin = serve_clients(port, ["ADMIN stats"], 1, timeout=60)[0][0]
+    kv = dict(t.split("=", 1) for t in admin.split()[1:])
+    bad = [p for p, (c, _) in status.items() if c != 200]
+    if bad or code != 200 or "queue_wait" not in status["/trace"][1]:
+        raise AssertionError("status pages did not answer 200 and parse: "
+                             "%s" % status)
+    # the decode account: /batchz (the source of the cxxnet_decode_*
+    # series) and /metrics against ADMIN stats, at rest
+    pairs = [("free_slots", batch["free_slots"], int(kv["free_slots"]))]
+    for b, bs in batch["buckets"].items():
+        pairs.append(("bucket.%s.warm" % b, bs["warm"],
+                      int(kv["bucket.%s.warm" % b])))
+        pairs.append(("bucket.%s.active" % b, bs["active"],
+                      int(kv["bucket.%s.active" % b])))
+        pairs.append(("cxxnet_decode_kv_bytes{bucket=%s}" % b,
+                      series['cxxnet_decode_kv_bytes{process="0",'
+                             'bucket="%s"}' % b], bs["kv_bytes"]))
+    pairs.append(("cxxnet_progress_served vs served",
+                  series.get('cxxnet_progress_served{process="0"}'),
+                  float(kv["served"])))
+    off = [p for p in pairs if p[1] != p[2]]
+    if off:
+        raise AssertionError("the decode gauges disagree with ADMIN "
+                             "stats: %s" % off)
+    return "; ".join("%s %d %s" % (p, c, d) for p, (c, d)
+                     in status.items()) + "; decode account = ADMIN stats" \
+        " on %d keys (%s)" % (len(pairs), ", ".join(
+            "%s=%s" % (n, g) for n, g, _ in pairs))
+
 
 def phase_cli_lm_serve(flash, learn_task, api, models):
     """task = serve from the command line on a model file of the bench.py
@@ -2235,9 +2343,13 @@ def phase_cli_lm_serve(flash, learn_task, api, models):
     out-of-vocab line, an empty line and ADMIN stats; stdout has exactly one
     line per input and the prompts' lines equal task = generate's for the
     same prompts. Then bin/cxxnet_torch in a process of its own with
-    serve_port = 0 and serve_buckets = 1,4: one TCP answer held to the
-    solo generate, and exit 0 on SIGTERM. Returns the flash_fwd launches
-    of the stdin run."""
+    serve_port = 0, serve_buckets = 1,4 and status_port = 0: one TCP answer
+    held to the solo generate; /metrics, /healthz, /livez, /batchz,
+    /requestz, /trace?request=<id> and /eventz scraped (each answers 200
+    and parses; the decode account of /metrics and /batchz agrees with
+    ADMIN stats); a flood in flight, SIGTERM, /healthz 503 while the drain
+    answers it, exit 0. Returns the flash_fwd launches of the stdin run
+    and the process."""
     log("phase cli_lm_serve")
     t_phase = time.perf_counter()
     vocab = LM_ARGS["vocab"]
@@ -2296,23 +2408,14 @@ def phase_cli_lm_serve(flash, learn_task, api, models):
             raise AssertionError("task = serve's stdout is not one line "
                                  "per input equal to task = generate's")
 
-        # TCP in a process of its own, then SIGTERM
-        proc = subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "bin", "cxxnet_torch"),
-             conf, "serve_port=0", "serve_buckets=1,4"], cwd=d,
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
+        # TCP in a process of its own with the status pages, then SIGTERM
+        proc = CliProcess(d, [conf, "serve_port=0", "serve_buckets=1,4",
+                              "status_port=0"], stdin=subprocess.PIPE)
         try:
-            port = None
-            t_end = time.time() + 300
-            while port is None and time.time() < t_end:
-                ln = proc.stderr.readline()
-                if not ln:
-                    break
-                m = re.search(r"servd: serving on port (\d+)", ln)
-                port = int(m.group(1)) if m else None
-            if port is None:
-                raise AssertionError("bin/cxxnet_torch never listened")
+            sport = int(proc.wait_for("err", r"statusd: live introspection "
+                                      r"on port (\d+)", 300).group(1))
+            port = int(proc.wait_for("err", r"servd: serving on port "
+                                     r"(\d+)", 300).group(1))
             answer = serve_clients(port, [stdin[0]], 1, timeout=300)[0][0]
             toks = answer_tokens("cli tcp", answer, CLI_SERVE_NEW, vocab)
             want = [int(t) for t in gen[0].split()]
@@ -2321,20 +2424,38 @@ def phase_cli_lm_serve(flash, learn_task, api, models):
                                        else "DIFFERENT"))
             hold_tokens("cli tcp vs solo", None, net, [toks], [want],
                         [prompts[0]], (0.0, 0), [0], [0], NEAR_TIE)
-            proc.stdin.close()
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=120)
-            tail = proc.stderr.read()
+            pages = status_pages(sport, port)
+            flood = serve_clients_async(port, stdin[:CLI_SERVE_FLOOD])
+            proc.proc.stdin.close()
+            time.sleep(0.05)      # the flood accepted and in flight
+            proc.proc.send_signal(signal.SIGTERM)
+            drain = healthz_during_drain(sport, proc.proc)
+            rc = proc.finish(120)
+            answers = flood()
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        log("  SIGTERM: exit %d; %s" % (rc, " | ".join(
-            ln for ln in tail.splitlines() if ln.startswith(("served",
-                                                             "serve:")))))
-        if rc != 0 or "served 1 prompts" not in tail:
-            raise AssertionError("bin/cxxnet_torch did not drain and exit "
-                                 "0 on SIGTERM")
+            proc.kill()
+        served = 1 + sum(1 for a in answers if a and not a.startswith("ERR"))
+        tail = proc.text("err")
+        log("  SIGTERM with %d requests in flight: /healthz during the "
+            "drain %s; %d answered (%d served); exit %d; %s"
+            % (CLI_SERVE_FLOOD, drain, sum(1 for a in answers if a),
+               served - 1, rc, " | ".join(
+                   ln for ln in tail.splitlines()
+                   if ln.startswith(("served", "serve:")))))
+        if rc != 0 or "served %d prompts" % served not in tail \
+                or not all(answers) or drain[0] != 503:
+            raise AssertionError("bin/cxxnet_torch did not answer every "
+                                 "request, turn /healthz 503 while "
+                                 "draining, and exit 0 on SIGTERM")
+        sub = proc.launches()["flash_fwd"]
+        log("  flash_fwd launches in that process: %d (%d a served "
+            "request's admission: %d requests)"
+            % (sub, LM_ARGS["nlayer"], served))
+        if sub != LM_ARGS["nlayer"] * served:
+            raise AssertionError("the served process's flash launches are "
+                                 "not %d a request" % LM_ARGS["nlayer"])
+        launches += sub
+        log("  status pages while serving: %s" % pages)
         cli_serve_reload(learn_task, api, d, cfg, net, prompts[0], gen[0])
         del net
     torch.cuda.empty_cache()
@@ -3317,6 +3438,300 @@ def imagenet_section(name, extra=""):
     return body + extra + "input_shape = 3,227,227\nbatch_size = %d\n" \
         "iter = end\n" % BATCH
 
+# bin/cxxnet_torch in a process of its own: the runner turns cuDNN off when
+# asked, runs the entry script, and prints the kernels' launch counts of
+# that process (each starts at 0 with it) on stderr as it exits
+CLI_RUNNER = """
+import atexit, json, runpy, sys
+sys.path.insert(0, %(repo)r)
+import torch
+torch.backends.cudnn.enabled = %(cudnn)r
+from cxxnet_tpu_torch.ops import flash_attn, lrn
+
+
+def counts():
+    print("launches " + json.dumps({
+        "lrn_fwd": lrn.launches, "lrn_fwd_no_norm": lrn.no_norm_launches,
+        "lrn_bwd": lrn.bwd_launches, "flash_fwd": flash_attn.launches}),
+        file=sys.stderr, flush=True)
+
+
+atexit.register(counts)
+sys.argv = [%(entry)r] + %(argv)r
+runpy.run_path(%(entry)r, run_name="__main__")
+"""
+
+
+class CliProcess:
+    """bin/cxxnet_torch ``argv`` in a process of its own (through
+    CLI_RUNNER) in ``cwd``, its stdout and stderr read line by line on
+    threads; ``wait_for`` blocks until a line matches."""
+
+    def __init__(self, cwd, argv, cudnn=True, stdin=subprocess.DEVNULL):
+        code = CLI_RUNNER % {"repo": REPO, "cudnn": bool(cudnn),
+                             "entry": os.path.join(REPO, "bin",
+                                                   "cxxnet_torch"),
+                             "argv": list(argv)}
+        log("  bin/cxxnet_torch %s (a process of its own%s)"
+            % (" ".join(os.path.relpath(a, REPO) if a.startswith(REPO)
+                        else a for a in argv),
+               "" if cudnn else ", cuDNN off"))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=cwd, stdin=stdin,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        self.lines = {"out": [], "err": []}
+        self._cv = threading.Condition()
+        self._pumps = [threading.Thread(target=self._pump, args=(k, f),
+                                        daemon=True)
+                       for k, f in (("out", self.proc.stdout),
+                                    ("err", self.proc.stderr))]
+        for t in self._pumps:
+            t.start()
+
+    def _pump(self, key, f):
+        for ln in f:
+            with self._cv:
+                self.lines[key].append(ln.rstrip("\n"))
+                self._cv.notify_all()
+        with self._cv:
+            self._cv.notify_all()
+
+    def wait_for(self, key, regex, timeout):
+        pat = re.compile(regex)
+        deadline = time.time() + timeout
+        i = 0
+        with self._cv:
+            while True:
+                while i < len(self.lines[key]):
+                    m = pat.search(self.lines[key][i])
+                    i += 1
+                    if m:
+                        return m
+                if not any(t.is_alive() for t in self._pumps):
+                    raise AssertionError(
+                        "bin/cxxnet_torch ended (rc %s) without a line "
+                        "matching %r; stderr tail: %s"
+                        % (self.proc.poll(), regex,
+                           " | ".join(self.lines["err"][-8:])))
+                left = deadline - time.time()
+                if left <= 0:
+                    raise AssertionError("no line matching %r within %d s"
+                                         % (regex, timeout))
+                self._cv.wait(min(left, 0.5))
+
+    def finish(self, timeout):
+        rc = self.proc.wait(timeout=timeout)
+        for t in self._pumps:
+            t.join(10)
+        return rc
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def text(self, key):
+        return "\n".join(self.lines[key])
+
+    def launches(self):
+        """The process's kernel launch counts, from the runner's line."""
+        for ln in reversed(self.lines["err"]):
+            if ln.startswith("launches "):
+                return json.loads(ln[len("launches "):])
+        raise AssertionError("no launch counts from the process")
+
+
+def scrape(port, path, timeout=10.0):
+    """(status, body) of a status page; 4xx/5xx come back as values."""
+    from urllib.error import HTTPError
+    from urllib.request import urlopen
+    try:
+        r = urlopen("http://127.0.0.1:%d%s" % (port, path), timeout=timeout)
+        return r.status, r.read().decode()
+    except HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def prom_series(text):
+    """{series with its labels: value} of a /metrics page; fails on a line
+    outside the Prometheus text grammar (statusd.PROM_LINE_RE)."""
+    from cxxnet_tpu_torch.utils import statusd
+    out = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        if not statusd.PROM_LINE_RE.match(ln):
+            raise AssertionError("invalid Prometheus line %r" % ln)
+        key, val = ln.rsplit(" ", 1)
+        out[key] = float(val)
+    return out
+
+
+def telemetry_events(path):
+    return [json.loads(ln) for ln in open(path) if ln.strip()]
+
+
+def phase_cli_imagenet_resume(cwd, conf, det_err):
+    """ImageNet.conf from bin/cxxnet_torch in processes of their own, with
+    cuDNN off as in the uninterrupted run that wrote models_det: SIGTERM
+    after the first batch of round 1, the emergency file's cursor, then
+    continue = 1 (with status_port = 0, scraped while the round runs) to
+    the end of round 2, whose model file must equal the uninterrupted
+    run's bit for bit, and whose eval line must equal its eval line; the
+    LRN launches of the resumed run: only the batches it trains. Then the
+    newest file truncated: a second continue = 1 (ckpt_keep_last = 1)
+    quarantines it, falls back to round 1's file, writes the round-2 file
+    again (bit for bit once more) and keeps only it. Returns the LRN
+    (forward, backward) launches of the two continued runs."""
+    log("phase cli_imagenet_resume")
+    t0 = time.perf_counter()
+    from cxxnet_tpu_torch.utils import checkpoint as ckpt
+    per_round = CLI_TRAIN_IMAGES // BATCH
+    evals = CLI_TEST_IMAGES // BATCH
+    det = open(os.path.join(cwd, "models_det", "%04d.model" % CLI_ROUNDS),
+               "rb").read()
+    det_line = [ln for ln in det_err.splitlines()
+                if ln.startswith("[%d]" % CLI_ROUNDS)]
+    models = os.path.join(cwd, "models_res")
+    base = [conf, "num_round=%d" % CLI_ROUNDS, "max_round=%d" % CLI_ROUNDS,
+            "dev=" + NET_DEV, "batch_size=%d" % BATCH,
+            "model_dir=models_res", "image_mean=models_res/mean"]
+
+    # the preempted run: SIGTERM once round 1's first batch is trained
+    t = time.perf_counter()
+    a = CliProcess(cwd, base + ["print_step=1",
+                                "telemetry_log=models_res/a.jsonl"],
+                   cudnn=False)
+    try:
+        a.wait_for("out", r"^round\s+1:\[\s+1\]", 900)
+        a.proc.send_signal(signal.SIGTERM)
+        rc = a.finish(600)
+    finally:
+        a.kill()
+    m = re.search(r"preemption: emergency checkpoint -> \S+ \(round 1, "
+                  r"batch (\d+)\)", a.text("out"))
+    epath = os.path.join(models, ckpt.EMERGENCY_NAME)
+    if rc != 0 or m is None or not os.path.exists(epath):
+        raise AssertionError("the preempted run did not write its emergency "
+                             "file and exit 0 (rc %s)" % rc)
+    k = int(m.group(1))
+    st = ckpt.peek_state(ckpt.read_verified(epath)[0])
+    cursor = (st["start_counter"], st["batches_done"])
+    save = [e for e in telemetry_events(os.path.join(models, "a.jsonl"))
+            if e["ev"] == "ckpt_save" and e["path"].endswith(
+                ckpt.EMERGENCY_NAME)][0]
+    log("  SIGTERM after round 1's first batch: the run stopped at batch "
+        "%d of %d (%.2f s wall); emergency.model cursor %s, rng_counter "
+        "%d; its ckpt_save %.4f s for %d bytes"
+        % (k, per_round, time.perf_counter() - t, cursor,
+           st["rng_counter"], save["seconds"], save["bytes"]))
+    if cursor != (2, k) or not 0 < k < per_round:
+        raise AssertionError("the emergency cursor %s is not (2, %d) with "
+                             "0 < %d < %d" % (cursor, k, k, per_round))
+
+    # continue = 1, the status pages scraped while round 1 runs
+    t = time.perf_counter()
+    b = CliProcess(cwd, base + ["continue=1", "status_port=0",
+                                "telemetry_log=models_res/b.jsonl"],
+                   cudnn=False)
+    try:
+        sport = int(b.wait_for("err", r"statusd: live introspection on "
+                               r"port (\d+)", 600).group(1))
+        b.wait_for("out", r"^update round 1$", 600)
+        mcode, text = scrape(sport, "/metrics")
+        hcode, hbody = scrape(sport, "/healthz")
+        rc = b.finish(600)
+    finally:
+        b.kill()
+    series = prom_series(text)
+    got = (series.get('cxxnet_progress_round{process="0"}'),
+           series.get('cxxnet_progress_num_round{process="0"}'))
+    log("  continue = 1 with status_port = 0 (%.2f s wall): /metrics %d "
+        "(%d series, Prometheus text) with progress round %s of %s, "
+        "/healthz %d %r" % (time.perf_counter() - t, mcode, len(series),
+                            got[0], got[1], hcode, hbody.strip()))
+    if rc != 0 or mcode != 200 or hcode != 200 \
+            or got != (1.0, float(CLI_ROUNDS)):
+        raise AssertionError("the resumed run's status pages did not "
+                             "report round 1 in progress and ready")
+    if "resume: fast-forwarded %d batches into round 1" % k \
+            not in b.text("out"):
+        raise AssertionError("the resumed run did not skip %d batches" % k)
+    evs = telemetry_events(os.path.join(models, "b.jsonl"))
+    skip = [e for e in evs if e["ev"] == "span"
+            and e["name"] == "resume.skip"]
+    save = [e for e in evs if e["ev"] == "ckpt_save"]
+    log("  resume.skip: %d batches in %.4f s; round-2 ckpt_save %.4f s for "
+        "%d bytes" % (k, skip[0]["dur"], save[-1]["seconds"],
+                      save[-1]["bytes"]))
+    res = open(os.path.join(models, "%04d.model" % CLI_ROUNDS), "rb").read()
+    line = [ln for ln in b.text("err").splitlines()
+            if ln.startswith("[%d]" % CLI_ROUNDS)]
+    rst = ckpt.peek_state(ckpt.read_verified(
+        os.path.join(models, "%04d.model" % CLI_ROUNDS))[0])
+    dst = ckpt.peek_state(ckpt.read_verified(
+        os.path.join(cwd, "models_det", "%04d.model" % CLI_ROUNDS))[0])
+    log("  round-%d model of the resumed run vs the uninterrupted run's: "
+        "%s (%d bytes: weights, optimizer state, rng_counter %d / %d); "
+        "eval line %r vs %r"
+        % (CLI_ROUNDS, "BITWISE EQUAL" if res == det else "DIFFERENT",
+           len(res), rst["rng_counter"], dst["rng_counter"], line, det_line))
+    if res != det or line != det_line or len(line) != 1 \
+            or os.path.exists(epath):
+        raise AssertionError("the resumed run's round-%d model or eval "
+                             "line differs from the uninterrupted run's"
+                             % CLI_ROUNDS)
+    got_b = b.launches()
+    want_b = {"lrn_fwd": 2 * (per_round - k) + 2 * 2 * evals,
+              "lrn_fwd_no_norm": 2 * 2 * evals,
+              "lrn_bwd": 2 * (per_round - k)}
+    log("  LRN launches of the resumed run: %s (expected %s: 2 + 2 for "
+        "each of the %d trained batches, none for the %d skipped, 2 "
+        "without the norm in each of %d eval batches)"
+        % ({n: got_b[n] for n in want_b}, want_b, per_round - k, k,
+           2 * evals))
+    if {n: got_b[n] for n in want_b} != want_b:
+        raise AssertionError("the resumed run's LRN launches are not those "
+                             "of the batches it trained")
+
+    # the newest file torn: quarantined, the fallback, and retention
+    newest = os.path.join(models, "%04d.model" % CLI_ROUNDS)
+    with open(newest, "rb+") as f:
+        f.truncate(len(res) // 2)
+    t = time.perf_counter()
+    c = CliProcess(cwd, base + ["continue=1", "ckpt_keep_last=1"],
+                   cudnn=False)
+    try:
+        rc = c.finish(900)
+    finally:
+        c.kill()
+    left = sorted(nm for nm in os.listdir(models)
+                  if nm.endswith((".model", ".corrupt")))
+    again = open(newest, "rb").read()
+    log("  %04d.model truncated to %d bytes, continue = 1 with "
+        "ckpt_keep_last = 1 (%.2f s wall): %s; files left %s; the new "
+        "round-%d model vs the uninterrupted run's: %s"
+        % (CLI_ROUNDS, len(res) // 2, time.perf_counter() - t,
+           " | ".join(ln for ln in c.lines["err"] if "quarantined" in ln),
+           left, CLI_ROUNDS, "BITWISE EQUAL" if again == det
+           else "DIFFERENT"))
+    if rc != 0 or "Init: Continue training from round 2" not in \
+            c.text("out") or left != ["%04d.model" % CLI_ROUNDS,
+                                      "%04d.model.corrupt" % CLI_ROUNDS] \
+            or again != det:
+        raise AssertionError("the torn file was not quarantined, or the "
+                             "fallback or the retention failed")
+    got_c = c.launches()
+    want_c = {"lrn_fwd": 2 * per_round + 2 * 2 * evals,
+              "lrn_bwd": 2 * per_round}
+    if {n: got_c[n] for n in want_c} != want_c:
+        raise AssertionError("the fallback run's LRN launches %s are not "
+                             "%s" % (got_c, want_c))
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+    return (got_b["lrn_fwd"] + got_c["lrn_fwd"],
+            got_b["lrn_bwd"] + got_c["lrn_bwd"])
+
 
 def phase_cli_imagenet(lrn, learn_task, api):
     """example/ImageNet/ImageNet.conf through the CLI on the card at full
@@ -3324,9 +3739,10 @@ def phase_cli_imagenet(lrn, learn_task, api):
     created on first use): two training rounds held to the same batches
     driven through api.Net.update, the input pipeline's rates, then
     task=pred / extract / pred_raw from the round-2 model held to
-    api.Net.predict / extract. Returns the LRN (forward, backward)
-    launches counted on the training path and the forward launches on the
-    prediction path."""
+    api.Net.predict / extract; between the two, cli_imagenet_resume.
+    Returns the LRN (forward, backward) launches counted on the training
+    path, the forward launches on the prediction path and the (forward,
+    backward) launches of the resumed runs."""
     log("phase cli_imagenet_train")
     t0 = time.perf_counter()
     conf = os.path.join(REPO, "example/ImageNet/ImageNet.conf")
@@ -3368,9 +3784,9 @@ def phase_cli_imagenet(lrn, learn_task, api):
         # image (image_mean), drawing the crops and mirrors of that pass
         net = api.Net(dev=NET_DEV, cfg=conf_text)
         with cudnn_off():
-            run_cli(learn_task, cwd, args + ["model_dir=models_det",
-                                             "image_mean=models_det/mean",
-                                             "save_model=%d" % CLI_ROUNDS])
+            _, det_err = run_cli(learn_task, cwd, args + [
+                "model_dir=models_det", "image_mean=models_det/mean",
+                "save_model=%d" % CLI_ROUNDS])
             net.init_model()
             start = _params(net)
             with in_dir(cwd):
@@ -3399,6 +3815,10 @@ def phase_cli_imagenet(lrn, learn_task, api):
                        STEP_RTOL, STEP_ATOL_UPDATE)
         del cli_net, start
         torch.cuda.empty_cache()
+        log("  phase wall %.1f s" % (time.perf_counter() - t0))
+        resume = phase_cli_imagenet_resume(cwd, conf, det_err)
+        t0 = time.perf_counter()
+        log("phase cli_imagenet_train (continued)")
 
         # the host pipeline alone (test_io), with one and four decode
         # threads (imgbinx's pool) in turns, IO_ROUNDS rounds a run, the
@@ -3489,7 +3909,7 @@ def phase_cli_imagenet(lrn, learn_task, api):
         del net
         torch.cuda.empty_cache()
     log("  phase wall %.1f s" % (time.perf_counter() - t0))
-    return train, pred
+    return train, pred, resume
 
 
 def phase_cli_bowl_pred_raw(learn_task, api):
@@ -4743,7 +5163,8 @@ def main() -> int:
     rows_rec = phase_uniform_rows_kernel(rnd)
     rrelu = phase_rrelu_alexnet_train(rnd, lrn, api, ops, models)
     phase_cli_mnist_conv(learn_task)
-    cli_train, cli_pred = phase_cli_imagenet(lrn, learn_task, api)
+    cli_train, cli_pred, cli_resume = phase_cli_imagenet(lrn, learn_task,
+                                                         api)
     phase_cli_bowl_pred_raw(learn_task, api)
     gnet_fwd_rec = phase_lrn_kernel(lrn, GNET_LRN_SHAPES, GNET_LRN_ARGS,
                                     "lrn_kernel_googlenet")
@@ -4787,6 +5208,7 @@ def main() -> int:
              {"alexnet_pred": pred_launches, "alexnet_train": train_fwd,
               "rrelu_alexnet_train": rrelu[1],
               "cli_imagenet_train": cli_train[0],
+              "cli_imagenet_resume": cli_resume[0],
               "cli_imagenet_pred": cli_pred[0],
               "googlenet_bf16_train": gnet_train[0],
               "googlenet_bf16_pred": gnet_pred,
@@ -4796,6 +5218,7 @@ def main() -> int:
             ("lrn_bwd", bwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:98",
              {"alexnet_train": train_bwd, "rrelu_alexnet_train": rrelu[2],
               "cli_imagenet_train": cli_train[1],
+              "cli_imagenet_resume": cli_resume[1],
               "googlenet_bf16_train": gnet_train[1],
               "cli_googlenet_train": gnet_cli_train[1], **bench[1]},
              {"train_step": train_bwd // TRAIN_STEPS}),

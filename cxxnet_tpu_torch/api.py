@@ -8,9 +8,10 @@ DataIter's batch or on numpy (data, label), evaluates it over an iterator,
 runs prediction and feature extraction, continues token sequences with a
 KV-cached ``generate`` (sequence nets) and serves them online behind the
 serving frontend (``Net.serve``), on the card (``dev = "gpu"``, the
-default) or, when asked, on the CPU; and the small driver loop ``train``. Model files are those of the JAX package: int32 net_type,
-then the trainer's sections (optimizer state included), inside the CRC
-framing of utils/checkpoint.py.
+default) or, when asked, on the CPU; and the small training loop ``train``.
+Model files are those of the JAX package: int32 net_type, then the
+trainer's sections (optimizer and training state included), inside the
+CRC framing of utils/checkpoint.py, written atomically.
 """
 
 from __future__ import annotations
@@ -144,12 +145,15 @@ class Net:
         self.net_.load_model(r)
 
     def save_model(self, fname: str) -> None:
-        """Write a CRC-framed model file, optimizer state included, that
-        either package loads."""
+        """Write a CRC-framed model file, optimizer and training state
+        included, that either package loads. The write is atomic (tmp
+        file, fsync, rename): a save that fails part-way leaves the old
+        file as it was."""
         w = serializer.Writer()
         w.write_int32(self.net_type)
         self._trainer().save_model(w)
-        ckpt.write_framed(fname, w.getvalue())
+        self._trainer().save_training_state(w)
+        ckpt.write_checkpoint(fname, w.f.getbuffer())
 
     def start_round(self, round_counter: int) -> None:
         self._trainer().start_round(round_counter)

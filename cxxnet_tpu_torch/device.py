@@ -12,7 +12,7 @@ raises: the port never falls back to the CPU quietly.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -44,3 +44,15 @@ def resolve_device(spec: str) -> torch.device:
     first = ids[0] if ids else 0
     return torch.device("cuda", first
                         if 0 <= first < torch.cuda.device_count() else 0)
+
+
+def memory_stats(dev: Optional[torch.device]) -> Optional[dict]:
+    """The card's allocator figures, as the JAX package reads a device's
+    ``memory_stats()``: ``bytes_in_use`` (torch's allocated bytes),
+    ``peak_bytes_in_use`` (their high-water mark) and ``bytes_limit`` (the
+    card's memory); None on the CPU."""
+    if dev is None or dev.type != "cuda":
+        return None
+    return {"bytes_in_use": torch.cuda.memory_allocated(dev),
+            "peak_bytes_in_use": torch.cuda.max_memory_allocated(dev),
+            "bytes_limit": torch.cuda.mem_get_info(dev)[1]}

@@ -112,6 +112,15 @@ class IIterator:
     """Iterator ABI (src/io/data.h:18-38): SetParam / Init / BeforeFirst /
     Next / Value."""
 
+    # True when before_first() replays the same batch sequence on a freshly
+    # built iterator (fixed-seed one-shot shuffles, stream order). An
+    # iterator whose order depends on random state carried across epochs
+    # (the sliding-window shuffle) sets it False in init(): a mid-round
+    # resume then skips a different prefix, and learn_task warns. Wrappers
+    # inherit their chain's stability through learn_task's walk over
+    # ``.base``.
+    stable_epoch_order = True
+
     def set_param(self, name: str, val: str) -> None:
         pass
 
@@ -133,12 +142,31 @@ class IIterator:
 
     def skip(self, n: int) -> int:
         """Move past ``n`` batches without using their values; returns the
-        number skipped (< n when the epoch ends first). Base iterators
+        number skipped (< n when the epoch ends first): the resume cursor
+        of a mid-round checkpoint. The default drains batches through
+        next(), which is right for every chained or buffered iterator and
+        uses up the random draws of the batches it passes; base iterators
         with random access override it with an O(1) seek."""
         k = 0
         while k < n and self.next():
             k += 1
         return k
+
+    def epoch_rng_state(self, mid_epoch: bool) -> dict:
+        """The host random state of the chain's augmenters that an epoch
+        starts from: the current epoch's (``mid_epoch``) or the next
+        one's; {} for a chain that draws nothing across epochs. A resumed
+        run sets it back (``set_epoch_rng_state``), so that its crops and
+        mirrors are those of the uninterrupted run."""
+        base = getattr(self, "base", None)
+        return base.epoch_rng_state(mid_epoch) if base is not None else {}
+
+    def set_epoch_rng_state(self, state: dict) -> None:
+        """Start the next epoch (at ``before_first``) from ``state``, a
+        dict that ``epoch_rng_state`` returned."""
+        base = getattr(self, "base", None)
+        if base is not None:
+            base.set_epoch_rng_state(state)
 
     def __iter__(self):
         self.before_first()

@@ -270,6 +270,10 @@ class ImagePageIterator(IIterator):
         # kRandMagic = 121, the reference's sampler seed
         self._rnd = np.random.RandomState(self.seed_data + 121)
         self._part_order = list(range(len(self.path_imgbin)))
+        # the sliding-window shuffle draws from _rnd at every instance, so
+        # an epoch's order depends on every earlier epoch's draws: a fresh
+        # process cannot replay it, and a mid-round resume is approximate
+        self.stable_epoch_order = not self.shuffle
         self.before_first()
 
     def _epoch_paths(self):
@@ -525,6 +529,10 @@ class AugmentIterator(IIterator):
         self.shape = (0, 0, 0)
         self.geometric = {}
         self.rnd = np.random.RandomState(self.kRandMagic)
+        # the draws' state at the start of the current epoch, and a state
+        # the next epoch is to start from (a resumed run's)
+        self._epoch_rng = None
+        self._rng_resume = None
 
     def set_param(self, name, val):
         self.base.set_param(name, val)
@@ -607,7 +615,27 @@ class AugmentIterator(IIterator):
                 self._create_mean_img()
 
     def before_first(self):
+        if self._rng_resume is not None:
+            self.rnd.set_state(self._rng_resume)
+            self._rng_resume = None
+        self._epoch_rng = self.rnd.get_state()
         self.base.before_first()
+
+    def epoch_rng_state(self, mid_epoch: bool) -> dict:
+        st = self._epoch_rng if mid_epoch and self._epoch_rng is not None \
+            else self.rnd.get_state()
+        _, keys, pos, has_gauss, gauss = st
+        out = dict(self.base.epoch_rng_state(mid_epoch))
+        out["augment"] = [[int(k) for k in keys], int(pos), int(has_gauss),
+                          float(gauss)]
+        return out
+
+    def set_epoch_rng_state(self, state: dict) -> None:
+        self.base.set_epoch_rng_state(state)
+        if "augment" in state:
+            keys, pos, has_gauss, gauss = state["augment"]
+            self._rng_resume = ("MT19937", np.asarray(keys, np.uint32),
+                                int(pos), int(has_gauss), float(gauss))
 
     def _set_data(self, d: DataInst):
         data = d.data

@@ -12,8 +12,16 @@ session's last round always saved) and pred / pred_raw / extract output
 formats, the JAX package's ``task = generate`` (prompt lines in,
 continuations out) and ``task = serve`` (the serving frontend,
 ``utils/servd.py``, over stdin and optionally TCP, solo or continuously
-batched over decode sessions). Model files are CRC-framed, as
+batched over decode sessions). Model files are CRC-framed, written
+atomically (tmp file, fsync, rename) with the training-state section, as
 ``api.Net.save_model`` writes them, and either package loads the other's.
+``continue = 1`` resumes from the newest valid checkpoint of
+``model_dir`` (the emergency file of a preempted run ranked by its
+cursor, a corrupt file quarantined), mid-round and bit for bit; SIGTERM /
+SIGINT during training writes that emergency file at the next step
+boundary and exits cleanly; ``ckpt_keep_last`` / ``ckpt_keep_every`` set
+the retention. ``status_port`` serves the live introspection pages
+(``utils/statusd.py``) for every task.
 
 The net runs on the card unless the config or the command line says
 ``dev = cpu``; there, every threadbuffer of the chains packs its batches
@@ -32,6 +40,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import device as device_mod
 from .io import create_iterator
 from .nnet.trainer import Trainer, create_net
 from .utils import checkpoint as ckpt
@@ -63,15 +72,11 @@ def _is_default(default):
 # keys whose features are not ported yet, with the test that a value is the
 # key's default (which is accepted)
 _NOT_PORTED = {
-    "continue": lambda v: int(v) == 0,
-    "status_port": lambda v: int(v) == -1,
     "profile_dir": lambda v: v == "",
     "health_monitor": lambda v: int(v) == 0,
     "watchdog_timeout": lambda v: float(v) == 0.0,
     "coordinator": lambda v: v == "",
     "num_worker": lambda v: int(v) <= 1,
-    "ckpt_keep_last": lambda v: int(v) == 0,
-    "ckpt_keep_every": lambda v: int(v) == 0,
     # the perf ledger's warm-grid account (TPU program accounting)
     "serve_plen_buckets": lambda v: v.replace(",", " ").split() == [],
     "serve_warm_ready_pct": lambda v: float(v) == 0.0,
@@ -246,14 +251,40 @@ class LearnTask:
         self.start_counter = 0
         self.max_round = 1 << 31
         self.save_period = 1
+        self.continue_training = 0
+        # checkpoint robustness: retention (ckpt_keep_last = N keeps the
+        # newest N numbered files, ckpt_keep_every = K also every K-th; 0
+        # keeps all), IO retries with backoff, durable fsync (0 trades
+        # durability for speed) and the SIGTERM / SIGINT emergency
+        # checkpoint (preempt_save = 0: die on the signal)
+        self.ckpt_keep_last = 0
+        self.ckpt_keep_every = 0
+        self.ckpt_retries = 2
+        self.ckpt_fsync = 1
+        self.preempt_save = 1
+        # the resume cursor _sync_latest_model found: the training state to
+        # apply before the first update, and the batches of the resumed
+        # round already trained
+        self._resume_state = None
+        self._resume_batches = 0
+        self._preempt: Optional[ckpt.PreemptionGuard] = None
+        self._preempt_noted = False
+        self._stop_training = False
         self._start_counter_conf = False
         self.name_model_in = "NULL"
         self.name_pred = "pred.txt"
         self.print_step = 100
         self.extract_node_name = ""
         self.output_format = 1
-        # telemetry_log = <path>: the JSONL run log (utils/telemetry.py)
+        # telemetry_log = <path>: the JSONL run log (utils/telemetry.py),
+        # with a Chrome trace beside it and a summary table at the end
         self.telemetry_log = ""
+        # status_port = <p>: the live introspection pages (utils/statusd.py)
+        # on port p (0: an ephemeral port, printed; -1: off), on loopback
+        # unless status_host widens the bind
+        self.status_port = -1
+        self.status_host = ""
+        self._status_telemetry = False
         # task = serve (cxxnet_tpu/learn_task.py:274-419): the frontend's
         # keys, read as the JAX command line reads them
         self.serve_port = -1
@@ -301,8 +332,11 @@ class LearnTask:
             telemetry.enable(self.telemetry_log)
             telemetry.event({"ev": "run_meta", "task": self.task,
                              "dev": self.device})
+        if self.status_port >= 0:
+            self._start_status_server()
         try:
-            self.init()
+            with telemetry.span("init"):
+                self.init()
             if not self.silent:
                 # serve's stdout carries exactly one response line per
                 # request: startup chatter goes to stderr there
@@ -323,10 +357,70 @@ class LearnTask:
                 self.task_serve()
         finally:
             self.close()
+            if self.status_port >= 0:
+                statusd.stop()
             if self.telemetry_log:
-                telemetry.flush()
+                summary = telemetry.finish(close=True)
+                if summary and not self.silent:
+                    self._print_telemetry_summary(summary)
+            elif self._status_telemetry:
                 telemetry.disable()
+                self._status_telemetry = False
         return 0
+
+    def _start_status_server(self) -> None:
+        """Bind the status pages (cxxnet_tpu/learn_task.py:459-488). They
+        read the telemetry registry, which runs in memory when no log was
+        configured. A port that cannot be bound warns and the run goes on
+        without the pages."""
+        if not telemetry.enabled():
+            telemetry.enable()
+            self._status_telemetry = True
+        try:
+            srv = statusd.start(self.status_port, host=self.status_host)
+        except (OSError, OverflowError) as e:
+            # socket.bind raises OverflowError for a port above 65535
+            sys.stderr.write(
+                "WARNING: statusd: cannot bind port %d (%s); live "
+                "introspection disabled for this run\n"
+                % (self.status_port, e))
+            if self._status_telemetry:
+                telemetry.disable()
+                self._status_telemetry = False
+            return
+        statusd.set_run_info(task=self.task, dev=self.device,
+                             config=list(self.cfg))
+        if not self.silent:
+            # stderr: task = serve's stdout is the response stream
+            print("statusd: live introspection on port %d "
+                  "(/metrics /healthz /livez /statusz /trace)" % srv.port,
+                  file=sys.stderr, flush=True)
+
+    @staticmethod
+    def _print_telemetry_summary(summary: dict) -> None:
+        """The end-of-run telemetry table: the top spans by total time,
+        the compiles, the counters and the gauges."""
+        spans = summary.get("spans", {})
+        print("---- telemetry summary ----")
+        if spans:
+            print("%-18s %7s %10s %9s %9s %9s" %
+                  ("span", "count", "total_s", "p50_ms", "p99_ms",
+                   "max_ms"))
+            for name, a in sorted(spans.items(),
+                                  key=lambda kv: -kv[1]["total_s"])[:12]:
+                print("%-18s %7d %10.3f %9.2f %9.2f %9.2f" %
+                      (name, a["count"], a["total_s"], a["p50_ms"],
+                       a["p99_ms"], a["max_ms"]))
+        comp = summary.get("compiles", {})
+        if comp.get("count"):
+            print("compiles: %d (%.2fs) %s" %
+                  (comp["count"], comp["total_s"],
+                   " ".join("%s=%d" % kv
+                            for kv in sorted(comp["by_cause"].items()))))
+        for name, v in sorted(summary.get("counters", {}).items()):
+            print("counter %-24s %s" % (name, v))
+        for name, v in sorted(summary.get("gauges", {}).items()):
+            print("gauge   %-24s %s" % (name, v))
 
     def close(self) -> None:
         """Stop the chains' loader threads and close their files."""
@@ -353,6 +447,8 @@ class LearnTask:
             self.reset_net_type = int(val)
         if name == "print_step":
             self.print_step = int(val)
+        if name == "continue":
+            self.continue_training = int(val)
         if name == "save_model":
             self.save_period = int(val)
         if name == "start_counter":
@@ -390,6 +486,20 @@ class LearnTask:
             self.gen_seed = int(val)
         if name == "telemetry_log":
             self.telemetry_log = val
+        if name == "status_port":
+            self.status_port = int(val)
+        if name == "status_host":
+            self.status_host = val
+        if name == "ckpt_keep_last":
+            self.ckpt_keep_last = int(val)
+        if name == "ckpt_keep_every":
+            self.ckpt_keep_every = int(val)
+        if name == "ckpt_retries":
+            self.ckpt_retries = int(val)
+        if name == "ckpt_fsync":
+            self.ckpt_fsync = int(val)
+        if name == "preempt_save":
+            self.preempt_save = int(val)
         if name == "route_tenants":
             self.route_tenants = val
         for key, cast in _SERVE_KEYS:
@@ -399,6 +509,15 @@ class LearnTask:
 
     # ------------------------------------------------------------------
     def init(self) -> None:
+        if self.task == "train" and self.continue_training:
+            if self._sync_latest_model() == 0:
+                raise RuntimeError(
+                    "Init: Cannot find models for continue training. "
+                    "Please specify it by model_in instead.")
+            print("Init: Continue training from round %d" % self.start_counter)
+            self._create_iterators()
+            return
+        self.continue_training = 0
         if self.name_model_in == "NULL":
             assert self.task == "train", "must specify model_in if not training"
             self.net_trainer = self._create_net()
@@ -412,10 +531,91 @@ class LearnTask:
     def _model_path(self, counter: int) -> str:
         return os.path.join(self.name_model_dir, "%04d.model" % counter)
 
+    def _sync_latest_model(self) -> int:
+        """Load the newest VALID checkpoint of model_dir
+        (cxxnet_tpu/learn_task.py:772-855): every ``<counter>.model`` at or
+        above start_counter (gaps fine) resumes at (counter + 1, batch 0);
+        the emergency file of a preempted run is ranked by the cursor in
+        its training-state section. Newest first, each candidate's CRC
+        framing and a full parse are checked; a corrupt file is
+        quarantined to ``<name>.corrupt`` and the next one tried, an
+        unreadable one skipped. A file whose CRC verifies but that fails to
+        load is a config mismatch, not corruption: that aborts loudly and
+        quarantines nothing. Returns 1 with the trainer swapped in, or 0
+        when nothing loads."""
+        d = self.name_model_dir
+        cands = [((c + 1, 0), p, None, None)
+                 for c, p in ckpt.scan_checkpoints(d)
+                 if c >= self.start_counter]
+        epath = os.path.join(d, ckpt.EMERGENCY_NAME)
+        if os.path.exists(epath):
+            try:
+                payload, fmt = ckpt.read_verified(
+                    epath, retries=self.ckpt_retries)
+                st = ckpt.peek_state(payload) or {}
+                prog = (int(st.get("start_counter", 0)),
+                        int(st.get("batches_done", 0)))
+                if prog[0] > self.start_counter:
+                    cands.append((prog, epath, payload, fmt))
+            except ckpt.CheckpointCorruptError as e:
+                ckpt.quarantine(epath, reason=str(e))
+            except OSError as e:     # unreadable after the retries: skip
+                sys.stderr.write(    # it, never quarantine it
+                    "WARNING: cannot read %s (%s); skipping\n" % (epath, e))
+        cands.sort(key=lambda t: t[0], reverse=True)
+        for prog, path, payload, fmt in cands:
+            try:
+                if payload is None:
+                    payload, fmt = ckpt.read_verified(
+                        path, retries=self.ckpt_retries)
+            except ckpt.CheckpointCorruptError as e:
+                ckpt.quarantine(path, reason=str(e))
+                continue
+            except OSError as e:
+                sys.stderr.write(
+                    "WARNING: cannot read %s (%s); skipping\n" % (path, e))
+                continue
+            try:
+                r = serializer.Reader(payload)
+                self.net_type = r.read_int32()
+                net = self._create_net()
+                net.load_model(r)
+                state = net.load_training_state(r)
+            except Exception as e:
+                if fmt == "v1":
+                    # the CRC verified: the bytes are what the writer
+                    # saved, so the net or updater config of this run does
+                    # not match them
+                    raise RuntimeError(
+                        "checkpoint %s is intact (CRC verified) but "
+                        "failed to load: %s — likely a net/updater config "
+                        "mismatch with the current run; fix the config "
+                        "(or remove the file) and retry" % (path, e)) \
+                        from e
+                # a legacy file has no framing: a failed parse IS the
+                # corruption signal
+                ckpt.quarantine(path, reason=str(e))
+                continue
+            self.net_trainer = net
+            self.start_counter = prog[0]
+            self._resume_state = state
+            self._resume_batches = prog[1] if state is not None else 0
+            telemetry.event({"ev": "ckpt_restore", "path": path,
+                             "counter": prog[0] - 1,
+                             "batches_done": self._resume_batches})
+            if not self.silent and self._resume_batches:
+                # stderr: a serve reload runs this scan too, and there
+                # stdout is the response stream
+                print("Init: resuming mid-round from %s (%d batches into "
+                      "round %d)" % (path, self._resume_batches,
+                                     prog[0] - 1), file=sys.stderr)
+            return 1
+        return 0
+
     def _read_model_file(self, path: str) -> serializer.Reader:
         """A model file's payload, its CRC framing verified (unframed
         legacy files pass through)."""
-        payload, _ = ckpt.read_verified(path)
+        payload, _ = ckpt.read_verified(path, retries=self.ckpt_retries)
         return serializer.Reader(payload)
 
     def _load_model(self) -> None:
@@ -445,22 +645,94 @@ class LearnTask:
         self.net_trainer = self._create_net()
         self.net_trainer.copy_model_from(r)
 
+    def _write_checkpoint(self, name: str, resume_counter: int,
+                          batches_done: int) -> None:
+        """net_type, model, optimizer state and the training-state section
+        with the cursor (resume_counter, batches_done), written atomically
+        with CRC framing and retries (cxxnet_tpu/learn_task.py:901-923).
+        The cursor also carries the training chain's augmenter state when
+        it has one (``iter_rng``): the crops and mirrors of the resumed
+        round are then those of the uninterrupted run."""
+        t0 = time.perf_counter()
+        extra = {"start_counter": int(resume_counter),
+                 "batches_done": int(batches_done)}
+        if self.itr_train is not None:
+            rng = self.itr_train.epoch_rng_state(batches_done > 0)
+            if rng:
+                extra["iter_rng"] = rng
+        w = serializer.Writer()
+        w.write_int32(self.net_type)
+        self.net_trainer.save_model(w)
+        self.net_trainer.save_training_state(w, extra=extra)
+        payload = w.f.getbuffer()   # a view of the buffer, not a copy
+        os.makedirs(self.name_model_dir, exist_ok=True)
+        ckpt.write_checkpoint(name, payload, fsync=bool(self.ckpt_fsync),
+                              retries=self.ckpt_retries)
+        telemetry.event({"ev": "ckpt_save", "path": name,
+                         "bytes": len(payload),
+                         "counter": int(resume_counter) - 1,
+                         "batches_done": int(batches_done),
+                         "seconds": round(time.perf_counter() - t0, 6)})
+
     def _save_model(self, force: bool = False) -> bool:
         """Round-boundary checkpoint; returns whether a file was written.
         The counter is checked before the increment, and the session's
         last round saves whatever save_period says (``force``), as in the
-        JAX package (cxxnet_tpu/learn_task.py:925-955)."""
+        JAX package (cxxnet_tpu/learn_task.py:925-955). A numbered file
+        supersedes the emergency file, which goes; then stale tmp files
+        are collected and the retention applies."""
         counter = self.start_counter
         self.start_counter += 1
         if self.save_period == 0:
             return False
         if counter % self.save_period != 0 and not force:
             return False
-        w = serializer.Writer()
-        w.write_int32(self.net_type)
-        self.net_trainer.save_model(w)
-        os.makedirs(self.name_model_dir, exist_ok=True)
-        ckpt.write_framed(self._model_path(counter), w.getvalue())
+        self._write_checkpoint(self._model_path(counter),
+                               self.start_counter, 0)
+        epath = os.path.join(self.name_model_dir, ckpt.EMERGENCY_NAME)
+        try:
+            if os.path.exists(epath):
+                os.remove(epath)
+        except OSError:
+            pass
+        ckpt.gc_stale_tmp(self.name_model_dir)
+        if self.ckpt_keep_last > 0:
+            ckpt.apply_retention(self.name_model_dir,
+                                 keep_last=self.ckpt_keep_last,
+                                 keep_every=self.ckpt_keep_every)
+        return True
+
+    def _save_emergency(self, batches_done: int) -> None:
+        """The preemption path's one mid-round checkpoint, at a step
+        boundary: the full state with the iterator cursor, so that the
+        resume re-enters this round and skips the trained batches."""
+        name = os.path.join(self.name_model_dir, ckpt.EMERGENCY_NAME)
+        with telemetry.span("checkpoint", kind="emergency"):
+            self._write_checkpoint(name, self.start_counter, batches_done)
+        if not self.silent:
+            print("preemption: emergency checkpoint -> %s (round %d, "
+                  "batch %d)" % (name, self.start_counter - 1,
+                                 batches_done))
+
+    def _preempt_requested(self) -> bool:
+        if self._preempt is None or not self._preempt.requested:
+            return False
+        if not self._preempt_noted:
+            # the signal handler only sets flags; the loop records the
+            # event when it first sees them
+            self._preempt_noted = True
+            telemetry.event({"ev": "preempt_signal",
+                             "signum": self._preempt.signum})
+        return True
+
+    @staticmethod
+    def _iter_chain_stable(it) -> bool:
+        """Whether every iterator of the chain replays the same epoch
+        order after a restart (what an exact mid-round resume needs)."""
+        while it is not None:
+            if not getattr(it, "stable_epoch_order", True):
+                return False
+            it = getattr(it, "base", None)
         return True
 
     def _create_net(self) -> Trainer:
@@ -518,7 +790,19 @@ class LearnTask:
     # ------------------------------------------------------------------
     def task_train(self) -> None:
         start = time.monotonic()
-        if self.name_model_in == "NULL":
+        self._stop_training = False
+        self._preempt_noted = False
+        # the health monitor is not ported: with none, a preempted run
+        # always writes its emergency file, as the JAX package does
+        with ckpt.PreemptionGuard(enabled=bool(self.preempt_save)) as guard:
+            self._preempt = guard
+            try:
+                self._task_train_loop(start)
+            finally:
+                self._preempt = None
+
+    def _task_train_loop(self, start: float) -> None:
+        if self.continue_training == 0 and self.name_model_in == "NULL":
             self._save_model()
         else:
             if not self.silent:
@@ -527,6 +811,15 @@ class LearnTask:
                 sys.stderr.write(self.net_trainer.evaluate(itr, nm))
             sys.stderr.write("\n")
             sys.stderr.flush()
+        # the checkpoint's training state applies HERE, after the
+        # continue-path eval (which would absorb a restored metric
+        # accumulator) and right before the first update
+        if self._resume_state is not None:
+            self.net_trainer.restore_training_state(self._resume_state)
+            rng = self._resume_state.get("iter_rng")
+            if rng and self.itr_train is not None:
+                self.itr_train.set_epoch_rng_state(rng)
+            self._resume_state = None
         if self.itr_train is None:
             return
         if self.test_io != 0:
@@ -535,12 +828,17 @@ class LearnTask:
         while self.start_counter <= self.num_round and cc > 0:
             cc -= 1
             rnd = self.start_counter - 1
+            statusd.update_progress(round=rnd, num_round=self.num_round)
             if not self.silent:
                 print("update round %d" % rnd)
             # the session's last round (num_round reached or the max_round
             # cap exhausted) always checkpoints
             last_round = cc == 0 or self.start_counter == self.num_round
-            t_input, t_step, n_img = self._train_one_round(start, last_round)
+            with telemetry.span("round", round=rnd):
+                t_input, t_step, t_eval, t_ckpt, n_img = \
+                    self._train_one_round(start, self._resume_batches,
+                                          last_round)
+            self._resume_batches = 0
             wall = t_input + t_step
             if self.test_io != 0:
                 print("round %d: io-only %.1f images/sec" %
@@ -551,22 +849,55 @@ class LearnTask:
                       (rnd, 100.0 * t_input / wall,
                        n_img / t_input if t_input > 0 else float("inf"),
                        n_img / t_step if t_step > 0 else float("inf")))
+            if telemetry.enabled():
+                telemetry.event({
+                    "ev": "round", "round": rnd, "images": n_img,
+                    "input_wait_s": round(t_input, 6),
+                    "step_s": round(t_step, 6),
+                    "eval_s": round(t_eval, 6),
+                    "checkpoint_s": round(t_ckpt, 6)})
+                telemetry.sample_device_memory(
+                    device_mod.memory_stats(self.net_trainer.dev))
+                telemetry.flush()
+            if self._stop_training:
+                telemetry.event({"ev": "preempt_exit", "round": rnd})
+                if not self.silent:
+                    print("preemption: checkpointed, exiting cleanly "
+                          "(resume with continue=1)")
+                return
         if not self.silent:
             print("updating end, %.0f sec in all"
                   % (time.monotonic() - start))
 
-    def _train_one_round(self, start: float, final_round: bool):
+    def _train_one_round(self, start: float, skip_batches: int,
+                         final_round: bool):
         """One pass over itr_train, then the eval line and the checkpoint.
-        Returns (input-wait seconds, step seconds, images): the time
-        blocked in the chain's next() against the time in ``update``. On
-        the card the steps run asynchronously, so the round waits for the
-        card before it stops the step clock: the device time still queued
-        at the last batch counts as step time, not as eval time."""
+        Returns (input-wait, step, eval, checkpoint seconds, images): the
+        time blocked in the chain's next() against the time in ``update``.
+        On the card the steps run asynchronously, so the round waits for
+        the card before it stops the step clock: the device time still
+        queued at the last batch counts as step time, not as eval time.
+        ``skip_batches`` (a mid-round resume) drains the round's first
+        batches without training on them. A preemption request stops the
+        round at the next step boundary with an emergency checkpoint."""
         sample_counter = 0
         self.net_trainer.start_round(self.start_counter)
         self.itr_train.before_first()
-        t_input = t_step = 0.0
+        t_input = t_step = t_eval = t_ckpt = 0.0
         n_img = 0
+        batches_done = 0
+        if skip_batches:
+            if not self._iter_chain_stable(self.itr_train):
+                print("WARNING: the training iterator's epoch order is "
+                      "not replay-stable (windowed shuffle); mid-round "
+                      "resume is approximate — some prefix batches may "
+                      "repeat or be skipped this round")
+            with telemetry.span("resume.skip", batches=skip_batches):
+                batches_done = self.itr_train.skip(skip_batches)
+            sample_counter = batches_done
+            if not self.silent:
+                print("resume: fast-forwarded %d batches into round %d"
+                      % (batches_done, self.start_counter - 1))
         while True:
             t0 = time.perf_counter()
             if not self.itr_train.next():
@@ -574,28 +905,53 @@ class LearnTask:
             batch = self.itr_train.value()
             t1 = time.perf_counter()
             t_input += t1 - t0
+            # recorded after the fact, so that the exhausted next() at the
+            # round's end is not an io.wait
+            telemetry.span_event("io.wait", t0, t1 - t0)
             if self.test_io == 0:
                 self.net_trainer.update(batch)
                 t_step += time.perf_counter() - t1
             n_img += batch.batch_size - batch.num_batch_padd
             sample_counter += 1
+            batches_done += 1
+            statusd.update_progress(batch=batches_done)
             if sample_counter % self.print_step == 0 and not self.silent:
                 print("round %8d:[%8d] %.0f sec elapsed" %
                       (self.start_counter - 1, sample_counter,
                        time.monotonic() - start))
+            if self.test_io == 0 and self._preempt_requested():
+                t0 = time.perf_counter()
+                self._save_emergency(batches_done)
+                t_ckpt = time.perf_counter() - t0
+                self._stop_training = True
+                return t_input, t_step, t_eval, t_ckpt, n_img
         if self.test_io == 0:
             t0 = time.perf_counter()
             self.net_trainer.synchronize()
             t_step += time.perf_counter() - t0
+            t0 = time.perf_counter()
             sys.stderr.write("[%d]" % self.start_counter)
             if not self.itr_evals:
-                sys.stderr.write(self.net_trainer.evaluate(None, "train"))
+                with telemetry.span("eval", dataset="train"):
+                    sys.stderr.write(self.net_trainer.evaluate(None, "train"))
             for itr, nm in zip(self.itr_evals, self.eval_names):
-                sys.stderr.write(self.net_trainer.evaluate(itr, nm))
+                with telemetry.span("eval", dataset=nm):
+                    sys.stderr.write(self.net_trainer.evaluate(itr, nm))
             sys.stderr.write("\n")
             sys.stderr.flush()
-        self._save_model(force=final_round)
-        return t_input, t_step, n_img
+            t_eval = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with telemetry.span("checkpoint"):
+            saved = self._save_model(force=final_round)
+        t_ckpt = time.perf_counter() - t0
+        if self._preempt_requested():
+            # the signal came during eval or the checkpoint: the round is
+            # complete, and if save_period skipped its file an emergency
+            # one keeps the finished work
+            if not saved:
+                self._save_emergency(0)
+            self._stop_training = True
+        return t_input, t_step, t_eval, t_ckpt, n_img
 
     # ------------------------------------------------------------------
     def _pred_batches(self):
@@ -689,37 +1045,6 @@ class LearnTask:
         print("generated %d x %d tokens into %s"
               % (out.shape[0], out.shape[1], self.name_gen_out))
 
-    def _sync_latest_model(self) -> int:
-        """Load the newest numbered checkpoint of model_dir that parses
-        (cxxnet_tpu/learn_task.py:772-855 without the emergency file and
-        quarantine, which are not ported): newest first, a file that fails
-        its CRC or does not parse is skipped with a warning. Returns 1 and
-        swaps in the new trainer, or 0 when no file loads."""
-        for counter, path in reversed(ckpt.scan_checkpoints(
-                self.name_model_dir)):
-            if counter < self.start_counter:
-                break
-            try:
-                r = self._read_model_file(path)
-                net_type = r.read_int32()
-                prev_type, self.net_type = self.net_type, net_type
-                try:
-                    net = self._create_net()
-                    net.load_model(r)
-                except Exception:
-                    self.net_type = prev_type
-                    raise
-            except Exception as e:
-                sys.stderr.write("WARNING: cannot load %s (%s); skipping\n"
-                                 % (path, e))
-                continue
-            self.net_trainer = net
-            self.start_counter = counter + 1
-            telemetry.event({"ev": "ckpt_restore", "path": path,
-                             "counter": counter, "batches_done": 0})
-            return 1
-        return 0
-
     def task_serve(self) -> None:
         """task = serve (cxxnet_tpu/learn_task.py:1519-1812): online serving
         through the frontend (utils/servd.py). Each stdin line is one
@@ -753,24 +1078,33 @@ class LearnTask:
                     top_k=self.gen_topk, seed=self.gen_seed + seq)[0]
 
         def newest_ckpt_sig():
-            # identity of the newest numbered checkpoint: a new or
-            # rewritten file changes it, so a matching one means a reload
-            # would load the very model being served
+            # identity of the newest candidates (the newest numbered file
+            # and the emergency file): a new or rewritten file changes it,
+            # so a matching one means a reload would load the very model
+            # being served
+            paths = []
             cands = ckpt.scan_checkpoints(self.name_model_dir)
-            if not cands:
-                return ()
-            try:
-                fst = os.stat(cands[-1][1])
-            except OSError:
-                return ()
-            return ((os.path.realpath(cands[-1][1]), fst.st_mtime_ns,
-                     fst.st_size),)
+            if cands:
+                paths.append(cands[-1][1])
+            epath = os.path.join(self.name_model_dir, ckpt.EMERGENCY_NAME)
+            if os.path.exists(epath):
+                paths.append(epath)
+            sig = []
+            for p in paths:
+                try:
+                    fst = os.stat(p)
+                except OSError:
+                    continue
+                sig.append((os.path.realpath(p), fst.st_mtime_ns,
+                            fst.st_size))
+            return tuple(sig)
 
         # seed the signature when the model being served IS the newest
-        # checkpoint, so a blind SIGHUP loop starts out free
+        # candidate, so a blind SIGHUP loop starts out free
         served_sig = [newest_ckpt_sig()]
-        if served_sig[0] and served_sig[0][0][0] != os.path.realpath(
-                self.name_model_in):
+        if served_sig[0] and not (
+                len(served_sig[0]) == 1 and served_sig[0][0][0]
+                == os.path.realpath(self.name_model_in)):
             served_sig[0] = None
 
         def reload_fn():

@@ -17,9 +17,12 @@ nets compute in bf16 over float32 master weights, updaters and optimizer
 state) and batch-norm state updates. On a card, a training batch from
 host memory goes through the trainer's own ring of page-locked buffers
 and an asynchronous copy on a stream of its own (``StagingRing``,
-``_batch_tensors``). Meshes over several devices, the health monitor,
-the serving frontend, exported decode programs and the training-state
-section belong to later slices. Under bf16, ``predict``,
+``_batch_tensors``). The training-state section of a model file
+(``save_training_state``, ``load_training_state``,
+``restore_training_state``) carries the step state that weights and
+optimizer state do not, so a preempted run resumes bit for bit. Meshes
+over several devices, the health monitor and exported decode programs
+belong to later slices. Under bf16, ``predict``,
 ``extract_feature`` and ``evaluate`` hand out float32 arrays that hold
 the bf16 values (the JAX package returns bf16 arrays through ml_dtypes,
 which the card's machine lacks; the conversion is exact).
@@ -30,6 +33,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import json
 import re
 import weakref
 from typing import Callable, Dict, List, Optional, Tuple
@@ -41,17 +45,17 @@ from .. import device as device_mod
 from ..layer.base import check, fold_in
 from ..ops import random as oprandom
 from ..updater import Updater, create_updater
+from ..utils import checkpoint as ckpt
 from ..utils import kvblocks, serializer, telemetry
 from ..utils.kvblocks import KVPoolExhausted
 from ..utils.metric import MetricSet
 from .config import NetConfig
 from .net import NeuralNet
 
-# magics of the optional sections after the model blob: optimizer state
-# (written by save_model, read by load_model), then the JAX package's
-# training state (save_training_state), which the port steps over
+# magic of the optional optimizer-state section after the model blob
+# (written by save_model, read by load_model); the training-state section
+# that may follow it opens with ckpt.STATE_MAGIC (save_training_state)
 OPT_MAGIC = b"CXNOPT01"
-STATE_MAGIC = b"CXTSTA01"
 
 OptState = List[Dict[str, Dict[str, torch.Tensor]]]
 
@@ -336,7 +340,8 @@ class Trainer:
         """Restore the optional optimizer-state section (magic, uint64
         length, body); without it the fresh states stay. What follows
         must be the end of the file or the training-state section, which
-        is left unread."""
+        is left for ``load_training_state``: the reader stops before its
+        magic."""
         magic = r.f.read(len(OPT_MAGIC))
         if magic == OPT_MAGIC:
             sr = serializer.Reader(r.read_raw(r.read_uint64()))
@@ -357,9 +362,131 @@ class Trainer:
                               "optimizer state %r/%r shape mismatch"
                               % (key, sk))
                         st[key][sk] = torch.from_numpy(val).to(self.dev)
-            magic = r.f.read(len(STATE_MAGIC))
-        check(magic in (b"", STATE_MAGIC),
+            magic = r.f.read(len(ckpt.STATE_MAGIC))
+        check(magic in (b"", ckpt.STATE_MAGIC),
               "model file: unexpected bytes %r after the model blob" % magic)
+        r.f.seek(-len(magic), 1)
+
+    # the training-state section: the host-side step state that weights and
+    # optimizer state do not cover (the rng stream position, the
+    # update_period phase, in-flight gradient accumulation, the train-metric
+    # sums), in the JAX package's layout (cxxnet_tpu/nnet/trainer.py:695-792):
+    # ckpt.STATE_MAGIC, uint64 length, then the JSON meta with sorted keys,
+    # the (n_metrics, 2) float32 metric sums and the per-layer {tag: tensor}
+    # gradient sums. With it a preempted run resumes bit for bit mid-round.
+    def save_training_state(self, w: serializer.Writer,
+                            extra: Optional[dict] = None) -> None:
+        """Append the training-state section; ``extra`` carries the
+        learn task's cursor (round counter, batches done in the round)."""
+        sw = serializer.Writer()
+        meta = {"rng_counter": int(self._rng_counter),
+                "sample_counter": int(self.sample_counter)}
+        if extra:
+            meta.update(extra)
+        ga = self._grad_accum_layers()
+        ma = self._metric_accum
+        meta["has_grad_accum"] = ga is not None
+        meta["has_metric_accum"] = ma is not None
+        sw.write_string(json.dumps(meta, sort_keys=True))
+        if ma is not None:
+            sw.write_tensor(ma.detach().cpu().numpy().astype(np.float32))
+        if ga is not None:
+            sw.write_uint64(len(ga))
+            for d in ga:
+                sw.write_uint64(len(d))
+                for key in sorted(d):
+                    sw.write_string(key)
+                    sw.write_tensor(d[key])
+        blob = sw.getvalue()
+        w.write_raw(ckpt.STATE_MAGIC)
+        w.write_uint64(len(blob))
+        w.write_raw(blob)
+
+    def load_training_state(self, r: serializer.Reader) -> Optional[dict]:
+        """Parse the optional training-state section into a dict (None
+        without one: an older file). It is applied apart, by
+        ``restore_training_state``: the learn task's continue-path eval runs
+        between the two and must not consume the restored state."""
+        magic = r.f.read(len(ckpt.STATE_MAGIC))
+        if magic != ckpt.STATE_MAGIC:
+            return None
+        sr = serializer.Reader(r.read_raw(r.read_uint64()))
+        meta = json.loads(sr.read_string())
+        state = dict(meta)
+        if meta.get("has_metric_accum"):
+            state["metric_accum"] = sr.read_tensor()
+        if meta.get("has_grad_accum"):
+            ga = []
+            for _ in range(sr.read_uint64()):
+                d = {}
+                for _ in range(sr.read_uint64()):
+                    key = sr.read_string()
+                    d[key] = sr.read_tensor()
+                ga.append(d)
+            state["grad_accum"] = ga
+        return state
+
+    def restore_training_state(self, state: Optional[dict]) -> None:
+        """Apply a loaded training-state dict. The counters always apply;
+        the accumulators only when they match the current metric set and
+        net (otherwise they are dropped with a warning: correct at update
+        boundaries, not bit-identical mid-accumulation)."""
+        if not state:
+            return
+        if "rng_counter" in state:
+            self._rng_counter = int(state["rng_counter"])
+        if "sample_counter" in state:
+            self.sample_counter = int(state["sample_counter"])
+        ma = state.get("metric_accum")
+        if ma is not None:
+            if np.shape(ma) == (len(self.train_metric), 2):
+                self._metric_accum = torch.from_numpy(
+                    np.asarray(ma, np.float32)).to(self.dev)
+            elif not self.silent:
+                print("WARNING: checkpoint train-metric state does not "
+                      "match the current metric set; dropped")
+        ga = state.get("grad_accum")
+        if ga is not None:
+            ok = len(ga) == len(self.params) and all(
+                set(d) == set(p)
+                and all(tuple(np.shape(d[k])) == tuple(p[k].shape)
+                        for k in d)
+                for d, p in zip(ga, self.params))
+            if ok:
+                self.grad_accum = [
+                    torch.from_numpy(np.asarray(ga[i][k], np.float32))
+                    .to(device=self.dev, dtype=self.params[i][k].dtype)
+                    for i, k in self._update_keys()]
+            elif not self.silent:
+                print("WARNING: checkpoint gradient-accumulation state "
+                      "does not match the current net/parallelism config; "
+                      "dropped (resume is exact only at update "
+                      "boundaries)")
+
+    def _update_keys(self) -> List[Tuple[int, str]]:
+        """(layer, weight tag) of every weight the updaters step, in the
+        order of ``update``'s gradient list and of ``grad_accum``."""
+        return [(i, k) for i, p in enumerate(self.params) for k in p
+                if k in self.updaters[i]]
+
+    def _grad_accum_layers(self) -> Optional[List[Dict[str, np.ndarray]]]:
+        """``grad_accum`` as the JAX package keeps it: one {tag: float32
+        array} per layer over all of the layer's params, zeros for the
+        tensors no updater steps (batch-norm running stats); None while
+        nothing is accumulated."""
+        if self.grad_accum is None:
+            return None
+        out = [{k: np.zeros(tuple(v.shape), np.float32)
+                for k, v in p.items()} for p in self.params]
+        for (i, k), g in zip(self._update_keys(), self.grad_accum):
+            out[i][k] = g.detach().float().cpu().numpy()
+        return out
+
+    def canonical_params(self) -> List[Dict[str, np.ndarray]]:
+        """The per-layer params as host float32 arrays, {tag: array} per
+        layer (the form of the model file and of ``get_weight``)."""
+        return [{k: v.detach().cpu().numpy() for k, v in p.items()}
+                for p in self.params]
 
     def copy_model_from(self, r: serializer.Reader) -> None:
         """Finetune: a fresh model with the weights of the name-matched
@@ -435,8 +562,7 @@ class Trainer:
         ``evaluate`` reads them; nothing here waits for the device."""
         need_update = (self.sample_counter + 1) % self.update_period == 0
         # the weights the updaters step; state (BN running stats) has none
-        keys = [(i, k) for i, p in enumerate(self.params) for k in p
-                if k in self.updaters[i]]
+        keys = self._update_keys()
         values, labels, _, grads = self._forward_backward(
             batch, self._next_gen(), keys)
         state_ups = self.net._last_state_updates

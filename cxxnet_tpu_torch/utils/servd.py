@@ -9,10 +9,11 @@ stdin ``task = serve`` loop of ``bin/cxxnet_torch``. What the JAX package
 calls a compile (an XLA program built inside a request) is, in the port,
 the first-use build and load of a CUDA kernel library by ``ops/_build.py``;
 the compile windows and ``recompiles`` fields below carry those records.
-The status HTTP server, the fleet router and the perf ledger are not
-ported: the frontend's hooks into them (the probes, the flight recorder,
-``set_warm_account``) are kept and behave as in JAX with the perf ledger
-off, so ``roofline_bound_tokens_per_s`` is None on every record.
+The status HTTP server (``utils/statusd.py``) reads the frontend's probes,
+flight recorder and batch account. The fleet router and the perf ledger
+are not ported: the frontend's hooks into them (``set_warm_account``) are
+kept and behave as in JAX with the perf ledger off, so
+``roofline_bound_tokens_per_s`` is None on every record.
 
 What a request gets on the way to the backend:
 
@@ -3275,7 +3276,9 @@ def _selftest_body(verbose: bool = False) -> int:
 def _stub_main(argv: List[str]) -> int:
     """``--stub``: a standalone replica for the chaos harness —
     prints the bound port(s), serves until SIGTERM/SIGINT, drains, prints
-    the final stats as JSON, exits 0. Knobs: ``--port N`` ``--delay-ms D``
+    the final stats as JSON, exits 0; ``--status-port N`` also starts the
+    status server (``servd-stub: status on port P``). Knobs: ``--port N``
+    ``--delay-ms D``
     (slow backend) ``--explode-every N`` (every Nth dispatch raises)
     ``--queue N`` ``--drain-ms D`` ``--breaker-fails N`` ``--stall-s S``
     (wedged-backend probe bound).
@@ -3403,22 +3406,26 @@ def _stub_main(argv: List[str]) -> int:
         if signum is not None:
             signal.signal(signum,
                           lambda s, f, _on=on: wedge.update(on=_on))
-    if int(flag("--status-port", -1)) >= 0:
-        # the status HTTP server is not ported yet
-        print("servd-stub: --status-port is not ported to "
-              "cxxnet_tpu_torch yet", file=sys.stderr, flush=True)
-        return 2
     fe.start()
     port = fe.listen(int(flag("--port", 0)))
     print("servd-stub: listening on port %d" % port, flush=True)
-    statusd.register_probe("serving", fe.health_probe)
-    statusd.register_probe("serving.worker", fe.liveness_probe,
-                           liveness=True)
-    statusd.set_flight_recorder(fe.flight)
+    status_port = int(flag("--status-port", -1))
+    if status_port >= 0:
+        # the status sidecar a real task = serve replica runs: /healthz
+        # readiness and the /metrics gauges
+        telemetry.enable()          # in memory: /metrics reads it
+        srv = statusd.start(status_port)
+        statusd.register_probe("serving", fe.health_probe)
+        statusd.register_probe("serving.worker", fe.liveness_probe,
+                               liveness=True)
+        statusd.set_flight_recorder(fe.flight)
+        print("servd-stub: status on port %d" % srv.port, flush=True)
     with ckpt.PreemptionGuard(enabled=True) as guard:
         while not guard.requested:
             time.sleep(0.05)
     stats = fe.drain()
+    if status_port >= 0:
+        statusd.stop()
     print("servd-stub: drained " + json.dumps(stats), flush=True)
     return 0
 

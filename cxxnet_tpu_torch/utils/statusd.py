@@ -1,31 +1,143 @@
-"""The serving SLO account and the status registry of the port: the parts
-of cxxnet_tpu/utils/statusd.py that the serving frontend and ``task =
-serve`` call.
+"""Live introspection service of the port: /metrics, /healthz, /statusz,
+/trace and the serving pages — the port's copy of cxxnet_tpu/utils/statusd.py
+(it imports nothing of ``cxxnet_tpu``): a standard-library ``http.server``
+on a daemon thread, started by the conf key ``status_port=<p>`` (port 0 =
+ephemeral, printed at startup) for every task, and by ``python -m
+cxxnet_tpu_torch.utils.servd --stub --status-port <p>``.
 
-* ``SLOTracker`` — the rolling-window error-budget account every completed
-  request feeds (burn rate, the ``alert`` latch and its ``slo_burn``
-  transition events), the JAX package's class unchanged.
-* The module-level calls the frontend and the driver make to publish to
-  a status server (``register_probe``, ``update_progress``,
-  ``set_flight_recorder``, ``set_slo``, ``set_slo_tenants``,
-  ``set_batch``): no-ops, as the JAX package's are while no server runs.
+Endpoints (``ENDPOINTS``):
 
-The HTTP server itself (``/metrics``, ``/healthz``, ``/trace``,
-``/batchz``, ...) is not ported yet: nothing here opens a socket, and the
-command line refuses ``status_port`` off -1. Standard library only.
+* ``/metrics`` — Prometheus text format: every telemetry counter as a
+  ``_total`` series, gauges, the fixed-bucket histograms
+  (``telemetry.HIST_BUCKETS``) as ``_seconds_bucket{le=...}`` series, the
+  run's progress (``cxxnet_progress_round``, ``_batch``), readiness and
+  liveness, the SLO account, the decode batch account and the
+  conservation-law latches; every series carries a ``process`` label.
+  ``?json=1`` returns the raw registry snapshot with the SLO window and
+  the batch account.
+* ``/healthz`` — READINESS: 200 while the process should receive traffic,
+  503 while a heartbeat channel is overdue (``health.channel_status``) or
+  any registered probe fails (the serving frontend's draining or
+  breaker-open state).
+* ``/livez`` — LIVENESS: 503 only for an overdue heartbeat or a probe
+  registered with ``liveness=True`` (a dead serve worker). A draining
+  server is not ready but is alive.
+* ``/`` and ``/statusz`` — the human page: run config, progress, health,
+  SLO, requests, batching, the last checkpoint, latency histograms,
+  counters and gauges.
+* ``/trace`` — a Chrome trace of the recent-event ring; with
+  ``?request=<id>`` one request's phase-attributed trace from the flight
+  recorder (with its batch's slot-Gantt lanes on a batching replica).
+* ``/requestz`` — the flight recorder, newest first (HTML, ``?json=1``,
+  ``?n=<k>``, ``?request=<id>`` for one raw record).
+* ``/batchz`` — the decode batch scheduler: KV account, buckets and the
+  iteration flight ring (HTML, ``?json=1``, ``?n=<k>``).
+* ``/why?request=<id>`` — one request's slowdown autopsy
+  (``autopsy.classify_record``).
+* ``/eventz`` — the incident timeline (``autopsy.incidents``).
+
+``/programz``, ``/compilez`` and ``/profilez`` (the performance ledger and
+on-demand profiling) and ``/fleetz`` (the fleet router) are not ported:
+each answers 404 saying so, and the 404 listing names only the pages
+served.
+
+Serving SLOs: an ``SLOTracker`` (objectives ``slo_ttft_ms`` /
+``slo_p99_ms`` / ``slo_availability`` over a rolling window) turns each
+completed request into an error-budget account; its burn rate is
+exported as ``cxxnet_slo_burn_rate`` with the alert gauge
+``cxxnet_slo_burn``.
+
+The server binds in its constructor (so ``status_port=0`` resolves to a
+real port before the run starts), serves each request on its own thread,
+and reads snapshot copies of the telemetry state, so a scrape never holds
+up the train loop beyond one lock acquisition. It binds loopback unless
+``status_host`` widens it (the pages are unauthenticated). The
+module-level calls (``update_progress``, ``register_probe``, ``set_*``)
+are no-ops while no server runs. Standard library only; ``python -m
+cxxnet_tpu_torch.utils.statusd --selftest`` serves, scrapes and checks.
 """
 
 from __future__ import annotations
 
+import html
+import json
+import re
+import sys
+import threading
 import time
 from collections import deque
-from typing import Dict, Optional
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs
 
+from . import autopsy
+from . import health as health_mod
 from . import lockrank
 from . import telemetry
 
-__all__ = ["SLOTracker", "update_progress", "register_probe",
-           "set_flight_recorder", "set_slo", "set_slo_tenants", "set_batch"]
+__all__ = [
+    "StatusServer", "SLOTracker", "start", "stop", "active",
+    "set_run_info", "update_progress", "register_probe", "wire_health",
+    "set_flight_recorder", "set_slo", "set_slo_tenants", "set_batch",
+    "set_auditor", "prometheus_metrics", "requestz_html", "batchz_html",
+    "why_html", "eventz_html", "ENDPOINTS", "NOT_PORTED_PAGES",
+    "PROM_LINE_RE", "selftest",
+]
+
+# Every endpoint the handler serves, with its query contract: (path,
+# takes ?json=1, takes ?n=<k>). The 404 page derives from this table.
+ENDPOINTS: Tuple[Tuple[str, bool, bool], ...] = (
+    ("/metrics", True, False),
+    ("/healthz", False, False),
+    ("/livez", False, False),
+    ("/statusz", False, False),
+    ("/trace", False, False),
+    ("/requestz", True, True),
+    ("/batchz", True, True),
+    ("/why", True, False),
+    ("/eventz", True, True),
+)
+# the JAX package's pages that the port does not serve, with what they
+# read; each answers 404 saying so
+NOT_PORTED_PAGES = {
+    "/programz": "the program performance ledger",
+    "/compilez": "the program performance ledger",
+    "/profilez": "on-demand profiling",
+    "/fleetz": "the fleet router",
+}
+
+_NAME_SAN = re.compile(r"[^a-zA-Z0-9_]")
+
+# one exposition line: metric name, optional {label="value",...}, value.
+# Shared with tests — the validity contract /metrics promises scrapers.
+PROM_LINE_RE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*")*\})?'
+    r' (?:[-+]?[0-9]*\.?[0-9]+(?:[eE][-+]?[0-9]+)?|\+Inf|-Inf|NaN)$')
+
+
+def _mname(name: str) -> str:
+    """Telemetry name -> Prometheus metric name (``train.step`` ->
+    ``cxxnet_train_step``)."""
+    n = _NAME_SAN.sub("_", str(name))
+    if n and n[0].isdigit():
+        n = "_" + n
+    return "cxxnet_" + n
+
+
+def _lesc(value: str) -> str:
+    """Prometheus label-value escaping (backslash, quote, newline)."""
+    return str(value).replace("\\", "\\\\").replace('"', '\\"') \
+        .replace("\n", "\\n")
+
+
+def _num(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+# the shared empty-series-sentinel renderer (None -> "n/a")
+_ms = telemetry.fmt_ms
 
 
 class SLOTracker:
@@ -46,15 +158,14 @@ class SLOTracker:
     **burn rate** = bad_fraction / (1 - availability) — the classic
     error-budget form: 1x means bad requests arrive exactly as fast as
     the budget allows; 10x means the month's budget is gone in 3 days.
-    The ``alert`` flag (the ``cxxnet_slo_burn`` gauge of the JAX
-    package's status server, and ``slo_burn`` transition events in the
-    telemetry stream) flips to
+    The ``alert`` flag (exported as the ``cxxnet_slo_burn`` gauge, and
+    as ``slo_burn`` transition events in the telemetry stream) flips to
     1 while burn_rate >= 1 with at least ``min_requests`` in the window
     — the floor keeps one unlucky request over an empty window from
     paging.
 
-    Thread-safe; the serving frontend calls ``observe`` from its worker
-    thread, readers call ``snapshot()``.
+    Thread-safe and jax-free; the serving frontend calls ``observe``
+    from its worker thread, /metrics and /statusz read ``snapshot()``.
     """
 
     def __init__(self, ttft_ms: float = 0.0, p99_ms: float = 0.0,
@@ -169,30 +280,1476 @@ class SLOTracker:
                 "burn_rate": round(burn_rate, 4), "alert": alert}
 
 
+def prometheus_metrics(snapshot: dict, progress: Optional[dict] = None,
+                       health_failures: Optional[list] = None,
+                       channels: Optional[list] = None,
+                       live_failures: Optional[list] = None,
+                       slo: Optional[dict] = None,
+                       slo_tenants: Optional[dict] = None,
+                       perf: Optional[dict] = None,
+                       batch: Optional[dict] = None,
+                       books: Optional[dict] = None) -> str:
+    """Render a ``telemetry.metrics_snapshot()`` as Prometheus text
+    exposition format 0.0.4. Pure function of its inputs — the selftest
+    and tests validate its output without a socket. ``channels`` is the
+    heartbeat snapshot the caller derived ``health_failures`` from, so
+    one scrape can never contradict itself (healthy gauge vs overdue
+    heartbeat ages from two different instants)."""
+    p = str(snapshot.get("process", 0))
+    base = '{process="%s"}' % _lesc(p)
+    out: List[str] = []
+
+    def emit(name, mtype, value, labels=base, help_=None):
+        if help_:
+            out.append("# HELP %s %s" % (name, help_))
+        out.append("# TYPE %s %s" % (name, mtype))
+        out.append("%s%s %s" % (name, labels, _fmt(value)))
+
+    def _fmt(v):
+        if isinstance(v, float):
+            if v != v:
+                return "NaN"
+            if v == float("inf"):
+                return "+Inf"
+            if v == float("-inf"):
+                return "-Inf"
+            return repr(v)
+        return str(v)
+
+    def emit_hist(mname, h):
+        """One fixed-bucket histogram family (cumulative ``le`` rows)
+        from a sparse ``Histogram.to_dict`` snapshot."""
+        out.append("# TYPE %s histogram" % mname)
+        counts = {int(i): int(c) for i, c in
+                  (h.get("buckets") or {}).items()}
+        cum = 0
+        for i, le in enumerate(telemetry.HIST_BUCKETS):
+            cum += counts.get(i, 0)
+            out.append('%s_bucket{process="%s",le="%g"} %d'
+                       % (mname, _lesc(p), le, cum))
+        total = int(h.get("count", 0))
+        out.append('%s_bucket{process="%s",le="+Inf"} %d'
+                   % (mname, _lesc(p), total))
+        out.append('%s_sum%s %s' % (mname, base,
+                                    _fmt(float(h.get("sum", 0.0)))))
+        out.append('%s_count%s %d' % (mname, base, total))
+
+    emit("cxxnet_up", "gauge", 1,
+         help_="1 while the introspection service is serving")
+    emit("cxxnet_uptime_seconds", "gauge",
+         round(float(snapshot.get("uptime_s", 0.0)), 3))
+    emit("cxxnet_compiles_total", "counter", int(snapshot.get("compiles", 0)),
+         help_="jit recompiles detected since run start")
+    emit("cxxnet_compile_seconds_total", "counter",
+         float(snapshot.get("compile_s", 0.0)))
+    if health_failures is not None:
+        emit("cxxnet_healthy", "gauge", 0 if health_failures else 1,
+             help_="1 when /healthz (readiness) returns 200")
+    if live_failures is not None:
+        emit("cxxnet_live", "gauge", 0 if live_failures else 1,
+             help_="1 when /livez (liveness) returns 200")
+    if slo is not None:
+        # the serving SLO account (SLOTracker.snapshot()): the alert
+        # gauge first — cxxnet_slo_burn is the series alert rules watch
+        emit("cxxnet_slo_burn", "gauge", int(slo.get("alert", 0)),
+             help_="1 while the rolling-window error-budget burn rate "
+                   "is >= 1x (SLO burning)")
+        emit("cxxnet_slo_burn_rate", "gauge",
+             float(slo.get("burn_rate", 0.0)),
+             help_="bad_fraction / (1 - slo_availability) over the "
+                   "rolling window")
+        emit("cxxnet_slo_bad_fraction", "gauge",
+             float(slo.get("bad_fraction", 0.0)))
+        emit("cxxnet_slo_window_requests", "gauge",
+             int(slo.get("requests", 0)))
+    if slo_tenants:
+        # per-tenant SLO floors (one SLOTracker per configured tenant):
+        # labeled rows, so a noisy tenant's burn is visible NEXT TO the
+        # victim's holding at 0 — the multi-tenant QoS acceptance
+        fams = (("cxxnet_slo_tenant_burn",
+                 lambda s: int(s.get("alert", 0)),
+                 "1 while this tenant's own error budget burns >= 1x"),
+                ("cxxnet_slo_tenant_burn_rate",
+                 lambda s: float(s.get("burn_rate", 0.0)), None),
+                ("cxxnet_slo_tenant_window_requests",
+                 lambda s: int(s.get("requests", 0)), None))
+        for mname, get, help_ in fams:
+            if help_:
+                out.append("# HELP %s %s" % (mname, help_))
+            out.append("# TYPE %s gauge" % mname)
+            for t in sorted(slo_tenants):
+                out.append('%s{process="%s",tenant="%s"} %s'
+                           % (mname, _lesc(p), _lesc(t),
+                              _fmt(get(slo_tenants[t]))))
+    if perf is not None:
+        # the program performance ledger (perf.Ledger.snapshot()):
+        # aggregates as plain gauges, per-program figures as labeled
+        # families (one TYPE line per family, one row per card — the
+        # heartbeat-channel pattern)
+        hbm = perf.get("hbm") or {}
+        if hbm.get("peak_bytes") is not None:
+            emit("cxxnet_hbm_peak_bytes", "gauge", int(hbm["peak_bytes"]),
+                 help_="largest per-device program footprint "
+                       "(arguments+temp+output) the ledger has carded")
+        if hbm.get("headroom_bytes") is not None:
+            emit("cxxnet_hbm_headroom_bytes", "gauge",
+                 int(hbm["headroom_bytes"]),
+                 help_="device HBM capacity minus the peak program "
+                       "footprint minus the live decode KV cache")
+        if hbm.get("decode_kv_bytes") is not None:
+            emit("cxxnet_hbm_decode_kv_bytes", "gauge",
+                 int(hbm["decode_kv_bytes"]),
+                 help_="live decode KV-cache bytes charged against "
+                       "HBM headroom (persistent between programs)")
+        if hbm.get("capacity_bytes") is not None:
+            emit("cxxnet_hbm_capacity_bytes", "gauge",
+                 int(hbm["capacity_bytes"]))
+        cards = perf.get("cards") or []
+        emit("cxxnet_program_cards", "gauge", len(cards),
+             help_="compiled programs the performance ledger has carded")
+        fams = (("cxxnet_program_flops", "flops",
+                 "XLA cost_analysis FLOPs per execution"),
+                ("cxxnet_program_bytes_accessed", "bytes_accessed", None),
+                ("cxxnet_program_peak_bytes", "peak_bytes",
+                 "per-device argument+temp+output bytes"),
+                ("cxxnet_program_predicted_seconds", "predicted_s",
+                 "roofline-predicted execution time"),
+                ("cxxnet_program_compile_seconds", "compile_s", None),
+                ("cxxnet_program_mfu_pct", "mfu_pct",
+                 "achieved FLOPs vs chip peak at the measured p50"),
+                ("cxxnet_program_roofline_eff_pct", "roofline_eff_pct",
+                 "predicted/measured p50 — low means slower than the "
+                 "hardware allows"))
+        for mname, field, help_ in fams:
+            rows = [c for c in cards if _num(c.get(field))]
+            if not rows:
+                continue
+            if help_:
+                out.append("# HELP %s %s" % (mname, help_))
+            out.append("# TYPE %s gauge" % mname)
+            for c in rows:
+                out.append(
+                    '%s{process="%s",program="%s",shapes="%s"} %s'
+                    % (mname, _lesc(p), _lesc(c.get("name", "?")),
+                       _lesc(c.get("sig", "?")), _fmt(c[field])))
+        rd = perf.get("readiness") or {}
+        if rd.get("ready_pct") is not None:
+            # warm-grid readiness: absent entirely when no expected
+            # program grid was registered (serve-only wiring) — the
+            # absence-is-capability-signal convention
+            emit("cxxnet_ready_programs_pct", "gauge", rd["ready_pct"],
+                 help_="compiled fraction of the expected serving "
+                       "program grid; below 100 the replica is still "
+                       "paying compile cliffs on first hits")
+            emit("cxxnet_expected_programs", "gauge",
+                 int(rd.get("expected", 0)))
+            emit("cxxnet_warm_programs", "gauge", int(rd.get("warm", 0)))
+            bks = rd.get("buckets") or {}
+            if bks:
+                out.append("# TYPE cxxnet_ready_programs_bucket_pct "
+                           "gauge")
+                for b in sorted(bks):
+                    out.append(
+                        'cxxnet_ready_programs_bucket_pct{process="%s"'
+                        ',bucket="%s"} %s'
+                        % (_lesc(p), _lesc(str(b)),
+                           _fmt(bks[b].get("ready_pct", 0.0))))
+    if batch is not None:
+        # the decode-datapath observability account
+        # (servd.ServeFrontend.batch_snapshot()): the live KV/HBM
+        # occupancy series paged KV (ROADMAP item 2) will be judged
+        # against, per-bucket as labeled rows, plus the convoy latch
+        out.append("# HELP cxxnet_decode_kv_bytes allocated decode "
+                   "KV-cache bytes per warm session bucket")
+        out.append("# TYPE cxxnet_decode_kv_bytes gauge")
+        for b, bs in sorted((batch.get("buckets") or {}).items(),
+                            key=lambda kv: int(kv[0])):
+            out.append('cxxnet_decode_kv_bytes{process="%s",'
+                       'bucket="%s"} %d'
+                       % (_lesc(p), _lesc(str(b)),
+                          int(bs.get("kv_bytes", 0))))
+        out.append("# TYPE cxxnet_decode_kv_live_bytes gauge")
+        for b, bs in sorted((batch.get("buckets") or {}).items(),
+                            key=lambda kv: int(kv[0])):
+            out.append('cxxnet_decode_kv_live_bytes{process="%s",'
+                       'bucket="%s"} %d'
+                       % (_lesc(p), _lesc(str(b)),
+                          int(bs.get("kv_live_bytes", 0))))
+        if _num(batch.get("kv_live_pct")):
+            emit("cxxnet_decode_kv_live_pct", "gauge",
+                 batch["kv_live_pct"],
+                 help_="live-vs-allocated decode cache utilization — "
+                       "the padding+dead-slot waste paged KV reclaims")
+        if _num(batch.get("slot_waste_pct")):
+            emit("cxxnet_decode_slot_waste_pct", "gauge",
+                 batch["slot_waste_pct"],
+                 help_="warm decode slots not decoding (bucket-"
+                       "rounding waste)")
+        emit("cxxnet_decode_convoy", "gauge",
+             int(batch.get("convoy", 0)),
+             help_="1 while a long sequence pins a full bucket with "
+                   "queued work waiting (decode_convoy events mark "
+                   "the transitions)")
+        emit("cxxnet_decode_convoys_total", "counter",
+             int(batch.get("convoys", 0)))
+        pool = batch.get("pool")
+        if pool is not None:
+            # the paged-KV block pool account (doc/performance.md
+            # "Decode KV cache"): free-list level, block-exact pool
+            # bytes, and the prefix-reuse / copy-on-write lifetime
+            # tallies — absent entirely (not zero) on dense backends,
+            # the absence-is-the-capability-signal discipline
+            emit("cxxnet_decode_kv_block_total", "gauge",
+                 int(pool.get("blocks_total", 0)),
+                 help_="allocatable KV blocks in the paged decode "
+                       "pool (scratch block excluded)")
+            emit("cxxnet_decode_kv_block_free", "gauge",
+                 int(pool.get("blocks_free", 0)))
+            emit("cxxnet_decode_kv_block_used", "gauge",
+                 int(pool.get("blocks_used", 0)))
+            emit("cxxnet_decode_kv_block_tokens", "gauge",
+                 int(pool.get("block_tokens", 0)),
+                 help_="cache rows per KV block (serve_kv_block)")
+            emit("cxxnet_decode_kv_pool_bytes", "gauge",
+                 int(pool.get("pool_bytes", 0)),
+                 help_="the paged pool's real device array nbytes "
+                       "(block-exact: equals cxxnet_decode_kv_bytes "
+                       "under paging)")
+            emit("cxxnet_decode_prefix_queries_total", "counter",
+                 int(pool.get("prefix_queries", 0)),
+                 help_="paged admissions completed (a deferred ask "
+                       "retries and counts once, at success — "
+                       "cxxnet_decode_kv_defers_total counts the "
+                       "defers)")
+            emit("cxxnet_decode_prefix_hits_total", "counter",
+                 int(pool.get("prefix_hits", 0)),
+                 help_="admissions that reused >= 1 resident shared-"
+                       "prefix token (prefilled once, fleet-of-"
+                       "buckets-wide)")
+            emit("cxxnet_decode_prefix_hit_tokens_total", "counter",
+                 int(pool.get("prefix_hit_tokens", 0)))
+            emit("cxxnet_decode_prefix_cow_total", "counter",
+                 int(pool.get("cow_copies", 0)),
+                 help_="copy-on-write block demotions (whole-prompt "
+                       "matches recomputing their last position)")
+            emit("cxxnet_decode_kv_defers_total", "counter",
+                 int(pool.get("alloc_failures", 0)),
+                 help_="admissions deferred on block-pool exhaustion "
+                       "(deterministic queue-wait, never a device "
+                       "OOM)")
+            if _num(pool.get("prefix_hit_rate")):
+                emit("cxxnet_decode_prefix_hit_rate", "gauge",
+                     pool["prefix_hit_rate"],
+                     help_="share of admitted prompt tokens served "
+                           "from resident shared blocks (token-"
+                           "weighted, %)")
+            # retained conversation cache (doc/robustness.md "Memory
+            # governance"): parked refcount-0 blocks, the revival
+            # tallies, eviction churn, and the pressure latch
+            emit("cxxnet_decode_kv_block_retained", "gauge",
+                 int(pool.get("blocks_retained", 0)),
+                 help_="refcount-0 blocks parked in the retained "
+                       "conversation cache (evictable headroom)")
+            emit("cxxnet_decode_retained_hits_total", "counter",
+                 int(pool.get("retained_hits", 0)),
+                 help_="admissions that REVIVED a retired "
+                       "conversation's blocks (the retained sub-"
+                       "source of the prefix hit rate)")
+            emit("cxxnet_decode_retained_hit_tokens_total", "counter",
+                 int(pool.get("retained_hit_tokens", 0)))
+            emit("cxxnet_decode_retained_evictions_total", "counter",
+                 int(pool.get("retained_evictions", 0)),
+                 help_="retained blocks recycled onto the free list "
+                       "(LRU, deepest-suffix-first)")
+            if _num(pool.get("retained_hit_rate")):
+                emit("cxxnet_decode_retained_hit_rate", "gauge",
+                     pool["retained_hit_rate"],
+                     help_="share of admitted prompt tokens served "
+                           "from RETAINED (refcount-0) blocks")
+            if "pressure" in pool:
+                emit("cxxnet_decode_kv_pressure", "gauge",
+                     1 if pool.get("pressure") else 0,
+                     help_="1 while the low-headroom latch sheds "
+                           "retained mass (kv_pressure events mark "
+                           "the transitions)")
+    if channels is None:
+        channels = health_mod.channel_status()
+    if channels:
+        # ONE TYPE line for the whole family (the exposition spec allows
+        # one per metric name; the channels are label values)
+        out.append("# TYPE cxxnet_heartbeat_age_seconds gauge")
+        for ch, age, timeout, overdue in channels:
+            out.append(
+                'cxxnet_heartbeat_age_seconds{process="%s",channel="%s"}'
+                ' %s' % (_lesc(p), _lesc(ch), _fmt(round(age, 3))))
+    for key in ("round", "num_round", "batch", "served", "errors",
+                "shed", "deadline"):
+        v = (progress or {}).get(key)
+        if _num(v):
+            emit("cxxnet_progress_" + key, "gauge", v)
+    if books is not None:
+        # the conservation-law auditor's account (telemetry.BooksAuditor
+        # snapshot): one latched gauge row per law — a 1 is sticky until
+        # an operator resets the auditor, so a scrape-miss between sweep
+        # and page can never hide a violation. Broken laws that were
+        # since unregistered (a drained router) still render their latch.
+        laws = sorted(set(books.get("laws") or ())
+                      | set(books.get("broken") or ()))
+        if laws:
+            out.append("# HELP cxxnet_books_broken 1 latched once the "
+                       "named conservation law was ever violated")
+            out.append("# TYPE cxxnet_books_broken gauge")
+            broken = set(books.get("broken") or ())
+            for law in laws:
+                out.append('cxxnet_books_broken{process="%s",law="%s"} %d'
+                           % (_lesc(p), _lesc(law),
+                              1 if law in broken else 0))
+        emit("cxxnet_books_laws", "gauge",
+             len(books.get("laws") or ()),
+             help_="conservation laws currently registered for sweeping")
+        emit("cxxnet_books_sweeps_total", "counter",
+             int(books.get("sweeps", 0)))
+    for name, v in sorted(snapshot.get("counters", {}).items()):
+        if _num(v):
+            emit(_mname(name) + "_total", "counter", v)
+    for name, v in sorted(snapshot.get("gauges", {}).items()):
+        if _num(v):
+            emit(_mname(name), "gauge", v)
+    for name, h in sorted(snapshot.get("hists", {}).items()):
+        emit_hist(_mname(name) + "_seconds", h)
+    return "\n".join(out) + "\n"
 
 
-# The status HTTP server is not ported: these are the JAX module's calls
-# with no server running, where each is a no-op (cxxnet_tpu/utils/statusd.py
-# :2289-2341 with _SERVER None).
+def _mib(v) -> str:
+    return "n/a" if v is None else "%.1f" % (v / float(1 << 20))
+
+
+def requestz_html(recs: List[dict], total: int, cap: int,
+                  limit: int) -> str:
+    """Render a flight-recorder listing as the /requestz page — one
+    row per request, newest first. Handles BOTH record shapes: a servd
+    replica's phase-attributed records and a router's attempt records
+    (utils/routerd.py), so the same page works on every process.
+    Pure function of its inputs — validated socket-free in tests."""
+    esc = html.escape
+    parts = ["<html><head><title>cxxnet requestz</title></head>"
+             "<body><h1>request flight recorder</h1><pre>"]
+    parts.append("%d of last %d requests recorded%s"
+                 % (total, cap,
+                    "  (showing newest %d — ?n=<k> to change)"
+                    % len(recs) if limit > 0 and total > len(recs)
+                    else ""))
+    parts.append("</pre><pre>")
+    cols = ("request", "outcome", "total", "ttft", "tok", "detail")
+    fmt = "%-24s %-14s %9s %9s %5s  %s"
+    parts.append(fmt % cols)
+    for r in recs:
+        total_s = r.get("total_s")
+        ttft_s = r.get("ttft_s")
+        if r.get("attempts") is not None:
+            # router shape: the routing life in one cell
+            detail = " -> ".join(
+                "%s:%s%s" % (a.get("replica", "?"),
+                             a.get("outcome", "?"),
+                             " (retried)" if a.get("retried") else "")
+                for a in r["attempts"]) or "(no attempt)"
+        else:
+            ph = r.get("phases") or {}
+            detail = " ".join(
+                "%s=%s" % (k, _ms(None if ph.get(k) is None
+                                  else ph[k] * 1e3))
+                for k in telemetry.REQUEST_PHASES if k in ph)
+            if r.get("shed_at"):
+                detail = "shed at admission (%s)" % r["shed_at"]
+        parts.append(fmt % (
+            esc(str(r.get("id", "?"))), esc(str(r.get("outcome", "?"))),
+            _ms(None if total_s is None else total_s * 1e3),
+            _ms(None if ttft_s is None else ttft_s * 1e3),
+            r.get("tokens_out", r.get("retries", 0)),
+            esc(detail)))
+    if not recs:
+        parts.append("(no requests recorded yet)")
+    parts.append("</pre><p>one request's Chrome trace: "
+                 "<code>/trace?request=&lt;id&gt;</code> "
+                 "(on a router: the stitched cross-process trace); "
+                 "<a href='/requestz?json=1'>json</a> "
+                 "<a href='/statusz'>statusz</a></p></body></html>")
+    return "\n".join(parts)
+
+
+def batchz_html(snap: dict) -> str:
+    """Render a ``servd.ServeFrontend.batch_snapshot(ring=...)`` as the
+    /batchz page: the KV/occupancy account, the per-bucket table, and
+    the newest iteration records of the scheduler flight ring (one row
+    per decode iteration: composition, step latency, queue pressure,
+    convoy verdict). Pure function of the snapshot — validated
+    socket-free in tests."""
+    esc = html.escape
+    parts = ["<html><head><title>cxxnet batchz</title></head>"
+             "<body><h1>decode batch scheduler</h1><pre>"]
+    occ = snap.get("mean_occupancy")
+    parts.append("iterations: %d (%d slot-iterations, mean occupancy "
+                 "%s)   capacity %d, free slots %d, queue depth %d"
+                 % (snap.get("iterations", 0),
+                    snap.get("slot_iterations", 0),
+                    "n/a" if occ is None else "%.2f" % occ,
+                    snap.get("capacity", 0), snap.get("free_slots", 0),
+                    snap.get("queue_depth", 0)))
+    kv_pct = snap.get("kv_live_pct")
+    waste = snap.get("slot_waste_pct")
+    parts.append("kv cache: %s MiB allocated, %s MiB live (%s%% live"
+                 "%s) — the paged-KV reclaim target (ROADMAP item 2)"
+                 % (_mib(snap.get("kv_bytes")),
+                    _mib(snap.get("kv_live_bytes")),
+                    "n/a" if kv_pct is None else "%.1f" % kv_pct,
+                    "" if waste is None
+                    else ", %.1f%% slot waste" % waste))
+    pool = snap.get("pool")
+    if pool is not None:
+        hr = pool.get("prefix_hit_rate")
+        parts.append("paged pool: %s/%s blocks free (%s tokens/block, "
+                     "%s MiB pool)   prefix reuse: %s/%s admissions "
+                     "hit, %s%% of prompt tokens resident, %s CoW, "
+                     "%s exhaustion defers"
+                     % (pool.get("blocks_free", 0),
+                        pool.get("blocks_total", 0),
+                        pool.get("block_tokens", 0),
+                        _mib(pool.get("pool_bytes")),
+                        pool.get("prefix_hits", 0),
+                        pool.get("prefix_queries", 0),
+                        "n/a" if hr is None else "%.1f" % hr,
+                        pool.get("cow_copies", 0),
+                        pool.get("alloc_failures", 0)))
+        rr = pool.get("retained_hit_rate")
+        parts.append("retained cache: %s block(s) parked (cap %s), "
+                     "%s revival(s) (%s%% of prompt tokens), %s "
+                     "eviction(s)%s"
+                     % (pool.get("blocks_retained", 0),
+                        pool.get("retained_cap", 0),
+                        pool.get("retained_hits", 0),
+                        "n/a" if rr is None else "%.1f" % rr,
+                        pool.get("retained_evictions", 0),
+                        "   MEMORY PRESSURE (shedding)"
+                        if pool.get("pressure") else ""))
+    parts.append("convoy: %s (%d episode(s); threshold %d iterations "
+                 "pinned with queued work at zero free slots)"
+                 % ("ACTIVE" if snap.get("convoy") else "none",
+                    snap.get("convoys", 0),
+                    snap.get("convoy_iters", 0)))
+    parts.append("</pre><h2>buckets</h2><pre>")
+    cols = ("bucket", "warm", "active", "kv MiB", "live MiB", "live%")
+    fmt = "%-7s %5s %7s %9s %9s %7s"
+    if pool is not None:
+        cols = cols + ("blocks",)
+        fmt += " %7s"
+    parts.append(fmt % cols)
+    for b, bs in sorted((snap.get("buckets") or {}).items(),
+                        key=lambda kv: int(kv[0])):
+        kvb = bs.get("kv_bytes", 0)
+        row = (esc(str(b)), bs.get("warm", 0), bs.get("active", 0),
+               _mib(kvb), _mib(bs.get("kv_live_bytes", 0)),
+               "%.1f" % (100.0 * bs.get("kv_live_bytes", 0) / kvb)
+               if kvb else "n/a")
+        if pool is not None:
+            # block-table claims: a shared prefix block counts once
+            # per holder, so the column can sum past blocks_used
+            row = row + (bs.get("blocks_held", 0),)
+        parts.append(fmt % row)
+    ring = snap.get("flight") or []
+    if ring:
+        parts.append("</pre><h2>iteration flight ring (newest %d of "
+                     "cap %d)</h2><pre>"
+                     % (len(ring), snap.get("flight_cap", 0)))
+        cols = ("iter", "bucket", "occ", "step", "queue", "q_age",
+                "kv_live%", "slots [slot:id@age]")
+        ifmt = "%-8s %6s %4s %9s %6s %8s %8s  %s"
+        if pool is not None:
+            # block pressure per iteration: next to the queue columns
+            # it answers "queued because slots or because blocks?"
+            cols = cols[:7] + ("blk_free",) + cols[7:]
+            ifmt = "%-8s %6s %4s %9s %6s %8s %8s %8s  %s"
+        parts.append(ifmt % cols)
+        for it in ring:
+            slots = " ".join("%s:%s@%s" % (r[0], r[1], r[2])
+                             for r in it.get("slots") or [])
+            extra = []
+            for rid, slot in it.get("admitted") or []:
+                extra.append("+%s" % rid)
+            for row in it.get("retired") or []:
+                extra.append("-%s" % row[0])
+            if it.get("convoy"):
+                extra.append("CONVOY")
+            if it.get("error"):
+                extra.append("ERROR %s" % it["error"])
+            if extra:
+                slots += "  (" + " ".join(extra) + ")"
+            kvp = it.get("kv_live_pct")
+            row = (it.get("iter", "?"), it.get("bucket", "?"),
+                   it.get("occupancy", 0), _ms(it.get("step_ms")),
+                   it.get("queue_depth", 0),
+                   _ms(None if it.get("queue_age_s") is None
+                       else it["queue_age_s"] * 1e3),
+                   "n/a" if kvp is None else "%.1f" % kvp)
+            if pool is not None:
+                row = row + ("%s/%s" % (it.get("blocks_free", "?"),
+                                        it.get("blocks_total", "?")),)
+            parts.append(ifmt % (row + (esc(slots),)))
+    parts.append("</pre><p>one request's slot-Gantt view: "
+                 "<code>/trace?request=&lt;id&gt;</code>; "
+                 "<a href='/batchz?json=1'>json</a> "
+                 "<a href='/statusz'>statusz</a></p></body></html>")
+    return "\n".join(parts)
+
+
+def why_html(payload: dict) -> str:
+    """Render one request's slowdown autopsy (a ``classify_record`` /
+    ``classify_route`` verdict, or a router's ``stitch_route`` merge)
+    as the /why page: the primary verdict up top, then the cause
+    waterfall with seconds and share of wall time, then — on a router —
+    each hop's own local verdict. Pure function of the payload —
+    validated socket-free in tests."""
+    esc = html.escape
+    aut = payload.get("autopsy") or {}
+    causes = aut.get("causes") or {}
+    wall = float(aut.get("wall_s") or 0.0)
+    parts = ["<html><head><title>cxxnet why</title></head>"
+             "<body><h1>request autopsy: %s</h1><pre>"
+             % esc(str(payload.get("id", "?")))]
+    parts.append("outcome: %-12s  wall %s   PRIMARY VERDICT: %s"
+                 % (esc(str(payload.get("outcome", "?"))),
+                    _ms(wall * 1e3),
+                    esc(str(aut.get("primary", "?")))))
+    parts.append("</pre><h2>cause waterfall</h2><pre>")
+    fmt = "%-16s %10s %7s  %s"
+    parts.append(fmt % ("cause", "seconds", "share", ""))
+    for cause in autopsy.CAUSES:
+        s = float(causes.get(cause, 0.0))
+        share = (100.0 * s / wall) if wall > 0 else 0.0
+        bar = "#" * int(round(share / 4.0))
+        mark = " <-- primary" if cause == aut.get("primary") else ""
+        parts.append(fmt % (esc(cause), "%.6f" % s,
+                            "%.1f%%" % share, bar + mark))
+    hops = payload.get("hops") or {}
+    if hops:
+        parts.append("</pre><h2>hops (each replica's local verdict)"
+                     "</h2><pre>")
+        hfmt = "%-16s %-16s %10s  %s"
+        parts.append(hfmt % ("replica", "primary", "wall", "causes"))
+        for name in sorted(hops):
+            h = hops[name] or {}
+            hc = h.get("causes") or {}
+            detail = " ".join(
+                "%s=%s" % (c, _ms(hc[c] * 1e3))
+                for c in autopsy.CAUSES if hc.get(c, 0.0) > 0.0)
+            parts.append(hfmt % (
+                esc(str(name)), esc(str(h.get("primary", "?"))),
+                _ms(float(h.get("wall_s") or 0.0) * 1e3), esc(detail)))
+    parts.append("</pre><p>the raw record: "
+                 "<code>/requestz?request=&lt;id&gt;</code>; the Gantt "
+                 "view: <code>/trace?request=&lt;id&gt;</code>; "
+                 "<a href='/why?request=%s&amp;json=1'>json</a> "
+                 "<a href='/eventz'>eventz</a> "
+                 "<a href='/statusz'>statusz</a></p></body></html>"
+                 % esc(str(payload.get("id", "?"))))
+    return "\n".join(parts)
+
+
+def eventz_html(rows: List[dict], limit: int = 0) -> str:
+    """Render the incident timeline (``autopsy.incidents`` rows — on a
+    router the fleet-merged feed) as the /eventz page: one wall-clock
+    ordered row per transition or point incident, begin rows naming the
+    requests whose autopsies cite the episode. Pure function of the
+    rows — validated socket-free in tests."""
+    esc = html.escape
+    parts = ["<html><head><title>cxxnet eventz</title></head>"
+             "<body><h1>fleet incident timeline</h1><pre>"]
+    parts.append("%d incident row(s)%s"
+                 % (len(rows),
+                    "  (newest %d — ?n=<k> to change)" % limit
+                    if limit > 0 else ""))
+    parts.append("</pre><pre>")
+    fmt = "%-12s %-10s %-14s %-6s %-24s %s"
+    parts.append(fmt % ("t+", "process", "kind", "state", "requests",
+                        "detail"))
+    for r in rows:
+        ev = r.get("event") or {}
+        detail = " ".join(
+            "%s=%s" % (k, ev[k]) for k in sorted(ev)
+            if k not in ("ev", "ts") and not isinstance(ev[k], (dict,
+                                                               list)))
+        reqs = ",".join(str(x) for x in (r.get("requests") or ())) \
+            or "-"
+        parts.append(fmt % (
+            "%.3fs" % float(r.get("ts") or 0.0),
+            esc(str(r.get("process", "-"))), esc(str(r.get("kind", "?"))),
+            esc(str(r.get("state", "?"))), esc(reqs), esc(detail)))
+    if not rows:
+        parts.append("(no incidents recorded — a quiet fleet)")
+    parts.append("</pre><p>each begin row names the requests whose "
+                 "<code>/why?request=&lt;id&gt;</code> autopsies cite "
+                 "the episode; "
+                 "<a href='/eventz?json=1'>json</a> "
+                 "<a href='/statusz'>statusz</a></p></body></html>")
+    return "\n".join(parts)
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    allow_reuse_address = True
+    statusd: "StatusServer"
+
+
+class _Endpoint(BaseHTTPRequestHandler):
+    server_version = "cxxnet-statusd/1"
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):   # quiet: no per-scrape stderr spam
+        pass
+
+    def _reply(self, code: int, ctype: str, body: bytes) -> None:
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):   # noqa: N802 (BaseHTTPRequestHandler contract)
+        srv = self.server.statusd
+        path, _, query = self.path.partition("?")
+        try:
+            if path == "/metrics":
+                if parse_qs(query).get("json"):
+                    # the RAW registry snapshot (+ SLO window, batch
+                    # account): exact bucket counts, so a merge of
+                    # several processes is bucket addition
+                    body = {"metrics": srv.registry.metrics_snapshot(),
+                            "slo": srv.slo.snapshot()
+                            if srv.slo is not None else None,
+                            "slo_tenants": {
+                                t: tr.snapshot() for t, tr in
+                                sorted(srv.slo_tenants.items())}
+                            if srv.slo_tenants else None,
+                            "batch": srv.batch.batch_snapshot()
+                            if srv.batch is not None else None}
+                    self._reply(200, "application/json",
+                                json.dumps(body).encode("utf-8"))
+                else:
+                    self._reply(
+                        200,
+                        "text/plain; version=0.0.4; charset=utf-8",
+                        srv.metrics_text().encode("utf-8"))
+            elif path == "/healthz":
+                fails = srv.health_failures()
+                if fails:
+                    body = "unhealthy\n" + "".join(
+                        "%s: %s\n" % (n, d) for n, d in fails)
+                    self._reply(503, "text/plain; charset=utf-8",
+                                body.encode("utf-8"))
+                else:
+                    self._reply(200, "text/plain; charset=utf-8", b"ok\n")
+            elif path == "/livez":
+                fails = srv.health_failures(liveness_only=True)
+                if fails:
+                    body = "dead\n" + "".join(
+                        "%s: %s\n" % (n, d) for n, d in fails)
+                    self._reply(503, "text/plain; charset=utf-8",
+                                body.encode("utf-8"))
+                else:
+                    self._reply(200, "text/plain; charset=utf-8",
+                                b"alive\n")
+            elif path in ("/", "/statusz"):
+                self._reply(200, "text/html; charset=utf-8",
+                            srv.statusz_html().encode("utf-8"))
+            elif path == "/trace":
+                # keep_blank_values: "?request=" with an empty id must
+                # 404 like any other unknown id, not silently fall
+                # through to the whole-ring event trace
+                rid = (parse_qs(query, keep_blank_values=True)
+                       .get("request") or [None])[0]
+                if rid is not None:
+                    # one request's flight record as a Chrome trace
+                    fr = srv.flight
+                    rec = fr.get(rid) if fr is not None else None
+                    if rec is None:
+                        detail = ("no flight record for request %r"
+                                  % rid) if fr is not None else \
+                            "no flight recorder registered (serving off?)"
+                        self._reply(404, "text/plain; charset=utf-8",
+                                    (detail + "; see /requestz\n")
+                                    .encode("utf-8"))
+                    else:
+                        # on a batching replica, merge the request's
+                        # scheduler iterations in as slot-Gantt lanes
+                        # (which iterations it shared, and with whom)
+                        ring = getattr(srv.batch, "batch_flight", None)\
+                            if srv.batch is not None else None
+                        iters = ring.for_request(rid) \
+                            if ring is not None else None
+                        self._reply(
+                            200, "application/json",
+                            json.dumps(telemetry.request_chrome_trace(
+                                rec, batch_iters=iters))
+                            .encode("utf-8"))
+                else:
+                    trace = telemetry.events_to_chrome(
+                        srv.registry.recent_events())
+                    self._reply(200, "application/json",
+                                json.dumps(trace).encode("utf-8"))
+            elif path == "/requestz":
+                q = parse_qs(query, keep_blank_values=True)
+                fr = srv.flight
+                rid = (q.get("request") or [None])[0]
+                if rid is not None:
+                    # ONE raw flight record by id
+                    rec = fr.get(rid) if fr is not None else None
+                    if rec is None:
+                        self._reply(404, "text/plain; charset=utf-8",
+                                    ("no flight record for request %r\n"
+                                     % rid).encode("utf-8"))
+                    else:
+                        self._reply(200, "application/json",
+                                    json.dumps(rec).encode("utf-8"))
+                    return
+                try:
+                    # ?n=<k>: the ring default (256 records) is an
+                    # unreadable wall in a browser — bound the listing
+                    n = int((q.get("n") or ["0"])[0])
+                except ValueError:
+                    self._reply(400, "text/plain; charset=utf-8",
+                                b"n must be an integer\n")
+                    return
+                recs = fr.list() if fr is not None else []
+                total = len(recs)
+                if n > 0:
+                    recs = recs[:n]
+                if q.get("json"):
+                    body = {"requests": recs,
+                            "capacity": fr.cap if fr is not None else 0,
+                            "total": total, "shown": len(recs)}
+                    self._reply(200, "application/json",
+                                json.dumps(body).encode("utf-8"))
+                else:
+                    # HTML by default, ?json=1 for the raw snapshot
+                    self._reply(200, "text/html; charset=utf-8",
+                                requestz_html(
+                                    recs, total,
+                                    fr.cap if fr is not None else 0,
+                                    n).encode("utf-8"))
+            elif path == "/batchz":
+                fe = srv.batch
+                q = parse_qs(query)
+                try:
+                    # ?n=<k>: iteration-ring rows shown (default 64 —
+                    # the full ring is an unreadable wall)
+                    n = int((q.get("n") or ["64"])[0])
+                except ValueError:
+                    self._reply(400, "text/plain; charset=utf-8",
+                                b"n must be an integer\n")
+                    return
+                # ONE snapshot per request: it takes the frontend's
+                # admission lock, so the probe must not pay it twice
+                snap = fe.batch_snapshot(ring=max(0, n)) \
+                    if fe is not None else None
+                if snap is None:
+                    self._reply(404, "text/plain; charset=utf-8",
+                                b"no batching frontend registered "
+                                b"(serve_buckets unset, or this "
+                                b"process is not serving)\n")
+                elif q.get("json"):
+                    self._reply(200, "application/json",
+                                json.dumps(snap).encode("utf-8"))
+                else:
+                    self._reply(200, "text/html; charset=utf-8",
+                                batchz_html(snap).encode("utf-8"))
+            elif path == "/why":
+                q = parse_qs(query, keep_blank_values=True)
+                rid = (q.get("request") or [None])[0]
+                if rid is None:
+                    self._reply(400, "text/plain; charset=utf-8",
+                                b"which request? /why?request=<id> "
+                                b"(ids on /requestz)\n")
+                    return
+                fr = srv.flight
+                rec = fr.get(rid) if fr is not None else None
+                payload = None if rec is None else {
+                    "id": rec.get("id"),
+                    "outcome": rec.get("outcome"),
+                    # the frontend stamps the verdict at record time
+                    # (servd._observe_request); classify on the fly
+                    # for records that predate the autopsy
+                    "autopsy": rec.get("autopsy")
+                    or autopsy.classify_record(rec),
+                    "hops": {}}
+                if payload is None:
+                    self._reply(404, "text/plain; charset=utf-8",
+                                ("no flight record for request %r; "
+                                 "see /requestz\n" % rid)
+                                .encode("utf-8"))
+                elif q.get("json"):
+                    self._reply(200, "application/json",
+                                json.dumps(payload).encode("utf-8"))
+                else:
+                    self._reply(200, "text/html; charset=utf-8",
+                                why_html(payload).encode("utf-8"))
+            elif path == "/eventz":
+                q = parse_qs(query)
+                try:
+                    # ?n=<k>: newest incident rows shown (default all —
+                    # the transition streams are sparse by design)
+                    n = int((q.get("n") or ["0"])[0])
+                except ValueError:
+                    self._reply(400, "text/plain; charset=utf-8",
+                                b"n must be an integer\n")
+                    return
+                fr = srv.flight
+                rows = autopsy.incidents(
+                    srv.registry.recent_events(),
+                    t0_wall=getattr(srv.registry, "t0_wall", 0.0),
+                    records=fr.list() if fr is not None else None,
+                    n=n if n > 0 else None)
+                if q.get("json"):
+                    body = {"rows": rows, "shown": len(rows)}
+                    self._reply(200, "application/json",
+                                json.dumps(body).encode("utf-8"))
+                else:
+                    self._reply(200, "text/html; charset=utf-8",
+                                eventz_html(rows, n).encode("utf-8"))
+            elif path in NOT_PORTED_PAGES:
+                self._reply(404, "text/plain; charset=utf-8",
+                            ("%s reads %s, which is not ported to "
+                             "cxxnet_tpu_torch; endpoints: %s\n"
+                             % (path, NOT_PORTED_PAGES[path],
+                                " ".join(p for p, _, _ in ENDPOINTS)))
+                            .encode("utf-8"))
+            else:
+                # the endpoint table IS the list
+                self._reply(404, "text/plain; charset=utf-8",
+                            ("not found; endpoints: %s\n"
+                             % " ".join(p for p, _, _ in ENDPOINTS))
+                            .encode("utf-8"))
+        except Exception as e:    # a broken probe must not kill the server
+            try:
+                self._reply(500, "text/plain; charset=utf-8",
+                            ("internal error: %r\n" % e).encode("utf-8"))
+            except Exception:
+                pass
+
+
+class StatusServer:
+    """The live-introspection HTTP server. Construct + ``start()`` binds
+    a daemon thread; ``stop()`` shuts it down. One per process (the
+    module-level ``start``/``stop`` manage the singleton the learn task
+    uses); tests build isolated instances against private registries."""
+
+    def __init__(self, port: int = 0, host: str = "",
+                 registry=None):
+        self.registry = registry if registry is not None else telemetry._REG
+        self.run_info: Dict[str, object] = {}
+        self.progress: Dict[str, object] = {}
+        # serving wiring (set_flight_recorder / set_slo): the per-request
+        # flight ring behind /trace?request= and /requestz, and the SLO
+        # tracker behind the cxxnet_slo_* gauges and the /statusz section
+        self.flight: Optional[telemetry.FlightRecorder] = None
+        self.slo: Optional[SLOTracker] = None
+        # per-tenant SLO trackers ({tenant: SLOTracker}) — the
+        # cxxnet_slo_tenant_* label rows, the /statusz tenant lines,
+        # and the slo_tenants half of the /metrics?json=1 federation
+        # feed (doc/serving.md "Multi-tenant QoS")
+        self.slo_tenants: Dict[str, SLOTracker] = {}
+        # batching wiring (set_batch): the ServeFrontend whose
+        # batch_snapshot()/batch_flight back /batchz, the
+        # cxxnet_decode_* series, the /metrics?json=1 federation feed,
+        # and the /trace slot-Gantt lanes
+        self.batch = None
+        # the conservation-law auditor behind cxxnet_books_* — the
+        # PROCESS-wide one by default (servd registers its laws there),
+        # swappable for isolation via set_auditor(None)
+        self.auditor = telemetry.auditor()
+        # (name, probe_fn, liveness): see register_probe
+        self.probes: List[Tuple[str, Callable[[], Tuple[bool, str]],
+                                bool]] = []
+        # loopback by default: /statusz exposes the full run config (data
+        # and model paths included), so wide exposure is OPT-IN —
+        # status_host=0.0.0.0 for a cross-host Prometheus scrape
+        self._httpd = _HTTPServer((host or "127.0.0.1", int(port)),
+                                  _Endpoint)
+        self._httpd.statusd = self
+        self.host = self._httpd.server_address[0]
+        self.port = self._httpd.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+        # cxxlint: disable=wallclock — rendered via localtime on /statusz
+        self.t0_wall = time.time()
+
+    # -- lifecycle -----------------------------------------------------
+    def start(self) -> "StatusServer":
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="cxn-statusd",
+            daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def __enter__(self) -> "StatusServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> bool:
+        self.stop()
+        return False
+
+    # -- wiring --------------------------------------------------------
+    def register_probe(self, name: str,
+                       fn: Callable[[], Tuple[bool, str]],
+                       liveness: bool = False) -> None:
+        """``fn() -> (ok, detail)``; a False (or raising) probe flips
+        /healthz (readiness) to 503 with the detail in the body.
+        ``liveness=True`` probes additionally flip /livez — reserve those
+        for "restart me" conditions (dead thread), not "don't route to
+        me" ones (draining, breaker open, rollback in flight)."""
+        self.probes.append((name, fn, bool(liveness)))
+
+    def wire_health(self, recovery=None) -> None:
+        """Wire the standard health sources: the watchdog heartbeat
+        channels are always consulted (health.channel_status). The
+        recovery policy's unresolved-anomaly probe comes with the health
+        monitor, which is not ported: ``recovery`` must be None."""
+        if recovery is not None:
+            raise ValueError("wire_health: the recovery policy is not "
+                             "ported to cxxnet_tpu_torch")
+
+    def all_failures(self, channels: Optional[list] = None) \
+            -> Tuple[List[Tuple[str, str]], List[Tuple[str, str]]]:
+        """ONE evaluation of every heartbeat channel and probe ->
+        ``(readiness_failures, liveness_failures)`` — so a scrape that
+        needs both views (the cxxnet_healthy and cxxnet_live gauges)
+        runs each probe once and the two lists can never disagree about
+        a single evaluation. An overdue heartbeat fails BOTH: a hung
+        process is neither routable nor worth keeping; probe failures
+        are readiness-only unless registered with ``liveness=True``."""
+        if channels is None:
+            channels = health_mod.channel_status()
+        ready: List[Tuple[str, str]] = []
+        live: List[Tuple[str, str]] = []
+        for ch, age, timeout, overdue in channels:
+            if overdue:
+                f = ("watchdog:" + ch,
+                     "heartbeat silent %.2fs (timeout %.2fs)"
+                     % (age, timeout))
+                ready.append(f)
+                live.append(f)
+        for name, fn, liveness in list(self.probes):
+            try:
+                ok, detail = fn()
+            except Exception as e:
+                ok, detail = False, "probe raised: %r" % e
+            if not ok:
+                ready.append((name, detail))
+                if liveness:
+                    live.append((name, detail))
+        return ready, live
+
+    def health_failures(self, channels: Optional[list] = None,
+                        liveness_only: bool = False) \
+            -> List[Tuple[str, str]]:
+        """Readiness failures by default; ``liveness_only=True`` gives
+        the /livez view (overdue heartbeats + liveness probes)."""
+        ready, live = self.all_failures(channels)
+        return live if liveness_only else ready
+
+    # -- renderers -----------------------------------------------------
+    def metrics_text(self) -> str:
+        # ONE heartbeat snapshot and ONE probe pass per scrape: the
+        # healthy/live gauges and the per-channel age rows must agree
+        # within a single response
+        channels = health_mod.channel_status()
+        ready, live = self.all_failures(channels)
+        books = None
+        if self.auditor is not None:
+            # EVERY scrape sweeps: a violation can never hide between
+            # daemon periods, and the latched account below is at most
+            # one scrape old
+            self.auditor.sweep()
+            books = self.auditor.snapshot()
+        return prometheus_metrics(
+            self.registry.metrics_snapshot(),
+            progress=dict(self.progress),
+            health_failures=ready,
+            channels=channels,
+            live_failures=live,
+            slo=self.slo.snapshot() if self.slo is not None else None,
+            slo_tenants={t: tr.snapshot()
+                         for t, tr in sorted(self.slo_tenants.items())}
+            if self.slo_tenants else None,
+            batch=self.batch.batch_snapshot()
+            if self.batch is not None else None,
+            books=books)
+
+    def statusz_html(self) -> str:
+        reg = self.registry
+        snap = reg.metrics_snapshot()
+        s = reg.summary()
+        esc = html.escape
+        parts = ["<html><head><title>cxxnet statusz</title></head>"
+                 "<body><h1>cxxnet_tpu_torch statusz</h1>"]
+
+        def table(title, rows):
+            if not rows:
+                return
+            parts.append("<h2>%s</h2><pre>" % esc(title))
+            w = max(len(str(k)) for k, _ in rows)
+            for k, v in rows:
+                parts.append("%-*s  %s" % (w, esc(str(k)), esc(str(v))))
+            parts.append("</pre>")
+
+        info = [(k, v) for k, v in self.run_info.items() if k != "config"]
+        info.append(("uptime", "%.1fs" % snap["uptime_s"]))
+        info.append(("process", snap["process"]))
+        info.append(("started", time.strftime(
+            "%Y-%m-%d %H:%M:%S", time.localtime(self.t0_wall))))
+        table("run", info)
+        prog = sorted(self.progress.items())
+        table("progress", prog)
+
+        channels = health_mod.channel_status()
+        fails, live_fails = self.all_failures(channels)
+        rows = [("healthz (ready)", "503 UNHEALTHY" if fails
+                 else "200 ok"),
+                ("livez (alive)", "503 DEAD" if live_fails
+                 else "200 alive")]
+        rows += [("probe " + n, d) for n, d in fails]
+        for ch, age, timeout, overdue in channels:
+            rows.append(("heartbeat " + ch, "%.2fs ago (timeout %.1fs)%s"
+                         % (age, timeout, " OVERDUE" if overdue else "")))
+        table("health", rows)
+
+        if self.slo is not None:
+            sn = self.slo.snapshot()
+            obj = sn["objectives"]
+            objs = []
+            if obj["ttft_ms"] > 0:
+                objs.append("ttft<=%gms" % obj["ttft_ms"])
+            if obj["p99_ms"] > 0:
+                objs.append("latency<=%gms" % obj["p99_ms"])
+            objs.append("availability>=%g" % obj["availability"])
+            reasons = " ".join("%s=%d" % kv
+                               for kv in sorted(sn["by_reason"].items()))
+            table("slo", [
+                ("objectives", "  ".join(objs)),
+                ("window", "%.0fs: %d requests, %d bad%s"
+                 % (sn["window_s"], sn["requests"], sn["bad"],
+                    ("  (" + reasons + ")") if reasons else "")),
+                ("error budget", "%.4f%% of requests may be bad"
+                 % (100 * sn["budget"])),
+                ("burn rate", "%.2fx%s" % (sn["burn_rate"],
+                                           "  BURNING" if sn["alert"]
+                                           else ""))])
+        if self.flight is not None and len(self.flight):
+            latest = self.flight.list()[0]
+            table("requests", [
+                ("flight recorder", "%d of last %d requests recorded"
+                 % (len(self.flight), self.flight.cap)),
+                ("latest", "id=%s outcome=%s total=%s"
+                 % (latest.get("id"), latest.get("outcome"),
+                    _ms(None if latest.get("total_s") is None
+                        else latest["total_s"] * 1e3)))])
+
+        # continuous-batching occupancy: the honest weighted mean over
+        # decode iterations (serve.batch_slot_iterations /
+        # serve.batch_iterations — a last-write gauge scraped between
+        # batches lies); 1.00 means every pass served one sequence
+        iters = snap["counters"].get("serve.batch_iterations", 0)
+        if iters:
+            slots = snap["counters"].get("serve.batch_slot_iterations",
+                                         0)
+            rows = [
+                ("mean occupancy", "%.2f sequences/pass over %d decode "
+                 "iterations" % (slots / float(iters), iters)),
+                ("last pass", snap["gauges"].get(
+                    "serve.batch_occupancy", "n/a"))]
+            bsnap = self.batch.batch_snapshot() \
+                if self.batch is not None else None
+            if bsnap:
+                kv_pct = bsnap.get("kv_live_pct")
+                rows.append(
+                    ("kv cache", "%s MiB allocated, %s%% live — see "
+                     "/batchz" % (_mib(bsnap.get("kv_bytes")),
+                                  "n/a" if kv_pct is None
+                                  else "%.1f" % kv_pct)))
+                rows.append(
+                    ("convoy", "%s (%d episode(s))"
+                     % ("ACTIVE" if bsnap.get("convoy") else "none",
+                        bsnap.get("convoys", 0))))
+            table("batching", rows)
+
+        ck = reg.last_event("ckpt_save")
+        if ck is not None and "ts" in ck:
+            table("checkpoint", [
+                ("last save", ck.get("path", "?")),
+                ("age", "%.1fs" % (snap["uptime_s"] - ck["ts"])),
+                ("bytes", ck.get("bytes", "?"))])
+
+        hist_rows = []
+        for name, a in sorted(s.get("hists", {}).items(),
+                              key=lambda kv: -kv[1]["sum_s"]):
+            # a declared-but-never-fired series (TTFT before the first
+            # request) renders "n/a", not a 0.00ms lie
+            hist_rows.append((name, "n=%d p50=%s p90=%s p99=%s"
+                              % (a["count"], _ms(a["p50_ms"]),
+                                 _ms(a["p90_ms"]), _ms(a["p99_ms"]))))
+        table("latency histograms", hist_rows)
+
+        comp = s.get("compiles", {})
+        if comp.get("count"):
+            table("recompiles", [("count", comp["count"]),
+                                 ("total_s", comp["total_s"])] +
+                  sorted(comp.get("by_cause", {}).items()))
+        table("counters", sorted(snap["counters"].items()))
+        table("gauges", sorted(snap["gauges"].items()))
+
+        cfg = self.run_info.get("config")
+        if cfg:
+            parts.append("<details><summary>config (%d keys)</summary><pre>"
+                         % len(cfg))
+            for k, v in cfg:
+                parts.append("%s = %s" % (esc(str(k)), esc(str(v))))
+            parts.append("</pre></details>")
+        parts.append("<p>endpoints: %s</p></body></html>"
+                     % " ".join("<a href='%s'>%s</a>" % (p, p)
+                                for p, _, _ in ENDPOINTS))
+        return "\n".join(parts)
+
+
+# ----------------------------------------------------------------------
+# module-level singleton surface (the learn-task wiring); every function
+# is a cheap no-op while no server is running, so instrumented call
+# sites (per-batch progress updates) cost one attribute test by default
+_SERVER: Optional[StatusServer] = None
+
+
+def start(port: int = 0, host: str = "", registry=None) -> StatusServer:
+    global _SERVER
+    stop()
+    _SERVER = StatusServer(port, host=host, registry=registry).start()
+    # the continuous half of the conservation-law auditor: scrapes
+    # sweep on demand (metrics_text), the daemon sweeps between them —
+    # an unwatched process still latches cxxnet_books_broken
+    telemetry.auditor().start(0.5)
+    return _SERVER
+
+
+def stop() -> None:
+    global _SERVER
+    if _SERVER is not None:
+        s, _SERVER = _SERVER, None
+        s.stop()
+        telemetry.auditor().stop()
+
+
+def active() -> Optional[StatusServer]:
+    return _SERVER
+
+
+def set_run_info(**kv) -> None:
+    s = _SERVER
+    if s is not None:
+        s.run_info.update(kv)
+
+
 def update_progress(**kv) -> None:
-    pass
+    s = _SERVER
+    if s is not None:
+        s.progress.update(kv)
 
 
 def register_probe(name: str, fn, liveness: bool = False) -> None:
-    pass
+    s = _SERVER
+    if s is not None:
+        s.register_probe(name, fn, liveness=liveness)
+
+
+def wire_health(recovery=None) -> None:
+    s = _SERVER
+    if s is not None:
+        s.wire_health(recovery)
 
 
 def set_flight_recorder(fr) -> None:
-    pass
+    """Attach a telemetry.FlightRecorder — /trace?request=<id> and
+    /requestz serve from it. No-op without a running server."""
+    s = _SERVER
+    if s is not None:
+        s.flight = fr
 
 
 def set_slo(tracker: Optional[SLOTracker]) -> None:
-    pass
-
-
-def set_slo_tenants(trackers) -> None:
-    pass
+    """Attach an SLOTracker — /metrics exports its cxxnet_slo_* gauges
+    and /statusz renders the budget account. No-op without a server."""
+    s = _SERVER
+    if s is not None:
+        s.slo = tracker
 
 
 def set_batch(frontend) -> None:
-    pass
+    """Attach a batching ServeFrontend (or any object exposing
+    ``batch_snapshot(ring=...)`` and ``batch_flight``) — /batchz, the
+    cxxnet_decode_* /metrics families, the /metrics?json=1 federation
+    feed, and the /trace slot-Gantt lanes serve from it. None clears
+    (a reload that swapped to a solo frontend)."""
+    s = _SERVER
+    if s is not None:
+        s.batch = frontend
+
+
+def set_slo_tenants(trackers) -> None:
+    """Attach the per-tenant SLOTracker map ({tenant: tracker}) —
+    /metrics exports cxxnet_slo_tenant_* label rows and the
+    /metrics?json=1 federation feed carries each tenant's window for
+    the fleet-wide per-tenant merge. None/empty clears."""
+    s = _SERVER
+    if s is not None:
+        s.slo_tenants = dict(trackers or {})
+
+
+def set_auditor(aud) -> None:
+    """Swap the conservation-law auditor behind the cxxnet_books_*
+    series (the process-wide telemetry.auditor() by default). None
+    stops exporting books state. No-op without a server."""
+    s = _SERVER
+    if s is not None:
+        s.auditor = aud
+
+
+# ----------------------------------------------------------------------
+def selftest(verbose: bool = False) -> int:
+    """Serve on port 0, scrape every endpoint over a real socket,
+    validate the Prometheus text format, flip /healthz with a failing
+    probe, shut down. Runs with runtime lock-order enforcement on for
+    the registry/SLO/flight locks (utils/lockrank.py)."""
+    with lockrank.enforced():
+        return _selftest_body(verbose)
+
+
+def _selftest_body(verbose: bool = False) -> int:
+    from urllib.request import urlopen
+    from urllib.error import HTTPError
+
+    reg = telemetry._Registry()
+    reg.enable()                       # in-memory sink
+    with reg.span("selftest.step"):
+        time.sleep(0.001)
+    reg.count("selftest.requests", 3)
+    reg.gauge("selftest.level", 7)
+    reg.hist("selftest.latency", 0.012)
+    reg.declare_hist("selftest.never_fired")   # -> "n/a", empty buckets
+
+    srv = StatusServer(0, host="127.0.0.1", registry=reg).start()
+    srv.slo = SLOTracker(ttft_ms=50.0, availability=0.999,
+                         min_requests=3, window_s=60.0)
+    srv.flight = telemetry.FlightRecorder(cap=8)
+    srv.flight.record({"id": "7", "outcome": "served", "tokens_in": 4,
+                       "tokens_out": 8, "total_s": 0.061, "ttft_s": 0.02,
+                       "phases": {"queue_wait": 0.001, "dispatch": 0.0005,
+                                  "prefill": 0.02, "decode": 0.04},
+                       "recompiles": []})
+    try:
+        base = "http://127.0.0.1:%d" % srv.port
+
+        metrics = urlopen(base + "/metrics", timeout=5).read().decode()
+        for line in metrics.splitlines():
+            if not line or line.startswith("#"):
+                continue
+            assert PROM_LINE_RE.match(line), \
+                "invalid Prometheus line: %r" % line
+        assert "cxxnet_selftest_requests_total" in metrics
+        assert 'cxxnet_selftest_step_seconds_bucket' in metrics
+        assert 'le="+Inf"' in metrics
+        # a declared-but-empty series still exports (zeroed) buckets
+        assert "cxxnet_selftest_never_fired_seconds_bucket" in metrics
+        # the SLO account: healthy window -> burn gauge 0
+        assert 'cxxnet_slo_burn{process="0"} 0' in metrics
+        assert "cxxnet_slo_burn_rate" in metrics
+
+        # per-request flight recorder: HTML by default, listable as
+        # JSON, ?n=<k> bounded, one raw record by ?request=<id>
+        rpage = urlopen(base + "/requestz", timeout=5).read().decode()
+        assert "flight recorder" in rpage and ">7<" not in rpage
+        reqz = json.loads(urlopen(base + "/requestz?json=1",
+                                  timeout=5).read())
+        assert reqz["requests"] and reqz["requests"][0]["id"] == "7"
+        srv.flight.record({"id": "8", "outcome": "shed",
+                           "shed_at": "queue", "total_s": 0.0,
+                           "phases": {}, "recompiles": []})
+        lim = json.loads(urlopen(base + "/requestz?json=1&n=1",
+                                 timeout=5).read())
+        assert lim["shown"] == 1 and lim["total"] == 2 \
+            and lim["requests"][0]["id"] == "8"
+        one = json.loads(urlopen(base + "/requestz?request=7",
+                                 timeout=5).read())
+        assert one["id"] == "7" and one["outcome"] == "served"
+        try:
+            urlopen(base + "/requestz?request=nope", timeout=5)
+            raise AssertionError("unknown request id should 404")
+        except HTTPError as e:
+            assert e.code == 404
+        try:
+            urlopen(base + "/requestz?n=x", timeout=5)
+            raise AssertionError("non-integer n should 400")
+        except HTTPError as e:
+            assert e.code == 400
+        # the federation feed: raw registry snapshot + SLO window
+        mj = json.loads(urlopen(base + "/metrics?json=1",
+                                timeout=5).read())
+        assert mj["metrics"]["counters"]["selftest.requests"] == 3
+        assert "selftest.latency" in mj["metrics"]["hists"]
+        assert mj["slo"]["min_requests"] == 3
+        rtrace = json.loads(urlopen(
+            base + "/trace?request=7", timeout=5).read())
+        names = [t["name"] for t in rtrace["traceEvents"]
+                 if t.get("ph") == "X"]
+        assert names == ["queue_wait", "dispatch", "prefill", "decode"]
+        try:
+            urlopen(base + "/trace?request=nope", timeout=5)
+            raise AssertionError("unknown request id should 404")
+        except HTTPError as e:
+            assert e.code == 404
+        # request autopsy: /why decomposes the record's wall time into
+        # named causes, exactly ONE primary verdict, and the attributed
+        # seconds tile >= 95% of wall_s
+        why = json.loads(urlopen(base + "/why?request=7&json=1",
+                                 timeout=5).read())
+        aut = why["autopsy"]
+        assert aut["primary"] == "decode_baseline", aut
+        assert sum(aut["causes"].values()) >= 0.95 * aut["wall_s"], aut
+        wpage = urlopen(base + "/why?request=7",
+                        timeout=5).read().decode()
+        assert "PRIMARY VERDICT" in wpage and "decode_baseline" in wpage
+        try:
+            urlopen(base + "/why?request=nope", timeout=5)
+            raise AssertionError("unknown request id should 404")
+        except HTTPError as e:
+            assert e.code == 404
+        try:
+            urlopen(base + "/why", timeout=5)
+            raise AssertionError("missing request id should 400")
+        except HTTPError as e:
+            assert e.code == 400
+        # incident timeline: a transition pair and a point event merge
+        # into wall-clock-ordered rows on /eventz
+        reg.record({"ev": "kv_pressure", "pressure": 1, "ts": 0.01})
+        reg.record({"ev": "kv_pressure", "pressure": 0, "ts": 0.05})
+        reg.record({"ev": "serve_drain", "ts": 0.06})
+        evz = json.loads(urlopen(base + "/eventz?json=1",
+                                 timeout=5).read())
+        kinds = [r["kind"] for r in evz["rows"]]
+        assert "kv_pressure" in kinds and "serve_drain" in kinds, kinds
+        walls = [r["t_wall"] for r in evz["rows"]]
+        assert walls == sorted(walls)
+        lim2 = json.loads(urlopen(base + "/eventz?json=1&n=1",
+                                  timeout=5).read())
+        assert lim2["shown"] == 1
+        epage = urlopen(base + "/eventz", timeout=5).read().decode()
+        assert "incident timeline" in epage
+        try:
+            urlopen(base + "/eventz?n=x", timeout=5)
+            raise AssertionError("non-integer n should 400")
+        except HTTPError as e:
+            assert e.code == 400
+        # SLO burn flips under a flood of objective-violating requests
+        for _ in range(5):
+            srv.slo.observe(ok=True, ttft_s=0.5)     # >> 50ms objective
+        m2 = urlopen(base + "/metrics", timeout=5).read().decode()
+        assert 'cxxnet_slo_burn{process="0"} 1' in m2
+
+        assert urlopen(base + "/healthz", timeout=5).status == 200
+        assert urlopen(base + "/livez", timeout=5).status == 200
+        srv.register_probe("boom", lambda: (False, "injected failure"))
+        try:
+            urlopen(base + "/healthz", timeout=5)
+            raise AssertionError("healthz should be 503")
+        except HTTPError as e:
+            assert e.code == 503
+            assert "injected failure" in e.read().decode()
+        # a readiness failure is NOT a liveness failure: /livez stays 200
+        assert urlopen(base + "/livez", timeout=5).status == 200
+        m = urlopen(base + "/metrics", timeout=5).read().decode()
+        assert 'cxxnet_healthy{process="0"} 0' in m
+        assert 'cxxnet_live{process="0"} 1' in m
+        srv.register_probe("dead", lambda: (False, "worker died"),
+                           liveness=True)
+        try:
+            urlopen(base + "/livez", timeout=5)
+            raise AssertionError("livez should be 503")
+        except HTTPError as e:
+            assert e.code == 503
+            assert "worker died" in e.read().decode()
+        srv.probes.clear()
+
+        # the pages of the unported subsystems answer 404 and say so
+        for path in NOT_PORTED_PAGES:
+            try:
+                urlopen(base + path, timeout=5)
+                raise AssertionError("%s should 404" % path)
+            except HTTPError as e:
+                assert e.code == 404 and "not ported" in e.read().decode()
+
+        page = urlopen(base + "/statusz", timeout=5).read().decode()
+        assert "statusz" in page and "selftest.requests" in page
+        # never-fired series renders n/a, not 0.00ms; SLO section shows
+        assert "selftest.never_fired" in page and "n/a" in page
+        assert "burn rate" in page and "BURNING" in page
+        trace = json.loads(urlopen(base + "/trace", timeout=5).read())
+        assert any(t.get("ph") == "X" for t in trace["traceEvents"])
+
+        # conservation-law auditor: a law that cannot reconcile latches
+        # cxxnet_books_broken on the next scrape (metrics_text sweeps),
+        # sticky until an operator resets the auditor
+        telemetry.audit_register("selftest.books",
+                                 lambda: "debit 3 != credit 2")
+        try:
+            mb = urlopen(base + "/metrics", timeout=5).read().decode()
+            for line in mb.splitlines():
+                if line and not line.startswith("#"):
+                    assert PROM_LINE_RE.match(line), \
+                        "invalid Prometheus line: %r" % line
+            assert ('cxxnet_books_broken{process="0",'
+                    'law="selftest.books"} 1' in mb)
+            assert "cxxnet_books_laws" in mb
+            # the latch is sticky: a clean follow-up sweep cannot clear
+            mb2 = urlopen(base + "/metrics", timeout=5).read().decode()
+            assert ('cxxnet_books_broken{process="0",'
+                    'law="selftest.books"} 1' in mb2)
+        finally:
+            telemetry.audit_unregister("selftest.books")
+            telemetry.auditor().reset()
+
+        try:
+            urlopen(base + "/nope", timeout=5)
+            raise AssertionError("unknown path should 404")
+        except HTTPError as e:
+            assert e.code == 404
+            # the 404 body derives from the ENDPOINTS table
+            body = e.read().decode()
+            for p, _, _ in ENDPOINTS:
+                assert p in body, (p, body)
+    finally:
+        srv.stop()
+        reg.disable()
+    if verbose:
+        print("statusd selftest: /metrics /healthz /livez /statusz "
+              "/trace /requestz /why /eventz ok (Prometheus format "
+              "valid, readiness vs liveness flips, per-request trace, "
+              "autopsy verdict + incident timeline, books latch, SLO "
+              "burn flip, empty-series n/a, 404)")
+    return 0
+
+
+if __name__ == "__main__":
+    if "--selftest" in sys.argv[1:]:
+        sys.exit(selftest(verbose=True))
+    print(__doc__)
+    sys.exit(1)

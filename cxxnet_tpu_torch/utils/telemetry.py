@@ -1,8 +1,8 @@
 """Process-wide structured telemetry of the port: counters, gauges,
-histograms, events, spans and request attribution — the parts of
-cxxnet_tpu/utils/telemetry.py that the serving frontend (``utils/servd.py``),
-the trainer and ``learn_task`` call, with the same names, event shapes and
-JSONL format.
+histograms, events, spans and request attribution — the port's copy of
+cxxnet_tpu/utils/telemetry.py, with the same names, event shapes and JSONL
+format (the recompile detector of jitted programs is the JAX package's
+alone).
 
 * **counters / gauges / histograms** — ``count("serve.tokens", n)``,
   ``gauge("serve.queue_depth", v)``, ``hist("serve.ttft", seconds)`` into
@@ -10,8 +10,10 @@ JSONL format.
   the JAX package's bounds, so histograms of the two packages merge by
   bucket-count addition); ``declare_hist`` registers an empty series.
 * **events and spans** — ``event({...})`` appends one raw event; ``with
-  span("name"):`` records a wall-time span and feeds the histogram of its
-  name.
+  span("name"):`` records a wall-time span (``span_event`` from explicit
+  timings) and feeds the histogram of its name; ``sample_device_memory``
+  records a card's allocator figures (``device.memory_stats``) as
+  ``device.*`` gauges.
 * **request attribution** — ``with trace_context(request_id) as tc:``
   tags every event recorded on the same thread underneath it with
   ``"req": request_id`` and collects per-request counter deltas, compile
@@ -33,21 +35,27 @@ JSONL format.
   ``audit_unregister`` / ``audit_sweep``): named invariants over the
   serving books, latched on the first violation.
 
-Sink: ``enable(path)`` opens a JSONL run log (one event per line, the
+Sinks: ``enable(path)`` opens a JSONL run log (one event per line, the
 ``telemetry_log`` key of the command line); ``flush()`` writes what is
 pending, with a counters and a histograms snapshot when they moved.
-Without a path events stay buffered in memory, bounded.
+Without a path events stay buffered in memory, bounded. ``finish()``
+records the end-of-run ``summary()`` (per-span totals and percentiles,
+counters, gauges, compiles) and writes a Chrome trace beside the log
+(``chrome_trace``, ``events_to_chrome``); the status pages
+(``utils/statusd.py``) read the registry live.
 
 Disabled (the default) the module is near-zero overhead: ``span()`` returns
 a shared no-op context manager, counters are one thread-local read plus a
 branch, and no events are buffered. Standard library only.
 """
 
+from __future__ import annotations
 
 import bisect
 import io
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -56,24 +64,44 @@ from typing import Dict, List, Optional
 from . import lockrank
 
 __all__ = [
-    "enable", "disable", "enabled", "span", "count", "gauge", "hist",
-    "event", "record_compile", "flush", "events", "recent_events",
+    "enable", "disable", "enabled", "reset", "span", "count", "gauge",
+    "hist", "event", "record_compile",
+    "sample_device_memory",
+    "flush", "finish", "summary", "brief_summary", "events",
+    "recent_events", "last_event", "wall_epoch", "span_event",
+    "percentile", "count_by",
+    "chrome_trace", "events_to_chrome", "write_chrome_trace",
     "Histogram", "HIST_BUCKETS", "trace_context", "current_trace", "mark",
-    "declare_hist", "TraceContext", "FlightRecorder", "request_chrome_trace",
-    "REQUEST_PHASES", "CompileWindow", "compile_window", "BooksAuditor",
-    "auditor", "audit_register", "audit_unregister", "audit_sweep",
+    "declare_hist", "TraceContext", "FlightRecorder",
+    "request_chrome_trace", "REQUEST_PHASES",
+    "CompileWindow", "compile_window", "current_compile_window",
+    "BooksAuditor", "auditor", "audit_register", "audit_unregister",
+    "audit_sweep",
 ]
 
-# in-memory event buffer bound when NO log sink drains it (library mode):
-# oldest events drop past this
+# per-span-name duration history kept for live percentiles (the JSONL log
+# keeps everything; this only bounds in-memory state on week-long runs)
+_DUR_CAP = 8192
+# in-memory event buffer bound when NO log sink drains it (bench/library
+# mode): oldest events drop past this; aggregates (summary) are unaffected
 _PENDING_CAP = 65536
-# recent-event ring kept even WITH a log sink (``recent_events``)
+# recent-event ring kept even WITH a log sink — the /trace endpoint's
+# snapshot source (statusd serves a live Chrome trace from it)
 _RING_CAP = 4096
 
 # Fixed log-spaced histogram bucket upper bounds (seconds): 4 per decade,
 # 1µs .. 1000s. FIXED for every histogram in every process by design —
-# merging is then exact bucket-count addition.
+# cross-process/shard merging is then exact bucket-count addition (the
+# property Prometheus `le` buckets and telemetry_report --merge rely on).
 HIST_BUCKETS = tuple(round(10.0 ** (e / 4.0), 10) for e in range(-24, 13))
+
+
+def fmt_ms(v) -> str:
+    """Render a millisecond figure, turning the empty-series sentinel
+    (None — ``Histogram`` on zero observations) into "n/a". The ONE
+    renderer of the sentinel, shared by /statusz and the report tools
+    so the format cannot drift between them."""
+    return "n/a" if v is None else "%.2fms" % v
 
 
 class Histogram:
@@ -94,11 +122,74 @@ class Histogram:
         self.sum += v
         self.n += 1
 
+    def percentile(self, p: float) -> float:
+        """Estimated percentile: walk the cumulative counts to the target
+        rank, interpolate linearly inside the bucket. Error is bounded by
+        the bucket width (~78% per log-spaced step) — exact enough for
+        p50/p90/p99 dashboards, and identical no matter how many shards
+        were merged to produce the counts. Ranks landing in the +Inf
+        overflow slot are CLAMPED to the last bound (1000s): the result
+        must stay finite (strict-JSON logs, bench lines), so a tail past
+        1000s reads as exactly 1000s — the overflow bucket's count is
+        the tell.
+
+        An EMPTY histogram returns None (never NaN, never a fake 0.0):
+        a series that was declared but never fired — TTFT on a run that
+        served zero requests — has no percentiles, and 0.0ms would read
+        as an impossibly fast tail on /statusz and in bench lines. The
+        renderers turn None into "n/a"; JSON sinks carry it as null."""
+        if self.n == 0:
+            return None
+        rank = (p / 100.0) * self.n
+        cum = 0
+        for i, c in enumerate(self.counts):
+            if c == 0:
+                continue
+            prev = cum
+            cum += c
+            if cum >= rank:
+                lo = HIST_BUCKETS[i - 1] if i > 0 else 0.0
+                hi = HIST_BUCKETS[i] if i < len(HIST_BUCKETS) \
+                    else HIST_BUCKETS[-1]
+                frac = min(1.0, max(0.0, (rank - prev) / c))
+                return lo + (hi - lo) * frac
+        return HIST_BUCKETS[-1]
+
     def to_dict(self) -> dict:
         """JSON-friendly sparse snapshot (only nonzero buckets)."""
         return {"buckets": {str(i): c for i, c in enumerate(self.counts)
                             if c},
                 "sum": round(self.sum, 9), "count": self.n}
+
+    def merge_dict(self, d: dict) -> "Histogram":
+        """Fold a ``to_dict`` snapshot in — EXACT because every histogram
+        shares HIST_BUCKETS (shard merge = bucket-count addition). An
+        out-of-range bucket index means the snapshot came from a build
+        with DIFFERENT buckets (or a corrupted log): merging it would be
+        silently wrong, so it raises ValueError for the caller to report."""
+        for i, c in (d.get("buckets") or {}).items():
+            i = int(i)
+            if not 0 <= i < len(self.counts):
+                raise ValueError(
+                    "histogram bucket index %d out of range (%d buckets) "
+                    "— snapshot from a mismatched HIST_BUCKETS version or "
+                    "a corrupted log" % (i, len(self.counts)))
+            self.counts[i] += int(c)
+        self.sum += float(d.get("sum", 0.0))
+        self.n += int(d.get("count", 0))
+        return self
+
+    def stats(self) -> dict:
+        """Summary dict; the percentile fields are None (rendered "n/a",
+        serialized null) when the histogram never observed anything."""
+        if self.n == 0:
+            return {"count": 0, "sum_s": 0.0,
+                    "p50_ms": None, "p90_ms": None, "p99_ms": None}
+        return {"count": self.n, "sum_s": round(self.sum, 6),
+                "p50_ms": round(1e3 * self.percentile(50), 4),
+                "p90_ms": round(1e3 * self.percentile(90), 4),
+                "p99_ms": round(1e3 * self.percentile(99), 4)}
+
 
 class _NullSpan:
     """Shared no-op context manager returned by span() when disabled."""
@@ -225,8 +316,6 @@ class _Registry:
         # so nothing may be acquired while this is held
         self._lock = lockrank.lock("telemetry.registry")
         self._tls = threading.local()
-        # the JAX package's shard index; one process here, so always 0
-        # (every event still carries "p", as there)
         self.process_index = 0
         self.reset()
 
@@ -236,19 +325,40 @@ class _Registry:
             self._pending: List[dict] = []
             self.counters: Dict[str, float] = {}
             self.gauges: Dict[str, float] = {}
+            self.span_agg: Dict[str, list] = {}   # name -> [n, total, max]
+            self.span_durs: Dict[str, deque] = {}
             self.hists: Dict[str, Histogram] = {}
             self.compiles: List[dict] = []
             self._flushed_counters: Dict[str, float] = {}
             self._flushed_hist_n: Dict[str, int] = {}
-            # recent-event ring (kept even with a log sink)
+            # recent-event ring (kept even with a log sink): the /trace
+            # endpoint's snapshot + last-event-by-kind for /statusz
             self._recent: deque = deque(maxlen=_RING_CAP)
+            self.last_by_kind: Dict[str, dict] = {}
             self.t0_perf = time.perf_counter()
-            # the wall-clock epoch of the events' ts, never a duration
+            # cxxlint: disable=wallclock — the shard-merge epoch: --merge
+            # re-bases shards on the shared wall clock, never a duration
             self.t0_wall = time.time()
 
-    def enable(self, log_path: Optional[str] = None) -> None:
+    def enable(self, log_path: Optional[str] = None,
+               process_index: Optional[int] = None) -> None:
         self.reset()
-        self.log_path = log_path or None
+        # the shard index of a multi-process run (the JAX package's
+        # multihost runs); the port runs one process, 0
+        self.process_index = int(process_index or 0)
+        path = log_path or None
+        if path and "%d" in path:
+            # the multihost shard contract: each rank writes its own file
+            path = path.replace("%d", str(self.process_index))
+        elif path and self.process_index:
+            # no placeholder on a non-zero rank: suffix rather than
+            # silently clobber rank 0's shard
+            sys.stderr.write(
+                "WARNING: telemetry_log %r has no %%d rank placeholder in "
+                "a multi-process run; writing %s.%d instead so shard 0 is "
+                "not clobbered\n" % (path, path, self.process_index))
+            path = "%s.%d" % (path, self.process_index)
+        self.log_path = path
         if self._log_f is not None:
             self._log_f.close()
             self._log_f = None
@@ -297,6 +407,10 @@ class _Registry:
     def compile_window(self, label) -> CompileWindow:
         return CompileWindow(self, label)
 
+    def current_compile_window(self) -> Optional[CompileWindow]:
+        s = getattr(self._tls, "win", None)
+        return s[-1] if s else None
+
     def mark(self, name: str) -> None:
         """Timestamp a named boundary on this thread's active trace
         context (no-op without one); with telemetry enabled the boundary
@@ -321,7 +435,7 @@ class _Registry:
 
     def _append(self, ev: dict) -> None:
         # lock held. Without a sink nothing drains _pending: bound it so
-        # an enabled-without-log run (library mode) cannot leak per-step
+        # an enabled-without-log run (bench mode) cannot leak per-step
         if "p" not in ev:
             ev["p"] = self.process_index
         if "req" not in ev:
@@ -333,6 +447,7 @@ class _Registry:
                 ev["req"] = tc.request_id
         self._pending.append(ev)
         self._recent.append(ev)
+        self.last_by_kind[ev.get("ev", "?")] = ev
         if self._log_f is None and len(self._pending) > _PENDING_CAP:
             del self._pending[: _PENDING_CAP // 2]
 
@@ -340,6 +455,16 @@ class _Registry:
         if not self.enabled:
             return _NULL_SPAN
         return _Span(self, name, attrs or None)
+
+    def span_event(self, name: str, start_perf: float, dur: float,
+                   **attrs) -> None:
+        """Record a span from explicit perf_counter timings — for call
+        sites that must time regardless of telemetry (the train loop's
+        probes) or that only know post hoc whether the interval counts."""
+        if not self.enabled:
+            return
+        self._record_span(name, start_perf, dur, len(self._stack()),
+                          attrs or None)
 
     def _record_span(self, name, t0, dur, depth, attrs) -> None:
         if not self.enabled:     # disabled mid-span: drop silently
@@ -351,8 +476,17 @@ class _Registry:
             ev.update(attrs)
         with self._lock:
             self._append(ev)
+            agg = self.span_agg.get(name)
+            if agg is None:
+                agg = self.span_agg[name] = [0, 0.0, 0.0]
+                self.span_durs[name] = deque(maxlen=_DUR_CAP)
+            agg[0] += 1
+            agg[1] += dur
+            if dur > agg[2]:
+                agg[2] = dur
+            self.span_durs[name].append(dur)
             # every span feeds the mergeable fixed-bucket histogram of its
-            # name
+            # name — the /metrics latency series and the shard-merge feed
             h = self.hists.get(name)
             if h is None:
                 h = self.hists[name] = Histogram()
@@ -382,10 +516,11 @@ class _Registry:
             h.observe(value)
 
     def declare_hist(self, name: str) -> None:
-        """Register a histogram series with zero observations, so a
-        reader of the histograms (``metrics_snapshot``, the JSONL
-        ``hists`` snapshot) sees the series exist BEFORE the first
-        request, not appear mid-run."""
+        """Register a histogram series with zero observations, so
+        /metrics exports its (empty) bucket series from scrape one and
+        /statusz shows it as "n/a" — a dashboard watching serve_ttft
+        must see the series exist BEFORE the first request, not appear
+        mid-run."""
         if not self.enabled:
             return
         with self._lock:
@@ -444,7 +579,8 @@ class _Registry:
         plus a counters snapshot when any counter moved since the last
         flush — so a crashed run keeps its counters too, not only its
         spans. Without a log path events stay buffered in memory (the
-        library mode; ``events()`` reads them there)."""
+        bench / library mode — summary() and chrome_trace() read them
+        there)."""
         if self._log_f is None:
             return
         with self._lock:
@@ -478,14 +614,22 @@ class _Registry:
             return list(self._pending)
 
     def recent_events(self) -> List[dict]:
-        """The last ~_RING_CAP events regardless of sink."""
+        """The last ~_RING_CAP events regardless of sink — the /trace
+        endpoint's snapshot source."""
         with self._lock:
             return list(self._recent)
 
+    def last_event(self, kind: str) -> Optional[dict]:
+        """Most recent event of the given ``ev`` kind (e.g. "ckpt_save"
+        for /statusz's checkpoint-age line)."""
+        with self._lock:
+            return self.last_by_kind.get(kind)
+
     def metrics_snapshot(self) -> dict:
-        """One consistent point-in-time copy of the counters, gauges,
-        raw histogram buckets, compile totals and uptime, taken under the
-        lock so a reader never sees a half-updated histogram."""
+        """One consistent point-in-time copy of everything /metrics
+        serves: counters, gauges, raw histogram buckets, compile totals,
+        uptime — taken under the lock so a scrape mid-step never sees a
+        half-updated histogram."""
         with self._lock:
             return {
                 "counters": dict(self.counters),
@@ -497,8 +641,168 @@ class _Registry:
                 "process": self.process_index,
             }
 
+    def summary(self) -> dict:
+        """Aggregate view: per-span totals, counters, gauges, compiles,
+        and p50/p90/p99 duration percentiles per span name."""
+        with self._lock:
+            spans = {}
+            for name, (n, total, mx) in self.span_agg.items():
+                durs = sorted(self.span_durs[name])
+                spans[name] = {
+                    "count": n, "total_s": round(total, 6),
+                    "mean_ms": round(1e3 * total / n, 4),
+                    "max_ms": round(1e3 * mx, 4),
+                    "p50_ms": round(1e3 * percentile(durs, 50), 4),
+                    "p90_ms": round(1e3 * percentile(durs, 90), 4),
+                    "p99_ms": round(1e3 * percentile(durs, 99), 4),
+                }
+            return {
+                "spans": spans,
+                "counters": dict(self.counters),
+                "gauges": dict(self.gauges),
+                "hists": {name: h.stats()
+                          for name, h in self.hists.items()},
+                "compiles": {
+                    "count": len(self.compiles),
+                    "total_s": round(sum(c["dur"] for c in self.compiles),
+                                     6),
+                    "by_cause": count_by(self.compiles, "cause"),
+                    "by_name": count_by(self.compiles, "name"),
+                },
+            }
 
-# the canonical request-phase order:
+    def brief_summary(self, top: int = 8,
+                      summary: Optional[dict] = None) -> dict:
+        """Compact per-phase breakdown for embedding in one-line JSON
+        (the bench.py contract): top spans by total time + compile cost.
+        Pass a precomputed ``summary()`` to avoid re-sorting every span's
+        duration history."""
+        s = summary if summary is not None else self.summary()
+        ranked = sorted(s["spans"].items(),
+                        key=lambda kv: -kv[1]["total_s"])[:top]
+        out = {"spans": {name: {"count": a["count"],
+                                "total_s": a["total_s"],
+                                "p50_ms": a["p50_ms"],
+                                "p90_ms": a["p90_ms"],
+                                "p99_ms": a["p99_ms"]}
+                         for name, a in ranked},
+               "compiles": s["compiles"]["count"],
+               "compile_s": s["compiles"]["total_s"]}
+        if s["counters"]:
+            out["counters"] = s["counters"]
+        return out
+
+    def finish(self, close: bool = False) -> Optional[dict]:
+        """Record the end-of-run summary event, flush the log, and (with a
+        log path) write the Chrome-trace export next to it. Returns the
+        summary dict (None if disabled)."""
+        if not self.enabled:
+            return None
+        s = self.summary()
+        if self.log_path:
+            self.flush()   # drain events + counters snapshot first, so
+            #                the summary below stays the log's last line
+        self.record({"ev": "summary", "summary": s,
+                     "ts": round(self._ts(time.perf_counter()), 6)})
+        if self.log_path:
+            self.flush()
+            try:
+                self.write_chrome_trace(self.log_path + ".trace.json")
+            except Exception:
+                pass
+        if close:
+            self.disable()
+        return s
+
+    # -- chrome trace ----------------------------------------------------
+    def _all_events(self) -> List[dict]:
+        """Everything recorded so far: the log file's lines (events already
+        flushed) plus the in-memory pending buffer."""
+        evs: List[dict] = []
+        if self.log_path and os.path.exists(self.log_path):
+            if self._log_f is not None:
+                self.flush()
+            with open(self.log_path) as f:
+                for line in f:
+                    line = line.strip()
+                    if line:
+                        evs.append(json.loads(line))
+            return evs
+        return self.events()
+
+    def chrome_trace(self) -> dict:
+        return events_to_chrome(self._all_events())
+
+    def write_chrome_trace(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.chrome_trace(), f)
+        return path
+
+
+def percentile(sorted_vals: list, p: float) -> float:
+    """Nearest-rank percentile of an ascending-sorted list (shared with
+    tools/telemetry_report.py so live and offline numbers agree)."""
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, int(round((p / 100.0)
+                                            * (len(sorted_vals) - 1))))
+    return sorted_vals[i]
+
+
+def count_by(evs: List[dict], key: str) -> Dict[str, int]:
+    """Histogram of ``ev[key]`` over a list of event dicts."""
+    out: Dict[str, int] = {}
+    for e in evs:
+        k = e.get(key, "?")
+        out[k] = out.get(k, 0) + 1
+    return out
+
+
+
+def events_to_chrome(evs: List[dict]) -> dict:
+    """Build a chrome://tracing / Perfetto 'traceEvents' JSON object from a
+    list of telemetry events (live or re-read from a JSONL log). Spans and
+    compiles become complete ('X') events; gauges become counter ('C')
+    tracks. Timestamps are microseconds relative to run start."""
+    trace = []
+    tids = {}
+
+    def tid_of(ev):
+        t = ev.get("tid", 0)
+        if t not in tids:
+            tids[t] = len(tids)
+            trace.append({"ph": "M", "name": "thread_name", "pid": 0,
+                          "tid": tids[t],
+                          "args": {"name": "thread-%d" % tids[t]}})
+        return tids[t]
+
+    for ev in evs:
+        kind = ev.get("ev")
+        if kind == "span":
+            trace.append({
+                "ph": "X", "name": ev["name"], "pid": 0,
+                "tid": tid_of(ev),
+                "ts": round(ev["ts"] * 1e6, 1),
+                "dur": round(ev["dur"] * 1e6, 1),
+            })
+        elif kind == "compile":
+            trace.append({
+                "ph": "X", "name": "compile:" + ev["name"], "pid": 0,
+                "tid": tid_of(ev),
+                "ts": round(max(ev.get("ts", 0.0), 0.0) * 1e6, 1),
+                "dur": round(ev["dur"] * 1e6, 1),
+                "args": {"cause": ev.get("cause", "?")},
+            })
+        elif kind == "gauge":
+            trace.append({
+                "ph": "C", "name": ev["name"], "pid": 0,
+                "ts": round(ev["ts"] * 1e6, 1),
+                "args": {"value": ev.get("value", 0)},
+            })
+    return {"traceEvents": trace, "displayTimeUnit": "ms"}
+
+
+# the canonical request-phase order (doc/observability.md glossary):
 # queue_wait (accept -> worker pop), dispatch (pop -> backend call),
 # prefill (backend call -> first token: TTFT's server-side share),
 # decode (first token -> last token). The phases TILE the request's
@@ -508,8 +812,9 @@ REQUEST_PHASES = ("queue_wait", "dispatch", "prefill", "decode")
 
 class FlightRecorder:
     """Bounded ring of the last N completed request traces — the
-    per-request black box the serving frontend fills
-    (``request_chrome_trace`` renders one). A record is one plain dict::
+    per-request black box the serving frontend fills and statusd serves
+    (``/trace?request=<id>`` as a Chrome trace, ``/requestz`` as a
+    list). A record is one plain dict::
 
         {"id": "17", "outcome": "served", "tokens_in": 8, "tokens_out":
          16, "t_wall": <arrival unix time>, "total_s": 0.213,
@@ -521,7 +826,8 @@ class FlightRecorder:
          "counts": {<per-request counter deltas>}}
 
     Bounded and lock-guarded; eviction is oldest-first (deque maxlen).
-    Registry-independent, so it works with telemetry disabled — a flight record must survive a run that configured no
+    Jax-free and registry-independent, so it works with telemetry
+    disabled — a flight record must survive a run that configured no
     JSONL log."""
 
     def __init__(self, cap: int = 256):
@@ -540,8 +846,9 @@ class FlightRecorder:
             # flight. Repeats happen across frontend restarts feeding
             # one recorder, and with client-chosen TRACE ids — a
             # client that reuses an id (or picks one colliding with a
-            # local dense id) shadows the older record here; clients
-            # choose unique trace ids, the lookup does not guarantee it
+            # local dense id) shadows the older record here; that is
+            # the documented contract (doc/serving.md: choose unique
+            # trace ids), not a lookup guarantee
             for rec in reversed(self._ring):
                 if rec.get("id") == rid:
                     return rec
@@ -686,21 +993,22 @@ class BooksAuditor:
     """Conservation-law registry: named invariants over the serving
     books — "accepted = served + shed + errors + deadline + abandoned",
     "blocks total = free + live + retained", "tenant charges sum to the
-    door books" — checked on a daemon sweep (``start``) or on demand
-    (``sweep``), so every number the request autopsy cites is provably
-    reconciled.
+    door books", "fleet sums = Σ replica feeds" — checked on a daemon
+    sweep and at every /metrics scrape, so every number the request
+    autopsy and the bench rows cite is provably reconciled.
 
     A law is a callable ``fn() -> Optional[str]``: ``None`` means the
     books reconcile (or the law could not take a consistent snapshot —
     inconclusive PASSES; a law must never false-latch off a racy read:
     use a stable-snapshot double-read and return None when the bracket
     moved), a string is the violation detail. The first violation
-    LATCHES the law sticky-broken (``snapshot()["broken"]`` keeps it
-    until ``reset()``), emits exactly one ``books_broken`` transition
-    event (``broken: 1`` carrying the detail; ``reset()`` emits the
-    matching ``broken: 0`` clear), and bumps the ``books.violations``
-    counter — a single bad snapshot can never flap the state, and a
-    reader sees the latch even if every later sweep reconciles.
+    LATCHES the law sticky-broken (``cxxnet_books_broken{law=...}``
+    stays 1 until ``reset()``), emits exactly one ``books_broken``
+    transition event (``broken: 1`` carrying the detail; ``reset()``
+    emits the matching ``broken: 0`` clear), and bumps the
+    ``books.violations`` counter — a single bad snapshot can never flap
+    the gauge, and telemetry_report's exit-2 gate sees the latch even
+    if every later sweep reconciles.
 
     Laws run OUTSIDE the auditor lock (a law reads other subsystems'
     locked state; rank "telemetry.audit" keeps the latch bookkeeping
@@ -718,6 +1026,8 @@ class BooksAuditor:
         self.violations = 0          # cumulative latches (survives reset)
         self.sweeps = 0
         self.law_errors = 0
+        self._thread: Optional[threading.Thread] = None
+        self._stop_ev = threading.Event()
 
     def _reg(self) -> "_Registry":
         return self._registry if self._registry is not None else _REG
@@ -766,7 +1076,7 @@ class BooksAuditor:
         return results
 
     def snapshot(self) -> dict:
-        """Point-in-time view of the laws and their latches."""
+        """Point-in-time view for /metrics and bench rows."""
         with self._lock:
             return {"laws": sorted(self._laws),
                     "broken": dict(self._broken),
@@ -774,15 +1084,52 @@ class BooksAuditor:
                     "sweeps": self.sweeps,
                     "law_errors": self.law_errors}
 
+    def reset(self) -> None:
+        """Clear every latch, emitting the ``broken: 0`` transition for
+        each — the operator's acknowledge. ``violations`` stays
+        cumulative (the bench-row feed)."""
+        with self._lock:
+            cleared = sorted(self._broken)
+            self._broken.clear()
+        reg = self._reg()
+        for name in cleared:
+            reg.record({"ev": "books_broken", "law": name, "broken": 0})
+
+    def start(self, period_s: float = 1.0) -> None:
+        """Start the daemon sweep loop (idempotent)."""
+        with self._lock:
+            if self._thread is not None:
+                return
+            self._stop_ev.clear()
+            t = threading.Thread(target=self._run,
+                                 args=(max(0.05, float(period_s)),),
+                                 name="books-auditor", daemon=True)
+            self._thread = t
+        t.start()
+
+    def _run(self, period_s: float) -> None:
+        while not self._stop_ev.wait(period_s):
+            try:
+                self.sweep()
+            except Exception:
+                pass
+
+    def stop(self) -> None:
+        with self._lock:
+            t, self._thread = self._thread, None
+        if t is not None:
+            self._stop_ev.set()
+            t.join(timeout=2.0)
+
+
 # ----------------------------------------------------------------------
 # module-level singleton surface
 _REG = _Registry()
 
 
-def enable(log_path: Optional[str] = None) -> None:
-    """Turn telemetry on; with ``log_path`` events go to that JSONL file
-    at every ``flush()``."""
-    _REG.enable(log_path)
+def enable(log_path: Optional[str] = None,
+           process_index: Optional[int] = None) -> None:
+    _REG.enable(log_path, process_index=process_index)
 
 
 def disable() -> None:
@@ -793,8 +1140,16 @@ def enabled() -> bool:
     return _REG.enabled
 
 
+def reset() -> None:
+    _REG.reset()
+
+
 def span(name: str, **attrs):
     return _REG.span(name, **attrs)
+
+
+def span_event(name: str, start_perf: float, dur: float, **attrs) -> None:
+    _REG.span_event(name, start_perf, dur, **attrs)
 
 
 def count(name: str, n=1) -> None:
@@ -828,6 +1183,10 @@ def compile_window(label) -> CompileWindow:
     return _REG.compile_window(label)
 
 
+def current_compile_window() -> Optional[CompileWindow]:
+    return _REG.current_compile_window()
+
+
 def mark(name: str) -> None:
     _REG.mark(name)
 
@@ -844,6 +1203,18 @@ def flush() -> None:
     _REG.flush()
 
 
+def finish(close: bool = False) -> Optional[dict]:
+    return _REG.finish(close=close)
+
+
+def summary() -> dict:
+    return _REG.summary()
+
+
+def brief_summary(top: int = 8, summary: Optional[dict] = None) -> dict:
+    return _REG.brief_summary(top=top, summary=summary)
+
+
 def events() -> List[dict]:
     return _REG.events()
 
@@ -852,9 +1223,29 @@ def recent_events() -> List[dict]:
     return _REG.recent_events()
 
 
-# the process-wide conservation-law auditor: subsystems register laws at
-# start() (servd's door books, kvblocks' block conservation) and
-# unregister them at drain(); ``audit_sweep`` evaluates them
+def wall_epoch() -> float:
+    """The registry's wall-clock epoch: event ``ts`` seconds are
+    relative to this, so cross-process alignment (the /eventz incident
+    merge, --merge shard re-basing) is ``t0_wall + ts``."""
+    return _REG.t0_wall
+
+
+def last_event(kind: str) -> Optional[dict]:
+    return _REG.last_event(kind)
+
+
+def chrome_trace() -> dict:
+    return _REG.chrome_trace()
+
+
+def write_chrome_trace(path: str) -> str:
+    return _REG.write_chrome_trace(path)
+
+
+# the process-wide conservation-law auditor: subsystems register laws
+# at start() (servd's door books, kvblocks' block conservation, routerd's
+# federation sums) and unregister them at drain(); statusd sweeps at
+# every scrape and exports the latches as cxxnet_books_broken{law=...}
 _AUDITOR = BooksAuditor()
 
 
@@ -872,3 +1263,15 @@ def audit_unregister(name: str) -> None:
 
 def audit_sweep() -> Dict[str, Optional[str]]:
     return _AUDITOR.sweep()
+
+
+def sample_device_memory(stats: Optional[dict] = None) -> Optional[dict]:
+    """Record a device's allocator figures as gauges (``device.`` + each
+    key: ``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``, as
+    ``device.memory_stats`` reads them on a card) and return them; None
+    with telemetry off or without figures (the CPU)."""
+    if not _REG.enabled or not stats:
+        return None
+    for k, v in stats.items():
+        gauge("device." + k, int(v))
+    return stats

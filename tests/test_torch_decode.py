@@ -534,7 +534,7 @@ def _write_jax_model(jtr, path):
     w = jser.Writer()
     w.write_int32(0)
     jtr.save_model(w)
-    tckpt.write_framed(path, w.getvalue())
+    tckpt.write_checkpoint(path, w.getvalue(), fsync=False)
 
 
 def test_cli_generate_files_equal_the_jax_clis(lms, tmp_path):

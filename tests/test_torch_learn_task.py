@@ -372,8 +372,9 @@ def test_model_name_without_counter_is_refused_for_training(trained,
 def test_unported_keys_are_refused(key, val):
     lt = tlt.LearnTask()
     if (key, val) in PORTED_SINCE:
-        # ported by the serving slice: the key is read as the JAX command
-        # line reads it (tests/test_torch_serve.py runs them)
+        # ported since: the key is read as the JAX command line reads it
+        # (tests/test_torch_serve.py, test_torch_checkpoint.py and
+        # test_torch_statusd.py run them)
         lt.set_param(key, val)
         assert PORTED_SINCE[(key, val)](lt)
         return
@@ -385,6 +386,10 @@ def test_unported_keys_are_refused(key, val):
 PORTED_SINCE = {
     ("telemetry_log", "t.jsonl"): lambda lt: lt.telemetry_log == "t.jsonl",
     ("task", "serve"): lambda lt: lt.task == "serve",
+    ("continue", "1"): lambda lt: lt.continue_training == 1,
+    ("status_port", "0"): lambda lt: lt.status_port == 0,
+    ("ckpt_keep_last", "3"): lambda lt: lt.ckpt_keep_last == 3,
+    ("ckpt_keep_every", "2"): lambda lt: lt.ckpt_keep_every == 2,
 }
 
 

@@ -435,11 +435,10 @@ class _PortSubprocess:
         return subprocess.Popen(args, **kw)
 
 
-# the JAX scenarios that run against the port's frontend; left out: those
-# of the status HTTP server (test_healthz_*, test_serve_metrics_reach_*,
-# test_request_tracing_end_to_end, test_batchz_endpoint_*,
-# test_batch_occupancy_metrics_honest_weighted_mean), of the report tool
-# (test_report_*) and of the watchdog, none of them ported
+# the JAX scenarios that run against the port's frontend (those of the
+# status HTTP server on the port's StatusServer); left out: those of the
+# report tool (test_report_*), which reads the JAX package, and of the
+# watchdog thread, which is not ported
 SCENARIOS = (
     "test_tcp_roundtrip_and_reconciliation",
     "test_pipelined_requests_one_connection",
@@ -505,12 +504,30 @@ SCENARIOS = (
     "test_evict_before_defer_admission",
     "test_kv_pressure_latch_sheds_retained",
     "test_autopsy_warm_flood_zero_compile_stall",
+    "test_healthz_flips_on_breaker_and_recovers",
+    "test_healthz_flips_during_drain_livez_stays",
+    "test_serve_metrics_reach_prometheus",
+    "test_request_tracing_end_to_end",
+    "test_batch_occupancy_metrics_honest_weighted_mean",
+    "test_batchz_endpoint_kv_account_and_decode_metrics",
 )
+
+
+@pytest.fixture()
+def status_server():
+    """tests/test_servd.py's ``status_server`` on the port's registry and
+    server."""
+    reg = telemetry._Registry()
+    reg.enable()
+    srv = statusd.StatusServer(0, host="127.0.0.1", registry=reg).start()
+    yield srv
+    srv.stop()
+    reg.disable()
 
 
 @pytest.mark.parametrize("name", SCENARIOS)
 def test_jax_servd_scenario_on_the_port(name, make_frontend, tmp_path,
-                                        capsys, monkeypatch):
+                                        capsys, monkeypatch, status_server):
     for attr, mod in (("servd", servd), ("statusd", statusd),
                       ("telemetry", telemetry),
                       ("faultinject", faultinject),
@@ -518,7 +535,8 @@ def test_jax_servd_scenario_on_the_port(name, make_frontend, tmp_path,
         monkeypatch.setattr(jtests, attr, mod)
     fn = getattr(jtests, name)
     given = {"make_frontend": make_frontend, "tmp_path": tmp_path,
-             "capsys": capsys, "monkeypatch": monkeypatch}
+             "capsys": capsys, "monkeypatch": monkeypatch,
+             "status_server": status_server}
     fn(**{p: given[p] for p in inspect.signature(fn).parameters})
 
 
@@ -691,13 +709,40 @@ def test_dead_worker_fails_liveness_and_drain_returns(make_frontend):
     assert jtests.reconciles(stats) and stats["accepted"] == 2
 
 
-def test_stub_refuses_the_status_port():
-    """The stub's status sidecar is the unported status HTTP server."""
-    out = subprocess.run(
+def test_stub_status_port_answers_healthz():
+    """The stub's ``--status-port 0`` starts the status server beside the
+    frontend: /healthz answers 200 while it serves, and a SIGTERM drains
+    and exits 0."""
+    import signal
+    from urllib.request import urlopen
+    proc = subprocess.Popen(
         [sys.executable, "-m", "cxxnet_tpu_torch.utils.servd", "--stub",
-         "--status-port", "0"], cwd=REPO, capture_output=True, text=True,
-        timeout=60)
-    assert out.returncode == 2 and "not ported" in out.stderr
+         "--status-port", "0"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        ports = {}
+        deadline = time.monotonic() + 60
+        while len(ports) < 2 and time.monotonic() < deadline:
+            ln = proc.stdout.readline()
+            if not ln:
+                break
+            for key in ("listening", "status"):
+                if ln.startswith("servd-stub: %s on port " % key):
+                    ports[key] = int(ln.rsplit(" ", 1)[1])
+        assert set(ports) == {"listening", "status"}, ports
+        r = urlopen("http://127.0.0.1:%d/healthz" % ports["status"],
+                    timeout=5)
+        assert (r.status, r.read()) == (200, b"ok\n")
+        assert serve_request(ports["listening"], "1 2") == "2 3"
+        m = urlopen("http://127.0.0.1:%d/metrics" % ports["status"],
+                    timeout=5).read().decode()
+        assert 'cxxnet_serve_requests_total{process="0"} 1' in m
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def test_preemption_guard_and_backoff_match_jax():

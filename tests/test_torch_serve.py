@@ -217,19 +217,21 @@ def test_cli_admin_reload_picks_up_a_newer_checkpoint(model, tmp_path,
 def test_serve_keys_left_out_are_refused():
     lt = tlt.LearnTask()
     for key, val in (("serve_plen_buckets", "8,16"),
-                     ("serve_warm_ready_pct", "50"), ("status_port", "0"),
+                     ("serve_warm_ready_pct", "50"),
                      ("watchdog_timeout", "5"), ("route_replicas", "a:1:2"),
                      ("route_hedge_ms", "5"), ("fleet_federate_ms", "10")):
         with pytest.raises(ValueError, match="not ported"):
             lt.set_param(key, val)
     for key, val in (("serve_plen_buckets", ""), ("route_port", "0"),
                      ("route_tenants", "free:1,paid:4"),
-                     ("telemetry_log", "t.jsonl"), ("serve_port", "0")):
+                     ("telemetry_log", "t.jsonl"), ("serve_port", "0"),
+                     ("status_port", "0")):
         lt.set_param(key, val)
     with pytest.raises(ValueError, match="not ported"):
         lt.set_param("task", "route")
     lt.set_param("task", "serve")
     assert lt.task == "serve" and lt.route_tenants == "free:1,paid:4"
+    assert lt.status_port == 0
 
 
 def test_cli_serve_telemetry_log_records_the_requests(model, tmp_path,

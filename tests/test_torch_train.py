@@ -207,14 +207,17 @@ def test_port_model_file_round_trip_keeps_state(model_file, tmp_path):
 
 
 def test_model_file_with_stray_bytes_is_refused(model_file, tmp_path):
-    # the port writes no training-state section, so the bytes after its
-    # optimizer-state section must be the end of the file
+    # the bytes after the optimizer-state section must be the end of the
+    # file or the training-state section: stray bytes in its place are
+    # refused
     _, tnet = _load_pair(model_file, TRAIN_CFG)
     fname = str(tmp_path / "port.model")
     tnet.save_model(fname)
     payload, _ = checkpoint.read_verified(fname)
+    state = payload.rfind(checkpoint.STATE_MAGIC)
+    assert state > 0
     with open(fname, "wb") as f:
-        f.write(checkpoint.frame(payload + b"GARBAGE!"))
+        f.write(checkpoint.frame(payload[:state] + b"GARBAGE!"))
     with pytest.raises(ValueError, match="unexpected bytes"):
         tapi.Net(dev="cpu", cfg=TRAIN_CFG).load_model(fname)
 
