@@ -95,30 +95,38 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+# the card's peaks and the kernels' work counts, from the port: the
+# performance ledger and this script read one table and one count
+from cxxnet_tpu_torch.ops import lrn as _lrn_ops  # noqa: E402
+from cxxnet_tpu_torch.ops import random as _random_ops  # noqa: E402
+from cxxnet_tpu_torch.ops.flash_attn import bwd_work as flash_bwd_work  # noqa: E402,E501
+from cxxnet_tpu_torch.ops.flash_attn import kept_pairs  # noqa: E402
+from cxxnet_tpu_torch.ops.flash_attn import work as flash_work  # noqa: E402
+from cxxnet_tpu_torch.ops.ring_flash import work as ring_step_work  # noqa: E402,E501
+from cxxnet_tpu_torch.utils.perf import DEVICE_SPECS  # noqa: E402
+
 SEED = 0
 BATCH = 256
 # the torch device of the kernel checks and the api dev spec of the main
 # paths
 DEV = "cuda"
 NET_DEV = "gpu"
-# H100 SXM data-sheet peaks (dense): device memory rate and fp32 outside
-# the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# H100 SXM data-sheet peaks (dense), the performance ledger's h100 entry:
+# device memory rate and fp32 outside the tensor cores
+H100 = DEVICE_SPECS["h100"]
+HBM_BYTES_PER_S = H100.hbm_bw
+FP32_OPS_PER_S = H100.fp32_flops
 # fp32-accurate products on the tensor cores: 3xTF32, three TF32 products
 # (495 TFLOP/s dense) per fp32 product. The rate of the fp32 bound of
 # every attention kernel (the flash forward and backward, the ring steps),
 # all on the tensor cores; the bound at FP32_OPS_PER_S is printed beside
 # it, for comparison with the SIMT kernels they replaced
-FP32_3XTF32_OPS_PER_S = 495e12 / 3
+FP32_3XTF32_OPS_PER_S = H100.tf32_flops / 3
 # dense bf16 on the tensor cores: the least time for bf16 attention inputs
-BF16_OPS_PER_S = 989e12
-# LRN forward per element: square, window add and subtract, scale and
-# shift, pow (counted as 3: log, multiply, exp), output multiply
-LRN_OPS_PER_ELEM = 9
-# LRN backward per element: pow (3), n^-b / n (1), g*x*n^(-b-1) (2), window
-# add and subtract (2), g*n^-b - coef*x*s (4)
-LRN_BWD_OPS_PER_ELEM = 12
+BF16_OPS_PER_S = H100.peak_flops
+# LRN operations per element, forward and backward (ops/lrn.py)
+LRN_OPS_PER_ELEM = _lrn_ops.OPS_PER_ELEM
+LRN_BWD_OPS_PER_ELEM = _lrn_ops.BWD_OPS_PER_ELEM
 # main-path LRN inputs of AlexNet at batch 256 (lrn1 after pool1, lrn2
 # after pool2)
 LRN_SHAPES = {"lrn1": (BATCH, 96, 27, 27), "lrn2": (BATCH, 256, 13, 13)}
@@ -289,10 +297,8 @@ UNIFORM_SHAPES = [
     ("n4k_plus_3", 4, (4 * 250000 + 3,)),
     ("seed_above_2^32", (1 << 32) + 11, (BATCH, 256, 27, 27)),
 ]
-# Philox4x32-10 per counter: 10 rounds of 2 low and 2 high 32-bit products
-# and 4 xors, 9 key bumps of 2 adds, then per word a shift, a conversion
-# and a multiply: ~110 integer operations per 4 elements
-UNIFORM_OPS_PER_ELEM = 28
+# Philox4x32-10's integer operations per element (ops/random.py)
+UNIFORM_OPS_PER_ELEM = _random_ops.OPS_PER_ELEM
 # the draw's statistics: mean and variance within 5 standard errors of 1/2
 # and 1/12; the one-sample Kolmogorov-Smirnov distance at 10^7 draws under
 # 2e-3 (its 1% critical value there is 5.2e-4)
@@ -370,6 +376,11 @@ BF16 = "compute_dtype = bfloat16\n"
 SESS_REQUESTS, SESS_SLOTS, SESS_NEW = 24, 8, 64
 SESS_PROMPT, SESS_PREFIX, SESS_TAIL = (256, 1024), 512, (64, 512)
 SESS_BLOCK = 16
+# the capped paged pool of lm_serve_session: the ledger's headroom fraction
+# is chosen so that the cap (perf.Ledger.decode_pool_cap_bytes) binds at
+# this share of the dense-equivalent pool, above what the 24 requests' 8
+# live slots ever hold (8 x (1024 + 64) rows)
+POOL_CAP_SHARE = 0.6
 SESS_SAMPLING = (0.8, 40)
 # a divergence from the reference run is allowed only at a near-tie of the
 # reference at the first diverging position: its top-two probabilities
@@ -611,7 +622,8 @@ def phase_lrn_kernel(lrn, shapes=None, args=None, phase="lrn_kernel"):
             plain_ms = time_ms(lambda: lrn.lrn_ref_with_norm(x, **a))
             library_ms = library(F, x, ref_out, a)
             n = x.numel()
-            nbytes = n * (2 * x.element_size() + 4)   # x in; out, norm out
+            # x in; out, norm out
+            nbytes = _lrn_ops.work(n, x.element_size())[1]
             bound_ms, bound_by, _, ops_ms = _bound(n, nbytes,
                                                    LRN_OPS_PER_ELEM)
             log("  kernel_ms %.4f plain_ms %.4f library_ms %s bound_ms "
@@ -625,11 +637,11 @@ def phase_lrn_kernel(lrn, shapes=None, args=None, phase="lrn_kernel"):
                 raise AssertionError("the no-norm forward's out differs from "
                                      "the training forward's")
             nn_ms = time_ms(lambda: lrn.lrn_fwd_cuda(x, **a, with_norm=False))
-            nn_bound, nn_by, _, _ = _bound(n, n * 2 * x.element_size(),
-                                           LRN_OPS_PER_ELEM)
+            nn_bytes = _lrn_ops.work(n, x.element_size(), with_norm=False)[1]
+            nn_bound, nn_by, _, _ = _bound(n, nn_bytes, LRN_OPS_PER_ELEM)
             log("  no-norm kernel_ms %.4f bound_ms %.4f (%d bytes) "
                 "kernel/bound %.2f; out bitwise the training forward's"
-                % (nn_ms, nn_bound, n * 2 * x.element_size(),
+                % (nn_ms, nn_bound, nn_bytes,
                    nn_ms / nn_bound))
             if dtype == torch.float32:
                 _add_fp32(rec, kernel_ms, plain_ms, library_ms, bound_ms,
@@ -682,7 +694,7 @@ def phase_lrn_bwd_kernel(lrn, shapes=None, args=None,
             library_ms = library_bwd(F, x, g, ref, a)
             n = x.numel()
             # x, g and the f32 norm in; dx out
-            nbytes = n * (3 * x.element_size() + 4)
+            nbytes = _lrn_ops.bwd_work(n, x.element_size())[1]
             bound_ms, bound_by, _, ops_ms = _bound(n, nbytes,
                                                    LRN_BWD_OPS_PER_ELEM)
             log("  kernel_ms %.4f plain_ms %.4f library_ms %s bound_ms "
@@ -1102,28 +1114,6 @@ def phase_alexnet_train(lrn, api, ops):
     return fwd, bwd
 
 
-def kept_pairs(L, causal, window, skv=None, q_off=0, kv_off=0):
-    """(query, key) pairs of one head that the mask keeps, for L queries
-    at the global positions q_off.. against skv keys (L by default) at
-    kv_off.. (a ring step's block; 0 and 0 for a whole sequence)."""
-    skv = L if skv is None else skv
-    if not causal:
-        return L * skv
-    qpos = q_off + np.arange(L, dtype=np.int64)
-    hi = np.minimum(qpos - kv_off + 1, skv)            # keys <= the query
-    lo = np.maximum(qpos - window + 1 - kv_off, 0) if window > 0 else 0
-    return int(np.clip(hi - lo, 0, None).sum())
-
-
-def flash_work(b, h, nkv, L, d, causal, window, esize):
-    """(operations, bytes) the flash forward needs: 4 d flops (q k^T and
-    p v) per (query, key) pair the mask keeps, counted for this shape;
-    q, k, v read once, out (input dtype) and lse (f32) written once."""
-    ops = 4 * d * kept_pairs(L, causal, window) * b * h
-    nbytes = esize * (2 * b * h * L * d + 2 * b * nkv * L * d) + 4 * b * h * L
-    return ops, nbytes
-
-
 def sdpa_kw(q, k, causal, window):
     """scaled_dot_product_attention's arguments for the port's mask: the
     grouped kv heads through enable_gqa, a window as a boolean mask."""
@@ -1499,7 +1489,7 @@ def phase_uniform_rows_kernel(rnd):
         gen = torch.Generator(device=DEV).manual_seed(SEED)
         library_ms = time_ms(lambda: torch.rand((rows, n), generator=gen,
                                                 device=DEV), iters=200)
-        nbytes = 4 * rows * n + 3 * 8 * rows
+        nbytes = _random_ops.rows_work(rows, n)[1]
         bound_ms, bound_by, bytes_ms, ops_ms = _bound(
             rows * n, nbytes, UNIFORM_OPS_PER_ELEM)
         log("  kernel_ms %.4f plain_ms %.4f library_ms %.4f (torch.rand of "
@@ -1660,11 +1650,73 @@ def phase_lm_serve_session(flash, rnd, api, models):
     prompt) held token for token to the dense one; beam search (beam 4 at
     b 2; beam 1 against greedy generate); generate under decode_chunk
     against the dense decode. Prints the session's and solo generate's
-    tokens/s and busy shares. Returns (uniform_rows launches, flash_fwd
-    launches) of the sessions' run, the main path."""
+    tokens/s and busy shares. With the performance ledger on, the greedy
+    requests once more through a paged pool capped by the ledger's HBM
+    headroom (``bytes_cap = decode_pool_cap_bytes(frac)``, frac chosen so
+    that the cap binds below the dense-equivalent pool), held to their
+    solo generate. Returns (uniform_rows launches, flash_fwd launches) of
+    the sessions' run, the main path."""
+    from cxxnet_tpu_torch.utils import perf
     log("phase lm_serve_session (bench.py LM, bf16, %d requests, %d slots, "
         "%d new tokens)" % (SESS_REQUESTS, SESS_SLOTS, SESS_NEW))
     t_phase = time.perf_counter()
+    perf.reset()
+    perf.enable()
+    try:
+        return _lm_serve_session(flash, rnd, api, models, perf, t_phase)
+    finally:
+        perf.disable()
+        perf.reset()
+
+
+def capped_pool_run(perf, net, tr, prompts, dense, solo, block_bytes, rnd,
+                    seeds, rows0):
+    """The greedy requests through a paged pool capped by the ledger: the
+    pool holds at most the cap (floored at one sequence), below the dense
+    equivalent, and every request equals its solo generate."""
+    lg = perf.ledger()
+    T = LM_SEQ // SESS_BLOCK
+    dense_bytes = (SESS_SLOTS * T + 1) * block_bytes
+    room = lg.decode_pool_cap_bytes(1.0)
+    frac = POOL_CAP_SHARE * dense_bytes / room
+    cap = lg.decode_pool_cap_bytes(frac)
+    pool = tr.decode_kv_pool(SESS_BLOCK, pool_tokens=SESS_SLOTS * LM_SEQ,
+                             bytes_cap=cap)
+    usable, nbytes = pool.alloc.usable, pool.nbytes
+    psess = tr.decode_session(SESS_SLOTS, SESS_NEW, kv_pool=pool)
+    got = drive_session(psess, prompts, 100)
+    psess.close()
+    tr.release_kv_pool()
+    snap = lg.snapshot()
+    log("  capped paged pool: HBM headroom %d bytes (%s capacity %d, peak "
+        "program footprint %d), frac %.6f -> cap %d bytes; the pool %d "
+        "bytes, %d usable blocks of %d against the dense-equivalent %d "
+        "(%d bytes); floor one sequence, %d blocks"
+        % (room, snap["spec"]["name"], snap["spec"]["hbm_capacity"],
+           snap["hbm"]["peak_bytes"] or 0, frac, cap, nbytes, usable,
+           SESS_BLOCK, SESS_SLOTS * T, dense_bytes, T))
+    if nbytes > max(cap, (T + 1) * block_bytes) \
+            or usable >= SESS_SLOTS * T:
+        raise AssertionError("the capped pool holds more than its cap, or "
+                             "the cap did not bind below dense-equivalent")
+    hold_tokens("capped paged session vs solo (greedy)", rnd, net, got,
+                solo, prompts, (0.0, 0), seeds, rows0, NEAR_TIE)
+    same = got == dense
+    log("  capped paged session vs the dense one (greedy): token for token "
+        "%s" % ("EQUAL" if same else "DIFFERENT"))
+    if not same:
+        raise AssertionError("the capped paged session differs from the "
+                             "dense one")
+    for c in snap["cards"]:
+        if c["name"] in ("jit.decode_prefill", "jit.decode_step",
+                         "jit.decode_admit") and c["status"] != "ready":
+            raise AssertionError("card not ready: %s" % c)
+    log("  ledger cards of the phase: %d (%s), all decode cards ready"
+        % (len(snap["cards"]), ", ".join(sorted(
+            {c["name"] for c in snap["cards"]}))))
+
+
+def _lm_serve_session(flash, rnd, api, models, perf, t_phase):
     vocab, nlayer = LM_ARGS["vocab"], LM_ARGS["nlayer"]
     net = api.Net(dev=NET_DEV, cfg=bf16_cfg(lm_cfg(models, LM_SEQ,
                                                    LM_BATCH)))
@@ -1680,12 +1732,18 @@ def phase_lm_serve_session(flash, rnd, api, models):
     rows0 = [0] * SESS_REQUESTS
     n_tok = SESS_REQUESTS * SESS_NEW
 
-    # warm-up before any timing: the libraries' kernels' first uses, and
-    # the decode nets of every prompt length, which solo generate and the
-    # sessions' prefills share
+    # warm-up before any timing: the libraries' kernels' first uses, the
+    # decode nets of every prompt length, which solo generate and the
+    # sessions' prefills share, and every program the timed dense
+    # sessions call (each prompt length's prefill in both modes): the
+    # ledger is on, so a program's first call waits for the card and
+    # cards itself, which is a replica's warm-up work, not its rate
     run_solo(net, prompts, 2, SESS_SAMPLING, 100)
-    drive_session(tr.decode_session(SESS_SLOTS, 2, temperature=1.0),
-                  prompts[:2], 100)
+    for _, sampling in modes:
+        wsess = tr.decode_session(SESS_SLOTS, 2, temperature=sampling[0],
+                                  top_k=sampling[1])
+        drive_session(wsess, prompts, 100)
+        wsess.close()
     solo, solo_s = {}, {}
     for mode, sampling in modes:
         torch.cuda.synchronize()
@@ -1755,6 +1813,8 @@ def phase_lm_serve_session(flash, rnd, api, models):
             "generate %.1f tokens/s (%.2f s); session / solo %.2f"
             % (mode, rate_s, dense_s[mode], n_tok, rate_1, solo_s[mode],
                rate_s / rate_1))
+    capped_pool_run(perf, net, tr, prompts, dense["greedy"], solo["greedy"],
+                    books["greedy"][0]["block_bytes"], rnd, seeds, rows0)
     for mode, (a, nbytes) in books.items():
         hit = a["prefix_hit_tokens"] / max(1, a["prompt_tokens"])
         log("  paged pool (%s): %d blocks of %d rows, pool_bytes %d (%.1f "
@@ -2235,6 +2295,9 @@ def cli_serve_reload(learn_task, api, d, cfg, net, prompt, first):
 
 # requests in flight at cli_lm_serve's SIGTERM
 CLI_SERVE_FLOOD = 8
+# seconds at most of bursts that warm the served LM's grid (buckets 1 and
+# 4, every prompt length) and span the 1 s /profilez capture
+WARM_SECS = 120
 
 
 def serve_clients_async(port, lines, timeout=300.0):
@@ -2337,19 +2400,152 @@ def status_pages(sport, port):
             "%s=%s" % (n, g) for n, g, _ in pairs))
 
 
+def warming_gate(sport, timeout=60.0):
+    """/healthz of a replica whose warm grid is cold: polled from the
+    moment its pages are up until it answers 503 (its serving probe is
+    registered just after its port opens); returns (code, body, the
+    cxxnet_ready_programs_pct gauge)."""
+    deadline = time.time() + timeout
+    code, body = scrape(sport, "/healthz")
+    while code == 200 and time.time() < deadline:
+        time.sleep(0.01)
+        code, body = scrape(sport, "/healthz")
+    series = prom_series(scrape(sport, "/metrics")[1])
+    return code, body.strip(), series.get(
+        'cxxnet_ready_programs_pct{process="0"}')
+
+
+def trace_complete(path):
+    """Whether a Chrome trace file has been written whole."""
+    try:
+        with open(path) as f:
+            json.load(f)
+        return True
+    except (OSError, ValueError):
+        return False
+
+
+def warm_the_grid(sport, port, prompts, pdir, vocab):
+    """Traffic until the warm grid is whole: bursts of every prompt from as
+    many clients at once (a bucket-4 session), from the start of a 1 s
+    /profilez capture until that capture has been written. Returns (the answers, the capture's trace.json
+    path)."""
+    lines = [" ".join(map(str, p)) for p in prompts]
+    code, body = scrape(sport, "/profilez?secs=1")
+    if code != 200:
+        raise AssertionError("/profilez?secs=1 answered %d: %s"
+                             % (code, body))
+    trace = os.path.join(pdir, "capture_001", "trace.json")
+    # bursts go on until the capture has ended as well: the profiler's
+    # start (CUPTI's) can take longer than a few bursts, and a window
+    # with no traffic in it would hold no kernel
+    answers = []
+    deadline = time.time() + WARM_SECS
+    while True:
+        answers += serve_clients(port, lines, len(lines), timeout=300)[0]
+        rd = json.loads(scrape(sport, "/compilez?json=1")[1])["readiness"]
+        if rd["ready_pct"] == 100.0 and trace_complete(trace):
+            break
+        if time.time() > deadline:
+            raise AssertionError(
+                "after %d bursts in %d s: ready %s%%, the /profilez trace "
+                "%s" % (len(answers) // len(lines), WARM_SECS,
+                        rd["ready_pct"], "written" if os.path.exists(trace)
+                        else "not written"))
+    for a in answers:
+        answer_tokens("warm-up burst", a, CLI_SERVE_NEW, vocab)
+    return answers, trace
+
+
+def ledger_pages(sport, plens):
+    """A warm replica's ledger: /healthz 200 and the readiness gauge at
+    100; /compilez lists every expected key once, compiled as
+    new_signature; /programz has ready prefill and step cards with flops,
+    a prediction and a measured p50, at no more than 105% roofline
+    efficiency (their spans wait for the card); every served flight
+    record carries the decode bound, at or above its measured rate.
+    Returns the summary lines."""
+    code, body = scrape(sport, "/healthz")
+    series = prom_series(scrape(sport, "/metrics")[1])
+    gauge = series.get('cxxnet_ready_programs_pct{process="0"}')
+    if code != 200 or gauge != 100.0:
+        raise AssertionError("a warm replica: /healthz %d %r, "
+                             "cxxnet_ready_programs_pct %s"
+                             % (code, body, gauge))
+    cz = json.loads(scrape(sport, "/compilez?json=1&n=0")[1])
+    want = [str(("sess_prefill", p, 0.0, 0)) for p in plens]
+    for b in (1, 4):
+        want += [str(("sess_admit", b)), str(("sess_step", b, 0.0, 0))]
+    keys = [r["key"] for r in cz["compiles"]]
+    bad = [k for k in want if keys.count(k) != 1] + [
+        r["key"] for r in cz["compiles"]
+        if r["key"] in want and r["cause"] != "new_signature"]
+    if bad or cz["readiness"]["ready_pct"] != 100.0:
+        raise AssertionError("/compilez: keys not compiled once as "
+                             "new_signature: %s" % bad)
+    pz = json.loads(scrape(sport, "/programz?json=1")[1])
+    lines = ["spec %s: %.0f TFLOP/s, %.0f GB/s, %d bytes; hbm peak %s, "
+             "headroom %s, decode kv %s"
+             % (pz["spec"]["name"], pz["spec"]["peak_flops"] / 1e12,
+                pz["spec"]["hbm_bw"] / 1e9, pz["spec"]["hbm_capacity"],
+                pz["hbm"]["peak_bytes"], pz["hbm"]["headroom_bytes"],
+                pz["hbm"]["decode_kv_bytes"])]
+    for c in pz["cards"]:
+        lines.append(
+            "%s %s: %s, flops %.4g, bytes %.4g, predicted %.6f ms, "
+            "measured p50 %s ms (n %d, %s), eff %s%%, MFU %s%%, peak %s, "
+            "compile %.3f s" % (
+                c["name"], c["key"], c["status"], c["flops"] or 0,
+                c["bytes_accessed"] or 0, 1e3 * (c["predicted_s"] or 0),
+                c["measured_p50_ms"], c["measured_n"], c["measured_series"],
+                c["roofline_eff_pct"], c["mfu_pct"], c["peak_bytes"],
+                c["compile_s"]))
+        if c["status"] != "ready":
+            raise AssertionError("card not ready: %s" % c)
+        if c["name"] in ("jit.decode_prefill", "jit.decode_step") and (
+                not c["flops"] or not c["predicted_s"]
+                or c["measured_p50_ms"] is None
+                or c["roofline_eff_pct"] is None
+                or c["roofline_eff_pct"] > 105.0):
+            raise AssertionError("a decode card without flops, prediction "
+                                 "or measurement, or above 105%% of its "
+                                 "roofline: %s" % c)
+    recs = [r for r in json.loads(scrape(
+        sport, "/requestz?json=1&n=0")[1])["requests"]
+        if r.get("outcome") == "served"]
+    low = [r["id"] for r in recs
+           if r.get("roofline_bound_tokens_per_s") is None
+           or r["roofline_bound_tokens_per_s"] < (r.get("tokens_per_s")
+                                                  or 0.0)]
+    if low or not recs:
+        raise AssertionError("flight records without the decode bound or "
+                             "under their measured rate: %s" % low[:5])
+    bounds = [r["roofline_bound_tokens_per_s"] for r in recs]
+    rates = [r["tokens_per_s"] for r in recs if r.get("tokens_per_s")]
+    lines.append("%d served flight records: roofline_bound_tokens_per_s "
+                 "%.1f-%.1f, measured tokens/s %.1f-%.1f"
+                 % (len(recs), min(bounds), max(bounds), min(rates),
+                    max(rates)))
+    return lines
+
+
 def phase_cli_lm_serve(flash, learn_task, api, models):
     """task = serve from the command line on a model file of the bench.py
     LM in bf16 written here: stdin holds 8 prompts, a DEADLINE prompt, an
     out-of-vocab line, an empty line and ADMIN stats; stdout has exactly one
     line per input and the prompts' lines equal task = generate's for the
     same prompts. Then bin/cxxnet_torch in a process of its own with
-    serve_port = 0, serve_buckets = 1,4 and status_port = 0: one TCP answer
-    held to the solo generate; /metrics, /healthz, /livez, /batchz,
-    /requestz, /trace?request=<id> and /eventz scraped (each answers 200
-    and parses; the decode account of /metrics and /batchz agrees with
-    ADMIN stats); a flood in flight, SIGTERM, /healthz 503 while the drain
-    answers it, exit 0. Returns the flash_fwd launches of the stdin run
-    and the process."""
+    serve_port = 0, serve_buckets = 1,4, status_port = 0 and the warm grid
+    (perf_ledger = 1, serve_plen_buckets = the prompts' lengths,
+    serve_warm_ready_pct = 100): /healthz 503 "warming" before the first
+    request; one TCP answer held to the solo generate; bursts until the
+    grid is warm, the first under a /profilez capture whose trace names
+    the flash forward kernel; the ledger's pages (ledger_pages);
+    /metrics, /healthz, /livez, /batchz, /requestz, /trace?request=<id>
+    and /eventz scraped (each answers 200 and parses; the decode account
+    of /metrics and /batchz agrees with ADMIN stats); a flood in flight,
+    SIGTERM, /healthz 503 while the drain answers it, exit 0. Returns the
+    flash_fwd launches of the stdin run and the process."""
     log("phase cli_lm_serve")
     t_phase = time.perf_counter()
     vocab = LM_ARGS["vocab"]
@@ -2408,14 +2604,29 @@ def phase_cli_lm_serve(flash, learn_task, api, models):
             raise AssertionError("task = serve's stdout is not one line "
                                  "per input equal to task = generate's")
 
-        # TCP in a process of its own with the status pages, then SIGTERM
+        # TCP in a process of its own with the status pages and the warm
+        # grid, then SIGTERM
+        plens = sorted(set(CLI_SERVE_LENS))
+        pdir = os.path.join(d, "profilez")
         proc = CliProcess(d, [conf, "serve_port=0", "serve_buckets=1,4",
-                              "status_port=0"], stdin=subprocess.PIPE)
+                              "status_port=0", "perf_ledger=1",
+                              "serve_plen_buckets=%s"
+                              % ",".join(map(str, plens)),
+                              "serve_warm_ready_pct=100",
+                              "profilez_dir=" + pdir],
+                          stdin=subprocess.PIPE)
         try:
             sport = int(proc.wait_for("err", r"statusd: live introspection "
                                       r"on port (\d+)", 300).group(1))
             port = int(proc.wait_for("err", r"servd: serving on port "
                                      r"(\d+)", 300).group(1))
+            cold = warming_gate(sport)
+            log("  before the first request: /healthz %d %r, "
+                "cxxnet_ready_programs_pct %s" % cold)
+            if cold[0] != 503 or "warming" not in cold[1] \
+                    or not cold[2] < 100.0:
+                raise AssertionError("a cold replica is not 503 warming "
+                                     "below 100%% ready: %s" % (cold,))
             answer = serve_clients(port, [stdin[0]], 1, timeout=300)[0][0]
             toks = answer_tokens("cli tcp", answer, CLI_SERVE_NEW, vocab)
             want = [int(t) for t in gen[0].split()]
@@ -2424,6 +2635,21 @@ def phase_cli_lm_serve(flash, learn_task, api, models):
                                        else "DIFFERENT"))
             hold_tokens("cli tcp vs solo", None, net, [toks], [want],
                         [prompts[0]], (0.0, 0), [0], [0], NEAR_TIE)
+            warm, trace = warm_the_grid(sport, port, prompts, pdir, vocab)
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            sym = KERNEL_SYMBOLS["flash_fwd"]
+            n_flash = sum(1 for e in events
+                          if sym in str(e.get("name", "")))
+            log("  warm-up: %d bursts of %d prompts; /profilez?secs=1 "
+                "during them: %s, %d events, %d naming %s"
+                % (len(warm) // len(CLI_SERVE_LENS), len(CLI_SERVE_LENS),
+                   os.path.relpath(trace, d), len(events), n_flash, sym))
+            if not n_flash:
+                raise AssertionError("the /profilez trace names no flash "
+                                     "forward kernel (%s)" % sym)
+            for ln in ledger_pages(sport, plens):
+                log("  ledger: " + ln)
             pages = status_pages(sport, port)
             flood = serve_clients_async(port, stdin[:CLI_SERVE_FLOOD])
             proc.proc.stdin.close()
@@ -2434,7 +2660,8 @@ def phase_cli_lm_serve(flash, learn_task, api, models):
             answers = flood()
         finally:
             proc.kill()
-        served = 1 + sum(1 for a in answers if a and not a.startswith("ERR"))
+        served = 1 + len(warm) + sum(1 for a in answers
+                                     if a and not a.startswith("ERR"))
         tail = proc.text("err")
         log("  SIGTERM with %d requests in flight: /healthz during the "
             "drain %s; %d answered (%d served); exit %d; %s"
@@ -2491,19 +2718,6 @@ def phase_lm_serve_long(flash, api, models):
     del net
     torch.cuda.empty_cache()
     return launches
-
-
-def flash_bwd_work(b, h, nkv, L, d, causal, window, esize):
-    """((dq operations, bytes), (dk/dv operations, bytes)) the backward
-    kernels need, counted for this shape: per (query, key) pair the mask
-    keeps, 6 d flops for dQ (S, dP, dS K) and 8 d for dK/dV (S, P^T dO, dP,
-    dS^T Q); each input read once (q, k, v, dO in the input dtype, lse and
-    D in f32), each output written once."""
-    pairs = kept_pairs(L, causal, window) * b * h
-    q_elems, kv_elems = b * h * L * d, b * nkv * L * d
-    rows = 8 * b * h * L
-    return ((6 * d * pairs, esize * (3 * q_elems + 2 * kv_elems) + rows),
-            (8 * d * pairs, esize * (2 * q_elems + 4 * kv_elems) + rows))
 
 
 def tensor_core_instructions(names):
@@ -3016,7 +3230,7 @@ def _uniform_times(rnd, seed, shape):
     gen = torch.Generator(device=DEV).manual_seed(seed)
     library_ms = time_ms(lambda: torch.rand(shape, generator=gen,
                                             device=DEV))
-    bound_ms, bound_by, bytes_ms, ops_ms = _bound(n, 4 * n,
+    bound_ms, bound_by, bytes_ms, ops_ms = _bound(n, _random_ops.work(n)[1],
                                                   UNIFORM_OPS_PER_ELEM)
     log("  kernel_ms %.4f plain_ms %.4f library_ms %.4f (torch.rand on a "
         "CUDA generator) bound_ms %.4f (%s: %d bytes written, %.4f ms; "
@@ -3274,6 +3488,8 @@ def phase_rrelu_alexnet_train(rnd, lrn, api, ops, models):
 # 256x256 PPM records, labels i % 1000, made from SEED with numpy
 CLI_TRAIN_IMAGES, CLI_TEST_IMAGES, CLI_HW = 1024, 256, 256
 CLI_ROUNDS = 2
+# synchronized AlexNet steps timed for cli_imagenet_train's MFU
+MFU_STEPS = 5
 # rounds of each io-only (test_io) run of the ImageNet pack
 IO_ROUNDS = 5
 # MNIST_CONV.conf on tests/synth_mnist.make_dataset data: every round of
@@ -3733,16 +3949,39 @@ def phase_cli_imagenet_resume(cwd, conf, det_err):
             got_b["lrn_bwd"] + got_c["lrn_bwd"])
 
 
+def round2_lrn_launches(path):
+    """(lrn_fwd, lrn_bwd) kernel launches in a torch.profiler Chrome trace
+    (the kernels' events of the device's timeline)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [str(e.get("name", "")) for e in events
+             if e.get("cat") == "kernel"]
+    return (sum(1 for n in names if "lrn_fwd_kernel" in n),
+            sum(1 for n in names if "lrn_bwd_kernel" in n))
+
+
 def phase_cli_imagenet(lrn, learn_task, api):
     """example/ImageNet/ImageNet.conf through the CLI on the card at full
     width (imgbin + threadbuffer, random crops and mirrors, the mean image
     created on first use): two training rounds held to the same batches
     driven through api.Net.update, the input pipeline's rates, then
     task=pred / extract / pred_raw from the round-2 model held to
-    api.Net.predict / extract; between the two, cli_imagenet_resume.
-    Returns the LRN (forward, backward) launches counted on the training
-    path, the forward launches on the prediction path and the (forward,
-    backward) launches of the resumed runs."""
+    api.Net.predict / extract; between the two, cli_imagenet_resume. The
+    training run writes a telemetry log and profile_dir's torch.profiler
+    trace of round 2, which must hold exactly that round's LRN launches;
+    its performance ledger's jit.train_step card must be ready with the
+    work account's flops (a wiring check: the card takes its flops from
+    nnet/cost.py through Program.cost, so this shows the card is present,
+    ready and fed by the account; the account itself is held to XLA's
+    count in tests/test_torch_cost.py), and the phase prints the step's
+    MFU against its own synchronized step time beside the card's mfu_pct.
+    The main run's second round (round 1 in its lines) runs under the
+    profiler, so only its first round's rate is a plain one. Returns the LRN
+    (forward, backward) launches counted on the training path, the forward
+    launches on the prediction path and the (forward, backward) launches
+    of the resumed runs."""
+    from cxxnet_tpu_torch.nnet import cost
+    from cxxnet_tpu_torch.utils import perf
     log("phase cli_imagenet_train")
     t0 = time.perf_counter()
     conf = os.path.join(REPO, "example/ImageNet/ImageNet.conf")
@@ -3755,11 +3994,19 @@ def phase_cli_imagenet(lrn, learn_task, api):
         evals = CLI_ROUNDS * (CLI_TEST_IMAGES // BATCH)
 
         # the main path: the counts start at 0 here and are read right after
+        perf.reset()
         lrn.launches = lrn.no_norm_launches = lrn.bwd_launches = 0
         t = time.perf_counter()
-        out, err = run_cli(learn_task, cwd, args)
+        out, err = run_cli(learn_task, cwd, args + [
+            "profile_dir=prof", "telemetry_log=train.jsonl"])
         wall = time.perf_counter() - t
         train = (lrn.launches, lrn.bwd_launches, lrn.no_norm_launches)
+        # the ledger's snapshot joins the run's train.step histogram,
+        # which stays in the registry until telemetry is enabled again
+        card = [c for c in perf.ledger().snapshot()["cards"]
+                if c["name"] == "jit.train_step"]
+        round2 = round2_lrn_launches(os.path.join(cwd, "prof",
+                                                  "trace.json"))
         log("  %d rounds in %.2f s wall (mean image, init and eval "
             "included); lrn_fwd launches %d (%d storing no norm), lrn_bwd "
             "launches %d" % (CLI_ROUNDS, wall, train[0], train[2], train[1]))
@@ -3772,8 +4019,16 @@ def phase_cli_imagenet(lrn, learn_task, api):
                 != CLI_ROUNDS:
             raise AssertionError("expected %d eval lines" % CLI_ROUNDS)
         rates = round_rates(out)
-        log("  rounds (input-wait %%, io img/s when blocked, step img/s): "
-            "%s" % rates)
+        log("  rounds (input-wait %%, io img/s when blocked, step img/s; "
+            "round 1 under profile_dir's torch.profiler): %s" % rates)
+        per_round = (2 * (steps + evals) // CLI_ROUNDS,
+                     2 * steps // CLI_ROUNDS)
+        log("  profile_dir trace of round 2: lrn_fwd_kernel %d, "
+            "lrn_bwd_kernel %d launches (%d and %d expected: 2 + 2 a step, "
+            "2 without the norm an eval batch)" % (round2 + per_round))
+        if round2 != per_round:
+            raise AssertionError("the round-2 trace does not hold exactly "
+                                 "that round's LRN launches")
 
         # the CLI again and the same batches through api.Net.update, both
         # with cuDNN off: cuDNN's algorithms need not sum in one order from
@@ -3806,6 +4061,24 @@ def phase_cli_imagenet(lrn, learn_task, api):
                     while it.next():
                         net.update(it)
                 it.close()
+        # a wiring check: the card's flops come from this same account
+        # (Program.cost); the account is held to XLA's in test_torch_cost.py
+        want = cost.train_step_cost(net.net_.net, net.net_.params,
+                                    net.net_.updaters)
+        if len(card) != 1 or card[0]["status"] != "ready" \
+                or card[0]["flops"] != want["flops"]:
+            raise AssertionError("the jit.train_step card is not ready with "
+                                 "the work account's flops (%s, want %r)"
+                                 % (card, want["flops"]))
+        card = card[0]
+        log("  jit.train_step card: flops %.6g (nnet/cost.py: %.6g), bytes "
+            "%.6g, predicted %.4f ms, compile %.3f s, peak %s bytes, "
+            "measured p50 %s ms over %d steps (the step's dispatch), "
+            "mfu_pct %s" % (card["flops"], want["flops"],
+                            card["bytes_accessed"],
+                            1e3 * card["predicted_s"], card["compile_s"],
+                            card["peak_bytes"], card["measured_p50_ms"],
+                            card["measured_n"], card["mfu_pct"]))
         cli_net = api.Net(dev=NET_DEV, cfg=conf_text)
         cli_net.load_model(os.path.join(cwd, "models_det/%04d.model"
                                         % CLI_ROUNDS))
@@ -3853,7 +4126,17 @@ def phase_cli_imagenet(lrn, learn_task, api):
         y = np.random.RandomState(SEED + 4).randint(0, 1000, BATCH) \
             .astype(np.float32)
         pinned_numpy_rates(net, x, y)
-        del net
+        batch = data_batch(x, y, DEV)
+        step_s = BATCH / per_s(lambda: net.net_.update(batch), BATCH,
+                               iters=MFU_STEPS)
+        log("  MFU of the step: card flops %.6g / (%.3f ms synchronized "
+            "step, %d steps on the card's batch x %.0f TFLOP/s) = %.3f%%; "
+            "the card's mfu_pct (its p50 times the dispatch) %s"
+            % (card["flops"], 1e3 * step_s, MFU_STEPS,
+               H100.peak_flops / 1e12,
+               100.0 * card["flops"] / (step_s * H100.peak_flops),
+               card["mfu_pct"]))
+        del net, batch
         torch.cuda.empty_cache()
 
         log("  phase wall %.1f s" % (time.perf_counter() - t0))
@@ -4044,27 +4327,6 @@ def phase_lm_head_dim(flash, api, models, phase):
     del net, batch_dev
     torch.cuda.empty_cache()
     return recs, serve, counts
-
-
-def ring_step_work(kernel, bh, bkv, sq, skv, d, q_off, kv_off, causal,
-                   window, esize):
-    """(operations, bytes) one ring step needs, counted for these offsets:
-    per (query, key) pair the mask keeps 4 d flops (forward), 6 d (dQ) or
-    8 d (dK/dV); q, the block's k and v (and dO, lse, D) read once, the f32
-    carries read and written once. A step that keeps no pair needs only
-    the forward's (m, l) copied."""
-    pairs = kept_pairs(sq, causal, window, skv, q_off, kv_off) * bh
-    q_b, kv_b = esize * bh * sq * d, esize * bkv * skv * d
-    rows, q_f32, kv_f32 = 4 * bh * sq, 4 * bh * sq * d, 4 * bkv * skv * d
-    if kernel == "fwd":
-        if not pairs:
-            return 0, 4 * rows
-        return 4 * d * pairs, q_b + 2 * kv_b + 4 * rows + 2 * q_f32
-    if not pairs:
-        return 0, 0
-    if kernel == "dq":
-        return 6 * d * pairs, 2 * q_b + 2 * kv_b + 2 * rows + 2 * q_f32
-    return 8 * d * pairs, 2 * q_b + 2 * kv_b + 2 * rows + 4 * kv_f32
 
 
 def ring_peak(dtype):

@@ -261,6 +261,11 @@ class Net:
         # unconditional: slo=None must also clear a tracker left behind by
         # an earlier frontend
         statusd.set_slo(fe.slo)
+        # /programz for embedders too: the module ledger cards this
+        # frontend's decode programs once perf.enable() ran (learn_task
+        # wires it; library users call it themselves)
+        from .utils import perf
+        statusd.set_perf(perf.ledger())
         return fe
 
     def beam_generate(self, prompts: np.ndarray, n_new: int,

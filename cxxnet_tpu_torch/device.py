@@ -12,7 +12,7 @@ raises: the port never falls back to the CPU quietly.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -46,13 +46,43 @@ def resolve_device(spec: str) -> torch.device:
                         if 0 <= first < torch.cuda.device_count() else 0)
 
 
+# each card's allocator high-water mark as it stood at the last
+# ``reset_peak_window``: the process's peak is the larger of it and
+# torch's peak since, so that no window a probe opens lowers it
+_PEAK_BEFORE: Dict[int, int] = {}
+
+
+def _card_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def reset_peak_window(dev: torch.device) -> None:
+    """Start a new window of torch's allocator peak on the card ``dev`` (a
+    program's first call measures its own peak in one: ``perf.DeviceProbe``)
+    while the process's high-water mark that ``memory_stats`` reports keeps
+    its running maximum."""
+    i = _card_index(dev)
+    _PEAK_BEFORE[i] = max(_PEAK_BEFORE.get(i, 0),
+                          int(torch.cuda.max_memory_allocated(dev)))
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
 def memory_stats(dev: Optional[torch.device]) -> Optional[dict]:
     """The card's allocator figures, as the JAX package reads a device's
     ``memory_stats()``: ``bytes_in_use`` (torch's allocated bytes),
-    ``peak_bytes_in_use`` (their high-water mark) and ``bytes_limit`` (the
-    card's memory); None on the CPU."""
+    ``peak_bytes_in_use`` (the process's high-water mark of them, across
+    every ``reset_peak_window``) and ``bytes_limit`` (the card's memory);
+    None on the CPU."""
     if dev is None or dev.type != "cuda":
         return None
+    peak = max(_PEAK_BEFORE.get(_card_index(dev), 0),
+               int(torch.cuda.max_memory_allocated(dev)))
     return {"bytes_in_use": torch.cuda.memory_allocated(dev),
-            "peak_bytes_in_use": torch.cuda.max_memory_allocated(dev),
+            "peak_bytes_in_use": peak,
             "bytes_limit": torch.cuda.mem_get_info(dev)[1]}
+
+
+def card_name(dev: torch.device) -> str:
+    """The card's name, as ``torch.cuda.get_device_name`` and nvidia-smi
+    give it (``NVIDIA H100 80GB HBM3``)."""
+    return torch.cuda.get_device_name(dev)

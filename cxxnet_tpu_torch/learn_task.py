@@ -21,7 +21,17 @@ cursor, a corrupt file quarantined), mid-round and bit for bit; SIGTERM /
 SIGINT during training writes that emergency file at the next step
 boundary and exits cleanly; ``ckpt_keep_last`` / ``ckpt_keep_every`` set
 the retention. ``status_port`` serves the live introspection pages
-(``utils/statusd.py``) for every task.
+(``utils/statusd.py``) for every task. Whenever telemetry is on
+(``telemetry_log`` or ``status_port``), ``perf_ledger = 1`` (the default)
+cards every program the run's trainer runs in the performance ledger
+(``utils/perf.py``: ``/programz``, ``/compilez``, the ``cxxnet_program_*``
+series); with the pages up, ``/profilez?secs=N`` captures a
+``torch.profiler`` trace into ``profilez_dir``; ``profile_dir`` writes a
+``torch.profiler`` Chrome trace of training round 2. A serving replica
+declares its warm program grid with ``serve_plen_buckets`` (its health
+reads ``warming`` below ``serve_warm_ready_pct``), and
+``serve_kv_pool_frac`` caps the paged KV pool at that fraction of the
+ledger's HBM headroom.
 
 The net runs on the card unless the config or the command line says
 ``dev = cpu``; there, every threadbuffer of the chains packs its batches
@@ -44,6 +54,7 @@ from . import device as device_mod
 from .io import create_iterator
 from .nnet.trainer import Trainer, create_net
 from .utils import checkpoint as ckpt
+from .utils import perf
 from .utils import serializer
 from .utils import statusd
 from .utils import telemetry
@@ -72,14 +83,10 @@ def _is_default(default):
 # keys whose features are not ported yet, with the test that a value is the
 # key's default (which is accepted)
 _NOT_PORTED = {
-    "profile_dir": lambda v: v == "",
     "health_monitor": lambda v: int(v) == 0,
     "watchdog_timeout": lambda v: float(v) == 0.0,
     "coordinator": lambda v: v == "",
     "num_worker": lambda v: int(v) <= 1,
-    # the perf ledger's warm-grid account (TPU program accounting)
-    "serve_plen_buckets": lambda v: v.replace(",", " ").split() == [],
-    "serve_warm_ready_pct": lambda v: float(v) == 0.0,
 }
 _NOT_PORTED.update({k: _is_default(d) for k, d in _FLEET_DEFAULTS.items()})
 _TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "generate",
@@ -138,12 +145,15 @@ class _SlotBackendAdapter:
     ``top_k``, request ``seq`` drawing on ``seed + seq``. ``kv_block > 0``
     arms the paged KV cache: every session shares the trainer's block
     pool, sized at dense-equivalent capacity (the largest bucket times the
-    net's sequence length; the perf ledger's headroom cap is not ported)."""
+    net's sequence length) and, with the perf ledger on, clamped under
+    ``kv_pool_frac`` of its live HBM headroom
+    (``perf.Ledger.decode_pool_cap_bytes``; the pool floors the cap at one
+    sequence of the net's length)."""
 
     def __init__(self, trainer, buckets, n_new: int,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                  kv_block: int = 0, prefix_reuse: bool = True,
-                 retained_frac: float = 1.0):
+                 retained_frac: float = 1.0, kv_pool_frac: float = 0.5):
         self.trainer = trainer
         self.buckets = list(buckets)
         self.n_new = int(n_new)
@@ -153,6 +163,7 @@ class _SlotBackendAdapter:
         self.kv_block = int(kv_block)
         self.prefix_reuse = bool(prefix_reuse)
         self.retained_frac = float(retained_frac)
+        self.kv_pool_frac = float(kv_pool_frac)
 
     def _l_max(self) -> int:
         return self.trainer().net_cfg.param.input_shape[2]
@@ -170,9 +181,11 @@ class _SlotBackendAdapter:
         in dense mode."""
         if self.kv_block <= 0:
             return None
+        cap = perf.ledger().decode_pool_cap_bytes(self.kv_pool_frac) \
+            if perf.enabled() else None
         return self.trainer().decode_kv_pool(
             self.kv_block, pool_tokens=max(self.buckets) * self._l_max(),
-            prefix_reuse=self.prefix_reuse,
+            prefix_reuse=self.prefix_reuse, bytes_cap=cap,
             retained_frac=self.retained_frac)
 
     def _live_pool(self):
@@ -225,7 +238,9 @@ _SERVE_KEYS = (
     ("serve_stall_s", float), ("serve_buckets", str),
     ("serve_batch_max", int), ("serve_batch_window_ms", float),
     ("serve_kv_block", int), ("serve_prefix_reuse", int),
-    ("serve_retained_frac", float), ("serve_kv_pressure_pct", float),
+    ("serve_retained_frac", float), ("serve_kv_pool_frac", float),
+    ("serve_plen_buckets", str), ("serve_warm_ready_pct", float),
+    ("serve_kv_pressure_pct", float),
     ("serve_kv_pressure_clear_pct", float),
     ("serve_batch_flight_cap", int), ("serve_convoy_iters", int),
     ("serve_flight_cap", int), ("serve_tenant_default", str),
@@ -285,6 +300,14 @@ class LearnTask:
         self.status_port = -1
         self.status_host = ""
         self._status_telemetry = False
+        # perf_ledger = 1 (the default): the program performance ledger
+        # (utils/perf.py) whenever telemetry is on; profilez_dir: where
+        # /profilez captures land ("profilez" beside the telemetry log by
+        # default); profile_dir: a torch.profiler trace of round 2
+        self.perf_ledger = 1
+        self.profilez_dir = ""
+        self.profile_dir = ""
+        self._perf_enabled = False
         # task = serve (cxxnet_tpu/learn_task.py:274-419): the frontend's
         # keys, read as the JAX command line reads them
         self.serve_port = -1
@@ -301,6 +324,12 @@ class LearnTask:
         self.serve_kv_block = 0
         self.serve_prefix_reuse = 1
         self.serve_retained_frac = 1.0
+        # the paged pool's cap: this fraction of the ledger's HBM headroom
+        self.serve_kv_pool_frac = 0.5
+        # the warm grid: prompt-length buckets declared for readiness, and
+        # the ready share below which /healthz reads "warming" (0: off)
+        self.serve_plen_buckets = ""
+        self.serve_warm_ready_pct = 0.0
         self.serve_kv_pressure_pct = 10.0
         self.serve_kv_pressure_clear_pct = 25.0
         self.serve_batch_flight_cap = 256
@@ -334,6 +363,16 @@ class LearnTask:
                              "dev": self.device})
         if self.status_port >= 0:
             self._start_status_server()
+        if statusd.active() is not None:
+            # /profilez rides statusd alone: on-demand profiling does not
+            # depend on (and survives disabling) the ledger
+            pdir = self.profilez_dir or os.path.join(
+                os.path.dirname(self.telemetry_log) or ".", "profilez")
+            statusd.set_profiler(perf.ProfilerCapture(pdir))
+        if self.perf_ledger and telemetry.enabled():
+            perf.enable()
+            self._perf_enabled = True
+            statusd.set_perf(perf.ledger())
         try:
             with telemetry.span("init"):
                 self.init()
@@ -357,6 +396,15 @@ class LearnTask:
                 self.task_serve()
         finally:
             self.close()
+            if self._perf_enabled:
+                perf.drain(10.0)
+                perf.disable()
+                self._perf_enabled = False
+            srv = statusd.active()
+            if srv is not None and srv.profiler is not None:
+                # an in-flight /profilez capture is stopped and joined
+                # before teardown
+                srv.profiler.shutdown()
             if self.status_port >= 0:
                 statusd.stop()
             if self.telemetry_log:
@@ -502,6 +550,12 @@ class LearnTask:
             self.preempt_save = int(val)
         if name == "route_tenants":
             self.route_tenants = val
+        if name == "perf_ledger":
+            self.perf_ledger = int(val)
+        if name == "profilez_dir":
+            self.profilez_dir = val
+        if name == "profile_dir":
+            self.profile_dir = val
         for key, cast in _SERVE_KEYS:
             if name == key:
                 setattr(self, key, cast(val))
@@ -825,9 +879,13 @@ class LearnTask:
         if self.test_io != 0:
             print("start I/O test")
         cc = self.max_round
+        rounds_done = 0
+        prof = None
         while self.start_counter <= self.num_round and cc > 0:
             cc -= 1
             rnd = self.start_counter - 1
+            if self.profile_dir and rounds_done == 1:
+                prof = self._start_profile()
             statusd.update_progress(round=rnd, num_round=self.num_round)
             if not self.silent:
                 print("update round %d" % rnd)
@@ -859,6 +917,10 @@ class LearnTask:
                 telemetry.sample_device_memory(
                     device_mod.memory_stats(self.net_trainer.dev))
                 telemetry.flush()
+            rounds_done += 1
+            if prof is not None:
+                self._stop_profile(prof)
+                prof = None
             if self._stop_training:
                 telemetry.event({"ev": "preempt_exit", "round": rnd})
                 if not self.silent:
@@ -868,6 +930,25 @@ class LearnTask:
         if not self.silent:
             print("updating end, %.0f sec in all"
                   % (time.monotonic() - start))
+
+    def _start_profile(self):
+        """profile_dir: a torch.profiler capture of the round about to run
+        (round 2 of the session, the JAX package's choice,
+        cxxnet_tpu/learn_task.py:1114-1171), with CUDA activity on a
+        card."""
+        prof = perf.torch_profiler(self.net_trainer.dev.type == "cuda")
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        """Stop the capture and write it as a Chrome trace,
+        ``<profile_dir>/trace.json``."""
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        if not self.silent:
+            print("profiler trace written to %s" % path)
 
     def _train_one_round(self, start: float, skip_batches: int,
                          final_round: bool):
@@ -1166,7 +1247,8 @@ class LearnTask:
                 temperature=self.gen_temperature, top_k=self.gen_topk,
                 seed=self.gen_seed, kv_block=self.serve_kv_block,
                 prefix_reuse=bool(self.serve_prefix_reuse),
-                retained_frac=self.serve_retained_frac)
+                retained_frac=self.serve_retained_frac,
+                kv_pool_frac=self.serve_kv_pool_frac)
             if not self.silent:
                 print("serve: continuous batching on (buckets %s, "
                       "batch_max %d, window %.1fms%s)"
@@ -1198,7 +1280,26 @@ class LearnTask:
         statusd.set_slo(slo)
         statusd.set_slo_tenants(slo_tenants)
         if slot_backend is not None:
+            # the batch pages, and the live decode KV cache charged against
+            # the ledger's HBM headroom
             statusd.set_batch(fe)
+            perf.set_decode_kv(fe.decode_kv_bytes)
+            plen_list = [int(x) for x in str(self.serve_plen_buckets)
+                         .replace(",", " ").split()]
+            if plen_list and self._perf_enabled:
+                # the warm grid (cxxnet_tpu/learn_task.py:1706-1730): the
+                # expected programs of serve_buckets x serve_plen_buckets
+                # on the ledger, the frontend's warm account read from it
+                # (cxxnet_ready_programs_pct, ADMIN warm_programs, and the
+                # "warming" health gate at serve_warm_ready_pct > 0)
+                perf.ledger().set_expected_grid(
+                    self.net_trainer.expected_decode_grid(
+                        bucket_list, plen_list,
+                        temperature=self.gen_temperature,
+                        top_k=self.gen_topk,
+                        kv_block=self.serve_kv_block))
+                fe.set_warm_account(perf.ledger().readiness,
+                                    ready_pct=self.serve_warm_ready_pct)
         if self.serve_port >= 0:
             try:
                 port = fe.listen(self.serve_port, host=self.serve_host)

@@ -22,7 +22,15 @@ and an asynchronous copy on a stream of its own (``StagingRing``,
 ``restore_training_state``) carries the step state that weights and
 optimizer state do not, so a preempted run resumes bit for bit. Meshes
 over several devices, the health monitor and exported decode programs
-belong to later slices. Under bf16, ``predict``,
+belong to later slices. Every unit of device work is one of the JAX
+package's programs under its name and key (``jit.train_step``,
+``jit.eval_fwd``, ``jit.predict``, ``jit.decode_prefill``,
+``jit.decode_step``, ``jit.decode_admit``, ``jit.beam_decode``), run
+through ``_watched_jit``: the recompile detector records its first call at
+a new signature as its compile (``telemetry.jit_watch``), the performance
+ledger cards it from its own work account (``nnet/cost.py``), and the
+trainer's spans time it (``train.h2d``, ``train.step``, ``eval.forward``,
+``predict``, ``decode.*``). Under bf16, ``predict``,
 ``extract_feature`` and ``evaluate`` hand out float32 arrays that hold
 the bf16 values (the JAX package returns bf16 arrays through ml_dtypes,
 which the card's machine lacks; the conversion is exact).
@@ -35,6 +43,7 @@ import contextlib
 import copy
 import json
 import re
+import time
 import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -46,7 +55,8 @@ from ..layer.base import check, fold_in
 from ..ops import random as oprandom
 from ..updater import Updater, create_updater
 from ..utils import checkpoint as ckpt
-from ..utils import kvblocks, serializer, telemetry
+from ..utils import kvblocks, perf, serializer, telemetry
+from . import cost
 from ..utils.kvblocks import KVPoolExhausted
 from ..utils.metric import MetricSet
 from .config import NetConfig
@@ -61,6 +71,27 @@ OptState = List[Dict[str, Dict[str, torch.Tensor]]]
 
 # the decode paths' nets kept per trainer, by their most recent use
 SEQ_NETS_KEPT = 64
+
+
+class Program:
+    """One of the trainer's programs: ``run`` does the work, and ``cost``
+    (called with the same arguments) gives its account, ``{"flops", "bytes
+    accessed"}``, which the performance ledger reads at its compile
+    through ``cost_analysis``. A program takes its trainer (or session) as
+    an argument and holds no reference to it, so that a replaced trainer
+    is freed as soon as its last user lets go."""
+
+    __slots__ = ("run", "cost")
+
+    def __init__(self, run: Callable, cost: Callable):
+        self.run = run
+        self.cost = cost
+
+    def __call__(self, *args, **kwargs):
+        return self.run(*args, **kwargs)
+
+    def cost_analysis(self, *args, **kwargs) -> dict:
+        return self.cost(*args, **kwargs)
 
 
 def topk_mask(lg: torch.Tensor, k: int) -> torch.Tensor:
@@ -189,6 +220,15 @@ class Trainer:
         self._params_gen = 0
         self._decode_params = None
         self._kv_pool: Optional["KVBlockPool"] = None
+        # the programs by key (_watched_jit), and every key ever built: a
+        # key seen before a cache clear rebuilds as rebuild_after_clear.
+        # generate's programs live apart, keyed by their batch: a new batch
+        # drops them (decode_cache_drop), as in the JAX package
+        self._jit_cache: Dict[tuple, telemetry.JitWatch] = {}
+        self._jit_seen_keys: set = set()
+        self._decode_b: Optional[int] = None
+        self._decode_fns: Dict[tuple, telemetry.JitWatch] = {}
+        self._decode_cause = "new_signature"
 
     # configuration (reference SetParam, nnet_impl-inl.hpp:31-69)
     def set_param(self, name: str, val: str) -> None:
@@ -277,6 +317,34 @@ class Trainer:
                         up.set_param(k, v)
                     ups[key] = up
             self.updaters.append(ups)
+        self._clear_jit_cache()
+
+    # programs (cxxnet_tpu/nnet/trainer.py:1102-1128)
+    def _clear_jit_cache(self) -> None:
+        """Drop every program (a new or reloaded model). The telemetry
+        counter is the rebuild pressure; _jit_seen_keys survives, so the
+        recompile detector calls the rebuilds rebuild_after_clear."""
+        if self._jit_cache:
+            telemetry.count("jit.cache_clear")
+        self._jit_cache.clear()
+
+    def _watch(self, prog: Program, name: str, cause: str, key):
+        return telemetry.jit_watch(prog, name, cause=cause, key=key,
+                                   probe=perf.DeviceProbe(self.dev))
+
+    def _watched_jit(self, key, name: str, build: Callable[[], Program]):
+        """Build-or-fetch the program ``key`` in ``_jit_cache``, wrapped in
+        the recompile detector, which records its first call at each new
+        signature with its cause: ``new_signature`` (first build of the
+        key), ``rebuild_after_clear`` (the cache was cleared by a model
+        init or load and a key seen before runs again) or
+        ``shape_change`` (same program, new input shapes)."""
+        if key not in self._jit_cache:
+            cause = ("rebuild_after_clear" if key in self._jit_seen_keys
+                     else "new_signature")
+            self._jit_seen_keys.add(key)
+            self._jit_cache[key] = self._watch(build(), name, cause, key)
+        return self._jit_cache[key]
 
     def _init_opt(self) -> None:
         self.opt_state = [{key: up.init_state(self.params[i][key])
@@ -524,12 +592,21 @@ class Trainer:
         return torch.Generator(device=self.dev).manual_seed(
             fold_in(self.seed, self._rng_counter))
 
+    def _train_tensors(self, batch):
+        """(data, label) of a training batch on the device."""
+        check(self.net is not None, "model not initialized")
+        check(batch.label is not None, "update needs labels")
+        return self._batch_tensors(batch)
+
     def _forward_backward(self, batch, gen: torch.Generator, keys):
         """(node values, labels, loss, gradients of the weights ``keys``)
         of one training forward with the loss on ``batch``."""
-        check(self.net is not None, "model not initialized")
-        check(batch.label is not None, "update needs labels")
-        data, label = self._batch_tensors(batch)
+        return self._forward_backward_on(*self._train_tensors(batch), gen,
+                                         keys)
+
+    def _forward_backward_on(self, data, label, gen: torch.Generator,
+                             keys):
+        """``_forward_backward`` on the device tensors of a batch."""
         labels = self.net.label_info_from(label)
         leaves = [self.params[i][k].requires_grad_() for i, k in keys]
         values, loss = self.net.forward(self.params, data, labels=labels,
@@ -555,18 +632,59 @@ class Trainer:
             out[i][k] = g
         return loss, out
 
+    def _get_step(self, do_update: bool, accumulate: bool,
+                  with_accum: bool, with_stats: bool,
+                  with_health: bool = False):
+        """The training-step program of these flags, under the JAX key."""
+        k = ("train", do_update, accumulate, with_accum, with_stats,
+             with_health)
+
+        def run(tr, params, data, label):
+            tr._train_step(do_update, with_stats, data, label)
+
+        def account(tr, params, data, label):
+            return cost.train_step_cost(tr.net, params, tr.updaters,
+                                        b=data.shape[0], do_update=do_update)
+        return self._watched_jit(k, "jit.train_step",
+                                 lambda: Program(run, account))
+
     def update(self, batch) -> None:
         """One mini-batch: forward with dropout and the loss, backward,
         and, every ``update_period`` batches, the optimizer step on the
         summed gradients. Train metrics stay on the device until
-        ``evaluate`` reads them; nothing here waits for the device."""
+        ``evaluate`` reads them; nothing here waits for the device. The
+        ``train.step`` span is the host's time in the step's call (its
+        dispatch), as the JAX package's."""
         need_update = (self.sample_counter + 1) % self.update_period == 0
+        accumulate = self.sample_counter % self.update_period != 0
+        with_accum = self.update_period > 1
+        with_stats = self.eval_train != 0 and len(self.train_metric) > 0
+        step = self._get_step(need_update, accumulate, with_accum,
+                              with_stats)
+        with telemetry.span("train.h2d"):
+            data, label = self._train_tensors(batch)
+        with telemetry.span("train.step"):
+            step(self, self.params, data, label)
+        if telemetry.enabled():
+            telemetry.count("train.images",
+                            getattr(batch, "batch_size", data.shape[0])
+                            - getattr(batch, "num_batch_padd", 0))
+            if need_update and with_accum:
+                telemetry.count("train.accum_flush")
+        self.sample_counter += 1
+        if self.sample_counter >= self.update_period:
+            self.sample_counter = 0
+            self.epoch_counter += 1
+
+    def _train_step(self, need_update: bool, with_stats: bool, data,
+                    label) -> None:
+        """The training step's work on the device tensors of one batch."""
         # the weights the updaters step; state (BN running stats) has none
         keys = self._update_keys()
-        values, labels, _, grads = self._forward_backward(
-            batch, self._next_gen(), keys)
+        values, labels, _, grads = self._forward_backward_on(
+            data, label, self._next_gen(), keys)
         state_ups = self.net._last_state_updates
-        if self.eval_train != 0 and len(self.train_metric) > 0:
+        if with_stats:
             with torch.no_grad():
                 outs = [values[n].reshape(values[n].shape[0], -1).float()
                         for n in self.eval_nodes]
@@ -600,10 +718,6 @@ class Trainer:
             self.params[i][k] = v
         if need_update or state_ups:
             self._params_gen += 1
-        self.sample_counter += 1
-        if self.sample_counter >= self.update_period:
-            self.sample_counter = 0
-            self.epoch_counter += 1
 
     def synchronize(self) -> None:
         """Wait until the device has finished the work queued so far."""
@@ -698,19 +812,51 @@ class Trainer:
         return x.to(dtype=torch.float32)
 
     def _forward_nodes(self, data, node_ids: Tuple[int, ...]):
+        """The eval forward's values of ``node_ids`` (the ``jit.eval_fwd``
+        program of the JAX key ``("fwd", node_ids)``)."""
         check(self.net is not None, "model not initialized")
-        with torch.no_grad():
-            values, _ = self.net.forward(self.params, self._input(data))
-        return [values[n] for n in node_ids]
+        node_ids = tuple(node_ids)
+
+        def run(tr, params, x):
+            with torch.no_grad():
+                values, _ = tr.net.forward(params, x)
+            return [values[n] for n in node_ids]
+
+        def account(tr, params, x):
+            return cost.forward_cost(tr.net, params, b=x.shape[0])
+        prog = self._watched_jit(("fwd", node_ids), "jit.eval_fwd",
+                                 lambda: Program(run, account))
+        x = self._input(data)
+        with telemetry.span("eval.forward"):
+            return prog(self, self.params, x)
 
     def predict_device(self, data) -> torch.Tensor:
         """The last node's per-row argmax (or its scalar column) as a
-        (batch,) float tensor that stays on the device."""
-        out = self._forward_nodes(data, (self.net_cfg.param.num_nodes - 1,))[0]
-        out = out.reshape(out.shape[0], -1)
-        if out.shape[1] != 1:
-            return torch.argmax(out, dim=1).float()
-        return out[:, 0].float()
+        (batch,) float tensor that stays on the device (the ``jit.predict``
+        program)."""
+        check(self.net is not None, "model not initialized")
+        node = self.net_cfg.param.num_nodes - 1
+
+        def run(tr, params, x):
+            with torch.no_grad():
+                values, _ = tr.net.forward(params, x)
+            out = values[node].reshape(x.shape[0], -1)
+            if out.shape[1] != 1:
+                return torch.argmax(out, dim=1).float()
+            return out[:, 0].float()
+
+        def account(tr, params, x):
+            # the forward, and the argmax's comparison per last-node value
+            n = 1
+            for v in tr.net.node_shapes[node][1:]:
+                n *= int(v)
+            return cost.forward_cost(tr.net, params, b=x.shape[0],
+                                     extra_flops=float(x.shape[0] * n))
+        prog = self._watched_jit(("pred", node), "jit.predict",
+                                 lambda: Program(run, account))
+        x = self._input(data)
+        with telemetry.span("predict"):
+            return prog(self, self.params, x)
 
     def predict(self, data) -> np.ndarray:
         return self.predict_device(data).cpu().numpy()
@@ -778,18 +924,22 @@ class Trainer:
         if n_new <= 0:
             return np.zeros((b, 0), np.int32)
         pick = sample_pick(temperature, top_k)
-        toks = torch.zeros((b, l_max), dtype=torch.int64, device=self.dev)
-        toks[:, :max_p] = torch.from_numpy(prompts.astype(np.int64))
-        self.decode(toks, torch.from_numpy(lens).to(self.dev), plen, total,
-                    pick=pick, seed=seed)
-        host = toks.cpu().numpy()
+        with telemetry.span("decode.generate", new_tokens=n_new):
+            toks = torch.zeros((b, l_max), dtype=torch.int64,
+                               device=self.dev)
+            toks[:, :max_p] = torch.from_numpy(prompts.astype(np.int64))
+            self.decode(toks, torch.from_numpy(lens).to(self.dev), plen,
+                        total, pick=pick, seed=seed,
+                        sampling=(temperature, top_k))
+            host = toks.cpu().numpy()
+        telemetry.count("decode.tokens", int(b) * int(n_new))
         return np.stack([host[r, lens[r]:lens[r] + n_new]
                          for r in range(b)]).astype(np.int32)
 
     def decode(self, toks: torch.Tensor, lens: torch.Tensor, plen: int,
                total: int,
                on_probs: Optional[Callable[[int, torch.Tensor], None]] = None,
-               pick=None, seed: int = 0) -> None:
+               pick=None, seed: int = 0, sampling=(0.0, 0)) -> None:
         """The decode loop of ``generate`` on a (batch, l_max) int64 token
         matrix on the device, in place: a prefill of [0, plen), then one
         step per position t in [plen, total - 1). Column t + 1 keeps the
@@ -799,45 +949,113 @@ class Trainer:
         lens >= total every column keeps its token: the run is
         teacher-forced. ``on_probs(t0, probs)``, when given, sees the last
         node's probabilities for positions t0 .. t0 + n - 1 as (batch,
-        vocab, n): the prefill's, then each step's."""
-        b, l_max = toks.shape
+        vocab, n): the prefill's, then each step's. The prefill and the
+        steps are the ``jit.decode_prefill`` and ``jit.decode_step``
+        programs of the JAX key ``("decode", b, plen, total, temperature,
+        top_k)`` (``sampling`` is the (temperature, top_k) ``pick`` draws
+        at). Where a reader wants the card's times (a trace context, the
+        telemetry log or the performance ledger), the host waits for the
+        first token (``first_token``, the ``decode.prefill`` span) and for
+        the last (``decode.decode``); else the steps queue behind the
+        prefill with no wait and the spans are the host's."""
+        b = toks.shape[0]
         pick = pick or sample_pick(0.0, 0)
-        net2 = self._net_for(b, 1)
-        pre_net = self._net_for(b, plen)
+        pre_fn, dec_fn = self._decode_programs(
+            b, (plen, total, float(sampling[0]), int(sampling[1])))
+        nets = (self._net_for(b, 1), self._net_for(b, plen))
         params = self._decode_params_current()
-        caches = self._new_caches(net2, b, l_max, toks.device)
-        last = net2.cfg.param.num_nodes - 1
         seeds = torch.full((b,), oprandom.seed_word(seed), dtype=torch.int64,
                            device=toks.device)
         rowid = torch.arange(b, device=toks.device)
+        t0 = time.perf_counter()
+        # a served request's TTFT boundary (servd's trace context) and the
+        # ledger's decode series are the card's times, not the launch
+        # queue's: only their readers make the host wait
+        timed = telemetry.current_trace() is not None \
+            or telemetry.enabled() or perf.enabled()
+        caches = pre_fn(nets, params, toks, lens, seeds, rowid, pick,
+                        on_probs)
+        if timed:
+            toks[:, plen].cpu()
+        t_first = time.perf_counter()
+        telemetry.mark("first_token")
+        telemetry.span_event("decode.prefill", t0, t_first - t0)
+        if total > plen + 1:
+            dec_fn(nets, params, toks, lens, caches, seeds, rowid, pick,
+                   on_probs)
+            if timed:
+                toks[:, total - 1].cpu()
+            telemetry.span_event("decode.decode", t_first,
+                                 time.perf_counter() - t_first,
+                                 tokens=int(b * (total - plen - 1)))
 
-        def place(t: int, probs: torch.Tensor) -> None:
+    def _decode_programs(self, b: int, fkey: tuple):
+        """generate's prefill and step-loop programs at batch b for
+        ``fkey`` = (plen, total, temperature, top_k). Another batch drops
+        every decode program first (cause ``decode_cache_drop``,
+        cxxnet_tpu/nnet/trainer.py:1450-1470)."""
+        if self._decode_b != b:
+            if self._decode_b is not None:
+                telemetry.count("decode.cache_drop")
+                self._decode_cause = "decode_cache_drop"
+            else:
+                self._decode_cause = "new_signature"
+            self._decode_b = b
+            self._decode_fns = {}
+        if fkey in self._decode_fns:
+            return self._decode_fns[fkey]
+        plen, total = fkey[0], fkey[1]
+        l_max = self.net_cfg.param.input_shape[2]
+
+        def place(toks, lens, t, probs, pick, seeds, rowid):
             cur = toks[:, t + 1]
             toks[:, t + 1] = torch.where(t + 1 < lens, cur,
                                          pick(probs, seeds, t, rowid))
 
-        with torch.no_grad():
-            values, _ = pre_net.forward(
-                params, toks[:, :plen].reshape(b, 1, 1, plen),
-                decode_pos=0, kv_cache=caches)
-            probs = values[last].reshape(b, -1, plen)
-            if on_probs is not None:
-                on_probs(0, probs)
-            place(plen - 1, probs[:, :, -1])
-            if telemetry.current_trace() is not None:
-                # a served request's TTFT boundary (servd's trace
-                # context): taken once the first token is on the host,
-                # so it is the card's time and not the launch queue's
-                toks[:, plen].cpu()
-            telemetry.mark("first_token")
-            for t in range(plen, total - 1):
-                values, _ = net2.forward(
-                    params, toks[:, t:t + 1].reshape(b, 1, 1, 1),
-                    decode_pos=t, kv_cache=caches)
-                probs = values[last].reshape(b, -1, 1)
+        def prefill(nets, params, toks, lens, seeds, rowid, pick, on_probs):
+            net2, pre_net = nets
+            last = pre_net.cfg.param.num_nodes - 1
+            caches = Trainer._new_caches(net2, b, l_max, toks.device)
+            with torch.no_grad():
+                values, _ = pre_net.forward(
+                    params, toks[:, :plen].reshape(b, 1, 1, plen),
+                    decode_pos=0, kv_cache=caches)
+                probs = values[last].reshape(b, -1, plen)
                 if on_probs is not None:
-                    on_probs(t, probs)
-                place(t, probs[:, :, 0])
+                    on_probs(0, probs)
+                place(toks, lens, plen - 1, probs[:, :, -1], pick, seeds,
+                      rowid)
+            return caches
+
+        def steps(nets, params, toks, lens, caches, seeds, rowid, pick,
+                  on_probs):
+            net2 = nets[0]
+            last = net2.cfg.param.num_nodes - 1
+            with torch.no_grad():
+                for t in range(plen, total - 1):
+                    values, _ = net2.forward(
+                        params, toks[:, t:t + 1].reshape(b, 1, 1, 1),
+                        decode_pos=t, kv_cache=caches)
+                    probs = values[last].reshape(b, -1, 1)
+                    if on_probs is not None:
+                        on_probs(t, probs)
+                    place(toks, lens, t, probs[:, :, 0], pick, seeds, rowid)
+
+        def prefill_cost(nets, params, *_):
+            return cost.forward_cost(nets[1], params, b, q_offs=[0] * b)
+
+        def steps_cost(nets, params, *_):
+            # the whole loop of total - plen - 1 one-token steps, as the
+            # JAX package's scan program covers it
+            return cost.decode_loop_cost(nets[0], params, b,
+                                         range(plen, total - 1))
+        key = ("decode", b) + tuple(fkey)
+        progs = (self._watch(Program(prefill, prefill_cost),
+                             "jit.decode_prefill", self._decode_cause, key),
+                 self._watch(Program(steps, steps_cost), "jit.decode_step",
+                             self._decode_cause, key))
+        self._decode_fns[fkey] = progs
+        return progs
 
     def beam_generate(self, prompts, n_new: int, beam: int = 4) -> np.ndarray:
         """KV-cached beam search (the JAX package's beam_generate,
@@ -862,11 +1080,34 @@ class Trainer:
               "net's sequence length %d" % (plen, n_new, l_max))
         if n_new <= 0:
             return np.zeros((b, 0), np.int32)
+        key = ("beam", b, B, plen, total)
+
+        def account(tr, params, toks):
+            c = cost.forward_cost(tr._net_for(b, plen), params, b,
+                                  q_offs=[0] * b)
+            loop = cost.decode_loop_cost(tr._net_for(b * B, 1), params,
+                                         b * B, range(plen, total - 1))
+            return {k: c[k] + loop[k] for k in c}
+        prog = self._watched_jit(
+            key, "jit.beam_decode",
+            lambda: Program(lambda tr, params, toks: tr._beam_search(
+                params, toks, b, B, plen, total), account))
+        toks = torch.zeros((b, l_max), dtype=torch.int64, device=self.dev)
+        toks[:, :plen] = torch.from_numpy(prompts.astype(np.int64))
+        with telemetry.span("decode.beam", beam=B):
+            out = prog(self, self._decode_params_current(),
+                       toks).cpu().numpy()
+        return out.astype(np.int32)
+
+    def _beam_search(self, params, toks: torch.Tensor, b: int, B: int,
+                     plen: int, total: int) -> torch.Tensor:
+        """The beam search of ``beam_generate`` on the (b, l_max) prompt
+        token matrix: the best continuation of each row, (b, n_new)."""
+        l_max = toks.shape[1]
         net2 = self._net_for(b * B, 1)
         pre_net = self._net_for(b, plen)
-        params = self._decode_params_current()
         last = net2.cfg.param.num_nodes - 1
-        dev = self.dev
+        dev = toks.device
 
         def logp(probs):
             return torch.log(probs.float().clamp_min(1e-30))
@@ -875,8 +1116,6 @@ class Trainer:
             srt = torch.sort(x, dim=1, descending=True, stable=True)
             return srt.values[:, :k], srt.indices[:, :k]
 
-        toks = torch.zeros((b, l_max), dtype=torch.int64, device=dev)
-        toks[:, :plen] = torch.from_numpy(prompts.astype(np.int64))
         with torch.no_grad():
             caches = self._new_caches(pre_net, b, l_max, dev)
             values, _ = pre_net.forward(
@@ -910,8 +1149,7 @@ class Trainer:
                 hist = hist[rows]
                 hist[:, t + 1] = (idx % V).reshape(-1)
             best = torch.argmax(scores, dim=1)
-            out = hist[torch.arange(b, device=dev) * B + best, plen:total]
-        return out.cpu().numpy().astype(np.int32)
+            return hist[torch.arange(b, device=dev) * B + best, plen:total]
 
     def decode_session(self, nslots: int, n_new: int,
                        temperature: float = 0.0, top_k: int = 0,
@@ -957,6 +1195,58 @@ class Trainer:
             self._kv_pool.release()
         self._kv_pool = None
 
+    def expected_decode_grid(self, buckets, plens, temperature:
+                             float = 0.0, top_k: int = 0,
+                             kv_block: int = 0):
+        """Enumerate the EXPECTED serving program grid as ``(key,
+        bucket_label)`` pairs — the jit-cache keys a serving datapath
+        over these ``buckets`` (slot counts) and ``plens`` (declared
+        prompt lengths, ``serve_plen_buckets``) will compile, exactly
+        as ``DecodeSession`` keys them (the JAX package's enumeration,
+        cxxnet_tpu/nnet/trainer.py:1879-1928). Feeding the pairs to
+        ``perf.Ledger.set_expected_grid`` turns the compile flight
+        recorder into the warm-grid readiness account (doc/
+        observability.md): warm-vs-expected per bucket,
+        ``cxxnet_ready_programs_pct``, the ``warming`` health state.
+
+        Pure enumeration — no params, no device, no compile. Prefill
+        keys land under the ``"prefill"`` bucket label (they are
+        per-prompt-length, shared by every slot bucket); admit/step
+        keys under their slot count. The paged suffix-prefill reuse
+        variants (``p0 > 0`` — one per observed shared-prefix length)
+        are deliberately NOT enumerated: their population is
+        input-dependent, so they compile lazily and simply do not
+        gate readiness."""
+        temperature, top_k = float(temperature), int(top_k)
+        grid = []
+        for plen in sorted({int(p) for p in plens}):
+            check(plen >= 1, "expected_decode_grid: plen must be >= 1")
+            if kv_block > 0:
+                l_max = self.net_cfg.param.input_shape[2]
+                bs = int(kv_block)
+                check(l_max % bs == 0,
+                      "expected_decode_grid: kv_block %d must divide "
+                      "the net's sequence length %d" % (bs, l_max))
+                grid.append((("sess_prefill_paged", plen, 0,
+                              l_max // bs, bs, temperature, top_k),
+                             "prefill"))
+            else:
+                grid.append((("sess_prefill", plen, temperature,
+                              top_k), "prefill"))
+        for b in sorted({max(1, int(b)) for b in buckets}):
+            if kv_block > 0:
+                l_max = self.net_cfg.param.input_shape[2]
+                bs = int(kv_block)
+                T = l_max // bs
+                grid.append((("sess_admit_paged", b, T), str(b)))
+                grid.append((("sess_step_paged", b, T, bs,
+                              temperature, top_k), str(b)))
+            else:
+                grid.append((("sess_admit", b), str(b)))
+                grid.append((("sess_step", b, temperature, top_k),
+                             str(b)))
+        return grid
+
     def _params_key(self):
         """What the decode copy and a session's caches are made from: the
         params list (reassigned by init_model / load_model) and the
@@ -999,10 +1289,11 @@ class Trainer:
         cfg2.param.input_shape = (1, 1, seq_len)
         return self._new_net(cfg2, batch_size, True)
 
-    def _new_caches(self, net2: NeuralNet, b: int, l_max: int, device):
+    @staticmethod
+    def _new_caches(net2: NeuralNet, b: int, l_max: int, device):
         """Zeroed k/v caches of ``_decode_cache_specs``' layout, in the
         compute dtype (cxxnet_tpu/nnet/trainer.py:1694)."""
-        _, keys, shapes = self._decode_cache_specs(net2, b, l_max)
+        _, keys, shapes = Trainer._decode_cache_specs(net2, b, l_max)
         return {k: torch.zeros(sh, dtype=net2.compute_dtype or torch.float32,
                                device=device)
                 for k, sh in zip(keys, shapes)}
@@ -1314,29 +1605,26 @@ class DecodeSession:
                                              a.retained_blocks, a.usable,
                                              a.blocks_for(plen, self.n_new)))
         try:
-            t1 = torch.tensor([toks], dtype=torch.int64, device=dev)
-            with torch.no_grad():
-                if ticket is None:
-                    caches = {k: c[slot:slot + 1]
-                              for k, c in self._caches.items()}
-                    probs = self._prefill(t1, 0, caches)
-                else:
-                    probs = self._prefill_paged(t1, ticket)
-                first = self._pick(
-                    probs, torch.tensor([word], device=dev), plen - 1,
-                    torch.zeros(1, dtype=torch.int64, device=dev))
-                self._toks[slot, :plen] = t1[0]
-                self._toks[slot, plen] = first[0]
-                self._seeds[slot] = word
-                self._pos[slot] = plen
-                self._live[slot] = int(self.n_new > 1)
-                if ticket is not None:
-                    self._tables[slot].zero_()
-                    self._tables[slot, :len(ticket.ids)] = torch.tensor(
-                        ticket.ids, dtype=torch.int64, device=dev)
+            t0 = time.perf_counter()
+            t1 = torch.zeros((1, self.l_max), dtype=torch.int64, device=dev)
+            t1[0, :plen] = torch.tensor(toks, dtype=torch.int64, device=dev)
+            seed_t = torch.tensor([word], device=dev)
+            params = self.tr._decode_params_current()
+            if ticket is None:
+                caches = {k: c[slot:slot + 1]
+                          for k, c in self._caches.items()}
+                first = self._prefill_fn(plen)(self, params, t1[:, :plen],
+                                               seed_t, caches)
+            else:
+                first = self._prefill_fn_paged(plen, ticket.p0)(
+                    self, params, t1[:, :plen], seed_t, ticket)
+            self._admit_fn()(self, self._toks, slot, t1, first, word, plen,
+                             ticket)
             first = int(first[0])              # waits: the first token
+            t_first = time.perf_counter()
             # the TTFT boundary the serving frontend's trace context reads
             telemetry.mark("first_token")
+            telemetry.span_event("decode.prefill", t0, t_first - t0)
         except Exception:
             # the session's (and a pool's) device state is unknown now
             self.closed = True
@@ -1351,19 +1639,109 @@ class DecodeSession:
         self._remaining[slot] = self.n_new - 1
         self._plen[slot] = plen
         self._pos_host[slot] = plen
+        telemetry.count("decode.tokens")
         return first, self._remaining[slot] == 0
 
-    def _prefill(self, t1: torch.Tensor, p0: int, caches) -> torch.Tensor:
+    # -- programs (cxxnet_tpu/nnet/trainer.py:2470-2676): the JAX keys,
+    # cached on the trainer and shared by its sessions --------------------
+    def _prefill_fn(self, plen: int):
+        """The dense admission's prefill: the b=1 forward of the prompt
+        into the slot's cache rows, and its first token."""
+        def run(sess, params, t1, seed_t, caches):
+            with torch.no_grad():
+                probs = sess._prefill(params, t1, 0, caches)
+                return sess._pick(probs, seed_t, plen - 1,
+                                  torch.zeros(1, dtype=torch.int64,
+                                              device=t1.device))
+
+        def account(sess, params, *_):
+            return cost.forward_cost(sess.tr._net_for(1, plen), params, 1,
+                                     q_offs=[0])
+        return self.tr._watched_jit(
+            ("sess_prefill", plen, self.temperature, self.top_k),
+            "jit.decode_prefill", lambda: Program(run, account))
+
+    def _prefill_fn_paged(self, plen: int, p0: int):
+        """The paged admission's prefill for (prompt length, reuse
+        offset): the suffix [p0, plen) against the gathered view, its
+        blocks written back, and its first token."""
+        pool = self.pool
+
+        def run(sess, params, t1, seed_t, ticket):
+            with torch.no_grad():
+                probs = sess._prefill_paged(params, t1, ticket)
+                return sess._pick(probs, seed_t, plen - 1,
+                                  torch.zeros(1, dtype=torch.int64,
+                                              device=t1.device))
+
+        def account(sess, params, *_):
+            return cost.forward_cost(sess.tr._net_for(1, plen - p0), params,
+                                     1, q_offs=[p0])
+        return self.tr._watched_jit(
+            ("sess_prefill_paged", plen, p0, pool.T, pool.bs,
+             self.temperature, self.top_k),
+            "jit.decode_prefill", lambda: Program(run, account))
+
+    def _admit_fn(self):
+        """An admission's scatter of the slot's row: its tokens, first
+        token, seed, position and state (and a paged slot's block
+        table)."""
+        paged = self.pool is not None
+        T = self.pool.T if paged else 0
+
+        def run(sess, toks, slot, t1, first, word, plen, ticket):
+            with torch.no_grad():
+                toks[slot] = t1[0]
+                toks[slot, plen] = first[0]
+                sess._seeds[slot] = word
+                sess._pos[slot] = plen
+                sess._live[slot] = int(sess.n_new > 1)
+                if ticket is not None:
+                    sess._tables[slot].zero_()
+                    sess._tables[slot, :len(ticket.ids)] = torch.tensor(
+                        ticket.ids, dtype=torch.int64, device=t1.device)
+
+        def account(sess, *_):
+            return cost.admit_cost(sess.l_max, T)
+        key = ("sess_admit_paged", self.nslots, T) if paged \
+            else ("sess_admit", self.nslots)
+        return self.tr._watched_jit(key, "jit.decode_admit",
+                                    lambda: Program(run, account))
+
+    def _step_fn(self):
+        """One step of every slot: the one-token forward at each slot's
+        position, its pick, and (paged) each slot's block written back.
+        Its arguments name the session's token and position tensors, which
+        the step reads and writes in place: a bucket's program is told
+        apart by their shapes, as the JAX program is."""
+        def run(sess, params, toks, pos):
+            return sess._step(params)
+
+        def account(sess, params, toks, pos):
+            # the positions the slots step at in this call
+            return cost.forward_cost(sess._net, params,
+                                     sess.nslots,
+                                     q_offs=list(sess._pos_host))
+        if self.pool is not None:
+            key = ("sess_step_paged", self.nslots, self.pool.T, self.pool.bs,
+                   self.temperature, self.top_k)
+        else:
+            key = ("sess_step", self.nslots, self.temperature, self.top_k)
+        return self.tr._watched_jit(key, "jit.decode_step",
+                                    lambda: Program(run, account))
+
+    def _prefill(self, params, t1: torch.Tensor, p0: int,
+                 caches) -> torch.Tensor:
         """The b=1 forward of the prompt's positions [p0, plen) into the
         row caches ``caches``; the last position's probabilities (1, V)."""
         L = t1.shape[1] - p0
         net = self.tr._net_for(1, L)
-        values, _ = net.forward(self.tr._decode_params_current(),
-                                t1[:, p0:].reshape(1, 1, 1, L),
+        values, _ = net.forward(params, t1[:, p0:].reshape(1, 1, 1, L),
                                 decode_pos=p0, kv_cache=caches)
         return values[self._last].reshape(1, -1, L)[:, :, -1]
 
-    def _prefill_paged(self, t1: torch.Tensor, ticket) -> torch.Tensor:
+    def _prefill_paged(self, params, t1: torch.Tensor,
+                       ticket) -> torch.Tensor:
         """A paged admission: the slot's dense view gathered through the
         ticket's gather ids (a shared prefix's content included), the
         prefill of [p0, plen) (p0 = 0: the whole prompt, as the dense
@@ -1375,7 +1753,7 @@ class DecodeSession:
         grow[0, :len(ticket.gather_ids)] = torch.tensor(
             ticket.gather_ids, dtype=torch.int64, device=dev)
         views = kv_gather_views(pool.pools, grow, bs)
-        probs = self._prefill(t1, p0, views)
+        probs = self._prefill(params, t1, p0, views)
         k0, k1 = p0 // bs, -(-plen // bs)
         wb = torch.tensor(ticket.ids[k0:k1], dtype=torch.int64, device=dev)
         for k, v in views.items():
@@ -1393,32 +1771,17 @@ class DecodeSession:
             return []
         S = self.nslots
         try:
-            with torch.no_grad():
-                if self.pool is not None:
-                    caches = kv_gather_views(self.pool.pools, self._tables,
-                                             self.pool.bs)
-                else:
-                    caches = self._caches
-                tok = self._toks.gather(1, self._pos[:, None])
-                values, _ = self._net.forward(
-                    self.tr._decode_params_current(), tok.reshape(S, 1, 1, 1),
-                    decode_pos=self._pos,
-                    decode_span=(min(self._pos_host), max(self._pos_host)),
-                    kv_cache=caches)
-                nxt = self._pick(values[self._last].reshape(S, -1),
-                                 self._seeds, self._pos, self._rowid)
-                self._toks.scatter_(
-                    1, (self._pos + 1).clamp_(max=self.l_max - 1)[:, None],
-                    nxt[:, None])
-                if self.pool is not None:
-                    self._write_back(caches)
-                self._pos += self._live
+            t0 = time.perf_counter()
+            nxt = self._step_fn()(self, self.tr._decode_params_current(),
+                                  self._toks, self._pos)
             nxt = nxt.cpu().tolist()            # waits: this iteration
         except Exception:
             self.closed = True
             if self.pool is not None:
                 self.pool.release()
             raise
+        telemetry.span_event("decode.step", t0, time.perf_counter() - t0,
+                             slots=self.active_count)
         out = []
         for s in range(S):
             if not self._active[s] or self._remaining[s] <= 0:
@@ -1430,7 +1793,34 @@ class DecodeSession:
                 # written: no later step reads it)
                 self._live[s] = 0
             out.append((s, int(nxt[s]), self._remaining[s] == 0))
+        telemetry.count("decode.tokens", len(out))
         return out
+
+    def _step(self, params) -> torch.Tensor:
+        """One step's device work: every slot's one-token forward at its
+        position, its pick written after it, its position advanced; the
+        picked tokens (nslots,) on the device."""
+        S = self.nslots
+        with torch.no_grad():
+            if self.pool is not None:
+                caches = kv_gather_views(self.pool.pools, self._tables,
+                                         self.pool.bs)
+            else:
+                caches = self._caches
+            tok = self._toks.gather(1, self._pos[:, None])
+            values, _ = self._net.forward(
+                params, tok.reshape(S, 1, 1, 1), decode_pos=self._pos,
+                decode_span=(min(self._pos_host), max(self._pos_host)),
+                kv_cache=caches)
+            nxt = self._pick(values[self._last].reshape(S, -1),
+                             self._seeds, self._pos, self._rowid)
+            self._toks.scatter_(
+                1, (self._pos + 1).clamp_(max=self.l_max - 1)[:, None],
+                nxt[:, None])
+            if self.pool is not None:
+                self._write_back(caches)
+            self._pos += self._live
+        return nxt
 
     def _write_back(self, views) -> None:
         """Each slot's current block (the only one a step writes) from its

@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -47,6 +48,45 @@ _SHAPE_ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
 _ARGTYPES = [ctypes.c_void_p] * 5 + _SHAPE_ARGTYPES
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _SHAPE_ARGTYPES
 _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + _SHAPE_ARGTYPES
+
+
+def kept_pairs(L: int, causal, window: int, skv: Optional[int] = None,
+               q_off: int = 0, kv_off: int = 0) -> int:
+    """(query, key) pairs of one head that the mask keeps, for L queries
+    at the global positions q_off.. against skv keys (L by default) at
+    kv_off.. (a ring step's block, a decode step's cache; 0 and 0 for a
+    whole sequence)."""
+    skv = L if skv is None else skv
+    if not causal:
+        return L * skv
+    qpos = q_off + np.arange(L, dtype=np.int64)
+    hi = np.minimum(qpos - kv_off + 1, skv)            # keys <= the query
+    lo = np.maximum(qpos - window + 1 - kv_off, 0) if window > 0 else 0
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def work(b: int, h: int, nkv: int, L: int, d: int, causal, window: int,
+         esize: int) -> Tuple[int, int]:
+    """(operations, bytes) the flash forward needs: 4 d flops (q k^T and
+    p v) per (query, key) pair the mask keeps, counted for this shape;
+    q, k, v read once, out (input dtype) and lse (f32) written once."""
+    ops = 4 * d * kept_pairs(L, causal, window) * b * h
+    nbytes = esize * (2 * b * h * L * d + 2 * b * nkv * L * d) + 4 * b * h * L
+    return ops, nbytes
+
+
+def bwd_work(b: int, h: int, nkv: int, L: int, d: int, causal, window: int,
+             esize: int):
+    """((dq operations, bytes), (dk/dv operations, bytes)) the backward
+    kernels need, counted for this shape: per (query, key) pair the mask
+    keeps, 6 d flops for dQ (S, dP, dS K) and 8 d for dK/dV (S, P^T dO, dP,
+    dS^T Q); each input read once (q, k, v, dO in the input dtype, lse and
+    D in f32), each output written once."""
+    pairs = kept_pairs(L, causal, window) * b * h
+    q_elems, kv_elems = b * h * L * d, b * nkv * L * d
+    rows = 8 * b * h * L
+    return ((6 * d * pairs, esize * (3 * q_elems + 2 * kv_elems) + rows),
+            (8 * d * pairs, esize * (2 * q_elems + 4 * kv_elems) + rows))
 
 
 def supports(L: int, d: int) -> bool:

@@ -45,6 +45,27 @@ MAX_NSIZE = 232448 // (128 * 12) - CHANNEL_TILE + 1
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# operations per element, the count of the kernels' bounds and of the
+# program ledger (nnet/cost.py). Forward: square, window add and subtract,
+# scale and shift, pow (counted as 3: log, multiply, exp), output multiply.
+# Backward: pow (3), n^-b / n (1), g*x*n^(-b-1) (2), window add and
+# subtract (2), g*n^-b - coef*x*s (4)
+OPS_PER_ELEM = 9
+BWD_OPS_PER_ELEM = 12
+
+
+def work(n: int, esize: int, with_norm: bool = True) -> Tuple[int, int]:
+    """(operations, bytes) of the forward kernel over n elements of
+    ``esize`` bytes: x read once, out written once, and the f32 norm
+    written once when it is kept (training)."""
+    return n * OPS_PER_ELEM, n * (2 * esize + (4 if with_norm else 0))
+
+
+def bwd_work(n: int, esize: int) -> Tuple[int, int]:
+    """(operations, bytes) of the backward kernel over n elements: x, g and
+    the f32 norm read once, dx written once."""
+    return n * BWD_OPS_PER_ELEM, n * (3 * esize + 4)
+
 
 def _window_sum(x: torch.Tensor, nsize: int, before: int) -> torch.Tensor:
     """Sum over dim 1 of the nsize channels [i - before, i - before +

@@ -69,6 +69,25 @@ _ROWS_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
 MAX_ROWS = 65535
 
 
+# Philox4x32-10 per counter: 10 rounds of 2 low and 2 high 32-bit products
+# and 4 xors, 9 key bumps of 2 adds, then per word a shift, a conversion and
+# a multiply: ~110 integer operations per 4 elements
+OPS_PER_ELEM = 28
+
+
+def work(n: int) -> Tuple[int, int]:
+    """(operations, bytes) of the bulk draw of n words: the f32 words
+    written once."""
+    return n * OPS_PER_ELEM, 4 * n
+
+
+def rows_work(rows: int, n: int) -> Tuple[int, int]:
+    """(operations, bytes) of the per-row draw of n words for each of
+    ``rows`` rows: the f32 words written once, each row's seed, position
+    and row id (int64) read once."""
+    return rows * n * OPS_PER_ELEM, 4 * rows * n + 3 * 8 * rows
+
+
 def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(high, low) 32-bit words of m * x for a 32-bit constant m and an
     int64 tensor of 32-bit words x. The full product can reach 2^64, past a

@@ -37,7 +37,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import _build
-from .flash_attn import NEG_INF
+from .flash_attn import NEG_INF, kept_pairs
 
 # launches of the CUDA kernels, each counted in its wrapper where it
 # launches: the forward step, the dQ step and the dK/dV step
@@ -55,6 +55,29 @@ _SHAPE_ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
 _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + _SHAPE_ARGTYPES
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _SHAPE_ARGTYPES
 _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + _SHAPE_ARGTYPES
+
+
+def work(kernel: str, bh: int, bkv: int, sq: int, skv: int, d: int,
+         q_off: int, kv_off: int, causal, window: int,
+         esize: int) -> Tuple[int, int]:
+    """(operations, bytes) one ring step needs (``kernel`` "fwd", "dq" or
+    "dkv"), counted for these offsets: per (query, key) pair the mask
+    keeps 4 d flops (forward), 6 d (dQ) or 8 d (dK/dV); q, the block's k
+    and v (and dO, lse, D) read once, the f32 carries read and written
+    once. A step that keeps no pair needs only the forward's (m, l)
+    copied."""
+    pairs = kept_pairs(sq, causal, window, skv, q_off, kv_off) * bh
+    q_b, kv_b = esize * bh * sq * d, esize * bkv * skv * d
+    rows, q_f32, kv_f32 = 4 * bh * sq, 4 * bh * sq * d, 4 * bkv * skv * d
+    if kernel == "fwd":
+        if not pairs:
+            return 0, 4 * rows
+        return 4 * d * pairs, q_b + 2 * kv_b + 4 * rows + 2 * q_f32
+    if not pairs:
+        return 0, 0
+    if kernel == "dq":
+        return 6 * d * pairs, 2 * q_b + 2 * kv_b + 2 * rows + 2 * q_f32
+    return 8 * d * pairs, 2 * q_b + 2 * kv_b + 2 * rows + 4 * kv_f32
 
 
 def supports(sq: int, skv: int, d: int) -> bool:

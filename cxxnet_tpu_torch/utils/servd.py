@@ -10,10 +10,11 @@ calls a compile (an XLA program built inside a request) is, in the port,
 the first-use build and load of a CUDA kernel library by ``ops/_build.py``;
 the compile windows and ``recompiles`` fields below carry those records.
 The status HTTP server (``utils/statusd.py``) reads the frontend's probes,
-flight recorder and batch account. The fleet router and the perf ledger
-are not ported: the frontend's hooks into them (``set_warm_account``) are
-kept and behave as in JAX with the perf ledger off, so
-``roofline_bound_tokens_per_s`` is None on every record.
+flight recorder and batch account. The performance ledger
+(``utils/perf.py``) gives every flight record its decode bound
+(``roofline_bound_tokens_per_s``, None until a decode-step card is ready)
+and the warm-grid account behind ``set_warm_account``. The fleet router is
+not ported.
 
 What a request gets on the way to the backend:
 
@@ -239,6 +240,7 @@ from . import checkpoint as ckpt
 from . import health
 from . import kvblocks
 from . import lockrank
+from . import perf
 from . import statusd
 from . import telemetry
 
@@ -246,13 +248,6 @@ __all__ = ["CircuitBreaker", "ServeFrontend", "BatchFlightRecorder",
            "embed_vocab",
            "TRACE_ID_MAX", "valid_trace_id", "TENANT_ID_MAX",
            "valid_tenant_id", "parse_tenants", "selftest"]
-
-def _decode_bound_tokens_per_s(ntok: int) -> Optional[float]:
-    """The decode-step roofline bound of the perf ledger's card, which is
-    not ported: None, what the JAX package writes until its ledger has a
-    card ready."""
-    return None
-
 
 # the TRACE prefix's id bound: long enough for any reasonable minting
 # scheme (router prefix + counter, uuid hex), short enough that a
@@ -2860,7 +2855,7 @@ class ServeFrontend:
             # measured tokens/s far under it flags "slower than the
             # hardware allows" per request, right in /requestz
             rec["roofline_bound_tokens_per_s"] = \
-                _decode_bound_tokens_per_s(ntok)
+                perf.decode_bound_tokens_per_s(ntok)
         if tc is not None and tc.counts:
             rec["counts"] = dict(tc.counts)
         # autopsy inputs + verdict (utils/autopsy.py): seconds of this

@@ -36,10 +36,19 @@ Endpoints (``ENDPOINTS``):
   (``autopsy.classify_record``).
 * ``/eventz`` — the incident timeline (``autopsy.incidents``).
 
-``/programz``, ``/compilez`` and ``/profilez`` (the performance ledger and
-on-demand profiling) and ``/fleetz`` (the fleet router) are not ported:
-each answers 404 saying so, and the 404 listing names only the pages
-served.
+* ``/programz`` — the program performance ledger (``utils/perf.py``): the
+  HBM account and one row per carded program (flops, peak bytes, the
+  roofline prediction, measured p50/p99, MFU%, roofline efficiency);
+  ``?json=1``, ``?n=<k>``. 404 naming the wiring without a ledger.
+* ``/compilez`` — the compile flight recorder: the warm-grid readiness
+  account and the recent compiles with their trigger (``?json=1``,
+  ``?n=<k>``).
+* ``/profilez?secs=N`` — start an on-demand ``torch.profiler`` capture of
+  the next N seconds into the run-scoped ``profilez_dir`` (409 while one
+  runs).
+
+``/fleetz`` (the fleet router) is not ported: it answers 404 saying so,
+and the 404 listing names only the pages served.
 
 Serving SLOs: an ``SLOTracker`` (objectives ``slo_ttft_ms`` /
 ``slo_p99_ms`` / ``slo_availability`` over a rolling window) turns each
@@ -78,8 +87,10 @@ from . import telemetry
 __all__ = [
     "StatusServer", "SLOTracker", "start", "stop", "active",
     "set_run_info", "update_progress", "register_probe", "wire_health",
-    "set_flight_recorder", "set_slo", "set_slo_tenants", "set_batch",
-    "set_auditor", "prometheus_metrics", "requestz_html", "batchz_html",
+    "set_flight_recorder", "set_slo", "set_slo_tenants", "set_perf",
+    "set_profiler", "set_batch",
+    "set_auditor", "prometheus_metrics", "programz_html", "compilez_html",
+    "requestz_html", "batchz_html",
     "why_html", "eventz_html", "ENDPOINTS", "NOT_PORTED_PAGES",
     "PROM_LINE_RE", "selftest",
 ]
@@ -96,13 +107,13 @@ ENDPOINTS: Tuple[Tuple[str, bool, bool], ...] = (
     ("/batchz", True, True),
     ("/why", True, False),
     ("/eventz", True, True),
+    ("/programz", True, True),
+    ("/compilez", True, True),
+    ("/profilez", False, False),
 )
 # the JAX package's pages that the port does not serve, with what they
 # read; each answers 404 saying so
 NOT_PORTED_PAGES = {
-    "/programz": "the program performance ledger",
-    "/compilez": "the program performance ledger",
-    "/profilez": "on-demand profiling",
     "/fleetz": "the fleet router",
 }
 
@@ -624,6 +635,126 @@ def _mib(v) -> str:
     return "n/a" if v is None else "%.1f" % (v / float(1 << 20))
 
 
+def programz_html(snap: dict) -> str:
+    """Render a ``perf.Ledger.snapshot()`` as the /programz page: the
+    HBM account, then one row per carded program. Pure function of the
+    snapshot — the perf selftest and tests validate it socket-free."""
+    esc = html.escape
+    spec = snap.get("spec") or {}
+    hbm = snap.get("hbm") or {}
+    parts = ["<html><head><title>cxxnet programz</title></head>"
+             "<body><h1>program performance ledger</h1><pre>"]
+    parts.append("device spec: %s  peak %.1f TFLOP/s  HBM %.0f GB/s  "
+                 "capacity %.1f GiB"
+                 % (esc(str(spec.get("name", "?"))),
+                    (spec.get("peak_flops") or 0.0) / 1e12,
+                    (spec.get("hbm_bw") or 0.0) / 1e9,
+                    (spec.get("hbm_capacity") or 0.0) / 2.0**30))
+    peak = hbm.get("peak_bytes")
+    head = hbm.get("headroom_bytes")
+    dkv = hbm.get("decode_kv_bytes")
+    parts.append("hbm: peak program footprint %s MiB   headroom %s MiB"
+                 % (_mib(peak), _mib(head))
+                 + ("   decode kv cache %s MiB (see /batchz)"
+                    % _mib(dkv) if dkv is not None else ""))
+    parts.append("</pre><h2>programs</h2><pre>")
+    cols = ("program", "shapes", "cause", "n", "compile_s", "GFLOPs",
+            "peak MiB", "pred ms", "p50 ms", "p99 ms", "MFU%", "eff%")
+    fmt = "%-18s %-28s %-18s %3s %9s %9s %9s %8s %8s %8s %6s %6s"
+    parts.append(fmt % cols)
+
+    def num(v, scale=1.0, form="%.2f"):
+        return "n/a" if v is None else form % (v * scale)
+
+    for c in snap.get("cards") or []:
+        if c.get("status") == "error":
+            parts.append(fmt % (
+                esc(c.get("name", "?")), esc(str(c.get("shapes", "?"))),
+                esc(str(c.get("cause", "?"))), c.get("compiles", 0),
+                num(c.get("compile_s")), "ERR", "ERR", "-", "-", "-",
+                "-", "-"))
+            parts.append("    analysis error: %s"
+                         % esc(str(c.get("error"))))
+            continue
+        shared = c.get("series_shared_by", 1) > 1
+        parts.append(fmt % (
+            esc(c.get("name", "?")), esc(str(c.get("shapes", "?"))),
+            esc(str(c.get("cause", "?"))), c.get("compiles", 0),
+            num(c.get("compile_s")), num(c.get("flops"), 1e-9),
+            _mib(c.get("peak_bytes")), num(c.get("predicted_s"), 1e3),
+            num(c.get("measured_p50_ms")) + ("*" if shared else ""),
+            num(c.get("measured_p99_ms")),
+            num(c.get("mfu_pct"), form="%.1f"),
+            num(c.get("roofline_eff_pct"), form="%.1f")))
+    if not snap.get("cards"):
+        parts.append("(no programs carded yet — nothing compiled since "
+                     "the ledger was enabled)")
+    parts.append("</pre><p>pred = max(flops/peak, bytes/bw) roofline; "
+                 "MFU% and eff% join the measured latency histogram "
+                 "(doc/performance.md \"Live program ledger\"); "
+                 "* = several signatures of this program share one "
+                 "measured series, so p50/MFU/eff aggregate them; "
+                 "<a href='/programz?json=1'>json</a> "
+                 "<a href='/statusz'>statusz</a></p></body></html>")
+    return "\n".join(parts)
+
+
+def compilez_html(body: dict) -> str:
+    """Render the compile flight recorder as the /compilez page: the
+    warm-grid readiness account, then one row per recorded compile
+    (newest first) with its trigger attribution — which request /
+    dispatcher window paid the cliff. Pure function of the
+    ``{"compiles", "total", "shown", "readiness"}`` body the handler
+    builds — the perf selftest and tests validate it socket-free."""
+    esc = html.escape
+    rd = body.get("readiness") or {}
+    parts = ["<html><head><title>cxxnet compilez</title></head>"
+             "<body><h1>compile flight recorder</h1><pre>"]
+    pct = rd.get("ready_pct")
+    if pct is None:
+        parts.append("warm grid: no expected program grid registered "
+                     "(serve-only; learn_task wires it from "
+                     "serve_buckets/serve_plen_buckets)")
+    else:
+        parts.append("warm grid: %d/%d programs compiled (%.1f%% ready)"
+                     % (rd.get("warm", 0), rd.get("expected", 0), pct))
+        for b, st in sorted((rd.get("buckets") or {}).items()):
+            parts.append("  bucket %-10s %d/%d (%.1f%%)"
+                         % (esc(str(b)), st.get("warm", 0),
+                            st.get("expected", 0),
+                            st.get("ready_pct", 0.0)))
+        cold = rd.get("cold_keys") or []
+        if cold:
+            parts.append("  cold: " + " ".join(esc(k) for k in cold))
+    parts.append("</pre><h2>compiles (%d shown of %d recorded)</h2><pre>"
+                 % (body.get("shown", 0), body.get("total", 0)))
+    cols = ("seq", "ts", "program", "cause", "seconds", "trigger",
+            "key")
+    fmt = "%5s %9s %-18s %-19s %8s %-24s %s"
+    parts.append(fmt % cols)
+    for r in body.get("compiles") or []:
+        trig = r.get("trigger_request") or r.get("trigger_context") \
+            or "-"
+        parts.append(fmt % (
+            r.get("seq", "?"),
+            "%.2f" % r["ts"] if r.get("ts") is not None else "n/a",
+            esc(str(r.get("name", "?"))), esc(str(r.get("cause", "?"))),
+            "%.3f" % r.get("seconds", 0.0), esc(str(trig)),
+            esc(str(r.get("key") or r.get("shapes") or "?"))))
+    if not body.get("compiles"):
+        parts.append("(no compiles recorded since the ledger was "
+                     "enabled)")
+    parts.append("</pre><p>trigger = the request id (prefill paid the "
+                 "cliff inside that request) or the dispatcher window "
+                 "(session:/step: — every request aboard the batch "
+                 "stalled; their flight records carry it as "
+                 "compile_stall_s); "
+                 "<a href='/compilez?json=1'>json</a> "
+                 "<a href='/programz'>programz</a> "
+                 "<a href='/statusz'>statusz</a></p></body></html>")
+    return "\n".join(parts)
+
+
 def requestz_html(recs: List[dict], total: int, cap: int,
                   limit: int) -> str:
     """Render a flight-recorder listing as the /requestz page — one
@@ -1114,6 +1245,97 @@ class _Endpoint(BaseHTTPRequestHandler):
                 else:
                     self._reply(200, "text/html; charset=utf-8",
                                 eventz_html(rows, n).encode("utf-8"))
+            elif path == "/programz":
+                lg = srv.perf
+                q = parse_qs(query)
+                try:
+                    # ?n=<k>: program cards shown (default all — the
+                    # grid is small; floods of shapes are not). The
+                    # query contract outranks the subsystem check: a
+                    # malformed ?n is 400 even with no ledger wired.
+                    n = int((q.get("n") or ["0"])[0])
+                except ValueError:
+                    self._reply(400, "text/plain; charset=utf-8",
+                                b"n must be an integer\n")
+                    return
+                if lg is None:
+                    self._reply(404, "text/plain; charset=utf-8",
+                                b"no performance ledger registered "
+                                b"(perf_ledger=0?)\n")
+                else:
+                    snap = lg.snapshot()
+                    if n > 0:
+                        snap = dict(snap)
+                        snap["cards"] = (snap.get("cards") or [])[:n]
+                    if q.get("json"):
+                        self._reply(200, "application/json",
+                                    json.dumps(snap).encode("utf-8"))
+                    else:
+                        self._reply(200, "text/html; charset=utf-8",
+                                    programz_html(snap).encode("utf-8"))
+            elif path == "/compilez":
+                lg = srv.perf
+                q = parse_qs(query)
+                try:
+                    # ?n=<k>: compile-ring rows shown (default 64).
+                    # Contract first: malformed ?n is 400, ledger or not.
+                    n = int((q.get("n") or ["64"])[0])
+                except ValueError:
+                    self._reply(400, "text/plain; charset=utf-8",
+                                b"n must be an integer\n")
+                    return
+                if lg is None:
+                    self._reply(404, "text/plain; charset=utf-8",
+                                b"no performance ledger registered "
+                                b"(perf_ledger=0?)\n")
+                else:
+                    recs = lg.recent_compiles()
+                    total = len(recs)
+                    if n > 0:
+                        recs = recs[:n]
+                    body = {"compiles": recs, "total": total,
+                            "shown": len(recs),
+                            "readiness": lg.readiness()}
+                    if q.get("json"):
+                        self._reply(200, "application/json",
+                                    json.dumps(body).encode("utf-8"))
+                    else:
+                        self._reply(200, "text/html; charset=utf-8",
+                                    compilez_html(body).encode("utf-8"))
+            elif path == "/profilez":
+                prof = srv.profiler
+                if prof is None:
+                    self._reply(404, "text/plain; charset=utf-8",
+                                b"no profiler registered (learn_task "
+                                b"runs wire one whenever status_port "
+                                b"is set; embedders call "
+                                b"statusd.set_profiler)\n")
+                else:
+                    secs = (parse_qs(query).get("secs")
+                            or ["2"])[0]
+                    try:
+                        secs = float(secs)
+                    except ValueError:
+                        self._reply(400, "text/plain; charset=utf-8",
+                                    b"secs must be a number\n")
+                        return
+                    # a PREVIOUS capture's failure surfaces on the next
+                    # request (the 200 goes out before a capture runs)
+                    prev_err = getattr(prof, "last_error", None)
+                    ok, detail = prof.start(secs)
+                    if ok:
+                        body = ("profiling for %gs into %s\n(a "
+                                "torch.profiler Chrome trace, "
+                                "trace.json)\n" % (secs, detail))
+                        if prev_err:
+                            body += ("WARNING: previous capture FAILED: "
+                                     "%s\n" % prev_err)
+                        self._reply(200, "text/plain; charset=utf-8",
+                                    body.encode("utf-8"))
+                    else:
+                        code = 409 if "in progress" in detail else 400
+                        self._reply(code, "text/plain; charset=utf-8",
+                                    (detail + "\n").encode("utf-8"))
             elif path in NOT_PORTED_PAGES:
                 self._reply(404, "text/plain; charset=utf-8",
                             ("%s reads %s, which is not ported to "
@@ -1161,6 +1383,11 @@ class StatusServer:
         # cxxnet_decode_* series, the /metrics?json=1 federation feed,
         # and the /trace slot-Gantt lanes
         self.batch = None
+        # performance-ledger wiring (set_perf / set_profiler): the
+        # perf.Ledger behind /programz, /compilez and the cxxnet_program_*
+        # series, and the perf.ProfilerCapture behind /profilez
+        self.perf = None
+        self.profiler = None
         # the conservation-law auditor behind cxxnet_books_* — the
         # PROCESS-wide one by default (servd registers its laws there),
         # swappable for isolation via set_auditor(None)
@@ -1285,6 +1512,7 @@ class StatusServer:
             slo_tenants={t: tr.snapshot()
                          for t, tr in sorted(self.slo_tenants.items())}
             if self.slo_tenants else None,
+            perf=self.perf.snapshot() if self.perf is not None else None,
             batch=self.batch.batch_snapshot()
             if self.batch is not None else None,
             books=books)
@@ -1385,6 +1613,21 @@ class StatusServer:
                      % ("ACTIVE" if bsnap.get("convoy") else "none",
                         bsnap.get("convoys", 0))))
             table("batching", rows)
+
+        if self.perf is not None:
+            psnap = self.perf.snapshot()
+            hbm = psnap.get("hbm") or {}
+            prows = [
+                ("cards", "%d compiled programs (see /programz)"
+                 % len(psnap.get("cards") or [])),
+                ("hbm peak", "%s MiB (headroom %s MiB)"
+                 % (_mib(hbm.get("peak_bytes")),
+                    _mib(hbm.get("headroom_bytes"))))]
+            if hbm.get("decode_kv_bytes") is not None:
+                prows.append(("hbm decode kv", "%s MiB (live decode "
+                              "cache — a first-class HBM consumer)"
+                              % _mib(hbm["decode_kv_bytes"])))
+            table("program ledger", prows)
 
         ck = reg.last_event("ckpt_save")
         if ck is not None and "ts" in ck:
@@ -1513,6 +1756,22 @@ def set_slo_tenants(trackers) -> None:
     s = _SERVER
     if s is not None:
         s.slo_tenants = dict(trackers or {})
+
+
+def set_perf(ledger) -> None:
+    """Attach a perf.Ledger — /programz and the cxxnet_program_* /
+    cxxnet_hbm_* series serve from it. No-op without a server."""
+    s = _SERVER
+    if s is not None:
+        s.perf = ledger
+
+
+def set_profiler(capture) -> None:
+    """Attach a perf.ProfilerCapture — /profilez?secs=N starts captures
+    through its one-at-a-time guard. No-op without a server."""
+    s = _SERVER
+    if s is not None:
+        s.profiler = capture
 
 
 def set_auditor(aud) -> None:

@@ -1,8 +1,7 @@
 """Process-wide structured telemetry of the port: counters, gauges,
 histograms, events, spans and request attribution — the port's copy of
 cxxnet_tpu/utils/telemetry.py, with the same names, event shapes and JSONL
-format (the recompile detector of jitted programs is the JAX package's
-alone).
+format.
 
 * **counters / gauges / histograms** — ``count("serve.tokens", n)``,
   ``gauge("serve.queue_depth", v)``, ``hist("serve.ttft", seconds)`` into
@@ -28,6 +27,17 @@ alone).
   kernel first used inside a request stalls that request exactly as an
   XLA compile stalls a JAX one, and the records keep the JAX field names
   (``name``, ``cause``, ``dur``).
+* **recompile detector** — ``jit_watch(fn, name, cause=..., key=...)``
+  wraps one of the trainer's programs (``jit.train_step``,
+  ``jit.decode_step``, ...) and records a ``compile`` event, with its cause
+  and seconds, at the program's first call with an input signature it has
+  not seen (the shapes and dtypes of its tensor arguments): the port's
+  cold start, where kernel libraries build and cuBLAS, cuDNN and the
+  allocator warm up. A compile's seconds are the first call's wall time
+  with one wait for the card at its end; warm calls are never waited on.
+  With a ``compile_hook`` on the registry (the performance ledger,
+  ``utils/perf.py``) the watch also hands the hook the program, its
+  arguments, its key and the allocator's figures of that first call.
 * **flight recorder** — ``FlightRecorder``, a bounded ring of the last N
   completed request records; ``request_chrome_trace`` renders one as a
   Chrome trace.
@@ -65,7 +75,7 @@ from . import lockrank
 
 __all__ = [
     "enable", "disable", "enabled", "reset", "span", "count", "gauge",
-    "hist", "event", "record_compile",
+    "hist", "event", "record_compile", "jit_watch", "JitWatch",
     "sample_device_memory",
     "flush", "finish", "summary", "brief_summary", "events",
     "recent_events", "last_event", "wall_epoch", "span_event",
@@ -317,6 +327,11 @@ class _Registry:
         self._lock = lockrank.lock("telemetry.registry")
         self._tls = threading.local()
         self.process_index = 0
+        # the performance ledger's compile hook (utils/perf.py): called by
+        # JitWatch with the program, its call arguments and the first
+        # call's memory figures on every detected compile. Survives
+        # reset()/enable(), like the JAX registry's
+        self.compile_hook = None
         self.reset()
 
     # -- lifecycle -----------------------------------------------------
@@ -989,6 +1004,105 @@ def request_chrome_trace(rec: dict, batch_iters=None) -> dict:
     return {"traceEvents": trace, "displayTimeUnit": "ms"}
 
 
+def _tensor_signature(args, kwargs) -> tuple:
+    """The (shape, dtype) of every tensor among a call's own arguments, in
+    argument order (keyword arguments in key order): what a program's
+    first call at a new signature is told apart by. Containers are not
+    walked: they hold a program's fixed state (parameters, nets, caches),
+    whose shapes its key already fixes. Python scalars and None are left
+    out, as positions and seeds change every call."""
+    out = []
+    for o in args if not kwargs else \
+            list(args) + [kwargs[k] for k in sorted(kwargs)]:
+        shape = getattr(o, "shape", None)
+        if shape is not None:
+            dtype = getattr(o, "dtype", None)
+            if dtype is not None:
+                out.append((tuple(shape), dtype))
+    return tuple(out)
+
+
+class JitWatch:
+    """Recompile detector (the JAX package's ``JitWatch``,
+    cxxnet_tpu/utils/telemetry.py:1025-1082): wraps one of the trainer's
+    programs and records a compile event whenever the program is called
+    at a signature it has not run before — its first call (``cause``, what
+    the call site knows: new_signature, rebuild_after_clear,
+    decode_cache_drop), and later first calls at new tensor shapes
+    ("shape_change"). The signature of every call is kept, instrumented or
+    not, so that a first call is told apart whoever watches: it costs a
+    set lookup over the call's few tensor arguments, as JAX's cache-size
+    check costs a read.
+
+    The compile's seconds are the first call's wall time; ``probe`` (a
+    ``perf.DeviceProbe``), when given, brackets that first call only: it
+    waits for the card once at its end and, with a compile hook set, reads
+    the allocator's figures, which the hook receives as ``mem``. Warm calls
+    pass straight through and are never waited on."""
+
+    __slots__ = ("_fn", "_name", "_cause_next", "_reg", "_key", "_seen",
+                 "_probe")
+
+    def __init__(self, fn, name: str, cause: str = "new_signature",
+                 registry: Optional[_Registry] = None, key=None,
+                 probe=None):
+        self._fn = fn
+        self._name = name
+        self._cause_next = cause
+        self._reg = registry or _REG
+        # the caller's program key (the trainer's program-cache key): rides
+        # the compile event and the perf ledger's ProgramCard
+        self._key = key
+        self._seen: set = set()
+        self._probe = probe
+
+    def __call__(self, *args, **kwargs):
+        sig = _tensor_signature(args, kwargs)
+        if sig in self._seen:
+            return self._fn(*args, **kwargs)
+        self._seen.add(sig)
+        reg = self._reg
+        if not reg.enabled and reg.current_trace() is None \
+                and reg.current_compile_window() is None \
+                and reg.compile_hook is None:
+            # an active trace context or compile window wants its
+            # compiles attributed (the flight recorder works with
+            # telemetry disabled too), and the perf ledger wants its
+            # cards either way
+            return self._fn(*args, **kwargs)
+        probe = self._probe
+        hooked = reg.compile_hook is not None
+        mem = None
+        t0 = time.perf_counter()
+        tok = probe.begin() if probe is not None and hooked else None
+        out = self._fn(*args, **kwargs)
+        if probe is not None:
+            # the first call's one wait for the device; the allocator's
+            # figures only where the ledger takes them
+            if hooked:
+                mem = probe.end(tok, args, kwargs, out)
+            else:
+                probe.sync()
+        dt = time.perf_counter() - t0
+        reg.record_compile(self._name, self._cause_next, dt, key=self._key)
+        hook = reg.compile_hook
+        if hook is not None:
+            # the perf ledger (utils/perf.py): hand it the program and
+            # the triggering call so it can card it. Supervised — a
+            # ledger bug must not kill the step that compiled
+            try:
+                hook(self._name, self._cause_next, dt, fn=self._fn,
+                     args=args, kwargs=kwargs, key=self._key, mem=mem)
+            except Exception:
+                pass
+        self._cause_next = "shape_change"
+        return out
+
+    def __getattr__(self, name):
+        # forward the program's own attributes (its cost account)
+        return getattr(self._fn, name)
+
+
 class BooksAuditor:
     """Conservation-law registry: named invariants over the serving
     books — "accepted = served + shed + errors + deadline + abandoned",
@@ -1197,6 +1311,11 @@ def event(ev: dict) -> None:
 
 def record_compile(name: str, cause: str, seconds: float, key=None) -> None:
     _REG.record_compile(name, cause, seconds, key)
+
+
+def jit_watch(fn, name: str, cause: str = "new_signature",
+              key=None, probe=None) -> JitWatch:
+    return JitWatch(fn, name, cause=cause, key=key, probe=probe)
 
 
 def flush() -> None:

@@ -117,7 +117,11 @@ def test_fp32_means_fp32_on_the_card():
 
 # the serving frontend and its helpers: standard library and each other only
 SERVING_MODULES = ("servd", "lockrank", "telemetry", "health", "statusd",
-                   "autopsy", "checkpoint", "kvblocks")
+                   "autopsy", "checkpoint", "kvblocks", "perf")
+# imports a serving module may make inside a function, never at its top:
+# the performance ledger's card spec, memory probe and profiler capture
+# need torch and the package's device module, on a card only
+LAZY_IMPORTS = {"perf": ("torch", "device")}
 
 
 def test_serving_frontend_loads_no_jax():
@@ -139,10 +143,17 @@ def test_serving_frontend_loads_no_jax():
 def test_serving_modules_are_standard_library_only(name):
     path = os.path.join(PORT, "utils", name + ".py")
     tree = ast.parse(open(path).read(), filename=path)
+    top = {id(n) for n in tree.body}
+    lazy = LAZY_IMPORTS.get(name, ())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             mods = [a.name.split(".")[0] for a in node.names]
+            if id(node) not in top:
+                mods = [m for m in mods if m not in lazy]
         elif isinstance(node, ast.ImportFrom):
+            if id(node) not in top and node.level == 2 and not node.module \
+                    and all(a.name in lazy for a in node.names):
+                continue
             if node.level:
                 assert (node.module or "") == "" or \
                     node.module in SERVING_MODULES, (path, node.module)
@@ -156,3 +167,20 @@ def test_serving_modules_are_standard_library_only(name):
             if m == "cxxnet_tpu_torch":
                 continue             # the package's own copy of a module
             assert m in sys.stdlib_module_names, "%s imports %s" % (path, m)
+
+
+def test_perf_ledger_loads_no_jax():
+    """The performance ledger and the work account import neither jax nor
+    the JAX package (their JAX counterparts' analyses are XLA's)."""
+    code = ("import sys\n"
+            "import cxxnet_tpu_torch.utils.perf\n"
+            "import cxxnet_tpu_torch.nnet.cost\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cxxnet_tpu' or "
+            "m.startswith('cxxnet_tpu.'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

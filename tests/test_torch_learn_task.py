@@ -390,6 +390,7 @@ PORTED_SINCE = {
     ("status_port", "0"): lambda lt: lt.status_port == 0,
     ("ckpt_keep_last", "3"): lambda lt: lt.ckpt_keep_last == 3,
     ("ckpt_keep_every", "2"): lambda lt: lt.ckpt_keep_every == 2,
+    ("profile_dir", "prof"): lambda lt: lt.profile_dir == "prof",
 }
 
 

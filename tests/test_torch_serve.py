@@ -216,13 +216,15 @@ def test_cli_admin_reload_picks_up_a_newer_checkpoint(model, tmp_path,
 
 def test_serve_keys_left_out_are_refused():
     lt = tlt.LearnTask()
-    for key, val in (("serve_plen_buckets", "8,16"),
-                     ("serve_warm_ready_pct", "50"),
-                     ("watchdog_timeout", "5"), ("route_replicas", "a:1:2"),
+    for key, val in (("watchdog_timeout", "5"), ("route_replicas", "a:1:2"),
                      ("route_hedge_ms", "5"), ("fleet_federate_ms", "10")):
         with pytest.raises(ValueError, match="not ported"):
             lt.set_param(key, val)
-    for key, val in (("serve_plen_buckets", ""), ("route_port", "0"),
+    # the warm grid's keys are ported since the performance ledger
+    # (tests/test_torch_compile_obs.py runs them)
+    for key, val in (("serve_plen_buckets", "8,16"),
+                     ("serve_warm_ready_pct", "50"),
+                     ("serve_kv_pool_frac", "0.25"), ("route_port", "0"),
                      ("route_tenants", "free:1,paid:4"),
                      ("telemetry_log", "t.jsonl"), ("serve_port", "0"),
                      ("status_port", "0")):
@@ -232,6 +234,8 @@ def test_serve_keys_left_out_are_refused():
     lt.set_param("task", "serve")
     assert lt.task == "serve" and lt.route_tenants == "free:1,paid:4"
     assert lt.status_port == 0
+    assert (lt.serve_plen_buckets, lt.serve_warm_ready_pct,
+            lt.serve_kv_pool_frac) == ("8,16", 50.0, 0.25)
 
 
 def test_cli_serve_telemetry_log_records_the_requests(model, tmp_path,
