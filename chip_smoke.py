@@ -66,7 +66,8 @@ time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``googlenet_bf16_pred``, ``cli_googlenet``, ``vgg16_bf16_remat``,
 ``resnet18_bf16_train``, ``bench_bf16``, ``flash_fwd_kernel``,
 ``lm_serve``, ``lm_serve_long``, ``lm_serve_session``, ``cli_lm_generate``,
-``lm_serve_frontend``, ``cli_lm_serve``, ``flash_bwd_kernel``,
+``lm_serve_frontend``, ``cli_lm_serve``, ``cli_lm_route``,
+``flash_bwd_kernel``,
 ``lm_train``, ``lm_train_long``, ``lm_hd256``, ``lm_hd512``,
 ``ring_step_kernels``, ``lm_sp_train_long_ring``,
 ``lm_sp_train_long_ulysses`` and ``lm_sp_train_ring`` (kernel checks, the
@@ -1939,11 +1940,12 @@ def phase_cli_lm_generate(learn_task, api, models):
     torch.cuda.empty_cache()
 
 
-def serve_clients(port, lines, nclients, timeout=600.0):
+def serve_clients(port, lines, nclients, timeout=600.0, lat=None):
     """``lines`` dealt round-robin to ``nclients`` closed-loop TCP clients
     of the frontend on ``port``, one connection each, each line sent once
     the client's previous answer is in. Returns (answers aligned with
-    ``lines``, None where none came; the wall seconds)."""
+    ``lines``, None where none came; the wall seconds). ``lat``, a list as
+    long as ``lines``, gets each request's seconds from send to answer."""
     out = [None] * len(lines)
     errors = []
 
@@ -1953,8 +1955,11 @@ def serve_clients(port, lines, nclients, timeout=600.0):
                                           timeout=timeout) as conn:
                 f = conn.makefile("r", encoding="utf-8")
                 for i in range(c, len(lines), nclients):
+                    t = time.perf_counter()
                     conn.sendall((lines[i] + "\n").encode("utf-8"))
                     out[i] = f.readline().rstrip("\n") or None
+                    if lat is not None:
+                        lat[i] = time.perf_counter() - t
         except OSError as e:
             errors.append(repr(e))
     ts = [threading.Thread(target=client, args=(c,))
@@ -2688,6 +2693,492 @@ def phase_cli_lm_serve(flash, learn_task, api, models):
     torch.cuda.empty_cache()
     log("  phase wall %.1f s" % (time.perf_counter() - t_phase))
     return launches
+
+
+# requests in flight through the router when a replica is killed
+ROUTE_KILL_INFLIGHT = 16
+# the router's probe period (ms) and the longest wait for a fleet state
+ROUTE_PROBE_MS, ROUTE_WAIT_S = 100, 120
+
+
+def burst(port, lines, timeout=600.0):
+    """Every line at once: one connection a line, all opened first, then
+    the lines sent back to back, so that the dispatcher gathers them into
+    one batch. Returns the answers in order."""
+    socks = [socket.create_connection(("127.0.0.1", port), timeout=timeout)
+             for _ in lines]
+    try:
+        for s, line in zip(socks, lines):
+            s.sendall((line + "\n").encode("utf-8"))
+        return [s.makefile("r", encoding="utf-8").readline().rstrip("\n")
+                or None for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def admin_stats(port):
+    """A frontend's ADMIN stats as a dict."""
+    line = serve_clients(port, ["ADMIN stats"], 1, timeout=60)[0][0]
+    if not line or not line.startswith("OK "):
+        raise AssertionError("ADMIN stats answered %r" % line)
+    out = {}
+    for kv in line.split()[1:]:
+        k, _, v = kv.partition("=")
+        try:
+            out[k] = int(v)
+        except ValueError:
+            out[k] = v
+    return out
+
+
+def fleetz(sport):
+    code, body = scrape(sport, "/fleetz?json=1")
+    if code != 200:
+        raise AssertionError("/fleetz?json=1 answered %d: %s" % (code, body))
+    return json.loads(body)
+
+
+def wait_fleet(sport, pred, what, timeout=ROUTE_WAIT_S):
+    """Poll the router's /fleetz until ``pred(snapshot)``; the snapshot."""
+    deadline = time.time() + timeout
+    while True:
+        snap = fleetz(sport)
+        if pred(snap):
+            return snap
+        if time.time() > deadline:
+            raise AssertionError("the router's /fleetz never showed %s: %s"
+                                 % (what, [(r["name"], r["state"])
+                                           for r in snap["replicas"]]))
+        time.sleep(0.05)
+
+
+def warm_replica(sport, port, prompts, vocab):
+    """Traffic straight to one replica until its warm grid is whole: every
+    prompt once, in bursts of the largest bucket, then for the keys
+    /compilez still lists as cold, their prompt lengths again and a burst
+    of each cold bucket's size (one batch a burst), until it reads ready
+    100%. Returns the number of requests served."""
+    import ast
+    lines = [" ".join(map(str, p)) for p in prompts]
+    by_len = {len(p): ln for p, ln in zip(prompts, lines)}
+    top = max(FE_BUCKETS)
+    bursts = [lines[k:k + top] for k in range(0, len(lines), top)]
+    sent = 0
+    deadline = time.time() + WARM_SECS
+    while True:
+        for chunk in bursts:
+            for a in burst(port, chunk):
+                answer_tokens("warm-up", a, SESS_NEW, vocab)
+            sent += len(chunk)
+        rd = json.loads(scrape(sport, "/compilez?json=1")[1])["readiness"]
+        if rd["ready_pct"] == 100.0:
+            return sent
+        if time.time() > deadline:
+            raise AssertionError("replica on port %d: ready %s%% after %d "
+                                 "requests in %d s" % (port, rd["ready_pct"],
+                                                       sent, WARM_SECS))
+        cold = [ast.literal_eval(k) for k in rd["cold_keys"]]
+        again = [by_len[k[1]] for k in cold if k[0] == "sess_prefill"]
+        bursts = [again[k:k + top] for k in range(0, len(again), top)]
+        bursts += [lines[:b] for b in sorted({k[1] for k in cold
+                                              if k[0] != "sess_prefill"})]
+
+
+def flight_join(sports, ids):
+    """The replicas' flight records of the requests ``ids``, found by id
+    (the trace id the router forwards): (TTFT ms of each, {bucket: the
+    requests decoded in it})."""
+    want, ttft, buckets = set(ids), [], {}
+    for sp in sports:
+        recs = json.loads(scrape(sp, "/requestz?json=1&n=0")[1])["requests"]
+        for r in recs:
+            if r.get("id") in want and r.get("outcome") == "served" \
+                    and r.get("ttft_s") is not None:
+                ttft.append(1e3 * r["ttft_s"])
+                buckets[r["bucket"]] = buckets.get(r["bucket"], 0) + 1
+    if len(ttft) != len(want):
+        raise AssertionError("the flight-record join found %d of %d "
+                             "requests" % (len(ttft), len(want)))
+    return ttft, buckets
+
+
+def route_rates(what, card, n_tok, lat, wall, joined):
+    ttft, buckets = joined
+    lat_ms = [1e3 * x for x in lat]
+    log("  %s: %.1f tokens/s (%.3f s for %d tokens), end to end p50 %.2f "
+        "ms p99 %.2f ms, TTFT p50 %.2f ms p99 %.2f ms; requests by the "
+        "bucket they decoded in %s [%s]"
+        % (what, n_tok / wall, wall, n_tok, pct(lat_ms, 50),
+           pct(lat_ms, 99), pct(ttft, 50), pct(ttft, 99),
+           dict(sorted(buckets.items())), card))
+    return n_tok / wall
+
+
+def process_launches(proc, timeout=60.0):
+    """A CliProcess's launch counts now: SIGUSR2 makes its runner print
+    them (the line it prints at exit)."""
+    n = sum(1 for ln in proc.lines["err"] if ln.startswith("launches "))
+    proc.proc.send_signal(signal.SIGUSR2)
+    deadline = time.time() + timeout
+    while sum(1 for ln in proc.lines["err"]
+              if ln.startswith("launches ")) <= n:
+        if time.time() > deadline or proc.proc.poll() is not None:
+            raise AssertionError("no launch counts after SIGUSR2")
+        time.sleep(0.02)
+    return proc.launches()
+
+
+def phase_cli_lm_route(learn_task, api, models):
+    """task = route from the command line over two task = serve replicas
+    of the bench.py LM in bf16, each bin/cxxnet_torch in a process of its
+    own on the card (serve_buckets = 1,2,4,8, the warm grid of the 24
+    requests' prompt lengths at serve_warm_ready_pct = 100), the router a
+    third (route_probe_ms = 100, status_port = 0). Warm-up: the router's
+    /fleetz shows both replicas warming and sheds a request itself; each
+    replica's grid warmed straight, then both read up at warm_pct 100.
+    Traffic: lm_serve_frontend's 24 requests (seed 14, 64 new tokens,
+    greedy) by 8 closed-loop TCP clients through the router, each answer
+    held to its solo generate up to the near-tie rule, both replicas
+    serving, the books reconciled; tokens/s, end-to-end and TTFT (joined
+    by trace id) p50 / p99 beside the same 24 sent straight to one
+    replica. Pages: /fleetz, /metrics (cxxnet_fleet_*), the stitched
+    /trace and /why of a routed request, /eventz. A rolling ADMIN reload
+    to the LM after one Adam step (eta 3e-4) while requests stream: none
+    fails, the drain windows never overlap, the 24 then equal the new
+    model's generate. SIGKILL of one replica with 16 requests in flight:
+    each answered once, equal to its solo generate, the replica dead, the
+    failover counted. SIGTERM drains the router (exit 0) and the
+    survivor. Each replica launches flash_fwd 4 times an admission; the
+    router launches nothing and makes no CUDA context. Returns the
+    replicas' flash_fwd launches."""
+    from cxxnet_tpu_torch.utils.autopsy import CAUSES
+    log("phase cli_lm_route (bench.py LM, bf16, 2 replicas + task = route)")
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    vocab, nlayer = LM_ARGS["vocab"], LM_ARGS["nlayer"]
+    cfg = bf16_cfg(lm_cfg(models, LM_SEQ, LM_BATCH))
+    prompts, _ = serve_requests(np.random.RandomState(SEED + 14), vocab)
+    n_tok = SESS_REQUESTS * SESS_NEW
+    plens = sorted({len(p) for p in prompts})
+
+    def lines(tag):
+        return ["TRACE %s%d %s" % (tag, i, " ".join(map(str, p)))
+                for i, p in enumerate(prompts)]
+
+    def stage(what):
+        log("  [%.1f s] %s" % (time.perf_counter() - t_phase, what))
+    with scratch_dir("cli_lm_route") as d:
+        mdir = os.path.join(d, "models")
+        os.makedirs(mdir)
+        net = api.Net(dev=NET_DEV, cfg=cfg)
+        net.init_model()
+        net.save_model(os.path.join(mdir, "0001.model"))
+        conf = os.path.join(d, "serve.conf")
+        with open(conf, "w") as f:
+            f.write(cfg + "task = serve\nmodel_in = models/0001.model\n"
+                    "model_dir = models\ngen_new = %d\n" % SESS_NEW)
+        reps, router = [], None
+        try:
+            for _ in range(2):
+                reps.append(CliProcess(d, [
+                    conf, "serve_port=0", "status_port=0",
+                    "serve_buckets=%s" % ",".join(map(str, FE_BUCKETS)),
+                    "perf_ledger=1",
+                    "serve_plen_buckets=%s" % ",".join(map(str, plens)),
+                    "serve_warm_ready_pct=100"]))
+            # while the replicas start: both models' solo answers, the
+            # second model the LM after one Adam step on a fixed batch,
+            # kept out of model_dir until the reload
+            solo = run_solo(net, prompts, SESS_NEW, (0.0, 0), 0)
+            newer = api.Net(dev=NET_DEV, cfg=cfg + "eta = %g\n" % LM_LOSS_ETA)
+            newer.init_model()
+            rng = np.random.RandomState(SEED + 18)
+            newer.update(rng.randint(0, vocab, (LM_BATCH, 1, 1, LM_SEQ))
+                         .astype(np.float32),
+                         rng.randint(0, vocab, (LM_BATCH, LM_SEQ))
+                         .astype(np.float32))
+            nxt = os.path.join(d, "next.model")
+            newer.save_model(nxt)
+            del newer
+            fresh = api.Net(dev=NET_DEV, cfg=cfg)
+            fresh.load_model(nxt)
+            solo_new = run_solo(fresh, prompts, SESS_NEW, (0.0, 0), 0)
+            stage("solo answers of both models")
+            ports, sports = [], []
+            for r in reps:
+                sports.append(int(r.wait_for(
+                    "err", r"statusd: live introspection on port (\d+)",
+                    300).group(1)))
+                ports.append(int(r.wait_for(
+                    "err", r"servd: serving on port (\d+)", 300).group(1)))
+            rconf = os.path.join(d, "route.conf")
+            with open(rconf, "w") as f:
+                f.write("task = route\nroute_replicas = %s\n"
+                        "route_probe_ms = %d\nroute_replay = 1\n"
+                        "status_port = 0\n"
+                        % (",".join("127.0.0.1:%d:%d" % ps for ps in
+                                    zip(ports, sports)), ROUTE_PROBE_MS))
+            router = CliProcess(d, [rconf])
+            rsport = int(router.wait_for(
+                "err", r"statusd: live introspection on port (\d+)",
+                120).group(1))
+            rport = int(router.wait_for(
+                "err", r"routerd: routing on port (\d+)", 120).group(1))
+            stage("three processes up")
+
+            # 1. warm-up: the router routes nothing to a warming replica
+            snap = wait_fleet(rsport, lambda s: [r["state"] for r in
+                                                 s["replicas"]]
+                              == ["warming"] * 2, "both replicas warming")
+            early = serve_clients(rport, [lines("w")[0]], 1,
+                                  timeout=60)[0][0]
+            cold = [admin_stats(p)["accepted"] for p in ports]
+            log("  before warm-up: /fleetz %s, eligible %d; a request to "
+                "the router: %r; replicas' accepted %s"
+                % ([(r["state"], r["warm_pct"]) for r in snap["replicas"]],
+                   snap["eligible"], early, cold))
+            if not (early or "").startswith("ERR busy fleet") \
+                    or cold != [0, 0] or snap["eligible"] != 0:
+                raise AssertionError("the router routed to a warming "
+                                     "replica")
+            t = time.perf_counter()
+            warmed = [None, None]
+            ths = [threading.Thread(target=lambda i=i: warmed.__setitem__(
+                i, warm_replica(sports[i], ports[i], prompts, vocab)))
+                for i in range(2)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join()
+            if None in warmed:
+                raise AssertionError("a replica's warm-up failed")
+            snap = wait_fleet(rsport, lambda s: all(
+                r["state"] == "up" and r["warm_pct"] == 100.0
+                for r in s["replicas"]), "both replicas up at 100%")
+            stage("warm-up: %s requests straight to the replicas in %.1f "
+                  "s; then /fleetz %s" % (warmed, time.perf_counter() - t,
+                                          [(r["state"], r["warm_pct"])
+                                           for r in snap["replicas"]]))
+
+            # 2. traffic through the router, then straight to replica 0
+            before = [admin_stats(p) for p in ports]
+            lat = [None] * SESS_REQUESTS
+            got, wall = serve_clients(rport, lines("rt"), FE_CLIENTS,
+                                      lat=lat)
+            after = [admin_stats(p) for p in ports]
+            served = [a["served"] - b["served"]
+                      for a, b in zip(after, before)]
+            toks = [answer_tokens("routed request %d" % i, a, SESS_NEW,
+                                  vocab) for i, a in enumerate(got)]
+            hold_tokens("routed vs solo", None, net, toks, solo, prompts,
+                        (0.0, 0), [0] * SESS_REQUESTS, [0] * SESS_REQUESTS,
+                        NEAR_TIE)
+            log("  routed: replicas served %s of the %d" % (served,
+                                                            SESS_REQUESTS))
+            if sum(served) != SESS_REQUESTS or min(served) < 1:
+                raise AssertionError("the routed requests were not served "
+                                     "by both replicas exactly once")
+            reconciled("router", fleetz(rsport)["stats"])
+            for i, p in enumerate(ports):
+                reconciled("replica %d" % i, admin_stats(p))
+            rate = route_rates("through the router", card, n_tok, lat, wall,
+                               flight_join(sports, ["rt%d" % i for i in
+                                                  range(SESS_REQUESTS)]))
+            dlat = [None] * SESS_REQUESTS
+            dgot, dwall = serve_clients(ports[0], lines("dr"), FE_CLIENTS,
+                                        lat=dlat)
+            hold_tokens("straight to replica 0 vs solo", None, net,
+                        [answer_tokens("direct request %d" % i, a, SESS_NEW,
+                                       vocab) for i, a in enumerate(dgot)],
+                        solo, prompts, (0.0, 0), [0] * SESS_REQUESTS,
+                        [0] * SESS_REQUESTS, NEAR_TIE)
+            drate = route_rates("straight to replica 0", card, n_tok, dlat,
+                                dwall, flight_join(sports[:1],
+                                                 ["dr%d" % i for i in
+                                                  range(SESS_REQUESTS)]))
+            log("  router / direct tokens/s %.3f" % (rate / drate))
+
+            # 3. the router's pages
+            code, page = scrape(rsport, "/fleetz")
+            series = prom_series(scrape(rsport, "/metrics")[1])
+            fleet_series = sorted({k.split("{")[0] for k in series
+                                   if k.startswith("cxxnet_fleet_")})
+            code_t, body = scrape(rsport, "/trace?request=rt0")
+            ev = json.loads(body)["traceEvents"] if code_t == 200 else []
+            attempts = [e for e in ev if e.get("ph") == "X"
+                        and e.get("pid") == 0 and e.get("tid") == 1]
+            phases = sorted({e["name"] for e in ev if e.get("ph") == "X"
+                             and e.get("pid", 0) >= 1} & {
+                "queue_wait", "dispatch", "prefill", "decode"})
+            code_w, body = scrape(rsport, "/why?request=rt0&json=1")
+            why = json.loads(body) if code_w == 200 else {}
+            primary = (why.get("autopsy") or {}).get("primary")
+            code_e, body = scrape(rsport, "/eventz?json=1")
+            log("  router pages: /fleetz %d (%s), /metrics %d series (%d "
+                "cxxnet_fleet_* families: %s), /trace?request=rt0 %d (%d "
+                "attempt spans, replica phases %s), /why %d (primary %s, "
+                "hops %s), /eventz %d (%s rows)"
+                % (code, "html" if "serving fleet" in page else "?",
+                   len(series), len(fleet_series), ", ".join(fleet_series),
+                   code_t, len(attempts), phases, code_w, primary,
+                   sorted(why.get("hops") or {}), code_e,
+                   json.loads(body).get("shown") if code_e == 200
+                   else None))
+            if code != 200 or "serving fleet" not in page \
+                    or "cxxnet_fleet_replicas" not in fleet_series \
+                    or code_t != 200 or not attempts \
+                    or "prefill" not in phases or code_w != 200 \
+                    or primary not in CAUSES or code_e != 200:
+                raise AssertionError("the router's pages did not answer "
+                                     "and parse")
+
+            # 4. rolling reload under streaming traffic
+            stage("traffic and pages")
+            os.replace(nxt, os.path.join(mdir, "0002.model"))
+            stop, streamed = threading.Event(), []
+
+            def stream():
+                k = 0
+                while not stop.is_set():
+                    streamed.extend(serve_clients(
+                        rport, lines("s%d-" % k), FE_CLIENTS)[0])
+                    k += 1
+            th = threading.Thread(target=stream)
+            th.start()
+            time.sleep(0.5)
+            ack = serve_clients(rport, ["ADMIN reload"], 1, timeout=60)[0][0]
+            t = time.perf_counter()
+            try:
+                snap = wait_fleet(rsport, lambda s: not s["reloading"]
+                                  and len(s["windows"]) >= 2,
+                                  "the rolling reload done")
+            finally:
+                stop.set()
+                th.join()
+            reload_s = time.perf_counter() - t
+            wins = sorted(snap["windows"], key=lambda w: w["out_s"])
+            overlap = any(b["out_s"] < a["back_s"]
+                          for a, b in zip(wins, wins[1:]))
+            bad = [a for a in streamed if a is None or a.startswith("ERR")]
+            # a replica rejoins once it has taken the reload (its
+            # reload_seen moved), and may still be loading the model then
+            deadline = time.time() + ROUTE_WAIT_S
+            reloads = [admin_stats(p)["reloads"] for p in ports]
+            while reloads != [1, 1] and time.time() < deadline:
+                time.sleep(0.1)
+                reloads = [admin_stats(p)["reloads"] for p in ports]
+            log("  ADMIN reload -> %r; rolled in %.2f s with %d requests "
+                "streaming (%d not served); drain windows %s (%s); "
+                "replicas' reloads %s [%s]"
+                % (ack, reload_s, len(streamed), len(bad),
+                   ["%s %.3f-%.3f s" % (w["replica"], w["out_s"],
+                                        w["back_s"]) for w in wins],
+                   "never overlapping" if not overlap else "OVERLAPPING",
+                   reloads, card))
+            if not (ack or "").startswith("OK fleet reload") or bad \
+                    or overlap or len(wins) != 2 or reloads != [1, 1]:
+                raise AssertionError("the rolling reload lost a request, "
+                                     "held two replicas out at once or "
+                                     "did not reload both")
+            for a in streamed:
+                answer_tokens("streamed during the reload", a, SESS_NEW,
+                              vocab)
+            got = serve_clients(rport, lines("nw"), FE_CLIENTS)[0]
+            toks = [answer_tokens("after the reload %d" % i, a, SESS_NEW,
+                                  vocab) for i, a in enumerate(got)]
+            hold_tokens("routed after the reload vs the new model's solo",
+                        None, fresh, toks, solo_new, prompts, (0.0, 0),
+                        [0] * SESS_REQUESTS, [0] * SESS_REQUESTS, NEAR_TIE)
+            moved = sum(1 for g, o in zip(toks, solo) if g != o)
+            log("  after the reload: %d of %d answers differ from the old "
+                "model's" % (moved, SESS_REQUESTS))
+            if not moved:
+                raise AssertionError("the reloaded fleet still serves the "
+                                     "old model")
+
+            # 5. SIGKILL of replica 1 with requests in flight
+            stage("rolling reload")
+            victim = 1
+            pre = process_launches(reps[victim])["flash_fwd"]
+            pre_served = admin_stats(ports[victim])["served"]
+            if pre != nlayer * pre_served:
+                raise AssertionError(
+                    "replica %d launched flash_fwd %d times for %d "
+                    "admissions" % (victim, pre, pre_served))
+            join = serve_clients_async(rport,
+                                       lines("k")[:ROUTE_KILL_INFLIGHT])
+            name = snap["replicas"][victim]["name"]
+            wait_fleet(rsport, lambda s: s["replicas"][victim]
+                       ["outstanding"] >= 1, "requests at the victim", 60)
+            inflight = fleetz(rsport)["replicas"][victim]["outstanding"]
+            reps[victim].proc.kill()
+            answers = join()
+            snap = wait_fleet(rsport, lambda s: s["replicas"][victim]
+                              ["state"] == "dead", "the victim dead", 30)
+            st = snap["stats"]
+            kidx = range(ROUTE_KILL_INFLIGHT)
+            toks = [answer_tokens("killed-fleet request %d" % i, a, SESS_NEW,
+                                  vocab) for i, a in enumerate(answers)]
+            hold_tokens("answers across the kill vs the new model's solo",
+                        None, fresh, toks, [solo_new[i] for i in kidx],
+                        [prompts[i] for i in kidx], (0.0, 0),
+                        [0] * len(kidx), [0] * len(kidx), NEAR_TIE)
+            log("  SIGKILL of %s with %d of %d requests outstanding there: "
+                "%d answered once each; /fleetz %s; lost_contact %d, "
+                "replays %d, retries %d, discarded_late %d"
+                % (name, inflight, ROUTE_KILL_INFLIGHT, len(answers),
+                   [(r["name"], r["state"]) for r in snap["replicas"]],
+                   st["lost_contact"], st["replays"], st["retries"],
+                   st["discarded_late"]))
+            if st["replays"] + st["retries"] < 1:
+                raise AssertionError("the kill left no failover count")
+            reconciled("router after the kill", st)
+
+            # 6. drain the router, then the survivor
+            stage("kill")
+            router.proc.send_signal(signal.SIGTERM)
+            rrc = router.finish(120)
+            tail = [ln for ln in router.lines["err"]
+                    if ln.startswith("routed ")]
+            want = "routed %d requests (%d served, 0 errors, 1 shed, " \
+                "0 deadline" % (st["accepted"], st["accepted"] - 1)
+            log("  router SIGTERM: exit %d, %s" % (rrc, tail))
+            if rrc != 0 or not tail or not tail[-1].startswith(want):
+                raise AssertionError("the router did not drain to %r and "
+                                     "exit 0" % want)
+            survivor = reps[1 - victim]
+            s_served = admin_stats(ports[1 - victim])["served"]
+            survivor.proc.send_signal(signal.SIGTERM)
+            src = survivor.finish(120)
+            s_tail = survivor.text("err")
+            post = survivor.launches()["flash_fwd"]
+            log("  survivor SIGTERM: exit %d, %s" % (src, " | ".join(
+                ln for ln in s_tail.splitlines()
+                if ln.startswith("served "))))
+
+            # 7. the processes' kernels
+            stage("drains")
+            rl = router.launches()
+            log("  flash_fwd launches: replica %d %d for %d admissions "
+                "(read before its kill), replica %d %d for %d admissions; "
+                "the router %s, CUDA initialized at its exit: %s"
+                % (victim, pre, pre_served, 1 - victim, post, s_served,
+                   rl["flash_fwd"], rl.get("cuda_initialized")))
+            if src != 0 or "served %d prompts" % s_served not in s_tail \
+                    or post != nlayer * s_served or rl["flash_fwd"] != 0 \
+                    or rl.get("cuda_initialized") is not False:
+                raise AssertionError("a replica's flash launches are not %d "
+                                     "an admission, or the router touched "
+                                     "the card" % nlayer)
+        finally:
+            for p in reps + [router]:
+                if p is not None:
+                    p.kill()
+        del net, fresh
+    torch.cuda.empty_cache()
+    log("  phase wall %.1f s" % (time.perf_counter() - t_phase))
+    return pre + post
 
 
 def phase_lm_serve_long(flash, api, models):
@@ -3658,21 +4149,23 @@ def imagenet_section(name, extra=""):
 # asked, runs the entry script, and prints the kernels' launch counts of
 # that process (each starts at 0 with it) on stderr as it exits
 CLI_RUNNER = """
-import atexit, json, runpy, sys
+import atexit, json, runpy, signal, sys
 sys.path.insert(0, %(repo)r)
 import torch
 torch.backends.cudnn.enabled = %(cudnn)r
 from cxxnet_tpu_torch.ops import flash_attn, lrn
 
 
-def counts():
+def counts(*_):
     print("launches " + json.dumps({
         "lrn_fwd": lrn.launches, "lrn_fwd_no_norm": lrn.no_norm_launches,
-        "lrn_bwd": lrn.bwd_launches, "flash_fwd": flash_attn.launches}),
+        "lrn_bwd": lrn.bwd_launches, "flash_fwd": flash_attn.launches,
+        "cuda_initialized": torch.cuda.is_initialized()}),
         file=sys.stderr, flush=True)
 
 
 atexit.register(counts)
+signal.signal(signal.SIGUSR2, counts)     # the counts so far, on demand
 sys.argv = [%(entry)r] + %(argv)r
 runpy.run_path(%(entry)r, run_name="__main__")
 """
@@ -5446,6 +5939,7 @@ def main() -> int:
     phase_cli_lm_generate(learn_task, api, models)
     fe_rows, fe_flash = phase_lm_serve_frontend(flash_attn, rnd, api, models)
     cli_serve_flash = phase_cli_lm_serve(flash_attn, learn_task, api, models)
+    cli_route_flash = phase_cli_lm_route(learn_task, api, models)
     bwd_recs = phase_flash_bwd_kernel(flash_attn)
     train = {spec[0]: phase_lm_train(flash_attn, api, models, ops, *spec)
              for spec in LM_TRAIN}
@@ -5494,7 +5988,8 @@ def main() -> int:
              {"lm_serve": serve_launches, "lm_serve_long": long_launches,
               "lm_serve_session": sess_flash,
               "lm_serve_frontend": fe_flash,
-              "cli_lm_serve": cli_serve_flash, **serve_wide,
+              "cli_lm_serve": cli_serve_flash,
+              "cli_lm_route": cli_route_flash, **serve_wide,
               **{p: c[0] for p, c in train.items()}, **bench[2]},
              {"generate_request": LM_ARGS["nlayer"],
               "session_admission": LM_ARGS["nlayer"],

@@ -1,8 +1,8 @@
 """The learn task driver of the port: train / finetune / pred / pred_raw /
-extract / generate / serve from a config file.
+extract / generate / serve / route from a config file.
 
 Counterpart of cxxnet_tpu/learn_task.py (the reference's
-CXXNetLearnTask, src/cxxnet_main.cpp:16-478) for those seven tasks: the
+CXXNetLearnTask, src/cxxnet_main.cpp:16-478) for those eight tasks: the
 same config keys, the same sectioned iterator chains (``data =`` /
 ``eval =`` / ``pred =`` ... ``iter = end``, other keys applied to every
 chain), the same round loop and printed lines (progress on stdout, the
@@ -12,7 +12,9 @@ session's last round always saved) and pred / pred_raw / extract output
 formats, the JAX package's ``task = generate`` (prompt lines in,
 continuations out) and ``task = serve`` (the serving frontend,
 ``utils/servd.py``, over stdin and optionally TCP, solo or continuously
-batched over decode sessions). Model files are CRC-framed, written
+batched over decode sessions) and ``task = route`` (the fleet router,
+``utils/routerd.py``, over ``task = serve`` replicas; it builds no net
+and touches no card). Model files are CRC-framed, written
 atomically (tmp file, fsync, rename) with the training-state section, as
 ``api.Net.save_model`` writes them, and either package loads the other's.
 ``continue = 1`` resumes from the newest valid checkpoint of
@@ -60,26 +62,6 @@ from .utils import statusd
 from .utils import telemetry
 from .utils.config import ConfigIterator
 
-# the fleet router's keys (task = route, cxxnet_tpu/utils/routerd.py) with
-# their defaults; route_tenants is the serving frontend's too, and ported
-_FLEET_DEFAULTS = {
-    "route_port": 0, "route_host": "", "route_replicas": "",
-    "route_probe_ms": 200.0, "route_retries": 2, "route_stall_s": 30.0,
-    "route_flight_cap": 256, "route_standby_replicas": "",
-    "route_scale_min": 0, "route_scale_max": 0, "route_scale_up_burn": 1.0,
-    "route_scale_down_idle_s": 30.0, "route_scale_cooldown_s": 10.0,
-    "route_replay": 1, "route_hedge_ms": 0.0, "route_hedge_max_pct": 10.0,
-    "fleet_federate_ms": 1000.0, "fleet_outlier_ratio": 3.0,
-    "fleet_outlier_min_n": 20,
-}
-
-
-def _is_default(default):
-    if isinstance(default, str):
-        return lambda v: v == default
-    return lambda v: type(default)(v) == default
-
-
 # keys whose features are not ported yet, with the test that a value is the
 # key's default (which is accepted)
 _NOT_PORTED = {
@@ -88,10 +70,9 @@ _NOT_PORTED = {
     "coordinator": lambda v: v == "",
     "num_worker": lambda v: int(v) <= 1,
 }
-_NOT_PORTED.update({k: _is_default(d) for k, d in _FLEET_DEFAULTS.items()})
 _TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "generate",
-          "serve")
-_TASKS_NOT_PORTED = ("export", "route")
+          "serve", "route")
+_TASKS_NOT_PORTED = ("export",)
 
 
 class _SeededSession:
@@ -247,6 +228,22 @@ _SERVE_KEYS = (
     ("slo_ttft_ms", float), ("slo_p99_ms", float),
     ("slo_availability", float), ("slo_window_s", float),
 )
+# task = route (cxxnet_tpu/learn_task.py:362-419): the fleet router's keys
+# with their defaults, read as the JAX command line reads them
+# (route_tenants is shared with task = serve and kept apart)
+_ROUTE_KEYS = (
+    ("route_port", int, 0), ("route_host", str, ""),
+    ("route_replicas", str, ""), ("route_probe_ms", float, 200.0),
+    ("route_retries", int, 2), ("route_stall_s", float, 30.0),
+    ("route_flight_cap", int, 256), ("route_standby_replicas", str, ""),
+    ("route_scale_min", int, 0), ("route_scale_max", int, 0),
+    ("route_scale_up_burn", float, 1.0),
+    ("route_scale_down_idle_s", float, 30.0),
+    ("route_scale_cooldown_s", float, 10.0), ("route_replay", int, 1),
+    ("route_hedge_ms", float, 0.0), ("route_hedge_max_pct", float, 10.0),
+    ("fleet_federate_ms", float, 1000.0),
+    ("fleet_outlier_ratio", float, 3.0), ("fleet_outlier_min_n", int, 20),
+)
 
 
 class LearnTask:
@@ -341,6 +338,8 @@ class LearnTask:
         self.slo_p99_ms = 0.0
         self.slo_availability = 0.999
         self.slo_window_s = 300.0
+        for key, _, default in _ROUTE_KEYS:
+            setattr(self, key, default)
         # task = generate (cxxnet_tpu/learn_task.py:272-273, 420-423)
         self.name_prompt_in = "prompts.txt"
         self.name_gen_out = "gen.txt"
@@ -375,7 +374,11 @@ class LearnTask:
             statusd.set_perf(perf.ledger())
         try:
             with telemetry.span("init"):
-                self.init()
+                # the router is a host process of the fleet layer: no
+                # net, no iterators and no card; the replicas own the
+                # models
+                if self.task != "route":
+                    self.init()
             if not self.silent:
                 # serve's stdout carries exactly one response line per
                 # request: startup chatter goes to stderr there
@@ -394,6 +397,8 @@ class LearnTask:
                 self.task_generate()
             elif self.task == "serve":
                 self.task_serve()
+            elif self.task == "route":
+                self.task_route()
         finally:
             self.close()
             if self._perf_enabled:
@@ -557,6 +562,9 @@ class LearnTask:
         if name == "profile_dir":
             self.profile_dir = val
         for key, cast in _SERVE_KEYS:
+            if name == key:
+                setattr(self, key, cast(val))
+        for key, cast, _ in _ROUTE_KEYS:
             if name == key:
                 setattr(self, key, cast(val))
         self.cfg.append((name, val))
@@ -1370,6 +1378,120 @@ class LearnTask:
             print("  shed %d, deadline-expired %d (of %d accepted)"
                   % (stats["shed"], stats["deadline"], stats["accepted"]),
                   file=sys.stderr, flush=True)
+
+    def task_route(self) -> None:
+        """task = route (cxxnet_tpu/learn_task.py:1814-1941): the fleet
+        router (utils/routerd.py). It speaks the servd line protocol on
+        route_port and spreads client connections over the ``task =
+        serve`` replicas of route_replicas (``host:serve_port:status_port``,
+        comma separated): health-aware dispatch from each replica's
+        ``/healthz`` and load gauges, least-loaded power-of-two choices,
+        retry of never-dispatched sheds on another replica within the
+        client's DEADLINE budget, replay of lost attempts, ejection of dead
+        replicas with backoff re-probes, and ``ADMIN reload`` (or SIGHUP)
+        rolled over the replicas one drain window at a time. SIGTERM /
+        SIGINT drain the router (routed requests in flight finish, the
+        counters reconcile, exit 0); the replicas drain on their own
+        signals. The process loads no model and touches no card."""
+        import signal
+
+        from .utils import routerd, servd
+
+        replicas = routerd.parse_replicas(self.route_replicas)
+        assert replicas, \
+            "task = route needs route_replicas = host:port:status_port[,...]"
+        route_tenants = servd.parse_tenants(self.route_tenants)
+        if route_tenants and self.serve_tenant_default \
+                not in route_tenants:
+            route_tenants[self.serve_tenant_default] = 1.0
+        router = routerd.Router(
+            replicas, probe_ms=self.route_probe_ms,
+            retries=self.route_retries, stall_s=self.route_stall_s,
+            drain_ms=self.serve_drain_ms,
+            flight_cap=self.route_flight_cap,
+            federate_ms=self.fleet_federate_ms,
+            outlier_ratio=self.fleet_outlier_ratio,
+            outlier_min_n=self.fleet_outlier_min_n,
+            standby_replicas=self.route_standby_replicas,
+            scale_min=self.route_scale_min,
+            scale_max=self.route_scale_max,
+            scale_up_burn=self.route_scale_up_burn,
+            scale_down_idle_s=self.route_scale_down_idle_s,
+            scale_cooldown_s=self.route_scale_cooldown_s,
+            tenants=self.route_tenants,
+            tenant_default=self.serve_tenant_default,
+            replay=bool(self.route_replay),
+            hedge_ms=self.route_hedge_ms,
+            hedge_max_pct=self.route_hedge_max_pct,
+            # the router's own per-tenant windows (door sheds), with the
+            # replicas' objectives, merged into the federated burn account
+            slo_tenants={
+                t: statusd.SLOTracker(
+                    ttft_ms=self.slo_ttft_ms, p99_ms=self.slo_p99_ms,
+                    availability=self.slo_availability,
+                    window_s=self.slo_window_s)
+                for t in route_tenants})
+        router.start()
+        port = router.listen(self.route_port, host=self.route_host)
+        # one synchronous sweep, so that /fleetz and the first dispatches
+        # see probed states (a dead replica of the conf is ejected before
+        # traffic arrives)
+        router.probe_now()
+        statusd.set_fleet(router)
+        statusd.set_slo_tenants(router.slo_tenants)
+        # the routing flight ring: /requestz lists every routed request's
+        # attempts; with the fleet set, /trace?request=<id>, /why and
+        # /eventz serve the stitched cross-process views
+        statusd.set_flight_recorder(router.flight)
+        statusd.register_probe("routing", router.health_probe)
+        statusd.register_probe("routing.prober", router.liveness_probe,
+                               liveness=True)
+        if not self.silent:
+            up = sum(1 for r in router._replicas
+                     if r.state == routerd.UP)
+            print("routerd: routing on port %d over %d replicas "
+                  "(%d up; servd line protocol)"
+                  % (port, len(replicas), up), file=sys.stderr,
+                  flush=True)
+        # SIGHUP = rolling fleet reload. The handler only sets a flag
+        # (request_rolling_reload takes locks); the main loop acts on it.
+        hup_flag = {"on": False}
+        old_hup = None
+        try:
+            old_hup = signal.signal(
+                signal.SIGHUP,
+                lambda s, f: hup_flag.update(on=True))
+        except (AttributeError, ValueError, OSError):
+            pass                 # no SIGHUP (platform) / not main thread
+        try:
+            with ckpt.PreemptionGuard() as guard:
+                while not guard.requested:
+                    if hup_flag["on"]:
+                        hup_flag["on"] = False
+                        if router.request_rolling_reload() \
+                                and not self.silent:
+                            print("route: rolling fleet reload "
+                                  "started (SIGHUP)", file=sys.stderr,
+                                  flush=True)
+                    time.sleep(0.1)
+                telemetry.event({"ev": "preempt_signal",
+                                 "signum": guard.signum})
+                if not self.silent:
+                    print("route: fleet drain requested (signal %s)"
+                          % guard.signum, file=sys.stderr, flush=True)
+        finally:
+            stats = router.drain()
+            if old_hup is not None:
+                try:
+                    signal.signal(signal.SIGHUP, old_hup)
+                except (ValueError, OSError):
+                    pass
+        telemetry.event(dict({"ev": "route_done"}, **stats))
+        print("routed %d requests (%d served, %d errors, %d shed, "
+              "%d deadline, %d retries)"
+              % (stats["accepted"], stats["served"], stats["errors"],
+                 stats["shed"], stats["deadline"], stats["retries"]),
+              file=sys.stderr, flush=True)
 
 
 def main(argv: List[str]) -> int:

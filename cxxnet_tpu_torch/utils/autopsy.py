@@ -25,17 +25,34 @@ point events (drain, reload, batch rescue) into one wall-clock-ordered
 incident timeline, each begin row naming the requests whose autopsies
 cite its episode: the status server's ``/eventz``.
 
-The fleet router's autopsy comes with the router. Pure functions of
-dicts; standard library only.
+``classify_route(rec)`` takes one flight record of the fleet router
+(``routerd.Router._record_request``: its attempt list) and returns the
+router-side autopsy: the time before the winning attempt launched is
+``hedge_replay`` when the failover machinery caused it (a retry, replay or
+hedge lane won) and router ``queue_wait`` otherwise; the winning attempt's
+latency is ``decode_baseline`` until a replica's record refines it.
+
+``stitch_route(rec, hops)`` is the cross-process join behind the router's
+``/why``: the winning attempt's latency lane is replaced by the replica's
+own autopsy plus ``slow_replica``, the part of the latency the router saw
+that the replica's books cannot account for (network, or a replica slower
+than it admits). Skewed hop books that claim more than the lane are scaled
+down to fit it, so the stitched causes still tile the router's total.
+
+Pure functions of dicts; standard library only. ``python -m
+cxxnet_tpu_torch.utils.autopsy --selftest`` is the embedded check.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["CAUSES", "classify_record", "incidents"]
+__all__ = ["CAUSES", "classify_record", "classify_route",
+           "stitch_route", "TRANSITION_EVENTS", "POINT_EVENTS",
+           "INCIDENT_CAUSES", "incidents", "selftest"]
 
-# timeline"). Order is the primary-verdict tie-break: a named cause
+# The cause taxonomy. Order is the primary-verdict tie-break: a named cause
 # beats decode_baseline at equal seconds, and earlier names win ties —
 # deterministic, so the same record always gets the same verdict.
 CAUSES = ("queue_wait", "compile_stall", "convoy_victim", "kv_defer",
@@ -97,6 +114,77 @@ def classify_record(rec: dict) -> dict:
     causes["decode_baseline"] = (work_pool - storm
                                  + max(0.0, wall - phase_sum))
     return _finish(causes, max(wall, phase_sum))
+
+
+def classify_route(rec: dict) -> dict:
+    """One ROUTER flight record (``routerd._record_request`` shape) ->
+    the router-side autopsy over ``total_s``. The winning attempt is
+    the last one (the response the client got); everything before its
+    launch is ``hedge_replay`` when the failover machinery caused the
+    delay (more than one attempt, or the winner is a replay/hedge
+    lane) and router ``queue_wait`` otherwise; the winner's latency is
+    ``decode_baseline`` until ``stitch_route`` refines it with the
+    replica's own books."""
+    total = _f(rec.get("total_s"))
+    atts = rec.get("attempts") or []
+    causes = {c: 0.0 for c in CAUSES}
+    if not atts:
+        # door shed / proto error / router-side deadline: the router
+        # alone produced the answer
+        causes["queue_wait"] = total
+        return _finish(causes, total)
+    win = atts[-1]
+    t_off = min(total, _f(win.get("t_off_s")))
+    lat = min(total - t_off, _f(win.get("latency_s")))
+    failover = len(atts) > 1 or win.get("cls") in ("replay", "hedge")
+    causes["hedge_replay" if failover else "queue_wait"] += t_off
+    causes["decode_baseline"] = lat
+    causes["queue_wait"] += total - t_off - lat
+    return _finish(causes, total)
+
+
+def stitch_route(rec: dict, hops) -> dict:
+    """The cross-process autopsy (the ``/why`` router path): ``hops``
+    is ``[(replica_name, replica_flight_record), ...]`` exactly like
+    the ``/trace`` stitch. The winning attempt's latency lane is
+    replaced by the replica's own cause decomposition plus
+    ``slow_replica`` — the slice of router-observed latency the
+    replica's books cannot account for (network, connect, or a replica
+    slower than it admits). The result still tiles the router's
+    ``total_s``. Returns the full ``/why`` payload: merged autopsy
+    plus the router-lane and per-hop breakdowns."""
+    base = rec.get("autopsy") or classify_route(rec)
+    causes = {c: 0.0 for c in CAUSES}
+    causes.update(base.get("causes") or {})
+    hop_auts: Dict[str, dict] = {}
+    atts = rec.get("attempts") or []
+    win_name = atts[-1].get("replica") if atts else None
+    for name, rrec in hops or []:
+        if isinstance(rrec, dict):
+            hop_auts[str(name)] = rrec.get("autopsy") \
+                or classify_record(rrec)
+    win_aut = hop_auts.get(win_name) if win_name else None
+    if win_aut is not None:
+        lane = causes.get("decode_baseline", 0.0)
+        hop_causes = win_aut.get("causes") or {}
+        hop_sum = sum(_f(v) for v in hop_causes.values())
+        # clock-skew guard: the replica's books may claim (slightly)
+        # more than the router observed — scale them down to fit the
+        # lane so the stitched causes still tile total_s exactly
+        scale = 1.0 if hop_sum <= lane or hop_sum <= 0.0 \
+            else lane / hop_sum
+        causes["decode_baseline"] = 0.0
+        claimed = 0.0
+        for c in CAUSES:
+            add = _f(hop_causes.get(c)) * scale
+            causes[c] += add
+            claimed += add
+        causes["slow_replica"] += max(0.0, lane - claimed)
+    merged = _finish(causes, base.get("wall_s", 0.0))
+    return {"id": rec.get("id"), "outcome": rec.get("outcome"),
+            "autopsy": merged, "router": base, "hops": hop_auts}
+
+
 
 
 # ----------------------------------------------------------------------
@@ -209,3 +297,76 @@ def incidents(events, t0_wall: float = 0.0, records=None,
     if n is not None and n >= 0:
         rows = rows[-n:] if n else []
     return rows
+
+
+# ----------------------------------------------------------------------
+def selftest(verbose: bool = False) -> int:
+    # a plain served record: everything is decode_baseline
+    rec = {"id": "a", "outcome": "served", "wall_s": 1.0,
+           "total_s": 1.0,
+           "phases": {"queue_wait": 0.1, "dispatch": 0.0,
+                      "prefill": 0.2, "decode": 0.7}}
+    a = classify_record(rec)
+    assert a["primary"] == "decode_baseline", a
+    assert abs(sum(a["causes"].values()) - 1.0) < 1e-6, a
+    # compile stall claims the work pool
+    a = classify_record(dict(rec, compile_stall_s=0.8))
+    assert a["primary"] == "compile_stall", a
+    assert abs(sum(a["causes"].values()) - 1.0) < 1e-6
+    # kv defer claims the queue pool
+    a = classify_record(dict(rec, kv_defers=2,
+                             phases={"queue_wait": 0.8, "dispatch": 0.0,
+                                     "prefill": 0.1, "decode": 0.1}))
+    assert a["primary"] == "kv_defer", a
+    # a record with NO optional inputs still classifies
+    a = classify_record({"id": "bare"})
+    assert a["primary"] == "queue_wait" and a["wall_s"] == 0.0
+    # router record: single clean attempt
+    rr = {"id": "r", "outcome": "served", "total_s": 0.5,
+          "attempts": [{"replica": "x", "t_off_s": 0.01,
+                        "latency_s": 0.48, "status": "ok"}]}
+    ra = classify_route(rr)
+    assert ra["primary"] == "decode_baseline"
+    assert abs(sum(ra["causes"].values()) - 0.5) < 1e-6
+    # failover: two attempts -> the pre-winner time is hedge_replay
+    rr2 = {"id": "r2", "outcome": "served", "total_s": 1.0,
+           "attempts": [{"replica": "x", "t_off_s": 0.0,
+                         "latency_s": 0.4, "status": "lost"},
+                        {"replica": "y", "t_off_s": 0.45,
+                         "latency_s": 0.5, "status": "ok",
+                         "cls": "replay"}]}
+    ra2 = classify_route(rr2)
+    assert ra2["causes"]["hedge_replay"] > 0.4, ra2
+    # the stitch: replica books replace the latency lane; slow_replica
+    # absorbs what the replica cannot account for
+    hop = {"id": "r", "outcome": "served", "wall_s": 0.4,
+           "total_s": 0.4,
+           "phases": {"queue_wait": 0.0, "dispatch": 0.0,
+                      "prefill": 0.1, "decode": 0.3}}
+    sw = stitch_route(rr, [("x", hop)])
+    m = sw["autopsy"]
+    assert abs(sum(m["causes"].values()) - 0.5) < 1e-6, m
+    assert abs(m["causes"]["slow_replica"] - 0.08) < 1e-6, m
+    # incident timeline: begin/end pairing + causal request link
+    evs = [{"ev": "decode_convoy", "convoy": 1, "ts": 1.0, "slot": 0},
+           {"ev": "decode_convoy", "convoy": 0, "ts": 3.0, "slot": 0},
+           {"ev": "fleet_scale", "action": "up", "ts": 2.0}]
+    recs = [{"id": "v", "t_wall": 101.5, "wall_s": 1.0,
+             "autopsy": {"primary": "convoy_victim",
+                         "causes": {"convoy_victim": 0.9},
+                         "wall_s": 1.0}}]
+    rows = incidents(evs, t0_wall=100.0, records=recs)
+    assert [r["kind"] for r in rows] == ["decode_convoy", "fleet_scale",
+                                         "decode_convoy"]
+    assert rows[0]["requests"] == ["v"], rows[0]
+    if verbose:
+        print("autopsy selftest: record/route/stitch/incident "
+              "classification ok (%d causes)" % len(CAUSES))
+    return 0
+
+
+if __name__ == "__main__":
+    if "--selftest" in sys.argv[1:]:
+        sys.exit(selftest(verbose=True))
+    print(__doc__)
+    sys.exit(1)

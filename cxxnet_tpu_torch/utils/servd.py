@@ -13,8 +13,8 @@ The status HTTP server (``utils/statusd.py``) reads the frontend's probes,
 flight recorder and batch account. The performance ledger
 (``utils/perf.py``) gives every flight record its decode bound
 (``roofline_bound_tokens_per_s``, None until a decode-step card is ready)
-and the warm-grid account behind ``set_warm_account``. The fleet router is
-not ported.
+and the warm-grid account behind ``set_warm_account``. The fleet router
+(``utils/routerd.py``, ``task = route``) routes over such replicas.
 
 What a request gets on the way to the backend:
 

@@ -47,8 +47,15 @@ Endpoints (``ENDPOINTS``):
   the next N seconds into the run-scoped ``profilez_dir`` (409 while one
   runs).
 
-``/fleetz`` (the fleet router) is not ported: it answers 404 saying so,
-and the 404 listing names only the pages served.
+* ``/fleetz`` — the serving fleet's routing table (``utils/routerd.py``,
+  registered by ``task = route`` through ``set_fleet``): one row per
+  replica (state, load gauges, warm fraction, ejection backoff), the
+  router's counters and the rolling-reload drain windows; ``?json=1``,
+  ``?n=<k>``. ``/metrics`` exports the same account as the
+  ``cxxnet_fleet_*`` series. On a router process ``/trace?request=<id>``
+  returns the stitched cross-process trace (the router's attempt lane and
+  each touched replica's phase lanes), ``/why`` the stitched autopsy, and
+  ``/eventz`` the timeline merged over the replicas' own.
 
 Serving SLOs: an ``SLOTracker`` (objectives ``slo_ttft_ms`` /
 ``slo_p99_ms`` / ``slo_availability`` over a rolling window) turns each
@@ -89,10 +96,10 @@ __all__ = [
     "set_run_info", "update_progress", "register_probe", "wire_health",
     "set_flight_recorder", "set_slo", "set_slo_tenants", "set_perf",
     "set_profiler", "set_batch",
-    "set_auditor", "prometheus_metrics", "programz_html", "compilez_html",
-    "requestz_html", "batchz_html",
-    "why_html", "eventz_html", "ENDPOINTS", "NOT_PORTED_PAGES",
-    "PROM_LINE_RE", "selftest",
+    "set_fleet", "set_auditor",
+    "prometheus_metrics", "programz_html", "compilez_html",
+    "fleetz_html", "requestz_html", "batchz_html", "why_html",
+    "eventz_html", "ENDPOINTS", "PROM_LINE_RE", "selftest",
 ]
 
 # Every endpoint the handler serves, with its query contract: (path,
@@ -105,17 +112,13 @@ ENDPOINTS: Tuple[Tuple[str, bool, bool], ...] = (
     ("/trace", False, False),
     ("/requestz", True, True),
     ("/batchz", True, True),
-    ("/why", True, False),
-    ("/eventz", True, True),
     ("/programz", True, True),
     ("/compilez", True, True),
     ("/profilez", False, False),
+    ("/fleetz", True, True),
+    ("/why", True, False),
+    ("/eventz", True, True),
 )
-# the JAX package's pages that the port does not serve, with what they
-# read; each answers 404 saying so
-NOT_PORTED_PAGES = {
-    "/fleetz": "the fleet router",
-}
 
 _NAME_SAN = re.compile(r"[^a-zA-Z0-9_]")
 
@@ -299,6 +302,7 @@ def prometheus_metrics(snapshot: dict, progress: Optional[dict] = None,
                        slo_tenants: Optional[dict] = None,
                        perf: Optional[dict] = None,
                        batch: Optional[dict] = None,
+                       fleet: Optional[dict] = None,
                        books: Optional[dict] = None) -> str:
     """Render a ``telemetry.metrics_snapshot()`` as Prometheus text
     exposition format 0.0.4. Pure function of its inputs — the selftest
@@ -329,7 +333,8 @@ def prometheus_metrics(snapshot: dict, progress: Optional[dict] = None,
 
     def emit_hist(mname, h):
         """One fixed-bucket histogram family (cumulative ``le`` rows)
-        from a sparse ``Histogram.to_dict`` snapshot."""
+        from a sparse ``Histogram.to_dict`` snapshot — shared by the
+        registry's own series and the fleet-federated ones."""
         out.append("# TYPE %s histogram" % mname)
         counts = {int(i): int(c) for i, c in
                   (h.get("buckets") or {}).items()}
@@ -583,6 +588,255 @@ def prometheus_metrics(snapshot: dict, progress: Optional[dict] = None,
                      help_="1 while the low-headroom latch sheds "
                            "retained mass (kv_pressure events mark "
                            "the transitions)")
+    if fleet is not None:
+        # the routing fleet (routerd.Router.fleet_snapshot()): per-state
+        # counts as one labeled family, per-replica load/liveness rows
+        # keyed by replica address (the heartbeat-channel pattern)
+        reps = fleet.get("replicas") or []
+        emit("cxxnet_fleet_replicas", "gauge", len(reps),
+             help_="replicas configured behind the router")
+        emit("cxxnet_fleet_replicas_eligible", "gauge",
+             int(fleet.get("eligible", 0)),
+             help_="replicas up and in rotation (not held by a "
+                   "rolling reload)")
+        by_state: Dict[str, int] = {}
+        for r in reps:
+            # a standby is NOT routable whatever its probe state says:
+            # it gets its own state row, and replica_up 0 below — a
+            # dashboard counting "up" must count replicas that accept
+            # traffic, not held-out spares
+            st = "standby" if r.get("standby") \
+                else r.get("state", "?")
+            by_state[st] = by_state.get(st, 0) + 1
+        if by_state:
+            out.append("# TYPE cxxnet_fleet_state gauge")
+            for st in sorted(by_state):
+                out.append('cxxnet_fleet_state{process="%s",state="%s"}'
+                           ' %d' % (_lesc(p), _lesc(st), by_state[st]))
+        fams = (("cxxnet_fleet_replica_up",
+                 lambda r: 1 if (r.get("state") == "up"
+                                 and not r.get("standby")) else 0,
+                 "1 while the replica is routable"),
+                ("cxxnet_fleet_replica_queue_depth",
+                 lambda r: r.get("queue_depth", 0), None),
+                ("cxxnet_fleet_replica_in_flight",
+                 lambda r: r.get("in_flight", 0), None),
+                ("cxxnet_fleet_replica_outstanding",
+                 lambda r: r.get("outstanding", 0),
+                 "requests this router currently has on the replica"),
+                ("cxxnet_fleet_replica_lost_contact",
+                 lambda r: r.get("lost", 0),
+                 "lost-contact attempts charged to this replica "
+                 "(each one fed the replay failover)"))
+        for mname, get, help_ in fams:
+            if not reps:
+                continue
+            if help_:
+                out.append("# HELP %s %s" % (mname, help_))
+            out.append("# TYPE %s gauge" % mname)
+            for r in reps:
+                out.append('%s{process="%s",replica="%s"} %s'
+                           % (mname, _lesc(p),
+                              _lesc(r.get("name", "?")),
+                              _fmt(get(r))))
+        # the router-local failover account: route.* counters are
+        # router-owned,
+        # not federated from replicas — emitted here so the headline
+        # chaos acceptance can scrape replays/hedges off the router
+        rstats = fleet.get("stats") or {}
+        ffams = (("lost_contact", "attempts that went silent after "
+                  "dispatch (EOF/timeout) — replay failover feed"),
+                 ("replays", "lost attempts re-executed on a "
+                  "different replica (deterministic replay)"),
+                 ("replay_denied", "replays refused (generation "
+                  "moved, or tenant over fair share)"),
+                 ("hedges", "duplicate tail-hedge attempts launched"),
+                 ("hedge_wins", "requests whose hedge answered first"),
+                 ("discarded_late", "duplicate answers reaped and "
+                  "discarded (exactly-once to the client)"))
+        for k, help_ in ffams:
+            if k in rstats:
+                emit("cxxnet_fleet_failover_%s_total" % k, "counter",
+                     int(rstats.get(k) or 0), help_=help_)
+        # warm-grid readiness per replica: only rows for replicas
+        # that declare a grid (absence is the capability signal —
+        # a missing row, never a lying 0)
+        wreps = [r for r in reps if r.get("warm_pct") is not None]
+        if wreps:
+            out.append("# HELP cxxnet_fleet_replica_warm_pct compiled "
+                       "fraction of the replica's expected serving "
+                       "program grid (ADMIN warm_programs/"
+                       "expected_programs)")
+            out.append("# TYPE cxxnet_fleet_replica_warm_pct gauge")
+            for r in wreps:
+                out.append(
+                    'cxxnet_fleet_replica_warm_pct{process="%s"'
+                    ',replica="%s"} %s'
+                    % (_lesc(p), _lesc(r.get("name", "?")),
+                       _fmt(r["warm_pct"])))
+        fed = fleet.get("federation")
+        if fed:
+            # the federated fleet account (routerd.federation_snapshot)
+            # — per-replica serve histograms merged EXACTLY (shared
+            # fixed buckets: bucket-count addition) into fleet series,
+            # counters summed, SLO over the merged windows, and the
+            # per-replica outlier verdicts
+            emit("cxxnet_fleet_federated_replicas", "gauge",
+                 int(fed.get("replicas", 0)),
+                 help_="replicas whose metrics the last federation "
+                       "sweep reached")
+            emit("cxxnet_fleet_federation_age_seconds", "gauge",
+                 round(float(fed.get("age_s", 0.0)), 3))
+            for name, h in sorted((fed.get("series") or {}).items()):
+                emit_hist("cxxnet_fleet_"
+                          + _NAME_SAN.sub("_", str(name)) + "_seconds",
+                          {"buckets": h.get("buckets"),
+                           "count": h.get("count", 0),
+                           "sum": h.get("sum_s", 0.0)})
+            for cname, v in sorted((fed.get("counters") or {}).items()):
+                if _num(v):
+                    emit("cxxnet_fleet_"
+                         + _NAME_SAN.sub("_", str(cname)) + "_total",
+                         "counter", v)
+            fslo = fed.get("slo")
+            if fslo is not None:
+                emit("cxxnet_fleet_slo_burn", "gauge",
+                     int(fslo.get("alert", 0)),
+                     help_="1 while the FLEET-wide merged-window error "
+                           "budget burns >= 1x — fires even when no "
+                           "single replica's own alert floor trips")
+                emit("cxxnet_fleet_slo_burn_rate", "gauge",
+                     float(fslo.get("burn_rate", 0.0)))
+                emit("cxxnet_fleet_slo_bad_fraction", "gauge",
+                     float(fslo.get("bad_fraction", 0.0)))
+                emit("cxxnet_fleet_slo_window_requests", "gauge",
+                     int(fslo.get("requests", 0)))
+            verdicts = fed.get("outliers") or {}
+            if verdicts:
+                out.append("# HELP cxxnet_fleet_outlier 1 while the "
+                           "replica's serve p99 diverges from the "
+                           "fleet median past fleet_outlier_ratio")
+                out.append("# TYPE cxxnet_fleet_outlier gauge")
+                for name in sorted(verdicts):
+                    out.append(
+                        'cxxnet_fleet_outlier{process="%s",'
+                        'replica="%s"} %d'
+                        % (_lesc(p), _lesc(name),
+                           1 if verdicts[name].get("outlier") else 0))
+                out.append("# TYPE cxxnet_fleet_replica_p99_seconds "
+                           "gauge")
+                for name in sorted(verdicts):
+                    p99 = verdicts[name].get("p99_ms")
+                    if p99 is None:
+                        continue
+                    out.append(
+                        'cxxnet_fleet_replica_p99_seconds'
+                        '{process="%s",replica="%s"} %s'
+                        % (_lesc(p), _lesc(name),
+                           _fmt(round(p99 / 1e3, 6))))
+            dec = fed.get("decode")
+            if dec:
+                # the fleet-wide decode KV/HBM account (exact: byte
+                # sums over the replicas' own accounts, live pct
+                # recomputed from the sums — never a mean of means)
+                emit("cxxnet_fleet_decode_kv_bytes", "gauge",
+                     int(dec.get("kv_bytes", 0)),
+                     help_="allocated decode KV-cache bytes summed "
+                           "over the federated replicas")
+                emit("cxxnet_fleet_decode_kv_live_bytes", "gauge",
+                     int(dec.get("kv_live_bytes", 0)))
+                if _num(dec.get("kv_live_pct")):
+                    emit("cxxnet_fleet_decode_kv_live_pct", "gauge",
+                         dec["kv_live_pct"])
+                emit("cxxnet_fleet_decode_convoy_replicas", "gauge",
+                     int(dec.get("convoy_replicas", 0)),
+                     help_="replicas currently latched in a decode "
+                           "convoy (a straggler pinning a full bucket "
+                           "while work queues)")
+                pl = dec.get("pool")
+                if pl:
+                    # paged-KV pool federation: block counts summed
+                    # exactly over the paged replicas, fleet prefix
+                    # hit rate recomputed from the token sums
+                    emit("cxxnet_fleet_decode_kv_block_total", "gauge",
+                         int(pl.get("blocks_total", 0)),
+                         help_="paged decode KV blocks summed over "
+                               "the federated replicas")
+                    emit("cxxnet_fleet_decode_kv_block_free", "gauge",
+                         int(pl.get("blocks_free", 0)))
+                    if _num(pl.get("prefix_hit_rate")):
+                        emit("cxxnet_fleet_decode_prefix_hit_rate",
+                             "gauge", pl["prefix_hit_rate"],
+                             help_="fleet share of admitted prompt "
+                                   "tokens served from resident "
+                                   "shared blocks (token-weighted, "
+                                   "%)")
+                    emit("cxxnet_fleet_decode_kv_defers_total",
+                         "counter", int(pl.get("kv_defers", 0)))
+                    emit("cxxnet_fleet_decode_kv_block_retained",
+                         "gauge", int(pl.get("blocks_retained", 0)),
+                         help_="retained conversation-cache blocks "
+                               "summed over the federated replicas")
+                    emit("cxxnet_fleet_decode_retained_hits_total",
+                         "counter", int(pl.get("retained_hits", 0)))
+                    if _num(pl.get("retained_hit_rate")):
+                        emit("cxxnet_fleet_decode_retained_hit_rate",
+                             "gauge", pl["retained_hit_rate"])
+                    emit("cxxnet_fleet_decode_kv_pressure_replicas",
+                         "gauge", int(pl.get("pressure_replicas", 0)),
+                         help_="replicas currently latched in KV "
+                               "memory pressure (shedding retained "
+                               "mass)")
+        scale = fleet.get("scale")
+        if scale:
+            # the closed-loop autoscaler's account (routerd
+            # scale_snapshot): target = active replicas the policy
+            # currently holds in rotation, plus the cumulative
+            # transition count the fleet_scale JSONL events mirror
+            emit("cxxnet_fleet_target_replicas", "gauge",
+                 int(scale.get("target_replicas", 0)),
+                 help_="replicas the autoscaler holds in rotation "
+                       "(standbys excluded until a scale-up admits "
+                       "them)")
+            emit("cxxnet_fleet_scale_events_total", "counter",
+                 int(scale.get("events", 0)),
+                 help_="autoscaler scale-up/scale-down transitions")
+            emit("cxxnet_fleet_standby_replicas", "gauge",
+                 int(scale.get("standby", 0)))
+        tenants = fleet.get("tenants")
+        if tenants:
+            # per-tenant fleet books: the router's own outcome counts
+            # (labels bound by the conf tenant table), each tenant's
+            # federated fleet p99, and its fleet-wide merged-window SLO
+            # burn — the "noisy tenant sheds, victim holds" series
+            tfams = (("cxxnet_fleet_tenant_accepted_total", "counter",
+                      lambda d: (d.get("router") or {}).get("accepted")),
+                     ("cxxnet_fleet_tenant_served_total", "counter",
+                      lambda d: (d.get("router") or {}).get("served")),
+                     ("cxxnet_fleet_tenant_shed_total", "counter",
+                      lambda d: (d.get("router") or {}).get("shed")),
+                     ("cxxnet_fleet_tenant_errors_total", "counter",
+                      lambda d: (d.get("router") or {}).get("errors")),
+                     ("cxxnet_fleet_tenant_weight", "gauge",
+                      lambda d: d.get("weight")),
+                     ("cxxnet_fleet_tenant_p99_seconds", "gauge",
+                      lambda d: None if d.get("p99_ms") is None
+                      else round(d["p99_ms"] / 1e3, 6)),
+                     ("cxxnet_fleet_tenant_slo_burn", "gauge",
+                      lambda d: None if d.get("slo") is None
+                      else int(d["slo"].get("alert", 0))),
+                     ("cxxnet_fleet_tenant_slo_burn_rate", "gauge",
+                      lambda d: None if d.get("slo") is None
+                      else float(d["slo"].get("burn_rate", 0.0))))
+            for mname, mtype, get in tfams:
+                rows = [(t, get(d)) for t, d in sorted(tenants.items())]
+                rows = [(t, v) for t, v in rows if _num(v)]
+                if not rows:
+                    continue
+                out.append("# TYPE %s %s" % (mname, mtype))
+                for t, v in rows:
+                    out.append('%s{process="%s",tenant="%s"} %s'
+                               % (mname, _lesc(p), _lesc(t), _fmt(v)))
     if channels is None:
         channels = health_mod.channel_status()
     if channels:
@@ -751,6 +1005,199 @@ def compilez_html(body: dict) -> str:
                  "compile_stall_s); "
                  "<a href='/compilez?json=1'>json</a> "
                  "<a href='/programz'>programz</a> "
+                 "<a href='/statusz'>statusz</a></p></body></html>")
+    return "\n".join(parts)
+
+
+def fleetz_html(snap: dict) -> str:
+    """Render a ``routerd.Router.fleet_snapshot()`` as the /fleetz
+    page: one row per replica (state machine + load + ejection
+    backoff), the router's counters, and the recent rolling-reload
+    drain windows. Pure function of the snapshot — the routerd
+    selftest and tests validate it socket-free."""
+    esc = html.escape
+    parts = ["<html><head><title>cxxnet fleetz</title></head>"
+             "<body><h1>serving fleet</h1><pre>"]
+    reps = snap.get("replicas") or []
+    parts.append("replicas: %d configured, %d eligible%s%s"
+                 % (len(reps), snap.get("eligible", 0),
+                    "  DRAINING" if snap.get("draining") else "",
+                    "  ROLLING-RELOAD" if snap.get("reloading")
+                    else ""))
+    parts.append("</pre><h2>replicas</h2><pre>")
+    cols = ("replica", "state", "hold", "queue", "in_flight",
+            "outstanding", "lost", "buckets", "blocks", "retained",
+            "warm", "ejections", "probed", "detail")
+    fmt = ("%-21s %-12s %-4s %5s %9s %11s %5s %-12s %-9s %-9s %-9s "
+           "%9s %8s  %s")
+    parts.append(fmt % cols)
+    for r in reps:
+        age = r.get("last_probe_age_s")
+        # the per-bucket load signal (ADMIN stats bucket.<b>.*): each
+        # warm bucket as <size>:<active>/<size> — the column
+        # disaggregated scheduling will route on; "-" pre-batching
+        bks = " ".join(
+            "%s:%s/%s" % (b, d.get("active", 0), b)
+            for b, d in sorted((r.get("buckets") or {}).items(),
+                               key=lambda kv: int(kv[0]))
+            if d.get("warm")) or "-"
+        detail = str(r.get("detail", ""))
+        if r.get("standby"):
+            # held out of dispatch until the autoscaler admits it
+            detail = "STANDBY " + detail
+        if r.get("outlier"):
+            # the federation sweep's verdict: this replica's serve p99
+            # diverges from the fleet median — the flagged row the
+            # cxxnet_fleet_outlier gauge and fleet_outlier event name
+            detail = ("OUTLIER (p99 %.1fms vs fleet) " % r["p99_ms"]
+                      if r.get("p99_ms") is not None
+                      else "OUTLIER ") + detail
+        # paged-KV pool level (ADMIN stats kv_blocks_free/total):
+        # "-" on dense/pre-paging replicas (None in the snapshot —
+        # absence is the capability signal, never rendered as 0/0)
+        blks = ("%s/%s" % (r.get("kv_blocks_free"),
+                           r.get("kv_blocks_total"))
+                if r.get("kv_blocks_total") is not None else "-")
+        # retained conversation cache (ADMIN stats
+        # kv_retained_blocks/kv_retained_hits): parked blocks and
+        # lifetime revivals — "-" on pre-retention replicas (None in
+        # the snapshot; absence is the capability signal)
+        ret = ("%s:%s" % (r.get("kv_retained_blocks"),
+                          r.get("kv_retained_hits"))
+               if r.get("kv_retained_blocks") is not None else "-")
+        # warm-grid readiness (ADMIN stats warm_programs/
+        # expected_programs): compiled fraction of the replica's
+        # expected program grid — "-" when it declares no grid (None
+        # in the snapshot; absence is the capability signal)
+        warm = ("%.0f%% (%s/%s)" % (r["warm_pct"],
+                                    r.get("warm_programs"),
+                                    r.get("expected_programs"))
+                if r.get("warm_pct") is not None else "-")
+        parts.append(fmt % (
+            esc(r.get("name", "?")), esc(r.get("state", "?")),
+            "yes" if r.get("hold") else "-", r.get("queue_depth", 0),
+            r.get("in_flight", 0), r.get("outstanding", 0),
+            r.get("lost", 0),
+            esc(bks), esc(blks), esc(ret), esc(warm),
+            r.get("ejections", 0),
+            "never" if age is None else "%.1fs" % age,
+            esc(detail)))
+    parts.append("</pre><h2>router</h2><pre>")
+    stats = snap.get("stats") or {}
+    parts.append(" ".join("%s=%s" % kv for kv in
+                          sorted(stats.items())))
+    if stats.get("lost_contact") or stats.get("hedges"):
+        # the failover account, interpreted: how many losses the
+        # replay machinery recovered vs surfaced, and the hedge win
+        # rate — the at-a-glance line behind the
+        # cxxnet_fleet_failover_* series
+        parts.append("failover: %s lost-contact, %s replayed, %s "
+                     "denied; %s hedged, %s hedge wins; %s late "
+                     "duplicate answer(s) discarded"
+                     % (stats.get("lost_contact", 0),
+                        stats.get("replays", 0),
+                        stats.get("replay_denied", 0),
+                        stats.get("hedges", 0),
+                        stats.get("hedge_wins", 0),
+                        stats.get("discarded_late", 0)))
+    fed = snap.get("federation")
+    if fed:
+        parts.append("</pre><h2>federated fleet metrics</h2><pre>")
+        parts.append("%d replica(s) federated, %.1fs ago"
+                     % (fed.get("replicas", 0), fed.get("age_s", 0.0)))
+        for name, h in sorted((fed.get("series") or {}).items()):
+            parts.append("%-28s n=%-8d p50=%s p99=%s"
+                         % (esc(name), h.get("count", 0),
+                            _ms(h.get("p50_ms")), _ms(h.get("p99_ms"))))
+        fslo = fed.get("slo")
+        if fslo is not None:
+            parts.append("fleet slo: %d requests, %d bad, burn %.2fx%s"
+                         % (fslo.get("requests", 0),
+                            fslo.get("bad", 0),
+                            fslo.get("burn_rate", 0.0),
+                            "  BURNING" if fslo.get("alert") else ""))
+        dec = fed.get("decode")
+        if dec:
+            pct = dec.get("kv_live_pct")
+            parts.append("decode kv (%d replica(s)): %s MiB allocated, "
+                         "%s MiB live (%s%%)%s"
+                         % (dec.get("replicas", 0),
+                            _mib(dec.get("kv_bytes")),
+                            _mib(dec.get("kv_live_bytes")),
+                            "n/a" if pct is None else "%.1f" % pct,
+                            "  CONVOY on %d replica(s)"
+                            % dec["convoy_replicas"]
+                            if dec.get("convoy_replicas") else ""))
+            pl = dec.get("pool")
+            if pl:
+                hr = pl.get("prefix_hit_rate")
+                rr = pl.get("retained_hit_rate")
+                parts.append("paged kv (%d replica(s)): %s/%s blocks "
+                             "free, %s retained (%s revival(s), hit "
+                             "rate %s%%), prefix hit rate %s%%, %s "
+                             "exhaustion defer(s)%s"
+                             % (pl.get("replicas", 0),
+                                pl.get("blocks_free", 0),
+                                pl.get("blocks_total", 0),
+                                pl.get("blocks_retained", 0),
+                                pl.get("retained_hits", 0),
+                                "n/a" if rr is None else "%.1f" % rr,
+                                "n/a" if hr is None else "%.1f" % hr,
+                                pl.get("kv_defers", 0),
+                                "  PRESSURE on %d replica(s)"
+                                % pl["pressure_replicas"]
+                                if pl.get("pressure_replicas") else ""))
+    scale = snap.get("scale")
+    if scale:
+        parts.append("</pre><h2>autoscaler</h2><pre>")
+        parts.append("target %d replicas (bounds %d..%d, %d standby); "
+                     "%d scale event(s); up at burn>=%gx, retire after "
+                     "%gs idle, cooldown %gs"
+                     % (scale.get("target_replicas", 0),
+                        scale.get("min", 0), scale.get("max", 0),
+                        scale.get("standby", 0),
+                        scale.get("events", 0),
+                        scale.get("up_burn", 0.0),
+                        scale.get("down_idle_s", 0.0),
+                        scale.get("cooldown_s", 0.0)))
+        for ev in scale.get("recent") or []:
+            # warm_pct: the replica's compiled fraction at the scale
+            # decision — a 0% scale-up is "admitted but paying every
+            # compile cliff ahead" (serve_scale_up_to_first_token_s)
+            wp = ev.get("warm_pct")
+            parts.append("%-4s %-21s -> %d active%s  (%s)"
+                         % (esc(ev.get("action", "?")),
+                            esc(ev.get("replica", "?")),
+                            ev.get("active", 0),
+                            "" if wp is None
+                            else ", %.0f%% warm" % wp,
+                            esc(ev.get("reason", ""))))
+    tenants = snap.get("tenants")
+    if tenants:
+        parts.append("</pre><h2>tenants (weighted-fair QoS)</h2><pre>")
+        cols = ("tenant", "weight", "accepted", "served", "shed",
+                "errors", "fleet p99", "slo burn")
+        tfmt = "%-16s %6s %9s %9s %9s %9s %10s %9s"
+        parts.append(tfmt % cols)
+        for t, d in sorted(tenants.items()):
+            ro = d.get("router") or {}
+            slo = d.get("slo") or {}
+            parts.append(tfmt % (
+                esc(t), "%g" % d.get("weight", 1.0),
+                ro.get("accepted", 0), ro.get("served", 0),
+                ro.get("shed", 0), ro.get("errors", 0),
+                _ms(d.get("p99_ms")),
+                ("%.2fx%s" % (slo["burn_rate"],
+                              " BURNING" if slo.get("alert") else "")
+                 if slo.get("burn_rate") is not None else "n/a")))
+    wins = snap.get("windows") or []
+    if wins:
+        parts.append("</pre><h2>rolling-reload drain windows</h2><pre>")
+        for w in wins:
+            parts.append("%-21s out %.3f -> back %.3f (%.3fs)"
+                         % (esc(w.get("replica", "?")), w["out_s"],
+                            w["back_s"], w["back_s"] - w["out_s"]))
+    parts.append("</pre><p><a href='/fleetz?json=1'>json</a> "
                  "<a href='/statusz'>statusz</a></p></body></html>")
     return "\n".join(parts)
 
@@ -1060,6 +1507,9 @@ class _Endpoint(BaseHTTPRequestHandler):
                                 t: tr.snapshot() for t, tr in
                                 sorted(srv.slo_tenants.items())}
                             if srv.slo_tenants else None,
+                            # the decode KV/convoy account rides the
+                            # federation feed: the router sums the
+                            # byte accounts into cxxnet_fleet_decode_*
                             "batch": srv.batch.batch_snapshot()
                             if srv.batch is not None else None}
                     self._reply(200, "application/json",
@@ -1098,6 +1548,25 @@ class _Endpoint(BaseHTTPRequestHandler):
                 rid = (parse_qs(query, keep_blank_values=True)
                        .get("request") or [None])[0]
                 if rid is not None:
+                    if srv.fleet is not None and hasattr(
+                            srv.fleet, "stitched_trace"):
+                        # router process: ONE cross-process trace —
+                        # the router's attempt lane plus each touched
+                        # replica's phase lanes, fetched live over
+                        # their statusd and clock-aligned on the
+                        # shared wall epoch (routerd.stitched_trace)
+                        trace = srv.fleet.stitched_trace(rid)
+                        if trace is None:
+                            self._reply(
+                                404, "text/plain; charset=utf-8",
+                                ("no routed request %r in the router "
+                                 "flight ring; see /requestz\n" % rid)
+                                .encode("utf-8"))
+                        else:
+                            self._reply(200, "application/json",
+                                        json.dumps(trace)
+                                        .encode("utf-8"))
+                        return
                     # one request's flight record as a Chrome trace
                     fr = srv.flight
                     rec = fr.get(rid) if fr is not None else None
@@ -1131,7 +1600,9 @@ class _Endpoint(BaseHTTPRequestHandler):
                 fr = srv.flight
                 rid = (q.get("request") or [None])[0]
                 if rid is not None:
-                    # ONE raw flight record by id
+                    # ONE raw flight record by id — the cross-process
+                    # stitch fetches a replica's half of a routed
+                    # request through this (routerd.stitched_trace)
                     rec = fr.get(rid) if fr is not None else None
                     if rec is None:
                         self._reply(404, "text/plain; charset=utf-8",
@@ -1160,7 +1631,8 @@ class _Endpoint(BaseHTTPRequestHandler):
                     self._reply(200, "application/json",
                                 json.dumps(body).encode("utf-8"))
                 else:
-                    # HTML by default, ?json=1 for the raw snapshot
+                    # HTML by default, ?json=1 for the raw snapshot —
+                    # the same contract as /fleetz and /programz
                     self._reply(200, "text/html; charset=utf-8",
                                 requestz_html(
                                     recs, total,
@@ -1192,59 +1664,6 @@ class _Endpoint(BaseHTTPRequestHandler):
                 else:
                     self._reply(200, "text/html; charset=utf-8",
                                 batchz_html(snap).encode("utf-8"))
-            elif path == "/why":
-                q = parse_qs(query, keep_blank_values=True)
-                rid = (q.get("request") or [None])[0]
-                if rid is None:
-                    self._reply(400, "text/plain; charset=utf-8",
-                                b"which request? /why?request=<id> "
-                                b"(ids on /requestz)\n")
-                    return
-                fr = srv.flight
-                rec = fr.get(rid) if fr is not None else None
-                payload = None if rec is None else {
-                    "id": rec.get("id"),
-                    "outcome": rec.get("outcome"),
-                    # the frontend stamps the verdict at record time
-                    # (servd._observe_request); classify on the fly
-                    # for records that predate the autopsy
-                    "autopsy": rec.get("autopsy")
-                    or autopsy.classify_record(rec),
-                    "hops": {}}
-                if payload is None:
-                    self._reply(404, "text/plain; charset=utf-8",
-                                ("no flight record for request %r; "
-                                 "see /requestz\n" % rid)
-                                .encode("utf-8"))
-                elif q.get("json"):
-                    self._reply(200, "application/json",
-                                json.dumps(payload).encode("utf-8"))
-                else:
-                    self._reply(200, "text/html; charset=utf-8",
-                                why_html(payload).encode("utf-8"))
-            elif path == "/eventz":
-                q = parse_qs(query)
-                try:
-                    # ?n=<k>: newest incident rows shown (default all —
-                    # the transition streams are sparse by design)
-                    n = int((q.get("n") or ["0"])[0])
-                except ValueError:
-                    self._reply(400, "text/plain; charset=utf-8",
-                                b"n must be an integer\n")
-                    return
-                fr = srv.flight
-                rows = autopsy.incidents(
-                    srv.registry.recent_events(),
-                    t0_wall=getattr(srv.registry, "t0_wall", 0.0),
-                    records=fr.list() if fr is not None else None,
-                    n=n if n > 0 else None)
-                if q.get("json"):
-                    body = {"rows": rows, "shown": len(rows)}
-                    self._reply(200, "application/json",
-                                json.dumps(body).encode("utf-8"))
-                else:
-                    self._reply(200, "text/html; charset=utf-8",
-                                eventz_html(rows, n).encode("utf-8"))
             elif path == "/programz":
                 lg = srv.perf
                 q = parse_qs(query)
@@ -1302,6 +1721,103 @@ class _Endpoint(BaseHTTPRequestHandler):
                     else:
                         self._reply(200, "text/html; charset=utf-8",
                                     compilez_html(body).encode("utf-8"))
+            elif path == "/fleetz":
+                fl = srv.fleet
+                q = parse_qs(query)
+                try:
+                    # ?n=<k>: replica rows shown (default all).
+                    # Contract first: malformed ?n is 400, fleet or not.
+                    n = int((q.get("n") or ["0"])[0])
+                except ValueError:
+                    self._reply(400, "text/plain; charset=utf-8",
+                                b"n must be an integer\n")
+                    return
+                if fl is None:
+                    self._reply(404, "text/plain; charset=utf-8",
+                                b"no fleet registered (this process is "
+                                b"not a router; task = route wires "
+                                b"one)\n")
+                else:
+                    snap = fl.fleet_snapshot()
+                    if n > 0:
+                        snap = dict(snap)
+                        snap["replicas"] = \
+                            (snap.get("replicas") or [])[:n]
+                    if q.get("json"):
+                        self._reply(200, "application/json",
+                                    json.dumps(snap).encode("utf-8"))
+                    else:
+                        self._reply(200, "text/html; charset=utf-8",
+                                    fleetz_html(snap).encode("utf-8"))
+            elif path == "/why":
+                q = parse_qs(query, keep_blank_values=True)
+                rid = (q.get("request") or [None])[0]
+                if rid is None:
+                    self._reply(400, "text/plain; charset=utf-8",
+                                b"which request? /why?request=<id> "
+                                b"(ids on /requestz)\n")
+                    return
+                if srv.fleet is not None and hasattr(
+                        srv.fleet, "stitched_why"):
+                    # router process: the cross-process verdict — the
+                    # router's own lane decomposition with the winning
+                    # replica's books stitched into the latency lane
+                    # (routerd.stitched_why)
+                    payload = srv.fleet.stitched_why(rid)
+                else:
+                    fr = srv.flight
+                    rec = fr.get(rid) if fr is not None else None
+                    payload = None if rec is None else {
+                        "id": rec.get("id"),
+                        "outcome": rec.get("outcome"),
+                        # replicas stamp the verdict at record time
+                        # (servd._observe_request); classify on the
+                        # fly for records that predate the autopsy
+                        "autopsy": rec.get("autopsy")
+                        or autopsy.classify_record(rec),
+                        "hops": {}}
+                if payload is None:
+                    self._reply(404, "text/plain; charset=utf-8",
+                                ("no flight record for request %r; "
+                                 "see /requestz\n" % rid)
+                                .encode("utf-8"))
+                elif q.get("json"):
+                    self._reply(200, "application/json",
+                                json.dumps(payload).encode("utf-8"))
+                else:
+                    self._reply(200, "text/html; charset=utf-8",
+                                why_html(payload).encode("utf-8"))
+            elif path == "/eventz":
+                q = parse_qs(query)
+                try:
+                    # ?n=<k>: newest incident rows shown (default all —
+                    # the transition streams are sparse by design)
+                    n = int((q.get("n") or ["0"])[0])
+                except ValueError:
+                    self._reply(400, "text/plain; charset=utf-8",
+                                b"n must be an integer\n")
+                    return
+                if srv.fleet is not None and hasattr(
+                        srv.fleet, "fleet_eventz"):
+                    # router process: the fleet-merged timeline — this
+                    # router's incidents plus every replica's own
+                    # /eventz feed under one wall clock
+                    rows = srv.fleet.fleet_eventz(
+                        n if n > 0 else None)
+                else:
+                    fr = srv.flight
+                    rows = autopsy.incidents(
+                        srv.registry.recent_events(),
+                        t0_wall=getattr(srv.registry, "t0_wall", 0.0),
+                        records=fr.list() if fr is not None else None,
+                        n=n if n > 0 else None)
+                if q.get("json"):
+                    body = {"rows": rows, "shown": len(rows)}
+                    self._reply(200, "application/json",
+                                json.dumps(body).encode("utf-8"))
+                else:
+                    self._reply(200, "text/html; charset=utf-8",
+                                eventz_html(rows, n).encode("utf-8"))
             elif path == "/profilez":
                 prof = srv.profiler
                 if prof is None:
@@ -1336,13 +1852,6 @@ class _Endpoint(BaseHTTPRequestHandler):
                         code = 409 if "in progress" in detail else 400
                         self._reply(code, "text/plain; charset=utf-8",
                                     (detail + "\n").encode("utf-8"))
-            elif path in NOT_PORTED_PAGES:
-                self._reply(404, "text/plain; charset=utf-8",
-                            ("%s reads %s, which is not ported to "
-                             "cxxnet_tpu_torch; endpoints: %s\n"
-                             % (path, NOT_PORTED_PAGES[path],
-                                " ".join(p for p, _, _ in ENDPOINTS)))
-                            .encode("utf-8"))
             else:
                 # the endpoint table IS the list
                 self._reply(404, "text/plain; charset=utf-8",
@@ -1388,9 +1897,12 @@ class StatusServer:
         # series, and the perf.ProfilerCapture behind /profilez
         self.perf = None
         self.profiler = None
+        # fleet wiring (set_fleet): the routerd.Router behind /fleetz
+        # and the cxxnet_fleet_* series (task = route registers it)
+        self.fleet = None
         # the conservation-law auditor behind cxxnet_books_* — the
-        # PROCESS-wide one by default (servd registers its laws there),
-        # swappable for isolation via set_auditor(None)
+        # PROCESS-wide one by default (servd/routerd register their
+        # laws there), swappable for isolation via set_auditor(None)
         self.auditor = telemetry.auditor()
         # (name, probe_fn, liveness): see register_probe
         self.probes: List[Tuple[str, Callable[[], Tuple[bool, str]],
@@ -1515,6 +2027,8 @@ class StatusServer:
             perf=self.perf.snapshot() if self.perf is not None else None,
             batch=self.batch.batch_snapshot()
             if self.batch is not None else None,
+            fleet=self.fleet.fleet_snapshot()
+            if self.fleet is not None else None,
             books=books)
 
     def statusz_html(self) -> str:
@@ -1576,6 +2090,24 @@ class StatusServer:
                 ("burn rate", "%.2fx%s" % (sn["burn_rate"],
                                            "  BURNING" if sn["alert"]
                                            else ""))])
+        if self.fleet is not None:
+            fsnap = self.fleet.fleet_snapshot()
+            by: Dict[str, int] = {}
+            for r in fsnap.get("replicas") or []:
+                by[r.get("state", "?")] = by.get(r.get("state", "?"),
+                                                 0) + 1
+            table("fleet", [
+                ("replicas", "%d configured, %d eligible (%s) — see "
+                 "/fleetz" % (len(fsnap.get("replicas") or []),
+                              fsnap.get("eligible", 0),
+                              " ".join("%s=%d" % kv
+                                       for kv in sorted(by.items()))
+                              or "none")),
+                ("router", " ".join(
+                    "%s=%s" % kv
+                    for kv in sorted((fsnap.get("stats")
+                                      or {}).items())))])
+
         if self.flight is not None and len(self.flight):
             latest = self.flight.list()[0]
             table("requests", [
@@ -1774,6 +2306,14 @@ def set_profiler(capture) -> None:
         s.profiler = capture
 
 
+def set_fleet(router) -> None:
+    """Attach a routerd.Router — /fleetz and the cxxnet_fleet_* series
+    serve from its fleet_snapshot(). No-op without a server."""
+    s = _SERVER
+    if s is not None:
+        s.fleet = router
+
+
 def set_auditor(aud) -> None:
     """Swap the conservation-law auditor behind the cxxnet_books_*
     series (the process-wide telemetry.auditor() by default). None
@@ -1833,8 +2373,10 @@ def _selftest_body(verbose: bool = False) -> int:
         assert 'cxxnet_slo_burn{process="0"} 0' in metrics
         assert "cxxnet_slo_burn_rate" in metrics
 
-        # per-request flight recorder: HTML by default, listable as
-        # JSON, ?n=<k> bounded, one raw record by ?request=<id>
+        # per-request flight recorder: HTML by default (the ?json=1
+        # contract /fleetz and /programz follow), listable as JSON,
+        # ?n=<k> bounded, one raw record by ?request=<id> (the
+        # cross-process stitch feed)
         rpage = urlopen(base + "/requestz", timeout=5).read().decode()
         assert "flight recorder" in rpage and ">7<" not in rpage
         reqz = json.loads(urlopen(base + "/requestz?json=1",
@@ -1948,16 +2490,76 @@ def _selftest_body(verbose: bool = False) -> int:
             assert "worker died" in e.read().decode()
         srv.probes.clear()
 
-        # the pages of the unported subsystems answer 404 and say so
-        for path in NOT_PORTED_PAGES:
-            try:
-                urlopen(base + path, timeout=5)
-                raise AssertionError("%s should 404" % path)
-            except HTTPError as e:
-                assert e.code == 404 and "not ported" in e.read().decode()
+        # fleet surfaces: 404 before a router registers, then the
+        # /fleetz page + cxxnet_fleet_* series from a snapshot-shaped
+        # fake (the real Router drives these in the routerd selftest)
+        try:
+            urlopen(base + "/fleetz", timeout=5)
+            raise AssertionError("fleetz without a fleet should 404")
+        except HTTPError as e:
+            assert e.code == 404
+
+        class _FakeFleet:
+            def fleet_snapshot(self):
+                return {"replicas": [
+                    {"name": "127.0.0.1:7001", "state": "up",
+                     "hold": False, "queue_depth": 2, "in_flight": 1,
+                     "outstanding": 1, "ejections": 0,
+                     "probe_fails": 0, "last_probe_age_s": 0.1,
+                     "detail": "ready"},
+                    {"name": "127.0.0.1:7002", "state": "dead",
+                     "hold": False, "queue_depth": 0, "in_flight": 0,
+                     "outstanding": 0, "ejections": 3,
+                     "probe_fails": 3, "last_probe_age_s": None,
+                     "detail": "statusd unreachable"},
+                    {"name": "127.0.0.1:7003", "state": "up",
+                     "standby": True, "hold": False,
+                     "queue_depth": 0, "in_flight": 0,
+                     "outstanding": 0, "ejections": 0,
+                     "probe_fails": 0, "last_probe_age_s": 0.1,
+                     "detail": "ready"}],
+                    "eligible": 1, "draining": False,
+                    "reloading": False,
+                    "windows": [{"replica": "127.0.0.1:7001",
+                                 "out_s": 1.0, "back_s": 1.5}],
+                    "stats": {"accepted": 5, "served": 4, "shed": 1,
+                              "errors": 0, "deadline": 0,
+                              "retries": 1, "admin": 0,
+                              "client_gone": 0}}
+
+        srv.fleet = _FakeFleet()
+        fz = urlopen(base + "/fleetz", timeout=5).read().decode()
+        assert "127.0.0.1:7001" in fz and "dead" in fz
+        assert "drain windows" in fz
+        fj = json.loads(urlopen(base + "/fleetz?json=1",
+                                timeout=5).read())
+        assert fj["eligible"] == 1 and len(fj["replicas"]) == 3
+        mf = urlopen(base + "/metrics", timeout=5).read().decode()
+        for line in mf.splitlines():
+            if line and not line.startswith("#"):
+                assert PROM_LINE_RE.match(line), \
+                    "invalid Prometheus line: %r" % line
+        assert 'cxxnet_fleet_replicas{process="0"} 3' in mf
+        assert 'cxxnet_fleet_replicas_eligible{process="0"} 1' in mf
+        assert ('cxxnet_fleet_state{process="0",state="dead"} 1'
+                in mf)
+        # a held-out standby is its OWN state and NOT "up"/routable —
+        # a probe-state "up" must not leak into the replica_up gauge
+        assert ('cxxnet_fleet_state{process="0",state="standby"} 1'
+                in mf)
+        assert ('cxxnet_fleet_state{process="0",state="up"} 1'
+                in mf)
+        assert ('cxxnet_fleet_replica_up{process="0",'
+                'replica="127.0.0.1:7003"} 0' in mf)
+        assert ('cxxnet_fleet_replica_up{process="0",'
+                'replica="127.0.0.1:7002"} 0' in mf)
+        assert ('cxxnet_fleet_replica_queue_depth{process="0",'
+                'replica="127.0.0.1:7001"} 2' in mf)
 
         page = urlopen(base + "/statusz", timeout=5).read().decode()
         assert "statusz" in page and "selftest.requests" in page
+        assert "fleet" in page and "eligible" in page
+        srv.fleet = None
         # never-fired series renders n/a, not 0.00ms; SLO section shows
         assert "selftest.never_fired" in page and "n/a" in page
         assert "burn rate" in page and "BURNING" in page

@@ -15,10 +15,10 @@ ledger's decode bound); and ``serve_kv_pool_frac`` capping the paged pool.
 
 A JAX scenario runs against the port by swapping the globals of the JAX
 test module that name those modules, and its fault injector, for the
-port's, for the length of the case. Left out: the router scenarios
+port's, for the length of the case; the router scenarios
 (``test_fleet_federates_warm_fraction``,
-``test_router_marks_warming_replica_and_keeps_refreshing``: the fleet
-router is not ported) and ``test_bench_compare_cold_start_directions``
+``test_router_marks_warming_replica_and_keeps_refreshing``) run on the
+port's fleet router. Left out: ``test_bench_compare_cold_start_directions``
 (a tool that reads the JAX package).
 """
 
@@ -34,7 +34,7 @@ from cxxnet_tpu import models as jmodels
 from cxxnet_tpu_torch import learn_task as tlt
 from cxxnet_tpu_torch import models
 from cxxnet_tpu_torch.nnet.trainer import Trainer
-from cxxnet_tpu_torch.utils import perf, servd, serializer, statusd
+from cxxnet_tpu_torch.utils import perf, routerd, servd, serializer, statusd
 from cxxnet_tpu_torch.utils import telemetry
 from cxxnet_tpu_torch.utils.config import parse_config_string
 
@@ -220,13 +220,16 @@ SCENARIOS = (
     "test_compilez_endpoint_and_ring_schema",
     "test_compilez_404_names_the_wiring",
     "test_warming_health_state_gates_until_ready",
+    "test_fleet_federates_warm_fraction",
+    "test_router_marks_warming_replica_and_keeps_refreshing",
 )
 
 
 @pytest.mark.parametrize("name", SCENARIOS)
 def test_jax_compile_obs_scenario_on_the_port(name, ledger, monkeypatch):
-    for attr, mod in (("perf", perf), ("servd", servd),
-                      ("statusd", statusd), ("telemetry", telemetry),
+    for attr, mod in (("perf", perf), ("routerd", routerd),
+                      ("servd", servd), ("statusd", statusd),
+                      ("telemetry", telemetry),
                       ("faultinject", port_faultinject)):
         monkeypatch.setattr(jtests, attr, mod)
     fn = getattr(jtests, name)

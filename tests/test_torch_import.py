@@ -115,9 +115,10 @@ def test_fp32_means_fp32_on_the_card():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-# the serving frontend and its helpers: standard library and each other only
-SERVING_MODULES = ("servd", "lockrank", "telemetry", "health", "statusd",
-                   "autopsy", "checkpoint", "kvblocks", "perf")
+# the serving frontend, the fleet router and their helpers: standard
+# library and each other only
+SERVING_MODULES = ("servd", "routerd", "lockrank", "telemetry", "health",
+                   "statusd", "autopsy", "checkpoint", "kvblocks", "perf")
 # imports a serving module may make inside a function, never at its top:
 # the performance ledger's card spec, memory probe and profiler capture
 # need torch and the package's device module, on a card only
@@ -127,6 +128,7 @@ LAZY_IMPORTS = {"perf": ("torch", "device")}
 def test_serving_frontend_loads_no_jax():
     code = ("import sys\n"
             "import cxxnet_tpu_torch.utils.servd\n"
+            "import cxxnet_tpu_torch.utils.routerd\n"
             "import cxxnet_tpu_torch.learn_task\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'cxxnet_tpu' or "

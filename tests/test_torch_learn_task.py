@@ -373,8 +373,8 @@ def test_unported_keys_are_refused(key, val):
     lt = tlt.LearnTask()
     if (key, val) in PORTED_SINCE:
         # ported since: the key is read as the JAX command line reads it
-        # (tests/test_torch_serve.py, test_torch_checkpoint.py and
-        # test_torch_statusd.py run them)
+        # (tests/test_torch_serve.py, test_torch_checkpoint.py,
+        # test_torch_statusd.py and test_torch_routerd.py run them)
         lt.set_param(key, val)
         assert PORTED_SINCE[(key, val)](lt)
         return
@@ -391,6 +391,7 @@ PORTED_SINCE = {
     ("ckpt_keep_last", "3"): lambda lt: lt.ckpt_keep_last == 3,
     ("ckpt_keep_every", "2"): lambda lt: lt.ckpt_keep_every == 2,
     ("profile_dir", "prof"): lambda lt: lt.profile_dir == "prof",
+    ("task", "route"): lambda lt: lt.task == "route",
 }
 
 

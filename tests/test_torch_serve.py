@@ -216,26 +216,43 @@ def test_cli_admin_reload_picks_up_a_newer_checkpoint(model, tmp_path,
 
 def test_serve_keys_left_out_are_refused():
     lt = tlt.LearnTask()
-    for key, val in (("watchdog_timeout", "5"), ("route_replicas", "a:1:2"),
-                     ("route_hedge_ms", "5"), ("fleet_federate_ms", "10")):
-        with pytest.raises(ValueError, match="not ported"):
-            lt.set_param(key, val)
+    with pytest.raises(ValueError, match="not ported"):
+        lt.set_param("watchdog_timeout", "5")
     # the warm grid's keys are ported since the performance ledger
-    # (tests/test_torch_compile_obs.py runs them)
+    # (tests/test_torch_compile_obs.py runs them), the router's since
+    # the fleet router (tests/test_torch_routerd.py): each is read as the
+    # JAX command line reads it
+    jtask = jlt.LearnTask()
     for key, val in (("serve_plen_buckets", "8,16"),
                      ("serve_warm_ready_pct", "50"),
                      ("serve_kv_pool_frac", "0.25"), ("route_port", "0"),
                      ("route_tenants", "free:1,paid:4"),
                      ("telemetry_log", "t.jsonl"), ("serve_port", "0"),
-                     ("status_port", "0")):
+                     ("status_port", "0"), ("route_replicas", "a:1:2"),
+                     ("route_hedge_ms", "5"), ("fleet_federate_ms", "10"),
+                     ("route_probe_ms", "100"), ("route_replay", "0"),
+                     ("route_standby_replicas", "b:3:4"),
+                     ("route_scale_up_burn", "2.5"),
+                     ("fleet_outlier_min_n", "7")):
         lt.set_param(key, val)
-    with pytest.raises(ValueError, match="not ported"):
-        lt.set_param("task", "route")
+        jtask.set_param(key, val)
+        assert getattr(lt, key) == getattr(jtask, key), key
+    lt.set_param("task", "route")
+    assert lt.task == "route"
     lt.set_param("task", "serve")
     assert lt.task == "serve" and lt.route_tenants == "free:1,paid:4"
     assert lt.status_port == 0
     assert (lt.serve_plen_buckets, lt.serve_warm_ready_pct,
             lt.serve_kv_pool_frac) == ("8,16", 50.0, 0.25)
+    assert (lt.route_replicas, lt.route_hedge_ms, lt.fleet_federate_ms,
+            lt.route_replay) == ("a:1:2", 5.0, 10.0, 0)
+
+
+def test_route_keys_default_as_the_jax_command_line():
+    lt, jtask = tlt.LearnTask(), jlt.LearnTask()
+    for key, cast, default in tlt._ROUTE_KEYS:
+        assert getattr(lt, key) == getattr(jtask, key) == default, key
+        assert type(getattr(jtask, key)) is cast, key
 
 
 def test_cli_serve_telemetry_log_records_the_requests(model, tmp_path,

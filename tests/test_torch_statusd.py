@@ -150,16 +150,30 @@ def test_jax_endpoint_query_contract_on_the_port(server, path, has_json,
 
 
 def test_unported_pages_answer_404_and_say_so(server):
-    assert set(statusd.NOT_PORTED_PAGES) | {p for p, _, _ in
-                                            statusd.ENDPOINTS} \
-        == {p for p, _, _ in jstatusd.ENDPOINTS}
-    for path in statusd.NOT_PORTED_PAGES:
-        code, body = jtests._get(server, path + "?json=1")
-        assert code == 404 and "not ported" in body, (path, body)
-        for p, _, _ in statusd.ENDPOINTS:
-            assert p in body
-        assert not any(p in body.split("endpoints:")[1]
-                       for p in statusd.NOT_PORTED_PAGES)
+    """Every page of the JAX package is served since the fleet router:
+    the endpoint tables are equal, and /fleetz on a process that is not
+    a router answers 404 naming the wiring, then reads a registered
+    fleet."""
+    assert statusd.ENDPOINTS == jstatusd.ENDPOINTS
+    code, body = jtests._get(server, "/fleetz?json=1")
+    assert code == 404 and "not a router" in body and "task = route" in body
+
+    class _Fleet:
+        def fleet_snapshot(self):
+            return json.loads(json.dumps(FLEET))
+
+    server.fleet = _Fleet()
+    try:
+        code, body = jtests._get(server, "/fleetz?json=1&n=1")
+        assert code == 200
+        snap = json.loads(body)
+        assert snap["eligible"] == 1 and len(snap["replicas"]) == 1
+        code, page = jtests._get(server, "/fleetz")
+        assert code == 200 and page == statusd.fleetz_html(FLEET)
+        code, page = jtests._get(server, "/statusz")
+        assert code == 200 and "eligible" in page
+    finally:
+        server.fleet = None
 
 
 def test_wire_health_refuses_a_recovery_policy(server):
@@ -214,6 +228,32 @@ BATCH = {
                 "age_skew": None, "convoy": 1, "blocks_free": 10,
                 "blocks_total": 64}]}
 
+# a routerd.Router.fleet_snapshot() of three replicas
+FLEET = {
+    "replicas": [
+        {"name": "127.0.0.1:7001", "state": "up", "hold": False,
+         "queue_depth": 2, "in_flight": 1, "outstanding": 1,
+         "ejections": 0, "probe_fails": 0, "last_probe_age_s": 0.1,
+         "warm_pct": 100.0, "free_slots": 2,
+         "buckets": {"4": {"warm": 1, "active": 2}},
+         "detail": "ready"},
+        {"name": "127.0.0.1:7002", "state": "dead", "hold": False,
+         "queue_depth": 0, "in_flight": 0, "outstanding": 0,
+         "ejections": 3, "probe_fails": 3, "last_probe_age_s": None,
+         "detail": "statusd unreachable"},
+        {"name": "127.0.0.1:7003", "state": "warming", "standby": True,
+         "hold": False, "queue_depth": 0, "in_flight": 0,
+         "outstanding": 0, "ejections": 0, "probe_fails": 0,
+         "last_probe_age_s": 0.1, "warm_pct": 25.0,
+         "detail": "warming: 1/4 programs"}],
+    "eligible": 1, "draining": False, "reloading": False,
+    "windows": [{"replica": "127.0.0.1:7001", "out_s": 1.0,
+                 "back_s": 1.5}],
+    "stats": {"accepted": 5, "served": 4, "shed": 1, "errors": 0,
+              "deadline": 0, "retries": 1, "admin": 0, "client_gone": 0,
+              "lost_contact": 1, "replays": 1, "replay_denied": 0,
+              "hedges": 0, "hedge_wins": 0, "discarded_late": 1}}
+
 RECORDS = [
     {"id": "42", "outcome": "served", "t_wall": 5.0, "total_s": 2.0,
      "ttft_s": 1.6, "tokens_out": 8,
@@ -259,7 +299,8 @@ def test_prometheus_metrics_renders_as_the_jax_package_does():
               slo_tenants={"paid": slo["port"], "free": slo["port"]},
               batch=BATCH,
               books={"laws": ["servd.books"], "broken": ["old.law"],
-                     "sweeps": 7})
+                     "sweeps": 7},
+              fleet=FLEET)
     got = statusd.prometheus_metrics(snaps[0], **kw)
     want = jstatusd.prometheus_metrics(snaps[1], **kw)
     assert got == want
@@ -269,6 +310,7 @@ def test_prometheus_metrics_renders_as_the_jax_package_does():
     assert 'cxxnet_progress_round{process="0"} 3' in got
     assert "cxxnet_compiles_total" in got and "cxxnet_decode_kv_pressure" \
         in got
+    assert 'cxxnet_fleet_state{process="0",state="dead"} 1' in got
 
 
 def test_pages_render_as_the_jax_package_does():
@@ -279,6 +321,7 @@ def test_pages_render_as_the_jax_package_does():
     assert statusd.requestz_html(fr.list(), 3, 8, 0) == \
         jstatusd.requestz_html(jfr.list(), 3, 8, 0)
     assert statusd.batchz_html(BATCH) == jstatusd.batchz_html(BATCH)
+    assert statusd.fleetz_html(FLEET) == jstatusd.fleetz_html(FLEET)
     for rec in RECORDS:
         aut = autopsy.classify_record(rec)
         assert aut == jautopsy.classify_record(rec)
