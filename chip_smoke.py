@@ -18,9 +18,17 @@ ImageNet.conf trained for 2 rounds from a synthetic 256x256 PPM pack
 kernels) and held to api.Net.update on the same batches, then, in
 processes of their own, stopped by SIGTERM mid-round and resumed with
 ``continue = 1`` (its status pages scraped) to a model file equal bit for
-bit to the uninterrupted run's, a torn newest file quarantined, then pred
-/ extract / pred_raw from its model held to api.Net, and
-example/kaggle_bowl/pred.conf's pred_raw with a padded last batch; then
+bit to the uninterrupted run's, a torn newest file quarantined, the
+port's offline tools (cxxnet_tpu_torch.tools: summarize_trace,
+telemetry_report, ckpt_fsck --deep, roofline) run on that run's trace,
+log and model files, then pred / extract / pred_raw from its model held
+to api.Net, and example/kaggle_bowl/pred.conf's pred_raw with a padded
+last batch; then the exported programs (``torch.export`` with the LRN and
+flash forward kernels as ``cxxnet::`` ops): ImageNet.conf's forward at
+batch 256 and at a symbolic batch, and the bench.py LM's decode loop in
+bf16 as a prefill and a step program, loaded and run in a fresh process
+that imports torch and the port's op library only, held to api.Net's
+extract / predict and generate; then
 mixed precision (``compute_dtype = bfloat16``): the LRN kernels at
 GoogLeNet's shapes, GoogLeNet trained and served in bf16 at batch 128
 (models.googlenet_config, bench.py's recipe), example/ImageNet/
@@ -60,8 +68,9 @@ time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``alexnet_train``, ``uniform_kernel``, ``uniform_rows_kernel``,
 ``rrelu_alexnet_train``,
 ``cli_mnist_conv``, ``cli_imagenet_train``, ``cli_imagenet_resume``,
-``cli_imagenet_pred``,
-``cli_bowl_pred_raw``, ``lrn_kernel_googlenet``,
+``tools_offline``, ``cli_imagenet_pred``,
+``cli_bowl_pred_raw``, ``export_forward``, ``export_decode``,
+``export_load``, ``lrn_kernel_googlenet``,
 ``lrn_bwd_kernel_googlenet``, ``googlenet_bf16_train``,
 ``googlenet_bf16_pred``, ``cli_googlenet``, ``vgg16_bf16_remat``,
 ``resnet18_bf16_train``, ``bench_bf16``, ``flash_fwd_kernel``,
@@ -4453,6 +4462,431 @@ def round2_lrn_launches(path):
             sum(1 for n in names if "lrn_bwd_kernel" in n))
 
 
+def run_tool(name, args):
+    """The port's offline tool ``cxxnet_tpu_torch.tools.<name>`` on
+    ``args``, as ``python -m`` runs it but in this process: (exit code,
+    stdout, stderr)."""
+    import importlib
+    mod = importlib.import_module("cxxnet_tpu_torch.tools." + name)
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = mod.main(list(args)) or 0
+        except SystemExit as e:
+            rc = e.code
+    log("  python -m cxxnet_tpu_torch.tools.%s %s: exit %d, %.2f s wall"
+        % (name, " ".join(os.path.relpath(a, REPO) if a.startswith(REPO)
+                          else a for a in args), rc,
+           time.perf_counter() - t))
+    return rc, out.getvalue(), err.getvalue()
+
+
+def trace_table(out):
+    """{op: (total ms, calls)} of summarize_trace's profiler table."""
+    rows = {}
+    for ln in out.splitlines()[3:]:
+        parts = ln.rsplit(None, 3)
+        if len(parts) == 4 and parts[3].endswith("%"):
+            rows[parts[0]] = (float(parts[1]), int(parts[2]))
+    return rows
+
+
+def phase_tools_offline(cwd, conf, per_round):
+    """The port's offline tools on this run's own outputs in ``cwd``:
+    summarize_trace on profile_dir's round-2 trace (its table must count
+    that round's LRN launches, ``per_round`` = (forward, backward)),
+    telemetry_report on the training run's train.jsonl (exit 0, its round
+    spans and the program-ledger section present), ckpt_fsck --deep over
+    cli_imagenet_resume's model files and the torn file's quarantined
+    copy (that copy bad, the other good; loaded through the port's net
+    with ``conf``, the config they were trained with, whose pooling sizes
+    a model file does not carry), and roofline's H100 tables."""
+    log("phase tools_offline")
+    t0 = time.perf_counter()
+    rc, out, err = run_tool("summarize_trace", [os.path.join(cwd, "prof"),
+                                                "500"])
+    rows = trace_table(out)
+    if rc != 0 or not rows:
+        raise AssertionError("summarize_trace failed on the round-2 trace: "
+                             "%s" % err[-2000:])
+    for ln in out.splitlines()[:11]:
+        log("    | " + ln)
+    got = tuple(sum(c for n, (_, c) in rows.items() if k in n)
+                for k in ("lrn_fwd_kernel", "lrn_bwd_kernel"))
+    for n, (ms, c) in rows.items():
+        if "lrn_" in n:
+            log("    | %s ... %.2f ms, %d calls" % (n[:40], ms, c))
+    log("  summarize_trace: lrn_fwd_kernel %d, lrn_bwd_kernel %d calls "
+        "(%d and %d launched in round 2)" % (got + per_round))
+    if got != per_round:
+        raise AssertionError("summarize_trace's table does not count round "
+                             "2's LRN launches")
+
+    rc, out, err = run_tool("telemetry_report",
+                            [os.path.join(cwd, "train.jsonl")])
+    spans = [ln for ln in out.splitlines() if re.match(r"round\s+\d", ln)]
+    lines = out.splitlines()
+    for head in ("== rounds ==", "== program ledger"):
+        at = [i for i, ln in enumerate(lines) if ln.startswith(head)]
+        for ln in lines[at[0]:at[0] + 6] if at else []:
+            log("    | " + ln)
+    if rc != 0 or not spans or "== rounds ==" not in out \
+            or "== program ledger" not in out:
+        raise AssertionError("telemetry_report on train.jsonl: exit %d, "
+                             "round spans %s, sections missing\n%s"
+                             % (rc, spans, (out + err)[-3000:]))
+    log("  telemetry_report: exit 0; the round span's row (count %s, total "
+        "%s s), the rounds and the program-ledger sections present"
+        % tuple(spans[0].split()[1:3]))
+
+    res = os.path.join(cwd, "models_res")
+    torn = os.path.join(res, "%04d.model.corrupt" % CLI_ROUNDS)
+    rc, out, err = run_tool("ckpt_fsck", ["--deep", "--json", "--conf",
+                                          conf, res, torn])
+    rep = json.loads(out)
+    verdicts = {os.path.relpath(r["path"], cwd): (r["status"], r["reason"])
+                for r in rep["checkpoints"]}
+    for path, (st, why) in sorted(verdicts.items()):
+        log("    | %-8s %s%s" % (st.upper(), path,
+                                 "  [%s]" % why if why else ""))
+    bad = {p for p, (st, _) in verdicts.items() if st != "ok"}
+    if rc != 1 or bad != {os.path.relpath(torn, cwd)} or len(verdicts) < 2:
+        raise AssertionError("ckpt_fsck --deep: exit %d, bad %s; want exit "
+                             "1 with the quarantined copy alone bad"
+                             % (rc, sorted(bad)))
+    log("  ckpt_fsck --deep: the quarantined copy bad, the other %d good "
+        "(each loaded through the port's net)" % (len(verdicts) - 1))
+
+    for args in ([], ["--decode"]):
+        rc, out, err = run_tool("roofline", args)
+        for ln in (out + err).splitlines():
+            log("    | " + ln)
+        if rc != 0 or ("989T peak" not in out and not args) \
+                or ("HBM 3350 GB/s" not in out and args):
+            raise AssertionError("roofline %s failed" % " ".join(args))
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+
+
+# a fresh process that imports torch, numpy and the port's op library only,
+# loads the CXTF artifacts of export_forward and export_decode with
+# torch.export.load, runs them and reads the launches of the kernels they
+# run
+EXPORT_RUNNER = """
+import io, json, struct, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, %(repo)r)
+import cxxnet_tpu_torch.ops.library  # noqa: F401  (the cxxnet:: ops)
+from cxxnet_tpu_torch.ops import flash_attn, lrn
+job = json.load(open(%(job)r))
+res = {}
+
+
+def load(path, kind):
+    data = open(path, "rb").read()
+    ver, hlen = struct.unpack("<II", data[4:12])
+    meta = json.loads(data[12:12 + hlen])
+    assert data[:4] == b"CXTF" and ver == 1 and meta["kind"] == kind
+    return meta, torch.export.load(io.BytesIO(data[12 + hlen:])).module()
+
+
+def kernel_calls(fn, names):
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {n: sum(e.count for e in prof.key_averages() if n in e.key)
+            for n in names}
+
+
+def cuda_ms(fn, iters=10):
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+# export_forward: the fixed-batch and the symbolic-batch program
+t0 = time.perf_counter()
+fw = job["forward"]
+x = torch.from_numpy(np.load(fw["x"])).cuda()
+_, fixed = load(fw["fixed"], "forward")
+_, sym = load(fw["sym"], "forward")
+res["forward_load_s"] = time.perf_counter() - t0
+lrn.launches = 0       # the main path's count starts here
+outs = {}
+with torch.no_grad():
+    outs["fixed_%%d" %% len(x)] = fixed(x)
+    for n in fw["ns"]:
+        outs["sym_%%d" %% n] = sym(x[:n])
+    torch.cuda.synchronize()
+res["forward"] = {"launches": lrn.launches, "calls": len(outs),
+                  "per_call": kernel_calls(lambda: sym(x),
+                                           ["lrn_fwd_kernel"]),
+                  "ms": {"fixed": cuda_ms(lambda: fixed(x)),
+                         "sym": cuda_ms(lambda: sym(x))}}
+np.savez(fw["out"], **{k: v.float().cpu().numpy() for k, v in outs.items()})
+del fixed, sym, outs, x
+torch.cuda.empty_cache()
+
+# export_decode: each prefill / step pair, driven by the greedy loop of
+# api.load_decode
+res["decode"] = []
+for pair in job["decode"]:
+    t0 = time.perf_counter()
+    meta, pre = load(pair["pre"], "decode_prefill")
+    smeta, step = load(pair["step"], "decode_step")
+    assert meta["cache_fingerprint"] == smeta["cache_fingerprint"]
+    load_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.load(pair["prompts"])).cuda()
+    plen, n_new = meta["prompt_len"], pair["n_new"]
+
+    pos = torch.arange(plen, plen + n_new - 1, dtype=torch.int32,
+                       device="cuda")
+
+    def greedy():
+        probs, caches = pre(prompts)
+        tok = probs.argmax(1).to(torch.int32)
+        out = [tok]
+        for i in range(n_new - 1):
+            probs, caches = step(tok, pos[i], caches)
+            tok = probs.argmax(1).to(torch.int32)
+            out.append(tok)
+        return torch.stack(out, 1)
+
+    flash_attn.launches = 0    # the main path's count starts here
+    with torch.no_grad():
+        toks = greedy()
+        torch.cuda.synchronize()
+    res["decode"].append({
+        "load_s": load_s, "launches": flash_attn.launches,
+        "prefill_calls": kernel_calls(lambda: pre(prompts),
+                                      ["FlashFwdOut"]),
+        "prefill_ms": cuda_ms(lambda: pre(prompts)),
+        "loop_ms": cuda_ms(greedy, iters=3)})
+    np.save(pair["out"], toks.cpu().numpy())
+res["modules"] = sorted(m for m in sys.modules if m.startswith(
+    ("jax", "cxxnet_tpu.", "cxxnet_tpu_torch.nnet", "cxxnet_tpu_torch.layer",
+     "cxxnet_tpu_torch.api", "cxxnet_tpu_torch.learn_task")))
+print("result " + json.dumps(res), flush=True)
+"""
+
+
+def run_export_child(job):
+    """EXPORT_RUNNER in a process of its own on ``job`` (the artifacts and
+    inputs of both export phases): its result."""
+    path = scratch_file("export_job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c",
+                          EXPORT_RUNNER % {"repo": REPO, "job": path}],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=900)
+    m = re.search(r"^result (.*)$", out.stdout, re.M)
+    if out.returncode != 0 or m is None:
+        raise AssertionError("the loading process failed (exit %d):\n%s"
+                             % (out.returncode, out.stderr[-4000:]))
+    res = json.loads(m.group(1))
+    log("phase export_load")
+    log("  a fresh process (torch and cxxnet_tpu_torch.ops.library only) "
+        "loaded and ran the artifacts of export_forward and export_decode: "
+        "%.2f s wall; the forward programs loaded in %.2f s, the decode "
+        "pairs in %s s; other modules of the port or JAX loaded: %s"
+        % (time.perf_counter() - t, res["forward_load_s"],
+           " / ".join("%.2f" % r["load_s"] for r in res["decode"]),
+           res["modules"]))
+    if res["modules"]:
+        raise AssertionError("the loading process imported %s"
+                             % res["modules"])
+    return res
+
+
+EXPORT_NS = (1, 7, BATCH)
+
+
+def phase_export_forward(api, d):
+    """task = export's program of ImageNet.conf at batch 256 (weights from
+    SEED), exported into ``d`` at the fixed batch and at a symbolic one,
+    for the fresh process of export_load. Returns the job of that process
+    and the check to make on its result: the loaded output held to
+    api.Net.extract's last node (the pred_raw surface) and its argmax to
+    api.Net.predict at n = 1, 7 and 256, and the profiler of that process
+    seeing the LRN forward kernel 2 times a call."""
+    log("phase export_forward")
+    t0 = time.perf_counter()
+    net = api.Net(dev=NET_DEV, cfg=imagenet_cfg())
+    net.init_model()
+    x = np.random.RandomState(SEED + 7).randn(BATCH, 3, 227, 227) \
+        .astype(np.float32)
+    job = {"x": os.path.join(d, "x.npy"), "ns": list(EXPORT_NS),
+           "out": os.path.join(d, "y.npz")}
+    for tag, b in (("fixed", 0), ("sym", -1)):
+        t = time.perf_counter()
+        job[tag] = os.path.join(d, "imagenet.%s.pt2" % tag)
+        net.export(job[tag], batch_size=b)
+        log("  Net.export(batch_size=%d): %.2f s, %d bytes"
+            % (b, time.perf_counter() - t, os.path.getsize(job[tag])))
+    np.save(job["x"], x)
+    want = torch.from_numpy(net.extract(x, "top[-1]")).reshape(BATCH, -1)
+    pred = net.predict(x)
+    xd = torch.from_numpy(x).to(DEV)
+    plain_ms = time_ms(lambda: net.net_.extract_feature_device(
+        xd, "top[-1]"), iters=10)
+    del xd
+    log("  phase wall %.1f s (the load and the checks come in export_load)"
+        % (time.perf_counter() - t0))
+    del net
+    torch.cuda.empty_cache()
+
+    def check(res):
+        got = dict(np.load(job["out"]))
+        for key, g in sorted(got.items()):
+            n = int(key.split("_")[1])
+            g = torch.from_numpy(g).reshape(n, -1)
+            check_close("export_forward: the loaded %s program at n = %d vs "
+                        "api.Net.extract (bitwise: %s)"
+                        % (key.split("_")[0], n,
+                           bool(torch.equal(g, want[:n]))),
+                        g, want[:n], 1e-5)
+            top = g.argmax(1).numpy()
+            rows = np.nonzero(top != pred[:n])[0]
+            ties = [r for r in rows if float(want[r, top[r]]) >=
+                    float(want[r, int(pred[r])]) * (1 - 1e-5)]
+            if len(ties) != len(rows):
+                raise AssertionError("the loaded program's classes differ "
+                                     "from api.Net.predict beyond near-ties")
+        log("  export_forward: the argmax of every loaded output equals "
+            "api.Net.predict")
+        r = res["forward"]
+        per = r["per_call"]["lrn_fwd_kernel"]
+        log("  export_forward: lrn_fwd launches of the loaded programs: %d "
+            "over %d calls; the profiler's capture of one call at n = %d "
+            "holds lrn_fwd_kernel %d times" % (r["launches"], r["calls"],
+                                               BATCH, per))
+        # the launch count is the wrapper's, exact; a capture shows the
+        # kernel but has been seen to miss one of a call's launches
+        if not 0 < per <= 2 or r["launches"] != 2 * r["calls"]:
+            raise AssertionError("the loaded forward does not launch the "
+                                 "LRN forward kernel 2 times a call")
+        log("  export_forward: the loaded program at batch %d on a batch on "
+            "the card: fixed %.3f ms, symbolic %.3f ms a call; the eager "
+            "forward (Trainer.extract_feature_device, last node) %.3f ms "
+            "(CUDA events)" % (BATCH, r["ms"]["fixed"], r["ms"]["sym"],
+                                plain_ms))
+        return r["launches"]
+    return job, check
+
+
+# (batch, prompt length) of the exported decode pairs: the prompt length
+# of the serving recipe, and the shortest prefill the flash kernel takes
+# (ops.flash_attn.supports: L >= 128)
+EXPORT_DECODE = ((LM_BATCH, 64), (LM_BATCH, 128))
+
+
+def phase_export_decode(flash, api, models, d):
+    """The bench.py LM in bf16 at full width, its decode loop exported as
+    a prefill and a step program (api.save_decode) into ``d`` at each of
+    EXPORT_DECODE: api.load_decode's greedy loop generates LM_NEW tokens
+    equal to api.Net.generate's, token for token, with one flash forward
+    launch a layer in a prefill the kernel takes. Returns the job of
+    export_load's fresh process and the check to make on its result: the
+    same tokens from the same loop there, and its profiler seeing the
+    flash forward kernel in the prefill where the prompt takes it."""
+    log("phase export_decode")
+    t0 = time.perf_counter()
+    net = api.Net(dev=NET_DEV, cfg=bf16_cfg(lm_cfg(models, LM_SEQ,
+                                                   LM_BATCH)))
+    net.init_model()
+    nlayer = LM_ARGS["nlayer"]
+    jobs, wants, launches = [], [], 0
+    for b, plen in EXPORT_DECODE:
+        prompts = np.random.RandomState(SEED + plen).randint(
+            0, LM_ARGS["vocab"], (b, plen))
+        job = {k: os.path.join(d, "%s%d.%s" % (k, plen, ext)) for k, ext in
+               (("pre", "pt2"), ("step", "pt2"), ("prompts", "npy"),
+                ("out", "npy"))}
+        job["n_new"] = LM_NEW
+        t = time.perf_counter()
+        api.save_decode(net, job["pre"], job["step"], batch_size=b,
+                        prompt_len=plen)
+        log("  save_decode(%d, %d): %.2f s, prefill %d bytes, step %d bytes"
+            % (b, plen, time.perf_counter() - t,
+               os.path.getsize(job["pre"]), os.path.getsize(job["step"])))
+        np.save(job["prompts"], prompts.astype(np.int32))
+        want = net.generate(prompts, LM_NEW)
+        gen_ms = time_ms(lambda: net.generate(prompts, LM_NEW), iters=3,
+                         warmup=0)
+        flash.launches = 0
+        got = api.load_decode(job["pre"], job["step"])(prompts, LM_NEW)
+        mine = flash.launches
+        flash_in = flash.supports(plen, LM_ARGS["dim"] // LM_ARGS["nhead"])
+        log("  (%d, %d): api.load_decode's %d tokens a row %s "
+            "api.Net.generate's; flash_fwd launches %d (%s)"
+            % (b, plen, LM_NEW, "EQUAL to" if (got == want).all()
+               else "DIFFERENT from", mine,
+               "one a layer" if flash_in else
+               "the prompt is below the flash kernel's 128"))
+        want_per = nlayer if flash_in else 0
+        if not (got == want).all() or mine != want_per:
+            raise AssertionError("api.load_decode's tokens or its flash "
+                                 "launches are wrong")
+        launches += mine
+        jobs.append(job)
+        wants.append((b, plen, want, want_per, gen_ms))
+    log("  phase wall %.1f s (the fresh process's load and checks come in "
+        "export_load)" % (time.perf_counter() - t0))
+    del net
+    torch.cuda.empty_cache()
+
+    def check(res):
+        total = launches
+        for job, r, (b, plen, want, want_per, gen_ms) in zip(
+                jobs, res["decode"], wants):
+            child = np.load(job["out"])
+            per = r["prefill_calls"]["FlashFwdOut"]
+            log("  export_decode (%d, %d): the fresh process's %d tokens a "
+                "row %s api.Net.generate's; flash_fwd launches %d, "
+                "FlashFwdOut %d times in one prefill; its loaded prefill "
+                "%.3f ms, its greedy loop (the prefill and %d steps) %.1f "
+                "ms against api.Net.generate's %.1f ms (CUDA events)"
+                % (b, plen, LM_NEW, "EQUAL to" if (child == want).all()
+                   else "DIFFERENT from", r["launches"], per,
+                   r["prefill_ms"], LM_NEW - 1, r["loop_ms"], gen_ms))
+            if not (child == want).all() or r["launches"] != want_per \
+                    or not (0 < per <= want_per or per == want_per == 0):
+                raise AssertionError("the loaded decode pair's tokens or "
+                                     "its flash launches are wrong")
+            total += r["launches"]
+        return total
+    return {"decode": jobs}, check
+
+
+def phase_exports(flash, api, models):
+    """export_forward and export_decode, then export_load: one fresh
+    process loads and runs both phases' artifacts, and each phase's
+    checks are made on its result. Returns the LRN forward and the flash
+    forward launches of the exported programs (in both processes)."""
+    t0 = time.perf_counter()
+    with scratch_dir("export") as d:
+        fjob, fcheck = phase_export_forward(api, d)
+        djob, dcheck = phase_export_decode(flash, api, models, d)
+        res = run_export_child(dict(djob, forward=fjob))
+        got = fcheck(res), dcheck(res)
+    log("  export phases wall %.1f s" % (time.perf_counter() - t0))
+    return got
+
+
 def phase_cli_imagenet(lrn, learn_task, api):
     """example/ImageNet/ImageNet.conf through the CLI on the card at full
     width (imgbin + threadbuffer, random crops and mirrors, the mean image
@@ -4583,6 +5017,7 @@ def phase_cli_imagenet(lrn, learn_task, api):
         torch.cuda.empty_cache()
         log("  phase wall %.1f s" % (time.perf_counter() - t0))
         resume = phase_cli_imagenet_resume(cwd, conf, det_err)
+        phase_tools_offline(cwd, conf, per_round)
         t0 = time.perf_counter()
         log("phase cli_imagenet_train (continued)")
 
@@ -5921,6 +6356,7 @@ def main() -> int:
     cli_train, cli_pred, cli_resume = phase_cli_imagenet(lrn, learn_task,
                                                          api)
     phase_cli_bowl_pred_raw(learn_task, api)
+    export_fwd, export_flash = phase_exports(flash_attn, api, models)
     gnet_fwd_rec = phase_lrn_kernel(lrn, GNET_LRN_SHAPES, GNET_LRN_ARGS,
                                     "lrn_kernel_googlenet")
     gnet_bwd_rec = phase_lrn_bwd_kernel(lrn, GNET_LRN_SHAPES, GNET_LRN_ARGS,
@@ -5969,8 +6405,10 @@ def main() -> int:
               "googlenet_bf16_train": gnet_train[0],
               "googlenet_bf16_pred": gnet_pred,
               "cli_googlenet_train": gnet_cli_train[0],
-              "cli_googlenet_pred": gnet_cli_pred, **bench[0]},
-             {"train_step": train_fwd // TRAIN_STEPS}),
+              "cli_googlenet_pred": gnet_cli_pred,
+              "export_forward": export_fwd, **bench[0]},
+             {"train_step": train_fwd // TRAIN_STEPS,
+              "exported_imagenet_forward": 2}),
             ("lrn_bwd", bwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:98",
              {"alexnet_train": train_bwd, "rrelu_alexnet_train": rrelu[2],
               "cli_imagenet_train": cli_train[1],
@@ -5989,12 +6427,15 @@ def main() -> int:
               "lm_serve_session": sess_flash,
               "lm_serve_frontend": fe_flash,
               "cli_lm_serve": cli_serve_flash,
-              "cli_lm_route": cli_route_flash, **serve_wide,
+              "cli_lm_route": cli_route_flash,
+              "export_decode": export_flash, **serve_wide,
               **{p: c[0] for p, c in train.items()}, **bench[2]},
              {"generate_request": LM_ARGS["nlayer"],
               "session_admission": LM_ARGS["nlayer"],
               "frontend_admission": LM_ARGS["nlayer"],
-              "full_sequence_forward": LM_ARGS["nlayer"], **per_step}),
+              "full_sequence_forward": LM_ARGS["nlayer"],
+              "exported_prefill_of_128_or_more": LM_ARGS["nlayer"],
+              **per_step}),
             ("flash_bwd_dq", bwd_recs["dq"],
              "cxxnet_tpu/ops/flash_attn.py:337",
              {**{p: c[1] for p, c in train.items()}, **bench[3]}, per_step),

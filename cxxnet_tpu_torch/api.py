@@ -7,7 +7,9 @@ that initializes or loads a model, trains it one ``update`` at a time on a
 DataIter's batch or on numpy (data, label), evaluates it over an iterator,
 runs prediction and feature extraction, continues token sequences with a
 KV-cached ``generate`` (sequence nets) and serves them online behind the
-serving frontend (``Net.serve``), on the card (``dev = "gpu"``, the
+serving frontend (``Net.serve``) or exports them (``Net.export``,
+``save_decode``; ``load_exported`` and ``load_decode`` run the
+``torch.export`` programs), on the card (``dev = "gpu"``, the
 default) or, when asked, on the CPU; and the small training loop ``train``.
 Model files are those of the JAX package: int32 net_type, then the
 trainer's sections (optimizer and training state included), inside the
@@ -274,6 +276,18 @@ class Net:
         summed-log-probability continuation (see Trainer.beam_generate)."""
         return self._trainer().beam_generate(prompts, n_new, beam=beam)
 
+    def export(self, fname: str, node_name: str = "",
+               batch_size: int = 0) -> None:
+        """Write the inference forward as a self-contained ``torch.export``
+        program (params baked in); reload it with ``load_exported(fname)``
+        — no config or model file needed at serving time. batch_size 0 =
+        training batch; -1 = symbolic batch dim (one artifact serves any
+        n >= 1)."""
+        blob = self._trainer().export_forward(node_name=node_name,
+                                              batch_size=batch_size)
+        with open(fname, "wb") as f:
+            f.write(blob)
+
     # -- weight io ----------------------------------------------------
     def set_weight(self, weight: np.ndarray, layer_name: str,
                    tag: str = "wmat") -> None:
@@ -284,6 +298,113 @@ class Net:
         returns the flattened view + shape)."""
         weight, _shape = self._trainer().get_weight(layer_name, tag)
         return weight
+
+
+def save_decode(net, prefill_fname: str, step_fname: str,
+                batch_size: int = 1, prompt_len: int = 1) -> None:
+    """Write a trained sequence net's KV-cached decode loop as two
+    standalone ``torch.export`` programs (Trainer.export_decode)."""
+    pre, step = net.net_.export_decode(batch_size, prompt_len)
+    with open(prefill_fname, "wb") as f:
+        f.write(pre)
+    with open(step_fname, "wb") as f:
+        f.write(step)
+
+
+def _load_program(payload: bytes):
+    """(module, device) of a ``torch.export.save`` payload: the program's
+    callable module and the device its inputs go to. The ``cxxnet::`` ops
+    a program may hold are registered first."""
+    import io
+    from .ops import library  # noqa: F401  (registers the cxxnet:: ops)
+    prog = torch.export.load(io.BytesIO(payload))
+    dev = torch.device("cpu")
+    for node in prog.graph.nodes:
+        val = node.meta.get("val") if node.op == "placeholder" else None
+        if isinstance(val, torch.Tensor):
+            dev = val.device
+    return prog.module(), dev
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A program's output as a host array; bf16 values come back as
+    float32 (numpy has no bf16; the conversion is exact)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().cpu().numpy()
+
+
+def load_decode(prefill_fname: str, step_fname: str):
+    """Load export_decode artifacts and return a reference greedy loop
+    ``generate(prompts, n_new) -> (batch, n_new) ids`` (params baked in;
+    a real deployment drives the two programs from its own loop:
+    sampling, stop tokens, scheduling)."""
+    from .utils import artifact
+    with open(prefill_fname, "rb") as f:
+        pre_meta, pre_bytes = artifact.unframe(f.read(), "decode_prefill")
+    with open(step_fname, "rb") as f:
+        step_meta, step_bytes = artifact.unframe(f.read(), "decode_step")
+    if pre_meta.get("cache_fingerprint") != step_meta.get(
+            "cache_fingerprint"):
+        raise ValueError(
+            "load_decode: prefill and step artifacts disagree on the KV "
+            "cache layout (fingerprints %s vs %s) — they are from "
+            "different exports; regenerate the pair together"
+            % (pre_meta.get("cache_fingerprint"),
+               step_meta.get("cache_fingerprint")))
+    pre, dev = _load_program(pre_bytes)
+    step, _ = _load_program(step_bytes)
+    b, plen = int(pre_meta["batch"]), int(pre_meta["prompt_len"])
+    l_max = int(step_meta["l_max"])
+
+    def generate(prompts, n_new: int) -> np.ndarray:
+        prompts = np.asarray(prompts, np.int32)
+        assert prompts.shape == (b, plen), (
+            "this artifact serves (%d, %d) prompts" % (b, plen))
+        if n_new <= 0:
+            return np.zeros((b, 0), np.int32)
+        if plen + n_new > l_max:
+            raise ValueError(
+                "prompt_len %d + n_new %d exceeds the artifact's cache "
+                "length %d" % (plen, n_new, l_max))
+        # every step's position is on the device before the loop: a copy
+        # from the host a step would wait for the queued steps each time
+        pos = torch.arange(plen, plen + n_new - 1, dtype=torch.int32,
+                           device=dev)
+        with torch.no_grad():
+            probs, caches = pre(torch.from_numpy(prompts).to(dev))
+            out = []
+            tok = torch.argmax(probs, dim=1).to(torch.int32)
+            out.append(tok)
+            for i in range(n_new - 1):
+                probs, caches = step(tok, pos[i], caches)
+                tok = torch.argmax(probs, dim=1).to(torch.int32)
+                out.append(tok)
+        return torch.stack(out, dim=1).cpu().numpy()
+
+    generate.prefill, generate.step, generate.device = pre, step, dev
+    return generate
+
+
+def load_exported(fname: str):
+    """Load a ``Net.export`` / ``task = export`` artifact and return a
+    callable ``fn(data) -> np.ndarray`` (params baked in; batch shape
+    fixed, or any n >= 1 for artifacts exported with batch_size = -1). It
+    runs on the device type the artifact was exported on; the serving
+    side needs torch and, for a program that holds a kernel,
+    ``cxxnet_tpu_torch.ops.library``."""
+    from .utils import artifact
+    with open(fname, "rb") as f:
+        meta, payload = artifact.unframe(f.read(), "forward")
+    mod, dev = _load_program(payload)
+
+    def fn(data) -> np.ndarray:
+        x = torch.from_numpy(np.asarray(data, np.float32)).to(dev)
+        with torch.no_grad():
+            return _host(mod(x))
+
+    fn.meta, fn.module, fn.device = meta, mod, dev
+    return fn
 
 
 def train(cfg: str, data, num_round: int,

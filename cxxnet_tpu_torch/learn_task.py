@@ -1,8 +1,8 @@
 """The learn task driver of the port: train / finetune / pred / pred_raw /
-extract / generate / serve / route from a config file.
+extract / generate / serve / route / export from a config file.
 
 Counterpart of cxxnet_tpu/learn_task.py (the reference's
-CXXNetLearnTask, src/cxxnet_main.cpp:16-478) for those eight tasks: the
+CXXNetLearnTask, src/cxxnet_main.cpp:16-478) for those nine tasks: the
 same config keys, the same sectioned iterator chains (``data =`` /
 ``eval =`` / ``pred =`` ... ``iter = end``, other keys applied to every
 chain), the same round loop and printed lines (progress on stdout, the
@@ -14,9 +14,11 @@ continuations out) and ``task = serve`` (the serving frontend,
 ``utils/servd.py``, over stdin and optionally TCP, solo or continuously
 batched over decode sessions) and ``task = route`` (the fleet router,
 ``utils/routerd.py``, over ``task = serve`` replicas; it builds no net
-and touches no card). Model files are CRC-framed, written
-atomically (tmp file, fsync, rename) with the training-state section, as
-``api.Net.save_model`` writes them, and either package loads the other's.
+and touches no card) and ``task = export`` (the inference forward as a
+``torch.export`` program at ``export_out``). Model files are CRC-framed,
+written atomically (tmp file, fsync, rename) with the training-state
+section, as ``api.Net.save_model`` writes them, and either package loads
+the other's.
 ``continue = 1`` resumes from the newest valid checkpoint of
 ``model_dir`` (the emergency file of a preempted run ranked by its
 cursor, a corrupt file quarantined), mid-round and bit for bit; SIGTERM /
@@ -71,8 +73,7 @@ _NOT_PORTED = {
     "num_worker": lambda v: int(v) <= 1,
 }
 _TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "generate",
-          "serve", "route")
-_TASKS_NOT_PORTED = ("export",)
+          "serve", "route", "export")
 
 
 class _SeededSession:
@@ -288,6 +289,10 @@ class LearnTask:
         self.print_step = 100
         self.extract_node_name = ""
         self.output_format = 1
+        # task = export: the artifact's path and batch (0: batch_size; -1:
+        # a symbolic batch)
+        self.name_export = "model.stablehlo"
+        self.export_batch = 0
         # telemetry_log = <path>: the JSONL run log (utils/telemetry.py),
         # with a Chrome trace beside it and a summary table at the end
         self.telemetry_log = ""
@@ -399,6 +404,8 @@ class LearnTask:
                 self.task_serve()
             elif self.task == "route":
                 self.task_route()
+            elif self.task == "export":
+                self.task_export()
         finally:
             self.close()
             if self._perf_enabled:
@@ -488,9 +495,6 @@ class LearnTask:
             raise ValueError("%s = %s: this feature is not ported to "
                              "cxxnet_tpu_torch yet" % (name, val))
         if name == "task":
-            if val in _TASKS_NOT_PORTED:
-                raise ValueError("task = %s is not ported to "
-                                 "cxxnet_tpu_torch yet" % val)
             if val not in _TASKS:
                 raise ValueError("unknown task %s" % val)
             self.task = val
@@ -523,6 +527,10 @@ class LearnTask:
             self.test_io = int(val)
         if name == "extract_node_name":
             self.extract_node_name = val
+        if name == "export_out":
+            self.name_export = val
+        if name == "export_batch":
+            self.export_batch = int(val)
         if name == "output_format":
             self.output_format = 1 if val == "txt" else 0
         if name == "prompt_in":
@@ -827,10 +835,12 @@ class LearnTask:
                 continue
             if name == "iter" and val == "end":
                 assert flag != 0, "wrong configuration file"
-                if flag == 1 and self.task not in ("pred", "generate"):
+                if flag == 1 and self.task not in ("pred", "export",
+                                                   "generate"):
                     assert self.itr_train is None, "can only have one data"
                     self.itr_train = create_iterator(itcfg)
-                if flag == 2 and self.task not in ("pred", "generate"):
+                if flag == 2 and self.task not in ("pred", "export",
+                                                   "generate"):
                     self.itr_evals.append(create_iterator(itcfg))
                     self.eval_names.append(evname)
                 if flag == 3 and self.task in ("pred", "pred_raw", "extract"):
@@ -1133,6 +1143,22 @@ class LearnTask:
                 fo.write(" ".join(str(int(t)) for t in row) + "\n")
         print("generated %d x %d tokens into %s"
               % (out.shape[0], out.shape[1], self.name_gen_out))
+
+    def task_export(self) -> None:
+        """task = export (cxxnet_tpu/learn_task.py:1939-1953): the inference
+        forward as a self-contained ``torch.export`` program (params baked
+        in) at ``export_out``. ``extract_node_name`` selects a named node or
+        top[-k] (default: the last node, the pred surface); ``export_batch``
+        overrides the batch dimension (default batch_size; -1 = a symbolic
+        batch, one artifact serves any n >= 1). Reload it with
+        ``cxxnet_tpu_torch.api.load_exported``."""
+        blob = self.net_trainer.export_forward(
+            node_name=self.extract_node_name,
+            batch_size=self.export_batch)
+        with open(self.name_export, "wb") as fo:
+            fo.write(blob)
+        print("exported forward (%d bytes) into %s"
+              % (len(blob), self.name_export))
 
     def task_serve(self) -> None:
         """task = serve (cxxnet_tpu/learn_task.py:1519-1812): online serving

@@ -21,10 +21,12 @@ and an asynchronous copy on a stream of its own (``StagingRing``,
 (``save_training_state``, ``load_training_state``,
 ``restore_training_state``) carries the step state that weights and
 optimizer state do not, so a preempted run resumes bit for bit. Meshes
-over several devices, the health monitor and exported decode programs
-belong to later slices. Every unit of device work is one of the JAX
-package's programs under its name and key (``jit.train_step``,
-``jit.eval_fwd``, ``jit.predict``, ``jit.decode_prefill``,
+over several devices and the health monitor belong to later slices.
+``export_forward`` and ``export_decode`` write the inference forward and
+the decode loop as ``torch.export`` programs with the weights baked in.
+Every unit of device work is one of the JAX package's programs under its
+name and key (``jit.train_step``, ``jit.eval_fwd``, ``jit.predict``,
+``jit.decode_prefill``,
 ``jit.decode_step``, ``jit.decode_admit``, ``jit.beam_decode``), run
 through ``_watched_jit``: the recompile detector records its first call at
 a new signature as its compile (``telemetry.jit_watch``), the performance
@@ -776,9 +778,14 @@ class Trainer:
         data, label = batch.data, batch.label
         if self.dev.type != "cuda" or (isinstance(data, torch.Tensor)
                                        and data.is_cuda):
+            if not (isinstance(label, torch.Tensor)
+                    and label.device == self.dev):
+                telemetry.count("io.h2d_bytes", int(np.asarray(label).nbytes))
             return (self._input(data),
                     torch.as_tensor(label).to(device=self.dev,
                                               dtype=torch.float32))
+        telemetry.count("io.h2d_bytes", int(np.asarray(data).nbytes
+                                            + np.asarray(label).nbytes))
         if self._staging is None:
             self._staging = StagingRing()
             self._copy_stream = torch.cuda.Stream(self.dev)
@@ -798,13 +805,17 @@ class Trainer:
 
     # inference (reference Predict / ExtractFeature, nnet_impl-inl.hpp:186-299)
     def _input(self, data) -> torch.Tensor:
+        on_device = isinstance(data, torch.Tensor) and data.device == self.dev
         x = torch.as_tensor(data)
         if x.dim() == 2:
             x = x.reshape(x.shape[0], 1, 1, x.shape[1])
         check(x.dim() == 4, "data must be 2-D or 4-D, got shape %s"
               % (tuple(x.shape),))
         # the batch crosses in its own dtype (a uint8 batch moves a quarter
-        # of the bytes) and becomes float32 on the device
+        # of the bytes) and becomes float32 on the device; a host batch's
+        # bytes count in io.h2d_bytes, as the JAX package counts them
+        if not on_device:
+            telemetry.count("io.h2d_bytes", x.nbytes)
         x = x.to(device=self.dev)
         if 0 in self.net.id_nodes and not x.is_floating_point():
             # token ids for an embed input stay integer
@@ -1319,6 +1330,133 @@ class Trainer:
                 shapes.append((b, lay.nkvhead or lay.nhead, l_max,
                                d_in // lay.nhead))
         return att_idx, keys, shapes
+
+    # exported serving programs (cxxnet_tpu/nnet/trainer.py:1930-2061)
+    def _export_params(self) -> List[Dict[str, torch.Tensor]]:
+        """The weights an exported program bakes in: ``canonical_params``
+        on the trainer's device, each floating non-state tensor in the
+        compute dtype (the cast the net's forward makes; the decode paths'
+        copy)."""
+        params = [{k: torch.from_numpy(v).to(self.dev) for k, v in p.items()}
+                  for p in self.canonical_params()]
+        if self.compute_dtype is not None:
+            params = self.net._cast_params_compute(params)
+        return params
+
+    def export_decode(self, batch_size: int, prompt_len: int
+                      ) -> Tuple[bytes, bytes]:
+        """Export the KV-cached decode loop as TWO self-contained programs
+        (``torch.export``, params baked in; loading one needs torch and,
+        for the ``cxxnet::`` kernel ops it holds, ``ops.library``):
+
+        * prefill: (batch, prompt_len) int32 tokens ->
+          (last-position softmax row, cache tuple)
+        * step:    ((batch,) int32 token, () int32 position, cache tuple)
+          -> (softmax row, updated cache tuple)
+
+        The serving host drives its own loop (sampling policy, stop
+        conditions, batching) and threads the cache tuple between calls —
+        ``api.load_decode`` ships a reference loop. The step returns new
+        caches and leaves the ones it was given as they were (the JAX
+        contract; the port's own decode writes its caches in place). The
+        caches are ``_decode_cache_specs``' layout in the compute dtype.
+        Returns (prefill_bytes, step_bytes), each a ``CXTF`` frame
+        (utils/artifact.py) whose header carries the cache fingerprint.
+
+        An artifact runs on the device type it was exported on (the
+        trainer's ``dev``)."""
+        check(self.params is not None,
+              "export_decode: init_model/load_model first")
+        b, plen = int(batch_size), int(prompt_len)
+        l_max = self.net_cfg.param.input_shape[2]
+        check(0 < plen <= l_max,
+              "export_decode: prompt_len must be in [1, %d]" % l_max)
+        net2, pre_net = self._seq_net(b, 1), self._seq_net(b, plen)
+        _, cache_keys, cache_shapes = self._decode_cache_specs(net2, b,
+                                                               l_max)
+        cache_dtype = net2.compute_dtype or torch.float32
+        last = net2.cfg.param.num_nodes - 1
+
+        def prefill(params, toks):
+            caches = {k: torch.zeros(sh, dtype=cache_dtype,
+                                     device=toks.device)
+                      for k, sh in zip(cache_keys, cache_shapes)}
+            values, _ = pre_net.forward(params, toks.reshape(b, 1, 1, plen),
+                                        decode_pos=0, kv_cache=caches)
+            cu = pre_net._last_cache_updates
+            probs = values[last].reshape(b, -1, plen)[:, :, -1]
+            return probs, tuple(cu[k] for k in cache_keys)
+
+        def step(params, tok, pos, caches):
+            # every row at the one position: the per-row step of a session,
+            # its chunk loop (decode_chunk) over the whole cache, whose
+            # chunks past a row's position are wholly masked
+            rowpos = pos.to(torch.int64).reshape(1).expand(b)
+            caches = {k: c.clone() for k, c in zip(cache_keys, caches)}
+            values, _ = net2.forward(params, tok.reshape(b, 1, 1, 1),
+                                     decode_pos=rowpos,
+                                     decode_span=(0, l_max - 1),
+                                     kv_cache=caches)
+            cu = net2._last_cache_updates
+            return (values[last].reshape(b, -1),
+                    tuple(cu[k] for k in cache_keys))
+
+        from ..utils import artifact
+        params = self._export_params()
+        i32 = dict(dtype=torch.int32, device=self.dev)
+        caches = tuple(torch.zeros(sh, dtype=cache_dtype, device=self.dev)
+                       for sh in cache_shapes)
+        pre_b = _export_program(prefill, params,
+                                (torch.zeros((b, plen), **i32),))
+        step_b = _export_program(step, params,
+                                 (torch.zeros((b,), **i32),
+                                  torch.zeros((), **i32), caches))
+        meta = {"cache_fingerprint": artifact.cache_fingerprint(
+                    cache_keys, cache_shapes, cache_dtype),
+                "batch": b, "prompt_len": plen, "l_max": int(l_max)}
+        return (artifact.frame("decode_prefill", meta, pre_b),
+                artifact.frame("decode_step", meta, step_b))
+
+    def export_forward(self, node_name: str = "",
+                       batch_size: int = 0) -> bytes:
+        """Export the inference forward as a self-contained program
+        (``torch.export``): the trained params are baked in, so loading it
+        with ``api.load_exported`` needs neither the config file nor the
+        model file. A program without kernels needs torch alone; one that
+        holds the LRN or flash forward (``cxxnet::`` ops) also needs
+        ``ops.library`` imported. Returns a ``CXTF`` frame
+        (utils/artifact.py).
+
+        node_name: "" = the last node (the pred/pred_raw surface), else a
+        named node or top[-k] (the extract surface). batch_size: 0 = the
+        training batch size; -1 = a SYMBOLIC batch dim
+        (``torch.export.Dim``): one artifact serves any batch n >= 1. The
+        input is float32 NCHW. An artifact runs on the device type it was
+        exported on (the trainer's ``dev``)."""
+        check(self.params is not None,
+              "export_forward: init_model/load_model first")
+        node_id = (self.net_cfg.param.num_nodes - 1 if not node_name
+                   else self._resolve_node(node_name))
+        bs = batch_size or self.batch_size
+        c, h, w = self.net_cfg.param.input_shape
+        net = self.net
+
+        def fwd(params, data):
+            values, _ = net.forward(params, data)
+            return values[node_id]
+
+        from ..utils import artifact
+        # a symbolic batch is traced at a batch of 2 or more: torch.export
+        # takes a traced size of 1 for a constant
+        x = torch.zeros((max(bs, 2) if batch_size < 0 else bs, c, h, w),
+                        dtype=torch.float32, device=self.dev)
+        dyn = ({0: torch.export.Dim("b", min=1)},) if batch_size < 0 \
+            else None
+        payload = _export_program(fwd, self._export_params(), (x,), dyn)
+        return artifact.frame(
+            "forward", {"input_shape": [int(c), int(h), int(w)],
+                        "batch": (-1 if batch_size < 0 else int(bs))},
+            payload)
 
     # weight access
     def get_weight(self, layer_name: str, tag: str):
@@ -1868,6 +2006,47 @@ class DecodeSession:
         self.closed = True
         self._toks = self._caches = self._tables = None
         self._pos = self._live = self._seeds = self._rowid = None
+
+
+class _BakedParams(torch.nn.Module):
+    """``fn(params, *args)`` as a module whose params list is its buffers,
+    the form ``torch.export`` takes: the exported program carries the
+    weights in its state dict."""
+
+    def __init__(self, fn: Callable, params: List[Dict[str, torch.Tensor]]):
+        super().__init__()
+        self._fn = fn
+        self._names: List[List[Tuple[str, str]]] = []
+        for i, p in enumerate(params):
+            names = []
+            for k, v in p.items():
+                name = "p%d_%s" % (i, k)
+                self.register_buffer(name, v)
+                names.append((k, name))
+            self._names.append(names)
+
+    def forward(self, *args):
+        params = [{k: getattr(self, name) for k, name in names}
+                  for names in self._names]
+        return self._fn(params, *args)
+
+
+def _export_program(fn: Callable, params, args: tuple,
+                    dynamic_shapes=None) -> bytes:
+    """``torch.export.save`` of ``fn(params, *args)`` traced at ``args``
+    with the params baked in, as bytes."""
+    import io
+    with torch.no_grad():
+        # the module takes *args: its specs nest one level down
+        prog = torch.export.export(
+            _BakedParams(fn, params), args, strict=False,
+            dynamic_shapes=None if dynamic_shapes is None
+            else (dynamic_shapes,))
+    # the artifact keeps no example inputs: a step's would be its caches
+    prog.example_inputs = None
+    buf = io.BytesIO()
+    torch.export.save(prog, buf)
+    return buf.getvalue()
 
 
 def create_net(net_type: int = 0) -> Trainer:

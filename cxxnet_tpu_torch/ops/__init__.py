@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from . import flash_attn  # noqa: F401  (flash attention: kernel or plain)
 from . import lrn  # noqa: F401  (ops.lrn.forward: kernel or plain LRN)
 from . import random  # noqa: F401  (ops.random.uniform: kernel or plain)
+from . import library  # noqa: F401  (the cxxnet:: ops the above call)
 from .lrn import chpool_sum, lrn_ref  # noqa: F401
 
 

@@ -14,8 +14,10 @@ zero-filled columns, above 256 in slices of 256 columns
 ``flash_attention`` goes through ``FlashAttention``: for a CUDA tensor the
 forward launches the forward kernel and keeps its lse, and the backward
 launches the dQ and dK/dV kernels; for a CPU tensor the forward is
-``flash_fwd_ref`` and the backward ``flash_bwd_ref``. Nothing falls back
-to the plain version for a CUDA tensor.
+``flash_fwd_ref`` and the backward ``flash_bwd_ref``. The forward goes
+through the custom op ``cxxnet::flash_fwd`` (ops/library.py), so an
+exported program keeps the kernel. Nothing falls back to the plain version
+for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -332,8 +334,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window):
-        fwd = flash_fwd_cuda if q.device.type == "cuda" else flash_fwd_ref
-        out, lse = fwd(q, k, v, causal, scale, window)
+        out, lse = torch.ops.cxxnet.flash_fwd(
+            q, k, v, bool(causal),
+            float(q.shape[3] ** -0.5 if scale is None else scale),
+            int(window))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, scale, window)
         return out

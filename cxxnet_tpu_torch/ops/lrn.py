@@ -10,12 +10,14 @@ bound with ctypes; their source comments state the design (channel tiles of
 directly in ascending channel order) and the bound (bytes moved / 3.35
 TB/s).
 
-``forward`` on a CUDA tensor that needs no gradient (``torch.no_grad()``,
-or x not requiring one) launches the forward kernel without the norm and
-builds no graph; otherwise it goes through ``LRNFunction``, whose forward
-saves the f32 norm and whose backward takes it: the kernels for a tensor on
-a CUDA card, the plain versions for a tensor on the CPU. A failed build or
-launch raises: nothing falls back to a plain version for a CUDA tensor.
+``forward`` on a tensor that needs no gradient (``torch.no_grad()``, or x
+not requiring one) runs the forward without the norm and builds no graph;
+otherwise it goes through ``LRNFunction``, whose forward saves the f32 norm
+and whose backward takes it: the kernels for a tensor on a CUDA card, the
+plain versions for a tensor on the CPU. Both forwards go through the custom
+ops ``cxxnet::lrn_fwd`` / ``cxxnet::lrn_fwd_norm`` (ops/library.py), so an
+exported program keeps the kernel. A failed build or launch raises: nothing
+falls back to a plain version for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -220,10 +222,8 @@ class LRNFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, nsize, alpha, beta, knorm):
-        if x.device.type == "cuda":
-            out, norm = lrn_fwd_cuda(x, nsize, alpha, beta, knorm)
-        else:
-            out, norm = lrn_ref_with_norm(x, nsize, alpha, beta, knorm)
+        out, norm = torch.ops.cxxnet.lrn_fwd_norm(x, nsize, alpha, beta,
+                                                  knorm)
         ctx.save_for_backward(x, norm)
         ctx.args = (nsize, alpha, beta)
         return out
@@ -242,12 +242,12 @@ class LRNFunction(torch.autograd.Function):
 def forward(x: torch.Tensor, nsize: int, alpha: float, beta: float,
             knorm: float) -> torch.Tensor:
     """LRN over the channels of an NCHW tensor, differentiable: the CUDA
-    kernels for a CUDA tensor (the forward without its norm, and no graph,
-    where no gradient is needed), the plain versions for a CPU tensor."""
+    kernels for a CUDA tensor, the plain versions for a CPU tensor, both
+    through the ``cxxnet::`` ops (ops/library.py). Where no gradient is
+    needed the forward keeps no norm and builds no graph."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError("lrn forward: no implementation for a tensor on %s"
                          % x.device)
-    if x.device.type == "cuda" and not (torch.is_grad_enabled()
-                                        and x.requires_grad):
-        return lrn_fwd_cuda(x, nsize, alpha, beta, knorm, with_norm=False)[0]
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.ops.cxxnet.lrn_fwd(x, nsize, alpha, beta, knorm)
     return LRNFunction.apply(x, nsize, alpha, beta, knorm)

@@ -9,13 +9,12 @@ killed mid-round and resumed bit for bit.
 
 A JAX scenario runs against the port by swapping the globals of the JAX test
 module that name the task, the trainer, the checkpoint module, the
-serializer and the fault injector (``LearnTask``, ``Trainer``, ``ckpt``,
-``serializer``, ``fi``) for the port's, for the length of the case; its
-module-scoped fixtures (``mnist_data``, ``trained``) are rebuilt here on the
-port. ``tools/ckpt_fsck.py``, which some scenarios call to inspect a file,
-stays the JAX package's: it reads the port's files as they are. Left out:
-``test_fsck_flags_every_injected_corruption``, which tests that tool itself
-(its verdicts come from the JAX package's checkpoint module).
+serializer, the fault injector and the checker (``LearnTask``, ``Trainer``,
+``ckpt``, ``serializer``, ``fi``, ``ckpt_fsck``) for the port's, for the
+length of the case (the checker's twin is
+``cxxnet_tpu_torch.tools.ckpt_fsck``); its module-scoped fixtures
+(``mnist_data``, ``trained``) are rebuilt here on the port. Every scenario
+of tests/test_checkpoint_faults.py runs.
 """
 
 import builtins
@@ -38,6 +37,7 @@ from cxxnet_tpu_torch import api, convert
 from cxxnet_tpu_torch.io import synth
 from cxxnet_tpu_torch.learn_task import LearnTask
 from cxxnet_tpu_torch.nnet.trainer import Trainer
+from cxxnet_tpu_torch.tools import ckpt_fsck
 from cxxnet_tpu_torch.utils import checkpoint as ckpt
 from cxxnet_tpu_torch.utils import serializer
 from cxxnet_tpu_torch.utils.config import ConfigIterator
@@ -273,6 +273,7 @@ SCENARIOS = (
     "test_sigterm_emergency_checkpoint_exact_resume",
     "test_sigterm_mid_accumulation_restores_grad_accum",
     "test_ckpt_telemetry_events",
+    "test_fsck_flags_every_injected_corruption",
 )
 
 
@@ -291,7 +292,7 @@ def test_jax_checkpoint_scenario_on_the_port(name, trained, mnist_data,
         with pytest.MonkeyPatch.context() as mp:
             for attr, val in (("LearnTask", LearnTask), ("Trainer", Trainer),
                               ("ckpt", ckpt), ("serializer", serializer),
-                              ("fi", fi)):
+                              ("fi", fi), ("ckpt_fsck", ckpt_fsck)):
                 mp.setattr(jtests, attr, val)
             fn(**{p: given[p] for p in inspect.signature(fn).parameters})
     finally:

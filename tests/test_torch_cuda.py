@@ -1283,3 +1283,69 @@ def test_config_dev_cpu_stays_and_command_line_dev_gpu_moves(card,
             assert (lt.net_trainer._staging is None) == (want == "cpu")
     finally:
         os.chdir(cwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cxxnet_ops_launch_the_kernels_bitwise_their_wrappers(card, dtype):
+    """The cxxnet:: ops on a CUDA tensor are the kernels' wrappers: the
+    same bits and one launch each."""
+    x = torch.from_numpy(np.random.RandomState(6).randn(4, 96, 27, 27)
+                         .astype(np.float32)).to(card, dtype)
+    a = tuple(ARGS.values())
+    before = (lrn.launches, lrn.no_norm_launches)
+    out = torch.ops.cxxnet.lrn_fwd(x, *a)
+    out_n, norm = torch.ops.cxxnet.lrn_fwd_norm(x, *a)
+    assert (lrn.launches, lrn.no_norm_launches) == (before[0] + 2,
+                                                    before[1] + 1)
+    assert torch.equal(out, lrn.lrn_fwd_cuda(x, *a, with_norm=False)[0])
+    want_out, want_norm = lrn.lrn_fwd_cuda(x, *a)
+    assert torch.equal(out_n, want_out) and torch.equal(norm, want_norm)
+    rs = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rs.randn(2, h, 256, 64).astype(np.float32))
+               .to(card, dtype) for h in (8, 2, 2))
+    before = flash_attn.launches
+    got = torch.ops.cxxnet.flash_fwd(q, k, v, True, 0.125, 0)
+    assert flash_attn.launches == before + 1
+    want = flash_attn.flash_fwd_cuda(q, k, v, True, 0.125, 0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_exported_lrn_net_launches_its_kernel_on_the_card(card, tmp_path):
+    """A conv + LRN net exported on the card at a symbolic batch: the
+    loaded program holds cxxnet::lrn_fwd, launches the kernel once a
+    call and gives the eager forward's bits at the traced batch."""
+    cfg = """
+netconfig = start
+layer[0->1] = conv:c1
+  kernel_size = 3
+  nchannel = 16
+layer[1->2] = relu
+layer[2->3] = lrn
+  local_size = 5
+  alpha = 0.001
+  beta = 0.75
+layer[3->4] = flatten
+layer[4->5] = fullc:fc
+  nhidden = 10
+layer[5->5] = softmax
+netconfig = end
+input_shape = 3,16,16
+batch_size = 8
+dev = gpu
+"""
+    net = api.Net(dev="gpu", cfg=cfg)
+    net.init_model()
+    path = str(tmp_path / "lrn.pt2")
+    net.export(path, batch_size=-1)
+    fn = api.load_exported(path)
+    targets = [str(n.target) for n in fn.module.graph.nodes]
+    assert targets.count("cxxnet.lrn_fwd.default") == 1
+    x = np.random.RandomState(8).randn(8, 3, 16, 16).astype(np.float32)
+    for n in (1, 5, 8):
+        before = lrn.launches
+        got = fn(x[:n])
+        assert lrn.launches == before + 1
+        want = net.extract(x[:n], "top[-1]")
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)

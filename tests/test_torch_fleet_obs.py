@@ -1,21 +1,25 @@
 """The fleet observability plane of the port on the CPU, against the JAX
-package's: the scenarios of tests/test_fleet_obs.py that need no report
-tool (trace propagation through the router, the stitched Chrome trace, the
-pre-TRACE and pre-TENANT downgrade ladders, exact histogram federation,
-the fleet SLO burn, outlier replicas, the per-tenant and decode-account
-federation, the /fleetz columns and the /requestz contract), each run
+package's: the scenarios of tests/test_fleet_obs.py (trace propagation
+through the router, the stitched Chrome trace, the pre-TRACE and
+pre-TENANT downgrade ladders, exact histogram federation, the fleet SLO
+burn, outlier replicas, the per-tenant and decode-account federation, the
+/fleetz columns, the /requestz contract and the fleet report), each run
 against the port's ``routerd``, ``servd``, ``statusd`` and ``telemetry``.
 
 A JAX scenario runs against the port by swapping the globals of the JAX
 test module that name those modules, and its fault injector, for the
-port's, for the length of the case. Left out: ``test_bench_compare_*``
-(4) and ``test_fleet_report_joins_router_and_replica_shards``, which run
-tools/bench_compare.py and tools/telemetry_report.py, tools that read the
-JAX package. Everything runs with ``CXXNET_LOCKRANK=1``, and every socket
-has its own timeout.
+port's, for the length of the case; the fleet report runs the port's twin
+of tools/telemetry_report.py (``python -m
+cxxnet_tpu_torch.tools.telemetry_report``) where the case runs the JAX
+tool. Left out: ``test_bench_compare_*`` (4), which test
+tools/bench_compare.py alone, a shared tool that reads no package.
+Everything runs with ``CXXNET_LOCKRANK=1``, and every socket has its own
+timeout.
 """
 
 import inspect
+import subprocess
+import sys
 
 import pytest
 
@@ -29,7 +33,6 @@ LEFT_OUT = (
     "test_bench_compare_failover_subfield_directions",
     "test_bench_compare_decode_subfield_directions",
     "test_bench_compare_multiturn_subfield_directions",
-    "test_fleet_report_joins_router_and_replica_shards",
 )
 SCENARIOS = (
     "test_trace_prefix_adopted_and_validated",
@@ -54,6 +57,7 @@ SCENARIOS = (
     "test_batchz_and_metrics_render_retained_cache",
     "test_requestz_limit_json_and_single_record",
     "test_stitched_chrome_trace_pure_function",
+    "test_fleet_report_joins_router_and_replica_shards",
 )
 
 
@@ -62,14 +66,29 @@ def _lockrank_on(monkeypatch):
     monkeypatch.setenv("CXXNET_LOCKRANK", "1")
 
 
+_run = subprocess.run
+
+
+def _run_port_report(args, **kw):
+    """``subprocess.run`` with the JAX report tool's command swapped for
+    its twin in the port."""
+    if list(args[1:2]) == ["tools/telemetry_report.py"]:
+        args = [sys.executable, "-m", "cxxnet_tpu_torch.tools."
+                "telemetry_report"] + list(args[2:])
+    return _run(args, **kw)
+
+
 @pytest.mark.parametrize("name", SCENARIOS)
-def test_jax_fleet_obs_scenario_on_the_port(name, monkeypatch):
+def test_jax_fleet_obs_scenario_on_the_port(name, tmp_path, capsys,
+                                            monkeypatch):
     for attr, mod in (("routerd", routerd), ("servd", servd),
                       ("statusd", statusd), ("telemetry", telemetry),
                       ("faultinject", faultinject)):
         monkeypatch.setattr(jtests, attr, mod)
+    monkeypatch.setattr(subprocess, "run", _run_port_report)
     fn = getattr(jtests, name)
-    given = {"monkeypatch": monkeypatch}
+    given = {"monkeypatch": monkeypatch, "tmp_path": tmp_path,
+             "capsys": capsys}
     fn(**{p: given[p] for p in inspect.signature(fn).parameters})
 
 
@@ -78,4 +97,4 @@ def test_every_scenario_is_run_or_left_out():
              if n.startswith("test_") and callable(f)}
     assert names == set(SCENARIOS) | set(LEFT_OUT), \
         names ^ (set(SCENARIOS) | set(LEFT_OUT))
-    assert len(SCENARIOS) == 22
+    assert len(SCENARIOS) == 23

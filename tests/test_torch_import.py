@@ -186,3 +186,36 @@ def test_perf_ledger_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+# the offline tools' twins, the kernel ops and the artifact frame: each
+# loads no jax and nothing of the JAX package; the op library loads none of
+# the port's net, layer, CLI or API modules (a loaded program needs torch
+# and the ops it holds, nothing else)
+STANDALONE = ("cxxnet_tpu_torch.tools.telemetry_report",
+              "cxxnet_tpu_torch.tools.summarize_trace",
+              "cxxnet_tpu_torch.tools.roofline",
+              "cxxnet_tpu_torch.tools.ckpt_fsck",
+              "cxxnet_tpu_torch.ops.library",
+              "cxxnet_tpu_torch.utils.artifact")
+
+
+@pytest.mark.parametrize("module", STANDALONE)
+def test_tools_ops_and_artifact_load_no_jax(module):
+    code = ("import sys\n"
+            "import %s\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cxxnet_tpu' or "
+            "m.startswith('cxxnet_tpu.')))\n"
+            "print(sorted(m for m in sys.modules if m.startswith("
+            "('cxxnet_tpu_torch.nnet', 'cxxnet_tpu_torch.layer', "
+            "'cxxnet_tpu_torch.learn_task', 'cxxnet_tpu_torch.api'))))\n"
+            % module)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    bad, port = out.stdout.strip().splitlines()
+    assert bad == "[]"
+    if module.endswith((".library", ".artifact", ".summarize_trace")):
+        assert port == "[]", port

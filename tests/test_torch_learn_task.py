@@ -392,6 +392,7 @@ PORTED_SINCE = {
     ("ckpt_keep_every", "2"): lambda lt: lt.ckpt_keep_every == 2,
     ("profile_dir", "prof"): lambda lt: lt.profile_dir == "prof",
     ("task", "route"): lambda lt: lt.task == "route",
+    ("task", "export"): lambda lt: lt.task == "export",
 }
 
 

@@ -12,13 +12,15 @@ overrides; the selftest; and a real CPU training step carding itself.
 
 A JAX scenario runs against the port by swapping the globals of the JAX
 test module that name those modules for the port's, for the length of the
-case. Left out, each for its reason: ``test_device_spec_table_and_env_
-overrides`` (the TPU generations; the port's table is tested below),
-``test_roofline_peaks_come_from_the_shared_table``,
-``test_report_program_ledger_section``,
-``test_roofline_counts_null_bench_rows`` and
-``test_bench_compare_prints_null_skip_count`` (tools that read the JAX
-package), ``test_real_train_step_produces_a_program_card`` (a JAX program;
+case, and the tools it imports (``telemetry_report``, ``roofline``) for
+their twins in the port (``cxxnet_tpu_torch.tools``). Left out, each for
+its reason: ``test_device_spec_table_and_env_overrides`` (the TPU
+generations; the port's table is tested below),
+``test_roofline_peaks_come_from_the_shared_table`` (the TPU table; the
+twin's peaks are held to the port's table in tests/test_torch_tools.py),
+``test_bench_compare_prints_null_skip_count`` (tools/bench_compare.py
+alone, a shared tool that reads no package),
+``test_real_train_step_produces_a_program_card`` (a JAX program;
 the port's own step is carded below) and
 ``test_profilez_real_capture_writes_a_loadable_trace`` (a JAX profiler
 capture; the port's real capture is tested below).
@@ -36,6 +38,7 @@ import torch
 
 from cxxnet_tpu.utils import perf as jperf
 from cxxnet_tpu.utils import telemetry as jtelemetry
+from cxxnet_tpu_torch.tools import roofline, telemetry_report
 from cxxnet_tpu_torch.utils import perf, statusd, telemetry
 
 from . import test_perf as jtests
@@ -54,6 +57,8 @@ SCENARIOS = (
     "test_profilez_shutdown_cuts_capture_short",
     "test_decode_bound_annotation_null_safe",
     "test_decode_pool_cap_bytes_sizes_from_live_account",
+    "test_report_program_ledger_section",
+    "test_roofline_counts_null_bench_rows",
 )
 
 
@@ -67,6 +72,9 @@ def test_jax_perf_scenario_on_the_port(name, tmp_path, monkeypatch):
     for attr, mod in (("perf", perf), ("statusd", statusd),
                       ("telemetry", telemetry)):
         monkeypatch.setattr(jtests, attr, mod)
+    # the scenarios import the tools by name inside their bodies
+    monkeypatch.setitem(sys.modules, "telemetry_report", telemetry_report)
+    monkeypatch.setitem(sys.modules, "roofline", roofline)
     fn = getattr(jtests, name)
     given = {"tmp_path": tmp_path, "monkeypatch": monkeypatch}
     fn(**{p: given[p] for p in inspect.signature(fn).parameters})

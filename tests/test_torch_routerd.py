@@ -1,8 +1,9 @@
 """The port's fleet router (cxxnet_tpu_torch/utils/routerd.py) on the CPU,
 against the JAX package's: every scenario of tests/test_routerd.py and
-tests/test_failover.py, and those of tests/test_autopsy.py that need no
-report tool, each run against the port's ``routerd``, ``servd``,
-``statusd``, ``telemetry`` and ``autopsy``; the router and autopsy
+tests/test_failover.py and tests/test_autopsy.py, each run against the
+port's ``routerd``, ``servd``, ``statusd``, ``telemetry`` and ``autopsy``
+(and the report tool's twin, ``cxxnet_tpu_torch.tools.telemetry_report``);
+the router and autopsy
 selftests in subprocesses; a differential run of one scripted, timing-free
 traffic through the JAX router over two JAX frontends and the port's router
 over two port frontends, whose response lines, final stats, flight
@@ -18,10 +19,8 @@ injector's fleet helpers are rewritten here: tests/faultinject.py spawns
 ``-m cxxnet_tpu.utils.servd`` replicas through a ``subprocess`` of its
 own, which no swap reaches. Each spawn reads the replica's
 ``/proc/<pid>/cmdline`` and fails unless it runs the port's servd.
-Left out of tests/test_autopsy.py: ``test_books_latch_event_and_report_
-exit2`` and ``test_report_incidents_and_autopsy_sections``, which drive
-tools/telemetry_report.py (a tool that reads the JAX package). Everything
-runs with ``CXXNET_LOCKRANK=1``, and every socket has its own timeout.
+Everything runs with ``CXXNET_LOCKRANK=1``, and every socket has its own
+timeout.
 """
 
 import inspect
@@ -40,6 +39,7 @@ from cxxnet_tpu.utils import routerd as jrouterd
 from cxxnet_tpu.utils import servd as jservd
 from cxxnet_tpu.utils import statusd as jstatusd
 from cxxnet_tpu.utils import telemetry as jtelemetry
+from cxxnet_tpu_torch.tools import telemetry_report
 from cxxnet_tpu_torch.utils import autopsy, routerd, servd, statusd
 from cxxnet_tpu_torch.utils import telemetry
 
@@ -276,24 +276,27 @@ AUTOPSY_SCENARIOS = (
     "test_incidents_n_keeps_newest",
     "test_inconclusive_and_raising_laws_never_latch",
     "test_autopsy_module_selftest",
-)
-# they run tools/telemetry_report.py, a tool that reads the JAX package
-AUTOPSY_LEFT_OUT = (
+    # through the port's twin of tools/telemetry_report.py
     "test_books_latch_event_and_report_exit2",
     "test_report_incidents_and_autopsy_sections",
 )
+AUTOPSY_LEFT_OUT = ()
 
 
 @pytest.mark.parametrize("name", AUTOPSY_SCENARIOS)
-def test_jax_autopsy_scenario_on_the_port(name, monkeypatch):
+def test_jax_autopsy_scenario_on_the_port(name, tmp_path, capsys,
+                                          monkeypatch):
     for attr, port in (("autopsy", autopsy), ("telemetry", telemetry),
+                       ("telemetry_report", telemetry_report),
                        ("CAUSES", autopsy.CAUSES),
                        ("classify_record", autopsy.classify_record),
                        ("classify_route", autopsy.classify_route),
                        ("stitch_route", autopsy.stitch_route),
                        ("incidents", autopsy.incidents)):
         monkeypatch.setattr(jautopsy_tests, attr, port)
-    getattr(jautopsy_tests, name)()
+    fn = getattr(jautopsy_tests, name)
+    given = {"tmp_path": tmp_path, "capsys": capsys}
+    fn(**{p: given[p] for p in inspect.signature(fn).parameters})
 
 
 def test_autopsy_exports_as_the_jax_package():

@@ -1,9 +1,10 @@
 """The port's serving frontend (cxxnet_tpu_torch/utils/servd.py) on the CPU,
 against the JAX package's: the scenarios of tests/test_servd.py that need no
-status HTTP server, no report tool and no watchdog, each run against the
-port's ``ServeFrontend`` (protocol, rejections, deadlines, breaker, drain,
-batching, tenants, paged-KV exhaustion and requeue, convoy, autopsy,
-selftest); a differential run of one scripted, timing-free traffic through
+watchdog, each run against the port's ``ServeFrontend`` (protocol,
+rejections, deadlines, breaker, drain, batching, tenants, paged-KV
+exhaustion and requeue, convoy, autopsy, selftest, the status pages, and
+the report tool's sections through its twin in the port,
+``cxxnet_tpu_torch.tools.telemetry_report``); a differential run of one scripted, timing-free traffic through
 both frontends over the same deterministic backends, whose response lines
 and ``ADMIN stats`` counters must be equal; the selftests of the port's
 lockrank and servd under ``CXXNET_LOCKRANK=1`` in a subprocess; and the
@@ -12,8 +13,8 @@ fails liveness without hanging drain).
 
 A JAX scenario runs against the port by swapping the globals of the JAX
 test module that name the frontend's modules (``servd``, ``statusd``,
-``telemetry``) and its fault injector for the port's, for the length of the
-case. The fault injector's fake slot backend is copied here, on the port's
+``telemetry``), the report tool and the fault injector for the port's, for
+the length of the case. The fault injector's fake slot backend is copied here, on the port's
 allocator: tests/faultinject.py's raises the JAX package's
 ``KVPoolExhausted``, which the port's frontend must not (and does not)
 catch. Everything runs with ``CXXNET_LOCKRANK=1``, and every socket has its
@@ -31,6 +32,7 @@ import pytest
 
 from cxxnet_tpu.utils import kvblocks as jkvblocks
 from cxxnet_tpu.utils import servd as jservd
+from cxxnet_tpu_torch.tools import telemetry_report
 from cxxnet_tpu_torch.utils import checkpoint as ckpt
 from cxxnet_tpu_torch.utils import kvblocks
 from cxxnet_tpu_torch.utils import servd
@@ -436,9 +438,8 @@ class _PortSubprocess:
 
 
 # the JAX scenarios that run against the port's frontend (those of the
-# status HTTP server on the port's StatusServer); left out: those of the
-# report tool (test_report_*), which reads the JAX package, and of the
-# watchdog thread, which is not ported
+# status HTTP server on the port's StatusServer, those of the report tool
+# on its twin); left out: that of the watchdog thread, which is not ported
 SCENARIOS = (
     "test_tcp_roundtrip_and_reconciliation",
     "test_pipelined_requests_one_connection",
@@ -510,6 +511,11 @@ SCENARIOS = (
     "test_request_tracing_end_to_end",
     "test_batch_occupancy_metrics_honest_weighted_mean",
     "test_batchz_endpoint_kv_account_and_decode_metrics",
+    "test_report_serving_section_and_rates",
+    "test_report_serving_section_empty_latency_renders_na",
+    "test_report_exit2_on_unresolved_breaker_open",
+    "test_report_request_breakdown_and_slo_exit2",
+    "test_report_batch_scheduler_section",
 )
 
 
@@ -531,7 +537,8 @@ def test_jax_servd_scenario_on_the_port(name, make_frontend, tmp_path,
     for attr, mod in (("servd", servd), ("statusd", statusd),
                       ("telemetry", telemetry),
                       ("faultinject", faultinject),
-                      ("subprocess", _PortSubprocess)):
+                      ("subprocess", _PortSubprocess),
+                      ("telemetry_report", telemetry_report)):
         monkeypatch.setattr(jtests, attr, mod)
     fn = getattr(jtests, name)
     given = {"make_frontend": make_frontend, "tmp_path": tmp_path,

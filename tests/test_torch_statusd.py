@@ -9,11 +9,12 @@ not serve; and ``status_port`` through the command line.
 A JAX scenario runs against the port by swapping the globals of the JAX test
 module that name those modules for the port's, for the length of the case
 (the fixtures ``registry`` and ``server`` are rebuilt here on the port's
-registry and server). Left out, each for its reason:
+registry and server), and the report tools they drive for their twins in
+the port (``cxxnet_tpu_torch.tools.telemetry_report`` and
+``summarize_trace``). Left out, each for its reason:
 
-* ``test_report_*``, ``test_bench_compare_gates_subfields`` and
-  ``test_summarize_trace_request_format`` drive the report tools under
-  tools/, which read the JAX package;
+* ``test_bench_compare_gates_subfields`` tests tools/bench_compare.py
+  alone, a shared tool that reads no package;
 * ``test_healthz_flips_on_injected_anomaly`` needs the health monitor's
   ``RecoveryPolicy``, which is not ported.
 
@@ -39,6 +40,7 @@ import cxxnet_tpu.utils as jutils
 from cxxnet_tpu.utils import autopsy as jautopsy
 from cxxnet_tpu.utils import statusd as jstatusd
 from cxxnet_tpu.utils import telemetry as jtelemetry
+from cxxnet_tpu_torch.tools import summarize_trace, telemetry_report
 from cxxnet_tpu_torch.utils import autopsy, health, statusd, telemetry
 
 from . import test_statusd as jtests
@@ -114,6 +116,12 @@ SCENARIOS = (
     "test_eventz_timeline",
     "test_books_broken_gauge_latches_in_scrape",
     "test_statusd_selftest",
+    # through the port's twins of the report tools
+    "test_report_merge_shards",
+    "test_report_merge_rejects_duplicate_shards",
+    "test_report_merge_rejects_malformed_shards",
+    "test_report_single_log_still_works",
+    "test_summarize_trace_request_format",
 )
 
 
@@ -121,7 +129,9 @@ def _swap(monkeypatch):
     for attr, mod in (("statusd", statusd), ("telemetry", telemetry),
                       ("health", port_health), ("autopsy", autopsy),
                       ("HIST_BUCKETS", telemetry.HIST_BUCKETS),
-                      ("Histogram", telemetry.Histogram)):
+                      ("Histogram", telemetry.Histogram),
+                      ("telemetry_report", telemetry_report),
+                      ("summarize_trace", summarize_trace)):
         monkeypatch.setattr(jtests, attr, mod)
     # test_slo_burn_transition_events_only reaches the registry through
     # ``import cxxnet_tpu.utils.telemetry``, which reads this attribute
