@@ -23,7 +23,14 @@ port's offline tools (cxxnet_tpu_torch.tools: summarize_trace,
 telemetry_report, ckpt_fsck --deep, roofline) run on that run's trace,
 log and model files, then pred / extract / pred_raw from its model held
 to api.Net, and example/kaggle_bowl/pred.conf's pred_raw with a padded
-last batch; then the exported programs (``torch.export`` with the LRN and
+last batch; then the image input path without cv2: the port's host
+library (csrc/host) built with g++, its JPEG decoder held to libjpeg-turbo's
+hashes of tests/data/jpeg and timed alone, its warp bitwise
+io/warp.py's, ImageNet.conf trained for a round from a JPEG pack made by
+io/synth.py's numpy encoder (decode_thread=4 decode_timeout=30, every
+record through the port's decoder) and example/kaggle_bowl/bowl.conf for
+2 rounds with its geometric keys, each held to api.Net.update over the
+same batches; then the exported programs (``torch.export`` with the LRN and
 flash forward kernels as ``cxxnet::`` ops): ImageNet.conf's forward at
 batch 256 and at a symbolic batch, and the bench.py LM's decode loop in
 bf16 as a prefill and a step program, loaded and run in a fresh process
@@ -69,7 +76,8 @@ time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``rrelu_alexnet_train``,
 ``cli_mnist_conv``, ``cli_imagenet_train``, ``cli_imagenet_resume``,
 ``tools_offline``, ``cli_imagenet_pred``,
-``cli_bowl_pred_raw``, ``export_forward``, ``export_decode``,
+``cli_bowl_pred_raw``, ``jpeg_decode``, ``cli_imagenet_jpeg``,
+``cli_bowl_train``, ``export_forward``, ``export_decode``,
 ``export_load``, ``lrn_kernel_googlenet``,
 ``lrn_bwd_kernel_googlenet``, ``googlenet_bf16_train``,
 ``googlenet_bf16_pred``, ``cli_googlenet``, ``vgg16_bf16_remat``,
@@ -4003,6 +4011,8 @@ BOWL_IMAGES, BOWL_HW, BOWL_CLASSES = 200, 48, 121
 CLI_PRED_RTOL = 1e-5
 # the node cli_imagenet_pred extracts: fc6's output, behind both LRNs
 CLI_EXTRACT_NODE = "17"
+# cli_imagenet_train's round rates on the PPM pack, for cli_imagenet_jpeg
+PPM_ROUND_RATES = []
 ROUND_RE = re.compile(r"round (\d+): input-wait ([\d.]+)% \(io ([\d.]+|inf) "
                       r"img/s when blocked, step ([\d.]+|inf) img/s\)")
 IO_RE = re.compile(r"round (\d+): io-only ([\d.]+) images/sec")
@@ -4144,15 +4154,21 @@ def imagenet_pack(root):
     return cwd
 
 
-def imagenet_section(name, extra=""):
-    """The conf's ``name`` iterator section as a DataIter string, with the
-    global keys that the CLI applies to every chain and that the image
-    chain reads."""
-    text = open(os.path.join(REPO, "example/ImageNet/ImageNet.conf")).read()
+def conf_section(path, name, extra, shape, batch):
+    """The ``name`` iterator section of a conf file as a DataIter string,
+    with the global keys that the CLI applies to every chain and that the
+    image chain reads."""
+    text = open(path).read()
     start = text.index("%s\niter = imgbin" % name)
     body = text[start + len(name) + 1: text.index("iter = end", start)]
-    return body + extra + "input_shape = 3,227,227\nbatch_size = %d\n" \
-        "iter = end\n" % BATCH
+    return body + extra + "input_shape = %s\nbatch_size = %d\n" \
+        "iter = end\n" % (shape, batch)
+
+
+def imagenet_section(name, extra=""):
+    """ImageNet.conf's ``name`` iterator section as a DataIter string."""
+    return conf_section(os.path.join(REPO, "example/ImageNet/ImageNet.conf"),
+                        name, extra, "3,227,227", BATCH)
 
 # bin/cxxnet_torch in a process of its own: the runner turns cuDNN off when
 # asked, runs the entry script, and prints the kernels' launch counts of
@@ -4946,6 +4962,7 @@ def phase_cli_imagenet(lrn, learn_task, api):
                 != CLI_ROUNDS:
             raise AssertionError("expected %d eval lines" % CLI_ROUNDS)
         rates = round_rates(out)
+        PPM_ROUND_RATES[:] = rates
         log("  rounds (input-wait %%, io img/s when blocked, step img/s; "
             "round 1 under profile_dir's torch.profiler): %s" % rates)
         per_round = (2 * (steps + evals) // CLI_ROUNDS,
@@ -5168,6 +5185,332 @@ def phase_cli_bowl_pred_raw(learn_task, api):
                     torch.from_numpy(np.concatenate(want).astype(np.float64)),
                     CLI_PRED_RTOL, 1e-30)
         del net
+        torch.cuda.empty_cache()
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+
+# ---------------------------------------------------------------- JPEG
+# the committed fixtures (tests/data/jpeg) and their libjpeg-turbo hashes
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+# the warp held to warp_affine_ref: bowl.conf's draws at these sizes
+WARP_SIZES, WARP_CASES = (48, 256), 20
+BOWL_KEYS = dict(max_rotate_angle=180, max_aspect_ratio=0.5,
+                 max_shear_ratio=0.3)
+# the JPEG ImageNet pack (cli_imagenet_jpeg): 256x256 4:2:0 at quality 90,
+# every 4th record with a restart marker every 4 MCUs; the numpy encoder
+# takes ~0.1 s a record on the card machine's host, so JPEG_DISTINCT
+# images are encoded and repeat under their own labels
+JPEG_TRAIN, JPEG_TEST, JPEG_HW, JPEG_DISTINCT = 1024, 256, 256, 64
+JPEG_ROUNDS = 1
+# decoder-alone images/s: this many records of the pack, in turns at 1 and
+# 4 threads
+DECODE_RATE_RECORDS = 160
+# bowl.conf (cli_bowl_train): 1,210 48x48 JPEG images in 121 classes,
+# split as example/kaggle_bowl/run.sh splits its synthetic corpus
+BOWL_TRAIN, BOWL_VAL, BOWL_ROUNDS = 1100, 110, 2
+# extra command-line keys of cli_imagenet_jpeg's runs (none on the card;
+# a CPU rehearsal shrinks the batch)
+JPEG_CLI_EXTRA = []
+_JPEG_RECORDS = {}
+
+
+def jpeg_pack_records(name):
+    """(label, bytes) of the JPEG ImageNet pack's train or test part, made
+    once per process."""
+    from cxxnet_tpu_torch.io import synth
+    if name not in _JPEG_RECORDS:
+        n, seed = (JPEG_TRAIN, SEED) if name == "train" \
+            else (JPEG_TEST, SEED + 1)
+        t = time.perf_counter()
+        _JPEG_RECORDS[name] = list(synth.jpeg_records(
+            n, JPEG_HW, 1000, seed, quality=90, subsampling="420",
+            restart=4, restart_every=4, distinct=JPEG_DISTINCT))
+        log("  JPEG %s records: %d of %dx%d 4:2:0 (%d encoded, %.1f KB "
+            "mean) in %.2f s" % (name, n, JPEG_HW, JPEG_HW,
+                                 min(n, JPEG_DISTINCT),
+                                 np.mean([len(r) for _, r in
+                                          _JPEG_RECORDS[name]]) / 1e3,
+                                 time.perf_counter() - t))
+    return _JPEG_RECORDS[name]
+
+
+def decode_rates(native, recs, threads):
+    """Images/s of the decoder alone over ``recs`` on ``threads``
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    t = time.perf_counter()
+    if threads == 1:
+        for r in recs:
+            native.decode_jpeg_chw(r)
+    else:
+        with ThreadPoolExecutor(threads) as pool:
+            for _ in pool.map(native.decode_jpeg_chw, recs):
+                pass
+    return len(recs) / (time.perf_counter() - t)
+
+
+def phase_jpeg_decode():
+    """The host library built from csrc/host on the card's machine; the
+    committed fixtures decoded to libjpeg-turbo's hashes; the C++ warp
+    bitwise warp_affine_ref on bowl.conf's draws; the decoder's images/s
+    alone at 1 and 4 threads."""
+    import hashlib
+    from cxxnet_tpu_torch.io import iter_image, warp
+    from cxxnet_tpu_torch.utils import native
+    log("phase jpeg_decode")
+    t0 = time.perf_counter()
+    path = native.build()
+    native.load()
+    log("  host library %s built in %s s (%s %s)"
+        % (os.path.relpath(path, REPO),
+           "%.2f" % native.build_seconds if native.build_seconds is not None
+           else "0 (built already)", native._compiler(),
+           " ".join(native.CXX_FLAGS)))
+    expected = json.load(open(os.path.join(JPEG_FIXTURES, "expected.json")))
+    for name in sorted(expected):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            out = native.decode_jpeg_chw(f.read())
+        hwc = np.ascontiguousarray(out.transpose(1, 2, 0).astype(np.uint8))
+        if list(hwc.shape) != expected[name]["shape"] or \
+                hashlib.sha256(hwc.tobytes()).hexdigest() \
+                != expected[name]["sha256"]:
+            raise AssertionError("fixture %s does not decode to "
+                                 "libjpeg-turbo's pixels" % name)
+    log("  %d fixtures (%s): every decode's SHA-256 libjpeg-turbo's"
+        % (len(expected), ", ".join(n[:-4] for n in sorted(expected))))
+    aug = iter_image.GeometricAugmenter()
+    for k, v in BOWL_KEYS.items():
+        aug.set_param(k, str(v))
+    rs = np.random.RandomState(SEED + 20)
+    for hw in WARP_SIZES:
+        for k in range(WARP_CASES):
+            src = rs.randint(0, 256, (hw, hw, 3), np.uint8)
+            M, out_hw = aug.draw_matrix(hw, hw, rs)
+            inv = warp.inverse_map(M)
+            fill = (255, 0, 17)[k % 3]
+            if not np.array_equal(native.warp_affine(src, inv, out_hw, fill),
+                                  warp.warp_affine_ref(src, inv, out_hw,
+                                                       fill)):
+                raise AssertionError("the C++ warp differs from "
+                                     "warp_affine_ref at %dx%d, case %d"
+                                     % (hw, hw, k))
+    log("  warp: the C++ warp bitwise warp_affine_ref on %d matrices of "
+        "bowl.conf's draws at each of %s" % (WARP_CASES, WARP_SIZES))
+    recs = [r for _, r in jpeg_pack_records("train")[:DECODE_RATE_RECORDS]]
+    rates = {1: [], 4: []}
+    for threads in (1, 4, 1, 4):
+        rates[threads].append(decode_rates(native, recs, threads))
+    log("  decoder alone, %d records of %dx%d 4:2:0, images/s in turns: 1 "
+        "thread %s, 4 threads %s (%d host cores)"
+        % (len(recs), JPEG_HW, JPEG_HW,
+           " / ".join("%.1f" % r for r in rates[1]),
+           " / ".join("%.1f" % r for r in rates[4]), os.cpu_count()))
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+
+
+def routes_since(iter_image, before):
+    return {k: iter_image.decode_routes[k] - before[k] for k in before}
+
+
+def host_passes(iter_image, mean_path, n=64):
+    """The host's passes of one record of the JPEG pack, timed one by one
+    on this thread: the decode (C++, off the GIL, in the pool on the CLI's
+    path) and ImageNet.conf's augmentation (random crop to 227, mirror,
+    the mean image subtracted: numpy on the loader thread, under the
+    GIL)."""
+    from cxxnet_tpu_torch.io.data import DataInst
+    from cxxnet_tpu_torch.utils import serializer
+    recs = [r for _, r in jpeg_pack_records("train")[:n]]
+    n = len(recs)
+    t = time.perf_counter()
+    imgs = [iter_image.decode_image(r) for r in recs]
+    dec = (time.perf_counter() - t) / n
+    aug = iter_image.AugmentIterator(iter_image.ImagePageIterator())
+    for k, v in (("input_shape", "3,227,227"), ("rand_crop", "1"),
+                 ("rand_mirror", "1"), ("silent", "1")):
+        aug.set_param(k, v)
+    with open(mean_path, "rb") as f:
+        f.read(len(aug._MEAN_MAGIC))
+        aug.meanimg = serializer.Reader(f).read_tensor()
+    aug.name_meanimg, aug.meanfile_ready = mean_path, True
+    t = time.perf_counter()
+    for i, img in enumerate(imgs):
+        aug._set_data(DataInst(img, np.zeros(1, np.float32), i))
+    log("  host passes of a %dx%d record, one at a time (%d records): "
+        "decode %.3f ms (C++, off the GIL), crop + mirror + mean image "
+        "%.3f ms (numpy, under the GIL)"
+        % (JPEG_HW, JPEG_HW, n, 1e3 * dec,
+           1e3 * (time.perf_counter() - t) / n))
+
+
+def phase_cli_imagenet_jpeg(lrn, learn_task, api):
+    """example/ImageNet/ImageNet.conf read unchanged, from the CLI, for one
+    round at full width on a JPEG pack (the port's decoder, decode_thread=4
+    decode_timeout=30), then again with cuDNN off against the same batches
+    through api.Net.update. Returns the LRN (forward, backward) launches of
+    the main run."""
+    from cxxnet_tpu_torch.io import iter_image
+    log("phase cli_imagenet_jpeg")
+    t0 = time.perf_counter()
+    conf = os.path.join(REPO, "example/ImageNet/ImageNet.conf")
+    with scratch_dir("cli_imagenet_jpeg") as root:
+        from cxxnet_tpu_torch.io import synth
+        for lst, binp, part in (("NameList.train", "TRAIN.BIN", "train"),
+                                ("NameList.test", "TEST.BIN", "test")):
+            synth.write_pack(jpeg_pack_records(part),
+                             os.path.join(root, lst),
+                             os.path.join(root, binp))
+        cwd = os.path.join(root, "a", "b")
+        os.makedirs(cwd)
+        args = [conf, "num_round=%d" % JPEG_ROUNDS,
+                "max_round=%d" % JPEG_ROUNDS, "dev=" + NET_DEV,
+                "decode_thread=4", "decode_timeout=30"] + JPEG_CLI_EXTRA
+        steps = JPEG_ROUNDS * (JPEG_TRAIN // BATCH)
+        evals = JPEG_ROUNDS * (JPEG_TEST // BATCH)
+        # the main path: the counts start at 0 here and are read right after
+        before = dict(iter_image.decode_routes)
+        lrn.launches = lrn.no_norm_launches = lrn.bwd_launches = 0
+        t = time.perf_counter()
+        out, err = run_cli(learn_task, cwd, args)
+        wall = time.perf_counter() - t
+        train = (lrn.launches, lrn.bwd_launches, lrn.no_norm_launches)
+        routes = routes_since(iter_image, before)
+        log("  %d round in %.2f s wall (mean image, init and eval "
+            "included); lrn_fwd launches %d (%d storing no norm), lrn_bwd "
+            "launches %d; records decoded by route %s"
+            % (JPEG_ROUNDS, wall, train[0], train[2], train[1], routes))
+        if train != (2 * steps + 2 * evals, 2 * steps, 2 * evals):
+            raise AssertionError(
+                "expected 2 + 2 LRN launches in each of %d steps and 2 "
+                "without a norm in each of %d eval batches; counted %s"
+                % (steps, evals, train))
+        if routes["cv2"] or routes["pnm"] or \
+                routes["jpeg"] < JPEG_TRAIN * (JPEG_ROUNDS + 1) + JPEG_TEST:
+            raise AssertionError("the JPEG records did not all go through "
+                                 "the port's decoder: %s" % routes)
+        if len([ln for ln in err.splitlines() if ln.startswith("[")]) \
+                != JPEG_ROUNDS:
+            raise AssertionError("expected %d eval line" % JPEG_ROUNDS)
+        rates = round_rates(out)
+        log("  round (input-wait %%, io img/s when blocked, step img/s): "
+            "JPEG %s; cli_imagenet_train's PPM rounds %s"
+            % (rates, PPM_ROUND_RATES))
+        host_passes(iter_image, os.path.join(cwd, "models",
+                                             "image_net_mean.bin"))
+        # the same batches through api.Net.update, both with cuDNN off (as
+        # cli_imagenet_train: cuDNN's algorithms need not repeat)
+        cfg = open(conf).read() + "\nbatch_size = %d\nseed = %d\n" \
+            % (BATCH, SEED)
+        net = api.Net(dev=NET_DEV, cfg=cfg)
+        with cudnn_off():
+            run_cli(learn_task, cwd, args + [
+                "model_dir=models_det", "image_mean=models_det/mean",
+                "save_model=%d" % JPEG_ROUNDS])
+            net.init_model()
+            start = _params(net)
+            with in_dir(cwd):
+                it = api.DataIter(conf_section(
+                    conf, "data = train", 'image_mean = "mean_api"\n'
+                    'decode_thread = 4\n', "3,227,227", BATCH))
+                if open("models_det/mean", "rb").read() != \
+                        open("mean_api", "rb").read():
+                    raise AssertionError("the DataIter's mean image differs "
+                                         "from the CLI's")
+                for r in range(JPEG_ROUNDS):
+                    net.start_round(r + 1)
+                    it.before_first()
+                    while it.next():
+                        net.update(it)
+                it.close()
+        cli_net = api.Net(dev=NET_DEV, cfg=cfg)
+        cli_net.load_model(os.path.join(cwd, "models_det/%04d.model"
+                                        % JPEG_ROUNDS))
+        compare_params("round-%d model of the CLI on the JPEG pack vs the "
+                       "same batches through api.Net.update (cuDNN off on "
+                       "both)" % JPEG_ROUNDS, _params(cli_net), _params(net),
+                       start, STEP_RTOL, STEP_ATOL_UPDATE)
+        del net, cli_net, start
+        torch.cuda.empty_cache()
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+    return train[:2]
+
+
+def phase_cli_bowl_train(learn_task, api):
+    """example/kaggle_bowl/bowl.conf, read unchanged but for dev, num_round
+    and max_round on the command line, trained for 2 rounds on a JPEG pack
+    with every geometric key of the file; then again with cuDNN off against
+    api.Net.update over the same chain."""
+    from cxxnet_tpu_torch.io import iter_image, synth
+    log("phase cli_bowl_train")
+    t0 = time.perf_counter()
+    conf = os.path.join(REPO, "example/kaggle_bowl/bowl.conf")
+    with scratch_dir("cli_bowl_train") as d:
+        t = time.perf_counter()
+        recs = list(synth.jpeg_records(BOWL_TRAIN + BOWL_VAL, BOWL_HW,
+                                       BOWL_CLASSES, SEED, quality=90,
+                                       subsampling="420"))
+        synth.write_pack(recs[:BOWL_TRAIN], os.path.join(d, "tr.lst"),
+                         os.path.join(d, "tr.bin"))
+        synth.write_pack(recs[BOWL_TRAIN:], os.path.join(d, "va.lst"),
+                         os.path.join(d, "va.bin"))
+        log("  pack: %d + %d JPEG images %dx%d, %d classes, in %.2f s"
+            % (BOWL_TRAIN, BOWL_VAL, BOWL_HW, BOWL_HW, BOWL_CLASSES,
+               time.perf_counter() - t))
+        args = [conf, "dev=" + NET_DEV, "num_round=%d" % BOWL_ROUNDS,
+                "max_round=%d" % BOWL_ROUNDS]
+        before = dict(iter_image.decode_routes)
+        iter_image.warp_calls, iter_image.warp_seconds = 0, 0.0
+        t = time.perf_counter()
+        out, err = run_cli(learn_task, d, args)
+        wall = time.perf_counter() - t
+        routes = routes_since(iter_image, before)
+        lines = [ln for ln in err.splitlines() if ln.startswith("[")]
+        vals = [float(v) for ln in lines
+                for v in re.findall(r":([-\d.e+]+|nan|inf)", ln)]
+        if len(lines) != BOWL_ROUNDS or not vals or \
+                not np.all(np.isfinite(vals)):
+            raise AssertionError("expected %d eval lines of finite values: "
+                                 "%r" % (BOWL_ROUNDS, lines))
+        log("  %d rounds in %.2f s wall; %d records decoded (%s), %d warped "
+            "(share %.3f), the warp %.4f ms a record; round lines %s"
+            % (BOWL_ROUNDS, wall, sum(routes.values()), routes,
+               iter_image.warp_calls,
+               iter_image.warp_calls / max(1, sum(routes.values())),
+               1e3 * iter_image.warp_seconds / max(1, iter_image.warp_calls),
+               round_rates(out)))
+        if routes["cv2"] or not iter_image.warp_calls:
+            raise AssertionError("cv2 decoded a record, or nothing was "
+                                 "warped: %s" % routes)
+        cfg = open(conf).read().replace("dev = gpu:1", "") \
+            + "\nseed = %d\n" % SEED
+        net = api.Net(dev=NET_DEV, cfg=cfg)
+        net.load_model(os.path.join(d, "models/%04d.model" % BOWL_ROUNDS))
+        check_params_finite(net)
+        net = api.Net(dev=NET_DEV, cfg=cfg)
+        batch = int(re.search(r"\nbatch_size = (\d+)", cfg).group(1))
+        with cudnn_off():
+            run_cli(learn_task, d, args + [
+                "model_dir=models_det", "image_mean=models_det/mean.bin",
+                "save_model=%d" % BOWL_ROUNDS])
+            net.init_model()
+            start = _params(net)
+            with in_dir(d):
+                it = api.DataIter(conf_section(
+                    conf, "data = train", 'image_mean = "mean_api"\n',
+                    "3,40,40", batch))
+                for r in range(BOWL_ROUNDS):
+                    net.start_round(r + 1)
+                    it.before_first()
+                    while it.next():
+                        net.update(it)
+                it.close()
+        cli_net = api.Net(dev=NET_DEV, cfg=cfg)
+        cli_net.load_model(os.path.join(d, "models_det/%04d.model"
+                                        % BOWL_ROUNDS))
+        compare_params("round-%d model of bowl.conf's CLI vs the same chain "
+                       "through api.Net.update (cuDNN off on both)"
+                       % BOWL_ROUNDS, _params(cli_net), _params(net), start,
+                       STEP_RTOL, STEP_ATOL_UPDATE)
+        del net, cli_net, start
         torch.cuda.empty_cache()
     log("  phase wall %.1f s" % (time.perf_counter() - t0))
 
@@ -6356,6 +6699,9 @@ def main() -> int:
     cli_train, cli_pred, cli_resume = phase_cli_imagenet(lrn, learn_task,
                                                          api)
     phase_cli_bowl_pred_raw(learn_task, api)
+    phase_jpeg_decode()
+    cli_jpeg = phase_cli_imagenet_jpeg(lrn, learn_task, api)
+    phase_cli_bowl_train(learn_task, api)
     export_fwd, export_flash = phase_exports(flash_attn, api, models)
     gnet_fwd_rec = phase_lrn_kernel(lrn, GNET_LRN_SHAPES, GNET_LRN_ARGS,
                                     "lrn_kernel_googlenet")
@@ -6402,6 +6748,7 @@ def main() -> int:
               "cli_imagenet_train": cli_train[0],
               "cli_imagenet_resume": cli_resume[0],
               "cli_imagenet_pred": cli_pred[0],
+              "cli_imagenet_jpeg": cli_jpeg[0],
               "googlenet_bf16_train": gnet_train[0],
               "googlenet_bf16_pred": gnet_pred,
               "cli_googlenet_train": gnet_cli_train[0],
@@ -6413,6 +6760,7 @@ def main() -> int:
              {"alexnet_train": train_bwd, "rrelu_alexnet_train": rrelu[2],
               "cli_imagenet_train": cli_train[1],
               "cli_imagenet_resume": cli_resume[1],
+              "cli_imagenet_jpeg": cli_jpeg[1],
               "googlenet_bf16_train": gnet_train[1],
               "cli_googlenet_train": gnet_cli_train[1], **bench[1]},
              {"train_step": train_bwd // TRAIN_STEPS}),

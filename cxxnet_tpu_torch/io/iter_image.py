@@ -4,34 +4,43 @@ cxxnet_tpu/io/iter_image.py.
 
 * ImagePageIterator <- the reference's ThreadImagePageIterator/X
   (src/io/iter_thread_imbin-inl.hpp:16, iter_thread_imbin_x-inl.hpp:18):
-  records from BinaryPage packs with .lst label files; multi-part lists
-  via image_conf_prefix / image_conf_ids; file sharding by
-  dist_num_worker / dist_worker_rank (env PS_RANK).
+  records from BinaryPage packs with .lst label files, read ahead on a C++
+  thread (utils/native.py NativePageReader); multi-part lists via
+  image_conf_prefix / image_conf_ids; file sharding by dist_num_worker /
+  dist_worker_rank (env PS_RANK); a decode pool with decode_timeout.
 * ImageIterator <- src/io/iter_img-inl.hpp:16 (one file per record).
+* GeometricAugmenter <- src/io/image_augmenter-inl.hpp:13: rotation,
+  shear, aspect ratio and random scale in one bicubic affine warp
+  (csrc/host/warp_affine.cc), then a crop.
 * AugmentIterator <- src/io/iter_augment_proc-inl.hpp:21: crop, mirror,
   mean image (created, cached and loaded) or mean value, divideby / scale,
   random contrast and illumination.
-* GeometricAugmenter <- src/io/image_augmenter-inl.hpp:13: only its keys.
-  The warp itself is not ported; a config that asks for it is refused.
 
-Records decode to float32 RGB (c, h, w) in [0, 255]. Binary PPM (P6) and
-PGM (P5) with maxval 255 decode in numpy on any machine; every other
-format goes through cv2.imdecode as in the JAX package, and raises
-MissingCodecError where cv2 is not installed.
+Records decode to float32 RGB (c, h, w) in [0, 255], chosen by their
+magic bytes, never by what is installed: JPEG through the port's own
+decoder (csrc/host/jpeg_decode.cc, libjpeg-turbo's arithmetic), binary
+PPM (P6) and PGM (P5) with maxval 255 through csrc/host/pnm_decode.cc,
+both in C++ off the GIL. A JPEG in a form that decoder does not implement
+(arithmetic coding, 12-bit, lossless, CMYK, other sampling layouts), and
+every other format, goes through cv2.imdecode as in the JAX package, and
+raises MissingCodecError where cv2 is not installed.
 """
 
 from __future__ import annotations
 
-import functools
+import math
 import os
 import sys
+import threading
+import time
 from collections import deque
 from typing import List, Optional
 
 import numpy as np
 
-from ..utils import serializer
+from ..utils import native, serializer, telemetry
 from ..utils.binary_page import KPAGE_INTS, BinaryPage
+from . import warp
 from .batch import BatchAdaptIterator
 from .data import DataInst, IIterator
 
@@ -43,8 +52,10 @@ class RecordDecodeError(ValueError):
 
 
 class MissingCodecError(RuntimeError):
-    """A record in a format that only cv2 decodes, on a machine without
-    cv2. Never skipped: the data is fine, the machine cannot read it."""
+    """A record in a format that only cv2 decodes (not JPEG or PPM/PGM, or
+    a JPEG form the port's decoder does not implement), on a machine
+    without cv2. Never skipped: the data is fine, the machine cannot read
+    it."""
 
 
 class PackReadError(RuntimeError):
@@ -100,28 +111,106 @@ def _decode_pnm(buf: bytes) -> Optional[np.ndarray]:
     return out
 
 
-def decode_image(buf: bytes) -> np.ndarray:
-    """One record's bytes as float32 RGB (3, h, w) in [0, 255]. The decoder
-    is chosen by the record's magic bytes, never by what is installed."""
-    if buf[:2] in (b"P5", b"P6"):
-        out = _decode_pnm(buf)
-        if out is not None:
-            return out
+# records decoded by each route since the process started (or the counts
+# were last set to 0): "jpeg" the port's JPEG decoder, "pnm" its PPM/PGM
+# decoder, "cv2" cv2.imdecode
+decode_routes = {"jpeg": 0, "pnm": 0, "cv2": 0}
+_routes_lock = threading.Lock()
+
+
+def _count_route(route: str) -> None:
+    with _routes_lock:
+        decode_routes[route] += 1
+
+
+def _decode_cv2(buf: bytes, what: str) -> np.ndarray:
     try:
         import cv2
     except ImportError:
-        kind = next((k for m, k in _MAGICS if buf.startswith(m)),
-                    "an unrecognized format")
         raise MissingCodecError(
-            "image record in %s (%d bytes): only binary PPM/PGM with maxval "
-            "255 decode without cv2 (OpenCV), which is not installed"
-            % (kind, len(buf))) from None
+            "image record in %s (%d bytes): the port decodes JPEG and binary "
+            "PPM/PGM with maxval 255 itself; this one needs cv2 (OpenCV), "
+            "which is not installed" % (what, len(buf))) from None
     bgr = cv2.imdecode(np.frombuffer(buf, dtype=np.uint8), cv2.IMREAD_COLOR)
     if bgr is None:
         raise RecordDecodeError("undecodable image record (%d bytes)"
                                 % len(buf))
+    _count_route("cv2")
     return np.ascontiguousarray(
         bgr[:, :, ::-1].transpose(2, 0, 1).astype(np.float32))
+
+
+def decode_image(buf: bytes) -> np.ndarray:
+    """One record's bytes as float32 RGB (3, h, w) in [0, 255]. The decoder
+    is chosen by the record's magic bytes, never by what is installed."""
+    with telemetry.span("io.decode"):
+        telemetry.count("io.decode_bytes", len(buf))
+        buf = bytes(buf)
+        if buf[:3] == b"\xff\xd8\xff":
+            route, decode, what = "jpeg", native.decode_jpeg_chw, "JPEG"
+        elif buf[:2] in (b"P5", b"P6"):
+            route, decode, what = "pnm", native.decode_pnm_chw, "PNM"
+        else:
+            kind = next((k for m, k in _MAGICS if buf.startswith(m)),
+                        "an unrecognized format")
+            return _decode_cv2(buf, kind)
+        try:
+            out = decode(buf)
+        except native.NativeError as e:
+            if not e.refused:
+                raise RecordDecodeError("undecodable %s record (%d bytes): "
+                                        "%s" % (what, len(buf), e.what))
+            return _decode_cv2(buf, "%s with %s" % (what,
+                                                    native.REFUSED[e.code]))
+        _count_route(route)
+        return out
+
+
+class PythonPageReader:
+    """The objects of a chain of BinaryPage .bin files, read in Python on
+    the caller's thread: the plain version of utils/native.py's
+    NativePageReader, with its interface."""
+
+    def __init__(self, paths: List[str], page_ints: int):
+        self.paths = list(paths)
+        self.page_ints = page_ints
+        self.f = None
+        self.before_first()
+
+    def before_first(self) -> None:
+        self.close()
+        self.idx = 0
+        self.page = None
+        self.ptop = 0
+        self.f = open(self.paths[0], "rb")
+
+    def next_obj(self) -> Optional[bytes]:
+        while self.page is None or self.ptop >= self.page.size():
+            if self.f is None:
+                return None
+            try:
+                page = BinaryPage.load(self.f, self.page_ints)
+            except Exception as e:   # garbage page header/layout
+                raise IOError("corrupt BinaryPage in %s: %s"
+                              % (self.paths[self.idx], e))
+            if page is None:
+                self.f.close()
+                self.f = None
+                self.idx += 1
+                if self.idx >= len(self.paths):
+                    return None
+                self.f = open(self.paths[self.idx], "rb")
+                continue
+            self.page = page
+            self.ptop = 0
+        obj = self.page[self.ptop]
+        self.ptop += 1
+        return obj
+
+    def close(self) -> None:
+        if self.f is not None:
+            self.f.close()
+            self.f = None
 
 
 class _ListReader:
@@ -161,14 +250,20 @@ class _ListReader:
 class ImagePageIterator(IIterator):
     """imgbin / imgbinx: records from BinaryPage packs with .lst labels.
 
+    The packs are read ahead on a C++ thread (``reader``, utils/native.py
+    NativePageReader; PythonPageReader is its plain version).
     ``decode_thread > 1`` (imgbinx's default is 4) decodes ahead of the
-    consumer in a thread pool, ``buffer_size`` records deep. ``shuffle``
+    consumer in a thread pool, ``buffer_size`` records deep;
+    ``decode_timeout > 0`` bounds one record's decode there: a worker
+    wedged past it is presumed dead, the pool is rebuilt with the pending
+    records resubmitted, and the record is quarantined. ``shuffle``
     permutes the part files every epoch and draws records from a seeded
     window of ``shuffle_window`` upcoming ones, with the JAX package's
     draws (RandomState(seed_data + 121)). ``skip_corrupt`` (default 1)
     skips an undecodable record with a warning and drops its index in
-    later epochs; a truncated pack ends the epoch early. The JAX
-    package's native read-ahead and ``decode_timeout`` are not ported."""
+    later epochs; a truncated pack ends the epoch early."""
+
+    reader = native.NativePageReader
 
     def __init__(self):
         self.silent = 0
@@ -181,9 +276,10 @@ class ImagePageIterator(IIterator):
         self.dist_worker_rank = 0
         self.page_ints = KPAGE_INTS
         self.lst: Optional[_ListReader] = None
-        self.fbin = None
+        self.pages = None
         self.decode_thread = 1
         self.buffer_size = 64
+        self.decode_timeout = 0.0
         self._pool = None
         self._pending: deque = deque()
         self._lst_done = False
@@ -231,9 +327,8 @@ class ImagePageIterator(IIterator):
                                  "(1 = stream order)")
         if name == "skip_corrupt":
             self.skip_corrupt = int(val)
-        if name == "decode_timeout" and float(val) > 0:
-            raise ValueError("decode_timeout > 0 is not ported to "
-                             "cxxnet_tpu_torch yet")
+        if name == "decode_timeout":
+            self.decode_timeout = float(val)
 
     def _parse_image_conf(self):
         """Multi-part list + distributed sharding
@@ -287,37 +382,28 @@ class ImagePageIterator(IIterator):
         if self.lst is not None:
             self.lst.close()
         self.lst = _ListReader(lst_paths, self.label_width)
+        if self.pages is not None and self.shuffle \
+                and len(self._part_order) > 1:
+            # the part files were reordered: a reader over the new chain
+            self.pages.close()
+            self.pages = None
+        if self.pages is None:
+            self.pages = self.reader(bin_paths, self.page_ints)
+        else:
+            self.pages.before_first()
         self._epoch_bin_paths = bin_paths
-        self.bin_idx = 0
-        self.page = None
-        self.ptop = 0
         self._pending = deque()
         self._lst_done = False
         self._window = []
-        if self.fbin is not None:
-            self.fbin.close()
-        self.fbin = open(bin_paths[0], "rb")
 
     def _next_buffer(self) -> bytes:
-        while self.page is None or self.ptop >= self.page.size():
-            try:
-                page = BinaryPage.load(self.fbin, self.page_ints)
-            except Exception as e:   # garbage page header/layout
-                raise PackReadError(
-                    "corrupt BinaryPage in %s: %s"
-                    % (self._epoch_bin_paths[self.bin_idx], e))
-            if page is None:
-                self.bin_idx += 1
-                if self.bin_idx >= len(self._epoch_bin_paths):
-                    raise PackReadError("binary pack exhausted before "
-                                        "list file (truncated pack?)")
-                self.fbin.close()
-                self.fbin = open(self._epoch_bin_paths[self.bin_idx], "rb")
-                continue
-            self.page = page
-            self.ptop = 0
-        obj = self.page[self.ptop]
-        self.ptop += 1
+        try:
+            obj = self.pages.next_obj()
+        except IOError as e:
+            raise PackReadError(str(e))
+        if obj is None:
+            raise PackReadError("binary pack exhausted before list file "
+                                "(truncated pack?)")
         return obj
 
     def _next_pair(self):
@@ -368,36 +454,69 @@ class ImagePageIterator(IIterator):
             self._window[-1], self._window[j]
         return self._window.pop()
 
+    def _new_pool(self):
+        from concurrent.futures import ThreadPoolExecutor
+        return ThreadPoolExecutor(max_workers=self.decode_thread,
+                                  thread_name_prefix="cxn-decode")
+
     def _fill_pending(self) -> None:
         if self._pool is None:
-            from concurrent.futures import ThreadPoolExecutor
-            self._pool = ThreadPoolExecutor(max_workers=self.decode_thread,
-                                            thread_name_prefix="cxn-decode")
+            self._pool = self._new_pool()
         while len(self._pending) < self.buffer_size and not self._lst_done:
             p = self._next_shuffled()
             if p is None:
                 self._lst_done = True
                 break
             index, label, buf = p
+            # the bytes ride along so that a restarted pool can resubmit
             self._pending.append(
-                (index, label, self._pool.submit(decode_image, buf)))
+                (index, label, buf, self._pool.submit(decode_image, buf)))
+
+    def _restart_pool(self) -> None:
+        """Tear down a pool with a presumed-dead worker and resubmit the
+        pending decodes to a fresh one. The wedged thread cannot be killed
+        from Python: it is left to finish, and nothing waits on it."""
+        self._pool.shutdown(wait=False, cancel_futures=True)
+        self._pool = self._new_pool()
+        self._pending = deque(
+            (i, l, b, self._pool.submit(decode_image, b))
+            for (i, l, b, _f) in self._pending)
+        telemetry.count("io.decode_worker_restarts")
+
+    def _take_decoded(self, index, fut) -> np.ndarray:
+        if self.decode_timeout <= 0:
+            return fut.result()
+        from concurrent.futures import TimeoutError as FutureTimeout
+        try:
+            return fut.result(timeout=self.decode_timeout)
+        except FutureTimeout:
+            telemetry.event({"ev": "watchdog_stall", "channel": "io.decode",
+                             "stalled_s": self.decode_timeout,
+                             "timeout_s": self.decode_timeout,
+                             "index": int(index),
+                             "action": "restart_pool"})
+            telemetry.flush()
+            self._restart_pool()
+            raise RecordDecodeError(
+                "decode of record %d exceeded decode_timeout=%.2fs (worker "
+                "presumed dead; pool restarted)"
+                % (int(index), self.decode_timeout))
 
     def next(self) -> bool:
         while True:
-            if self.decode_thread > 1:
-                self._fill_pending()
-                if not self._pending:
-                    return False
-                index, label, fut = self._pending.popleft()
-                decode = fut.result
-            else:
-                p = self._next_shuffled()
-                if p is None:
-                    return False
-                index, label, buf = p
-                decode = functools.partial(decode_image, buf)
             try:
-                data = decode()
+                if self.decode_thread > 1:
+                    self._fill_pending()
+                    if not self._pending:
+                        return False
+                    index, label, _, fut = self._pending.popleft()
+                    data = self._take_decoded(index, fut)
+                else:
+                    p = self._next_shuffled()
+                    if p is None:
+                        return False
+                    index, label, buf = p
+                    data = decode_image(buf)
             except RecordDecodeError as e:
                 if not self.skip_corrupt:
                     raise
@@ -413,9 +532,9 @@ class ImagePageIterator(IIterator):
         if self._pool is not None:
             self._pool.shutdown(wait=False, cancel_futures=True)
             self._pool = None
-        if self.fbin is not None:
-            self.fbin.close()
-            self.fbin = None
+        if self.pages is not None:
+            self.pages.close()
+            self.pages = None
         if self.lst is not None:
             self.lst.close()
 
@@ -481,27 +600,142 @@ class ImageIterator(IIterator):
         return self.out
 
 
-def _geometric_on(name: str, val: str) -> bool:
-    """Whether a GeometricAugmenter key's value turns its warp on (its
-    need_process, cxxnet_tpu/io/iter_image.py:588-593)."""
-    if name == "rotate_list":
-        return any(x for x in val.split(","))
-    if name.endswith("_random_scale"):
-        return float(val) != 1.0
-    return float(val) > 0
+# warps done by GeometricAugmenter.process since the process started (or
+# the counts were last set to 0), and their seconds
+warp_calls = 0
+warp_seconds = 0.0
 
 
-_GEOMETRIC_KEYS = ("max_rotate_angle", "max_shear_ratio", "max_aspect_ratio",
-                   "rotate", "rotate_list", "min_random_scale",
-                   "max_random_scale", "min_crop_size")
+class GeometricAugmenter:
+    """Rotation (and rotate_list), shear, aspect ratio and random scale as
+    one bicubic affine warp with a constant border (fill_value), then a crop
+    to input_shape (reference ImageAugmenter, image_augmenter-inl.hpp:
+    13-140). The draws, the float32 matrix and the output size are the JAX
+    package's; the warp is the host library's (csrc/host/warp_affine.cc)."""
+
+    def __init__(self):
+        self.shape = (0, 0, 0)
+        self.rand_crop = 0
+        self.max_rotate_angle = 0.0
+        self.max_aspect_ratio = 0.0
+        self.max_shear_ratio = 0.0
+        self.min_crop_size = -1
+        self.max_crop_size = -1
+        self.rotate = -1.0
+        self.rotate_list: List[int] = []
+        self.max_random_scale = 1.0
+        self.min_random_scale = 1.0
+        self.min_img_size = 0.0
+        self.max_img_size = 1e10
+        self.fill_value = 255
+
+    def set_param(self, name, val):
+        if name == "input_shape":
+            self.shape = tuple(int(x) for x in val.split(","))
+        if name == "rand_crop":
+            self.rand_crop = int(val)
+        if name == "max_rotate_angle":
+            self.max_rotate_angle = float(val)
+        if name == "max_shear_ratio":
+            self.max_shear_ratio = float(val)
+        if name == "max_aspect_ratio":
+            self.max_aspect_ratio = float(val)
+        if name == "min_crop_size":
+            self.min_crop_size = int(val)
+        if name == "max_crop_size":
+            self.max_crop_size = int(val)
+        if name == "min_random_scale":
+            self.min_random_scale = float(val)
+        if name == "max_random_scale":
+            self.max_random_scale = float(val)
+        if name == "min_img_size":
+            self.min_img_size = float(val)
+        if name == "max_img_size":
+            self.max_img_size = float(val)
+        if name == "fill_value":
+            self.fill_value = int(val)
+        if name == "rotate":
+            self.rotate = int(val)
+        if name == "rotate_list":
+            self.rotate_list = [int(x) for x in val.split(",") if x]
+
+    def need_process(self) -> bool:
+        return (self.max_rotate_angle > 0 or self.max_shear_ratio > 0
+                or self.max_aspect_ratio > 0 or self.rotate > 0
+                or len(self.rotate_list) > 0
+                or self.max_random_scale != 1.0
+                or self.min_random_scale != 1.0 or self.min_crop_size > 0)
+
+    def draw_matrix(self, h: int, w: int, rnd: np.random.RandomState):
+        """The float32 forward map of an h x w image and the output's
+        (height, width), from the draws of shear, angle, rotate_list,
+        scale and ratio in the JAX package's order."""
+        s = rnd.rand() * self.max_shear_ratio * 2 - self.max_shear_ratio
+        angle = (rnd.randint(0, max(int(self.max_rotate_angle * 2), 1))
+                 - self.max_rotate_angle)
+        if self.rotate > 0:
+            angle = self.rotate
+        if self.rotate_list:
+            angle = self.rotate_list[rnd.randint(0, len(self.rotate_list))]
+        a = math.cos(angle / 180.0 * math.pi)
+        b = math.sin(angle / 180.0 * math.pi)
+        scale = rnd.rand() * (self.max_random_scale
+                              - self.min_random_scale) + self.min_random_scale
+        ratio = rnd.rand() * self.max_aspect_ratio * 2 \
+            - self.max_aspect_ratio + 1
+        hs = 2 * scale / (1 + ratio)
+        ws = ratio * hs
+        new_w = max(self.min_img_size, min(self.max_img_size, scale * w))
+        new_h = max(self.min_img_size, min(self.max_img_size, scale * h))
+        M = np.zeros((2, 3), np.float32)
+        M[0, 0] = hs * a - s * b * ws
+        M[1, 0] = -b * ws
+        M[0, 1] = hs * b + s * a * ws
+        M[1, 1] = a * ws
+        ori_cw = M[0, 0] * w + M[0, 1] * h
+        ori_ch = M[1, 0] * w + M[1, 1] * h
+        M[0, 2] = (new_w - ori_cw) / 2
+        M[1, 2] = (new_h - ori_ch) / 2
+        return M, (int(new_h), int(new_w))
+
+    def process(self, data: np.ndarray,
+                rnd: np.random.RandomState) -> np.ndarray:
+        """data: (3, h, w) float RGB in [0, 255]; returns the warped and
+        cropped (3, H, W), or data itself when no key turns the warp on."""
+        global warp_calls, warp_seconds
+        if not self.need_process():
+            return data
+        t0 = time.perf_counter()
+        # HWC uint8, truncating as the JAX package does (the warp treats
+        # the three channels alike, so RGB order serves as well as BGR)
+        src = data.transpose(1, 2, 0).astype(np.uint8)
+        M, out_hw = self.draw_matrix(src.shape[0], src.shape[1], rnd)
+        temp = native.warp_affine(src, warp.inverse_map(M), out_hw,
+                                  self.fill_value)
+        # crop to input_shape (reference crops (shape_[1], shape_[2]))
+        ch, cw = self.shape[1], self.shape[2]
+        y = max(temp.shape[0] - ch, 0)
+        x = max(temp.shape[1] - cw, 0)
+        if self.rand_crop != 0:
+            y = rnd.randint(0, y + 1)
+            x = rnd.randint(0, x + 1)
+        else:
+            y //= 2
+            x //= 2
+        res = temp[y: y + ch, x: x + cw]
+        out = np.ascontiguousarray(res.transpose(2, 0, 1).astype(np.float32))
+        warp_calls += 1
+        warp_seconds += time.perf_counter() - t0
+        return out
 
 
 class AugmentIterator(IIterator):
-    """Per-instance augmentation: crop (random, centred or fixed), mirror,
-    scale, mean image or mean value, random contrast and illumination
-    (reference AugmentIterator), with the JAX package's draws from
-    RandomState(seed_data) in its order: crop y, crop x, contrast,
-    illumination, mirror."""
+    """Per-instance augmentation: the geometric augmenter's warp and crop,
+    then crop (random, centred or fixed), mirror, scale, mean image or mean
+    value, random contrast and illumination (reference AugmentIterator),
+    with the JAX package's draws from RandomState(seed_data) in its order:
+    the warp's (shear, angle, rotate_list, scale, ratio, its crop y and x),
+    crop y, crop x, contrast, illumination, mirror."""
 
     kRandMagic = 0
     # mean-image cache header, shared with the JAX package
@@ -527,7 +761,7 @@ class AugmentIterator(IIterator):
         # input_scale / input_mean_value, applied on the device
         self.output_uint8 = 0
         self.shape = (0, 0, 0)
-        self.geometric = {}
+        self.aug = GeometricAugmenter()
         self.rnd = np.random.RandomState(self.kRandMagic)
         # the draws' state at the start of the current epoch, and a state
         # the next epoch is to start from (a resumed run's)
@@ -567,22 +801,9 @@ class AugmentIterator(IIterator):
                 (float(x) for x in val.split(","))
         if name == "output_uint8":
             self.output_uint8 = int(val)
-        if name in _GEOMETRIC_KEYS:
-            self.geometric[name] = _geometric_on(name, val)
-
-    def _check_geometric(self) -> None:
-        """Refuse the keys that would turn the JAX package's geometric
-        augmenter on: the warp is not ported, and skipping it would train
-        on other data."""
-        on = sorted(k for k, v in self.geometric.items() if v)
-        if on:
-            raise ValueError(
-                "%s: the geometric augmenter (rotation, shear, aspect, "
-                "random scale, crop-size range) is not ported to "
-                "cxxnet_tpu_torch yet" % ", ".join(on))
+        self.aug.set_param(name, val)
 
     def init(self):
-        self._check_geometric()
         self.base.init()
         if self.output_uint8:
             assert not self.name_meanimg, \
@@ -638,7 +859,7 @@ class AugmentIterator(IIterator):
                                 int(pos), int(has_gauss), float(gauss))
 
     def _set_data(self, d: DataInst):
-        data = d.data
+        data = self.aug.process(d.data, self.rnd)
         c, th, tw = self.shape
         if th == 1:
             img = data.reshape(data.shape[0], 1, -1) if data.ndim == 3 \

@@ -219,3 +219,34 @@ def test_tools_ops_and_artifact_load_no_jax(module):
     assert bad == "[]"
     if module.endswith((".library", ".artifact", ".summarize_trace")):
         assert port == "[]", port
+
+
+@pytest.mark.parametrize("module", ["cxxnet_tpu_torch.io",
+                                    "cxxnet_tpu_torch.utils.native"])
+def test_input_path_loads_no_jax_and_nothing_of_lib(module):
+    """The image input path and the host library's loader import neither
+    jax nor the JAX package, and decoding a JPEG, a PPM and warping load
+    the port's own library (build/cxxnet_tpu_torch/host), nothing under
+    lib/ (the JAX package's native core)."""
+    code = ("import sys, numpy as np\n"
+            "import %s\n"
+            "from cxxnet_tpu_torch.io import iter_image, synth\n"
+            "from cxxnet_tpu_torch.utils import native\n"
+            "img = np.full((8, 8, 3), 50, np.uint8)\n"
+            "iter_image.decode_image(synth.jpeg_bytes(img))\n"
+            "iter_image.decode_image(synth.ppm_bytes(img))\n"
+            "native.warp_affine(img, np.eye(2, 3, dtype=np.float32), "
+            "(4, 4), 0)\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cxxnet_tpu' or "
+            "m.startswith('cxxnet_tpu.')))\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "print('/lib/libcxxnet' in maps, 'libcxn_host-' in maps)\n"
+            % module)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    bad, libs = out.stdout.strip().splitlines()
+    assert bad == "[]"
+    assert libs == "False True"

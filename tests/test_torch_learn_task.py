@@ -416,3 +416,98 @@ def test_config_dev_is_honoured_and_the_command_line_overrides_it(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlt.LearnTask().run([conf, "dev=gpu"])
+
+
+# example/kaggle_bowl/bowl.conf: its geometric keys (rotation, aspect,
+# shear, crop-size range) on a small pack of 48x48 records, PPM and JPEG in
+# turn, 121 classes; dropout off as for MNIST_CONV
+BOWL_TRAIN, BOWL_VAL, BOWL_STEPS = 128, 40, 2
+# bowl.conf trains on unscaled pixels (mean subtracted, values to +-255)
+# at lr 0.001 with momentum 0.9, so the two packages' sums in other orders
+# grow faster than this file's rule allows: with the JAX package's warp put
+# in the port's augmenter (inputs bitwise equal) the weights part by up to
+# 7.2e-5 of the layer's largest magnitude per step trained after round 1
+# and 2.3e-4 after round 2 (measured). With the port's own warp, which
+# parts from cv2's by 1 on a few values in a hundred thousand
+# (tests/test_torch_warp.py) and so may flip a max-pooling choice, 2.7e-4
+# and 6.7e-4. The bars below are about twice those; the eval lines must be
+# equal in both runs. The largest magnitude is the layer's (a bias starts
+# at 0 and is no scale for its own rounding).
+BOWL_JAX_WARP_ATOL_REL = 5e-4
+BOWL_WARP_ATOL_REL = 1.5e-3
+
+
+@pytest.fixture(scope="module")
+def bowl(tmp_path_factory):
+    from cxxnet_tpu.io import iter_image as jimage
+    from cxxnet_tpu_torch.io import iter_image as timage
+    root = tmp_path_factory.mktemp("bowl")
+    recs = {}
+    for name, n, seed in (("tr", BOWL_TRAIN, 0), ("va", BOWL_VAL, 1)):
+        recs[name] = [
+            (lab, synth.jpeg_bytes(img, 90) if i % 2
+             else synth.ppm_bytes(img))
+            for i, (lab, img) in enumerate(synth.images(n, 48, 121, seed))]
+    text = open(os.path.join(REPO, "example/kaggle_bowl/bowl.conf")).read()
+    text = text.replace("threshold = 0.5", "threshold = 0")
+    args = ["dev=cpu", "num_round=2", "max_round=2"]
+    runs = {}
+    for side in ("init", "jax", "port", "port_jax_warp"):
+        wd = root / side
+        wd.mkdir()
+        for name in recs:
+            synth.write_pack(recs[name], str(wd / (name + ".lst")),
+                             str(wd / (name + ".bin")))
+        (wd / "bowl.conf").write_text(text)
+        runs[side] = str(wd)
+    cli(jlt, os.path.join(runs["init"], "bowl.conf"),
+        args + ["num_round=0"], runs["init"])
+    model0 = os.path.join(runs["init"], "models", "0000.model")
+    for side, mod in (("jax", jlt), ("port", tlt), ("port_jax_warp", tlt)):
+        own = timage.GeometricAugmenter.process
+        if side == "port_jax_warp":
+            # the JAX augmenter's process (cv2's warp) on the port's object
+            timage.GeometricAugmenter.process = \
+                jimage.GeometricAugmenter.process
+        try:
+            _, err = cli(mod, os.path.join(runs[side], "bowl.conf"),
+                         args + ["model_in=" + model0], runs[side])
+        finally:
+            timage.GeometricAugmenter.process = own
+        runs[side + "_err"] = err
+    return runs
+
+
+def _bowl_models(bowl, side, counter, atol_rel):
+    got_lines = eval_lines(bowl[side + "_err"])
+    assert len(got_lines) == 2
+    assert got_lines == eval_lines(bowl["jax_err"])
+    conf = os.path.join(bowl[side], "bowl.conf")
+    fname = os.path.join("models", "%04d.model" % counter)
+    got = _trainer(os.path.join(bowl[side], fname), conf)
+    want = _trainer(os.path.join(bowl["jax"], fname), conf)
+    steps = counter * BOWL_STEPS
+    assert got.epoch_counter == want.epoch_counter == steps
+    for i, (gp, wp) in enumerate(zip(got.params, want.params)):
+        scale = max((float(np.abs(t.detach().cpu().numpy()).max())
+                     for t in wp.values()), default=0.0)
+        for k in wp:
+            g = gp[k].detach().cpu().numpy()
+            w = wp[k].detach().cpu().numpy()
+            np.testing.assert_allclose(
+                g, w, rtol=RTOL, atol=steps * atol_rel * scale,
+                err_msg="round %d layer %d %s" % (counter, i, k))
+
+
+@pytest.mark.parametrize("counter", [1, 2])
+def test_bowl_conf_trains_like_jax(bowl, counter):
+    """bowl.conf through both CLIs, two rounds, with the port's own warp:
+    the eval lines exactly, every saved model within BOWL_WARP_ATOL_REL."""
+    _bowl_models(bowl, "port", counter, BOWL_WARP_ATOL_REL)
+
+
+@pytest.mark.parametrize("counter", [1, 2])
+def test_bowl_conf_with_the_jax_warp_trains_like_jax(bowl, counter):
+    """The same with the JAX augmenter's warp in the port's chain: the part
+    of the difference above that is not the warp's."""
+    _bowl_models(bowl, "port_jax_warp", counter, BOWL_JAX_WARP_ATOL_REL)
