@@ -43,7 +43,14 @@ GoogLeNet.conf read unchanged by the command line for one round and pred,
 VGG-16 with ``remat = 1`` at batch 64 (remat on against off), ResNet-18
 at batch 128 (batch-norm), and bench.py's bf16 AlexNet and LM, each bf16
 run held to the f32 run of the same weights and batch and, at a reduced
-size, to the port's CPU path's bf16-versus-f32 gap; then
+size, to the port's CPU path's bf16-versus-f32 gap; then the rest of the
+layer set (tanh, softplus, bias, fixconn from a file, maxout, im2seq, moe
+with top_k, a registered extern op, l2_loss, multi_logistic) in one
+small net trained a step on the card against the CPU, bench.py's
+MobileNet in bf16 at batch 256 (its depthwise weight gradient, one
+batched product over the groups, held to float64 on the card) and
+bench.py's ViT-S/16 in bf16 at batch 128 (the flash kernels at (128, 6,
+196, 64), not causal, 12 launches of each a step); then
 the transformer LM that bench.py
 measures (vocab 8192, d_model 512, 8 heads, 4 blocks, 2048 positions,
 fp32, random weights from a seed) served through KV-cached ``generate``
@@ -81,7 +88,8 @@ time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``export_load``, ``lrn_kernel_googlenet``,
 ``lrn_bwd_kernel_googlenet``, ``googlenet_bf16_train``,
 ``googlenet_bf16_pred``, ``cli_googlenet``, ``vgg16_bf16_remat``,
-``resnet18_bf16_train``, ``bench_bf16``, ``flash_fwd_kernel``,
+``resnet18_bf16_train``, ``bench_bf16``, ``layers_misc``,
+``mobilenet_bf16_train``, ``vit_s16_bf16_train``, ``flash_fwd_kernel``,
 ``lm_serve``, ``lm_serve_long``, ``lm_serve_session``, ``cli_lm_generate``,
 ``lm_serve_frontend``, ``cli_lm_serve``, ``cli_lm_route``,
 ``flash_bwd_kernel``,
@@ -89,7 +97,8 @@ time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``ring_step_kernels``, ``lm_sp_train_long_ring``,
 ``lm_sp_train_long_ulysses`` and ``lm_sp_train_ring`` (kernel checks, the
 main paths' checks, throughput and profiles), the wall time, then a JSON
-line ``{"kernels": [...]}`` (each row's bf16 times under "bf16") and,
+line ``{"kernels": [...]}`` (each row's bf16 times under "bf16", rows
+4-6 at the ViT step's shape under "vit_s16") and,
 last, the JSON result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -450,6 +459,31 @@ BF16_FLASH_FWD = "lm_full_sequence"
 # cast or a broken layer, not rounding
 GAP_FACTOR, GAP_SLACK = 2.0, 1e-3
 FULL_GAP = 0.25
+# slice 19: bench.py's MobileNet (bench_mobilenet: batch 256, 224 px,
+# MOBILENET_BLOCKS, base 32) and ViT-S/16 (bench_vit: batch 128, 224 px,
+# patch 16, dim 384, 6 heads, 12 blocks, FFN x4, AdamW), each in bf16, 1
+# warm-up step and MISC_TIMED_STEPS timed ones; the small nets of their
+# reduced-size bf16 gap rule
+MN_BATCH, VIT_BATCH = 256, 128
+VIT_ARGS = dict(n_class=1000, image_hw=224, patch=16, dim=384, nhead=6,
+                nlayer=12, ffn_mult=4)
+MN_SMALL = dict(batch_size=8, input_hw=32)
+VIT_SMALL = dict(n_class=10, image_hw=48, patch=4, dim=64, nhead=2,
+                 nlayer=2, batch_size=4)
+MISC_TIMED_STEPS = 3
+# MobileNet's depthwise layers whose weight gradient (ops.conv2d_weight,
+# one batched product over the groups) is held to float64 on the card, in
+# fp32 at WGRAD_TOL: (layer, input shape at batch 256, stride); dw0 is
+# the largest stride-1 one, dw1 the first stride-2 one
+MN_DW_CHECK = [("dw0", (MN_BATCH, 32, 112, 112), 1),
+               ("dw1", (MN_BATCH, 64, 112, 112), 2)]
+# layers_misc: the card's training step of a small net of every layer
+# type of slice 19 against the port's CPU path in fp32, loss, gradients
+# and weights after the step within relative 1e-5 of the largest
+# magnitude compared (a gradient: of its layer's largest, as
+# tests/test_torch_mobilenet.py holds a gradient that is 0 in exact
+# arithmetic)
+MISC_RTOL = 1e-5
 # what names a kernel in a profile where its symbol does not: the flash
 # kernels and the ring steps share their bodies (attn_fwd_tc_kernel, ...)
 # and differ by the IO policy in the template's arguments
@@ -2258,6 +2292,10 @@ class PacedStdin:
             yield line + "\n"
 
 
+# seconds cli_serve_reload waits for the scheduled reload to have run
+RELOAD_WAIT_S = 120
+
+
 def cli_serve_reload(learn_task, api, d, cfg, net, prompt, first):
     """ADMIN reload in a paged, batched task = serve: the newer checkpoint
     (another seed's weights) answers after it, and the old model's KV pool
@@ -2275,7 +2313,22 @@ def cli_serve_reload(learn_task, api, d, cfg, net, prompt, first):
         newer.save_model(os.path.join(models_dir, "0002.model"))
         mem["with_pool"] = torch.cuda.memory_allocated()
 
+    # the dispatcher reloads between batches, after the request in flight:
+    # the memory "after" is read once its reload has returned
+    from cxxnet_tpu_torch.utils import servd
+    do_reload = servd.ServeFrontend._do_reload
+    reloaded = threading.Event()
+
+    def signalled_reload(fe):
+        try:
+            do_reload(fe)
+        finally:
+            reloaded.set()
+
     def after_reload():
+        if not reloaded.wait(RELOAD_WAIT_S):
+            raise AssertionError("ADMIN reload did not run within %d s"
+                                 % RELOAD_WAIT_S)
         mem["reloaded"] = torch.cuda.memory_allocated()
     conf = os.path.join(d, "reload.conf")
     with open(conf, "w") as f:
@@ -2286,10 +2339,12 @@ def cli_serve_reload(learn_task, api, d, cfg, net, prompt, first):
     sys.stdin = PacedStdin([line, "ADMIN reload", line, "ADMIN stats"],
                            pause=1.0, hooks={1: before_reload,
                                              2: after_reload})
+    servd.ServeFrontend._do_reload = signalled_reload
     try:
         out, _ = run_cli(learn_task, d, [conf], echo=("serve:",))
     finally:
         sys.stdin = old_stdin
+        servd.ServeFrontend._do_reload = do_reload
     got = out.splitlines()
     want = [int(t) for t in first.split()]
     want_new = list(newer.generate(np.asarray([prompt]), CLI_SERVE_NEW)[0])
@@ -6616,6 +6671,396 @@ def phase_bench_bf16(lrn, flash, api, models):
             {"bench_bf16_lm_train": lm_train[2]})
 
 
+def phase_mobilenet_bf16_train(api, models, ops):
+    """bench.py's MobileNet (models.mobilenet_config: batch 256, 224x224,
+    MOBILENET_BLOCKS, base 32, the JAX mobilenet_trainer's SGD keys) in
+    bf16 through api.Net(dev="gpu"): first the batched depthwise weight
+    gradient (ops.conv2d_weight) held to float64 on MN_DW_CHECK's shapes
+    in fp32 and timed beside cuDNN's torch.nn.grad.conv2d_weight (a
+    yardstick the port does not call), in fp32 and bf16; then 1 warm-up
+    and MISC_TIMED_STEPS timed update steps with the batch on the card
+    (images/s), a profile of 2 steps (device-busy share), the weights
+    finite, the reduced-size bf16 gap rule. Returns {"images_per_s",
+    "busy_share", "dw": [(layer, port ms, cuDNN ms, bf16 port ms, bf16
+    cuDNN ms, error)]}."""
+    log("phase mobilenet_bf16_train")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 40)
+    dw_rows = []
+    for name, shape, stride in MN_DW_CHECK:
+        c = shape[1]
+        w_shape = (c, 1, 3, 3)
+        oh = (shape[2] + 2 - 3) // stride + 1
+        x = torch.randn(shape, generator=gen, device=DEV)
+        g = torch.randn((shape[0], c, oh, oh), generator=gen, device=DEV)
+        args = (stride, (1, 1), c)
+        got = ops.conv2d_weight(x, w_shape, g, *args)
+        want = cudnn_conv2d_weight(x.double(), w_shape, g.double(), *args)
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        cudnn_err = float((cudnn_conv2d_weight(x, w_shape, g, *args)
+                           .double() - want).abs().max() / want.abs().max())
+        del want
+        port_ms = time_ms(lambda: ops.conv2d_weight(x, w_shape, g, *args),
+                          iters=5)
+        cudnn_ms = time_ms(lambda: cudnn_conv2d_weight(x, w_shape, g, *args),
+                           iters=5)
+        xb, gb = x.bfloat16(), g.bfloat16()
+        port_bf16 = time_ms(lambda: ops.conv2d_weight(xb, w_shape, gb,
+                                                      *args), iters=5)
+        cudnn_bf16 = time_ms(lambda: cudnn_conv2d_weight(xb, w_shape, gb,
+                                                         *args), iters=5)
+        ok = err <= WGRAD_TOL
+        log("  depthwise %s input %s stride %d, %d groups: port weight grad "
+            "vs float64 max_err/max %.3e (tolerance %.0e) %s; cuDNN's %.3e "
+            "(yardstick); fp32 port %.3f ms, cuDNN %.3f ms (yardstick); "
+            "bf16 port %.3f ms, cuDNN %.3f ms (yardstick)"
+            % (name, shape, stride, c, err, WGRAD_TOL,
+               "ok" if ok else "FAILED", cudnn_err, port_ms, cudnn_ms,
+               port_bf16, cudnn_bf16))
+        if not ok:
+            raise AssertionError("depthwise weight gradient off float64")
+        dw_rows.append((name, port_ms, cudnn_ms, port_bf16, cudnn_bf16, err))
+        del x, g, xb, gb, got
+        torch.cuda.empty_cache()
+
+    cfg = models.mobilenet_config(batch_size=MN_BATCH, input_hw=IMG_HW,
+                                  dev=NET_DEV) + "seed = %d\n" % SEED
+    net = api.Net(dev=NET_DEV, cfg=bf16_cfg(cfg))
+    net.init_model()
+    if net.net_.net.compute_dtype != torch.bfloat16:
+        raise AssertionError("the net does not compute in bf16")
+    x, y = image_batch(MN_BATCH, IMG_HW, SEED + 41)
+    resident = data_batch(x, y, DEV)
+    loss0 = step_loss(net, resident)
+    t = time.perf_counter()
+    net.update(x, y)
+    torch.cuda.synchronize()
+    log("  warm-up step from numpy %.2f s" % (time.perf_counter() - t))
+    t = time.perf_counter()
+    for _ in range(MISC_TIMED_STEPS):
+        net.net_.update(resident)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rate = MISC_TIMED_STEPS * MN_BATCH / wall
+    log("  MobileNet bf16 training batch %d: %d steps in %.4f s, %.1f "
+        "images/s (the batch on the card)"
+        % (MN_BATCH, MISC_TIMED_STEPS, wall, rate))
+    loss1 = step_loss(net, resident)
+    log("  the step's loss on the fixed batch %.6f before, %.6f after %d "
+        "steps" % (loss0, loss1, 1 + MISC_TIMED_STEPS))
+    if not np.isfinite(loss1):
+        raise AssertionError("MobileNet bf16 loss not finite")
+    check_params_finite(net)
+    busy = step_profile(lambda: net.net_.update(resident),
+                        wall * 1e3 / MISC_TIMED_STEPS)
+    del net, resident
+    torch.cuda.empty_cache()
+    small = models.mobilenet_config(dev=NET_DEV, **MN_SMALL) \
+        + "seed = %d\n" % SEED
+    gap_rule(api, small, *image_batch(MN_SMALL["batch_size"],
+                                      MN_SMALL["input_hw"], SEED + 42),
+             "gap")
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+    return {"images_per_s": rate, "busy_share": busy, "dw": dw_rows}
+
+
+def step_loss(net, batch):
+    """The loss a training step on ``batch`` takes (the trainer's own,
+    from log-softmax: finite where a bf16 net's softmax underflows to 0),
+    without stepping."""
+    return float(net.net_.loss_and_grads(batch)[0])
+
+
+def step_profile(step, step_ms, iters=2, shares=()):
+    """The device-busy share of a training step: its kernel time a step,
+    from a profile of ``iters`` calls (profile_forward, no warm-up: the
+    step is warm), over ``step_ms``, the wall a step of the timed run
+    without the profiler. None where the profile recorded no device
+    time."""
+    busy_ms = profile_forward(step, iters=iters, unit="step", top=6,
+                              warmup=False, shares=shares)
+    if busy_ms is None:
+        return None
+    log("  device-busy share %.3f: %.3f ms of kernels a step over %.3f ms "
+        "of wall a step in the timed steps" % (busy_ms / step_ms, busy_ms,
+                                               step_ms))
+    return busy_ms / step_ms
+
+
+def vit_flash_rows(flash, q, k, v, causal, scale, window):
+    """Rows 4-6 at the ViT step's own attention input (bf16, not causal):
+    each kernel timed against its bf16 bound (flash_work / flash_bwd_work
+    at BF16_OPS_PER_S, or the bytes), the plain versions' times, and SDPA
+    and its autograd as the library yardstick. Returns {kernel: record}."""
+    import torch.nn.functional as F
+    args = (causal, scale, window)
+    b, h, L, d = q.shape
+    nkv = k.shape[1]
+    out, lse = flash.flash_fwd_cuda(q, k, v, *args)
+    ref_out, _ = flash.flash_fwd_ref(q, k, v, *args)
+    fwd_err = float((out.float() - ref_out.float()).abs().max())
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 43)
+    dout = torch.randn(q.shape, generator=gen, device=DEV).to(q.dtype)
+    delta = flash.bwd_delta(out, dout)
+    ref = flash.flash_bwd_ref(q, k, v, out, lse, dout, *args)
+    dq = flash.flash_bwd_dq_cuda(q, k, v, dout, lse, delta, *args)
+    dk, dv = flash.flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, *args)
+    errs = {"dq": float((dq.float() - ref[0].float()).abs().max()),
+            "dkv": max(float((dk.float() - ref[1].float()).abs().max()),
+                       float((dv.float() - ref[2].float()).abs().max()))}
+    times = {
+        "flash_fwd": time_ms(lambda: flash.flash_fwd_cuda(q, k, v, *args)),
+        "flash_bwd_dq": time_ms(lambda: flash.flash_bwd_dq_cuda(
+            q, k, v, dout, lse, delta, *args)),
+        "flash_bwd_dkv": time_ms(lambda: flash.flash_bwd_dkv_cuda(
+            q, k, v, dout, lse, delta, *args))}
+    plain_fwd = time_ms(lambda: flash.flash_fwd_ref(q, k, v, *args), iters=5)
+    plain_bwd = time_ms(lambda: flash.flash_bwd_ref(q, k, v, out, lse, dout,
+                                                    *args), iters=3,
+                        warmup=1)
+    sdpa = sdpa_ms(F, q, k, v, causal, window, ref_out)
+    sdpa_bwd = sdpa_bwd_ms(F, q, k, v, dout, causal, window, ref)
+    works = {"flash_fwd": flash_work(b, h, nkv, L, d, causal, window,
+                                     q.element_size())}
+    works["flash_bwd_dq"], works["flash_bwd_dkv"] = flash_bwd_work(
+        b, h, nkv, L, d, causal, window, q.element_size())
+    recs = {}
+    for name, ms in times.items():
+        ops_n, nbytes = works[name]
+        ops_ms = ops_n / BF16_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        fwd = name == "flash_fwd"
+        recs[name] = {
+            "ms": ms, "plain_ms": plain_fwd if fwd else plain_bwd,
+            "library_ms": sdpa if fwd else sdpa_bwd, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "max_abs_err": fwd_err if fwd else errs[name[10:]],
+            "at": "the ViT-S/16 step's attention (%d, %d, %d, %d) bf16, not "
+                  "causal" % (b, h, L, d)}
+        log("  %s at the ViT shape: kernel_ms %.4f bound_ms %.4f (%s: %.3e "
+            "operations at %.0f TFLOP/s, %d bytes) kernel/bound %.2f; "
+            "plain_ms %.4f library_ms %.4f%s"
+            % (name, ms, bound_ms, recs[name]["bound_by"], ops_n,
+               BF16_OPS_PER_S / 1e12, nbytes, ms / bound_ms,
+               recs[name]["plain_ms"], recs[name]["library_ms"],
+               "" if fwd else " (plain and library: the whole backward)"))
+    del out, lse, ref_out, dout, delta, ref, dq, dk, dv
+    return recs
+
+
+def phase_vit_s16_bf16_train(flash, api, models):
+    """bench.py's ViT-S/16 (models.vit_config: batch 128, 224x224, patch
+    16, dim 384, 6 heads, 12 blocks, FFN x4, AdamW) in bf16 through
+    api.Net(dev="gpu"): the flash launches of 1 warm-up and
+    MISC_TIMED_STEPS timed update steps (12 forward, 12 dQ and 12 dK/dV a
+    step: one attention layer a block, 196 positions and head dim 64 take
+    the flash route, not causal), their inputs bf16; images/s with the
+    batch on the card; a profile (device-busy share); the flash kernels
+    against their plain versions on the step's own attention input
+    (flash_layers_vs_plain) and rows 4-6 timed there (vit_flash_rows);
+    the weights finite; the reduced-size bf16 gap rule. Returns
+    ((fwd, dq, dkv) launches of the main path, {"images_per_s",
+    "busy_share", "rows": {kernel: record}})."""
+    log("phase vit_s16_bf16_train")
+    t0 = time.perf_counter()
+    nlayer = VIT_ARGS["nlayer"]
+    cfg = models.vit_config(batch_size=VIT_BATCH, dev=NET_DEV, **VIT_ARGS) \
+        + "seed = %d\n" % SEED
+    net = api.Net(dev=NET_DEV, cfg=bf16_cfg(cfg))
+    net.init_model()
+    x, y = image_batch(VIT_BATCH, IMG_HW, SEED + 44)
+    resident = data_batch(x, y, DEV)
+    loss0 = step_loss(net, resident)
+    steps = 1 + MISC_TIMED_STEPS
+    with capture_calls(flash, "flash_fwd_cuda", 1) as (dtypes, kept):
+        # the main path: the counts start at 0 here and are read right after
+        flash.launches = flash.dq_launches = flash.dkv_launches = 0
+        t = time.perf_counter()
+        net.update(x, y)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t
+        t = time.perf_counter()
+        for _ in range(MISC_TIMED_STEPS):
+            net.net_.update(resident)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = (flash.launches, flash.dq_launches, flash.dkv_launches)
+    rate = MISC_TIMED_STEPS * VIT_BATCH / wall
+    log("  warm-up step from numpy %.2f s; ViT-S/16 bf16 training batch %d: "
+        "%d steps in %.4f s, %.1f images/s (the batch on the card)"
+        % (warm, VIT_BATCH, MISC_TIMED_STEPS, wall, rate))
+    log("  flash_fwd, flash_bwd_dq, flash_bwd_dkv launches %s over %d steps: "
+        "%s a step (%d each expected: one attention layer a block)"
+        % (launches, steps, tuple(n // steps for n in launches), nlayer))
+    if launches != (nlayer * steps,) * 3:
+        raise AssertionError("ViT flash launches")
+    require_dtype("flash_fwd_cuda on the ViT's training path", dtypes,
+                  torch.bfloat16)
+    q = kept[0][0][0]
+    log("  the step's attention input q %s %s, causal %s"
+        % (tuple(q.shape), str(q.dtype)[6:], kept[0][0][3:4]))
+    if tuple(q.shape) != (VIT_BATCH, VIT_ARGS["nhead"], 196, 64) \
+            or kept[0][0][3]:
+        raise AssertionError("the ViT attention is not (128, 6, 196, 64) "
+                             "non-causal")
+    loss1 = step_loss(net, resident)
+    log("  the step's loss on the fixed batch %.6f before, %.6f after %d "
+        "steps" % (loss0, loss1, steps))
+    if not np.isfinite(loss1):
+        raise AssertionError("ViT bf16 loss not finite")
+    check_params_finite(net)
+    busy = step_profile(lambda: net.net_.update(resident),
+                        wall * 1e3 / MISC_TIMED_STEPS,
+                        shares=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    del net, resident
+    torch.cuda.empty_cache()
+    flash_layers_vs_plain(flash, kept)
+    args, kw = kept[0]
+    rows = vit_flash_rows(flash, *args[:3], *args[3:], **kw)
+    del kept, args
+    torch.cuda.empty_cache()
+    small = models.vit_config(dev=NET_DEV, **VIT_SMALL) + "seed = %d\n" % SEED
+    gap_rule(api, small, *image_batch(VIT_SMALL["batch_size"],
+                                      VIT_SMALL["image_hw"], SEED + 45,
+                                      VIT_SMALL["n_class"]), "gp")
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+    return launches, {"images_per_s": rate, "busy_share": busy,
+                      "rows": rows}
+
+
+MISC_NET = """netconfig = start
+layer[0->t] = tanh
+layer[t->m] = maxout
+  ngroup = 2
+layer[m->sq] = im2seq
+layer[sq->ex] = extern:ex
+  op = chip_scale_shift
+  gain = 1.5
+layer[ex->f] = flatten
+layer[f->moe] = moe:moe
+  nexpert = 4
+  top_k = 2
+  nhidden = 16
+layer[moe->sp] = softplus
+layer[sp->fx] = fixconn:fx
+  nhidden = 12
+  fixconn_weight = %s
+layer[fx->fx] = bias:b
+  init_bias = 0.1
+layer[fx->s1,s2] = split
+layer[s1->o1] = fullc:o1
+  nhidden = 5
+layer[o1->o1] = multi_logistic
+  target = ml
+layer[s2->o2] = fullc:o2
+  nhidden = 3
+layer[o2->o2] = l2_loss
+  target = l2
+netconfig = end
+input_shape = 4,6,6
+batch_size = 8
+label_vec[0,5) = ml
+label_vec[5,8) = l2
+eta = 0.1
+momentum = 0.9
+wd = 0.0001
+seed = %d
+"""
+
+
+class ChipScaleShift:
+    """layers_misc's extern op: y = x * scale + shift per channel, its
+    weights drawn from the layer's init generator."""
+
+    def infer_shape(self, in_shapes, setting):
+        return [in_shapes[0]]
+
+    def init_params(self, gen, in_shapes, setting):
+        c = in_shapes[0][1]
+        return {"scale": torch.full((c,), float(setting.get("gain", 1.0)))
+                + torch.rand(c, generator=gen),
+                "shift": torch.randn(c, generator=gen) * 0.1}
+
+    def apply(self, params, inputs, *, train, generator):
+        return [inputs[0] * params["scale"][:, None, None]
+                + params["shift"][:, None, None]]
+
+
+def misc_step(api, cfg, fname, x, y, dev):
+    """(loss, gradients, weights after one update) of the layers_misc net
+    loaded from ``fname`` on ``dev``, as float64 host tensors."""
+    net = api.Net(dev=dev, cfg=cfg)
+    net.load_model(fname)
+    loss, grads = net.net_.loss_and_grads(
+        data_batch(x, y, "cpu" if dev == "cpu" else DEV))
+    grads = [{k: v.detach().double().cpu() for k, v in p.items()}
+             for p in grads]
+    net.update(x, y)
+    return float(loss), grads, [{k: v.detach().double().cpu()
+                                 for k, v in p.items()}
+                                for p in net.net_.params]
+
+
+def phase_layers_misc(api):
+    """A small net of every layer type that slice 19 added (tanh, maxout,
+    im2seq, a registered extern op, moe with top_k, softplus, fixconn from
+    a file written here, bias, multi_logistic, l2_loss) trained one step
+    on the card, held to the same step on the port's CPU path in fp32:
+    the loss within relative MISC_RTOL, every gradient within MISC_RTOL of
+    its layer's largest, every weight after the step within MISC_RTOL of
+    its tensor's largest magnitude."""
+    from cxxnet_tpu_torch.layer import register_extern
+    log("phase layers_misc")
+    t0 = time.perf_counter()
+    register_extern("chip_scale_shift", ChipScaleShift)
+    with scratch_dir("chip_smoke_layers_misc") as d:
+        rng = np.random.RandomState(SEED + 46)
+        cells = sorted({(int(rng.randint(12)), int(rng.randint(16)))
+                        for _ in range(40)})
+        fx = os.path.join(d, "fixconn.txt")
+        with open(fx, "w") as f:
+            f.write("12 16 %d\n" % len(cells))
+            for r, c in cells:
+                f.write("%d %d %r\n"
+                        % (r, c, float(np.float32(rng.randn()))))
+        cfg = MISC_NET % (fx, SEED)
+        init = api.Net(dev="cpu", cfg=cfg)
+        init.init_model()
+        fname = os.path.join(d, "misc.model")
+        init.save_model(fname)
+        types = sorted({lay.type_name for lay in init.net_.net.layers})
+        log("  layer types: %s" % ", ".join(types))
+        x = rng.randn(8, 4, 6, 6).astype(np.float32)
+        y = np.concatenate([rng.randint(0, 2, (8, 5)), rng.randn(8, 3)],
+                           axis=1).astype(np.float32)
+        card = misc_step(api, cfg, fname, x, y, NET_DEV)
+        cpu = misc_step(api, cfg, fname, x, y, "cpu")
+        lerr = abs(card[0] - cpu[0]) / abs(cpu[0])
+        gerr = werr = 0.0
+        for g_card, g_cpu in zip(card[1], cpu[1]):
+            largest = max([float(v.abs().max()) for v in g_cpu.values()]
+                          + [0.0])
+            for k, v in g_cpu.items():
+                if largest > 0:
+                    gerr = max(gerr, float((g_card[k] - v).abs().max())
+                               / largest)
+        for w_card, w_cpu in zip(card[2], cpu[2]):
+            for k, v in w_cpu.items():
+                werr = max(werr, float((w_card[k] - v).abs().max()
+                                       / v.abs().max().clamp_min(1e-30)))
+        ok = max(lerr, gerr, werr) <= MISC_RTOL
+        log("  one fp32 step, card vs CPU: loss %.6f vs %.6f (rel %.3e), "
+            "gradients max_err/layer's max %.3e, weights after the step "
+            "max_err/max %.3e (tolerance %.0e) %s"
+            % (card[0], cpu[0], lerr, gerr, werr, MISC_RTOL,
+               "ok" if ok else "FAILED"))
+        if not ok:
+            raise AssertionError("layers_misc: the card's step departs from "
+                                 "the CPU's")
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+
+
 def device_us(e) -> float:
     """A profiler event's self device time in us, under either name that
     torch versions give it."""
@@ -6713,6 +7158,9 @@ def main() -> int:
     phase_vgg16_bf16_remat(api, models)
     phase_resnet18_bf16_train(api, models)
     bench = phase_bench_bf16(lrn, flash_attn, api, models)
+    phase_layers_misc(api)
+    phase_mobilenet_bf16_train(api, models, ops)
+    vit_launches, vit = phase_vit_s16_bf16_train(flash_attn, api, models)
     flash_rec = phase_flash_fwd_kernel(flash_attn)
     serve_launches = phase_lm_serve(flash_attn, api, models)
     long_launches = phase_lm_serve_long(flash_attn, api, models)
@@ -6737,6 +7185,7 @@ def main() -> int:
     ring_paths = {p: c for p, c in sp.items() if p.endswith("_ring")}
     train.update({p: c for p, c in sp.items() if p.endswith("_ulysses")})
     per_step = {"train_step": LM_ARGS["nlayer"]}
+    vit_per = {"vit_s16_train_step": VIT_ARGS["nlayer"]}
     ring_per = {"layer_and_direction": SP_N * SP_N,
                 "train_step": SP_N * SP_N * LM_ARGS["nlayer"]}
     log("wall time %.1f s" % (time.time() - t0))
@@ -6777,19 +7226,24 @@ def main() -> int:
               "cli_lm_serve": cli_serve_flash,
               "cli_lm_route": cli_route_flash,
               "export_decode": export_flash, **serve_wide,
-              **{p: c[0] for p, c in train.items()}, **bench[2]},
+              **{p: c[0] for p, c in train.items()}, **bench[2],
+              "vit_s16_bf16_train": vit_launches[0]},
              {"generate_request": LM_ARGS["nlayer"],
               "session_admission": LM_ARGS["nlayer"],
               "frontend_admission": LM_ARGS["nlayer"],
               "full_sequence_forward": LM_ARGS["nlayer"],
               "exported_prefill_of_128_or_more": LM_ARGS["nlayer"],
-              **per_step}),
+              **per_step, **vit_per}),
             ("flash_bwd_dq", bwd_recs["dq"],
              "cxxnet_tpu/ops/flash_attn.py:337",
-             {**{p: c[1] for p, c in train.items()}, **bench[3]}, per_step),
+             {**{p: c[1] for p, c in train.items()}, **bench[3],
+              "vit_s16_bf16_train": vit_launches[1]},
+             {**per_step, **vit_per}),
             ("flash_bwd_dkv", bwd_recs["dkv"],
              "cxxnet_tpu/ops/flash_attn.py:363",
-             {**{p: c[2] for p, c in train.items()}, **bench[4]}, per_step),
+             {**{p: c[2] for p, c in train.items()}, **bench[4],
+              "vit_s16_bf16_train": vit_launches[2]},
+             {**per_step, **vit_per}),
             ("ring_fwd_step", ring_recs["fwd"],
              "cxxnet_tpu/ops/ring_flash.py:191",
              {p: c[0] for p, c in ring_paths.items()}, ring_per),
@@ -6827,6 +7281,8 @@ def main() -> int:
         if name.startswith("flash_bwd"):
             kernels[-1]["plain_and_library_cover"] = \
                 "the whole backward: dq, dk and dv in one call"
+        if name in vit["rows"]:
+            kernels[-1]["vit_s16"] = vit["rows"][name]
         for phase, recs in wide.items():
             if name in recs:
                 kernels[-1]["head_dim_" + phase[len("lm_hd"):]] = {

@@ -2,16 +2,17 @@
 
 Counterpart of cxxnet_tpu/layer/factory.py (the reference's type enumeration
 and parser, src/layer/layer.h:284-361). The ids are the reference's, because
-model files store them: every layer name the reference knows parses here, so
-any config's net structure loads and saves, while ``create_layer`` builds
-only the types this slice of the port has and raises a ValueError naming any
-other.
+model files store them. Every name of the JAX package's table creates its
+layer; ``extern`` (alias ``caffe``) wraps an op registered with
+``register_extern``. ``create_layer`` refuses only the shared layer (the
+net builds it) and the pairtest layers, which the port does not have.
 """
 
 from __future__ import annotations
 
 from . import layers as L
 from .base import Layer, check
+from .extern import ExternLayer
 
 # type ids (src/layer/layer.h:284-315)
 kSharedLayer = 0
@@ -92,6 +93,7 @@ for _name, _tid in _NAME2TYPE.items():
     _TYPE2NAME.setdefault(_tid, _name)
 
 _TYPE2CLS = {_NAME2TYPE[name]: cls for name, cls in L.LAYER_CLASSES.items()}
+_TYPE2CLS[kCaffe] = ExternLayer
 
 
 def get_layer_type(name: str) -> int:

@@ -3,8 +3,11 @@ flatten, fullc, dropout, softmax), in eval and in training mode, the
 sigmoid of the MNIST nets, the
 leaky and noisy activations of the RReLU nets (xelu, insanity, prelu,
 insanity_max_pooling), the transformer LM set (embed, attention,
-split, add, softmax ``seq = 1``), and the GoogLeNet, VGG and ResNet set
-(sum, avg and relu_max pooling, concat, ch_concat, batch_norm).
+split, add, softmax ``seq = 1``), the GoogLeNet, VGG and ResNet set
+(sum, avg and relu_max pooling, concat, ch_concat, batch_norm), ViT's
+im2seq, and the rest of the JAX package's set: tanh, softplus, bias,
+fixconn, maxout, the l2_loss and multi_logistic losses and moe (the
+mixture of experts on one device). ``extern`` lives in layer/extern.py.
 
 Each class is the counterpart of the class of the same name in
 cxxnet_tpu/layer/layers.py and keeps its config keys, shape inference,
@@ -24,6 +27,7 @@ and every KV-cached decode step, to dense attention (ops/attention.py).
 
 from __future__ import annotations
 
+import struct
 from typing import Dict, Tuple
 
 import numpy as np
@@ -194,6 +198,105 @@ class ConvolutionLayer(_WeightBiasLayer):
         return [y]
 
 
+class FixConnectLayer(Layer):
+    """Frozen dense layer whose weight comes from a sparse-matrix text file
+    (src/layer/fixconn_layer-inl.hpp:14; cxxnet_tpu/layer/layers.py:182):
+    a header "nrow ncol nnz", then nnz lines "row col value". The weight
+    takes no gradient and no updater, and travels in the model file
+    (LayerParam, then wmat), as in the JAX package."""
+
+    type_name = "fixconn"
+
+    def __init__(self):
+        super().__init__()
+        self.fname_weight = "NULL"
+        self._wmat = None
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "fixconn_weight":
+            self.fname_weight = val
+
+    def infer_shape(self, in_shapes):
+        check(len(in_shapes) == 1, "FixConnLayer: only support 1-1 connection")
+        b, c, h, w = in_shapes[0]
+        check(c == 1 and h == 1, "FixConnLayer: input need to be a matrix")
+        check(self.param.num_hidden > 0,
+              "FixConnLayer: must set nhidden correctly")
+        check(self.fname_weight != "NULL",
+              "FixConnLayer: must specify fixconn_weight")
+        wm = np.zeros((self.param.num_hidden, w), np.float32)
+        with open(self.fname_weight) as f:
+            toks = f.read().split()
+        nrow, ncol, nnz = int(toks[0]), int(toks[1]), int(toks[2])
+        check(nrow == wm.shape[0] and ncol == wm.shape[1],
+              "FixConnLayer: fixconn_weight shape do not match architecture")
+        for i in range(nnz):
+            r, col = int(toks[3 + 3 * i]), int(toks[4 + 3 * i])
+            check(0 <= r < wm.shape[0] and 0 <= col < wm.shape[1],
+                  "FixConnLayer: fixconn_weight index exceed matrix shape")
+            wm[r, col] = float(toks[5 + 3 * i])
+        self._wmat = wm
+        return [(b, 1, 1, self.param.num_hidden)]
+
+    def param_shapes(self):
+        return {"wmat": tuple(self._wmat.shape)}
+
+    def init_params(self, gen):
+        return {"wmat": torch.from_numpy(self._wmat.copy())}
+
+    def save_model(self, w, params):
+        self.param.save(w)
+        w.write_tensor(params["wmat"])
+
+    def load_model(self, r):
+        self.param.load(r)
+        return {"wmat": r.read_tensor()}
+
+    def forward(self, params, inputs, ctx):
+        y = _flat2d(inputs[0]) @ params["wmat"].detach().t()
+        return [y.reshape(y.shape[0], 1, 1, y.shape[1])]
+
+
+class BiasLayer(Layer):
+    """Additive bias on a flat node, self-loop
+    (src/layer/bias_layer-inl.hpp:14; cxxnet_tpu/layer/layers.py:240)."""
+
+    type_name = "bias"
+
+    def infer_shape(self, in_shapes):
+        b, c, h, w = in_shapes[0]
+        check(c == 1 and h == 1,
+              "BiasLayer only works for flatten node so far")
+        if self.param.num_input_node == 0:
+            self.param.num_input_node = w
+        else:
+            check(self.param.num_input_node == w,
+                  "BiasLayer: input hidden nodes is not consistent")
+        return [in_shapes[0]]
+
+    def param_shapes(self):
+        return {"bias": (self.param.num_input_node,)}
+
+    def init_params(self, gen):
+        return {"bias": torch.full((self.param.num_input_node,),
+                                   self.param.init_bias, dtype=torch.float32)}
+
+    def forward(self, params, inputs, ctx):
+        return [inputs[0] + params["bias"]]
+
+    def visit_order(self):
+        return [("bias", "bias")]
+
+    def save_model(self, w, params):
+        self.param.save(w)
+        w.write_tensor(params["bias"])
+
+    def load_model(self, r):
+        self.param.load(r)
+        return {"bias": r.read_tensor()}
+
+
 class ReluLayer(Layer):
     """Elementwise max(x, 0) (src/layer/activation_layer-inl.hpp:12)."""
 
@@ -221,6 +324,26 @@ class SigmoidLayer(Layer):
 
     def forward(self, params, inputs, ctx):
         return [torch.sigmoid(inputs[0])]
+
+
+class TanhLayer(SigmoidLayer):
+    """Elementwise tanh (src/layer/op.h; cxxnet_tpu/layer/layers.py:303)."""
+
+    type_name = "tanh"
+
+    def forward(self, params, inputs, ctx):
+        return [torch.tanh(inputs[0])]
+
+
+class SoftplusLayer(SigmoidLayer):
+    """Elementwise log(1 + e^x) by jax.nn.softplus's formula
+    (ops.softplus; cxxnet_tpu/layer/layers.py:308). The reference parses
+    softplus but its factory has no such layer."""
+
+    type_name = "softplus"
+
+    def forward(self, params, inputs, ctx):
+        return [ops.softplus(inputs[0])]
 
 
 class XeluLayer(Layer):
@@ -362,6 +485,32 @@ class PReluLayer(Layer):
 
     def load_model(self, r):
         return {"slope": r.read_tensor()}
+
+
+class MaxoutLayer(Layer):
+    """Channel-group maxout (cxxnet_tpu/layer/layers.py:462; the
+    reference parses ``maxout`` but never implemented it): every
+    ``ngroup`` adjacent channels, or features of a flat (b, 1, 1, w)
+    node, reduce by max, out[j] = max(in[j*g : (j+1)*g])."""
+
+    type_name = "maxout"
+
+    def infer_shape(self, in_shapes):
+        b, c, h, w = in_shapes[0]
+        g = self.param.num_group
+        if c == 1:
+            check(w % g == 0, "maxout: input width must divide ngroup")
+            return [(b, 1, 1, w // g)]
+        check(c % g == 0, "maxout: input channels must divide ngroup")
+        return [(b, c // g, h, w)]
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        g = self.param.num_group
+        b, c, h, w = x.shape
+        if c == 1:
+            return [x.reshape(b, 1, 1, w // g, g).amax(dim=4)]
+        return [x.reshape(b, c // g, g, h, w).amax(dim=2)]
 
 
 class PoolingLayer(Layer):
@@ -755,6 +904,34 @@ class SoftmaxLayer(LossLayerBase):
         return [out.transpose(1, 2).reshape(b, v, 1, L)]
 
 
+class L2LossLayer(LossLayerBase):
+    """Identity forward; the loss 0.5 sum (x - y)^2 times the scale, whose
+    gradient is (x - y) * scale (src/layer/loss/l2_loss_layer-inl.hpp:12;
+    cxxnet_tpu/layer/layers.py:1071)."""
+
+    type_name = "l2_loss"
+
+    def loss_term(self, x2d, label):
+        return 0.5 * torch.square(x2d - label).sum() * self._scale()
+
+
+class MultiLogisticLayer(LossLayerBase):
+    """Elementwise sigmoid forward; the summed binary cross-entropy with
+    logits times the scale, whose gradient is (sigmoid(x) - y) * scale
+    (src/layer/loss/multi_logistic_layer-inl.hpp:12;
+    cxxnet_tpu/layer/layers.py:1081)."""
+
+    type_name = "multi_logistic"
+
+    def transform(self, x2d):
+        return torch.sigmoid(x2d)
+
+    def loss_term(self, x2d, label):
+        bce = torch.clamp_min(x2d, 0) - x2d * label \
+            + torch.log1p(torch.exp(-x2d.abs()))
+        return bce.sum() * self._scale()
+
+
 class ConcatLayer(Layer):
     """2-4 inputs concatenated along dim 3 (src/layer/concat_layer-inl.hpp:12);
     every other dim must match."""
@@ -820,6 +997,24 @@ class AddLayer(Layer):
         for x in inputs[1:]:
             out = out + x
         return [out]
+
+
+class Im2SeqLayer(Layer):
+    """(b, d, h, w) feature map -> (b, d, 1, h*w) sequence, positions in
+    row-major order (cxxnet_tpu/layer/layers.py:1471): a patch-embedding
+    conv (kernel_size = stride = patch) and im2seq make ViT's front end."""
+
+    type_name = "im2seq"
+
+    def infer_shape(self, in_shapes):
+        check(len(in_shapes) == 1, "Im2SeqLayer only support 1-1 connection")
+        b, d, h, w = in_shapes[0]
+        return [(b, d, 1, h * w)]
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        b, d, h, w = x.shape
+        return [x.reshape(b, d, 1, h * w)]
 
 
 class EmbedLayer(Layer):
@@ -1139,6 +1334,91 @@ class AttentionLayer(Layer):
         return [out.transpose(1, 2).reshape(b, d, 1, L)]
 
 
+class MoELayer(Layer):
+    """Mixture-of-experts FFN on one device (cxxnet_tpu/layer/layers.py
+    :1519, its dense dispatch without a mesh): input (b, 1, 1, din) ->
+    (b, 1, 1, nhidden) through ``nexpert`` experts relu(x @ W_e), combined
+    by a softmax gate. ``top_k > 0`` keeps exactly k gate probabilities
+    a row, ties taken in index order as ``jax.lax.top_k`` takes them (a
+    stable sort), renormalized; every expert still runs on every row.
+    Model file: LayerParam, then ``<ii`` nexpert and top_k, then gate
+    (E, din) and experts (E, din, dout); visited as ``wmat`` -> experts,
+    ``gate`` -> gate. Expert parallelism is ROADMAP item 12."""
+
+    type_name = "moe"
+
+    def __init__(self):
+        super().__init__()
+        self.n_expert = 0
+        self.top_k = 0
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "nexpert":
+            self.n_expert = int(val)
+        if name == "top_k":
+            self.top_k = int(val)
+
+    def infer_shape(self, in_shapes):
+        check(len(in_shapes) == 1, "MoELayer only support 1-1 connection")
+        b, c, h, w = in_shapes[0]
+        check(c == 1 and h == 1,
+              "moe input must be flattened (batch, 1, 1, d); add a flatten "
+              "layer first")
+        check(self.n_expert > 0, "must set nexpert")
+        check(self.param.num_hidden > 0, "must set nhidden")
+        check(self.top_k <= self.n_expert, "top_k cannot exceed nexpert")
+        self.param.num_input_node = w
+        return [(b, 1, 1, self.param.num_hidden)]
+
+    def param_shapes(self):
+        din, dout = self.param.num_input_node, self.param.num_hidden
+        return {"gate": (self.n_expert, din),
+                "experts": (self.n_expert, din, dout)}
+
+    def init_params(self, gen):
+        din, dout = self.param.num_input_node, self.param.num_hidden
+        e = self.n_expert
+        return {"gate": self.param.rand_init_weight(gen, (e, din), din, e),
+                "experts": self.param.rand_init_weight(
+                    gen, (e, din, dout), din, dout)}
+
+    def save_model(self, w, params):
+        self.param.save(w)
+        w.write_raw(struct.pack("<ii", self.n_expert, self.top_k))
+        w.write_tensor(params["gate"])
+        w.write_tensor(params["experts"])
+
+    def load_model(self, r):
+        self.param.load(r)
+        self.n_expert, self.top_k = struct.unpack("<ii", r.read_raw(8))
+        return {"gate": r.read_tensor(), "experts": r.read_tensor()}
+
+    def visit_order(self):
+        return [("wmat", "experts"), ("gate", "gate")]
+
+    def gate_probs(self, x2: torch.Tensor, gate: torch.Tensor):
+        """(b, E) combine weights: the softmax gate, cut to exactly top_k
+        a row and renormalized when 0 < top_k < nexpert."""
+        probs = torch.softmax(x2 @ gate.t(), dim=-1)
+        if self.top_k and self.top_k < self.n_expert:
+            idx = torch.sort(probs, dim=1, descending=True,
+                             stable=True).indices[:, :self.top_k]
+            mask = torch.zeros_like(probs).scatter_(1, idx, 1.0)
+            probs = probs * mask
+            probs = probs / probs.sum(dim=-1, keepdim=True)
+        return probs
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        b = x.shape[0]
+        x2 = x.reshape(b, -1)
+        probs = self.gate_probs(x2, params["gate"])
+        y = torch.relu(torch.einsum("bi,eio->ebo", x2, params["experts"]))
+        out = torch.einsum("ebo,be->bo", y, probs)
+        return [out.reshape(b, 1, 1, self.param.num_hidden)]
+
+
 LAYER_CLASSES: Dict[str, type] = {
     cls.type_name: cls for cls in (
         FullConnectLayer, ConvolutionLayer, ReluLayer, SigmoidLayer,
@@ -1146,4 +1426,6 @@ LAYER_CLASSES: Dict[str, type] = {
         SumPoolingLayer, AvgPoolingLayer, ReluMaxPoolingLayer,
         InsanityPoolingLayer, LRNLayer, FlattenLayer, DropoutLayer,
         BatchNormLayer, SoftmaxLayer, ConcatLayer, ChConcatLayer,
-        SplitLayer, AddLayer, EmbedLayer, AttentionLayer)}
+        SplitLayer, AddLayer, EmbedLayer, AttentionLayer, FixConnectLayer,
+        BiasLayer, TanhLayer, SoftplusLayer, MaxoutLayer, L2LossLayer,
+        MultiLogisticLayer, Im2SeqLayer, MoELayer)}

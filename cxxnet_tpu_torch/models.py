@@ -15,11 +15,14 @@ The image nets of the JAX package's benchmark have their builders here
 too, each writing the same text as its JAX namesake
 (cxxnet_tpu/models.py:192-345, 506-620, 623-700), so the same model files:
 ``googlenet_netconfig`` (with ``_gnet_inception`` and
-``GOOGLENET_MODULES``), ``resnet_netconfig`` (with ``_res_block``) and
-``vgg_netconfig``. ``googlenet_config``, ``resnet_config`` and
-``vgg_config`` are the whole configs of the JAX ``googlenet_trainer``,
-``resnet_trainer`` and ``vgg_trainer`` as text (their recipes' eta,
-momentum and wd); bench.py runs each under ``compute_dtype = bfloat16``.
+``GOOGLENET_MODULES``), ``resnet_netconfig`` (with ``_res_block``),
+``vgg_netconfig``, ``mobilenet_netconfig`` (depthwise convolutions, with
+``MOBILENET_BLOCKS``) and ``vit_netconfig`` (im2seq and batch-normed RoPE
+transformer blocks, cxxnet_tpu/models.py:445-504, 697-782).
+``googlenet_config``, ``resnet_config``, ``vgg_config``,
+``mobilenet_config`` and ``vit_config`` are the whole configs of the JAX
+``*_trainer`` functions as text (their recipes' updater keys); bench.py
+runs each under ``compute_dtype = bfloat16``.
 
 ``rrelu_config`` turns an image config into its RReLU form (Xu, Wang,
 Chen and Li, "Empirical evaluation of rectified activations in
@@ -37,18 +40,32 @@ from .layer.base import check
 
 
 def _transformer_block(p: str, node_in: str, dim: int, nhead: int,
-                       ffn: int, attn_keys: str = "") -> Tuple[str, str]:
-    """One transformer block (no norm): out = x + att(x), then
-    + ffn(.) with a 1x1-conv FFN. ``attn_keys`` are extra per-attention
-    config lines (causal/rope/GQA/window). Returns (text, output node)."""
-    txt = """layer[%(in)s->%(p)satt] = attention:%(p)s_att
+                       ffn: int, attn_keys: str = "",
+                       norm: bool = False) -> Tuple[str, str]:
+    """One transformer block, the JAX package's (cxxnet_tpu/models.py
+    :346-385): out = x + att(norm(x)), then + ffn(norm(.)) with a 1x1-conv
+    FFN. ``norm`` puts a batch_norm with ``moving_average = 1`` before
+    each sub-block (ViT); ``attn_keys`` are extra per-attention config
+    lines (causal/rope/GQA/window). Returns (text, output node)."""
+    txt = ""
+    att_in = node_in
+    if norm:
+        txt += ("layer[%(in)s->%(p)sn1] = batch_norm:%(p)s_bn1\n"
+                "  moving_average = 1\n" % {"in": node_in, "p": p})
+        att_in = p + "n1"
+    txt += """layer[%(ai)s->%(p)satt] = attention:%(p)s_att
   nhead = %(nh)d
   init_sigma = 0.05
 %(ak)slayer[%(in)s,%(p)satt->%(p)sres1] = add
-""" % {"in": node_in, "p": p, "nh": nhead,
+""" % {"ai": att_in, "in": node_in, "p": p, "nh": nhead,
        "ak": "".join("  %s\n" % ln.strip()
                      for ln in attn_keys.splitlines() if ln.strip())}
-    txt += """layer[%(p)sres1->%(p)sf1] = conv:%(p)s_ffn1
+    ffn_in = p + "res1"
+    if norm:
+        txt += ("layer[%(p)sres1->%(p)sn2] = batch_norm:%(p)s_bn2\n"
+                "  moving_average = 1\n" % {"p": p})
+        ffn_in = p + "n2"
+    txt += """layer[%(fi)s->%(p)sf1] = conv:%(p)s_ffn1
   kernel_size = 1
   nchannel = %(ffn)d
   init_sigma = 0.05
@@ -58,7 +75,7 @@ layer[%(p)sr->%(p)sf2] = conv:%(p)s_ffn2
   nchannel = %(dim)d
   init_sigma = 0.05
 layer[%(p)sres1,%(p)sf2->%(p)sout] = add
-""" % {"p": p, "ffn": ffn, "dim": dim}
+""" % {"fi": ffn_in, "p": p, "ffn": ffn, "dim": dim}
     return txt, p + "out"
 
 
@@ -111,6 +128,60 @@ def transformer_lm_config(vocab: int = 50, seq: int = 16,
             "label_vec[0,%d) = label\n" % seq +
             "updater = adam\neta = 0.003\n" +
             "dev = %s\n" % dev + extra_cfg)
+
+
+def vit_netconfig(n_class: int, image_hw: int = 32, patch: int = 4,
+                  dim: int = 64, nhead: int = 4, nlayer: int = 2,
+                  ffn_mult: int = 2) -> str:
+    """Vision transformer (cxxnet_tpu/models.py:445-483): a patch-embedding
+    conv (kernel = stride = patch) -> im2seq -> n x [batch_norm, RoPE
+    attention (not causal) + residual, batch_norm, 1x1-conv FFN +
+    residual] -> mean pool over the positions -> fullc head. RoPE gives
+    the position signal, in im2seq's row-major patch order."""
+    check(image_hw % patch == 0, "vit: patch must divide image_hw")
+    npos = (image_hw // patch) ** 2
+    txt = """
+netconfig = start
+layer[0->pe] = conv:patch_embed
+  kernel_size = %d
+  stride = %d
+  nchannel = %d
+  random_type = xavier
+layer[pe->sq] = im2seq
+""" % (patch, patch, dim)
+    node = "sq"
+    for i in range(nlayer):
+        blk, node = _transformer_block(
+            "vb%d" % i, node, dim, nhead, ffn_mult * dim,
+            attn_keys="rope = 1\n", norm=True)
+        txt += "\n" + blk
+    txt += """
+layer[%s->gp] = avg_pooling
+  kernel_height = 1
+  kernel_width = %d
+  stride = %d
+layer[gp->fl] = flatten
+layer[fl->out] = fullc:head
+  nhidden = %d
+  random_type = xavier
+layer[+0] = softmax
+netconfig = end
+""" % (node, npos, npos, n_class)
+    return txt
+
+
+def vit_config(n_class: int = 10, image_hw: int = 32, patch: int = 4,
+               batch_size: int = 16, dim: int = 64, nhead: int = 4,
+               nlayer: int = 2, ffn_mult: int = 2, dev: str = "gpu",
+               extra_cfg: str = "") -> str:
+    """The config of the JAX ``vit_trainer`` (cxxnet_tpu/models.py
+    :486-504; AdamW at eta 0.003, wd 0.01). bench.py's ViT-S/16 is
+    ``vit_config(1000, 224, 16, 128, 384, 6, 12, 4)`` in bf16."""
+    net = vit_netconfig(n_class, image_hw=image_hw, patch=patch, dim=dim,
+                        nhead=nhead, nlayer=nlayer, ffn_mult=ffn_mult)
+    return _image_config(net, image_hw, batch_size,
+                         "updater = adamw\neta = 0.003\nwd = 0.01\n", dev,
+                         extra_cfg)
 
 
 def _retype(text: str, kind: str, new: str, keys) -> str:
@@ -456,4 +527,88 @@ def vgg_config(batch_size: int = 64, input_hw: int = 224, dev: str = "gpu",
                         dropout=dropout)
     return _image_config(net, input_hw, batch_size,
                          "eta = 0.01\nmomentum = 0.9\nwd = 0.0005\n", dev,
+                         extra_cfg)
+
+
+# MobileNet-v1-shaped depthwise-separable stack (cxxnet_tpu/models.py
+# :697-782): (out_channels, stride) per block, each a depthwise 3x3 conv
+# (ngroup = C) and a pointwise 1x1 conv, each with batch_norm and relu
+MOBILENET_BLOCKS = ((64, 1), (128, 2), (128, 1), (256, 2),
+                    (256, 1), (512, 2), (512, 1))
+
+
+def _mobilenet_final_pool(blocks, input_hw: int) -> int:
+    """The global average pool's kernel: the input over the stem's 2 and
+    the blocks' strides."""
+    downsample = 2
+    for _, stride in blocks:
+        downsample *= stride
+    return max(input_hw // downsample, 1)
+
+
+def mobilenet_netconfig(n_class: int = 1000, base_ch: int = 32,
+                        blocks=MOBILENET_BLOCKS,
+                        final_pool: int = 0) -> str:
+    """The JAX ``mobilenet_netconfig``'s text: a stride-2 3x3 stem, the
+    blocks, a global average pool, fullc; shrink ``blocks`` / ``base_ch``
+    for tests. final_pool 0 is the global pool of a 224 input."""
+    if not final_pool:
+        final_pool = _mobilenet_final_pool(blocks, 224)
+    txt = """netconfig = start
+layer[0->stem] = conv:stem
+  kernel_size = 3
+  pad = 1
+  stride = 2
+  nchannel = %d
+  random_type = kaiming
+  no_bias = 1
+layer[stem->stem_b] = batch_norm:stem_b
+layer[stem_b->stem_r] = relu
+""" % base_ch
+    node, c = "stem_r", base_ch
+    for i, (ch, stride) in enumerate(blocks):
+        txt += """layer[%s->dw%d] = conv:dw%d
+  kernel_size = 3
+  pad = 1
+  stride = %d
+  nchannel = %d
+  ngroup = %d
+  random_type = kaiming
+  no_bias = 1
+layer[dw%d->dwb%d] = batch_norm:dwb%d
+layer[dwb%d->dwr%d] = relu
+layer[dwr%d->pw%d] = conv:pw%d
+  kernel_size = 1
+  nchannel = %d
+  random_type = kaiming
+  no_bias = 1
+layer[pw%d->pwb%d] = batch_norm:pwb%d
+layer[pwb%d->pwr%d] = relu
+""" % (node, i, i, stride, c, c, i, i, i, i, i, i, i, i, ch,
+            i, i, i, i, i)
+        node, c = "pwr%d" % i, ch
+    txt += """layer[%s->gap] = avg_pooling
+  kernel_size = %d
+  stride = %d
+layer[gap->flat] = flatten
+layer[flat->fc] = fullc:fc
+  nhidden = %d
+  random_type = kaiming
+layer[fc->fc] = softmax
+netconfig = end
+""" % (node, final_pool, final_pool, n_class)
+    return txt
+
+
+def mobilenet_config(batch_size: int = 256, input_hw: int = 224,
+                     dev: str = "gpu", n_class: int = 1000,
+                     base_ch: int = 32, blocks=MOBILENET_BLOCKS,
+                     extra_cfg: str = "") -> str:
+    """The config of the JAX ``mobilenet_trainer`` (cxxnet_tpu/models.py
+    :761-782; SGD at eta 0.1, momentum 0.9, wd 0.0001)."""
+    net = mobilenet_netconfig(n_class, base_ch, blocks,
+                              final_pool=_mobilenet_final_pool(blocks,
+                                                               input_hw))
+    return _image_config(net, input_hw, batch_size,
+                         "eta = 0.1\nmomentum = 0.9\nwd = 0.0001\n", dev,
                          extra_cfg)

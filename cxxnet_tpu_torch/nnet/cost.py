@@ -24,7 +24,18 @@ What is counted:
 * **elementwise passes** per element (``_EW``: relu, pooling windows,
   softmax, dropout, bias adds, ...), the LRN layers by their kernels'
   ``ops.lrn.work`` / ``bwd_work`` and the noisy layers' draws by
-  ``ops.random.work``.
+  ``ops.random.work``. Where XLA's count of the JAX layer's own ops was
+  measured, the rule is that count: relu's backward is ``max``'s
+  derivative (5 operations an element), batch-norm's backward 15 an
+  element, and a sum or avg pool's backward its window's taps for each
+  input element (the window sum transposed over the input grid).
+* **the rest of the layer set**: ``fixconn`` as fullc without a weight
+  gradient; ``moe`` as its products, 2·b·E·din·dout for the experts,
+  2·b·E·din for the gate and 2·b·E·dout for the combine, each again for
+  the data and the weight gradients (the combine's second product is the
+  gate's gradient), plus the relu of every expert output and the gate's
+  softmax; ``maxout`` one comparison per input element each way; the
+  losses, tanh, softplus and bias elementwise; im2seq none.
 * **a training step**: the forward, every weight gradient and every data
   gradient except into the data nodes (each the forward's count: the
   data and weight gradients of a convolution touch the same in-bounds
@@ -54,13 +65,19 @@ __all__ = ["conv_taps", "UPDATER_OPS", "UPDATER_STATE", "layer_work",
 # per-element (forward, backward) operations of the elementwise layers; a
 # pooling layer's count is per output element and per window tap
 _EW = {
-    "relu": (1, 1), "sigmoid": (4, 3), "xelu": (2, 2), "insanity": (3, 2),
+    "relu": (1, 5), "sigmoid": (4, 3), "xelu": (2, 2), "insanity": (3, 2),
     "prelu": (2, 3), "dropout": (2, 1), "softmax": (4, 1),
-    "batch_norm": (8, 10), "flatten": (0, 0), "concat": (0, 0),
+    "batch_norm": (8, 15), "flatten": (0, 0), "concat": (0, 0),
     "ch_concat": (0, 0), "split": (0, 0), "add": (0, 0), "embed": (0, 0),
+    "im2seq": (0, 0), "tanh": (1, 3), "softplus": (4, 4), "bias": (1, 1),
+    "l2_loss": (3, 1), "multi_logistic": (10, 3),
 }
-_POOL = {"max_pooling": 0, "sum_pooling": 0, "avg_pooling": 1,
+_POOL = {"max_pooling": 0, "sum_pooling": 0, "avg_pooling": 0,
          "relu_max_pooling": 1, "insanity_max_pooling": 2}
+# batch-norm's forward per element at eval with its running statistics
+_BN_EVAL_MOVING = 4
+# pools whose backward is the window sum transposed: taps per input element
+_WINDOW_SUM = ("sum_pooling", "avg_pooling")
 # operations per parameter of one update, and the f32 state tensors each
 # parameter carries (read and written every update)
 UPDATER_OPS = {"sgd": 6, "nag": 9, "adam": 12, "adamw": 14}
@@ -167,6 +184,18 @@ def layer_work(net, i: int, b: int, train: bool = False,
         if p.no_bias == 0:
             w["ew_fwd"] += n_out
             w["ew_bwd"] += n_out
+    elif tname == "fixconn":
+        f = 2.0 * b * p.num_hidden * ins[0][3]
+        w.update(fwd=f, dgrad=f)
+    elif tname == "moe":
+        e, din, dout = lay.n_expert, p.num_input_node, p.num_hidden
+        f = 2.0 * b * e * (din * dout + din + dout)
+        w.update(fwd=f, dgrad=f, wgrad=f)
+        w["ew_fwd"] += b * e * (dout + _EW["softmax"][0])
+        w["ew_bwd"] += b * e * (_EW["relu"][1] * dout + _EW["softmax"][1])
+    elif tname == "maxout":
+        w["ew_fwd"] += n_in
+        w["ew_bwd"] += n_in
     elif tname == "attention":
         return _attention(lay, ins[0], b, q_offs, esize, train)
     elif tname == "lrn":
@@ -178,11 +207,16 @@ def layer_work(net, i: int, b: int, train: bool = False,
         kk = p.kernel_height * p.kernel_width
         extra = _POOL[tname]
         w["ew_fwd"] += (kk + extra) * n_out
-        w["ew_bwd"] += (kk + extra) * n_out
+        w["ew_bwd"] += kk * n_in if tname in _WINDOW_SUM \
+            else (kk + extra) * n_out
         if tname == "insanity_max_pooling" and train:
             w["ew_fwd"] += oprandom.work(n_in)[0]
     else:
         fw, bw = _EW.get(tname, (1, 1))
+        if tname == "batch_norm" and lay.moving_average and not train:
+            # the running statistics in place of the batch's: the
+            # normalization alone
+            fw = _BN_EVAL_MOVING
         w["ew_fwd"] += fw * n_out
         w["ew_bwd"] += bw * n_out
         if tname == "add":

@@ -259,7 +259,8 @@ class Trainer:
             check(self.seq_parallel >= 1, "seq_parallel must be >= 1")
         if name in ("model_parallel", "pipeline_parallel",
                     "expert_parallel"):
-            check(int(val) == 1, "%s > 1 is not ported yet" % name)
+            check(int(val) == 1, "%s > 1 is not ported yet (ROADMAP.md "
+                  "Queue 1 item 12)" % name)
         if name == "health_monitor":
             check(int(val) == 0, "health_monitor is not ported yet")
         if name == "nonfinite_action":

@@ -5,6 +5,7 @@ pool2d          <- pool<Reducer>, max / sum / avg      (src/layer/pooling_layer-
 chpool_sum/lrn  <- chpool<red::sum>                    (src/layer/lrn_layer-inl.hpp:55-60)
 softmax         <- mshadow::Softmax                    (src/layer/loss/softmax_layer-inl.hpp)
 xelu / mxelu    <- op::xelu, op::mxelu                 (src/layer/op.h:56-60, src/layer/prelu_layer-inl.hpp:10-14)
+softplus        <- jax.nn.softplus (the reference parses softplus but has no op for it)
 
 Convolution and pooling were left to XLA by the JAX package and go to
 PyTorch's own ops here; the convolution's weight gradient is an im2col
@@ -56,13 +57,16 @@ def conv2d_weight(x: torch.Tensor, w_shape: Tuple[int, ...],
     """The weight gradient of a grouped convolution, dw[o, k] = sum over
     images n and output positions p of g[n, o, p] cols[n, p, k], with
     cols the im2col of x: the windows are a strided view of the padded
-    input, copied once per batch chunk (the chunk's unfolded input stays
-    under UNFOLD_BYTES), and the sum is batched matrix products over
-    groups of s images (s P ~ SUM_TERMS products per row) whose partial
-    sums are then added in a float32 accumulator, rounded once to the
-    input's dtype at the end (full fp32 on the card, where TF32 is off). In
-    bf16 each group's matrix product is summed in f32 and rounded to bf16
-    once, and the groups are added in float32 without a float32 copy of
+    input, copied once per batch chunk (the chunk's unfolded input, every
+    group's, stays under UNFOLD_BYTES), and the sum is matrix products
+    batched over (group, group of s images), s P ~ SUM_TERMS products per
+    row, whose partial sums are then added in a float32 accumulator,
+    rounded once to the input's dtype at the end (full fp32 on the card,
+    where TF32 is off). One batched product covers every group, so the
+    number of products does not grow with ``groups``: a depthwise
+    convolution (groups = C) takes as many as a dense one. In bf16 each
+    group's matrix product is summed in f32 and rounded to bf16 once, and
+    the groups of images are added in float32 without a float32 copy of
     the product, where a bf16 accumulator would round at every add: dw
     takes one rounding per group of s images and one at the end, where
     XLA's conv backward sums in f32 and rounds once.
@@ -72,28 +76,35 @@ def conv2d_weight(x: torch.Tensor, w_shape: Tuple[int, ...],
     n = x.shape[0]
     o, cg, kh, kw = w_shape
     og = o // groups
-    p_out = g.shape[2] * g.shape[3]
+    oh, ow = g.shape[2], g.shape[3]
+    p_out = oh * ow
     k_len = cg * kh * kw
     s = max(1, min(n, SUM_TERMS // p_out))
-    per_image = k_len * p_out * x.element_size()
+    per_image = groups * k_len * p_out * x.element_size()
     chunk = max(1, UNFOLD_BYTES // max(per_image, 1)) // s * s or s
     win = F.pad(x, (pad[1], pad[1], pad[0], pad[0])) \
         .unfold(2, kh, stride).unfold(3, kw, stride)  # (n, c, oh, ow, kh, kw)
+    win = win.reshape(n, groups, cg, oh, ow, kh, kw)
+    # (groups, n, og, P): each group's output gradient, images in order
+    gg = g.reshape(n, groups, og, p_out).transpose(0, 1)
     dw = torch.zeros((groups, og, k_len), dtype=torch.float32,
                      device=x.device)
-    for gi in range(groups):
-        for n0 in range(0, n, chunk):
-            xs = win[n0:n0 + chunk, gi * cg:(gi + 1) * cg]
-            b = xs.shape[0]
-            cols = xs.permute(0, 2, 3, 1, 4, 5).reshape(b, p_out, k_len)
-            gs = g[n0:n0 + b, gi * og:(gi + 1) * og].reshape(b, og, p_out)
-            for b0 in range(0, b, b // s * s or b):
-                m = s if b - b0 >= s else b - b0
-                nb = (b - b0) // m
-                gm = gs[b0:b0 + nb * m].reshape(nb, m, og, p_out) \
-                    .transpose(1, 2).reshape(nb, og, m * p_out)
-                cm = cols[b0:b0 + nb * m].reshape(nb, m * p_out, k_len)
-                dw[gi] += torch.bmm(gm, cm).sum(0, dtype=torch.float32)
+    for n0 in range(0, n, chunk):
+        xs = win[n0:n0 + chunk]
+        b = xs.shape[0]
+        # (groups, b, P, k_len), one copy of the chunk's windows
+        cols = xs.permute(1, 0, 3, 4, 2, 5, 6).reshape(groups, b, p_out,
+                                                       k_len)
+        gs = gg[:, n0:n0 + b]
+        for b0 in range(0, b, b // s * s or b):
+            m = s if b - b0 >= s else b - b0
+            nb = (b - b0) // m
+            gm = gs[:, b0:b0 + nb * m].reshape(groups, nb, m, og, p_out) \
+                .transpose(2, 3).reshape(groups * nb, og, m * p_out)
+            cm = cols[:, b0:b0 + nb * m].reshape(groups * nb, m * p_out,
+                                                 k_len)
+            dw += torch.bmm(gm, cm).reshape(groups, nb, og, k_len) \
+                .sum(1, dtype=torch.float32)
     return dw.reshape(w_shape).to(x.dtype)
 
 
@@ -179,3 +190,11 @@ def mxelu(x: torch.Tensor, m) -> torch.Tensor:
     """Leaky relu with *multiplier* m (reference op::mxelu,
     src/layer/prelu_layer-inl.hpp:10-14)."""
     return torch.where(x > 0, x, x * m)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as the JAX package computes it: jax.nn.softplus is
+    jnp.logaddexp(x, 0), max(x, 0) + log1p(exp(-|x|)) with the gradient
+    exp(x - out), and so is torch.logaddexp. Not F.softplus, which returns
+    x itself above its threshold (tests/test_torch_layers_more.py)."""
+    return torch.logaddexp(x, x.new_zeros(()))

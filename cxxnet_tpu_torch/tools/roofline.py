@@ -125,13 +125,6 @@ def imagenet_config(batch_size: int = 8) -> str:
     return "\n".join(lines) + "\nbatch_size = %d\n" % batch_size
 
 
-def _not_ported(what: str, item: int):
-    def build():
-        raise ValueError("%s is not ported to cxxnet_tpu_torch yet "
-                         "(ROADMAP Queue 1 item %d)" % (what, item))
-    return build
-
-
 def _lm(L, extra=""):
     return lambda: shape_trainer(M.transformer_lm_config(
         vocab=8192, seq=L, batch_size=2, dim=512, nhead=8, nlayer=4,
@@ -147,9 +140,11 @@ def zoo(models=None):
          "img"),
         ("resnet18", lambda: shape_trainer(M.resnet_config(8, 224)), "img"),
         ("vgg16", lambda: shape_trainer(M.vgg_config(8, 224)), "img"),
-        ("mobilenet", _not_ported("mobilenet (the depthwise convolution)",
-                                  8), "img"),
-        ("vit_s16", _not_ported("vit_s16 (im2seq)", 9), "img"),
+        ("mobilenet", lambda: shape_trainer(M.mobilenet_config(8, 224)),
+         "img"),
+        ("vit_s16", lambda: shape_trainer(M.vit_config(
+            n_class=1000, image_hw=224, patch=16, batch_size=8, dim=384,
+            nhead=6, nlayer=12, ffn_mult=4)), "img"),
         ("transformer_lm_L2048", _lm(2048), "token"),
         ("transformer_lm_L8192_gqa_window",
          _lm(8192, "nkvhead = 2\nattn_window = 1024\nrope = 1\n"), "token"),

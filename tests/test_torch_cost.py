@@ -355,3 +355,101 @@ def test_train_step_counts_the_updater(imagenet):
                                do_update=False)
     assert full["flops"] - acc["flops"] == cost.UPDATER_OPS["sgd"] * n
     assert full["bytes accessed"] > acc["bytes accessed"]
+
+
+# ----------------------------------------------------------------------
+# the small MobileNet and ViT (tests/test_torch_mobilenet.py and
+# tests/test_torch_vit.py's nets) against XLA's count, at ImageNet.conf's
+# bars
+def _small_nets():
+    from cxxnet_tpu_torch import models
+    return {
+        "mobilenet": (models.mobilenet_config(
+            batch_size=8, input_hw=16, dev="cpu", n_class=4, base_ch=8,
+            blocks=((16, 1), (32, 2)), extra_cfg="eta = 0.05\n"),
+            (8, 3, 16, 16), 4),
+        "vit": (models.vit_config(
+            n_class=10, image_hw=48, patch=4, batch_size=4, dim=32, nhead=2,
+            nlayer=2, dev="cpu"), (4, 3, 48, 48), 10),
+    }
+
+
+def _attention_cores(tr, train):
+    """(XLA's count, the account's count) of the attention cores alone:
+    the JAX layer's dense ``attention_reference`` on the CPU (its forward,
+    and in training its vjp too) against the flash kernels' work that the
+    account counts. Both packages' programs carry the rest alike."""
+    from cxxnet_tpu.parallel import attention_reference
+    xla = mine = 0.0
+    for i, lay in enumerate(tr.net.layers):
+        if lay.type_name != "attention":
+            continue
+        b, d, _, L = tr.net.node_shapes[tr.net.cfg.layers[i].nindex_in[0]]
+        h, dh = lay.nhead, d // lay.nhead
+        q = jax.ShapeDtypeStruct((b, h, L, dh), jnp.float32)
+
+        def core(q, k, v):
+            return attention_reference(q, k, v, causal=bool(lay.causal))
+        if train:
+            def core_vjp(q, k, v, g):
+                out, vjp = jax.vjp(core, q, k, v)
+                return out, vjp(g)
+            xla += _xla_flops(core_vjp, q, q, q, q)
+        else:
+            xla += _xla_flops(core, q, q, q)
+        mine += flash_attn.work(b, h, h, L, dh, bool(lay.causal), 0, 4)[0]
+        if train:
+            (dq, _), (dkv, _) = flash_attn.bwd_work(
+                b, h, h, L, dh, bool(lay.causal), 0, 4)
+            mine += dq + dkv
+    return xla, mine
+
+
+@pytest.fixture(scope="module", params=["mobilenet", "vit"])
+def small_net(request):
+    from cxxnet_tpu import api as japi
+    from cxxnet_tpu_torch import api as tapi
+    cfg, shape, n_class = _small_nets()[request.param]
+    jn = japi.Net(dev="cpu", cfg=cfg)
+    jn.init_model()
+    tn = tapi.Net(dev="cpu", cfg=cfg)
+    tn.init_model()
+    return request.param, jn.net_, tn.net_, shape, n_class
+
+
+def test_small_net_predict_within_1pct_of_xla(small_net):
+    """The forward of the small MobileNet and ViT; ViT's attention cores
+    are taken out of both counts first (XLA counts JAX's dense attention
+    on the CPU, the account the flash kernels the port runs)."""
+    name, jtr, tr, shape, _ = small_net
+    node = jtr.net_cfg.param.num_nodes - 1
+    data = np.random.RandomState(0).rand(*shape).astype(np.float32)
+
+    def prog(params, data, rng):
+        out = jtr._eval_values(params, data, rng, (node,))[0]
+        out = out.reshape(out.shape[0], -1)
+        return jnp.argmax(out, axis=1).astype(jnp.float32), params
+    xla = _xla_flops(prog, jtr.params, jnp.asarray(data),
+                     jax.random.PRNGKey(0))
+    mine = cost.forward_cost(tr.net, tr.params)["flops"]
+    core_xla, core_mine = _attention_cores(tr, train=False)
+    assert (name == "vit") == (core_mine > 0)
+    assert abs((mine - core_mine) / (xla - core_xla) - 1.0) < 0.01, \
+        (mine, xla, core_mine, core_xla)
+
+
+def test_small_net_train_step_within_2pct_of_xla(small_net):
+    from cxxnet_tpu.io.data import DataBatch
+    name, jtr, tr, shape, n_class = small_net
+    rs = np.random.RandomState(0)
+    b = DataBatch()
+    b.data = rs.rand(*shape).astype(np.float32)
+    b.label = rs.randint(0, n_class, (shape[0], 1)).astype(np.float32)
+    b.batch_size = shape[0]
+    c = jtr.lower_update(b).cost_analysis()
+    c = c[0] if isinstance(c, (list, tuple)) else c
+    xla = float(c["flops"])
+    mine = cost.train_step_cost(tr.net, tr.params, tr.updaters)["flops"]
+    core_xla, core_mine = _attention_cores(tr, train=True)
+    assert abs((mine - core_mine) / (xla - core_xla) - 1.0) < 0.02, \
+        (mine, xla, core_mine, core_xla)

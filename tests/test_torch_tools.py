@@ -137,8 +137,8 @@ def _jax_shapes_only(monkeypatch):
                         self.params)
 
 
-ZOO = ("alexnet", "googlenet", "resnet18", "vgg16", "transformer_lm_L2048",
-       "transformer_lm_L8192_gqa_window")
+ZOO = ("alexnet", "googlenet", "resnet18", "vgg16", "mobilenet", "vit_s16",
+       "transformer_lm_L2048", "transformer_lm_L8192_gqa_window")
 
 
 @pytest.mark.parametrize("name", ZOO)
@@ -155,10 +155,12 @@ def test_zoo_flops_equal_the_jax_tool(name, monkeypatch):
 
 
 def test_zoo_skips_the_unported_models_as_the_jax_tool_does(capsys):
+    """Every zoo model is ported: mobilenet and vit_s16 give their rows
+    (no longer "skipped"), in the order asked, with nothing skipped."""
     rows = roofline.zoo(["mobilenet", "vit_s16", "alexnet"])
-    assert [r[0] for r in rows] == ["alexnet"]
-    err = capsys.readouterr().err
-    assert "# mobilenet: skipped (" in err and "# vit_s16: skipped (" in err
+    assert [r[0] for r in rows] == ["alexnet", "mobilenet", "vit_s16"]
+    assert all(r[2] == "img" and r[1] > 0 for r in rows)
+    assert "skipped" not in capsys.readouterr().err
 
 
 def test_decode_bound_bytes_equal_the_jax_tool(monkeypatch):
