@@ -21,9 +21,14 @@ processes of their own, stopped by SIGTERM mid-round and resumed with
 bit to the uninterrupted run's, a torn newest file quarantined, the
 port's offline tools (cxxnet_tpu_torch.tools: summarize_trace,
 telemetry_report, ckpt_fsck --deep, roofline) run on that run's trace,
-log and model files, then pred / extract / pred_raw from its model held
-to api.Net, and example/kaggle_bowl/pred.conf's pred_raw with a padded
-last batch; then the image input path without cv2: the port's host
+log and model files, the same training under the health monitor (a NaN
+batch rolled back and replayed onto the batch-excluded control's model
+file bit for bit, ``nonfinite_action = skip`` with no host sync in a
+step, the watchdog over a whole run), then pred / extract / pred_raw
+from its model held to api.Net, the port's C ABI (csrc/wrapper) driving
+wrapper/test_wrapper.c and, loaded with ctypes, ImageNet.conf's net on
+the card bitwise api.Net's, and example/kaggle_bowl/pred.conf's
+pred_raw with a padded last batch; then the image input path without cv2: the port's host
 library (csrc/host) built with g++, its JPEG decoder held to libjpeg-turbo's
 hashes of tests/data/jpeg and timed alone, its warp bitwise
 io/warp.py's, ImageNet.conf trained for a round from a JPEG pack made by
@@ -82,7 +87,8 @@ time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``alexnet_train``, ``uniform_kernel``, ``uniform_rows_kernel``,
 ``rrelu_alexnet_train``,
 ``cli_mnist_conv``, ``cli_imagenet_train``, ``cli_imagenet_resume``,
-``tools_offline``, ``cli_imagenet_pred``,
+``tools_offline``, ``cli_imagenet_health``, ``cli_imagenet_pred``,
+``c_abi_imagenet``,
 ``cli_bowl_pred_raw``, ``jpeg_decode``, ``cli_imagenet_jpeg``,
 ``cli_bowl_train``, ``export_forward``, ``export_decode``,
 ``export_load``, ``lrn_kernel_googlenet``,
@@ -538,10 +544,17 @@ def ptxas_summary(text: str) -> str:
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean time of fn() on the card, from CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
+    back-to-back calls after ``warmup`` calls and one more; a call slower
+    than 1/80 s (a plain version) is timed over fewer calls, about a
+    quarter second of them and at least 3 (or ``iters``, if fewer)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    iters = max(min(3, iters), min(iters, int(
+        0.25 / max(time.perf_counter() - t, 1e-9))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1496,7 +1509,7 @@ def phase_lm_serve(flash, api, models):
         "kernel, %s with flash_fwd_ref (in turns)"
         % (LM_BATCH, LM_SEQ, " / ".join("%.0f" % r for r in rates["kernel"]),
            " / ".join("%.0f" % r for r in rates["plain"])))
-    profile_forward(lambda: net.generate(prompts, LM_NEW), iters=2,
+    profile_forward(lambda: net.generate(prompts, LM_NEW), iters=1,
                     unit="request", shares=("flash_fwd",))
     profile_forward(lambda: net.predict_device(full), unit="forward",
                     shares=("flash_fwd",))
@@ -1888,17 +1901,10 @@ def _lm_serve_session(flash, rnd, api, models, perf, t_phase):
     profile_forward(lambda: drive_session(tr.decode_session(
         SESS_SLOTS, SESS_NEW), sub, 100), iters=1, warmup=False,
         unit="session run", shares=("flash_fwd",))
-    # (two of them: the profiler's own processing of a solo run's many
-    # small launches takes most of the phase's time otherwise)
-    log(" profile: solo greedy generate of 2 of the same requests")
-    profile_forward(lambda: run_solo(net, sub[:2], SESS_NEW, (0.0, 0), 100),
-                    iters=1, warmup=False, unit="solo run",
-                    shares=("flash_fwd",))
-    log(" profile: a dense sampled session over %d requests" % len(sub))
-    profile_forward(lambda: drive_session(tr.decode_session(
-        SESS_SLOTS, SESS_NEW, temperature=SESS_SAMPLING[0],
-        top_k=SESS_SAMPLING[1]), sub, 100), iters=1, warmup=False,
-        unit="session run", shares=("flash_fwd", "uniform_rows"))
+    # (one profile: solo generate's busy share is lm_serve's request
+    # profile, and the per-row draw's time is uniform_rows_kernel's; the
+    # profiler's own processing of a run's many small launches took most
+    # of this phase's time)
 
     log("  profiles done %.1f s into the phase"
         % (time.perf_counter() - t_phase))
@@ -3289,11 +3295,17 @@ def tensor_core_instructions(names):
     then run outside the tensor cores)."""
     from cxxnet_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    paths = _build.build_kernels(names)
+    # one cuobjdump per library, all started together
+    procs = {name: subprocess.Popen([tool, "-sass", paths[name]],
+                                    stdout=subprocess.PIPE, text=True)
+             for name in names}
     counts = {}
-    for name in names:
-        path = _build.build_kernels([name])[name]
-        sass = subprocess.run([tool, "-sass", path], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
+    for name, proc in procs.items():
+        sass, _ = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError("cuobjdump -sass %s exited %d"
+                                 % (paths[name], proc.returncode))
         counts[name] = sum(1 for ln in sass.splitlines() if "HMMA" in ln)
     log("  tensor-core instructions (HMMA lines in cuobjdump -sass): %s"
         % ", ".join("%s %d" % kv for kv in counts.items()))
@@ -4053,8 +4065,9 @@ CLI_TRAIN_IMAGES, CLI_TEST_IMAGES, CLI_HW = 1024, 256, 256
 CLI_ROUNDS = 2
 # synchronized AlexNet steps timed for cli_imagenet_train's MFU
 MFU_STEPS = 5
-# rounds of each io-only (test_io) run of the ImageNet pack
-IO_ROUNDS = 5
+# rounds of each io-only (test_io) run of the ImageNet pack: the loader's
+# start (the first round) and two rounds in its steady state
+IO_ROUNDS = 3
 # MNIST_CONV.conf on tests/synth_mnist.make_dataset data: every round of
 # the file (15) must end at test error 0, the bar .claude/skills/verify
 # states for the JAX package on this data
@@ -5090,6 +5103,7 @@ def phase_cli_imagenet(lrn, learn_task, api):
         log("  phase wall %.1f s" % (time.perf_counter() - t0))
         resume = phase_cli_imagenet_resume(cwd, conf, det_err)
         phase_tools_offline(cwd, conf, per_round)
+        health = phase_cli_imagenet_health(lrn, learn_task, api, cwd, conf)
         t0 = time.perf_counter()
         log("phase cli_imagenet_train (continued)")
 
@@ -5192,7 +5206,372 @@ def phase_cli_imagenet(lrn, learn_task, api):
         del net
         torch.cuda.empty_cache()
     log("  phase wall %.1f s" % (time.perf_counter() - t0))
-    return train, pred, resume
+    return train, pred, resume, health
+
+
+# cli_imagenet_health: the batch tests/test_health_faults.py tampers with,
+# the second batch (position 1) of the trainer's round 2 (learn-task round
+# 1), mid-run after a good checkpoint exists
+HEALTH_TARGET = (2, 1)
+# every run of the phase: ImageNet.conf's 2 rounds on cli_imagenet_train's
+# pack, a model saved each round (a rollback needs the round-1 file), the
+# round budget one larger for the rollback's replay; checkpoints unsynced
+HEALTH_EXTRA = ["max_round=%d" % (CLI_ROUNDS + 1), "ckpt_fsync=0"]
+HEALTH_WATCHDOG_S = 30
+
+
+def health_run(lrn, learn_task, cwd, args, name, extra, step):
+    """One ImageNet.conf training run through learn_task.main with every
+    ``Trainer.update`` call replaced by ``step(trainer, batch, orig)``
+    (True where it trained) and timed between two synchronizations. The
+    LRN counts start at 0 here and are read right after. Returns (step ms
+    of the trained calls, LRN counts, stdout and stderr, model dir)."""
+    from cxxnet_tpu_torch.nnet.trainer import Trainer
+    orig = Trainer.update
+    ms = []
+
+    def timed(self, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trained = step(self, batch, orig)
+        torch.cuda.synchronize()
+        if trained:
+            ms.append(1e3 * (time.perf_counter() - t))
+
+    lrn.launches = lrn.no_norm_launches = lrn.bwd_launches = 0
+    Trainer.update = timed
+    try:
+        out, err = run_cli(learn_task, cwd, args + ["model_dir=" + name]
+                           + extra, echo=("[", "health", "update round"))
+    finally:
+        Trainer.update = orig
+    counts = (lrn.launches, lrn.bwd_launches, lrn.no_norm_launches)
+    d = os.path.join(cwd, name)
+    for f in os.listdir(d):              # keep the last round's file only
+        if f != "%04d.model" % CLI_ROUNDS:
+            os.remove(os.path.join(d, f))
+    evals = len(re.findall(r"^round \d+: input-wait", out, re.M)) \
+        * (CLI_TEST_IMAGES // BATCH)
+    log("  %s: %d steps, step ms median %.3f (%.3f-%.3f, each between two "
+        "synchronizations); lrn_fwd %d (%d storing no norm), lrn_bwd %d"
+        % (name, len(ms), float(np.median(ms)), min(ms), max(ms),
+           counts[0], counts[2], counts[1]))
+    if counts != (2 * len(ms) + 2 * evals, 2 * len(ms), 2 * evals):
+        raise AssertionError(
+            "%s: expected 2 + 2 LRN launches in each of %d steps and 2 "
+            "without a norm in each of %d eval batches; counted %s"
+            % (name, len(ms), evals, counts))
+    return ms, counts, out + err, d
+
+
+def phase_cli_imagenet_health(lrn, learn_task, api, cwd, conf):
+    """ImageNet.conf's training under the health monitor on the card, at
+    full width, on cli_imagenet_train's pack (2 rounds, a model saved each
+    round), all in process with cuDNN off (its algorithms need not sum in
+    one order from run to run; the native convolutions repeat bit for
+    bit): a control run that records every batch's key (trainer round,
+    first instance id, tests/faultinject.py's ``recording_update``) and
+    drops HEALTH_TARGET's batch; a counted control that drops it but
+    counts the step (the rng stream and the epoch counter move, as a
+    suppressed step moves them); a run whose target batch is NaN with
+    ``health_monitor = 1``, which must roll back, replay without it and
+    end on the control's model file bit for bit; the same with
+    ``nonfinite_action = skip``, every update under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in the
+    guarded step raises), which must not roll back and must end on the
+    counted control's file bit for bit; the skip run also runs the
+    watchdog (``watchdog_timeout = 30``, ``watchdog_action = abort``, the
+    LRN libraries loaded again at their first use in the run), which must
+    record no stall (a stall would end this process with exit code 70).
+    Prints the step's median time with the monitor off, on, and on with
+    the skip guard, and the health vector's and the guard's cost alone.
+    Returns {run: (lrn_fwd, lrn_bwd, no-norm)}."""
+    from cxxnet_tpu_torch.ops import _build
+    from cxxnet_tpu_torch.utils import checkpoint as ckpt
+    log("phase cli_imagenet_health")
+    t0 = time.perf_counter()
+    args = [conf, "num_round=%d" % CLI_ROUNDS, "dev=" + NET_DEV] \
+        + HEALTH_EXTRA
+    # every run must find the mean image made: a run that makes it draws
+    # crops and mirrors for it, and its batches then differ from the others'
+    if not os.path.isfile(os.path.join(cwd, "models", "image_net_mean.bin")):
+        raise AssertionError("cli_imagenet_health runs after a run that "
+                             "made the pack's mean image")
+    launches = {}
+    keys = []
+    rnd, pos = HEALTH_TARGET
+    target = None
+
+    def control(tr, batch, orig):
+        here = sum(1 for r, _ in keys if r == tr.round)
+        keys.append((tr.round, int(batch.inst_index[0])))
+        if (tr.round, here) == HEALTH_TARGET:
+            return False
+        orig(tr, batch)
+        return True
+
+    def hit(tr, batch):
+        return tr.round == rnd and int(batch.inst_index[0]) == target
+
+    def counted(tr, batch, orig):
+        if hit(tr, batch):
+            # what update does on the host around a step (update_period 1)
+            tr._rng_counter += 1
+            tr.epoch_counter += 1
+            return False
+        orig(tr, batch)
+        return True
+
+    def nan(tr, batch, orig):
+        if hit(tr, batch):
+            batch = batch.shallow_copy()
+            batch.data = np.full(tuple(np.shape(batch.data)), np.nan,
+                                 np.float32)
+        orig(tr, batch)
+        return True
+
+    def no_sync(tr, batch, orig):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return nan(tr, batch, orig)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    with cudnn_off():
+        ms_off, launches["control"], _, ctl = health_run(
+            lrn, learn_task, cwd, args, "health_control", [], control)
+        target = [k for r, k in keys if r == rnd][pos]
+        log("  HEALTH_TARGET %s: first instance id %d (recorded by the "
+            "control run, which dropped it)" % (HEALTH_TARGET, target))
+        _, launches["counted_control"], _, cnt = health_run(
+            lrn, learn_task, cwd, args, "health_counted", [], counted)
+        ms_on, launches["nan_rollback"], out, roll = health_run(
+            lrn, learn_task, cwd, args, "health_rollback",
+            ["health_monitor=1"], nan)
+        if "health: rolled back to round" not in out \
+                or "nonfinite at round %d batch %d" % (rnd - 1, pos) \
+                not in out:
+            raise AssertionError("the NaN run did not roll back from its "
+                                 "target batch")
+        _build._libs.clear()     # the run loads the kernels at first use
+        ms_skip, launches["nan_skip"], out, skip = health_run(
+            lrn, learn_task, cwd, args, "health_skip",
+            ["health_monitor=1", "nonfinite_action=skip",
+             "watchdog_timeout=%d" % HEALTH_WATCHDOG_S,
+             "watchdog_action=abort"], no_sync)
+        if "skip (update suppressed on device)" not in out \
+                or "rolled back" in out:
+            raise AssertionError("the skip run did not suppress its target "
+                                 "step on the card without a rollback")
+        if "WATCHDOG" in out:
+            raise AssertionError("the watchdog recorded a stall")
+        log("  the skip run's watchdog (timeout %d s, abort): no stall"
+            % HEALTH_WATCHDOG_S)
+    # a file's framing is a function of its payload: equal verified
+    # payloads are equal files
+    files = {n: ckpt.read_verified(os.path.join(
+        d, "%04d.model" % CLI_ROUNDS))[0] for n, d in (
+            ("control", ctl), ("counted", cnt), ("rollback", roll),
+            ("skip", skip))}
+    states = {n: ckpt.peek_state(p) for n, p in files.items()}
+    for got, want in (("rollback", "control"), ("skip", "counted")):
+        if files[got] != files[want]:
+            raise AssertionError("the %s run's round-%d model file is not "
+                                 "bitwise the %s run's" % (got, CLI_ROUNDS,
+                                                            want))
+        log("  %s run's round-%d model file (a %d-byte payload) bitwise "
+            "the %s run's; rng_counter %d = %d" % (
+                got, CLI_ROUNDS, len(files[got]), want,
+                states[got]["rng_counter"], states[want]["rng_counter"]))
+    log("  the skip run against the plain control: files %s, rng_counter "
+        "%d against %d (the suppressed step took its dropout draw and its "
+        "epoch, which the plain control never took)"
+        % ("equal" if files["skip"] == files["control"] else "differ",
+           states["skip"]["rng_counter"], states["control"]["rng_counter"]))
+    log("  step ms medians at batch %d (cuDNN off): health_monitor = 0 "
+        "%.3f, health_monitor = 1 %.3f (%+.3f), + nonfinite_action = skip "
+        "%.3f (%+.3f)" % (BATCH, float(np.median(ms_off)),
+                          float(np.median(ms_on)),
+                          float(np.median(ms_on) - np.median(ms_off)),
+                          float(np.median(ms_skip)),
+                          float(np.median(ms_skip) - np.median(ms_off))))
+    health_costs(api)
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
+def health_costs(api):
+    """The health vector and the skip guard alone on ImageNet.conf's
+    trainer at batch BATCH (CUDA events, the gradients of one step): the
+    guard copies the stepped weights and the momentum into its shadow and
+    selects them back, five passes over their bytes."""
+    net = api.Net(dev=NET_DEV, cfg=imagenet_cfg())
+    net.init_model()
+    tr = net.net_
+    x = np.random.RandomState(SEED + 5).randn(BATCH, 3, 227, 227) \
+        .astype(np.float32)
+    y = np.random.RandomState(SEED + 6).randint(0, 1000, BATCH) \
+        .astype(np.float32)
+    loss, grads = tr.loss_and_grads(data_batch(x, y, DEV))
+    keys = tr._update_keys()
+    flat = [grads[i][k] for i, k in keys]
+    vec_ms = time_ms(lambda: tr._health_vector(loss, flat))
+    ok = torch.ones((), dtype=torch.bool, device=DEV)
+    guard_ms = time_ms(lambda: tr._guard_end(tr._guard_begin(keys), ok))
+    nbytes = sum(t.numel() * t.element_size() for t in tr._guard_live(keys))
+    grad_bytes = sum(g.numel() * g.element_size() for g in flat)
+    log("  alone at batch %d: the health vector %.4f ms (bound %.4f ms: "
+        "the gradients' %d bytes read once); the skip guard %.4f ms over "
+        "%d bytes of weights and momentum (bound %.4f ms: 5 passes)"
+        % (BATCH, vec_ms, 1e3 * grad_bytes / HBM_BYTES_PER_S, grad_bytes,
+           guard_ms, nbytes, 1e3 * 5 * nbytes / HBM_BYTES_PER_S))
+    del net, tr, grads, flat
+    torch.cuda.empty_cache()
+
+
+C_ABI_UPDATES = 2
+C_ABI_TIMED = 3
+C_ABI_NODE = "top[-1]"
+
+
+def c_abi_bind(lib):
+    """Argument and result types of the C ABI entry points this script
+    calls; returns the float and uint32 pointer types."""
+    import ctypes
+    F = ctypes.POINTER(ctypes.c_float)
+    U = ctypes.POINTER(ctypes.c_uint32)
+    vp = ctypes.c_void_p
+    for name, res, argt in (
+            ("CXNGetLastError", ctypes.c_char_p, []),
+            ("CXNNetCreate", vp, [ctypes.c_char_p, ctypes.c_char_p]),
+            ("CXNNetFree", None, [vp]),
+            ("CXNNetInitModel", ctypes.c_int, [vp]),
+            ("CXNNetUpdateBatch", ctypes.c_int, [vp, F, U, F, U]),
+            ("CXNNetPredictBatch", F, [vp, F, U, U]),
+            ("CXNNetExtractBatch", F, [vp, F, U, ctypes.c_char_p, U])):
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = argt
+    return F, U
+
+
+def phase_c_abi_imagenet(lrn, api):
+    """The port's C ABI (csrc/wrapper/cxxnet_wrapper.cc, built by
+    ``native.wrapper_library()``): the unchanged wrapper/test_wrapper.c
+    compiled against it and run in a process of its own (its legs ask for
+    "cpu"); then the library loaded with ctypes into this process drives
+    ImageNet.conf's net on "gpu" at batch BATCH (CXNNetCreate, InitModel,
+    C_ABI_UPDATES UpdateBatch calls on one seeded batch, PredictBatch,
+    ExtractBatch of C_ABI_NODE) held bitwise to api.Net driven the same
+    way in this process, cuDNN off on both; the LRN launches of the C
+    ABI's calls counted; the wall of an UpdateBatch against api.Net.update
+    (C_ABI_TIMED more calls each, between two synchronizations). Returns
+    the C ABI's (lrn_fwd, lrn_bwd, no-norm) launches."""
+    import ctypes
+    import sysconfig
+    from cxxnet_tpu_torch.utils import native
+    log("phase c_abi_imagenet")
+    t0 = time.perf_counter()
+    path = native.wrapper_library()
+    log("  C ABI %s built in %.2f s (libpython shared: %s)"
+        % (os.path.relpath(path, REPO), time.perf_counter() - t0,
+           sysconfig.get_config_var("Py_ENABLE_SHARED")))
+    with scratch_dir("c_abi") as d:
+        exe = os.path.join(d, "test_wrapper_c")
+        subprocess.run([os.environ.get("CC") or "gcc", "-O2", "-Wall",
+                        "-pthread", "-I", native.WRAPPER_SRC, "-o", exe,
+                        os.path.join(REPO, "wrapper", "test_wrapper.c"),
+                        path, "-Wl,-rpath," + os.path.dirname(path),
+                        *native.embed_ldflags()],
+                       check=True, capture_output=True, timeout=300)
+        env = dict(os.environ)
+        env.pop("CXXNET_TPU_ROOT", None)
+        t = time.perf_counter()
+        r = subprocess.run([exe], cwd=d, env=env, capture_output=True,
+                           text=True, timeout=600)
+        passed = [ln for ln in r.stderr.splitlines() if "PASSED" in ln]
+        log("  wrapper/test_wrapper.c against the twin: exit %d in %.2f s; "
+            "%s" % (r.returncode, time.perf_counter() - t,
+                    "; ".join(passed)))
+        if r.returncode != 0 or len(passed) != 3:
+            raise AssertionError("test_wrapper.c failed against the C ABI: "
+                                 + r.stderr[-2000:])
+
+    lib = ctypes.CDLL(path)
+    F, U = c_abi_bind(lib)
+    cfg = imagenet_cfg()
+    x = np.ascontiguousarray(np.random.RandomState(SEED + 7).randn(
+        BATCH, 3, 227, 227).astype(np.float32))
+    y = np.random.RandomState(SEED + 8).randint(0, 1000, (BATCH, 1)) \
+        .astype(np.float32)
+    ds = (ctypes.c_uint32 * 4)(*x.shape)
+    ls = (ctypes.c_uint32 * 2)(*y.shape)
+    xp, yp = x.ctypes.data_as(F), y.ctypes.data_as(F)
+    h = None
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    def c_update():
+        if lib.CXNNetUpdateBatch(h, xp, ds, yp, ls) != 0:
+            raise AssertionError("CXNNetUpdateBatch: "
+                                 + lib.CXNGetLastError().decode())
+
+    with cudnn_off():
+        lrn.launches = lrn.no_norm_launches = lrn.bwd_launches = 0
+        h = lib.CXNNetCreate(NET_DEV.encode(), cfg.encode())
+        if not h or lib.CXNNetInitModel(h) != 0:
+            raise AssertionError("CXNNetCreate / InitModel on %s: %s"
+                                 % (NET_DEV, lib.CXNGetLastError().decode()))
+        c_ms = [timed(c_update) for _ in range(C_ABI_UPDATES)]
+        n = ctypes.c_uint32()
+        p = lib.CXNNetPredictBatch(h, xp, ds, ctypes.byref(n))
+        c_pred = np.ctypeslib.as_array(p, (n.value,)).copy()
+        es = (ctypes.c_uint32 * 2)()
+        e = lib.CXNNetExtractBatch(h, xp, ds, C_ABI_NODE.encode(), es)
+        c_ext = np.ctypeslib.as_array(e, (es[0], es[1])).copy()
+        counts = (lrn.launches, lrn.bwd_launches, lrn.no_norm_launches)
+        c_ms += [timed(c_update) for _ in range(C_ABI_TIMED)]
+        lib.CXNNetFree(h)
+        torch.cuda.empty_cache()
+        net = api.Net(dev=NET_DEV, cfg=cfg)
+        net.init_model()
+        py_ms = [timed(lambda: net.update(x, y))
+                 for _ in range(C_ABI_UPDATES)]
+        want_pred = net.predict(x)
+        want_ext = net.extract(x, C_ABI_NODE).reshape(BATCH, -1)
+        py_ms += [timed(lambda: net.update(x, y))
+                  for _ in range(C_ABI_TIMED)]
+        del net
+        torch.cuda.empty_cache()
+    log("  C ABI on %s at batch %d: lrn_fwd %d (%d storing no norm), "
+        "lrn_bwd %d over %d UpdateBatch, PredictBatch and ExtractBatch"
+        % (NET_DEV, BATCH, counts[0], counts[2], counts[1], C_ABI_UPDATES))
+    want = (2 * C_ABI_UPDATES + 4, 2 * C_ABI_UPDATES, 4)
+    if counts != want:
+        raise AssertionError("C ABI LRN launches %s, expected %s"
+                             % (counts, want))
+    if not (np.array_equal(c_pred, want_pred)
+            and np.array_equal(c_ext, want_ext)):
+        raise AssertionError(
+            "the C ABI's PredictBatch / ExtractBatch after %d UpdateBatch "
+            "differ from api.Net's (max |diff| %g)"
+            % (C_ABI_UPDATES, float(np.abs(c_ext - want_ext).max())))
+    log("  PredictBatch (%d rows) and ExtractBatch %s %s after %d "
+        "UpdateBatch: bitwise api.Net's" % (len(c_pred), C_ABI_NODE,
+                                           c_ext.shape, C_ABI_UPDATES))
+    log("  wall per update (ms, between two synchronizations): "
+        "CXNNetUpdateBatch %s, median of the last %d %.3f; api.Net.update "
+        "%s, %.3f" % (" ".join("%.3f" % v for v in c_ms), C_ABI_TIMED,
+                      float(np.median(c_ms[-C_ABI_TIMED:])),
+                      " ".join("%.3f" % v for v in py_ms),
+                      float(np.median(py_ms[-C_ABI_TIMED:]))))
+    log("  phase wall %.1f s" % (time.perf_counter() - t0))
+    return counts
 
 
 def phase_cli_bowl_pred_raw(learn_task, api):
@@ -5974,6 +6353,7 @@ def phase_lm_sp_train(flash, rf, api, models, phase, seq, batch, extra,
         % (" / ".join("%.0f" % r for r in rates["sp"]), SP_N, sp_mode,
            " / ".join("%.0f" % r for r in rates["one"])))
     profile_forward(lambda: sp.net_.update(batch_dev), unit="step",
+                    iters=1,
                     shares=("ring_fwd_step", "ring_dq_step", "ring_dkv_step")
                     if ring_path else ("flash_fwd", "flash_bwd_dq",
                                        "flash_bwd_dkv"))
@@ -6491,12 +6871,13 @@ def phase_vgg16_bf16_remat(api, models):
 
     # remat on and off: one step's peak memory and gradients, same weights,
     # batch and dropout draw, cuDNN in its deterministic mode so that the
-    # recompute repeats the forward's sums; then the rate of each, in turns
+    # recompute repeats the forward's sums; then the rate of each (on, then
+    # off: one pass each keeps the script inside its time limit)
     peak, grads, rates = {}, {}, {}
     was = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        for remat in (1, 0, 0, 1):
+        for remat in (1, 0):
             n = api.Net(dev=NET_DEV, cfg=bf16_cfg(
                 vgg_cfg(models, VGG_BATCH, IMG_HW, remat)))
             n.load_model(fname)
@@ -6519,7 +6900,7 @@ def phase_vgg16_bf16_remat(api, models):
         torch.backends.cudnn.deterministic = was
     log("  peak device memory of a forward and backward above the resident "
         "state: remat on %s GB, off %s GB; training %s images/s with remat "
-        "on, %s off (in turns on, off, off, on; cuDNN deterministic)"
+        "on, %s off (on, then off; cuDNN deterministic)"
         % (" / ".join("%.2f" % p for p in peak[1]),
            " / ".join("%.2f" % p for p in peak[0]),
            " / ".join("%.1f" % r for r in rates[1]),
@@ -7141,8 +7522,9 @@ def main() -> int:
     rows_rec = phase_uniform_rows_kernel(rnd)
     rrelu = phase_rrelu_alexnet_train(rnd, lrn, api, ops, models)
     phase_cli_mnist_conv(learn_task)
-    cli_train, cli_pred, cli_resume = phase_cli_imagenet(lrn, learn_task,
-                                                         api)
+    cli_train, cli_pred, cli_resume, cli_health = phase_cli_imagenet(
+        lrn, learn_task, api)
+    c_abi = phase_c_abi_imagenet(lrn, api)
     phase_cli_bowl_pred_raw(learn_task, api)
     phase_jpeg_decode()
     cli_jpeg = phase_cli_imagenet_jpeg(lrn, learn_task, api)
@@ -7196,6 +7578,8 @@ def main() -> int:
               "rrelu_alexnet_train": rrelu[1],
               "cli_imagenet_train": cli_train[0],
               "cli_imagenet_resume": cli_resume[0],
+              "cli_imagenet_health": sum(c[0] for c in cli_health.values()),
+              "c_abi_imagenet": c_abi[0],
               "cli_imagenet_pred": cli_pred[0],
               "cli_imagenet_jpeg": cli_jpeg[0],
               "googlenet_bf16_train": gnet_train[0],
@@ -7209,6 +7593,8 @@ def main() -> int:
              {"alexnet_train": train_bwd, "rrelu_alexnet_train": rrelu[2],
               "cli_imagenet_train": cli_train[1],
               "cli_imagenet_resume": cli_resume[1],
+              "cli_imagenet_health": sum(c[1] for c in cli_health.values()),
+              "c_abi_imagenet": c_abi[1],
               "cli_imagenet_jpeg": cli_jpeg[1],
               "googlenet_bf16_train": gnet_train[1],
               "cli_googlenet_train": gnet_cli_train[1], **bench[1]},

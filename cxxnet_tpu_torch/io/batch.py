@@ -20,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils import health
 from .data import DataBatch, DataInst, IIterator
 
 
@@ -169,6 +170,11 @@ class ThreadBufferIterator(IIterator):
                 self.base.before_first()
                 while self.base.next():
                     item = self.base.value().deep_copy()
+                    # watchdog liveness: a beat per produced batch and per
+                    # poll of a full queue, so that only a producer wedged
+                    # inside base.next() (a hung read, a dead decoder)
+                    # goes silent
+                    health.beat("io.prefetch")
                     while True:
                         if self._poll_stop():
                             return
@@ -176,8 +182,10 @@ class ThreadBufferIterator(IIterator):
                             self.q.put(item, timeout=0.1)
                             break
                         except queue.Full:
-                            pass
+                            health.beat("io.prefetch")
                 self.q.put(None)  # end marker
+                # between passes the loader idles at _cmd.get()
+                health.pause("io.prefetch")
             except Exception as exc:   # surface in the consumer's next()
                 self.q.put(_LoaderError(exc))
                 return

@@ -24,10 +24,17 @@ the other's.
 cursor, a corrupt file quarantined), mid-round and bit for bit; SIGTERM /
 SIGINT during training writes that emergency file at the next step
 boundary and exits cleanly; ``ckpt_keep_last`` / ``ckpt_keep_every`` set
-the retention. ``status_port`` serves the live introspection pages
-(``utils/statusd.py``) for every task. Whenever telemetry is on
-(``telemetry_log`` or ``status_port``), ``perf_ledger = 1`` (the default)
-cards every program the run's trainer runs in the performance ledger
+the retention. ``health_monitor = 1`` checks every step's health vector
+one step late and, on a non-finite step or a loss spike, rolls back to
+the newest valid checkpoint and replays without the batch, the LR backed
+off by ``rollback_backoff`` (``nonfinite_action = skip``: the step is
+suppressed on the card instead; ``abort``: the run dies with a diagnostic
+dump); ``watchdog_timeout`` starts the heartbeat watchdog
+(``utils/health.py``) in train, serve and route. ``status_port`` serves
+the live introspection pages (``utils/statusd.py``) for every task.
+Whenever telemetry is on (``telemetry_log`` or ``status_port``),
+``perf_ledger = 1`` (the default) cards every program the run's trainer
+runs in the performance ledger
 (``utils/perf.py``: ``/programz``, ``/compilez``, the ``cxxnet_program_*``
 series); with the pages up, ``/profilez?secs=N`` captures a
 ``torch.profiler`` trace into ``profilez_dir``; ``profile_dir`` writes a
@@ -58,6 +65,7 @@ from . import device as device_mod
 from .io import create_iterator
 from .nnet.trainer import Trainer, create_net
 from .utils import checkpoint as ckpt
+from .utils import health
 from .utils import perf
 from .utils import serializer
 from .utils import statusd
@@ -67,8 +75,6 @@ from .utils.config import ConfigIterator
 # keys whose features are not ported yet, with the test that a value is the
 # key's default (which is accepted)
 _NOT_PORTED = {
-    "health_monitor": lambda v: int(v) == 0,
-    "watchdog_timeout": lambda v: float(v) == 0.0,
     "coordinator": lambda v: v == "",
     "num_worker": lambda v: int(v) <= 1,
 }
@@ -275,6 +281,23 @@ class LearnTask:
         self.ckpt_retries = 2
         self.ckpt_fsync = 1
         self.preempt_save = 1
+        # training health (utils/health.py): health_monitor = 1 checks
+        # every step's health vector one step late; an anomaly rolls back
+        # to the newest valid checkpoint and replays with the batch
+        # quarantined (nonfinite_action = rollback), is suppressed on the
+        # device (skip) or ends the run with a diagnostic dump (abort, or
+        # retries exhausted); watchdog_timeout > 0 starts a thread that
+        # dumps every stack when a heartbeat channel goes silent
+        self.health_monitor = 0
+        self.nonfinite_action = "rollback"
+        self.loss_spike_factor = 0.0     # 0: spike detection off
+        self.loss_spike_warmup = 20
+        self.rollback_backoff = 1.0      # LR scale per rollback (1: off)
+        self.rollback_max_retries = 2
+        self.watchdog_timeout = 0.0      # seconds; 0: no watchdog
+        self.watchdog_action = "warn"
+        self._health: Optional[health.HealthMonitor] = None
+        self._recovery: Optional[health.RecoveryPolicy] = None
         # the resume cursor _sync_latest_model found: the training state to
         # apply before the first update, and the batches of the resumed
         # round already trained
@@ -561,6 +584,22 @@ class LearnTask:
             self.ckpt_fsync = int(val)
         if name == "preempt_save":
             self.preempt_save = int(val)
+        if name == "health_monitor":
+            self.health_monitor = int(val)
+        if name == "nonfinite_action":
+            self.nonfinite_action = val
+        if name == "loss_spike_factor":
+            self.loss_spike_factor = float(val)
+        if name == "loss_spike_warmup":
+            self.loss_spike_warmup = int(val)
+        if name == "rollback_backoff":
+            self.rollback_backoff = float(val)
+        if name == "rollback_max_retries":
+            self.rollback_max_retries = int(val)
+        if name == "watchdog_timeout":
+            self.watchdog_timeout = float(val)
+        if name == "watchdog_action":
+            self.watchdog_action = val
         if name == "route_tenants":
             self.route_tenants = val
         if name == "perf_ledger":
@@ -864,14 +903,31 @@ class LearnTask:
         start = time.monotonic()
         self._stop_training = False
         self._preempt_noted = False
-        # the health monitor is not ported: with none, a preempted run
-        # always writes its emergency file, as the JAX package does
+        if self.health_monitor:
+            self._health = health.HealthMonitor(
+                spike_factor=self.loss_spike_factor,
+                spike_warmup=self.loss_spike_warmup)
+            self._recovery = health.RecoveryPolicy(
+                action=self.nonfinite_action,
+                backoff=self.rollback_backoff,
+                max_retries=self.rollback_max_retries)
+            # /healthz answers 503 while an anomaly is unresolved (the
+            # heartbeat channels are consulted whatever the monitor)
+            statusd.wire_health(self._recovery)
+        wd = None
+        if self.watchdog_timeout > 0:
+            # the step channel arms itself at the first finished batch and
+            # is paused across eval, checkpoints and kernel builds
+            wd = health.Watchdog(self.watchdog_timeout,
+                                 action=self.watchdog_action).start()
         with ckpt.PreemptionGuard(enabled=bool(self.preempt_save)) as guard:
             self._preempt = guard
             try:
                 self._task_train_loop(start)
             finally:
                 self._preempt = None
+                if wd is not None:
+                    wd.stop()
 
     def _task_train_loop(self, start: float) -> None:
         if self.continue_training == 0 and self.name_model_in == "NULL":
@@ -910,10 +966,19 @@ class LearnTask:
             # the session's last round (num_round reached or the max_round
             # cap exhausted) always checkpoints
             last_round = cc == 0 or self.start_counter == self.num_round
-            with telemetry.span("round", round=rnd):
-                t_input, t_step, t_eval, t_ckpt, n_img = \
-                    self._train_one_round(start, self._resume_batches,
-                                          last_round)
+            try:
+                with telemetry.span("round", round=rnd):
+                    t_input, t_step, t_eval, t_ckpt, n_img = \
+                        self._train_one_round(start, self._resume_batches,
+                                              last_round)
+            except health.TrainingAnomalyError as e:
+                # rollback: the newest valid checkpoint is restored and the
+                # loop re-enters its round with the batch quarantined (a
+                # rollback takes one unit of the max_round budget)
+                self._recover_from_anomaly(e.anomaly)
+                continue
+            if self._recovery is not None:
+                self._recovery.on_round_complete()
             self._resume_batches = 0
             wall = t_input + t_step
             if self.test_io != 0:
@@ -980,6 +1045,8 @@ class LearnTask:
         batches without training on them. A preemption request stops the
         round at the next step boundary with an emergency checkpoint."""
         sample_counter = 0
+        hm = self._health
+        rnd = self.start_counter - 1
         self.net_trainer.start_round(self.start_counter)
         self.itr_train.before_first()
         t_input = t_step = t_eval = t_ckpt = 0.0
@@ -999,6 +1066,19 @@ class LearnTask:
                       % (batches_done, self.start_counter - 1))
         while True:
             t0 = time.perf_counter()
+            if self._recovery is not None \
+                    and self._recovery.should_skip(rnd, batches_done):
+                # a quarantined batch (an earlier anomaly): the cursor
+                # moves past it without training, the rollback replay's
+                # exclusion of the offending batch
+                if self.itr_train.skip(1) == 0:
+                    break
+                telemetry.event({"ev": "health_skip_batch", "round": rnd,
+                                 "batch": batches_done})
+                telemetry.count("health/batches_skipped")
+                sample_counter += 1
+                batches_done += 1
+                continue
             if not self.itr_train.next():
                 break
             batch = self.itr_train.value()
@@ -1010,6 +1090,14 @@ class LearnTask:
             if self.test_io == 0:
                 self.net_trainer.update(batch)
                 t_step += time.perf_counter() - t1
+                if hm is not None:
+                    # the PREVIOUS step's vector: its copy was queued
+                    # behind that step, so the read waits for it alone
+                    anomaly = hm.observe(rnd, batches_done,
+                                         self.net_trainer.last_health)
+                    if anomaly is not None:
+                        self._on_anomaly(anomaly)
+            health.beat("train.step")
             n_img += batch.batch_size - batch.num_batch_padd
             sample_counter += 1
             batches_done += 1
@@ -1020,10 +1108,26 @@ class LearnTask:
                        time.monotonic() - start))
             if self.test_io == 0 and self._preempt_requested():
                 t0 = time.perf_counter()
-                self._save_emergency(batches_done)
+                bad = hm.drain() if hm is not None else None
+                if bad is not None:
+                    # never persist the state after an anomaly: the resume
+                    # restarts from the last numbered checkpoint instead
+                    telemetry.event({"ev": "health_anomaly_at_preempt",
+                                     "anomaly": bad.id})
+                else:
+                    self._save_emergency(batches_done)
                 t_ckpt = time.perf_counter() - t0
                 self._stop_training = True
                 return t_input, t_step, t_eval, t_ckpt, n_img
+        # eval and the checkpoint are legitimately step-silent (the next
+        # round's first batch re-arms the channel)
+        health.pause("train.step")
+        if hm is not None:
+            # settle the round's health BEFORE eval and checkpoint: a bad
+            # last step must roll back, never be saved as good
+            anomaly = hm.drain()
+            if anomaly is not None:
+                self._on_anomaly(anomaly)
         if self.test_io == 0:
             t0 = time.perf_counter()
             self.net_trainer.synchronize()
@@ -1051,6 +1155,90 @@ class LearnTask:
                 self._save_emergency(0)
             self._stop_training = True
         return t_input, t_step, t_eval, t_ckpt, n_img
+
+    # ------------------------------------------------------------------
+    # training-health recovery (cxxnet_tpu/learn_task.py:1304-1389)
+    def _on_anomaly(self, anomaly) -> None:
+        """Route a detected anomaly through the recovery policy: 'skip'
+        logs and goes on (the device guard already kept the old state),
+        'rollback' unwinds the round through TrainingAnomalyError, 'abort'
+        dumps diagnostics and raises."""
+        decision = self._recovery.decide(anomaly)
+        if decision == "skip":
+            # the guard suppresses only NON-FINITE steps; a finite loss
+            # spike in skip mode was applied and is only logged
+            suppressed = anomaly.kind == "nonfinite"
+            if not self.silent:
+                print("health: %s -> %s" % (
+                    anomaly.describe(),
+                    "skip (update suppressed on device)" if suppressed
+                    else "logged (skip mode does not suppress finite "
+                         "spikes)"))
+            telemetry.event({"ev": "health_skip", "anomaly": anomaly.id,
+                             "kind": anomaly.kind, "round": anomaly.round,
+                             "batch": anomaly.batch,
+                             "suppressed": suppressed})
+            telemetry.count("health/updates_suppressed" if suppressed
+                            else "health/spikes_logged")
+            return
+        if not self.silent:
+            print("health: %s -> %s" % (anomaly.describe(), decision))
+        if decision == "abort":
+            reason = ("nonfinite_action=abort" if self.nonfinite_action ==
+                      "abort" else "%d consecutive rollbacks exhausted "
+                      "rollback_max_retries=%d" % (self._recovery.retries,
+                                                   self.rollback_max_retries))
+            telemetry.event({"ev": "health_abort", "anomaly": anomaly.id,
+                             "reason": reason})
+            health.dump_diagnostics(reason, anomaly)
+            raise RuntimeError(
+                "health: training anomaly (%s); aborting: %s"
+                % (anomaly.describe(), reason))
+        raise health.TrainingAnomalyError(anomaly)
+
+    def _recover_from_anomaly(self, anomaly) -> None:
+        """Roll back to the newest valid checkpoint and let the train loop
+        re-enter the restored round: the offending batch is left out of the
+        replay (RecoveryPolicy.should_skip), the checkpoint's training
+        state and augmenter state apply as on a resume, and the
+        accumulated LR backoff is applied again to the new trainer."""
+        pol = self._recovery
+        telemetry.event({"ev": "health_rollback", "anomaly": anomaly.id,
+                         "retry": pol.retries, "round": anomaly.round,
+                         "batch": anomaly.batch, "lr_scale": pol.lr_scale,
+                         "skip": pol.skipped()})
+        telemetry.count("health/rollbacks")
+        health.pause("train.step")   # the reload is step-silent
+        self._health.reset_pending()
+        self._resume_state = None
+        self._resume_batches = 0
+        # any valid checkpoint will do: drop the scan floor first
+        self.start_counter = 0
+        if self._sync_latest_model() == 0:
+            raise RuntimeError(
+                "health: anomaly at round %d batch %d requires a rollback "
+                "but no valid checkpoint exists in %s (save_model=0?); "
+                "cannot recover" % (anomaly.round, anomaly.batch,
+                                    self.name_model_dir))
+        if not self.silent:
+            print("health: rolled back to round %d (retry %d/%d, lr x%g)"
+                  % (self.start_counter - 1, pol.retries,
+                     self.rollback_max_retries, pol.lr_scale))
+        if self._resume_state is not None:
+            self.net_trainer.restore_training_state(self._resume_state)
+            rng = self._resume_state.get("iter_rng")
+            if rng and self.itr_train is not None:
+                self.itr_train.set_epoch_rng_state(rng)
+            self._resume_state = None
+        if not self._iter_chain_stable(self.itr_train):
+            print("WARNING: the training iterator's epoch order is not "
+                  "replay-stable (windowed shuffle); the rollback replay "
+                  "sees a different batch order and the quarantined "
+                  "window is positional — recovery is approximate")
+        self.net_trainer.scale_lr(pol.lr_scale)
+        # recovery done (checkpoint restored, replay armed): /healthz
+        # returns to 200
+        pol.resolve()
 
     # ------------------------------------------------------------------
     def _pred_batches(self):
@@ -1354,6 +1542,12 @@ class LearnTask:
         statusd.register_probe("serving", fe.health_probe)
         statusd.register_probe("serving.worker", fe.liveness_probe,
                                liveness=True)
+        wd = None
+        if self.watchdog_timeout > 0:
+            # the serve.accept / serve.worker channels beat from the
+            # frontend's threads (paused across idle periods)
+            wd = health.Watchdog(self.watchdog_timeout,
+                                 action=self.watchdog_action).start()
         old_hup = None
         try:
             # SIGHUP = hot reload; the handler only sets a flag. Signal
@@ -1391,6 +1585,8 @@ class LearnTask:
                               % guard.signum, file=sys.stderr, flush=True)
         finally:
             stats = fe.drain()
+            if wd is not None:
+                wd.stop()
             if old_hup is not None:
                 try:
                     signal.signal(signal.SIGHUP, old_hup)
@@ -1479,6 +1675,12 @@ class LearnTask:
                   "(%d up; servd line protocol)"
                   % (port, len(replicas), up), file=sys.stderr,
                   flush=True)
+        wd = None
+        if self.watchdog_timeout > 0:
+            # the route.accept / route.probe channels beat from the
+            # router's threads
+            wd = health.Watchdog(self.watchdog_timeout,
+                                 action=self.watchdog_action).start()
         # SIGHUP = rolling fleet reload. The handler only sets a flag
         # (request_rolling_reload takes locks); the main loop acts on it.
         hup_flag = {"on": False}
@@ -1507,6 +1709,8 @@ class LearnTask:
                           % guard.signum, file=sys.stderr, flush=True)
         finally:
             stats = router.drain()
+            if wd is not None:
+                wd.stop()
             if old_hup is not None:
                 try:
                     signal.signal(signal.SIGHUP, old_hup)

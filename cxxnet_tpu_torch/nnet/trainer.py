@@ -20,8 +20,15 @@ and an asynchronous copy on a stream of its own (``StagingRing``,
 ``_batch_tensors``). The training-state section of a model file
 (``save_training_state``, ``load_training_state``,
 ``restore_training_state``) carries the step state that weights and
-optimizer state do not, so a preempted run resumes bit for bit. Meshes
-over several devices and the health monitor belong to later slices.
+optimizer state do not, so a preempted run resumes bit for bit. With
+``health_monitor = 1`` every step also computes its health vector
+``[loss, grad_norm_sq, nan_grad_elems, ok]`` on the device and copies it
+to page-locked memory behind an event (``last_health``, a
+``StagedVector``), which the host monitor reads one step late;
+``nonfinite_action = skip`` guards the step on the device, so that a
+non-finite step leaves every piece of state as it was, with no host read
+(``_guard_begin`` / ``_guard_end``). Meshes over several devices belong to
+a later slice.
 ``export_forward`` and ``export_decode`` write the inference forward and
 the decode loop as ``torch.export`` programs with the weights baked in.
 Every unit of device work is one of the JAX package's programs under its
@@ -173,6 +180,25 @@ class StagingRing:
         self._events[self._last] = event
 
 
+class StagedVector:
+    """A small device tensor on its way to the host: copied without
+    blocking into page-locked memory right after the step that made it,
+    with an event recorded behind the copy. ``tolist`` waits on that event
+    alone, so a host read of step N-1's vector after step N was queued
+    does not wait for step N (a plain ``.cpu()`` would: copies are ordered
+    on the stream)."""
+
+    def __init__(self, t: torch.Tensor):
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.host.copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def tolist(self):
+        self.event.synchronize()
+        return self.host.tolist()
+
+
 class Trainer:
     """Net trainer; one instance per model."""
 
@@ -191,6 +217,16 @@ class Trainer:
         self.input_scale = 1.0      # device-side input normalization
         self.input_mean = None
         self.clip_global_norm = 0.0  # 0 -> off
+        # health_monitor = 1: every step also makes its health vector
+        # [loss, grad_norm_sq, nan_grad_elems, ok] on the device
+        # (last_health), read by the host monitor one step late;
+        # nonfinite_action = skip also keeps the old state on the device
+        # when the step is non-finite (cxxnet_tpu/nnet/trainer.py:118-128)
+        self.health_monitor = 0
+        self.nonfinite_action = "rollback"
+        self.last_health = None
+        # the skip guard's copy of the tensors the updaters step in place
+        self._guard_shadow: Optional[List[torch.Tensor]] = None
         # sequence parallelism: the device runs this many virtual ranks of
         # the sequence in every attention layer (doc/multichip.md:162-193)
         self.seq_parallel = 1
@@ -262,10 +298,11 @@ class Trainer:
             check(int(val) == 1, "%s > 1 is not ported yet (ROADMAP.md "
                   "Queue 1 item 12)" % name)
         if name == "health_monitor":
-            check(int(val) == 0, "health_monitor is not ported yet")
+            self.health_monitor = int(val)
         if name == "nonfinite_action":
-            check(False, "nonfinite_action is not ported yet (it acts "
-                  "through health_monitor)")
+            check(val in ("rollback", "skip", "abort"),
+                  "nonfinite_action must be rollback, skip, or abort")
+            self.nonfinite_action = val
         if name == "input_divideby":
             self.input_scale = 1.0 / float(val)
         if name == "input_scale":
@@ -643,7 +680,8 @@ class Trainer:
              with_health)
 
         def run(tr, params, data, label):
-            tr._train_step(do_update, with_stats, data, label)
+            return tr._train_step(do_update, with_stats, data, label,
+                                  with_health)
 
         def account(tr, params, data, label):
             return cost.train_step_cost(tr.net, params, tr.updaters,
@@ -662,12 +700,15 @@ class Trainer:
         accumulate = self.sample_counter % self.update_period != 0
         with_accum = self.update_period > 1
         with_stats = self.eval_train != 0 and len(self.train_metric) > 0
+        with_health = self.health_monitor != 0
         step = self._get_step(need_update, accumulate, with_accum,
-                              with_stats)
+                              with_stats, with_health)
         with telemetry.span("train.h2d"):
             data, label = self._train_tensors(batch)
         with telemetry.span("train.step"):
-            step(self, self.params, data, label)
+            vec = step(self, self.params, data, label)
+            self.last_health = None if vec is None else (
+                StagedVector(vec) if vec.is_cuda else vec)
         if telemetry.enabled():
             telemetry.count("train.images",
                             getattr(batch, "batch_size", data.shape[0])
@@ -680,28 +721,49 @@ class Trainer:
             self.epoch_counter += 1
 
     def _train_step(self, need_update: bool, with_stats: bool, data,
-                    label) -> None:
-        """The training step's work on the device tensors of one batch."""
+                    label, with_health: bool = False):
+        """The training step's work on the device tensors of one batch;
+        returns its health vector (a float32 device tensor) when
+        ``with_health``, else None."""
         # the weights the updaters step; state (BN running stats) has none
         keys = self._update_keys()
-        values, labels, _, grads = self._forward_backward_on(
+        values, labels, loss, grads = self._forward_backward_on(
             data, label, self._next_gen(), keys)
         state_ups = self.net._last_state_updates
+        health = ok = None
+        if with_health:
+            # over the FRESH gradients, before the accumulation, so that
+            # the vector names the offending batch
+            health, ok = self._health_vector(loss, grads)
+        guard = with_health and self.nonfinite_action == "skip"
         if with_stats:
             with torch.no_grad():
                 outs = [values[n].reshape(values[n].shape[0], -1).float()
                         for n in self.eval_nodes]
                 stats = self.train_metric.device_stats(outs, labels)
-                self._metric_accum = stats if self._metric_accum is None \
-                    else self._metric_accum + stats
+                prev = self._metric_accum
+                self._metric_accum = stats if prev is None else prev + stats
+                if guard:
+                    self._metric_accum = torch.where(
+                        ok, self._metric_accum,
+                        torch.zeros_like(stats) if prev is None else prev)
         del values
         if self.update_period > 1:
-            if self.grad_accum is None:
-                self.grad_accum = grads
-            else:
-                for a, g in zip(self.grad_accum, grads):
-                    a.add_(g)
+            with torch.no_grad():
+                if guard:
+                    # a bad batch adds nothing: -0.0 leaves every sum as
+                    # it is, and a fresh sum starts at zero
+                    grads = [g.masked_fill(~ok, -0.0 if self.grad_accum
+                                           is not None else 0.0)
+                             for g in grads]
+                if self.grad_accum is None:
+                    self.grad_accum = grads
+                else:
+                    for a, g in zip(self.grad_accum, grads):
+                        a.add_(g)
             grads = self.grad_accum
+        if guard and need_update:
+            live = self._guard_begin(keys)
         if need_update:
             if self.clip_global_norm > 0:
                 # whole-model norm clip: one scale for every tensor
@@ -714,13 +776,83 @@ class Trainer:
                 self.updaters[i][k].apply(self.params[i][k], g,
                                           self.opt_state[i][k],
                                           self.epoch_counter)
-            self.grad_accum = None
+            if guard:
+                self._guard_end(live, ok)
+                if self.grad_accum is not None:
+                    # flushed after a good step, kept after a bad one
+                    with torch.no_grad():
+                        self.grad_accum = [a.masked_fill_(ok, 0.0)
+                                           for a in self.grad_accum]
+            else:
+                self.grad_accum = None
         # non-gradient updates (BN running stats), every batch, after the
         # step (cxxnet_tpu/nnet/trainer.py:1061-1066)
         for (i, k), v in state_ups.items():
-            self.params[i][k] = v
+            self.params[i][k] = torch.where(ok, v, self.params[i][k]) \
+                if guard else v
         if need_update or state_ups:
             self._params_gen += 1
+        return health
+
+    @torch.no_grad()
+    def _health_vector(self, loss, grads):
+        """``([loss, grad_norm_sq, nan_grad_elems, ok], ok)``: the float32
+        vector of cxxnet_tpu/nnet/trainer.py:1026-1043 and its ``ok`` as a
+        0-d bool tensor, both on the device; no host read."""
+        lossf = loss.float()
+        # one flat copy, then one dot product and one count: a handful of
+        # launches where a pass per tensor took ~100 (the host's dispatch
+        # held a step's vector at 2 ms on the card for 16 tensors)
+        flat = torch.cat([g.reshape(-1).float() for g in grads]) if grads \
+            else torch.zeros(0, device=lossf.device)
+        gn_sq = torch.vdot(flat, flat)
+        nan_elems = torch.isnan(flat).sum()
+        ok = torch.isfinite(lossf) & torch.isfinite(gn_sq)
+        return torch.stack([lossf, gn_sq, nan_elems.float(),
+                            ok.float()]), ok
+
+    def _guard_live(self, keys) -> List[torch.Tensor]:
+        """The tensors the updaters step in place: the stepped weights and
+        every optimizer-state tensor, in a fixed order."""
+        live = [self.params[i][k] for i, k in keys]
+        for st in self.opt_state:
+            for key in sorted(st):
+                live.extend(st[key][sk] for sk in sorted(st[key]))
+        return live
+
+    @torch.no_grad()
+    def _guard_begin(self, keys) -> List[torch.Tensor]:
+        """The skip guard's first half: copy the state the update is
+        about to step in place into a persistent shadow (allocated once,
+        reused every step)."""
+        live = self._guard_live(keys)
+        sh = self._guard_shadow
+        if sh is None or len(sh) != len(live) or any(
+                s.shape != t.shape or s.dtype != t.dtype
+                or s.device != t.device for s, t in zip(sh, live)):
+            sh = self._guard_shadow = [torch.empty_like(t) for t in live]
+        torch._foreach_copy_(sh, live)
+        return live
+
+    @torch.no_grad()
+    def _guard_end(self, live, ok) -> None:
+        """The second half: where the step was not ok, put the shadow back
+        in place (``torch.where`` on the device: no host read)."""
+        for t, s in zip(live, self._guard_shadow):
+            torch.where(ok, t, s, out=t)
+
+    def scale_lr(self, factor: float) -> None:
+        """Multiply every updater's base learning rate by ``factor``: the
+        health policy's rollback backoff, which learn_task applies again
+        after each checkpoint restore (a restore rebuilds the updaters at
+        their configured rate). The port reads base_lr at every step, so
+        no program is rebuilt (cxxnet_tpu/nnet/trainer.py:1221-1234)."""
+        if factor == 1.0:
+            return
+        for ups in self.updaters:
+            for up in ups.values():
+                up.param.base_lr *= factor
+        telemetry.count("health.lr_backoff")
 
     def synchronize(self) -> None:
         """Wait until the device has finished the work queued so far."""

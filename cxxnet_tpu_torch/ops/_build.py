@@ -31,7 +31,7 @@ import subprocess
 import time
 from typing import Dict, Iterable, Optional, Sequence
 
-from ..utils import telemetry
+from ..utils import health, telemetry
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -110,6 +110,9 @@ def _entry(name: str, entry: str, argtypes: Sequence):
     """The entry point ``entry`` of the ctypes library of csrc/<name>.cu,
     built and loaded at first use, with its argument types declared."""
     if name not in _libs:
+        # a build at first use is legitimately step-silent: disarm the
+        # training step's watchdog channel (the next beat re-arms it)
+        health.pause("train.step")
         t0 = time.perf_counter()
         lib = ctypes.CDLL(build_kernels([name])[name])
         lib.cxxnet_cuda_error_string.argtypes = [ctypes.c_int]

@@ -22,11 +22,12 @@ trainer accumulates them and the host reads them once, at ``absorb``.
 from __future__ import annotations
 
 import re
-import warnings
 from typing import List, Optional
 
 import numpy as np
 import torch
+
+from . import health
 
 
 class IMetric:
@@ -117,7 +118,10 @@ class MetricLogloss(IMetric):
             res = -(y * np.log(p) + (1.0 - y) * np.log(1.0 - p))
         bad = ~np.isfinite(res)
         if bad.any():
-            warnings.warn("logloss: %d non-finite rows left out" % bad.sum())
+            # non-finite rows (NaN predictions or labels) are left out of
+            # sum and count and surface as a health event (warned once,
+            # counted in health/nonfinite_metric), as the device path does
+            health.note_nonfinite("logloss", int(bad.sum()))
             res = res[~bad]
         self.sum_metric += float(np.sum(res))
         self.cnt_inst += int(res.shape[0])
@@ -227,12 +231,13 @@ class MetricSet:
     def absorb(self, stats) -> None:
         """Fold a fetched (n_metrics, 2) stats array (the on-device
         accumulator) into the host counters. A non-finite sum is kept, so
-        the printed value shows it, and warned about."""
+        the printed value shows it, and routed through the health event
+        the host path emits (``health.note_nonfinite``)."""
         stats = np.asarray(stats)
         for i, e in enumerate(self.evals):
             s = float(stats[i, 0])
             if not np.isfinite(s):
-                warnings.warn("train metric %s: non-finite sum" % e.name)
+                health.note_nonfinite("train-metric:%s" % e.name)
             e.sum_metric += s
             e.cnt_inst += int(round(float(stats[i, 1])))
 

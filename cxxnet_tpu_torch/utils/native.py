@@ -20,6 +20,13 @@ decodes runs in parallel:
 * ``warp_affine`` — the geometric augmenter's bicubic warp;
 * ``NativePageReader`` — BinaryPage read-ahead on a C++ thread.
 
+The same module builds the port's C ABI (``csrc/wrapper/
+cxxnet_wrapper.cc``, declared in its ``cxxnet_wrapper.h``, the twin of
+wrapper/): ``wrapper_library()`` compiles it with ``g++`` and the flags of
+``python3-config --includes`` / ``--ldflags --embed`` into
+``build/cxxnet_tpu_torch/wrapper/libcxxnetwrapper-<hash>.so`` and returns
+the path, under the same file lock and tmp + rename.
+
 Nothing is built or loaded at import.
 """
 
@@ -29,7 +36,10 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import shlex
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
 from typing import List, Optional, Tuple
@@ -40,6 +50,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HOST_SRC = os.path.join(PKG_DIR, "csrc", "host")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "cxxnet_tpu_torch", "host")
+WRAPPER_SRC = os.path.join(PKG_DIR, "csrc", "wrapper")
+WRAPPER_BUILD_DIR = os.path.join(os.path.dirname(BUILD_DIR), "wrapper")
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread",
              "-ffp-contract=off")
 
@@ -93,41 +105,113 @@ def library_path() -> str:
                         "libcxn_host-%s.so" % digest.hexdigest()[:12])
 
 
-def build() -> str:
-    """Build the host library if it is not built; returns its path.
-    Raises RuntimeError with the compiler's output if the build fails."""
-    global build_seconds
-    path = library_path()
+def _build_locked(path: str, cmd: List[str], what: str) -> bool:
+    """Compile ``cmd`` (its output file given as ``{tmp}``) into ``path``
+    unless it exists: under a file lock in the build directory, to a
+    temporary name renamed into place, the compiler's output kept beside
+    it in ``<name>.log``. Returns whether this call built it; raises
+    RuntimeError with the compiler's output if the build fails."""
     if os.path.isfile(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    t0 = time.perf_counter()
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        return False
+    d = os.path.dirname(path)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if os.path.isfile(path):     # another process built it
-                return path
+                return False
             tmp = "%s.%d.tmp" % (path, os.getpid())
-            cmd = [_compiler(), *CXX_FLAGS, "-I", HOST_SRC, "-o", tmp,
-                   *_sources()]
+            cmd = [tmp if a == "{tmp}" else a for a in cmd]
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True)
             except OSError as e:
-                raise RuntimeError("host library build failed: cannot run "
-                                   "%s (%s); set CXX to a C++17 compiler"
-                                   % (cmd[0], e)) from None
+                raise RuntimeError("%s build failed: cannot run %s (%s); "
+                                   "set CXX to a C++17 compiler"
+                                   % (what, cmd[0], e)) from None
             with open(path[:-3] + ".log", "w") as log:
                 log.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
             if proc.returncode != 0:
                 if os.path.exists(tmp):
                     os.remove(tmp)
                 raise RuntimeError(
-                    "host library build failed (%s exit %d):\n%s%s"
-                    % (cmd[0], proc.returncode, proc.stdout, proc.stderr))
+                    "%s build failed (%s exit %d):\n%s%s"
+                    % (what, cmd[0], proc.returncode, proc.stdout,
+                       proc.stderr))
             os.replace(tmp, path)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-    build_seconds = time.perf_counter() - t0
+    return True
+
+
+def build() -> str:
+    """Build the host library if it is not built; returns its path.
+    Raises RuntimeError with the compiler's output if the build fails."""
+    global build_seconds
+    path = library_path()
+    t0 = time.perf_counter()
+    cmd = [_compiler(), *CXX_FLAGS, "-I", HOST_SRC, "-o", "{tmp}",
+           *_sources()]
+    if _build_locked(path, cmd, "host library"):
+        build_seconds = time.perf_counter() - t0
+    return path
+
+
+def _python_config(*args: str) -> List[str]:
+    """The flags ``python3-config`` prints for ``args``, from the config
+    script of the interpreter running this code where it has one; without
+    one, the same flags from ``sysconfig``."""
+    names = [os.path.join(sysconfig.get_config_var("BINDIR") or "",
+                          "python%s-config"
+                          % sysconfig.get_config_var("VERSION")),
+             "python3-config"]
+    for name in names:
+        try:
+            out = subprocess.run([name, *args], capture_output=True,
+                                 text=True, check=True).stdout
+        except (OSError, subprocess.CalledProcessError):
+            continue
+        return shlex.split(out)
+    if args == ("--includes",):
+        return ["-I" + sysconfig.get_paths()["include"]]
+    return ["-L" + (sysconfig.get_config_var("LIBDIR") or ""),
+            "-lpython" + sysconfig.get_config_var("LDVERSION")] + \
+        shlex.split(sysconfig.get_config_var("LIBS") or "")
+
+
+def embed_ldflags() -> List[str]:
+    """What a C program that embeds the interpreter links with
+    (``python3-config --ldflags --embed``, and the library directory as
+    its run path)."""
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    return _python_config("--ldflags", "--embed") + (
+        ["-Wl,-rpath," + libdir] if libdir else [])
+
+
+def wrapper_library() -> str:
+    """The port's C ABI (csrc/wrapper/cxxnet_wrapper.cc) as a shared
+    library, built at first use; returns its path. A C program compiles
+    against ``csrc/wrapper/cxxnet_wrapper.h`` and links this file and
+    ``embed_ldflags()``. The embedded interpreter is this one
+    (``CXN_PYTHON``) and the checkout this one (``CXN_ROOT``, overridden by
+    ``CXXNET_TPU_ROOT``). Where this interpreter links libpython as a
+    shared library the C ABI links it too; where libpython is built into
+    the executable the C ABI leaves its symbols to the process that loads
+    it, so that ``ctypes`` never loads a second interpreter."""
+    src = os.path.join(WRAPPER_SRC, "cxxnet_wrapper.cc")
+    flags = ["-std=c++17", "-O2", "-shared", "-fPIC",
+             '-DCXN_PYTHON="%s"' % sys.executable,
+             '-DCXN_ROOT="%s"' % os.path.dirname(PKG_DIR),
+             *_python_config("--includes"), "-I", WRAPPER_SRC]
+    libs = embed_ldflags() if sysconfig.get_config_var("Py_ENABLE_SHARED") \
+        else []
+    digest = hashlib.sha1(" ".join([_compiler()] + flags + libs).encode())
+    for f in (src, os.path.join(WRAPPER_SRC, "cxxnet_wrapper.h")):
+        with open(f, "rb") as fh:
+            digest.update(fh.read())
+    path = os.path.join(WRAPPER_BUILD_DIR, "libcxxnetwrapper-%s.so"
+                        % digest.hexdigest()[:12])
+    _build_locked(path, [_compiler(), *flags, "-o", "{tmp}", src, *libs],
+                  "C ABI")
     return path
 
 

@@ -1954,12 +1954,17 @@ class StatusServer:
 
     def wire_health(self, recovery=None) -> None:
         """Wire the standard health sources: the watchdog heartbeat
-        channels are always consulted (health.channel_status). The
-        recovery policy's unresolved-anomaly probe comes with the health
-        monitor, which is not ported: ``recovery`` must be None."""
+        channels are always consulted (health.channel_status); a
+        RecoveryPolicy adds the unresolved-anomaly probe — 503 from the
+        moment an anomaly decides rollback/abort until the train loop calls
+        ``recovery.resolve()`` after the restore."""
         if recovery is not None:
-            raise ValueError("wire_health: the recovery policy is not "
-                             "ported to cxxnet_tpu_torch")
+            def _probe():
+                a = recovery.pending
+                if a is None:
+                    return True, "no unresolved anomaly"
+                return False, "unresolved anomaly: " + a.describe()
+            self.register_probe("anomaly", _probe)
 
     def all_failures(self, channels: Optional[list] = None) \
             -> Tuple[List[Tuple[str, str]], List[Tuple[str, str]]]:

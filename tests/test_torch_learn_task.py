@@ -374,7 +374,8 @@ def test_unported_keys_are_refused(key, val):
     if (key, val) in PORTED_SINCE:
         # ported since: the key is read as the JAX command line reads it
         # (tests/test_torch_serve.py, test_torch_checkpoint.py,
-        # test_torch_statusd.py and test_torch_routerd.py run them)
+        # test_torch_statusd.py, test_torch_routerd.py and
+        # test_torch_health_faults.py run them)
         lt.set_param(key, val)
         assert PORTED_SINCE[(key, val)](lt)
         return
@@ -393,6 +394,8 @@ PORTED_SINCE = {
     ("profile_dir", "prof"): lambda lt: lt.profile_dir == "prof",
     ("task", "route"): lambda lt: lt.task == "route",
     ("task", "export"): lambda lt: lt.task == "export",
+    ("health_monitor", "1"): lambda lt: lt.health_monitor == 1,
+    ("watchdog_timeout", "5"): lambda lt: lt.watchdog_timeout == 5.0,
 }
 
 

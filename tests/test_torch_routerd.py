@@ -538,10 +538,49 @@ def test_cli_route_builds_no_net_and_initializes_no_cuda(monkeypatch,
 
 @pytest.mark.parametrize("key,val", [("watchdog_timeout", "5"),
                                      ("health_monitor", "1")])
-def test_cli_route_still_refuses_unported_keys(key, val):
-    from cxxnet_tpu_torch import learn_task as tlt
+def test_cli_route_accepts_the_health_keys(key, val):
+    """task = route reads watchdog_timeout and health_monitor as the JAX
+    command line does: with a watchdog the router's route.accept and
+    route.probe channels are armed and fresh; health_monitor, a training
+    key, changes nothing here. The replica of the conf is unreachable,
+    which the router survives; SIGTERM drains it."""
+    import signal
+    import time
 
-    with pytest.raises(ValueError, match="not ported"):
-        tlt.LearnTask().run([os.devnull, "task=route",
-                             "route_replicas=127.0.0.1:1:2",
-                             "%s=%s" % (key, val)])
+    from cxxnet_tpu_torch import learn_task as tlt
+    from cxxnet_tpu_torch.utils import health
+
+    task = tlt.LearnTask()
+    box = {}
+    default_term = signal.getsignal(signal.SIGTERM)
+
+    def drive():
+        t_end = time.monotonic() + 60
+        while signal.getsignal(signal.SIGTERM) is default_term \
+                and time.monotonic() < t_end:
+            time.sleep(0.05)
+        want = {"route.accept", "route.probe"} if key == "watchdog_timeout" \
+            else set()
+        while time.monotonic() < t_end:
+            box["chans"] = {c[0]: c[3] for c in health.channel_status()}
+            if want <= set(box["chans"]):
+                break
+            time.sleep(0.05)
+        box["watchdog"] = health._active_watchdog
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    t = threading.Thread(target=drive, daemon=True)
+    t.start()
+    assert task.run([os.devnull, "task=route", "route_probe_ms=100",
+                     "route_replicas=127.0.0.1:1:2",
+                     "%s=%s" % (key, val)]) == 0
+    t.join(30)
+    assert getattr(task, key) == (5.0 if key == "watchdog_timeout" else 1)
+    if key == "watchdog_timeout":
+        assert {c: box["chans"][c] for c in ("route.accept",
+                                             "route.probe")} == \
+            {"route.accept": False, "route.probe": False}
+        assert box["watchdog"].timeout == 5.0
+    else:
+        assert box["chans"] == {} and box["watchdog"] is None
+    assert health._active_watchdog is None      # stopped with the router

@@ -1,6 +1,6 @@
 """The port's serving frontend (cxxnet_tpu_torch/utils/servd.py) on the CPU,
-against the JAX package's: the scenarios of tests/test_servd.py that need no
-watchdog, each run against the port's ``ServeFrontend`` (protocol,
+against the JAX package's: the scenarios of tests/test_servd.py, each run
+against the port's ``ServeFrontend`` (protocol,
 rejections, deadlines, breaker, drain, batching, tenants, paged-KV
 exhaustion and requeue, convoy, autopsy, selftest, the status pages, and
 the report tool's sections through its twin in the port,
@@ -14,7 +14,9 @@ fails liveness without hanging drain).
 A JAX scenario runs against the port by swapping the globals of the JAX
 test module that name the frontend's modules (``servd``, ``statusd``,
 ``telemetry``), the report tool and the fault injector for the port's, for
-the length of the case. The fault injector's fake slot backend is copied here, on the port's
+the length of the case; the scenario that imports the health module
+(``from cxxnet_tpu.utils import health``) gets the port's watchdog through
+the package attribute. The fault injector's fake slot backend is copied here, on the port's
 allocator: tests/faultinject.py's raises the JAX package's
 ``KVPoolExhausted``, which the port's frontend must not (and does not)
 catch. Everything runs with ``CXXNET_LOCKRANK=1``, and every socket has its
@@ -30,10 +32,12 @@ import types
 
 import pytest
 
+import cxxnet_tpu.utils as jutils
 from cxxnet_tpu.utils import kvblocks as jkvblocks
 from cxxnet_tpu.utils import servd as jservd
 from cxxnet_tpu_torch.tools import telemetry_report
 from cxxnet_tpu_torch.utils import checkpoint as ckpt
+from cxxnet_tpu_torch.utils import health
 from cxxnet_tpu_torch.utils import kvblocks
 from cxxnet_tpu_torch.utils import servd
 from cxxnet_tpu_torch.utils import statusd
@@ -439,7 +443,7 @@ class _PortSubprocess:
 
 # the JAX scenarios that run against the port's frontend (those of the
 # status HTTP server on the port's StatusServer, those of the report tool
-# on its twin); left out: that of the watchdog thread, which is not ported
+# on its twin, that of the watchdog on the port's health module)
 SCENARIOS = (
     "test_tcp_roundtrip_and_reconciliation",
     "test_pipelined_requests_one_connection",
@@ -507,6 +511,7 @@ SCENARIOS = (
     "test_autopsy_warm_flood_zero_compile_stall",
     "test_healthz_flips_on_breaker_and_recovers",
     "test_healthz_flips_during_drain_livez_stays",
+    "test_watchdog_worker_channel_pauses_when_idle",
     "test_serve_metrics_reach_prometheus",
     "test_request_tracing_end_to_end",
     "test_batch_occupancy_metrics_honest_weighted_mean",
@@ -540,6 +545,7 @@ def test_jax_servd_scenario_on_the_port(name, make_frontend, tmp_path,
                       ("subprocess", _PortSubprocess),
                       ("telemetry_report", telemetry_report)):
         monkeypatch.setattr(jtests, attr, mod)
+    monkeypatch.setattr(jutils, "health", health)
     fn = getattr(jtests, name)
     given = {"make_frontend": make_frontend, "tmp_path": tmp_path,
              "capsys": capsys, "monkeypatch": monkeypatch,

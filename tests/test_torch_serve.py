@@ -217,13 +217,16 @@ def test_cli_admin_reload_picks_up_a_newer_checkpoint(model, tmp_path,
 def test_serve_keys_left_out_are_refused():
     lt = tlt.LearnTask()
     with pytest.raises(ValueError, match="not ported"):
-        lt.set_param("watchdog_timeout", "5")
+        lt.set_param("coordinator", "localhost:1234")
     # the warm grid's keys are ported since the performance ledger
     # (tests/test_torch_compile_obs.py runs them), the router's since
-    # the fleet router (tests/test_torch_routerd.py): each is read as the
-    # JAX command line reads it
+    # the fleet router (tests/test_torch_routerd.py), the watchdog's since
+    # the health slice (tests/test_torch_health_faults.py): each is read as
+    # the JAX command line reads it
     jtask = jlt.LearnTask()
-    for key, val in (("serve_plen_buckets", "8,16"),
+    for key, val in (("watchdog_timeout", "5"),
+                     ("watchdog_action", "abort"),
+                     ("serve_plen_buckets", "8,16"),
                      ("serve_warm_ready_pct", "50"),
                      ("serve_kv_pool_frac", "0.25"), ("route_port", "0"),
                      ("route_tenants", "free:1,paid:4"),

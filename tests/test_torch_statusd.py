@@ -14,16 +14,12 @@ the port (``cxxnet_tpu_torch.tools.telemetry_report`` and
 ``summarize_trace``). Left out, each for its reason:
 
 * ``test_bench_compare_gates_subfields`` tests tools/bench_compare.py
-  alone, a shared tool that reads no package;
-* ``test_healthz_flips_on_injected_anomaly`` needs the health monitor's
-  ``RecoveryPolicy``, which is not ported.
+  alone, a shared tool that reads no package.
 
-The port has no watchdog thread yet; ``test_healthz_flips_on_overdue_heartbeat``
-runs with a stand-in ``Watchdog`` that arms the port's heartbeat registry
-(``health._watchdog_timeout``) the way the JAX watchdog arms its own, so
-that the heartbeat channels, ``/healthz`` and the
-``cxxnet_heartbeat_age_seconds`` rows under test are the port's. Every
-socket has its own timeout.
+The heartbeat channels, the watchdog, the health monitor and the recovery
+policy under test (``test_healthz_flips_on_overdue_heartbeat``,
+``test_healthz_flips_on_injected_anomaly``) are the port's
+``utils/health.py``. Every socket has its own timeout.
 """
 
 import inspect
@@ -31,7 +27,6 @@ import json
 import os
 import subprocess
 import sys
-import types
 from urllib.request import urlopen
 
 import pytest
@@ -69,28 +64,6 @@ def server(registry):
     srv.stop()
 
 
-class _StandInWatchdog:
-    """Arms the port's heartbeat registry as the JAX ``health.Watchdog``
-    arms its own (``channel_status`` reports while one runs); it fires
-    nothing."""
-
-    def __init__(self, timeout, action="warn", poll=None):
-        self.timeout = float(timeout)
-
-    def start(self):
-        health._beats.clear()
-        health._watchdog_timeout = self.timeout
-        return self
-
-    def stop(self):
-        health._watchdog_timeout = None
-        health._beats.clear()
-
-
-port_health = types.SimpleNamespace(
-    beat=health.beat, pause=health.pause,
-    channel_status=health.channel_status, Watchdog=_StandInWatchdog)
-
 # the JAX scenarios that run against the port (the module docstring says
 # why the others are left out)
 SCENARIOS = (
@@ -98,6 +71,7 @@ SCENARIOS = (
     "test_port_zero_binds_real_port",
     "test_out_of_range_port_raises_overflow",
     "test_healthz_flips_on_overdue_heartbeat",
+    "test_healthz_flips_on_injected_anomaly",
     "test_broken_probe_is_a_failure_not_a_crash",
     "test_prometheus_format_validity",
     "test_histogram_merge_exactness",
@@ -127,7 +101,7 @@ SCENARIOS = (
 
 def _swap(monkeypatch):
     for attr, mod in (("statusd", statusd), ("telemetry", telemetry),
-                      ("health", port_health), ("autopsy", autopsy),
+                      ("health", health), ("autopsy", autopsy),
                       ("HIST_BUCKETS", telemetry.HIST_BUCKETS),
                       ("Histogram", telemetry.Histogram),
                       ("telemetry_report", telemetry_report),
@@ -184,12 +158,6 @@ def test_unported_pages_answer_404_and_say_so(server):
         assert code == 200 and "eligible" in page
     finally:
         server.fleet = None
-
-
-def test_wire_health_refuses_a_recovery_policy(server):
-    server.wire_health(None)
-    with pytest.raises(ValueError, match="not ported"):
-        server.wire_health(object())
 
 
 # ----------------------------------------------------------------------

@@ -3,9 +3,11 @@ the JAX package's tools under tools/: the cases of tests/test_roofline.py,
 the report cases of tests/test_telemetry.py and tests/test_e2e.py whose
 runs the port makes (its telemetry, its command line) and the report
 case of tests/test_health_faults.py that reads a written log, each
-through the twin; differential runs that give one log written by the
-port to both report tools (``--json`` aggregates and the rendered report
-equal), the
+through the twin (the rest of that file runs on the port in
+tests/test_torch_health_faults.py); differential runs that give one log
+written by the port to both report tools (``--json`` aggregates and the
+rendered report equal: a training run, a training run that rolls back
+from a NaN batch, a serving run), the
 same model files and corruptions to both checkers (equal verdicts), the
 zoo to both roofline tools (equal FLOPs per sample for AlexNet, GoogLeNet,
 ResNet-18, VGG-16 and both LM rows, equal decode-bound bytes), and one
@@ -476,8 +478,8 @@ def test_jax_telemetry_report_case_on_the_port(name, tmp_path, capsys,
 
 def test_jax_health_report_case_on_the_port(tmp_path, capsys, monkeypatch):
     """tests/test_health_faults.py's exit-2 gate on an unresolved anomaly,
-    through the twin (the rest of that file needs the health monitor,
-    which is not ported)."""
+    through the twin (the rest of that file runs on the port in
+    tests/test_torch_health_faults.py)."""
     monkeypatch.setattr(jhealth_tests, "telemetry_report", telemetry_report)
     _run_case(jhealth_tests,
               "test_telemetry_report_exits_2_on_unresolved_anomaly",
@@ -539,6 +541,45 @@ def test_reports_of_a_port_training_log_equal(tmp_path, mnist_data,
     assert agg == jagg
     assert text == jtext
     assert agg["programs"]["count"] >= 1 and "program ledger" in text
+
+
+def test_reports_of_a_port_health_log_equal(tmp_path, mnist_data, capsys,
+                                            monkeypatch):
+    """One log of a port training run with health_monitor = 1 whose
+    second batch of round 1 is NaN (anomaly, rollback, quarantined replay,
+    all resolved) through both report tools: rc 0, equal aggregates and
+    text, and the health section names the recovery."""
+    log = str(tmp_path / "run.jsonl")
+    conf = je2e_tests.write_conf(tmp_path, je2e_tests.MLP_CONF, mnist_data,
+                                 num_round=2)
+    seen = {"n": 0, "key": None}
+    orig = Trainer.update
+
+    def poisoned(self, batch):
+        if self.round == 2:
+            seen["n"] += 1
+            if seen["n"] == 2:
+                seen["key"] = int(batch.inst_index[0])
+            if int(batch.inst_index[0]) == seen["key"]:
+                batch = batch.shallow_copy()
+                batch.data = np.full(np.shape(batch.data), np.nan,
+                                     np.float32)
+        return orig(self, batch)
+    monkeypatch.setattr(Trainer, "update", poisoned)
+    task = LearnTask()
+    task.run([conf, "dev=cpu", "telemetry_log=%s" % log, "silent=1",
+              "health_monitor=1", "max_round=5"])
+    monkeypatch.undo()
+    telemetry.disable()
+    capsys.readouterr()
+    assert task._recovery.total_rollbacks == 1 and task.start_counter == 3
+    (rc, agg, text), (jrc, jagg, jtext) = _both_reports([log], capsys)
+    assert rc == jrc == 0
+    assert agg == jagg
+    assert text == jtext
+    h = agg["health"]
+    assert [a["kind"] for a in h["anomalies"]] == ["nonfinite"]
+    assert h["unresolved"] == [] and h["skipped_batches"] == 1
 
 
 def test_reports_of_a_port_serving_log_equal(tmp_path, capsys):

@@ -357,12 +357,26 @@ def test_train_step_on_cpu_never_launches_kernels(model_file):
     assert (tlrn.launches, tlrn.bwd_launches) == before
 
 
-@pytest.mark.parametrize("key, val", [("health_monitor", "1"),
-                                      ("nonfinite_action", "skip"),
+@pytest.mark.parametrize("key, val", [("model_parallel", "2"),
+                                      ("nonfinite_action", "ignore"),
                                       ("update_period", "0")])
 def test_unported_training_keys_raise(key, val):
-    with pytest.raises(ValueError, match="not ported|update_period"):
+    """Keys of features that are not ported, and values the trainer
+    refuses as the JAX trainer does (health_monitor and nonfinite_action
+    are ported: test_training_health_keys_are_read)."""
+    with pytest.raises(ValueError, match="not ported|update_period|"
+                       "nonfinite_action must be"):
         ttrainer.Trainer().set_param(key, val)
+
+
+@pytest.mark.parametrize("key, val, attr, want", [
+    ("health_monitor", "1", "health_monitor", 1),
+    ("nonfinite_action", "skip", "nonfinite_action", "skip"),
+    ("nonfinite_action", "abort", "nonfinite_action", "abort")])
+def test_training_health_keys_are_read(key, val, attr, want):
+    tr = ttrainer.Trainer()
+    tr.set_param(key, val)
+    assert getattr(tr, attr) == want
 
 
 def test_staging_ring_refills_a_slot_only_after_its_copy():
