@@ -79,8 +79,13 @@ last sequence parallelism: the ring-step kernels against their plain
 versions and n ring steps against the flash kernels, then the long recipe
 trained with ``seq_parallel = 4`` as a ring (the ring-step kernels on
 shards of 2048) and as Ulysses, and the bench.py LM as a ring, each held
-to the single-card run. Exits non-zero, with no result, when there is no
-card or any phase fails.
+to the single-card run; then the modes over ranks: four processes on the
+one card over gloo, started through ``coordinator`` / ``num_worker`` /
+``worker_rank``, train ImageNet.conf under ZeRO-1, fsdp and dp x TP, the
+bf16 LM under dp x TP and ImageNet.conf's trunk with fc7 a moe of 8
+experts under dp x ep, each case's model file held to the single-process
+run of the same steps, and one NCCL rank runs its collectives. Exits
+non-zero, with no result, when there is no card or any phase fails.
 
 Output, in order: the card's name and power limit (nvidia-smi), the build
 time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
@@ -101,7 +106,8 @@ time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``flash_bwd_kernel``,
 ``lm_train``, ``lm_train_long``, ``lm_hd256``, ``lm_hd512``,
 ``ring_step_kernels``, ``lm_sp_train_long_ring``,
-``lm_sp_train_long_ulysses`` and ``lm_sp_train_ring`` (kernel checks, the
+``lm_sp_train_long_ulysses``, ``lm_sp_train_ring``, ``dist_imagenet`` +
+``dist_lm`` (one spawn) and ``dist_nccl_1`` (kernel checks, the
 main paths' checks, throughput and profiles), the wall time, then a JSON
 line ``{"kernels": [...]}`` (each row's bf16 times under "bf16", rows
 4-6 at the ViT step's shape under "vit_s16") and,
@@ -225,6 +231,9 @@ FLASH_SHAPES = [
     # Ulysses' local attention on the long recipe at seq_parallel 4: a
     # quarter of the 8 query heads, k/v broadcast to them (group 1)
     ("ulysses_rank_long", 2, 2, 2, 8192, 64, True, 1024),
+    # a rank of the bf16 LM at data parallel 2 (dist_lm): half the batch,
+    # every head (attention stays whole under tensor parallelism)
+    ("dist_lm_rank", 4, 8, 8, 2048, 64, True, 0),
 ]
 # kernel vs flash_fwd_ref: rtol 1e-5 (fp32) or 2e-2 (bf16, both round the
 # same f32 value to bf16, an f32 ulp apart can round one bf16 ulp apart)
@@ -260,6 +269,7 @@ FLASH_BWD_SHAPES = [
     ("d128_gqa", 2, 8, 2, 1024, 128, True, 0),
     ("d200_window", 2, 4, 2, 1000, 200, True, 300),
     ("ulysses_rank_long", 2, 2, 2, 8192, 64, True, 1024),
+    ("dist_lm_rank", 4, 8, 8, 2048, 64, True, 0),
 ]
 # backward kernels vs flash_bwd_ref: dq, dk, dv within 1e-5 (fp32) or 2e-2
 # (bf16) of the largest magnitude compared. The kernels sum per 64-wide
@@ -654,12 +664,14 @@ def _new_rec():
             "max_abs_err": 0.0, "bound_by": "bytes"}
 
 
-def phase_lrn_kernel(lrn, shapes=None, args=None, phase="lrn_kernel"):
+def phase_lrn_kernel(lrn, shapes=None, args=None, phase="lrn_kernel",
+                     timed=True):
     """The LRN kernel against lrn_ref at the main path's shapes (AlexNet's
     by default), fp32 and bf16 (the f32 norm bitwise), and its no-norm
     form (inference) against its own bound; returns the per-kernel record
     (sums over the fp32 shapes, i.e. one forward's worth of LRN work; the
-    bf16 sums under "bf16")."""
+    bf16 sums under "bf16"). With ``timed`` False the shapes are checked
+    only, and the record holds only max_abs_err."""
     import torch.nn.functional as F
     log("phase %s" % phase)
     rec = dict(_new_rec(), no_norm_ms=0.0, no_norm_bound_ms=0.0,
@@ -683,6 +695,10 @@ def phase_lrn_kernel(lrn, shapes=None, args=None, phase="lrn_kernel"):
             if not same:
                 raise AssertionError("the f32 norm is not bitwise the plain "
                                      "version's")
+            if not timed:
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                del x, out, norm, ref_out, ref_norm
+                continue
             kernel_ms = time_ms(lambda: lrn.lrn_fwd_cuda(x, **a))
             plain_ms = time_ms(lambda: lrn.lrn_ref_with_norm(x, **a))
             library_ms = library(F, x, ref_out, a)
@@ -726,12 +742,14 @@ def phase_lrn_kernel(lrn, shapes=None, args=None, phase="lrn_kernel"):
 
 
 def phase_lrn_bwd_kernel(lrn, shapes=None, args=None,
-                         phase="lrn_bwd_kernel"):
+                         phase="lrn_bwd_kernel", timed=True):
     """The LRN backward kernel against lrn_bwd_ref at the main path's
     shapes (AlexNet's by default), fp32 and bf16, on x, the norm
     lrn_fwd_cuda saves for it and an upstream gradient g; returns the
     per-kernel record (sums over the fp32 shapes, i.e. one backward's
-    worth of LRN work; the bf16 sums under "bf16")."""
+    worth of LRN work; the bf16 sums under "bf16"). With ``timed`` False
+    the shapes are checked only, and the record holds only
+    max_abs_err."""
     import torch.nn.functional as F
     log("phase %s" % phase)
     rec = dict(_new_rec(), bf16=_new_rec())
@@ -754,6 +772,10 @@ def phase_lrn_bwd_kernel(lrn, shapes=None, args=None,
             atol = BWD_ATOL_EPS * torch.finfo(torch.float32).eps \
                 * float(ref.float().abs().max())
             err = check_close("dx vs lrn_bwd_ref", dx, ref, RTOL[dtype], atol)
+            if not timed:
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                del x, g, norm, dx, ref
+                continue
             kernel_ms = time_ms(lambda: lrn.lrn_bwd_cuda(x, norm, g, **b))
             plain_ms = time_ms(lambda: lrn.lrn_bwd_ref(x, norm, g, **b))
             library_ms = library_bwd(F, x, g, ref, a)
@@ -1218,7 +1240,8 @@ def phase_flash_fwd_kernel(flash, shapes=None, phase="flash_fwd_kernel"):
     ``shapes`` (by default the LM's and the edge shapes: ragged L,
     non-causal, d 8-256, grouped kv heads with a window), fp32 and bf16;
     returns the per-kernel record of the first shape (the main path's: one
-    launch, fp32). Every fp32 time lands in KERNEL_MS. The fp32 bound is
+    launch, fp32). Of the default shapes the LM's two are timed, the edge
+    shapes checked only. Every fp32 time lands in KERNEL_MS. The fp32 bound is
     reckoned at the 3xTF32 rate of the kernel's tensor-core products, the
     FMA-rate bound printed beside it; the default run first counts the
     tensor-core instructions of the flash forward's and the ring forward
@@ -1251,6 +1274,13 @@ def phase_flash_fwd_kernel(flash, shapes=None, phase="flash_fwd_kernel"):
             check_close("lse vs flash_fwd_ref", lse, ref_lse, NORM_RTOL,
                         FLASH_ATOL_EPS * eps * float(ref_lse.abs().max()))
             del ref_out, ref_lse
+            if len(shapes) > 1 and name not in (shapes[0][0],
+                                                BF16_FLASH_FWD):
+                # an edge shape: checked, not timed (a cut of depth)
+                if dtype == torch.float32:
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                del q, k, v, out, lse
+                continue
             kernel_ms = time_ms(lambda: flash.flash_fwd_cuda(q, k, v, *args))
             plain_ms = time_ms(lambda: flash.flash_fwd_ref(q, k, v, *args),
                                iters=5)
@@ -1391,7 +1421,7 @@ def check_request(flash, net, prompts, lens, got):
                              "flip" % flips)
 
 
-def time_generate(net, prompts, lens, n_new, reps=3):
+def time_generate(net, prompts, lens, n_new, reps=2):
     """Host wall times (s) of ``reps`` generate calls, each ending in its
     one copy of the tokens to the host (which waits for the card)."""
     net.generate(prompts, n_new, prompt_lens=lens)
@@ -1420,7 +1450,7 @@ def serve_rates(flash, net, prompts, lens, n_new, label):
         res[which].append((ttft, full, b * (n_new - 1) / (full - ttft)))
     for which, runs in res.items():
         log("  %s %s: time to first token %s ms; request of %d new tokens "
-            "%s ms; decode %s tokens/s (best of 3 each, two turns)"
+            "%s ms; decode %s tokens/s (best of 2 each, two turns)"
             % (label, which, " / ".join("%.2f" % (r[0] * 1e3) for r in runs),
                n_new, " / ".join("%.2f" % (r[1] * 1e3) for r in runs),
                " / ".join("%.1f" % r[2] for r in runs)))
@@ -2203,10 +2233,12 @@ def phase_lm_serve_frontend(flash, rnd, api, models):
                occ or 0.0, iters, 1e3 * wall / iters, 1e3 * bare_s / steps,
                buckets))
 
-    log(" profile: the frontend serving the 24 requests (dense greedy)")
+    log(" profile: the frontend serving %d of the requests (dense greedy)"
+        % FE_CLIENTS)
     fe = net.serve(**opts)
     try:
-        profile_forward(lambda: serve_clients(fe.port, lines, FE_CLIENTS),
+        profile_forward(lambda: serve_clients(fe.port, lines[:FE_CLIENTS],
+                                              FE_CLIENTS),
                         iters=1, warmup=False, unit="frontend run",
                         shares=("flash_fwd",))
     finally:
@@ -3344,7 +3376,7 @@ def phase_flash_bwd_kernel(flash, shapes=None, phase="flash_bwd_kernel"):
     ragged L, non-causal, one kv head, window 64, d 8-256), fp32 and bf16,
     on the forward kernel's out and lse; two runs held bitwise equal;
     returns the per-kernel records of the first shape (the main path's:
-    one fp32 launch each). The plain and library times are those of the
+    one fp32 launch each), the only default shape that is timed. The plain and library times are those of the
     whole backward (dq, dk and dv in one call). Every fp32 time lands in
     KERNEL_MS. The fp32 bound is reckoned at the 3xTF32 rate of the
     kernels' tensor-core products, the FMA-rate bound printed beside it;
@@ -3388,6 +3420,14 @@ def phase_flash_bwd_kernel(flash, shapes=None, phase="flash_bwd_kernel"):
                 raise AssertionError("two backward runs differ")
             log("  two backward runs: dq, dk, dv bitwise equal")
             del again
+            if len(shapes) > 1 and name != shapes[0][0]:
+                # an edge shape: checked, not timed (a cut of depth)
+                if dtype == torch.float32:
+                    for key in recs:
+                        recs[key]["max_abs_err"] = max(
+                            recs[key]["max_abs_err"], err)
+                del q, k, v, dout, out, lse, delta, dq, dk, dv, ref
+                continue
             dq_ms = time_ms(lambda: flash.flash_bwd_dq_cuda(
                 q, k, v, dout, lse, delta, *args))
             dkv_ms = time_ms(lambda: flash.flash_bwd_dkv_cuda(
@@ -5108,11 +5148,11 @@ def phase_cli_imagenet(lrn, learn_task, api):
         log("phase cli_imagenet_train (continued)")
 
         # the host pipeline alone (test_io), with one and four decode
-        # threads (imgbinx's pool) in turns, IO_ROUNDS rounds a run, the
+        # threads (imgbinx's pool), IO_ROUNDS rounds a run, the
         # first round of each run (the loader's start) set apart; then
         # four trained under the profiler; none of these runs saves a model
         io_only = {1: [], 4: []}
-        for threads in (1, 4, 1, 4):
+        for threads in (1, 4):
             o, _ = run_cli(learn_task, cwd, args + [
                 "num_round=%d" % IO_ROUNDS, "max_round=%d" % IO_ROUNDS,
                 "test_io=1", "save_model=0", "decode_thread=%d" % threads],
@@ -7028,7 +7068,7 @@ def phase_bench_bf16(lrn, flash, api, models):
     ttft = min(time_generate(net, prompts, None, 1))
     full = min(time_generate(net, prompts, None, LM_NEW))
     log("  LM bf16 serving batch %d, prompts %d: time to first token %.2f "
-        "ms, request of %d tokens %.2f ms, decode %.1f tokens/s (best of 3)"
+        "ms, request of %d tokens %.2f ms, decode %.1f tokens/s (best of 2)"
         % (LM_BATCH, LM_PROMPT, ttft * 1e3, LM_NEW, full * 1e3,
            LM_BATCH * (LM_NEW - 1) / (full - ttft)))
     del net
@@ -7442,6 +7482,415 @@ def phase_layers_misc(api):
     log("  phase wall %.1f s" % (time.perf_counter() - t0))
 
 
+# ----------------------------------------------------------------------
+# the modes over ranks: DIST_N processes on the one card, over gloo
+DIST_N = 4
+DIST_STEPS = 2
+# (phase, case, the mode's keys, net): each case trains DIST_STEPS steps of
+# one batch from the config's seed, in the same DIST_N processes in turn
+DIST_CASES = [
+    ("dist_imagenet", "zero1_dp4", "update_on_server = 1\n", "imagenet"),
+    ("dist_imagenet", "fsdp_dp4", "fsdp = 1\n", "imagenet"),
+    ("dist_imagenet", "dp2_tp2", "model_parallel = 2\n", "imagenet"),
+    ("dist_lm", "lm_bf16_dp2_tp2", "model_parallel = 2\n", "lm"),
+    ("dist_lm", "moe_dp2_ep2", "expert_parallel = 2\n", "moe"),
+]
+# the n-rank step against the single rank's, as the L2 norm of the
+# difference of the weights after the steps over the L2 norm of the single
+# rank's change, per tensor. The ranks sum the batch's gradient per rank
+# and then over the ranks, in another order than one rank's (cuDNN off on
+# both sides): the first step differs by float32 rounding (7e-6 at most in
+# the CPU rehearsal), and from the second step on an activation within
+# rounding of a max-pooling tie or of ReLU's zero can fall the other way
+# and route a gradient elsewhere (1e-3 in the rehearsal at 2 steps, 5e-3
+# at 3). fp32 (ImageNet.conf and its moe trunk): 1e-2. bf16 (the LM): 1e-1,
+# the bf16 matmuls of rows split otherwise round a bf16 ulp (2^-8) apart,
+# and Adam's first steps move each weight by about eta whatever the size
+# of its gradient. A wrong gather order or a gradient summed once too often
+# moves a tensor by its whole step or more (a ratio of order 1)
+DIST_STEP_TOL = {"imagenet": 1e-2, "moe": 1e-2, "lm": 1e-1}
+# the LRN inputs of a rank of the ImageNet.conf cases: batch 64 at dp 4,
+# 128 at dp 2 (after tensor parallelism's gather of the conv channels);
+# checked against the plain versions, not timed, before the ranks run
+DIST_LRN_SHAPES = {"%s_b%d" % (name, b): (b,) + shape[1:]
+                   for b in (BATCH // DIST_N, BATCH // 2)
+                   for name, shape in LRN_SHAPES.items()}
+# a rank's bytes against the single rank's. ZeRO-1's optimizer state: its
+# rule (zero_sharding, the JAX package's) splits dimension 0 alone, which
+# is ngroup (1 or 2) for every conv weight of AlexNet, so the convs' state
+# (3.8% of the weights) stays whole and the rest is a quarter: 0.28 by the
+# rule, at most 0.3. fsdp's weights and state: a quarter, plus the 1-D
+# biases it leaves whole (0.02% of AlexNet's weights): at most 1.01 / 4
+DIST_ZERO1_OPT_MAX = 0.3
+DIST_FSDP_MAX = 1.01 / 4
+
+DIST_WORKER = r"""
+import json, sys, time
+sys.path.insert(0, %(repo)r)
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.backends.cudnn.enabled = False
+from cxxnet_tpu_torch import api
+from cxxnet_tpu_torch.ops import flash_attn, lrn
+from cxxnet_tpu_torch.parallel import collectives, multihost
+rank = int(sys.argv[1])
+# started as a user starts a rank: coordinator / num_worker / worker_rank
+multihost.init_distributed(%(coord)r, %(n)d, rank,
+                           dev="%(kind)s:0-%(last)d")
+card = torch.cuda.is_available()
+sync = torch.cuda.synchronize if card else (lambda: None)
+# the collectives on the card's tensors: gloo's own all_reduce,
+# all_gather and reduce_scatter (not staged), values checked; gloo's
+# all_to_all raises (a send would abort the process, so it is not
+# tried); the port's all_to_all and ring_shift, staged through host
+# memory (collectives._STAGED), values checked
+n = %(n)d
+probe = {}
+t = torch.full((2 * n,), float(rank + 1), device=%(tdev)r)
+def _ar():
+    u = t.clone()
+    dist.all_reduce(u)
+    return bool((u == n * (n + 1) / 2).all())
+def _ag():
+    out = [torch.empty(2 * n, device=%(tdev)r) for _ in range(n)]
+    dist.all_gather(out, t)
+    return all(bool((o == r + 1).all()) for r, o in enumerate(out))
+def _rs():
+    out = torch.empty(2, device=%(tdev)r)
+    dist.reduce_scatter(out, list(t.chunk(n)))
+    return bool((out == n * (n + 1) / 2).all())
+def _a2a_raw():
+    dist.all_to_all([torch.empty(2, device=%(tdev)r) for _ in range(n)],
+                    list(t.chunk(n)))
+    return True
+x = torch.arange(n * 2, dtype=torch.float32, device=%(tdev)r) + 10 * rank
+def _a2a():
+    y = collectives.all_to_all(x, split_axis=0, concat_axis=0)
+    want = torch.tensor([10 * r + 2 * rank + k for r in range(n)
+                         for k in range(2)], dtype=torch.float32)
+    return y.is_cuda == x.is_cuda and torch.equal(y.cpu(), want)
+def _shift():
+    y = collectives.ring_shift(x, shift=1)
+    return torch.equal(y.cpu(), x.cpu() - 10 * rank + 10 * ((rank - 1) %% n))
+for name, fn in (("all_reduce", _ar), ("all_gather", _ag),
+                 ("reduce_scatter", _rs), ("gloo_all_to_all", _a2a_raw),
+                 ("port_all_to_all", _a2a), ("port_ring_shift", _shift)):
+    try:
+        probe[name] = "ok" if fn() else "wrong values"
+    except Exception as e:
+        probe[name] = type(e).__name__ + ": " + str(e).splitlines()[0][:120]
+    dist.barrier()
+print("DISTREC " + json.dumps({"rank": rank, "probe": probe,
+                               "backend": dist.get_backend()}), flush=True)
+for job in json.load(open(%(jobs)r)):
+    net = api.Net(dev="%(kind)s:0-%(last)d", cfg=job["cfg"])
+    t0 = time.perf_counter()
+    net.init_model()
+    tr = net.net_
+    d = np.load(job["batch"])
+    x, y = d["x"], d["y"]
+    sync()
+    init_s = time.perf_counter() - t0
+    # the main path's counts start at 0 here and are read right after
+    lrn.launches = lrn.bwd_launches = 0
+    flash_attn.launches = flash_attn.dq_launches = flash_attn.dkv_launches = 0
+    walls = []
+    for _ in range(job["steps"]):
+        t0 = time.perf_counter()
+        net.update(x, y)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    counts = {"lrn_fwd": lrn.launches, "lrn_bwd": lrn.bwd_launches,
+              "flash_fwd": flash_attn.launches,
+              "flash_bwd_dq": flash_attn.dq_launches,
+              "flash_bwd_dkv": flash_attn.dkv_launches}
+    rec = {"rank": rank, "case": job["case"], "counts": counts,
+           "walls": walls, "init_s": init_s, "mesh": tr.mesh.shape,
+           "param_bytes": tr.param_bytes(), "opt_bytes": tr.opt_bytes(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if card
+           else 0.0}
+    t0 = time.perf_counter()
+    net.save_model(job["model"])
+    rec["save_s"] = time.perf_counter() - t0
+    print("DISTREC " + json.dumps(rec), flush=True)
+    del net, tr
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+dist.destroy_process_group()
+"""
+
+
+def dist_cfg(models, net, keys=""):
+    """The config of a dist case's net on one rank, with the mode keys."""
+    if net == "lm":
+        cfg = bf16_cfg(lm_cfg(models, LM_SEQ, LM_BATCH))
+    else:
+        cfg = imagenet_cfg()
+        if net == "moe":
+            # fc7 as a mixture of 8 experts of its width
+            cfg = cfg.replace("layer[18->19] = fullc\n",
+                              "layer[18->19] = moe\n  nexpert = 8\n", 1)
+            assert "= moe" in cfg, "ImageNet.conf's fc7 not found"
+    return cfg + keys
+
+
+def dist_batch(net, path):
+    """One batch of the case's net from SEED, written to ``path``."""
+    if net == "lm":
+        rng = np.random.RandomState(SEED + 23)
+        v = LM_ARGS["vocab"]
+        x = rng.randint(0, v, (LM_BATCH, 1, 1, LM_SEQ)).astype(np.float32)
+        y = rng.randint(0, v, (LM_BATCH, LM_SEQ)).astype(np.float32)
+    else:
+        x, y = image_batch(BATCH, 227, SEED + 23)
+    np.savez(path, x=x, y=y)
+
+
+def dist_single(api, cfg, path, steps):
+    """The single rank's weights before and after ``steps`` updates on the
+    batch at ``path``, its bytes and its step walls."""
+    net = api.Net(dev=NET_DEV, cfg=cfg)
+    net.init_model()
+    d = np.load(path)
+    before = [{k: np.array(v) for k, v in p.items()}
+              for p in net.net_.canonical_params()]
+    walls = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        net.update(d["x"], d["y"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    out = {"before": before, "after": net.net_.canonical_params(),
+           "param_bytes": net.net_.param_bytes(),
+           "opt_bytes": net.net_.opt_bytes(), "walls": walls}
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_step_errors(got, single):
+    """Per tensor, |w_n - w_1|_2 / |w_1 - w_0|_2 (0 where the single rank
+    did not move the tensor and neither did the n ranks)."""
+    out = {}
+    for i, (g, a, b) in enumerate(zip(got, single["after"],
+                                      single["before"])):
+        for k in a:
+            diff = float(np.linalg.norm((g[k] - a[k]).ravel()))
+            step = float(np.linalg.norm((a[k] - b[k]).ravel()))
+            out["%d/%s" % (i, k)] = diff / step if step else (
+                0.0 if diff == 0 else float("inf"))
+    return out
+
+
+def phase_dist(api, models):
+    """dist_imagenet and dist_lm: DIST_N ranks, processes of their own on
+    the one card over gloo (CXXNET_DIST_BACKEND=gloo: NCCL refuses two
+    ranks on one card), started through coordinator / num_worker /
+    worker_rank, run every case of DIST_CASES in turn; each case's model
+    file (rank 0's, the whole model) is held to the single-process run of
+    the same steps and loads in a one-rank api.Net; the ranks' bytes and
+    kernel launches are read. The single-process runs go while the ranks
+    start, and each case's file is checked while the ranks run the next
+    case. Returns {phase: {kernel: launches over the ranks}}."""
+    log("phase dist_imagenet + dist_lm (%d ranks on one card over gloo, "
+        "one spawn, the cases in turn)" % DIST_N)
+    torch.cuda.empty_cache()
+    launches = {}
+    with scratch_dir("dist") as d:
+        nets = sorted({c[3] for c in DIST_CASES})
+        for net in nets:
+            dist_batch(net, os.path.join(d, net + ".npz"))
+        jobs = [{"case": case, "cfg": dist_cfg(models, net, keys),
+                 "batch": os.path.join(d, net + ".npz"),
+                 "model": os.path.join(d, case + ".model"),
+                 "steps": DIST_STEPS} for _, case, keys, net in DIST_CASES]
+        with open(os.path.join(d, "jobs.json"), "w") as f:
+            json.dump(jobs, f)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        code = DIST_WORKER % {"repo": REPO, "n": DIST_N, "last": DIST_N - 1,
+                              "coord": "127.0.0.1:%d" % port,
+                              "kind": "cpu" if NET_DEV == "cpu" else "gpu",
+                              "tdev": DEV,
+                              "jobs": os.path.join(d, "jobs.json")}
+        env = dict(os.environ, CXXNET_DIST_BACKEND="gloo",
+                   PYTHONUNBUFFERED="1")
+        t = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code, str(r)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env=env) for r in range(DIST_N)]
+        outs = [[] for _ in procs]
+        pumps = [threading.Thread(target=lambda p=p, o=o: o.extend(p.stdout),
+                                  daemon=True)
+                 for p, o in zip(procs[1:], outs[1:])]
+        for th in pumps:
+            th.start()
+        try:
+            single = {}
+            for net in nets:
+                ts = time.perf_counter()
+                old = torch.backends.cudnn.enabled
+                torch.backends.cudnn.enabled = False
+                try:
+                    single[net] = dist_single(api, dist_cfg(models, net),
+                                              os.path.join(d, net + ".npz"),
+                                              DIST_STEPS)
+                finally:
+                    torch.cuda.synchronize()
+                    torch.backends.cudnn.enabled = old
+                log("  single rank %s: %d steps, walls %s s (%.1f s with "
+                    "init; the ranks start meanwhile)"
+                    % (net, DIST_STEPS, " ".join(
+                        "%.3f" % w for w in single[net]["walls"]),
+                       time.perf_counter() - ts))
+            errs = {}
+            net_of = {case: net for _, case, _, net in DIST_CASES}
+            for ln in procs[0].stdout:
+                outs[0].append(ln)
+                if ln.startswith("DISTREC ") and '"case"' in ln:
+                    case = json.loads(ln[len("DISTREC "):])["case"]
+                    errs[case] = dist_file_errors(
+                        api, models, net_of[case], single[net_of[case]],
+                        os.path.join(d, case + ".model"))
+            for p in procs:
+                p.wait(timeout=600)
+            for th in pumps:
+                th.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        spawn_s = time.perf_counter() - t
+        outs = ["".join(o) for o in outs]
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError("rank %d exited %d:\n%s"
+                                     % (r, p.returncode, out[-4000:]))
+        recs = [json.loads(ln[len("DISTREC "):]) for out in outs
+                for ln in out.splitlines() if ln.startswith("DISTREC ")]
+        probe = [r for r in recs if "probe" in r]
+        log("  %d ranks, backend %s; the collectives on the card's tensors "
+            "(gloo's own, and the port's staged through host memory: %s): "
+            "%s" % (len(probe), probe[0]["backend"],
+                    sorted(collectives_staged()), probe[0]["probe"]))
+        for r in probe:
+            bad = {k: v for k, v in r["probe"].items()
+                   if (v != "ok") != (k == "gloo_all_to_all"
+                                      and DEV == "cuda")}
+            if bad:
+                raise AssertionError("rank %d: collectives on the card: %s"
+                                     % (r["rank"], bad))
+        log("  the spawn: %.1f s wall, the single-process runs and every "
+            "case's check included" % spawn_s)
+        for phase, case, keys, net in DIST_CASES:
+            rows = sorted((r for r in recs if r.get("case") == case),
+                          key=lambda r: r["rank"])
+            if len(rows) != DIST_N:
+                raise AssertionError("%s: %d rank records" % (case,
+                                                              len(rows)))
+            log("  %s %s (mesh %s):" % (phase, case, rows[0]["mesh"]))
+            s1 = single[net]
+            for r in rows:
+                log("    rank %d: step walls %s s (4 processes share one "
+                    "card, collectives through host memory: no scaling "
+                    "figure); init %.1f s, save %.1f s, peak %.2f GB; "
+                    "launches %s; weight bytes %d (%.4f of one rank's), "
+                    "optimizer bytes %d (%.4f)"
+                    % (r["rank"], " ".join("%.3f" % w for w in r["walls"]),
+                       r["init_s"], r["save_s"], r["peak_gb"], r["counts"],
+                       r["param_bytes"], r["param_bytes"]
+                       / s1["param_bytes"], r["opt_bytes"],
+                       r["opt_bytes"] / s1["opt_bytes"]))
+            want = {"imagenet": ("lrn_fwd", "lrn_bwd"),
+                    "moe": ("lrn_fwd", "lrn_bwd"),
+                    "lm": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}[net]
+            per = 2 if net != "lm" else LM_ARGS["nlayer"]
+            for r in rows:
+                for k in want:
+                    if r["counts"][k] != per * DIST_STEPS:
+                        raise AssertionError(
+                            "%s rank %d: %d %s launches, expected %d"
+                            % (case, r["rank"], r["counts"][k], k,
+                               per * DIST_STEPS))
+            for k in want:
+                launches.setdefault(phase, {}).setdefault(k, 0)
+                launches[phase][k] += sum(r["counts"][k] for r in rows)
+            frac_w = max(r["param_bytes"] for r in rows) / s1["param_bytes"]
+            frac_o = max(r["opt_bytes"] for r in rows) / s1["opt_bytes"]
+            if case.startswith("zero1") and frac_o > DIST_ZERO1_OPT_MAX:
+                raise AssertionError("ZeRO-1 optimizer bytes %.4f of one "
+                                     "rank's" % frac_o)
+            if case.startswith("fsdp") and max(frac_w, frac_o) \
+                    > DIST_FSDP_MAX:
+                raise AssertionError("fsdp bytes %.4f / %.4f of one rank's"
+                                     % (frac_w, frac_o))
+            e = errs[case]
+            worst = max(e, key=e.get)
+            log("    the model file (rank 0's) in a one-rank api.Net vs "
+                "the single-process run: |w_n - w_1| / |w_1 - w_0| worst "
+                "%.3g (%s), median %.3g (bar %g)"
+                % (e[worst], worst, float(np.median(list(e.values()))),
+                   DIST_STEP_TOL[net]))
+            if e[worst] > DIST_STEP_TOL[net]:
+                raise AssertionError("%s: the %d-rank step is off the "
+                                     "single rank's: %s %.3g"
+                                     % (case, DIST_N, worst, e[worst]))
+    return launches
+
+
+def dist_file_errors(api, models, net, single, path):
+    """dist_step_errors of the model file at ``path`` loaded in a one-rank
+    api.Net on the card; the file is removed after."""
+    one = api.Net(dev=NET_DEV, cfg=dist_cfg(models, net))
+    one.load_model(path)
+    errs = dist_step_errors(one.net_.canonical_params(), single)
+    del one
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def collectives_staged():
+    from cxxnet_tpu_torch.parallel import collectives
+    return collectives._STAGED
+
+
+def phase_dist_nccl_1():
+    """One rank through multihost.init_distributed with no backend named,
+    in this process, last: NCCL on the card, three collectives run."""
+    import torch.distributed as dist
+    from cxxnet_tpu_torch.parallel import multihost
+    log("phase dist_nccl_1")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.pop("CXXNET_DIST_BACKEND", None)
+    multihost.init_distributed("127.0.0.1:%d" % port, 1, 0, dev="gpu")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError("backend %s" % dist.get_backend())
+        t = torch.arange(8, dtype=torch.float32, device=DEV)
+        dist.all_reduce(t)
+        g = torch.empty(8, device=DEV)
+        dist.all_gather_into_tensor(g, t)
+        r = torch.empty(8, device=DEV)
+        dist.reduce_scatter_tensor(r, t)
+        torch.cuda.synchronize()
+        if not (torch.equal(g, t) and torch.equal(r, t)):
+            raise AssertionError("nccl collectives: %s %s" % (g, r))
+        log("  nccl %s: all_reduce, all_gather_into_tensor, "
+            "reduce_scatter_tensor on %s" % (
+                ".".join(map(str, torch.cuda.nccl.version())),
+                torch.cuda.get_device_name(0)))
+    finally:
+        dist.destroy_process_group()
+
+
 def device_us(e) -> float:
     """A profiler event's self device time in us, under either name that
     torch versions give it."""
@@ -7566,6 +8015,17 @@ def main() -> int:
                                      *spec) for spec in LM_SP}
     ring_paths = {p: c for p, c in sp.items() if p.endswith("_ring")}
     train.update({p: c for p, c in sp.items() if p.endswith("_ulysses")})
+    for rec, check_fn in ((fwd_rec, phase_lrn_kernel),
+                          (bwd_rec, phase_lrn_bwd_kernel)):
+        err = check_fn(lrn, DIST_LRN_SHAPES, phase="%s at the ranks' shapes"
+                       % check_fn.__name__[len("phase_"):],
+                       timed=False)["max_abs_err"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    dist = phase_dist(api, models)
+    phase_dist_nccl_1()
+
+    def dist_by(name):
+        return {p: c[name] for p, c in dist.items() if name in c}
     per_step = {"train_step": LM_ARGS["nlayer"]}
     vit_per = {"vit_s16_train_step": VIT_ARGS["nlayer"]}
     ring_per = {"layer_and_direction": SP_N * SP_N,
@@ -7586,7 +8046,8 @@ def main() -> int:
               "googlenet_bf16_pred": gnet_pred,
               "cli_googlenet_train": gnet_cli_train[0],
               "cli_googlenet_pred": gnet_cli_pred,
-              "export_forward": export_fwd, **bench[0]},
+              "export_forward": export_fwd, **bench[0],
+              **dist_by("lrn_fwd")},
              {"train_step": train_fwd // TRAIN_STEPS,
               "exported_imagenet_forward": 2}),
             ("lrn_bwd", bwd_rec, "cxxnet_tpu/ops/pallas_kernels.py:98",
@@ -7597,7 +8058,8 @@ def main() -> int:
               "c_abi_imagenet": c_abi[1],
               "cli_imagenet_jpeg": cli_jpeg[1],
               "googlenet_bf16_train": gnet_train[1],
-              "cli_googlenet_train": gnet_cli_train[1], **bench[1]},
+              "cli_googlenet_train": gnet_cli_train[1], **bench[1],
+              **dist_by("lrn_bwd")},
              {"train_step": train_bwd // TRAIN_STEPS}),
             ("uniform", uniform_rec, "cxxnet_tpu/ops/pallas_kernels.py:169",
              {"rrelu_alexnet_train": rrelu[0],
@@ -7613,7 +8075,8 @@ def main() -> int:
               "cli_lm_route": cli_route_flash,
               "export_decode": export_flash, **serve_wide,
               **{p: c[0] for p, c in train.items()}, **bench[2],
-              "vit_s16_bf16_train": vit_launches[0]},
+              "vit_s16_bf16_train": vit_launches[0],
+              **dist_by("flash_fwd")},
              {"generate_request": LM_ARGS["nlayer"],
               "session_admission": LM_ARGS["nlayer"],
               "frontend_admission": LM_ARGS["nlayer"],
@@ -7623,12 +8086,14 @@ def main() -> int:
             ("flash_bwd_dq", bwd_recs["dq"],
              "cxxnet_tpu/ops/flash_attn.py:337",
              {**{p: c[1] for p, c in train.items()}, **bench[3],
-              "vit_s16_bf16_train": vit_launches[1]},
+              "vit_s16_bf16_train": vit_launches[1],
+              **dist_by("flash_bwd_dq")},
              {**per_step, **vit_per}),
             ("flash_bwd_dkv", bwd_recs["dkv"],
              "cxxnet_tpu/ops/flash_attn.py:363",
              {**{p: c[2] for p, c in train.items()}, **bench[4],
-              "vit_s16_bf16_train": vit_launches[2]},
+              "vit_s16_bf16_train": vit_launches[2],
+              **dist_by("flash_bwd_dkv")},
              {**per_step, **vit_per}),
             ("ring_fwd_step", ring_recs["fwd"],
              "cxxnet_tpu/ops/ring_flash.py:191",

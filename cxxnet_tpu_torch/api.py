@@ -27,6 +27,7 @@ import torch
 from . import io as io_mod
 from .io.data import DataBatch
 from .nnet import trainer as trainer_mod
+from .parallel import multihost
 from .utils import checkpoint as ckpt
 from .utils import serializer
 from .utils.config import parse_config_string
@@ -150,12 +151,16 @@ class Net:
         """Write a CRC-framed model file, optimizer and training state
         included, that either package loads. The write is atomic (tmp
         file, fsync, rename): a save that fails part-way leaves the old
-        file as it was."""
+        file as it was. Over several ranks every rank calls it together
+        and the file is the whole model, as one rank writes it."""
         w = serializer.Writer()
         w.write_int32(self.net_type)
         self._trainer().save_model(w)
         self._trainer().save_training_state(w)
-        ckpt.write_checkpoint(fname, w.f.getbuffer())
+        # over several ranks every rank serializes (the gathers are
+        # collective) and rank 0 alone writes
+        if multihost.worker_shard_params()[1] == 0:
+            ckpt.write_checkpoint(fname, w.f.getbuffer())
 
     def start_round(self, round_counter: int) -> None:
         self._trainer().start_round(round_counter)

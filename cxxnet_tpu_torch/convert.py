@@ -7,7 +7,10 @@ per connection) and its optimizer-state layout (one dict per connection of
 layouts. What it adds is the check: every key and shape must be the one the
 port's net and updaters expect. Model files written by the JAX package need
 no conversion at all; they load directly through ``Net.load_model``,
-optimizer state included.
+optimizer state included. ``shard_params`` (``parallel/sharding.py``'s)
+cuts whole params down to a rank's blocks by the placement rules, so a
+test starts both packages from the same numpy weights at any degree
+(``Trainer.load_params`` takes whole params through it).
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ import torch
 from .layer.base import check
 from .nnet.net import NeuralNet
 from .nnet.trainer import OptState, Trainer
+# whole params cut to a rank's blocks, for tests that start both packages
+# from the same numpy weights at any degree
+from .parallel.sharding import shard_params  # noqa: F401
 
 
 def params_from_jax(params: Sequence[Dict[str, object]], net: NeuralNet,

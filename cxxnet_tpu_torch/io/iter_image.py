@@ -7,7 +7,9 @@ cxxnet_tpu/io/iter_image.py.
   records from BinaryPage packs with .lst label files, read ahead on a C++
   thread (utils/native.py NativePageReader); multi-part lists via
   image_conf_prefix / image_conf_ids; file sharding by dist_num_worker /
-  dist_worker_rank (env PS_RANK); a decode pool with decode_timeout.
+  dist_worker_rank (env PS_RANK), set by the user alone: as in the JAX
+  package, every rank of a multi-process run reads the whole stream and the
+  trainer takes its rows of each batch; a decode pool with decode_timeout.
 * ImageIterator <- src/io/iter_img-inl.hpp:16 (one file per record).
 * GeometricAugmenter <- src/io/image_augmenter-inl.hpp:13: rotation,
   shear, aspect ratio and random scale in one bicubic affine warp
@@ -956,14 +958,18 @@ class AugmentIterator(IIterator):
             self.scale = saved_scale
         assert cnt > 0, "input iterator failed."
         self.meanimg = (mean / cnt).astype(np.float32)
-        parent = os.path.dirname(self.name_meanimg)
-        if parent:
-            os.makedirs(parent, exist_ok=True)
-        with open(self.name_meanimg, "wb") as f:
-            f.write(self._MEAN_MAGIC)
-            serializer.Writer(f).write_tensor(self.meanimg)
-        if self.silent == 0:
-            print("save mean image to %s.." % self.name_meanimg)
+        # every rank of a world computes the same mean; rank 0 alone
+        # writes it
+        from ..parallel.multihost import worker_shard_params
+        if worker_shard_params()[1] == 0:
+            parent = os.path.dirname(self.name_meanimg)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            with open(self.name_meanimg, "wb") as f:
+                f.write(self._MEAN_MAGIC)
+                serializer.Writer(f).write_tensor(self.meanimg)
+            if self.silent == 0:
+                print("save mean image to %s.." % self.name_meanimg)
         self.meanfile_ready = True
         self.base.before_first()
 

@@ -188,6 +188,30 @@ class ApplyContext:
     # full-sequence forward runs over this many virtual ranks of the
     # sequence, where the JAX package passes a mesh with an "sp" axis
     seq_parallel: int = 1
+    # the trainer's mesh of ranks (parallel/mesh.py), None on one rank:
+    # fullc and conv under a model group compute their output shard and
+    # gather it, moe under an ep group its slice of the experts
+    mesh: Optional[object] = None
+    # the batch's rows are split over the mesh's data axis (a training
+    # batch, and an eval batch whose rows divide): batch-norm sums its
+    # statistics over the data group, and the random layers draw the
+    # global batch's noise and keep their own rows of it
+    data_sharded: bool = False
+    # fsdp: (params slot, params) -> the params the layer applies, with
+    # its weight shards gathered; set by the net's forward
+    gather: Optional[object] = None
+
+    def data_rows(self, shape, draw):
+        """``draw(shape)`` of this rank's rows: under ``data_sharded`` the
+        draw of the whole batch's shape, cut to this rank's rows, so that
+        n ranks together draw what one rank draws for the whole batch
+        (and every rank of a model or ep group the same)."""
+        if not self.data_sharded:
+            return draw(shape)
+        dp = self.mesh.axis_size("data")
+        d = self.mesh.coords["data"]
+        b = shape[0]
+        return draw((b * dp,) + tuple(shape[1:]))[d * b:(d + 1) * b]
 
 
 _MASK64 = (1 << 64) - 1

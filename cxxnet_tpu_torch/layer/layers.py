@@ -7,7 +7,7 @@ split, add, softmax ``seq = 1``), the GoogLeNet, VGG and ResNet set
 (sum, avg and relu_max pooling, concat, ch_concat, batch_norm), ViT's
 im2seq, and the rest of the JAX package's set: tanh, softplus, bias,
 fixconn, maxout, the l2_loss and multi_logistic losses and moe (the
-mixture of experts on one device). ``extern`` lives in layer/extern.py.
+mixture of experts). ``extern`` lives in layer/extern.py.
 
 Each class is the counterpart of the class of the same name in
 cxxnet_tpu/layer/layers.py and keeps its config keys, shape inference,
@@ -36,7 +36,7 @@ import torch
 from .. import ops
 from ..ops import flash_attn
 from ..ops.attention import attention_reference
-from ..parallel import ring
+from ..parallel import collectives, ring, tensor
 from .base import ApplyContext, Layer, check
 
 
@@ -52,7 +52,9 @@ def draw_uniform(ctx: ApplyContext, shape, device) -> torch.Tensor:
     host, with no device sync, and the generator is not advanced. Every
     noisy layer draws here, once per forward, so that a test can replace
     this one function."""
-    return ops.random.uniform(ctx.gen.initial_seed(), shape, device)
+    seed = ctx.gen.initial_seed()
+    return ctx.data_rows(tuple(shape), lambda s: ops.random.uniform(
+        seed, s, device))
 
 
 class _WeightBiasLayer(Layer):
@@ -136,7 +138,16 @@ class FullConnectLayer(_WeightBiasLayer):
 
     def forward(self, params, inputs, ctx):
         x = _flat2d(inputs[0])
-        y = x @ params["wmat"].t()
+        w = params["wmat"]
+        if w.shape[0] != self.param.num_hidden:
+            # column parallel: this rank's rows of the weight (tp_spec),
+            # the features gathered over the model group, the replicated
+            # bias added to the whole
+            g = ctx.mesh.group("model")
+            y = collectives.all_gather(
+                tensor.column_parallel_dense(x, w, None, g), g, dim=1)
+        else:
+            y = x @ w.t()
         if self.param.no_bias == 0:
             y = y + params["bias"]
         return [y.reshape(y.shape[0], 1, 1, y.shape[1])]
@@ -188,11 +199,25 @@ class ConvolutionLayer(_WeightBiasLayer):
 
     def forward(self, params, inputs, ctx):
         p = self.param
-        w = params["wmat"].reshape(p.num_channel,
-                                   p.num_input_channel // p.num_group,
-                                   p.kernel_height, p.kernel_width)
-        y = ops.conv2d(inputs[0], w, stride=p.stride, pad=(p.pad_y, p.pad_x),
-                       groups=p.num_group)
+        g = p.num_group
+        wm = params["wmat"]
+        # under a model group, wmat holds this rank's share of every
+        # group's output channels (tp_spec: dimension 1)
+        co = wm.shape[0] * wm.shape[1]
+        w = wm.reshape(co, p.num_input_channel // g, p.kernel_height,
+                       p.kernel_width)
+        x = inputs[0]
+        if co != p.num_channel:
+            grp = ctx.mesh.group("model")
+            x = collectives.enter_group(x, grp)
+        y = ops.conv2d(x, w, stride=p.stride, pad=(p.pad_y, p.pad_x),
+                       groups=g)
+        if co != p.num_channel:
+            # (rank, group, channel) -> (group, rank, channel)
+            y = collectives.all_gather(y, grp, dim=1)
+            b, _, h, wd = y.shape
+            y = y.reshape(b, grp.n, g, co // g, h, wd).transpose(1, 2) \
+                .reshape(b, p.num_channel, h, wd)
         if p.no_bias == 0:
             y = y + params["bias"].reshape(1, -1, 1, 1)
         return [y]
@@ -684,8 +709,8 @@ class DropoutLayer(Layer):
         if not ctx.train:
             return [x]
         pkeep = 1.0 - self.threshold
-        u = torch.rand(x.shape, generator=ctx.gen, dtype=x.dtype,
-                       device=x.device)
+        u = ctx.data_rows(tuple(x.shape), lambda s: torch.rand(
+            s, generator=ctx.gen, dtype=x.dtype, device=x.device))
         return [x * ((u < pkeep).to(x.dtype) / pkeep)]
 
 
@@ -757,10 +782,12 @@ class BatchNormLayer(Layer):
             var = params["running_var"].reshape(bshape).to(x.dtype)
         else:
             # the statistics summed in f32 and rounded to x's dtype, as
-            # jnp.mean of bf16 gives them
-            mean = xf.mean(dim=dims, keepdim=True).to(x.dtype)
-            var = torch.square(xf - mean.float()).mean(
-                dim=dims, keepdim=True).to(x.dtype)
+            # jnp.mean of bf16 gives them; over the whole batch when its
+            # rows are split over the data group, as JAX's program over
+            # the sharded batch computes them
+            mean = self._batch_mean(xf, dims, ctx).to(x.dtype)
+            var = self._batch_mean(torch.square(xf - mean.float()), dims,
+                                   ctx).to(x.dtype)
         if self.moving_average and ctx.train:
             m = self.bn_momentum
             # a share-tied BN folds every application's statistics in turn
@@ -778,6 +805,17 @@ class BatchNormLayer(Layer):
         y = xhat * params["slope"].reshape(bshape).float() \
             + params["bias"].reshape(bshape).float()
         return [y.to(x.dtype)]
+
+    @staticmethod
+    def _batch_mean(v, dims, ctx):
+        if not ctx.data_sharded:
+            return v.mean(dim=dims, keepdim=True)
+        n = 1
+        for d in dims:
+            n *= v.shape[d]
+        g = ctx.mesh.group("data")
+        return collectives.all_reduce(v.sum(dim=dims, keepdim=True), g,
+                                      sum_grad=True) / (n * g.n)
 
     def visit_order(self):
         return [("wmat", "slope"), ("bias", "bias")]
@@ -1335,7 +1373,7 @@ class AttentionLayer(Layer):
 
 
 class MoELayer(Layer):
-    """Mixture-of-experts FFN on one device (cxxnet_tpu/layer/layers.py
+    """Mixture-of-experts FFN (cxxnet_tpu/layer/layers.py
     :1519, its dense dispatch without a mesh): input (b, 1, 1, din) ->
     (b, 1, 1, nhidden) through ``nexpert`` experts relu(x @ W_e), combined
     by a softmax gate. ``top_k > 0`` keeps exactly k gate probabilities
@@ -1343,7 +1381,9 @@ class MoELayer(Layer):
     stable sort), renormalized; every expert still runs on every row.
     Model file: LayerParam, then ``<ii`` nexpert and top_k, then gate
     (E, din) and experts (E, din, dout); visited as ``wmat`` -> experts,
-    ``gate`` -> gate. Expert parallelism is ROADMAP item 12."""
+    ``gate`` -> gate. Under the trainer's ``expert_parallel`` each rank
+    holds its slice of the experts and the ep group sums the parts
+    (``parallel.tensor.expert_parallel_ffn``)."""
 
     type_name = "moe"
 
@@ -1414,8 +1454,16 @@ class MoELayer(Layer):
         b = x.shape[0]
         x2 = x.reshape(b, -1)
         probs = self.gate_probs(x2, params["gate"])
-        y = torch.relu(torch.einsum("bi,eio->ebo", x2, params["experts"]))
-        out = torch.einsum("ebo,be->bo", y, probs)
+        n_ep = ctx.mesh.axis_size("ep") if ctx.mesh is not None else 1
+        if n_ep > 1:
+            # this rank's slice of the experts (tp_spec), the ranks' gate-
+            # weighted parts summed over the ep group
+            out = tensor.expert_parallel_ffn(
+                x2, params["experts"], probs, ctx.mesh.group("ep"))
+        else:
+            y = torch.relu(torch.einsum("bi,eio->ebo", x2,
+                                        params["experts"]))
+            out = torch.einsum("ebo,be->bo", y, probs)
         return [out.reshape(b, 1, 1, self.param.num_hidden)]
 
 

@@ -47,8 +47,21 @@ ledger's HBM headroom.
 The net runs on the card unless the config or the command line says
 ``dev = cpu``; there, every threadbuffer of the chains packs its batches
 into page-locked memory, which the trainer copies to the card
-asynchronously. Keys of features that are not ported raise when they are
-set to anything but their default (``_NOT_PORTED``).
+asynchronously.
+
+Over several processes (cxxnet_tpu/learn_task.py:427-463, 895-899):
+``coordinator`` (``host:port`` or an ``init_method`` URL), ``num_worker``
+and ``worker_rank`` (or ``CXXNET_NUM_WORKER`` and ``CXXNET_WORKER_RANK`` /
+``PS_RANK``) join every process into one world of ranks
+(``parallel.multihost.init_distributed``); every rank runs the whole
+config, serializes every model file (the gathers are collective), and rank
+0 alone writes files. Telemetry takes the rank as its process index.
+Emergency checkpoints are single-process, as in the JAX package. With
+``dev = cpu:a-b`` or ``gpu:a-b`` and none of those keys, the command line
+starts one process per listed device the machine has (``_local_launch``:
+every id of a CPU list; the cards of a card list that exist, so
+``gpu:0-3`` on a one-card machine is one process), the counterpart of the
+JAX mesh over the listed devices.
 """
 
 from __future__ import annotations
@@ -71,13 +84,7 @@ from .utils import serializer
 from .utils import statusd
 from .utils import telemetry
 from .utils.config import ConfigIterator
-
-# keys whose features are not ported yet, with the test that a value is the
-# key's default (which is accepted)
-_NOT_PORTED = {
-    "coordinator": lambda v: v == "",
-    "num_worker": lambda v: int(v) <= 1,
-}
+from .parallel import multihost
 _TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "generate",
           "serve", "route", "export")
 
@@ -376,6 +383,12 @@ class LearnTask:
         self.gen_topk = 0
         self.gen_seed = 0
         self.device = "gpu"
+        # the world of processes (cxxnet_tpu/learn_task.py:425-433):
+        # coordinator / num_worker / worker_rank, defaulting from the
+        # environment in multihost.init_distributed
+        self.coordinator = ""
+        self.num_worker = 0
+        self.worker_rank = -1
         self.cfg: List[Tuple[str, str]] = [("dev", "gpu")]
 
     def run(self, argv: List[str]) -> int:
@@ -384,8 +397,20 @@ class LearnTask:
             return 0
         for name, val in ConfigIterator(argv[0], argv[1:]):
             self.set_param(name, val)
+        n_local = self._local_ranks()
+        if n_local > 1:
+            return self._local_launch(argv, n_local)
+        pidx = None
+        if self.coordinator or self.num_worker > 1:
+            multihost.init_distributed(
+                coordinator_address=self.coordinator or None,
+                num_processes=self.num_worker or None,
+                process_id=self.worker_rank if self.worker_rank >= 0
+                else None,
+                dev=self.device)
+            pidx = multihost.worker_shard_params()[1]
         if self.telemetry_log:
-            telemetry.enable(self.telemetry_log)
+            telemetry.enable(self.telemetry_log, process_index=pidx)
             telemetry.event({"ev": "run_meta", "task": self.task,
                              "dev": self.device})
         if self.status_port >= 0:
@@ -451,13 +476,81 @@ class LearnTask:
                 self._status_telemetry = False
         return 0
 
+    def _local_ranks(self) -> int:
+        """How many local processes ``dev`` asks for when no world is
+        given: the ids of a ``cpu:`` list, the ids of a card list that the
+        machine has; 1 otherwise (and inside a world)."""
+        if self.coordinator or self.num_worker > 0 \
+                or os.environ.get("CXXNET_NUM_WORKER"):
+            return 1
+        kind, ids = device_mod.parse_device_spec(self.device)
+        if len(ids) <= 1:
+            return 1
+        if kind == "cpu":
+            return len(ids)
+        import torch
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        return max(1, len([i for i in ids if i < have]))
+
+    def _local_launch(self, argv: List[str], n: int) -> int:
+        """One process of this config per rank on this host, joined at a
+        free localhost port, each writing to this process's standard output
+        and error; returns 0 when every rank does. When one rank exits
+        non-zero the others are killed (they would wait in a collective
+        for it) and its code is returned, as torchrun does."""
+        import socket
+        import subprocess
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        entry = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "bin", "cxxnet_torch")
+        procs = [subprocess.Popen(
+            [sys.executable, entry] + list(argv)
+            + ["coordinator=127.0.0.1:%d" % port, "num_worker=%d" % n,
+               "worker_rank=%d" % r],
+            env=dict(os.environ, LOCAL_RANK=str(r)))
+            for r in range(n)]
+        try:
+            while True:
+                rcs = [p.poll() for p in procs]
+                failed = next((rc for rc in rcs if rc), None)
+                if failed is not None:
+                    return failed
+                if all(rc == 0 for rc in rcs):
+                    return 0
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+    def _output(self, path: str, mode: str):
+        """``path`` opened for writing on the writer rank; the null device
+        on the others (every rank computes the rows: the gathers are
+        collective)."""
+        return open(path if self._is_writer() else os.devnull, mode)
+
+    def _quarantine(self, path: str, reason: str) -> None:
+        """A corrupt checkpoint moved aside, by the writer rank alone (the
+        others skip it as it does)."""
+        if self._is_writer():
+            ckpt.quarantine(path, reason=reason)
+
+    def _is_writer(self) -> bool:
+        """Every rank serializes (the gathers are collective), rank 0
+        alone touches the filesystem."""
+        return multihost.worker_shard_params()[1] == 0
+
     def _start_status_server(self) -> None:
         """Bind the status pages (cxxnet_tpu/learn_task.py:459-488). They
         read the telemetry registry, which runs in memory when no log was
         configured. A port that cannot be bound warns and the run goes on
         without the pages."""
         if not telemetry.enabled():
-            telemetry.enable()
+            telemetry.enable(
+                process_index=multihost.worker_shard_params()[1])
             self._status_telemetry = True
         try:
             srv = statusd.start(self.status_port, host=self.status_host)
@@ -514,9 +607,12 @@ class LearnTask:
     def set_param(self, name: str, val: str) -> None:
         if val == "default":
             return
-        if name in _NOT_PORTED and not _NOT_PORTED[name](val):
-            raise ValueError("%s = %s: this feature is not ported to "
-                             "cxxnet_tpu_torch yet" % (name, val))
+        if name == "coordinator":
+            self.coordinator = val
+        if name == "num_worker":
+            self.num_worker = int(val)
+        if name == "worker_rank":
+            self.worker_rank = int(val)
         if name == "task":
             if val not in _TASKS:
                 raise ValueError("unknown task %s" % val)
@@ -667,7 +763,7 @@ class LearnTask:
                 if prog[0] > self.start_counter:
                     cands.append((prog, epath, payload, fmt))
             except ckpt.CheckpointCorruptError as e:
-                ckpt.quarantine(epath, reason=str(e))
+                self._quarantine(epath, str(e))
             except OSError as e:     # unreadable after the retries: skip
                 sys.stderr.write(    # it, never quarantine it
                     "WARNING: cannot read %s (%s); skipping\n" % (epath, e))
@@ -678,7 +774,7 @@ class LearnTask:
                     payload, fmt = ckpt.read_verified(
                         path, retries=self.ckpt_retries)
             except ckpt.CheckpointCorruptError as e:
-                ckpt.quarantine(path, reason=str(e))
+                self._quarantine(path, str(e))
                 continue
             except OSError as e:
                 sys.stderr.write(
@@ -703,7 +799,7 @@ class LearnTask:
                         from e
                 # a legacy file has no framing: a failed parse IS the
                 # corruption signal
-                ckpt.quarantine(path, reason=str(e))
+                self._quarantine(path, str(e))
                 continue
             self.net_trainer = net
             self.start_counter = prog[0]
@@ -773,6 +869,8 @@ class LearnTask:
         w.write_int32(self.net_type)
         self.net_trainer.save_model(w)
         self.net_trainer.save_training_state(w, extra=extra)
+        if not self._is_writer():
+            return
         payload = w.f.getbuffer()   # a view of the buffer, not a copy
         os.makedirs(self.name_model_dir, exist_ok=True)
         ckpt.write_checkpoint(name, payload, fsync=bool(self.ckpt_fsync),
@@ -798,6 +896,8 @@ class LearnTask:
             return False
         self._write_checkpoint(self._model_path(counter),
                                self.start_counter, 0)
+        if not self._is_writer():
+            return True
         epath = os.path.join(self.name_model_dir, ckpt.EMERGENCY_NAME)
         try:
             if os.path.exists(epath):
@@ -920,7 +1020,15 @@ class LearnTask:
             # is paused across eval, checkpoints and kernel builds
             wd = health.Watchdog(self.watchdog_timeout,
                                  action=self.watchdog_action).start()
-        with ckpt.PreemptionGuard(enabled=bool(self.preempt_save)) as guard:
+        # emergency checkpoints are single-process: ranks would see the
+        # signal at different steps and meet in mismatched collectives
+        # (cxxnet_tpu/learn_task.py:1046-1059)
+        single = multihost.worker_shard_params()[0] <= 1
+        if self.preempt_save and not single and not self.silent:
+            print("preempt_save: disabled (multi-process run — emergency "
+                  "checkpoints require single-process training)")
+        with ckpt.PreemptionGuard(enabled=bool(self.preempt_save)
+                                  and single) as guard:
             self._preempt = guard
             try:
                 self._task_train_loop(start)
@@ -1253,7 +1361,7 @@ class LearnTask:
 
     def task_predict(self) -> None:
         print("start predicting...")
-        with open(self.name_pred, "w") as fo:
+        with self._output(self.name_pred, "w") as fo:
             for batch in self._pred_batches():
                 pred = self.net_trainer.predict(batch.data)
                 for v in pred[: len(pred) - batch.num_batch_padd]:
@@ -1265,7 +1373,7 @@ class LearnTask:
         probabilities after softmax) per input row, as
         example/kaggle_bowl/make_submission.py reads them."""
         print("start predicting (raw)...")
-        with open(self.name_pred, "w") as fo:
+        with self._output(self.name_pred, "w") as fo:
             for batch in self._pred_batches():
                 out = self.net_trainer.extract_feature(batch.data, "top[-1]")
                 out = np.asarray(out).reshape(out.shape[0], -1)
@@ -1279,7 +1387,8 @@ class LearnTask:
         print("start predicting...")
         nrow = 0
         dshape = (0, 0, 0)
-        with open(self.name_pred, "w" if self.output_format else "wb") as fo:
+        with self._output(self.name_pred,
+                          "w" if self.output_format else "wb") as fo:
             for batch in self._pred_batches():
                 pred = self.net_trainer.extract_feature(
                     batch.data, self.extract_node_name)
@@ -1293,7 +1402,7 @@ class LearnTask:
                         fo.write(row.astype("<f4").tobytes())
                 if sz:
                     dshape = pred.shape[1:]
-        with open(self.name_pred + ".meta", "w") as fm:
+        with self._output(self.name_pred + ".meta", "w") as fm:
             fm.write("%d,%d,%d,%d\n" % (nrow, dshape[0], dshape[1], dshape[2]))
         print("finished prediction, write into %s" % self.name_pred)
 

@@ -53,6 +53,9 @@ class NeuralNet:
         through the casts."""
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        # the trainer's mesh of ranks (parallel/mesh.py), None on one rank;
+        # reaches the layers through the apply context
+        self.mesh = None
         self.seq_parallel = int(seq_parallel)
         self.max_batch = batch_size
         self.input_scale = float(input_scale)
@@ -189,6 +192,9 @@ class NeuralNet:
         lay = self.layers[i]
         pidx = info.primary_layer_index if self.is_shared[i] else i
         ctx.layer_index = pidx
+        p = params[pidx]
+        if ctx.gather is not None:
+            p = ctx.gather(pidx, p)
         # the connection, not the params slot: two share-tied attention
         # layers share weights but not a cache
         ctx.conn_index = i
@@ -198,7 +204,7 @@ class NeuralNet:
                 .manual_seed(fold_in(base_seed, i))
         if self.compute_dtype is not None and lay.is_loss:
             ins = [x.float() for x in ins]
-        for j, v in zip(info.nindex_out, lay.forward(params[pidx], ins, ctx)):
+        for j, v in zip(info.nindex_out, lay.forward(p, ins, ctx)):
             values[j] = v
 
     def _apply_remat(self, seg: range, params: Params,
@@ -226,7 +232,9 @@ class NeuralNet:
             for j, x in zip(ins, xs):
                 local[j] = x
             c2 = ApplyContext(train=ctx.train, epoch=ctx.epoch,
-                              seq_parallel=ctx.seq_parallel)
+                              seq_parallel=ctx.seq_parallel, mesh=ctx.mesh,
+                              data_sharded=ctx.data_sharded,
+                              gather=ctx.gather)
             for i in seg:
                 self._apply_connection(i, params, local, c2, base_seed)
             return tuple(local[j] for j in outs)
@@ -253,7 +261,8 @@ class NeuralNet:
                 labels: Optional[LabelInfo] = None, train: bool = False,
                 gen: Optional[torch.Generator] = None, epoch: int = 0,
                 decode_pos=None, kv_cache=None, decode_span=None,
-                keep: Sequence[int] = ()
+                keep: Sequence[int] = (), data_sharded: bool = False,
+                gather=None
                 ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
         """Run the DAG; returns (node values, total loss). ``train`` turns
         on the training behaviour of the layers (dropout); ``labels`` makes
@@ -276,7 +285,13 @@ class NeuralNet:
         With autograd on and no decode, the ``remat`` layers run in the
         pieces of ``remat_segments``: a node that only its own piece reads
         is None in the returned values, unless it is the last node or in
-        ``keep``."""
+        ``keep``.
+
+        Under a mesh (``self.mesh``), ``data_sharded`` says that ``data``
+        is this rank's rows of the batch (the apply context's flag), and
+        ``gather(params slot, params)``, when given, returns the params a
+        layer applies, called just before the layer (fsdp's all-gather of
+        its weight shards)."""
         cfg = self.cfg
         cdt = self.compute_dtype
         values: List[Optional[torch.Tensor]] = [None] * cfg.param.num_nodes
@@ -296,7 +311,8 @@ class NeuralNet:
         ctx = ApplyContext(train=train, labels=labels, epoch=epoch,
                            decode_pos=decode_pos, decode_span=decode_span,
                            kv_cache=kv_cache or {},
-                           seq_parallel=self.seq_parallel)
+                           seq_parallel=self.seq_parallel, mesh=self.mesh,
+                           data_sharded=bool(data_sharded), gather=gather)
         base_seed = gen.initial_seed() if gen is not None else 0
         segments = {seg.start: seg for seg in self.remat_segments()} \
             if decode_pos is None and torch.is_grad_enabled() else {}

@@ -27,8 +27,22 @@ to page-locked memory behind an event (``last_health``, a
 ``StagedVector``), which the host monitor reads one step late;
 ``nonfinite_action = skip`` guards the step on the device, so that a
 non-finite step leaves every piece of state as it was, with no host read
-(``_guard_begin`` / ``_guard_end``). Meshes over several devices belong to
-a later slice.
+(``_guard_begin`` / ``_guard_end``).
+Over several ranks (a ``torch.distributed`` world, one process and one
+device a rank) the trainer builds a mesh (parallel/mesh.py) of ``data``,
+``ep`` and ``model`` axes and trains the model that one rank trains on the
+whole batch (cxxnet_tpu/nnet/trainer.py:236-420, 900-1160): each data rank
+takes its rows of the batch and the gradients are summed over the data
+group; ``model_parallel`` splits fullc and conv weights on their output
+features, ``expert_parallel`` the moe experts (``tp_spec``);
+``update_on_server`` (ZeRO-1) reduce-scatters each gradient to its
+``zero_sharding`` block, steps that block's weights and optimizer state
+and all-gathers the weights; ``fsdp`` (ZeRO-3) keeps each weight as its
+``fsdp_shardings`` block, gathered just before its layer, whose backward
+reduce-scatters the gradient. Model files, ``get_weight``, ``predict``,
+``extract`` and ``evaluate`` see the whole model and batch on every rank
+(``canonical_params``, ``multihost.fetch_global``): every rank calls them
+together. The pipeline (``pipeline_parallel``) is a later slice.
 ``export_forward`` and ``export_decode`` write the inference forward and
 the decode loop as ``torch.export`` programs with the weights baked in.
 Every unit of device work is one of the JAX package's programs under its
@@ -62,6 +76,10 @@ import torch
 from .. import device as device_mod
 from ..layer.base import check, fold_in
 from ..ops import random as oprandom
+from ..parallel import collectives
+from ..parallel import mesh as mesh_mod
+from ..parallel import sharding
+from ..parallel.multihost import fetch_global
 from ..updater import Updater, create_updater
 from ..utils import checkpoint as ckpt
 from ..utils import kvblocks, perf, serializer, telemetry
@@ -230,6 +248,20 @@ class Trainer:
         # sequence parallelism: the device runs this many virtual ranks of
         # the sequence in every attention layer (doc/multichip.md:162-193)
         self.seq_parallel = 1
+        # the modes over several ranks (doc/multichip.md): tensor and
+        # expert parallelism, ZeRO-1 and ZeRO-3, the replica check
+        self.model_parallel = 1
+        self.expert_parallel = 1
+        self.update_on_server = 0
+        self.fsdp = 0
+        self.test_on_server = 0
+        self.mesh: Optional[mesh_mod.Mesh] = None
+        # per layer {key: placement}: of the stored weight, of its
+        # optimizer state and reduced gradient; and fsdp's gathers, per
+        # layer {key: (dimension, axes)}
+        self._store_spec: Optional[List[Dict[str, tuple]]] = None
+        self._opt_spec: Optional[List[Dict[str, tuple]]] = None
+        self._fsdp_gather: List[Dict[str, tuple]] = []
         # the nets' compute dtype; None computes in float32
         self.compute_dtype: Optional[torch.dtype] = None
         self.metric = MetricSet()
@@ -293,10 +325,25 @@ class Trainer:
         if name == "seq_parallel":
             self.seq_parallel = int(val)
             check(self.seq_parallel >= 1, "seq_parallel must be >= 1")
-        if name in ("model_parallel", "pipeline_parallel",
-                    "expert_parallel"):
-            check(int(val) == 1, "%s > 1 is not ported yet (ROADMAP.md "
-                  "Queue 1 item 12)" % name)
+        if name == "model_parallel":
+            self.model_parallel = int(val)
+            check(self.model_parallel >= 1, "model_parallel must be >= 1")
+        if name == "expert_parallel":
+            self.expert_parallel = int(val)
+            check(self.expert_parallel >= 1, "expert_parallel must be >= 1")
+        if name == "update_on_server":
+            self.update_on_server = int(val)
+        if name == "fsdp":
+            self.fsdp = int(val)
+        if name == "test_on_server":
+            self.test_on_server = int(val)
+        if name == "pipeline_parallel":
+            check(int(val) <= 1, "pipeline_parallel > 1 is not ported yet: "
+                  "it is ROADMAP.md Queue 1 item 12b")
+        if name == "pipeline_micro":
+            check(int(val) <= 0, "pipeline_micro > 0 is not ported yet: "
+                  "it belongs to pipeline_parallel, ROADMAP.md Queue 1 "
+                  "item 12b")
         if name == "health_monitor":
             self.health_monitor = int(val)
         if name == "nonfinite_action":
@@ -320,11 +367,13 @@ class Trainer:
 
     def _new_net(self, cfg: NetConfig, batch_size: int,
                  infer_shapes: bool) -> NeuralNet:
-        return NeuralNet(cfg, batch_size, infer_shapes=infer_shapes,
-                         input_scale=self.input_scale,
-                         input_mean=self.input_mean,
-                         seq_parallel=self.seq_parallel,
-                         compute_dtype=self.compute_dtype)
+        net = NeuralNet(cfg, batch_size, infer_shapes=infer_shapes,
+                        input_scale=self.input_scale,
+                        input_mean=self.input_mean,
+                        seq_parallel=self.seq_parallel,
+                        compute_dtype=self.compute_dtype)
+        net.mesh = self.mesh
+        return net
 
     def _resolve_eval_nodes(self) -> None:
         self.eval_nodes = [self.net_cfg.param.num_nodes - 1 if nm is None
@@ -333,13 +382,193 @@ class Trainer:
 
     def init_model(self) -> None:
         self.dev = device_mod.resolve_device(self.dev_spec)
+        self._setup_mesh()
         self.net_cfg.configure(self.cfg_pairs)
         self.net = self._new_net(self.net_cfg, self.batch_size, True)
         self._seq_nets.clear()
         self._resolve_eval_nodes()
-        self.params = self.net.init_params(self.seed, self.dev)
+        self._setup_layout()
+        self.params = self._place(self.net.init_params(self.seed, self.dev))
         self._build_updaters()
         self._init_opt()
+
+    # ranks (cxxnet_tpu/nnet/trainer.py:236-420)
+    def _setup_mesh(self) -> None:
+        """The mesh over the world's ranks (None on one rank), with the
+        JAX trainer's divisibility checks."""
+        self.mesh = mesh_mod.create_mesh(self.model_parallel,
+                                         self.expert_parallel,
+                                         self.batch_size)
+
+    def _setup_layout(self) -> None:
+        """The placements of every weight, its optimizer state and its
+        reduced gradient on the mesh (parallel/sharding.py), by the JAX
+        trainer's rules (``_place_params``, ``_apply_updates``)."""
+        shapes = self.net.param_shapes()
+        mesh = self.mesh
+        self._fsdp_gather = [{} for _ in shapes]
+        if mesh is None:
+            self._store_spec = [{k: () for k in p} for p in shapes]
+            self._opt_spec = self._store_spec
+            return
+        tp = sharding.param_shardings(mesh, self.net.layers, shapes)
+        if self.fsdp and mesh.axis_size("data") > 1:
+            store = sharding.fsdp_shardings(mesh, self.net.layers, shapes,
+                                            base_shardings=tp)
+            # the tensors fsdp leaves whole keep ZeRO-1 optimizer state:
+            # the mode subsumes update_on_server
+            opt = [{k: sp if sharding.split_of(sp) is not None
+                    else sharding.zero_sharding(mesh, shapes[i][k])
+                    for k, sp in p.items()} for i, p in enumerate(store)]
+            for i, p in enumerate(store):
+                for k, sp in p.items():
+                    rel = sharding.relative(sp, tp[i][k])
+                    if rel is not None:
+                        self._fsdp_gather[i][k] = rel
+        elif self.update_on_server:
+            store = tp
+            opt = [{k: sharding.zero_sharding(mesh, shapes[i][k],
+                                              base_spec=tp[i][k])
+                    for k in p} for i, p in enumerate(store)]
+        else:
+            store = opt = tp
+        self._store_spec, self._opt_spec = store, opt
+
+    def _place(self, full):
+        """This rank's stored blocks of whole per-layer params (tensors or
+        arrays; a copy)."""
+        return sharding.shard_params(full, self.mesh, self._store_spec,
+                                     self.dev)
+
+    def _opt_rel(self, i: int, k: str):
+        """The split of weight (i, k)'s optimizer block within its stored
+        block: (dimension, axes), or None when the two are the same."""
+        if self.mesh is None:
+            return None
+        return sharding.relative(self._opt_spec[i][k], self._store_spec[i][k])
+
+    def _opt_view(self, i: int, k: str) -> torch.Tensor:
+        """The part of the stored weight (i, k) that this rank steps: its
+        optimizer block (a view)."""
+        w = self.params[i][k]
+        rel = self._opt_rel(i, k)
+        if rel is None:
+            return w
+        dim, axes = rel
+        g = self.mesh.group(axes)
+        size = w.shape[dim] // g.n
+        return w.narrow(dim, g.index * size, size)
+
+    def _data_group(self):
+        return self.mesh.group("data")
+
+    @property
+    def _dp(self) -> int:
+        return self.mesh.axis_size("data") if self.mesh is not None else 1
+
+    def _gather_fn(self):
+        """fsdp's hook for NeuralNet.forward: a layer's weight blocks
+        gathered over their axes just before the layer; the gather's
+        backward reduce-scatters the gradient (summed over the data
+        group). None when no weight is split so."""
+        fg = self._fsdp_gather
+        if not any(fg):
+            return None
+        mesh = self.mesh
+
+        def gather(pidx, p):
+            if not fg[pidx]:
+                return p
+            p = dict(p)
+            for k, (dim, axes) in fg[pidx].items():
+                p[k] = collectives.all_gather(p[k], mesh.group(axes),
+                                              dim=dim, sum_grad=True)
+            return p
+        return gather
+
+    @torch.no_grad()
+    def _reduce_grad(self, i: int, k: str, g: torch.Tensor) -> torch.Tensor:
+        """The gradient of weight (i, k) summed over the data group, in its
+        optimizer block: an all-reduce, or a reduce-scatter to its ZeRO
+        block (cut further where the block splits over the model or ep
+        axes too, over which the gradient is the same on every rank).
+        fsdp's gathered weights arrive reduced already."""
+        if self.mesh is None or k in self._fsdp_gather[i]:
+            return g
+        dg = self._data_group()
+        rel = self._opt_rel(i, k)
+        if rel is None:
+            return collectives.all_reduce(g, dg)
+        dim, axes = rel
+        if axes[0] == "data":
+            g, axes = collectives.reduce_scatter(g, dg, dim=dim), axes[1:]
+        else:
+            g = collectives.all_reduce(g, dg)
+        if axes:
+            grp = self.mesh.group(axes)
+            size = g.shape[dim] // grp.n
+            g = g.narrow(dim, grp.index * size, size).contiguous()
+        return g
+
+    @torch.no_grad()
+    def _gather_stepped(self, i: int, k: str) -> None:
+        """After a ZeRO step of (i, k)'s block: the stored weight gathered
+        back whole from the ranks' blocks."""
+        rel = self._opt_rel(i, k)
+        if rel is None:
+            return
+        dim, axes = rel
+        w = self.params[i][k]
+        w.copy_(collectives.all_gather(self._opt_view(i, k),
+                                       self.mesh.group(axes), dim=dim))
+
+    def _counted(self, spec) -> bool:
+        """Whether this rank counts its block of a tensor under ``spec`` in
+        a sum over the world: the first rank of each replica set."""
+        sp = sharding.split_of(spec)
+        split = sp[1] if sp is not None else ()
+        return self.mesh.is_first([a for a in self.mesh.axis_names
+                                   if a not in split])
+
+    def _world_sum(self, v: torch.Tensor) -> torch.Tensor:
+        """The sum of ``v`` over every rank of the mesh."""
+        if self.mesh is None:
+            return v
+        return collectives.all_reduce(v, self.mesh.group(
+            self.mesh.axis_names))
+
+    def param_bytes(self) -> int:
+        """The bytes of the weights this rank holds."""
+        return sum(t.numel() * t.element_size()
+                   for p in self.params for t in p.values())
+
+    def opt_bytes(self) -> int:
+        """The bytes of the optimizer state this rank holds."""
+        return sum(t.numel() * t.element_size()
+                   for st in self.opt_state for sub in st.values()
+                   for t in sub.values())
+
+    def check_replica_consistency(self, atol: float = 0.0) -> None:
+        """``test_on_server`` (the reference's replica check,
+        src/updater/async_updater-inl.hpp:148-153): every rank's stored
+        weights equal those of the other ranks that hold the same block.
+        Collective: every rank calls it."""
+        if self.mesh is None:
+            return
+        for i, p in enumerate(self.params):
+            for key in sorted(p):
+                sp = sharding.split_of(self._store_spec[i][key])
+                split = sp[1] if sp is not None else ()
+                grp = self.mesh.group([a for a in self.mesh.axis_names
+                                       if a not in split])
+                if grp.n == 1:
+                    continue
+                w = p[key].detach().reshape(1, -1)
+                allw = collectives.all_gather(w, grp, dim=0)
+                diff = float((allw - allw[:1]).abs().max()) \
+                    if w.numel() else 0.0
+                check(diff <= atol, "TestSync: layer %d %s replicas "
+                      "diverged (max |diff| = %g)" % (i, key, diff))
 
     def _build_updaters(self) -> None:
         """One Updater per (connection, weight tag), configured from the
@@ -387,7 +616,7 @@ class Trainer:
         return self._jit_cache[key]
 
     def _init_opt(self) -> None:
-        self.opt_state = [{key: up.init_state(self.params[i][key])
+        self.opt_state = [{key: up.init_state(self._opt_view(i, key))
                            for key, up in ups.items()}
                           for i, ups in enumerate(self.updaters)]
         self.grad_accum = None
@@ -400,12 +629,14 @@ class Trainer:
         section, in the layout the JAX package reads and writes."""
         self.net_cfg.save_net(w)
         w.write_raw(np.int64(self.epoch_counter).tobytes())
-        blob = self.net.save_model_blob(self.params)
+        blob = self.net.save_model_blob(
+            [{k: torch.from_numpy(v) for k, v in p.items()}
+             for p in self.canonical_params()])
         w.write_uint64(len(blob))
         w.write_raw(blob)
         ow = serializer.Writer()
         ow.write_uint64(len(self.opt_state))
-        for st in self.opt_state:
+        for i, st in enumerate(self.opt_state):
             ow.write_uint64(len(st))
             for key in sorted(st):
                 ow.write_string(key)
@@ -413,7 +644,8 @@ class Trainer:
                 ow.write_uint64(len(sub))
                 for sk in sorted(sub):
                     ow.write_string(sk)
-                    ow.write_tensor(sub[sk].detach().cpu().numpy())
+                    ow.write_tensor(fetch_global(sub[sk], self.mesh,
+                                                 self._opt_spec[i][key]))
         blob = ow.getvalue()
         w.write_raw(OPT_MAGIC)
         w.write_uint64(len(blob))
@@ -426,6 +658,7 @@ class Trainer:
         # layer params (nhidden etc.) come from the model blob, so shape
         # inference waits until it is read, as in the reference
         self.net_cfg.configure(self.cfg_pairs)
+        self._setup_mesh()
         self.net = self._new_net(self.net_cfg, self.batch_size, False)
         self._seq_nets.clear()
         self._resolve_eval_nodes()
@@ -433,6 +666,8 @@ class Trainer:
         self.params = self.net.load_model_blob(r.read_raw(nbytes), self.dev)
         self.net.infer_shapes()
         self._check_param_shapes()
+        self._setup_layout()
+        self.params = self._place(self.params)
         self._build_updaters()
         self._init_opt()
         self._load_opt_state(r)
@@ -457,7 +692,8 @@ class Trainer:
             check(n == len(self.opt_state),
                   "optimizer state layer count %d != %d"
                   % (n, len(self.opt_state)))
-            for st in self.opt_state:
+            shapes = self.net.param_shapes()
+            for i, st in enumerate(self.opt_state):
                 for _ in range(sr.read_uint64()):
                     key = sr.read_string()
                     check(key in st, "optimizer state has unknown weight "
@@ -466,10 +702,12 @@ class Trainer:
                         sk = sr.read_string()
                         val = sr.read_tensor()
                         check(sk in st[key] and
-                              tuple(st[key][sk].shape) == val.shape,
+                              tuple(shapes[i][key]) == val.shape,
                               "optimizer state %r/%r shape mismatch"
                               % (key, sk))
-                        st[key][sk] = torch.from_numpy(val).to(self.dev)
+                        st[key][sk] = sharding.shard_copy(
+                            val, self.mesh, self._opt_spec[i][key],
+                            self.dev, st[key][sk].dtype)
             magic = r.f.read(len(ckpt.STATE_MAGIC))
         check(magic in (b"", ckpt.STATE_MAGIC),
               "model file: unexpected bytes %r after the model blob" % magic)
@@ -493,6 +731,9 @@ class Trainer:
             meta.update(extra)
         ga = self._grad_accum_layers()
         ma = self._metric_accum
+        if ma is not None and self.mesh is not None:
+            # the whole batch's sums (every rank calls this together)
+            ma = collectives.all_reduce(ma, self._data_group())
         meta["has_grad_accum"] = ga is not None
         meta["has_metric_accum"] = ma is not None
         sw.write_string(json.dumps(meta, sort_keys=True))
@@ -548,22 +789,27 @@ class Trainer:
         ma = state.get("metric_accum")
         if ma is not None:
             if np.shape(ma) == (len(self.train_metric), 2):
-                self._metric_accum = torch.from_numpy(
-                    np.asarray(ma, np.float32)).to(self.dev)
+                ma = np.asarray(ma, np.float32)
+                if self.mesh is not None and self.mesh.coords["data"]:
+                    # the file holds the whole batch's sums: the first
+                    # data rank carries them, the others start from zero
+                    ma = np.zeros_like(ma)
+                self._metric_accum = torch.from_numpy(ma).to(self.dev)
             elif not self.silent:
                 print("WARNING: checkpoint train-metric state does not "
                       "match the current metric set; dropped")
         ga = state.get("grad_accum")
         if ga is not None:
-            ok = len(ga) == len(self.params) and all(
+            shapes = self.net.param_shapes()
+            ok = len(ga) == len(shapes) and all(
                 set(d) == set(p)
-                and all(tuple(np.shape(d[k])) == tuple(p[k].shape)
-                        for k in d)
-                for d, p in zip(ga, self.params))
+                and all(tuple(np.shape(d[k])) == tuple(p[k]) for k in d)
+                for d, p in zip(ga, shapes))
             if ok:
                 self.grad_accum = [
-                    torch.from_numpy(np.asarray(ga[i][k], np.float32))
-                    .to(device=self.dev, dtype=self.params[i][k].dtype)
+                    sharding.shard_copy(np.asarray(ga[i][k], np.float32),
+                                        self.mesh, self._opt_spec[i][k],
+                                        self.dev, self.params[i][k].dtype)
                     for i, k in self._update_keys()]
             elif not self.silent:
                 print("WARNING: checkpoint gradient-accumulation state "
@@ -584,17 +830,43 @@ class Trainer:
         nothing is accumulated."""
         if self.grad_accum is None:
             return None
-        out = [{k: np.zeros(tuple(v.shape), np.float32)
-                for k, v in p.items()} for p in self.params]
+        out = [{k: np.zeros(tuple(v), np.float32) for k, v in p.items()}
+               for p in self.net.param_shapes()]
         for (i, k), g in zip(self._update_keys(), self.grad_accum):
-            out[i][k] = g.detach().float().cpu().numpy()
+            out[i][k] = fetch_global(g.detach().float(), self.mesh,
+                                     self._opt_spec[i][k])
         return out
 
     def canonical_params(self) -> List[Dict[str, np.ndarray]]:
         """The per-layer params as host float32 arrays, {tag: array} per
-        layer (the form of the model file and of ``get_weight``)."""
-        return [{k: v.detach().cpu().numpy() for k, v in p.items()}
-                for p in self.params]
+        layer (the form of the model file and of ``get_weight``), whole:
+        under a mesh every rank gathers them together
+        (``multihost.fetch_global``)."""
+        return [{k: fetch_global(v, self.mesh, self._store_spec[i][k])
+                 for k, v in p.items()}
+                for i, p in enumerate(self.params)]
+
+    def load_params(self, params) -> None:
+        """Take whole per-layer params (arrays or tensors, the form of
+        ``canonical_params`` and ``convert.params_from_jax``): this rank
+        keeps its blocks of them. The optimizer state starts afresh."""
+        check(len(params) == len(self.params),
+              "load_params: %d layers given, the net has %d"
+              % (len(params), len(self.params)))
+        self.params = self._place(params)
+        self._params_gen += 1
+        self._check_param_shapes_whole()
+        self._init_opt()
+
+    def _check_param_shapes_whole(self) -> None:
+        for i, (want, p) in enumerate(zip(self.net.param_shapes(),
+                                          self.params)):
+            got = {k: sharding.shard_shape(want[k], self.mesh,
+                                           self._store_spec[i][k])
+                   for k in want}
+            have = {k: tuple(v.shape) for k, v in p.items()}
+            check(got == have, "layer %d: params %r, the net expects %r"
+                  % (i, have, got))
 
     def copy_model_from(self, r: serializer.Reader) -> None:
         """Finetune: a fresh model with the weights of the name-matched
@@ -608,6 +880,7 @@ class Trainer:
         old_net = self._new_net(old_cfg, 1, False)
         old_params = old_net.load_model_blob(r.read_raw(r.read_uint64()),
                                              self.dev)
+        full = self.canonical_params()
         for i, old_info in enumerate(old_cfg.layers):
             if not old_info.name:
                 continue
@@ -615,14 +888,21 @@ class Trainer:
                 if new_info.name == old_info.name:
                     if self.silent == 0:
                         print("Copying layer %s" % old_info.name)
-                    self.params[j].update(old_params[i])
+                    full[j].update(old_params[i])
+        shapes = self.net.param_shapes()
+        for j, p in enumerate(full):
+            got = {k: tuple(v.shape) for k, v in p.items()}
+            check(got == shapes[j], "layer %d: model file holds params %r, "
+                  "the net expects %r" % (j, got, shapes[j]))
+        self.params = self._place(full)
         self._params_gen += 1
-        self._check_param_shapes()
         self._init_opt()
 
     # training (reference Update, nnet_impl-inl.hpp:141-185)
     def start_round(self, round_: int) -> None:
         self.round = round_
+        if self.test_on_server:
+            self.check_replica_consistency()
 
     def _next_gen(self) -> torch.Generator:
         """The step's generator: a stream of its own for every update,
@@ -652,7 +932,9 @@ class Trainer:
         values, loss = self.net.forward(self.params, data, labels=labels,
                                         train=True, gen=gen,
                                         epoch=self.epoch_counter,
-                                        keep=self.eval_nodes)
+                                        keep=self.eval_nodes,
+                                        data_sharded=self._dp > 1,
+                                        gather=self._gather_fn())
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
@@ -662,7 +944,8 @@ class Trainer:
         """The loss and the weight gradients (per layer, {tag: tensor} like
         ``params``) of the forward that the next ``update`` on ``batch``
         would take, its dropout stream included; steps and advances
-        nothing."""
+        nothing. Under a mesh they are this rank's: its rows' part of the
+        sum, of its blocks of the weights."""
         keys = [(i, k) for i, p in enumerate(self.params) for k in p]
         gen = torch.Generator(device=self.dev).manual_seed(
             fold_in(self.seed, self._rng_counter + 1))
@@ -729,12 +1012,16 @@ class Trainer:
         keys = self._update_keys()
         values, labels, loss, grads = self._forward_backward_on(
             data, label, self._next_gen(), keys)
+        if self.mesh is not None:
+            # summed over the data group, each in its optimizer block
+            grads = [self._reduce_grad(i, k, g)
+                     for (i, k), g in zip(keys, grads)]
         state_ups = self.net._last_state_updates
         health = ok = None
         if with_health:
             # over the FRESH gradients, before the accumulation, so that
             # the vector names the offending batch
-            health, ok = self._health_vector(loss, grads)
+            health, ok = self._health_vector(loss, grads, keys)
         guard = with_health and self.nonfinite_action == "skip"
         if with_stats:
             with torch.no_grad():
@@ -767,15 +1054,16 @@ class Trainer:
         if need_update:
             if self.clip_global_norm > 0:
                 # whole-model norm clip: one scale for every tensor
-                gn = torch.sqrt(sum(torch.vdot(g.flatten(), g.flatten())
-                                    for g in grads))
+                gn = torch.sqrt(self._norm_sq(grads, keys))
                 scale = torch.clamp(self.clip_global_norm
                                     / gn.clamp_min(1e-12), max=1.0)
                 grads = [g * scale for g in grads]
             for (i, k), g in zip(keys, grads):
-                self.updaters[i][k].apply(self.params[i][k], g,
+                self.updaters[i][k].apply(self._opt_view(i, k), g,
                                           self.opt_state[i][k],
                                           self.epoch_counter)
+                if self.mesh is not None:
+                    self._gather_stepped(i, k)
             if guard:
                 self._guard_end(live, ok)
                 if self.grad_accum is not None:
@@ -794,22 +1082,50 @@ class Trainer:
             self._params_gen += 1
         return health
 
+    def _counted_grads(self, grads, keys):
+        """The gradient blocks this rank counts in a sum over the world
+        (each block once: ``_counted``); all of them on one rank."""
+        if self.mesh is None:
+            return list(grads)
+        return [g for (i, k), g in zip(keys, grads)
+                if self._counted(self._opt_spec[i][k])]
+
     @torch.no_grad()
-    def _health_vector(self, loss, grads):
+    def _norm_sq(self, grads, keys) -> torch.Tensor:
+        """The squared norm of the whole gradient over every rank's
+        blocks, each counted once."""
+        mine = self._counted_grads(grads, keys)
+        v = sum(torch.vdot(g.flatten(), g.flatten()) for g in mine) \
+            if mine else torch.zeros((), device=self.dev)
+        return self._world_sum(v)
+
+    @torch.no_grad()
+    def _health_vector(self, loss, grads, keys=None):
         """``([loss, grad_norm_sq, nan_grad_elems, ok], ok)``: the float32
         vector of cxxnet_tpu/nnet/trainer.py:1026-1043 and its ``ok`` as a
-        0-d bool tensor, both on the device; no host read."""
+        0-d bool tensor, both on the device; no host read. Under a mesh
+        the loss is the whole batch's and the gradient's figures cover
+        every rank's blocks once (one all-reduce of the vector), so the
+        vector and ``ok`` are the same on every rank (``keys``, the
+        gradients' (layer, tag), is needed there alone)."""
         lossf = loss.float()
+        mine = self._counted_grads(grads, keys)
         # one flat copy, then one dot product and one count: a handful of
         # launches where a pass per tensor took ~100 (the host's dispatch
         # held a step's vector at 2 ms on the card for 16 tensors)
-        flat = torch.cat([g.reshape(-1).float() for g in grads]) if grads \
+        flat = torch.cat([g.reshape(-1).float() for g in mine]) if mine \
             else torch.zeros(0, device=lossf.device)
         gn_sq = torch.vdot(flat, flat)
-        nan_elems = torch.isnan(flat).sum()
+        nan_elems = torch.isnan(flat).sum().float()
+        if self.mesh is not None:
+            # the loss of this rank's rows, counted by one rank of each
+            # model / ep replica set
+            own = self.mesh.is_first([a for a in self.mesh.axis_names
+                                      if a != "data"])
+            lossf, gn_sq, nan_elems = self._world_sum(torch.stack(
+                [lossf * float(own), gn_sq, nan_elems]))
         ok = torch.isfinite(lossf) & torch.isfinite(gn_sq)
-        return torch.stack([lossf, gn_sq, nan_elems.float(),
-                            ok.float()]), ok
+        return torch.stack([lossf, gn_sq, nan_elems, ok.float()]), ok
 
     def _guard_live(self, keys) -> List[torch.Tensor]:
         """The tensors the updaters step in place: the stepped weights and
@@ -878,8 +1194,12 @@ class Trainer:
         ret = ""
         if self.eval_train != 0 and len(self.train_metric):
             if self._metric_accum is not None:
+                ma = self._metric_accum
+                if self.mesh is not None:
+                    # the whole batch's sums (every rank calls evaluate)
+                    ma = collectives.all_reduce(ma, self._data_group())
                 # the only host read of the train-metric sums
-                self.train_metric.absorb(self._metric_accum.cpu().numpy())
+                self.train_metric.absorb(ma.cpu().numpy())
                 self._metric_accum = None
             ret += self.train_metric.print_str("train")
             self.train_metric.clear()
@@ -908,7 +1228,7 @@ class Trainer:
         it; the step waits on the copy's event, which the ring waits on
         before it refills the slot. A batch already on the device, or a
         device that is not a card, is taken as it is."""
-        data, label = batch.data, batch.label
+        data, label = self._rows(batch.data), self._rows(batch.label)
         if self.dev.type != "cuda" or (isinstance(data, torch.Tensor)
                                        and data.is_cuda):
             if not (isinstance(label, torch.Tensor)
@@ -935,6 +1255,43 @@ class Trainer:
         label.record_stream(compute)
         self._staging.record(copied)
         return self._input(data), label.float()
+
+    def _rows(self, x):
+        """This data rank's rows of a training batch: the batch is either
+        the whole one (its rows split over the data group) or already this
+        rank's (rows * dp == batch_size, a corpus read in shards, as
+        cxxnet_tpu/nnet/trainer.py:1142-1158 takes a process's local
+        rows)."""
+        dp = self._dp
+        if dp == 1 or x is None:
+            return x
+        n = int(x.shape[0])
+        if n * dp == self.batch_size:
+            return x
+        check(n % dp == 0, "a batch of %d rows does not split over %d data "
+              "ranks (batch_size %d)" % (n, dp, self.batch_size))
+        d = self.mesh.coords["data"]
+        return x[d * (n // dp):(d + 1) * (n // dp)]
+
+    def _eval_forward(self, x: torch.Tensor, nodes):
+        """The eval forward's values of ``nodes`` on ``x``, whole on every
+        rank:
+        rows that split over the data group run split, each rank its rows,
+        and the values come back gathered; others run whole on every
+        rank."""
+        dp = self._dp
+        sharded = dp > 1 and x.shape[0] % dp == 0
+        if sharded:
+            d = self.mesh.coords["data"]
+            b = x.shape[0] // dp
+            x = x[d * b:(d + 1) * b]
+        values, _ = self.net.forward(self.params, x, data_sharded=sharded,
+                                     gather=self._gather_fn())
+        values = [values[n] for n in nodes]
+        if sharded:
+            g = self._data_group()
+            values = [collectives.all_gather(v, g, dim=0) for v in values]
+        return values
 
     # inference (reference Predict / ExtractFeature, nnet_impl-inl.hpp:186-299)
     def _input(self, data) -> torch.Tensor:
@@ -963,8 +1320,7 @@ class Trainer:
 
         def run(tr, params, x):
             with torch.no_grad():
-                values, _ = tr.net.forward(params, x)
-            return [values[n] for n in node_ids]
+                return tr._eval_forward(x, node_ids)
 
         def account(tr, params, x):
             return cost.forward_cost(tr.net, params, b=x.shape[0])
@@ -983,8 +1339,8 @@ class Trainer:
 
         def run(tr, params, x):
             with torch.no_grad():
-                values, _ = tr.net.forward(params, x)
-            out = values[node].reshape(x.shape[0], -1)
+                out = tr._eval_forward(x, (node,))[0]
+            out = out.reshape(x.shape[0], -1)
             if out.shape[1] != 1:
                 return torch.argmax(out, dim=1).float()
             return out[:, 0].float()
@@ -1404,12 +1760,18 @@ class Trainer:
         """The params in the compute dtype for the decode paths, cast once
         per params generation (cxxnet_tpu/nnet/trainer.py:1612-1645). In
         float32 they are the master params themselves."""
-        if self.compute_dtype is None:
+        if self.compute_dtype is None and self.mesh is None:
             return self.params
         if self._decode_params is None \
                 or not self._is_current(self._decode_params[0]):
-            self._decode_params = (self._params_key(),
-                                   self.net._cast_params_compute(self.params))
+            # under a mesh the decode paths take the whole weights (every
+            # rank gathers them together) and run the single-rank layers
+            params = self.params if self.mesh is None else \
+                [{k: torch.from_numpy(v).to(self.dev) for k, v in p.items()}
+                 for p in self.canonical_params()]
+            if self.compute_dtype is not None:
+                params = self.net._cast_params_compute(params)
+            self._decode_params = (self._params_key(), params)
         return self._decode_params[1]
 
     def _net_for(self, batch_size: int, seq_len: int) -> NeuralNet:
@@ -1593,10 +1955,24 @@ class Trainer:
 
     # weight access
     def get_weight(self, layer_name: str, tag: str):
-        return self.net.get_weight(self.params, layer_name, tag)
+        if self.mesh is None:
+            return self.net.get_weight(self.params, layer_name, tag)
+        idx, key = self.net._weight_key(layer_name, tag)
+        arr = fetch_global(self.params[idx][key], self.mesh,
+                           self._store_spec[idx][key])
+        flat = arr.reshape(arr.shape[0], -1) if arr.ndim > 1 \
+            else arr.reshape(1, -1)
+        return flat, list(arr.shape)
 
     def set_weight(self, value: np.ndarray, layer_name: str, tag: str) -> None:
-        self.net.set_weight(self.params, value, layer_name, tag)
+        if self.mesh is None:
+            self.net.set_weight(self.params, value, layer_name, tag)
+        else:
+            idx, key = self.net._weight_key(layer_name, tag)
+            shape = self.net.param_shapes()[idx][key]
+            self.params[idx][key] = sharding.shard_copy(
+                np.asarray(value, np.float32).reshape(shape), self.mesh,
+                self._store_spec[idx][key], self.dev)
         self._params_gen += 1
 
 

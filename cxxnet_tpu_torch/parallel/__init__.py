@@ -1,3 +1,6 @@
-"""Parallel modes of the port (counterpart of cxxnet_tpu/parallel): so far
-sequence parallelism, ring and Ulysses attention (``ring``) over the
-collectives ``ring_shift`` and ``all_to_all`` (``collectives``)."""
+"""Parallel modes of the port (counterpart of cxxnet_tpu/parallel): the
+world of processes (``multihost``), the mesh of ranks and its groups
+(``mesh``), the placement rules (``sharding``), tensor and expert
+parallelism (``tensor``), the collectives over a process group or over
+virtual ranks (``collectives``), and sequence parallelism, ring and Ulysses
+attention (``ring``). Pipeline parallelism is a later slice."""

@@ -358,8 +358,8 @@ class _Registry:
     def enable(self, log_path: Optional[str] = None,
                process_index: Optional[int] = None) -> None:
         self.reset()
-        # the shard index of a multi-process run (the JAX package's
-        # multihost runs); the port runs one process, 0
+        # the shard index of a multi-process run: the process's rank
+        # (learn_task passes it), 0 alone
         self.process_index = int(process_index or 0)
         path = log_path or None
         if path and "%d" in path:

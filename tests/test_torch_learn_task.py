@@ -396,6 +396,9 @@ PORTED_SINCE = {
     ("task", "export"): lambda lt: lt.task == "export",
     ("health_monitor", "1"): lambda lt: lt.health_monitor == 1,
     ("watchdog_timeout", "5"): lambda lt: lt.watchdog_timeout == 5.0,
+    ("coordinator", "localhost:1234"):
+        lambda lt: lt.coordinator == "localhost:1234",
+    ("num_worker", "2"): lambda lt: lt.num_worker == 2,
 }
 
 

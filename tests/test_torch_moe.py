@@ -4,7 +4,9 @@ rules: forward and gradients of inputs, gate and experts, dense and with
 ``top_k``; the top-k tie resolved as ``jax.lax.top_k`` resolves it; the
 model-file bytes (LayerParam, ``<ii`` nexpert and top_k, gate, experts);
 a small net with a moe layer trained one SGD step by both packages; and
-``expert_parallel``, which the port refuses (ROADMAP.md item 12).
+``expert_parallel`` on one rank, which the port refuses with the JAX
+trainer's device-count message (tests/test_torch_dist_train.py runs it over
+ranks).
 """
 
 import numpy as np
@@ -90,8 +92,10 @@ def test_a_moe_net_trains_as_jax():
 
 
 def test_expert_parallel_is_refused_naming_the_roadmap():
-    with pytest.raises(ValueError, match="expert_parallel > 1 is not ported "
-                       r"yet \(ROADMAP.md Queue 1 item 12\)"):
+    # ported since: one rank has no second rank for the experts, and the
+    # mesh refuses as the JAX trainer's does on one device
+    with pytest.raises(ValueError, match="device count 1 must be divisible "
+                       "by model_parallel"):
         tapi.Net(dev="cpu", cfg=MOE_NET + "expert_parallel = 2\n") \
             .init_model()
     net = tapi.Net(dev="cpu", cfg=MOE_NET + "expert_parallel = 1\n")
