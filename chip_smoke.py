@@ -107,7 +107,9 @@ time, the phases ``lrn_kernel``, ``alexnet_pred``, ``lrn_bwd_kernel``,
 ``lm_train``, ``lm_train_long``, ``lm_hd256``, ``lm_hd512``,
 ``ring_step_kernels``, ``lm_sp_train_long_ring``,
 ``lm_sp_train_long_ulysses``, ``lm_sp_train_ring``, ``dist_imagenet`` +
-``dist_lm`` (one spawn) and ``dist_nccl_1`` (kernel checks, the
+``dist_lm`` + ``dist_pipe`` + ``dist_sp`` (one spawn of 4 ranks: the
+modes over ranks, the pipeline and the sp axis) and ``dist_nccl_1``
+(kernel checks, the
 main paths' checks, throughput and profiles), the wall time, then a JSON
 line ``{"kernels": [...]}`` (each row's bf16 times under "bf16", rows
 4-6 at the ViT step's shape under "vit_s16") and,
@@ -439,6 +441,8 @@ NEAR_TIE, CHUNK_TIE = 2.0 ** -8, 2.0 ** -4
 BEAM_W, BEAM_B, BEAM_PROMPT, BEAM_NEW = 4, 2, 512, 16
 DECODE_CHUNK = 256
 # the per-row draw: (name, rows, width), the first a sampling step's
+# launches in a device-clock profile of the per-row draw and of torch.rand
+UNIFORM_DEVICE_ITERS = 500
 UNIFORM_ROWS = [("lm_step", SESS_SLOTS, 8192), ("one_row", 1, 8192),
                 ("ragged_width", 5, 4001), ("many_rows", 300, 12)]
 # task = generate from the command line: ragged prompt lines, new tokens
@@ -1584,6 +1588,17 @@ def phase_uniform_rows_kernel(rnd):
         gen = torch.Generator(device=DEV).manual_seed(SEED)
         library_ms = time_ms(lambda: torch.rand((rows, n), generator=gen,
                                                 device=DEV), iters=200)
+        # the device's own clock: the kernels' self time in a profile of
+        # many back-to-back launches, which a launch's host overhead and
+        # the events' resolution do not reach
+        kernel_dev = device_ms(lambda: rnd.uniform_rows_cuda(
+            seeds, pos, rowid, n), UNIFORM_DEVICE_ITERS)
+        library_dev = device_ms(lambda: torch.rand(
+            (rows, n), generator=gen, device=DEV), UNIFORM_DEVICE_ITERS)
+        log("  on the device clock (profiler self time over %d launches): "
+            "kernel %.6f ms, torch.rand %.6f ms a call (kernel/torch.rand "
+            "%.3f)" % (UNIFORM_DEVICE_ITERS, kernel_dev, library_dev,
+                       kernel_dev / library_dev))
         nbytes = _random_ops.rows_work(rows, n)[1]
         bound_ms, bound_by, bytes_ms, ops_ms = _bound(
             rows * n, nbytes, UNIFORM_OPS_PER_ELEM)
@@ -1595,8 +1610,30 @@ def phase_uniform_rows_kernel(rnd):
                bytes_ms, rows * n * UNIFORM_OPS_PER_ELEM, ops_ms,
                kernel_ms / bound_ms))
         rec.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   device_ms=kernel_dev, library_device_ms=library_dev)
     return rec
+
+
+def device_ms(fn, iters: int) -> float:
+    """The device time of one fn() call: the self device time of every
+    kernel in a torch.profiler trace of ``iters`` back-to-back calls
+    (after one unprofiled warm-up), over ``iters``; a trace with no device
+    time fails the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profile recorded no device time")
+    return us / 1e3 / iters
 
 
 def serve_requests(rng, vocab):
@@ -4173,6 +4210,69 @@ def round_rates(out):
             for m in ROUND_RE.finditer(out)]
 
 
+# the host-side inputs of the CLI phases (image records), made by a thread
+# while the kernels build (prepare_host_inputs) and taken from here after
+# it has ended
+_HOST_INPUTS = {}
+_HOST_THREAD = []
+
+
+def ppm_records(n, hw, n_class, seed):
+    """(label, PPM bytes) of a synthetic image pack (io.synth.images)."""
+    from cxxnet_tpu_torch.io import synth
+    return [(lab, synth.ppm_bytes(img))
+            for lab, img in synth.images(n, hw, n_class, seed)]
+
+
+def bowl_records():
+    from cxxnet_tpu_torch.io import synth
+    return list(synth.jpeg_records(BOWL_TRAIN + BOWL_VAL, BOWL_HW,
+                                   BOWL_CLASSES, SEED, quality=90,
+                                   subsampling="420"))
+
+
+def prepare_host_inputs():
+    """Make the image records the CLI phases write as packs (ImageNet.conf
+    and GoogLeNet.conf's PPM pack, the JPEG pack, bowl.conf's) on a thread
+    of its own while the kernels build: host work moved off the run's
+    critical path. ``host_input`` waits for it."""
+    def run():
+        t = time.perf_counter()
+        try:
+            _HOST_INPUTS["ppm_train"] = ppm_records(CLI_TRAIN_IMAGES, CLI_HW,
+                                                    1000, SEED)
+            _HOST_INPUTS["ppm_test"] = ppm_records(CLI_TEST_IMAGES, CLI_HW,
+                                                   1000, SEED + 1)
+            for part in ("train", "test"):
+                jpeg_pack_records(part)
+            _HOST_INPUTS["bowl"] = bowl_records()
+        except BaseException as e:   # re-raised by host_input
+            _HOST_INPUTS["error"] = e
+            raise
+        _HOST_INPUTS["seconds"] = time.perf_counter() - t
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    _HOST_THREAD.append(th)
+
+
+def host_input(key):
+    """A record list of prepare_host_inputs (made here if it was not
+    started, as a phase run alone finds it)."""
+    for th in _HOST_THREAD:
+        th.join()
+    if "error" in _HOST_INPUTS:
+        raise AssertionError("making the image records failed: %r"
+                             % _HOST_INPUTS["error"])
+    if key not in _HOST_INPUTS:
+        _HOST_INPUTS[key] = {
+            "ppm_train": lambda: ppm_records(CLI_TRAIN_IMAGES, CLI_HW, 1000,
+                                             SEED),
+            "ppm_test": lambda: ppm_records(CLI_TEST_IMAGES, CLI_HW, 1000,
+                                            SEED + 1),
+            "bowl": bowl_records}[key]()
+    return _HOST_INPUTS[key]
+
+
 def write_image_pack(lst, binp, n, hw, n_class, seed):
     from cxxnet_tpu_torch.io import synth
     synth.write_pack(((lab, synth.ppm_bytes(img)) for lab, img in
@@ -4247,13 +4347,14 @@ def imagenet_pack(root):
     """The conf's own relative paths resolve from root/a/b: the pack lies
     at root/NameList.train, root/TRAIN.BIN, root/NameList.test and
     root/TEST.BIN (ImageNet.conf's ../../ names), read unchanged."""
+    from cxxnet_tpu_torch.io import synth
     t = time.perf_counter()
-    write_image_pack(os.path.join(root, "NameList.train"),
-                     os.path.join(root, "TRAIN.BIN"), CLI_TRAIN_IMAGES,
-                     CLI_HW, 1000, SEED)
-    write_image_pack(os.path.join(root, "NameList.test"),
-                     os.path.join(root, "TEST.BIN"), CLI_TEST_IMAGES,
-                     CLI_HW, 1000, SEED + 1)
+    synth.write_pack(host_input("ppm_train"),
+                     os.path.join(root, "NameList.train"),
+                     os.path.join(root, "TRAIN.BIN"))
+    synth.write_pack(host_input("ppm_test"),
+                     os.path.join(root, "NameList.test"),
+                     os.path.join(root, "TEST.BIN"))
     cwd = os.path.join(root, "a", "b")
     os.makedirs(cwd)
     log("  pack: %d + %d PPM images %dx%d (seed %d) in %.2f s"
@@ -4542,29 +4643,33 @@ def phase_cli_imagenet_resume(cwd, conf, det_err):
     with open(newest, "rb+") as f:
         f.truncate(len(res) // 2)
     t = time.perf_counter()
-    c = CliProcess(cwd, base + ["continue=1", "ckpt_keep_last=1"],
-                   cudnn=False)
-    try:
-        rc = c.finish(900)
-    finally:
-        c.kill()
+    # in this process (no signal to send it; one fresh process fewer)
+    from cxxnet_tpu_torch import learn_task
+    from cxxnet_tpu_torch.ops import lrn
+    before = (lrn.launches, lrn.bwd_launches)
+    with cudnn_off():
+        out_c, err_c = run_cli(learn_task, cwd,
+                               base + ["continue=1", "ckpt_keep_last=1"])
+    torch.cuda.synchronize()
+    got_c = {"lrn_fwd": lrn.launches - before[0],
+             "lrn_bwd": lrn.bwd_launches - before[1]}
     left = sorted(nm for nm in os.listdir(models)
                   if nm.endswith((".model", ".corrupt")))
     again = open(newest, "rb").read()
     log("  %04d.model truncated to %d bytes, continue = 1 with "
-        "ckpt_keep_last = 1 (%.2f s wall): %s; files left %s; the new "
-        "round-%d model vs the uninterrupted run's: %s"
+        "ckpt_keep_last = 1 in this process (%.2f s wall): %s; files left "
+        "%s; the new round-%d model vs the uninterrupted run's: %s"
         % (CLI_ROUNDS, len(res) // 2, time.perf_counter() - t,
-           " | ".join(ln for ln in c.lines["err"] if "quarantined" in ln),
+           " | ".join(ln for ln in err_c.splitlines()
+                      if "quarantined" in ln),
            left, CLI_ROUNDS, "BITWISE EQUAL" if again == det
            else "DIFFERENT"))
-    if rc != 0 or "Init: Continue training from round 2" not in \
-            c.text("out") or left != ["%04d.model" % CLI_ROUNDS,
-                                      "%04d.model.corrupt" % CLI_ROUNDS] \
+    if "Init: Continue training from round 2" not in out_c \
+            or left != ["%04d.model" % CLI_ROUNDS,
+                        "%04d.model.corrupt" % CLI_ROUNDS] \
             or again != det:
         raise AssertionError("the torn file was not quarantined, or the "
                              "fallback or the retention failed")
-    got_c = c.launches()
     want_c = {"lrn_fwd": 2 * per_round + 2 * 2 * evals,
               "lrn_bwd": 2 * per_round}
     if {n: got_c[n] for n in want_c} != want_c:
@@ -5691,6 +5796,9 @@ def jpeg_pack_records(name):
     """(label, bytes) of the JPEG ImageNet pack's train or test part, made
     once per process."""
     from cxxnet_tpu_torch.io import synth
+    for th in _HOST_THREAD:
+        if th is not threading.current_thread():
+            th.join()
     if name not in _JPEG_RECORDS:
         n, seed = (JPEG_TRAIN, SEED) if name == "train" \
             else (JPEG_TEST, SEED + 1)
@@ -5919,9 +6027,7 @@ def phase_cli_bowl_train(learn_task, api):
     conf = os.path.join(REPO, "example/kaggle_bowl/bowl.conf")
     with scratch_dir("cli_bowl_train") as d:
         t = time.perf_counter()
-        recs = list(synth.jpeg_records(BOWL_TRAIN + BOWL_VAL, BOWL_HW,
-                                       BOWL_CLASSES, SEED, quality=90,
-                                       subsampling="420"))
+        recs = host_input("bowl")
         synth.write_pack(recs[:BOWL_TRAIN], os.path.join(d, "tr.lst"),
                          os.path.join(d, "tr.bin"))
         synth.write_pack(recs[BOWL_TRAIN:], os.path.join(d, "va.lst"),
@@ -6097,11 +6203,12 @@ def ring_step_inputs(bh, bkv, sq, skv, d, dtype, rng):
             (mk(bh, sq, d), mk(bh, skv, d), mk(bh, skv, d)))
 
 
-def ring_step_case(rf, case, dtype, rng):
+def ring_step_case(rf, case, dtype, rng, timed=True):
     """The three step kernels against their plain versions at one step's
     shape and offsets, from the same carries; a step that keeps no pair
     leaves every carry bitwise as it was. Returns the largest absolute
-    error and {kernel: (kernel ms, plain ms, bound ms, what bounds it)}."""
+    error and {kernel: (kernel ms, plain ms, bound ms, what bounds it)}
+    ({} when not ``timed``)."""
     name, bh, bkv, sq, skv, d, q_off, kv_off, causal, window = case
     (q, k, v, do), (m, l, acc), (lse, delta), (dq, dk, dv) = \
         ring_step_inputs(bh, bkv, sq, skv, d, dtype, rng)
@@ -6133,6 +6240,8 @@ def ring_step_case(rf, case, dtype, rng):
         log("  no pair kept: every carry bitwise as it was: %s" % same)
         if not same:
             raise AssertionError("a wholly masked ring step moved a carry")
+    if not timed:
+        return err, {}
     calls = {
         "fwd": (lambda: rf.fwd_step_cuda(q, k, v, m, l, acc, offs, **kw),
                 lambda: rf.fwd_step_ref(q, k, v, m, l, acc, offs, **kw)),
@@ -6555,11 +6664,127 @@ def full_size_gap(api, cfg, fname, x, y, feat):
     return gap
 
 
+def gap_cases(models):
+    """(cfg, x, y, node) of every gap_rule of the run, in its order: the
+    reduced sizes of googlenet_bf16_train, googlenet_bf16_pred,
+    vgg16_bf16_remat, resnet18_bf16_train, bench_bf16's AlexNet and LM,
+    mobilenet_bf16_train and vit_s16_bf16_train."""
+    rng = np.random.RandomState(SEED + 29)
+    tx = rng.randint(0, LM_ARGS["vocab"], (LM_BATCH, 1, 1, LM_SEQ)).astype(
+        np.float32)
+    ty = rng.randint(0, LM_ARGS["vocab"], (LM_BATCH, LM_SEQ)).astype(
+        np.float32)
+    return [
+        (gnet_cfg(models, 4, 64), *image_batch(4, 64, SEED + 21), "gp"),
+        (gnet_cfg(models, 4, 64), *image_batch(4, 64, SEED + 30), "gp"),
+        (vgg_cfg(models, 4, 32, 1, fc_dim=64),
+         *image_batch(4, 32, SEED + 24), "pool5"),
+        (models.resnet_config(batch_size=8, input_hw=32, dev=NET_DEV)
+         + "seed = %d\n" % SEED, *image_batch(8, 32, SEED + 26), "gap"),
+        (imagenet_cfg().replace("batch_size = %d" % BATCH, "batch_size = 4"),
+         *image_batch(4, 227, SEED + 28), "17"),
+        (lm_cfg(models, 256, 2), tx[:2, :, :, :256].copy(),
+         ty[:2, :256].copy(), "top[-1]"),
+        (models.mobilenet_config(dev=NET_DEV, **MN_SMALL)
+         + "seed = %d\n" % SEED,
+         *image_batch(MN_SMALL["batch_size"], MN_SMALL["input_hw"],
+                      SEED + 42), "gap"),
+        (models.vit_config(dev=NET_DEV, **VIT_SMALL) + "seed = %d\n" % SEED,
+         *image_batch(VIT_SMALL["batch_size"], VIT_SMALL["image_hw"],
+                      SEED + 45, VIT_SMALL["n_class"]), "gp")]
+
+
+def gap_key(cfg, x, feat) -> str:
+    import hashlib
+    return hashlib.sha1(no_dropout(cfg).encode() + np.ascontiguousarray(
+        x).tobytes() + feat.encode()).hexdigest()
+
+
+def cpu_gap(api, cfg, x, y, feat):
+    """bf16_gap on the port's CPU path from the weights of ``cfg``'s seed
+    (every init from one seed is the same weights)."""
+    cfg = no_dropout(cfg)
+    init = api.Net(dev="cpu", cfg=cfg)
+    init.init_model()
+    fname = scratch_file("chip_smoke_gap_cpu_%d.model" % os.getpid())
+    init.save_model(fname)
+    try:
+        return bf16_gap(api, cfg, fname, x, y, feat, "cpu")
+    finally:
+        os.remove(fname)
+
+
+# the CPU halves of every gap_rule, in a process of its own that runs
+# beside the card's phases (start_cpu_gaps); {key: result} once read
+GAP_RUNNER = r"""
+import json, pickle, sys, time
+sys.path.insert(0, %(repo)r)
+import torch
+torch.set_num_threads(%(threads)d)
+import chip_smoke as cs
+from cxxnet_tpu_torch import api
+cases = pickle.load(open(%(cases)r, "rb"))
+out = {}
+t = time.perf_counter()
+for key, cfg, x, y, feat in cases:
+    out[key] = cs.cpu_gap(api, cfg, x, y, feat)
+out["seconds"] = time.perf_counter() - t
+json.dump(out, open(%(out)r + ".tmp", "w"))
+import os
+os.replace(%(out)r + ".tmp", %(out)r)
+"""
+# the CPU-gap process's threads (of the host's 8 cores)
+GAP_THREADS = 2
+_GAPS = {}
+
+
+def start_cpu_gaps(models):
+    """Start the CPU halves of the run's gap_rules (gap_cases) in a
+    process of its own, which computes them while the card runs the
+    phases before them: host work moved off the critical path."""
+    import pickle
+    path = scratch_file("chip_smoke_gaps")
+    cases = [(gap_key(cfg, x, feat), cfg, x, y, feat)
+             for cfg, x, y, feat in gap_cases(models)]
+    with open(path + ".pkl", "wb") as f:
+        pickle.dump(cases, f)
+    code = GAP_RUNNER % {"repo": REPO, "threads": GAP_THREADS,
+                         "cases": path + ".pkl", "out": path + ".json"}
+    _GAPS["proc"] = subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    _GAPS["path"] = path + ".json"
+
+
+def gap_of_cpu(api, cfg, x, y, feat):
+    """The CPU half of a gap_rule: from the CPU-gap process when it made
+    it (waiting for it to end), else computed here."""
+    proc = _GAPS.pop("proc", None)
+    if proc is not None:
+        t = time.perf_counter()
+        out, _ = proc.communicate(timeout=1200)
+        if proc.returncode != 0:
+            raise AssertionError("the CPU-gap process exited %d:\n%s"
+                                 % (proc.returncode, out[-4000:]))
+        res = json.load(open(_GAPS["path"]))
+        log("  the CPU halves of the run's %d gap rules: %.1f s in a "
+            "process beside the card (waited %.1f s for it here)"
+            % (len(res) - 1, res.pop("seconds"), time.perf_counter() - t))
+        _GAPS["results"] = res
+    res = _GAPS.get("results", {}).get(gap_key(cfg, x, feat))
+    if res is not None:
+        return dict(res, loss=tuple(res["loss"]))
+    return cpu_gap(api, cfg, x, y, feat)
+
+
 def gap_rule(api, cfg, x, y, feat):
     """At a reduced size (``cfg`` on the card, weights from SEED), the
     card's bf16-versus-f32 gap against the port's CPU path's on the same
     weights and batch: features and gradients within GAP_FACTOR times the
-    CPU's plus GAP_SLACK."""
+    CPU's plus GAP_SLACK. The CPU's half comes from the CPU-gap process
+    where it ran (gap_of_cpu)."""
+    cpu = gap_of_cpu(api, cfg, x, y, feat)
     cfg = no_dropout(cfg)
     init = api.Net(dev="cpu", cfg=cfg)
     init.init_model()
@@ -6567,12 +6792,11 @@ def gap_rule(api, cfg, x, y, feat):
     init.save_model(fname)
     t = time.perf_counter()
     card = bf16_gap(api, cfg, fname, x, y, feat, NET_DEV)
-    cpu = bf16_gap(api, cfg, fname, x, y, feat, "cpu")
     os.remove(fname)
-    log_gap("reduced size (batch %d, %dx%d) on the card"
-            % (x.shape[0], x.shape[2], x.shape[3]), card)
-    log_gap("the same on the CPU path (%.1f s for both)"
-            % (time.perf_counter() - t), cpu)
+    log_gap("reduced size (batch %d, %dx%d) on the card (%.1f s)"
+            % (x.shape[0], x.shape[2], x.shape[3], time.perf_counter() - t),
+            card)
+    log_gap("the same on the CPU path", cpu)
     for key in ("features", "gradients"):
         bar = GAP_FACTOR * cpu[key] + GAP_SLACK
         ok = card[key] <= bar
@@ -7494,6 +7718,33 @@ DIST_CASES = [
     ("dist_imagenet", "dp2_tp2", "model_parallel = 2\n", "imagenet"),
     ("dist_lm", "lm_bf16_dp2_tp2", "model_parallel = 2\n", "lm"),
     ("dist_lm", "moe_dp2_ep2", "expert_parallel = 2\n", "moe"),
+    # the pipeline (GPipe over a pipe axis, pipeline_micro 0: one
+    # microbatch a stage) and seq_parallel over a real sp axis
+    ("dist_pipe", "lm_bf16_pp2_tp2",
+     "pipeline_parallel = 2\nmodel_parallel = 2\n", "lm"),
+    ("dist_pipe", "lm_bf16_pp2_sp2",
+     "pipeline_parallel = 2\nseq_parallel = 2\n", "lm"),
+    ("dist_pipe", "imagenet_pp2_dp2_zero1", "pipeline_parallel = 2\nfsdp = "
+     "1\n", "imagenet"),
+    # held to the single rank's seq_parallel = 2, the same two ring shards
+    # as virtual ranks in one process: the ranks' ring is the virtual
+    # ring's, step for step, where against one flash pass the ring's bf16
+    # rounding, amplified by Adam, stood at 0.131 / 0.084 (worst / median
+    # on the H100) over the bar
+    ("dist_sp", "lm_bf16_dp2_sp2", "", "lm_sp2"),
+]
+# the ring-step kernels at the sequence-parallel ranks' own shapes (b 4,
+# h 8, d 64 of the bf16 LM): a stage's query chunk of 1,024 against the
+# whole 2,048 at each chunk's offset (lm_bf16_pp2_sp2), and the two-rank
+# ring's shards of 1,024 in each class of offsets (lm_bf16_dp2_sp2);
+# checked against the plain versions before the ranks run, not timed:
+# (name, bh, bkv, sq, skv, d, q_off, kv_off, causal, window)
+DIST_RING_SHAPES = [
+    ("dist_pp_sp_chunk0", 32, 32, 1024, 2048, 64, 0, 0, True, 0),
+    ("dist_pp_sp_chunk1", 32, 32, 1024, 2048, 64, 1024, 0, True, 0),
+    ("dist_sp_diagonal", 32, 32, 1024, 1024, 64, 1024, 1024, True, 0),
+    ("dist_sp_visible", 32, 32, 1024, 1024, 64, 1024, 0, True, 0),
+    ("dist_sp_masked", 32, 32, 1024, 1024, 64, 0, 1024, True, 0),
 ]
 # the n-rank step against the single rank's, as the L2 norm of the
 # difference of the weights after the steps over the L2 norm of the single
@@ -7508,7 +7759,7 @@ DIST_CASES = [
 # and Adam's first steps move each weight by about eta whatever the size
 # of its gradient. A wrong gather order or a gradient summed once too often
 # moves a tensor by its whole step or more (a ratio of order 1)
-DIST_STEP_TOL = {"imagenet": 1e-2, "moe": 1e-2, "lm": 1e-1}
+DIST_STEP_TOL = {"imagenet": 1e-2, "moe": 1e-2, "lm": 1e-1, "lm_sp2": 1e-1}
 # the LRN inputs of a rank of the ImageNet.conf cases: batch 64 at dp 4,
 # 128 at dp 2 (after tensor parallelism's gather of the conv channels);
 # checked against the plain versions, not timed, before the ranks run
@@ -7532,7 +7783,7 @@ import torch
 import torch.distributed as dist
 torch.backends.cudnn.enabled = False
 from cxxnet_tpu_torch import api
-from cxxnet_tpu_torch.ops import flash_attn, lrn
+from cxxnet_tpu_torch.ops import flash_attn, lrn, ring_flash
 from cxxnet_tpu_torch.parallel import collectives, multihost
 rank = int(sys.argv[1])
 # started as a user starts a rank: coordinator / num_worker / worker_rank
@@ -7595,6 +7846,9 @@ for job in json.load(open(%(jobs)r)):
     # the main path's counts start at 0 here and are read right after
     lrn.launches = lrn.bwd_launches = 0
     flash_attn.launches = flash_attn.dq_launches = flash_attn.dkv_launches = 0
+    ring_flash.fwd_launches = ring_flash.dq_launches = 0
+    ring_flash.dkv_launches = 0
+    collectives.hops = collectives.hop_bytes = 0
     walls = []
     for _ in range(job["steps"]):
         t0 = time.perf_counter()
@@ -7604,7 +7858,11 @@ for job in json.load(open(%(jobs)r)):
     counts = {"lrn_fwd": lrn.launches, "lrn_bwd": lrn.bwd_launches,
               "flash_fwd": flash_attn.launches,
               "flash_bwd_dq": flash_attn.dq_launches,
-              "flash_bwd_dkv": flash_attn.dkv_launches}
+              "flash_bwd_dkv": flash_attn.dkv_launches,
+              "ring_fwd_step": ring_flash.fwd_launches,
+              "ring_dq_step": ring_flash.dq_launches,
+              "ring_dkv_step": ring_flash.dkv_launches,
+              "hops": collectives.hops, "hop_bytes": collectives.hop_bytes}
     rec = {"rank": rank, "case": job["case"], "counts": counts,
            "walls": walls, "init_s": init_s, "mesh": tr.mesh.shape,
            "param_bytes": tr.param_bytes(), "opt_bytes": tr.opt_bytes(),
@@ -7624,8 +7882,10 @@ dist.destroy_process_group()
 
 def dist_cfg(models, net, keys=""):
     """The config of a dist case's net on one rank, with the mode keys."""
-    if net == "lm":
+    if net.startswith("lm"):
         cfg = bf16_cfg(lm_cfg(models, LM_SEQ, LM_BATCH))
+        if net == "lm_sp2":
+            cfg += "seq_parallel = 2\n"
     else:
         cfg = imagenet_cfg()
         if net == "moe":
@@ -7636,9 +7896,105 @@ def dist_cfg(models, net, keys=""):
     return cfg + keys
 
 
+DIST_KERNELS = ("lrn_fwd", "lrn_bwd", "flash_fwd", "flash_bwd_dq",
+                "flash_bwd_dkv", "ring_fwd_step", "ring_dq_step",
+                "ring_dkv_step")
+
+
+def dist_expect(models, keys, net):
+    """What each of the DIST_N ranks of a case should show, from the
+    port's own plan of it (the trainer's mesh, stage plan and placements,
+    built shape-only on the host: no weights, no process group): per rank
+    {"steps": {kernel or "hops" / "hop_bytes": count a step}, "param_bytes":
+    the weight bytes it holds, "opt_bytes": its optimizer state's (None
+    where the older cases' fractions hold it instead)}. A stage runs each
+    microbatch's forward twice (the forward, the backward's recompute)
+    and its backward once; the ring over an sp axis of n ranks n steps a
+    layer each way; a stage's query chunk one ring step each way."""
+    from cxxnet_tpu_torch.nnet import trainer as ttrainer
+    from cxxnet_tpu_torch.parallel import mesh as tmesh
+    from cxxnet_tpu_torch.parallel import sharding
+    from cxxnet_tpu_torch.updater import create_updater
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    out = []
+    for r in range(DIST_N):
+        tr = ttrainer.Trainer()
+        for k, v in parse_config_string(dist_cfg(models, net, keys)):
+            tr.set_param(k, v)
+        tr.set_param("dev", "cpu")
+        tr.mesh = tmesh.create_mesh(
+            tr.model_parallel, tr.expert_parallel, tr.batch_size, n=DIST_N,
+            rank=r, groups=False, pipeline_parallel=tr.pipeline_parallel,
+            seq_parallel=tr.seq_parallel, pipeline_micro=tr.pipeline_micro)
+        tr.net_cfg.configure(tr.cfg_pairs)
+        tnet = tr.net = tr._new_net(tr.net_cfg, tr.batch_size, True)
+        tr._setup_pipeline()
+        tr._setup_layout()
+        mesh, pp = tr.mesh, tr._pp
+        kinds = [lay.type_name for lay in tnet.layers]
+        n_att = kinds.count("attention")
+        sp, dp = mesh.axis_size("sp"), mesh.axis_size("data")
+        steps = dict.fromkeys(DIST_KERNELS + ("hops", "hop_bytes"), 0)
+        shapes = tnet.param_shapes()
+
+        def block(i, k):
+            return int(np.prod(sharding.shard_shape(
+                shapes[i][k], mesh, tr._store_spec[i][k])))
+        if pp is None:
+            if "lrn" in kinds:
+                steps["lrn_fwd"] = steps["lrn_bwd"] = kinds.count("lrn")
+            if sp > 1:
+                for k in ("ring_fwd_step", "ring_dq_step", "ring_dkv_step"):
+                    steps[k] = sp * n_att
+            else:
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                    steps[k] = n_att
+            out.append({"steps": steps, "param_bytes": None,
+                        "opt_bytes": None})
+            continue
+        s, k_, nm = pp["stage"], pp["k"], pp["n_micro"]
+        lo, hi = pp["stages"][s]
+        stage = kinds[lo:hi]
+        steps["lrn_fwd"] = 2 * nm * stage.count("lrn")
+        steps["lrn_bwd"] = nm * stage.count("lrn")
+        att = ("ring_fwd_step", "ring_dq_step", "ring_dkv_step") if sp > 1 \
+            else ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        steps[att[0]] = 2 * nm * stage.count("attention")
+        steps[att[1]] = steps[att[2]] = nm * stage.count("attention")
+        bounds = tnet.pipeline_boundaries(pp["stages"], pp["first_loss"])
+        rows = tr.batch_size // dp // nm
+
+        def nbytes(n):
+            esize = 4 if (n in tnet.id_nodes or tr.compute_dtype is None) \
+                else 2
+            return rows * int(np.prod(tnet.node_shapes[n][1:])) * esize
+        if s < k_ - 1:      # the forward's sends, a microbatch each
+            steps["hops"] += nm * len(bounds[s + 1])
+            steps["hop_bytes"] += nm * sum(nbytes(n) for n in bounds[s + 1])
+        if s > 0:           # the backward's, the inputs' gradients
+            steps["hops"] += nm * len(bounds[s])
+            steps["hop_bytes"] += nm * sum(nbytes(n) for n in bounds[s])
+        owned = [(i, k) for i in range(len(shapes)) if tr._owns(i)
+                 for k in shapes[i]]
+        # the weights an updater steps: each layer's visited tensors
+        stepped = [(i, k) for i, k in owned if k in
+                   {key for _, key in tnet.layers[i].visit_order()}]
+        n_state = len(create_updater(tr.net_cfg.updater_type, "wmat")
+                      .init_state(torch.zeros(1)))
+        elems = sum(block(i, k) for i, k in stepped)
+        if tr.fsdp and dp > 1:
+            c = -(-elems // dp)
+            d = mesh.coords["data"]
+            elems = max(0, min(c, elems - d * c))
+        out.append({"steps": steps,
+                    "param_bytes": 4 * sum(block(i, k) for i, k in owned),
+                    "opt_bytes": 4 * n_state * elems})
+    return out
+
+
 def dist_batch(net, path):
     """One batch of the case's net from SEED, written to ``path``."""
-    if net == "lm":
+    if net.startswith("lm"):
         rng = np.random.RandomState(SEED + 23)
         v = LM_ARGS["vocab"]
         x = rng.randint(0, v, (LM_BATCH, 1, 1, LM_SEQ)).astype(np.float32)
@@ -7685,16 +8041,19 @@ def dist_step_errors(got, single):
 
 
 def phase_dist(api, models):
-    """dist_imagenet and dist_lm: DIST_N ranks, processes of their own on
-    the one card over gloo (CXXNET_DIST_BACKEND=gloo: NCCL refuses two
-    ranks on one card), started through coordinator / num_worker /
-    worker_rank, run every case of DIST_CASES in turn; each case's model
-    file (rank 0's, the whole model) is held to the single-process run of
-    the same steps and loads in a one-rank api.Net; the ranks' bytes and
-    kernel launches are read. The single-process runs go while the ranks
-    start, and each case's file is checked while the ranks run the next
-    case. Returns {phase: {kernel: launches over the ranks}}."""
-    log("phase dist_imagenet + dist_lm (%d ranks on one card over gloo, "
+    """dist_imagenet, dist_lm, dist_pipe and dist_sp: DIST_N ranks,
+    processes of their own on the one card over gloo
+    (CXXNET_DIST_BACKEND=gloo: NCCL refuses two ranks on one card),
+    started through coordinator / num_worker / worker_rank, run every case
+    of DIST_CASES in turn; each case's model file (rank 0's, the whole
+    model) is held to the single-process run of the same steps and loads
+    in a one-rank api.Net; the ranks' bytes, kernel launches and the
+    pipeline's hops are read, each against what the port's own plan of the
+    case predicts (``dist_expect``). The single-process runs go while the
+    ranks start, and each case's file is checked while the ranks run the
+    next case. Returns {phase: {kernel: launches over the ranks}}."""
+    log("phase dist_imagenet + dist_lm + dist_pipe + dist_sp (%d ranks "
+        "on one card over gloo, "
         "one spawn, the cases in turn)" % DIST_N)
     torch.cuda.empty_cache()
     launches = {}
@@ -7730,6 +8089,8 @@ def phase_dist(api, models):
         for th in pumps:
             th.start()
         try:
+            expects = {case: dist_expect(models, keys, net)
+                       for _, case, keys, net in DIST_CASES}
             single = {}
             for net in nets:
                 ts = time.perf_counter()
@@ -7806,20 +8167,33 @@ def phase_dist(api, models):
                        r["param_bytes"], r["param_bytes"]
                        / s1["param_bytes"], r["opt_bytes"],
                        r["opt_bytes"] / s1["opt_bytes"]))
-            want = {"imagenet": ("lrn_fwd", "lrn_bwd"),
-                    "moe": ("lrn_fwd", "lrn_bwd"),
-                    "lm": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}[net]
-            per = 2 if net != "lm" else LM_ARGS["nlayer"]
+            # the launches, hops and a pipe rank's bytes the plan predicts
             for r in rows:
-                for k in want:
-                    if r["counts"][k] != per * DIST_STEPS:
+                e = expects[case][r["rank"]]
+                for k, v in e["steps"].items():
+                    if r["counts"][k] != v * DIST_STEPS:
                         raise AssertionError(
-                            "%s rank %d: %d %s launches, expected %d"
+                            "%s rank %d: %d %s, the plan predicts %d"
                             % (case, r["rank"], r["counts"][k], k,
-                               per * DIST_STEPS))
-            for k in want:
-                launches.setdefault(phase, {}).setdefault(k, 0)
-                launches[phase][k] += sum(r["counts"][k] for r in rows)
+                               v * DIST_STEPS))
+                for k in ("param_bytes", "opt_bytes"):
+                    if e[k] is not None and r[k] != e[k]:
+                        raise AssertionError(
+                            "%s rank %d: %s %d, its stage's %d"
+                            % (case, r["rank"], k, r[k], e[k]))
+                if e["param_bytes"] is not None:
+                    log("    rank %d holds its stage: weights %d bytes, "
+                        "optimizer %d (%.4f of the stage's weights'); "
+                        "hops %d, %d bytes over %d steps (as planned)"
+                        % (r["rank"], r["param_bytes"], r["opt_bytes"],
+                           r["opt_bytes"] / r["param_bytes"],
+                           r["counts"]["hops"], r["counts"]["hop_bytes"],
+                           DIST_STEPS))
+            for k in DIST_KERNELS:
+                n_k = sum(r["counts"][k] for r in rows)
+                if n_k:
+                    launches.setdefault(phase, {}).setdefault(k, 0)
+                    launches[phase][k] += n_k
             frac_w = max(r["param_bytes"] for r in rows) / s1["param_bytes"]
             frac_o = max(r["opt_bytes"] for r in rows) / s1["opt_bytes"]
             if case.startswith("zero1") and frac_o > DIST_ZERO1_OPT_MAX:
@@ -7957,8 +8331,15 @@ def main() -> int:
     log("torch %s cuda %s, %s" % (torch.__version__, torch.version.cuda,
                                   torch.cuda.get_device_name(0)))
     t0 = time.time()
+    prepare_host_inputs()
     libs = _build.build_kernels()
-    log("build: %d kernels in %.2f s" % (len(libs), time.time() - t0))
+    t1 = time.time()
+    log("build: %d kernels in %.2f s" % (len(libs), t1 - t0))
+    host_input("ppm_train")
+    log("the CLI phases' image records made beside the build in %.2f s "
+        "(waited %.2f s for them after it)"
+        % (_HOST_INPUTS["seconds"], time.time() - t1))
+    start_cpu_gaps(models)
     for name, path in libs.items():
         with open(path[:-3] + ".log") as f:
             log("  %s: %s" % (name, ptxas_summary(f.read())))
@@ -8021,6 +8402,16 @@ def main() -> int:
                        % check_fn.__name__[len("phase_"):],
                        timed=False)["max_abs_err"]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    log("phase ring_step_kernels at the sequence-parallel ranks' shapes "
+        "(checked, not timed)")
+    rng = np.random.RandomState(SEED + 29)
+    for case in DIST_RING_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            err, _ = ring_step_case(ring_flash, case, dtype, rng, timed=False)
+            if dtype == torch.float32:
+                for rec in ring_recs.values():
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    torch.cuda.empty_cache()
     dist = phase_dist(api, models)
     phase_dist_nccl_1()
 
@@ -8029,7 +8420,11 @@ def main() -> int:
     per_step = {"train_step": LM_ARGS["nlayer"]}
     vit_per = {"vit_s16_train_step": VIT_ARGS["nlayer"]}
     ring_per = {"layer_and_direction": SP_N * SP_N,
-                "train_step": SP_N * SP_N * LM_ARGS["nlayer"]}
+                "train_step": SP_N * SP_N * LM_ARGS["nlayer"],
+                "dist_sp_rank_step": 2 * LM_ARGS["nlayer"],
+                "dist_pipe_sp_rank_step_of_a_stage":
+                    "2 x microbatches x its layers (forward), microbatches "
+                    "x its layers (dQ, dK/dV)"}
     log("wall time %.1f s" % (time.time() - t0))
     kernels = []
     for name, rec, replaces, by_path, per in (
@@ -8097,13 +8492,16 @@ def main() -> int:
              {**per_step, **vit_per}),
             ("ring_fwd_step", ring_recs["fwd"],
              "cxxnet_tpu/ops/ring_flash.py:191",
-             {p: c[0] for p, c in ring_paths.items()}, ring_per),
+             {**{p: c[0] for p, c in ring_paths.items()},
+              **dist_by("ring_fwd_step")}, ring_per),
             ("ring_dq_step", ring_recs["dq"],
              "cxxnet_tpu/ops/ring_flash.py:224",
-             {p: c[1] for p, c in ring_paths.items()}, ring_per),
+             {**{p: c[1] for p, c in ring_paths.items()},
+              **dist_by("ring_dq_step")}, ring_per),
             ("ring_dkv_step", ring_recs["dkv"],
              "cxxnet_tpu/ops/ring_flash.py:248",
-             {p: c[2] for p, c in ring_paths.items()}, ring_per)):
+             {**{p: c[2] for p, c in ring_paths.items()},
+              **dist_by("ring_dkv_step")}, ring_per)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "cxxnet_tpu_torch/csrc/%s.cu" % name,
@@ -8144,7 +8542,8 @@ def main() -> int:
             kernels[-1]["uniform_rows"] = dict(
                 {k: rows_rec[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
-                                          "max_abs_err")},
+                                          "max_abs_err", "device_ms",
+                                          "library_device_ms")},
                 entry="cxxnet_uniform_rows", launches=sess_rows + fe_rows,
                 at="a sampling step's draw, (%d, %d)" % UNIFORM_ROWS[0][1:],
                 covers="the per-row entry point; launches on "

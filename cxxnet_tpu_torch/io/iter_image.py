@@ -823,18 +823,25 @@ class AugmentIterator(IIterator):
         self.meanfile_ready = False
         self.meanimg = None
         if self.name_meanimg:
+            ready = False
             if os.path.exists(self.name_meanimg):
                 with open(self.name_meanimg, "rb") as f:
-                    if f.read(len(self._MEAN_MAGIC)) == self._MEAN_MAGIC:
-                        if self.silent == 0:
-                            print("loading mean image from %s"
-                                  % self.name_meanimg)
-                        self.meanimg = serializer.Reader(f).read_tensor()
-                        self.meanfile_ready = True
-                    else:
-                        print("mean image %s predates the versioned "
-                              "format; regenerating" % self.name_meanimg)
-            if not self.meanfile_ready:
+                    ready = f.read(len(self._MEAN_MAGIC)) == self._MEAN_MAGIC
+                if not ready:
+                    print("mean image %s predates the versioned "
+                          "format; regenerating" % self.name_meanimg)
+            # every rank of a world takes rank 0's finding: a rank that
+            # found the file rank 0 was writing would skip the mean's
+            # augmented pass, and its draws would part from the others'
+            from ..parallel.multihost import rank0_value
+            if rank0_value(ready):
+                with open(self.name_meanimg, "rb") as f:
+                    f.read(len(self._MEAN_MAGIC))
+                    self.meanimg = serializer.Reader(f).read_tensor()
+                self.meanfile_ready = True
+                if self.silent == 0:
+                    print("loading mean image from %s" % self.name_meanimg)
+            else:
                 self._create_mean_img()
 
     def before_first(self):
@@ -965,9 +972,12 @@ class AugmentIterator(IIterator):
             parent = os.path.dirname(self.name_meanimg)
             if parent:
                 os.makedirs(parent, exist_ok=True)
-            with open(self.name_meanimg, "wb") as f:
+            # written whole, then renamed: a reader never sees half a file
+            tmp = "%s.%d.tmp" % (self.name_meanimg, os.getpid())
+            with open(tmp, "wb") as f:
                 f.write(self._MEAN_MAGIC)
                 serializer.Writer(f).write_tensor(self.meanimg)
+            os.replace(tmp, self.name_meanimg)
             if self.silent == 0:
                 print("save mean image to %s.." % self.name_meanimg)
         self.meanfile_ready = True

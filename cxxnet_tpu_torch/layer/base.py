@@ -200,17 +200,29 @@ class ApplyContext:
     # fsdp: (params slot, params) -> the params the layer applies, with
     # its weight shards gathered; set by the net's forward
     gather: Optional[object] = None
+    # inside a pipeline stage (the JAX package's manual_tp): attention
+    # under an sp axis attends this rank's query chunk against the whole
+    # k/v, and batch-norm takes the plain mean of its rows
+    in_stage: bool = False
+    # (rows of the whole batch, the first of these rows): a pipeline
+    # microbatch's place in the whole batch, for the random layers' draw
+    row_span: Optional[Tuple[int, int]] = None
 
     def data_rows(self, shape, draw):
         """``draw(shape)`` of this rank's rows: under ``data_sharded`` the
         draw of the whole batch's shape, cut to this rank's rows, so that
         n ranks together draw what one rank draws for the whole batch
-        (and every rank of a model or ep group the same)."""
+        (and every rank of a model or ep group the same); in a pipeline
+        stage (``row_span``) the whole batch's draw cut to the
+        microbatch's rows."""
+        b = shape[0]
+        if self.row_span is not None:
+            total, first = self.row_span
+            return draw((total,) + tuple(shape[1:]))[first:first + b]
         if not self.data_sharded:
             return draw(shape)
         dp = self.mesh.axis_size("data")
         d = self.mesh.coords["data"]
-        b = shape[0]
         return draw((b * dp,) + tuple(shape[1:]))[d * b:(d + 1) * b]
 
 

@@ -1123,7 +1123,11 @@ class EmbedLayer(Layer):
     def forward(self, params, inputs, ctx):
         x = inputs[0]
         b, _, _, L = x.shape
-        emb = params["wmat"][x.reshape(b, L).long()]          # (b, L, d)
+        # F.embedding's backward sums each id's rows in a fixed order; an
+        # indexing's accumulating backward does not on a CPU with threads,
+        # and the model ranks' replicas of the table then drift apart
+        emb = torch.nn.functional.embedding(x.reshape(b, L).long(),
+                                            params["wmat"])   # (b, L, d)
         if self.pos_embed:
             pos = params["pos"]
             dp = ctx.decode_pos
@@ -1147,7 +1151,9 @@ class AttentionLayer(Layer):
     attention. Under the trainer's ``seq_parallel = n`` (the apply
     context's ``seq_parallel``) a full-sequence forward runs ring or
     Ulysses attention (``sp_mode``) over n virtual ranks of the sequence
-    (parallel/ring.py; cxxnet_tpu/layer/layers.py:1334-1364). In a
+    (parallel/ring.py; cxxnet_tpu/layer/layers.py:1334-1364); over a
+    world of several ranks the mesh's ``sp`` axis takes that place, each
+    rank its shard (inside a pipeline stage, its query chunk). In a
     KV-cached decode forward the layer writes its k/v into the caches at
     ``decode_pos``; the prefill (position 0) attends within its own chunk,
     through the flash kernel where it takes the shape; a suffix prefill (a
@@ -1267,10 +1273,17 @@ class AttentionLayer(Layer):
         return attention_reference(q, k, v, causal=causal, scale=dh ** -0.5,
                                    window=self.attn_window)
 
-    def _attend_seq_parallel(self, q, k, v, sp: int):
+    def _attend_seq_parallel(self, q, k, v, sp: int, group=None):
         """Attention over sp sequence shards (the JAX package's mesh
         branch, cxxnet_tpu/layer/layers.py:1334-1364): q, k and v were
-        computed, and rotated, over the whole sequence before the split."""
+        computed, and rotated, over the whole sequence before the split.
+        With ``group`` (the mesh's sp group) each rank attends its own
+        shard through the ring or Ulysses over the process group: its
+        shard is split off with a backward that all-gathers the shards'
+        gradients, and the shards' outputs are gathered with a backward
+        that keeps this rank's block, so every sp rank goes on with the
+        whole sequence and holds the whole gradient. Without, the ring
+        runs sp virtual ranks on this device."""
         nh, nkv, L = q.shape[1], k.shape[1], q.shape[2]
         check(L % sp == 0, "attention: seq length %d must be divisible by "
               "seq_parallel %d" % (L, sp))
@@ -1287,8 +1300,35 @@ class AttentionLayer(Layer):
             # the ring takes grouped k/v as they are: the blocks that
             # rotate are nkvhead-sized
             fn = ring.ring_attention
-        return fn(q, k, v, n=sp, causal=bool(self.causal),
-                  window=self.attn_window)
+        if group is None:
+            return fn(q, k, v, n=sp, causal=bool(self.causal),
+                      window=self.attn_window)
+        q, k, v = (collectives.split(t, group, dim=2) for t in (q, k, v))
+        out = fn(q.contiguous(), k.contiguous(), v.contiguous(),
+                 group=group.pg, causal=bool(self.causal),
+                 window=self.attn_window)
+        return collectives.all_gather(out, group, dim=2)
+
+    def _attend_stage_chunk(self, q, k, v, group, dh: int):
+        """Sequence parallelism inside a pipeline stage
+        (cxxnet_tpu/layer/layers.py:1311-1333): k/v are already whole on
+        every sp rank, so each rank attends its query chunk against them
+        at its global causal offset (``ring.chunk_attention``: the
+        ring-step kernels as one step) and a gather over sp rebuilds the
+        sequence. The chunk's gradient is all-gathered and k/v's summed
+        over sp, so every rank holds the whole gradient."""
+        L, n = q.shape[2], group.n
+        check(L % n == 0, "attention: seq length %d must be divisible by "
+              "seq_parallel %d" % (L, n))
+        chunk = L // n
+        q_l = collectives.split(q, group, dim=2)
+        k = collectives.enter_group(k, group)
+        v = collectives.enter_group(v, group)
+        out = ring.chunk_attention(
+            q_l, k.contiguous(), v.contiguous(),
+            q_offset=group.index * chunk, causal=bool(self.causal),
+            scale=dh ** -0.5, window=self.attn_window)
+        return collectives.all_gather(out, group, dim=2)
 
     def _attend_cached(self, q, k, v, ctx, dh: int):
         """KV-cached decode: write this input's k/v into the caches at
@@ -1362,8 +1402,14 @@ class AttentionLayer(Layer):
         if self.rope:
             off = pos if pos is not None else 0
             q, k = self._apply_rope(q, off), self._apply_rope(k, off)
+        sp_axis = ctx.mesh.axis_size("sp") if ctx.mesh is not None else 1
         if pos is not None:
             out = self._attend_cached(q, k, v, ctx, dh)
+        elif sp_axis > 1 and ctx.in_stage:
+            out = self._attend_stage_chunk(q, k, v, ctx.mesh.group("sp"), dh)
+        elif sp_axis > 1:
+            out = self._attend_seq_parallel(q, k, v, sp_axis,
+                                            ctx.mesh.group("sp"))
         elif ctx.seq_parallel > 1:
             out = self._attend_seq_parallel(q, k, v, ctx.seq_parallel)
         else:

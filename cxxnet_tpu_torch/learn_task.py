@@ -474,6 +474,11 @@ class LearnTask:
             elif self._status_telemetry:
                 telemetry.disable()
                 self._status_telemetry = False
+            if pidx is not None:
+                # the world this run joined, left before the interpreter
+                # exits: a process group torn down at exit can abort on
+                # its transport threads
+                multihost.leave_distributed()
         return 0
 
     def _local_ranks(self) -> int:
@@ -494,21 +499,22 @@ class LearnTask:
 
     def _local_launch(self, argv: List[str], n: int) -> int:
         """One process of this config per rank on this host, joined at a
-        free localhost port, each writing to this process's standard output
-        and error; returns 0 when every rank does. When one rank exits
-        non-zero the others are killed (they would wait in a collective
-        for it) and its code is returned, as torchrun does."""
-        import socket
+        ``file://`` rendezvous in a temporary directory of its own (a free
+        port found here and bound later by rank 0 can be taken by another
+        process in between), each writing to this process's standard
+        output and error; returns 0 when every rank does. When one rank
+        exits non-zero the others are killed (they would wait in a
+        collective for it) and its code is returned, as torchrun does."""
+        import shutil
         import subprocess
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
+        import tempfile
+        rdv = tempfile.mkdtemp(prefix="cxxnet_rdv_")
         entry = os.path.join(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))), "bin", "cxxnet_torch")
         procs = [subprocess.Popen(
             [sys.executable, entry] + list(argv)
-            + ["coordinator=127.0.0.1:%d" % port, "num_worker=%d" % n,
-               "worker_rank=%d" % r],
+            + ["coordinator=file://" + os.path.join(rdv, "store"),
+               "num_worker=%d" % n, "worker_rank=%d" % r],
             env=dict(os.environ, LOCAL_RANK=str(r)))
             for r in range(n)]
         try:
@@ -525,6 +531,7 @@ class LearnTask:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+            shutil.rmtree(rdv, ignore_errors=True)
 
     def _output(self, path: str, mode: str):
         """``path`` opened for writing on the writer rank; the null device

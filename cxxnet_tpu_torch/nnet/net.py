@@ -234,7 +234,8 @@ class NeuralNet:
             c2 = ApplyContext(train=ctx.train, epoch=ctx.epoch,
                               seq_parallel=ctx.seq_parallel, mesh=ctx.mesh,
                               data_sharded=ctx.data_sharded,
-                              gather=ctx.gather)
+                              gather=ctx.gather, in_stage=ctx.in_stage,
+                              row_span=ctx.row_span)
             for i in seg:
                 self._apply_connection(i, params, local, c2, base_seed)
             return tuple(local[j] for j in outs)
@@ -330,6 +331,236 @@ class NeuralNet:
         if ctx.losses:
             return values, sum(ctx.losses)
         return values, torch.zeros((), device=data.device)
+
+    # pipeline parallelism (config key pipeline_parallel = k): the stage
+    # plan, host code copied from cxxnet_tpu/nnet/net.py:667-793
+    def _pipeline_chain_prefix(self) -> int:
+        """Length of the non-loss prefix, verifying it is a topologically
+        ordered DAG: every layer reads only the data node or nodes already
+        written by an earlier layer (in-place rewrites allowed)."""
+        cfg = self.cfg
+        first_loss = next(
+            (i for i, lay in enumerate(self.layers) if lay.is_loss),
+            len(cfg.layers))
+        check(first_loss > 0, "pipeline_parallel: empty non-loss prefix")
+        written = {0}
+        for i in range(first_loss):
+            info = cfg.layers[i]
+            for n in info.nindex_in:
+                check(n in written,
+                      "pipeline_parallel: layer %d (%s) reads node %d "
+                      "before any layer writes it — the prefix must be "
+                      "topologically ordered"
+                      % (i, self.layers[i].type_name, n))
+            written.update(info.nindex_out)
+        return first_loss
+
+    def _pipeline_live_set(self, cut: int, first_loss: int):
+        """Nodes whose values must cross the stage boundary after ``cut``
+        layers: nodes holding a value (the data node, or written by a
+        layer < cut) that are still needed — read by a layer >= cut at or
+        before the node's next in-place rewrite, or, at the final cut, the
+        last prefix layer's out nodes (which predict / extract read)."""
+        cfg = self.cfg
+        n_layers = len(cfg.layers)
+        writers: Dict[int, List[int]] = {}
+        readers: Dict[int, List[int]] = {}
+        for i, info in enumerate(cfg.layers):
+            for n in info.nindex_in:
+                readers.setdefault(n, []).append(i)
+            for n in info.nindex_out:
+                writers.setdefault(n, []).append(i)
+        final_outs = (set(cfg.layers[first_loss - 1].nindex_out)
+                      if cut >= first_loss else set())
+        live = []
+        for n in range(cfg.param.num_nodes):
+            has_value = (n == 0) or any(w < cut
+                                        for w in writers.get(n, ()))
+            if not has_value:
+                continue
+            nxt = min((w for w in writers.get(n, ()) if w >= cut),
+                      default=n_layers)
+            if (n in final_outs
+                    or any(cut <= r <= nxt for r in readers.get(n, ()))):
+                live.append(n)
+        return tuple(live)
+
+    def _partition_stages(self, n_layers: int, k: int, param_sizes=None):
+        """Split layers [0, n_layers) into k contiguous stages minimizing
+        the maximum stage cost: per layer its output activation elements
+        plus, with ``param_sizes``, params x output spatial extent."""
+        cfg = self.cfg
+        costs = []
+        for i in range(n_layers):
+            c = sum(int(np.prod(self.node_shapes[n][1:]))
+                    for n in cfg.layers[i].nindex_out)
+            if param_sizes is not None:
+                shape = self.node_shapes[cfg.layers[i].nindex_out[0]]
+                spatial = (int(np.prod(shape[2:])) if len(shape) > 2 else 1)
+                c += int(param_sizes[i]) * spatial
+            costs.append(c)
+        k = min(k, n_layers)
+        prefix = np.concatenate([[0], np.cumsum(costs, dtype=np.float64)])
+
+        def seg(a, b):
+            return prefix[b] - prefix[a]
+
+        # dp[j][i] = minimal max-stage-cost splitting first i layers into j
+        INF = float("inf")
+        dp = [[INF] * (n_layers + 1) for _ in range(k + 1)]
+        cut = [[0] * (n_layers + 1) for _ in range(k + 1)]
+        dp[0][0] = 0.0
+        for j in range(1, k + 1):
+            for i in range(j, n_layers + 1):
+                for m in range(j - 1, i):
+                    v = max(dp[j - 1][m], seg(m, i))
+                    if v < dp[j][i]:
+                        dp[j][i] = v
+                        cut[j][i] = m
+        bounds = [n_layers]
+        for j in range(k, 0, -1):
+            bounds.append(cut[j][bounds[-1]])
+        bounds.reverse()
+        return [(bounds[s], bounds[s + 1]) for s in range(k)]
+
+    def pipeline_plan(self, k: int):
+        """(stages, first_loss): the k stages' layer ranges [lo, hi) of the
+        non-loss prefix, empty stages at the end when the prefix is
+        shorter than k; a shared stateful layer must fall in its primary's
+        stage. The JAX plan takes the params for their sizes; here the
+        layers' own param shapes give them (the same numbers)."""
+        first_loss = self._pipeline_chain_prefix()
+        psizes = [sum(int(np.prod(s)) for s in shapes.values())
+                  for shapes in self.param_shapes()[:first_loss]]
+        stages = self._partition_stages(first_loss, k, param_sizes=psizes)
+        stages += [(first_loss, first_loss)] * (k - len(stages))
+        stage_of = {i: s for s, (lo, hi) in enumerate(stages)
+                    for i in range(lo, hi)}
+        for i in range(first_loss):
+            if self.is_shared[i] and self.layers[i].state_keys():
+                pidx = self.cfg.layers[i].primary_layer_index
+                check(stage_of.get(pidx) == stage_of.get(i),
+                      "pipeline_parallel: shared stateful layer %d must "
+                      "fall in the same stage as its primary %d (one pipe "
+                      "rank must own the state slot)" % (i, pidx))
+        return stages, first_loss
+
+    def pipeline_boundaries(self, stages, first_loss: int):
+        """The live set crossing into each stage and out of the last one:
+        boundaries[s] enters stage s, boundaries[k] leaves the last."""
+        out = [self._pipeline_live_set(0, first_loss)]
+        for (lo, hi) in stages:
+            out.append(self._pipeline_live_set(hi, first_loss)
+                       if hi > lo else out[-1])
+        return out
+
+    def forward_pipelined(self, params: Params, data: torch.Tensor,
+                          labels: Optional[LabelInfo] = None,
+                          train: bool = False,
+                          gen: Optional[torch.Generator] = None,
+                          epoch: int = 0, n_micro: int = 0, plan=None,
+                          row_span=None, anchor=None
+                          ) -> Tuple[List[Optional[torch.Tensor]],
+                                     torch.Tensor]:
+        """This rank's part of the GPipe forward (cxxnet_tpu/nnet/net.py
+        :795-1040) over the mesh's ``pipe`` axis: the non-loss prefix runs
+        as the plan's stages (``plan`` = ``pipeline_plan``'s result), of
+        which this rank runs its own, on ``n_micro`` microbatches of
+        ``data`` (this rank's rows), each taking its live set from the
+        previous stage and handing its output to the next
+        (``parallel.pipeline.gpipe``); the last stage then runs the loss
+        tail on the final live set of the whole batch. Returns (values,
+        loss): on the last stage the final live set's and the tail's node
+        values and the tail's loss; on the others no values and a zero
+        loss that carries the backward (its gradient runs this stage's
+        backward). ``row_span(m)`` gives microbatch m's place in the whole
+        batch (the random layers' draw, ``ApplyContext.row_span``);
+        ``anchor`` is a leaf that every rank differentiates, so that a
+        stage with no weights still runs its backward. The stage's
+        batch-norm chains its running statistics over the microbatches in
+        order (forward only; the backward's recompute records nothing),
+        averaged over ``data`` at the end, in ``_last_state_updates``."""
+        from ..parallel import collectives
+        from ..parallel import pipeline as pipe
+        cfg = self.cfg
+        cdt = self.compute_dtype
+        mesh = self.mesh
+        grp = mesh.group("pipe")
+        s, k = grp.index, grp.n
+        stages, first_loss = plan
+        bounds = self.pipeline_boundaries(stages, first_loss)
+        lo, hi = stages[s]
+        if 0 not in self.id_nodes:
+            data = data.float()
+        x = self._normalize_input(data)
+        b = x.shape[0]
+        n_micro = n_micro or k
+        check(b % n_micro == 0,
+              "pipeline_parallel: batch_size %d not divisible by %d "
+              "microbatches" % (b, n_micro))
+        mb = b // n_micro
+        if cdt is not None:
+            if 0 not in self.id_nodes:
+                x = x.to(cdt)
+            params = self._cast_params_compute(params)
+        keys = [(i, key) for i in range(lo, hi) if not self.is_shared[i]
+                for key in sorted(params[i])]
+        base_seed = gen.initial_seed() if gen is not None else 0
+        state = {}
+
+        def shape_of(n):
+            dt = x.dtype if n in self.id_nodes else (cdt or torch.float32)
+            return (mb,) + tuple(self.node_shapes[n][1:]), dt
+
+        def stage(m, xs, ps, record):
+            vals: List[Optional[torch.Tensor]] = [None] * cfg.param.num_nodes
+            for n, v in zip(bounds[s], xs):
+                vals[n] = v
+            p = list(params)
+            for (i, key), t in zip(keys, ps):
+                p[i] = dict(p[i])
+                p[i][key] = t
+            ctx = ApplyContext(train=train, epoch=epoch, mesh=mesh,
+                               in_stage=True,
+                               row_span=row_span(m) if row_span else None)
+            if record:
+                ctx.state_updates.update(state)
+            for i in range(lo, hi):
+                self._apply_connection(i, p, vals, ctx, base_seed)
+            if record:
+                state.update(ctx.state_updates)
+            return [vals[n] for n in bounds[s + 1]]
+
+        micro = [[x[m * mb:(m + 1) * mb]] for m in range(n_micro)] \
+            if s == 0 else None
+        outs = pipe.gpipe(
+            stage, n_micro, grp, micro,
+            in_specs=[shape_of(n) for n in bounds[s]],
+            out_specs=[shape_of(n) for n in bounds[s + 1]],
+            leaves=[params[i][key] for i, key in keys],
+            anchor=anchor, device=x.device)
+        self._last_cache_updates = {}
+        ups = {}
+        if state:
+            dg = mesh.group("data")
+            for key_, v in state.items():
+                ups[key_] = collectives.all_reduce(v, dg) / dg.n \
+                    if dg.n > 1 else v
+        values: List[Optional[torch.Tensor]] = [None] * cfg.param.num_nodes
+        if s < k - 1:
+            self._last_state_updates = ups
+            return values, outs[0]
+        for n, v in zip(bounds[k], outs):
+            values[n] = v
+        ctx = ApplyContext(train=train, labels=labels, epoch=epoch,
+                           mesh=mesh, in_stage=True)
+        for i in range(first_loss, len(cfg.layers)):
+            self._apply_connection(i, params, values, ctx, base_seed)
+        ups.update(ctx.state_updates)
+        self._last_state_updates = ups
+        loss = sum(ctx.losses) if ctx.losses else \
+            torch.zeros((), device=x.device)
+        return values, loss
 
     def label_info_from(self, label_batch) -> LabelInfo:
         """Named label fields of a (batch, label_width) matrix (numpy or

@@ -42,7 +42,16 @@ and all-gathers the weights; ``fsdp`` (ZeRO-3) keeps each weight as its
 reduce-scatters the gradient. Model files, ``get_weight``, ``predict``,
 ``extract`` and ``evaluate`` see the whole model and batch on every rank
 (``canonical_params``, ``multihost.fetch_global``): every rank calls them
-together. The pipeline (``pipeline_parallel``) is a later slice.
+together. ``pipeline_parallel = k`` adds a ``pipe`` axis: the non-loss
+prefix is cut into k stages (``NeuralNet.pipeline_plan``), each pipe rank
+holds only its own stage's weights and optimizer state (the last also the
+loss tail's) and runs the GPipe schedule over ``pipeline_micro``
+microbatches (``NeuralNet.forward_pipelined``); ``fsdp = 1`` under the
+pipeline is ZeRO-1 of a stage's optimizer state over ``data``: the stage's
+weights laid end to end, each data rank stepping its block of them
+(cxxnet_tpu/nnet/trainer.py:411-560). ``seq_parallel`` over several ranks
+is the mesh's ``sp`` axis: every sp rank runs the same rows and each
+attends its shard of the sequence, the sp ranks replicas of each other.
 ``export_forward`` and ``export_decode`` write the inference forward and
 the decode loop as ``torch.export`` programs with the weights baked in.
 Every unit of device work is one of the JAX package's programs under its
@@ -255,6 +264,16 @@ class Trainer:
         self.update_on_server = 0
         self.fsdp = 0
         self.test_on_server = 0
+        # pipeline parallelism (cxxnet_tpu/nnet/trainer.py:105-106): the
+        # stage count and the microbatches (0: one per stage)
+        self.pipeline_parallel = 1
+        self.pipeline_micro = 0
+        # under a pipe axis: the stage plan and this rank's place in it
+        # (_setup_pipeline); ZeRO-1's flat layout of the stage
+        # (_setup_flat); the leaf that every stage differentiates
+        self._pp: Optional[dict] = None
+        self._flat: Optional[dict] = None
+        self._anchor: Optional[torch.Tensor] = None
         self.mesh: Optional[mesh_mod.Mesh] = None
         # per layer {key: placement}: of the stored weight, of its
         # optimizer state and reduced gradient; and fsdp's gathers, per
@@ -338,12 +357,12 @@ class Trainer:
         if name == "test_on_server":
             self.test_on_server = int(val)
         if name == "pipeline_parallel":
-            check(int(val) <= 1, "pipeline_parallel > 1 is not ported yet: "
-                  "it is ROADMAP.md Queue 1 item 12b")
+            self.pipeline_parallel = int(val)
+            check(self.pipeline_parallel >= 1,
+                  "pipeline_parallel must be >= 1")
         if name == "pipeline_micro":
-            check(int(val) <= 0, "pipeline_micro > 0 is not ported yet: "
-                  "it belongs to pipeline_parallel, ROADMAP.md Queue 1 "
-                  "item 12b")
+            self.pipeline_micro = int(val)
+            check(self.pipeline_micro >= 0, "pipeline_micro must be >= 0")
         if name == "health_monitor":
             self.health_monitor = int(val)
         if name == "nonfinite_action":
@@ -367,10 +386,13 @@ class Trainer:
 
     def _new_net(self, cfg: NetConfig, batch_size: int,
                  infer_shapes: bool) -> NeuralNet:
+        # over several ranks seq_parallel is the mesh's sp axis; on one
+        # rank, virtual ranks in every attention layer
         net = NeuralNet(cfg, batch_size, infer_shapes=infer_shapes,
                         input_scale=self.input_scale,
                         input_mean=self.input_mean,
-                        seq_parallel=self.seq_parallel,
+                        seq_parallel=self.seq_parallel
+                        if self.mesh is None else 1,
                         compute_dtype=self.compute_dtype)
         net.mesh = self.mesh
         return net
@@ -387,6 +409,7 @@ class Trainer:
         self.net = self._new_net(self.net_cfg, self.batch_size, True)
         self._seq_nets.clear()
         self._resolve_eval_nodes()
+        self._setup_pipeline()
         self._setup_layout()
         self.params = self._place(self.net.init_params(self.seed, self.dev))
         self._build_updaters()
@@ -396,9 +419,62 @@ class Trainer:
     def _setup_mesh(self) -> None:
         """The mesh over the world's ranks (None on one rank), with the
         JAX trainer's divisibility checks."""
-        self.mesh = mesh_mod.create_mesh(self.model_parallel,
-                                         self.expert_parallel,
-                                         self.batch_size)
+        self.mesh = mesh_mod.create_mesh(
+            self.model_parallel, self.expert_parallel, self.batch_size,
+            pipeline_parallel=self.pipeline_parallel,
+            seq_parallel=self.seq_parallel,
+            pipeline_micro=self.pipeline_micro)
+
+    def _setup_pipeline(self) -> None:
+        """The stage plan under a pipe axis (None without one) and the
+        JAX trainer's refusals of what it cannot place
+        (cxxnet_tpu/nnet/trainer.py:435-460): a shared layer split from
+        its primary, a loss-tail layer sharing a prefix weight. This rank
+        owns its stage's layers, and the last stage the loss tail's."""
+        self._pp = None
+        if self.mesh is None or self.mesh.axis_size("pipe") <= 1:
+            return
+        k = self.mesh.axis_size("pipe")
+        stages, first_loss = self.net.pipeline_plan(k)
+        stage_of = {i: s for s, (lo, hi) in enumerate(stages)
+                    for i in range(lo, hi)}
+        n_layers = len(self.net.layers)
+        for i in range(first_loss):
+            if self.net.is_shared[i]:
+                pidx = self.net_cfg.layers[i].primary_layer_index
+                check(stage_of.get(pidx) == stage_of.get(i),
+                      "pipeline_parallel: shared layer %d and its primary "
+                      "%d must fall in the same pipeline stage" % (i, pidx))
+        for i in range(first_loss, n_layers):
+            if self.net.is_shared[i]:
+                pidx = self.net_cfg.layers[i].primary_layer_index
+                check(pidx >= first_loss,
+                      "pipeline_parallel: loss-tail shared layer %d cannot "
+                      "reference prefix primary %d" % (i, pidx))
+        s = self.mesh.coords["pipe"]
+        bounds = self.net.pipeline_boundaries(stages, first_loss)
+        tail_out = {n for info in self.net_cfg.layers[first_loss:]
+                    for n in info.nindex_out}
+        self._pp = {"k": k, "stage": s, "stages": stages,
+                    "first_loss": first_loss,
+                    "owned": {i for i in range(n_layers)
+                              if stage_of.get(i, k - 1) == s},
+                    "n_micro": self.pipeline_micro or k,
+                    "observable": set(bounds[-1]) | tail_out}
+
+    def _owns(self, i: int) -> bool:
+        """Whether this rank holds layer i's weights (all of them without
+        a pipe axis)."""
+        return self._pp is None or i in self._pp["owned"]
+
+    def _check_observable(self, nodes, what: str) -> None:
+        """Under the pipeline only the final live set and the loss tail's
+        nodes have values (cxxnet_tpu/nnet/trainer.py:910-917,
+        1240-1252)."""
+        if self._pp is None:
+            return
+        for n in nodes:
+            check(n in self._pp["observable"], what % n)
 
     def _setup_layout(self) -> None:
         """The placements of every weight, its optimizer state and its
@@ -412,7 +488,14 @@ class Trainer:
             self._opt_spec = self._store_spec
             return
         tp = sharding.param_shardings(mesh, self.net.layers, shapes)
-        if self.fsdp and mesh.axis_size("data") > 1:
+        if self._pp is not None:
+            # a stage's weights keep their TP / EP placement; fsdp is
+            # ZeRO-1 over the stage laid flat (_setup_flat), and
+            # update_on_server leaves the stage's state whole, as the JAX
+            # trainer's packed state (cxxnet_tpu/nnet/trainer.py:315-320,
+            # 1045-1055)
+            store = opt = tp
+        elif self.fsdp and mesh.axis_size("data") > 1:
             store = sharding.fsdp_shardings(mesh, self.net.layers, shapes,
                                             base_shardings=tp)
             # the tensors fsdp leaves whole keep ZeRO-1 optimizer state:
@@ -437,6 +520,8 @@ class Trainer:
     def _place(self, full):
         """This rank's stored blocks of whole per-layer params (tensors or
         arrays; a copy)."""
+        if self._pp is not None:
+            full = [p if self._owns(i) else {} for i, p in enumerate(full)]
         return sharding.shard_params(full, self.mesh, self._store_spec,
                                      self.dev)
 
@@ -451,6 +536,9 @@ class Trainer:
         """The part of the stored weight (i, k) that this rank steps: its
         optimizer block (a view)."""
         w = self.params[i][k]
+        if self._flat is not None:
+            a, b = self._flat["seg"][(i, k)]
+            return w.view(-1)[a:b]
         rel = self._opt_rel(i, k)
         if rel is None:
             return w
@@ -461,6 +549,18 @@ class Trainer:
 
     def _data_group(self):
         return self.mesh.group("data")
+
+    def _metric_group(self):
+        """The ranks whose train-metric sums add up to the whole batch's:
+        the data ranks, and the pipe ranks (only the last stage's are not
+        zero)."""
+        return self.mesh.group(("data", "pipe"))
+
+    def _metric_rank(self) -> bool:
+        """Whether this rank carries the whole batch's restored metric
+        sums: the first data rank (of the last stage under a pipeline)."""
+        return self.mesh.coords["data"] == 0 and (
+            self._pp is None or self._pp["stage"] == self._pp["k"] - 1)
 
     @property
     def _dp(self) -> int:
@@ -522,13 +622,23 @@ class Trainer:
         w.copy_(collectives.all_gather(self._opt_view(i, k),
                                        self.mesh.group(axes), dim=dim))
 
-    def _counted(self, spec) -> bool:
-        """Whether this rank counts its block of a tensor under ``spec`` in
-        a sum over the world: the first rank of each replica set."""
+    def _replica_axes(self, spec) -> List[str]:
+        """The axes over which the ranks hold the same block of a tensor
+        under ``spec``: every axis it is not split over, but ``pipe``
+        (a pipe rank holds its own stage's tensors)."""
         sp = sharding.split_of(spec)
         split = sp[1] if sp is not None else ()
-        return self.mesh.is_first([a for a in self.mesh.axis_names
-                                   if a not in split])
+        return [a for a in self.mesh.axis_names
+                if a not in split and a != "pipe"]
+
+    def _counted(self, i: int, k: str) -> bool:
+        """Whether this rank counts its optimizer block of (i, k) in a sum
+        over the world: the first rank of each replica set (ZeRO-1 of the
+        pipeline splits every block over ``data``)."""
+        axes = self._replica_axes(self._opt_spec[i][k])
+        if self._flat is not None:
+            axes = [a for a in axes if a != "data"]
+        return self.mesh.is_first(axes)
 
     def _world_sum(self, v: torch.Tensor) -> torch.Tensor:
         """The sum of ``v`` over every rank of the mesh."""
@@ -557,10 +667,8 @@ class Trainer:
             return
         for i, p in enumerate(self.params):
             for key in sorted(p):
-                sp = sharding.split_of(self._store_spec[i][key])
-                split = sp[1] if sp is not None else ()
-                grp = self.mesh.group([a for a in self.mesh.axis_names
-                                       if a not in split])
+                grp = self.mesh.group(self._replica_axes(
+                    self._store_spec[i][key]))
                 if grp.n == 1:
                     continue
                 w = p[key].detach().reshape(1, -1)
@@ -586,6 +694,14 @@ class Trainer:
                         up.set_param(k, v)
                     ups[key] = up
             self.updaters.append(ups)
+        if self._pp is not None:
+            for i in range(self._pp["first_loss"]):
+                for key, up in self.updaters[i].items():
+                    check(getattr(up, "elementwise", False),
+                          "pipeline_parallel: updater '%s' for layer %d key "
+                          "%s declares elementwise=False (per-tensor "
+                          "reductions); the packed stage update would be "
+                          "wrong for it" % (up.kind, i, key))
         self._clear_jit_cache()
 
     # programs (cxxnet_tpu/nnet/trainer.py:1102-1128)
@@ -616,12 +732,146 @@ class Trainer:
         return self._jit_cache[key]
 
     def _init_opt(self) -> None:
+        self._setup_flat()
         self.opt_state = [{key: up.init_state(self._opt_view(i, key))
-                           for key, up in ups.items()}
+                           for key, up in ups.items() if key in self.params[i]}
                           for i, ups in enumerate(self.updaters)]
         self.grad_accum = None
         self._metric_accum = None
         self.sample_counter = 0
+
+    def _setup_flat(self) -> None:
+        """ZeRO-1 inside a pipeline stage (``fsdp = 1`` under the pipe
+        axis; the JAX trainer's ``_pp_zero1``, cxxnet_tpu/nnet/trainer.py
+        :423-433, 471-501): the stepped tensors this rank holds laid end
+        to end (``sharding.flat_blocks``, in the JAX packed row's order)
+        and cut into dp blocks; data rank d steps block d, so its
+        optimizer state is 1/dp of its stage's. ``seg`` maps each tensor
+        to the part of it inside this rank's block (possibly empty)."""
+        self._flat = None
+        if (self._pp is None or not self.fsdp
+                or self.mesh.axis_size("data") <= 1):
+            return
+        dg = self._data_group()
+        keys = sorted(self._update_keys())
+        offs, c, segs = sharding.flat_blocks(
+            [self.params[i][k].numel() for i, k in keys], dg.n, dg.index)
+        self._flat = {"keys": keys, "offs": offs, "c": c,
+                      "seg": dict(zip(keys, segs))}
+
+    def _flat_block(self, parts) -> torch.Tensor:
+        """This rank's block of the flat layout from its per-tensor parts
+        (the segments, in the layout's order), padded to the block size."""
+        c = self._flat["c"]
+        flat = torch.cat([t.reshape(-1) for t in parts]) if parts else \
+            torch.zeros(0, device=self.dev)
+        if flat.numel() < c:
+            flat = torch.cat([flat, flat.new_zeros(c - flat.numel())])
+        return flat
+
+    def _flat_whole(self, parts) -> List[torch.Tensor]:
+        """The whole stored tensors of the flat layout, from every data
+        rank's segments ``parts`` (one per tensor, in order): the blocks
+        gathered over ``data``, each tensor cut out of them."""
+        whole = collectives.all_gather(self._flat_block(parts),
+                                       self._data_group(), dim=0)
+        return [whole[a:a + self.params[i][k].numel()]
+                .reshape(self.params[i][k].shape)
+                for (i, k), a in zip(self._flat["keys"], self._flat["offs"])]
+
+    def _opt_block_of(self, i: int, k: str, whole, dtype=None
+                      ) -> torch.Tensor:
+        """This rank's optimizer block of the whole array ``whole`` laid
+        out like weight (i, k)."""
+        if self._flat is None:
+            return sharding.shard_copy(whole, self.mesh,
+                                       self._opt_spec[i][k], self.dev, dtype)
+        a, b = self._flat["seg"][(i, k)]
+        block = sharding.shard(torch.as_tensor(whole), self.mesh,
+                               self._store_spec[i][k])
+        return block.reshape(-1)[a:b].to(self.dev, dtype).contiguous() \
+            .clone()
+
+    def _whole_opt_like(self, tensors: Dict[Tuple[int, str], torch.Tensor]
+                        ) -> Dict[Tuple[int, str], np.ndarray]:
+        """Whole host float32 arrays of tensors laid out as this rank's
+        optimizer blocks (state, reduced gradients), keyed (layer, tag):
+        gathered over the mesh, and over the pipe ranks under a pipeline
+        (every key of the model then). Collective."""
+        out = {}
+        if self._flat is not None:
+            keys = self._flat["keys"]
+            stored = self._flat_whole([tensors[ik].detach().float()
+                                       for ik in keys])
+            for (i, k), t in zip(keys, stored):
+                out[(i, k)] = fetch_global(t, self.mesh,
+                                           self._store_spec[i][k])
+        else:
+            for (i, k), t in tensors.items():
+                out[(i, k)] = fetch_global(t.detach().float(), self.mesh,
+                                           self._opt_spec[i][k])
+        return out
+
+    def _pipe_share(self, arrays: Dict[Tuple[int, str], np.ndarray],
+                    shapes: Dict[Tuple[int, str], tuple]
+                    ) -> Dict[Tuple[int, str], np.ndarray]:
+        """Every pipe rank's whole arrays (keyed (layer, tag), of
+        ``shapes``; a rank gives those of the layers it owns) on every
+        pipe rank: one sum over the pipe group of a buffer where each key
+        has one owner. Without a pipe axis ``arrays`` as given."""
+        if self._pp is None:
+            return arrays
+        sizes = [int(np.prod(sh)) for sh in shapes.values()]
+        buf = torch.zeros(sum(sizes), device=self.dev)
+        off = 0
+        for key, n in zip(shapes, sizes):
+            if key in arrays:
+                buf[off:off + n] = torch.from_numpy(
+                    np.asarray(arrays[key], np.float32).reshape(-1))
+            off += n
+        buf = collectives.all_reduce(buf, self.mesh.group("pipe")).cpu() \
+            .numpy()
+        out, off = {}, 0
+        for (key, sh), n in zip(shapes.items(), sizes):
+            out[key] = buf[off:off + n].reshape(sh).copy()
+            off += n
+        return out
+
+    def _opt_keys(self) -> List[Tuple[int, str, str]]:
+        """(layer, tag, state key) of every optimizer-state tensor of the
+        whole model, in the model file's order."""
+        out = []
+        for i, ups in enumerate(self.updaters):
+            for key in sorted(ups):
+                probe = ups[key].init_state(torch.zeros(1))
+                out += [(i, key, sk) for sk in sorted(probe)]
+        return out
+
+    def _canonical_opt_state(self) -> List[Dict[str, Dict[str, np.ndarray]]]:
+        """The whole optimizer state per layer, {tag: {state key: host
+        float32 array}}, on every rank (collective)."""
+        shapes = self.net.param_shapes()
+        mine = {}
+        for i, st in enumerate(self.opt_state):
+            for key, sub in st.items():
+                for sk, t in sub.items():
+                    mine[(i, key, sk)] = t
+        if self._flat is not None:
+            whole = {}
+            for sk in sorted({sk for (_, _, sk) in mine}):
+                got = self._whole_opt_like({(i, k): t for (i, k, s2), t
+                                            in mine.items() if s2 == sk})
+                whole.update({(i, k, sk): v for (i, k), v in got.items()})
+        else:
+            whole = {(i, k, sk): fetch_global(t.detach().float(), self.mesh,
+                                              self._opt_spec[i][k])
+                     for (i, k, sk), t in mine.items()}
+        whole = self._pipe_share(whole, {(i, k, sk): tuple(shapes[i][k])
+                                         for i, k, sk in self._opt_keys()})
+        out = [{} for _ in self.updaters]
+        for (i, k, sk), v in whole.items():
+            out[i].setdefault(k, {})[sk] = v
+        return out
 
     # model files (reference SaveModel/LoadModel, nnet_impl-inl.hpp:81-100)
     def save_model(self, w: serializer.Writer) -> None:
@@ -635,8 +885,9 @@ class Trainer:
         w.write_uint64(len(blob))
         w.write_raw(blob)
         ow = serializer.Writer()
-        ow.write_uint64(len(self.opt_state))
-        for i, st in enumerate(self.opt_state):
+        opt_state = self._canonical_opt_state()
+        ow.write_uint64(len(opt_state))
+        for i, st in enumerate(opt_state):
             ow.write_uint64(len(st))
             for key in sorted(st):
                 ow.write_string(key)
@@ -644,8 +895,7 @@ class Trainer:
                 ow.write_uint64(len(sub))
                 for sk in sorted(sub):
                     ow.write_string(sk)
-                    ow.write_tensor(fetch_global(sub[sk], self.mesh,
-                                                 self._opt_spec[i][key]))
+                    ow.write_tensor(sub[sk])
         blob = ow.getvalue()
         w.write_raw(OPT_MAGIC)
         w.write_uint64(len(blob))
@@ -666,6 +916,7 @@ class Trainer:
         self.params = self.net.load_model_blob(r.read_raw(nbytes), self.dev)
         self.net.infer_shapes()
         self._check_param_shapes()
+        self._setup_pipeline()
         self._setup_layout()
         self.params = self._place(self.params)
         self._build_updaters()
@@ -696,18 +947,20 @@ class Trainer:
             for i, st in enumerate(self.opt_state):
                 for _ in range(sr.read_uint64()):
                     key = sr.read_string()
-                    check(key in st, "optimizer state has unknown weight "
-                          "tag %r (updater type changed?)" % key)
+                    check(key in self.updaters[i], "optimizer state has "
+                          "unknown weight tag %r (updater type changed?)"
+                          % key)
                     for _ in range(sr.read_uint64()):
                         sk = sr.read_string()
                         val = sr.read_tensor()
+                        if not self._owns(i):
+                            continue    # another pipe rank's stage
                         check(sk in st[key] and
                               tuple(shapes[i][key]) == val.shape,
                               "optimizer state %r/%r shape mismatch"
                               % (key, sk))
-                        st[key][sk] = sharding.shard_copy(
-                            val, self.mesh, self._opt_spec[i][key],
-                            self.dev, st[key][sk].dtype)
+                        st[key][sk] = self._opt_block_of(
+                            i, key, val, st[key][sk].dtype)
             magic = r.f.read(len(ckpt.STATE_MAGIC))
         check(magic in (b"", ckpt.STATE_MAGIC),
               "model file: unexpected bytes %r after the model blob" % magic)
@@ -733,7 +986,7 @@ class Trainer:
         ma = self._metric_accum
         if ma is not None and self.mesh is not None:
             # the whole batch's sums (every rank calls this together)
-            ma = collectives.all_reduce(ma, self._data_group())
+            ma = collectives.all_reduce(ma, self._metric_group())
         meta["has_grad_accum"] = ga is not None
         meta["has_metric_accum"] = ma is not None
         sw.write_string(json.dumps(meta, sort_keys=True))
@@ -790,9 +1043,10 @@ class Trainer:
         if ma is not None:
             if np.shape(ma) == (len(self.train_metric), 2):
                 ma = np.asarray(ma, np.float32)
-                if self.mesh is not None and self.mesh.coords["data"]:
+                if self.mesh is not None and not self._metric_rank():
                     # the file holds the whole batch's sums: the first
-                    # data rank carries them, the others start from zero
+                    # data rank carries them (of the last stage under a
+                    # pipeline), the others start from zero
                     ma = np.zeros_like(ma)
                 self._metric_accum = torch.from_numpy(ma).to(self.dev)
             elif not self.silent:
@@ -807,9 +1061,8 @@ class Trainer:
                 for d, p in zip(ga, shapes))
             if ok:
                 self.grad_accum = [
-                    sharding.shard_copy(np.asarray(ga[i][k], np.float32),
-                                        self.mesh, self._opt_spec[i][k],
-                                        self.dev, self.params[i][k].dtype)
+                    self._opt_block_of(i, k, np.asarray(ga[i][k], np.float32),
+                                       self.params[i][k].dtype)
                     for i, k in self._update_keys()]
             elif not self.silent:
                 print("WARNING: checkpoint gradient-accumulation state "
@@ -830,11 +1083,16 @@ class Trainer:
         nothing is accumulated."""
         if self.grad_accum is None:
             return None
+        shapes = self.net.param_shapes()
         out = [{k: np.zeros(tuple(v), np.float32) for k, v in p.items()}
-               for p in self.net.param_shapes()]
-        for (i, k), g in zip(self._update_keys(), self.grad_accum):
-            out[i][k] = fetch_global(g.detach().float(), self.mesh,
-                                     self._opt_spec[i][k])
+               for p in shapes]
+        whole = self._whole_opt_like(dict(zip(self._update_keys(),
+                                              self.grad_accum)))
+        whole = self._pipe_share(whole, {
+            (i, k): tuple(shapes[i][k]) for i, ups in enumerate(self.updaters)
+            for k in ups})
+        for (i, k), v in whole.items():
+            out[i][k] = v
         return out
 
     def canonical_params(self) -> List[Dict[str, np.ndarray]]:
@@ -842,9 +1100,21 @@ class Trainer:
         layer (the form of the model file and of ``get_weight``), whole:
         under a mesh every rank gathers them together
         (``multihost.fetch_global``)."""
-        return [{k: fetch_global(v, self.mesh, self._store_spec[i][k])
-                 for k, v in p.items()}
-                for i, p in enumerate(self.params)]
+        out = [{k: fetch_global(v, self.mesh, self._store_spec[i][k])
+                for k, v in p.items()}
+               for i, p in enumerate(self.params)]
+        if self._pp is None:
+            return out
+        shapes = self.net.param_shapes()
+        whole = self._pipe_share(
+            {(i, k): v for i, p in enumerate(out) for k, v in p.items()},
+            {(i, k): tuple(sh) for i, p in enumerate(shapes)
+             for k, sh in p.items()})
+        out = [{} for _ in shapes]
+        for i, p in enumerate(shapes):
+            for k in p:
+                out[i][k] = whole[(i, k)]
+        return out
 
     def load_params(self, params) -> None:
         """Take whole per-layer params (arrays or tensors, the form of
@@ -861,6 +1131,8 @@ class Trainer:
     def _check_param_shapes_whole(self) -> None:
         for i, (want, p) in enumerate(zip(self.net.param_shapes(),
                                           self.params)):
+            if not self._owns(i):
+                want = {}
             got = {k: sharding.shard_shape(want[k], self.mesh,
                                            self._store_spec[i][k])
                    for k in want}
@@ -929,6 +1201,20 @@ class Trainer:
         """``_forward_backward`` on the device tensors of a batch."""
         labels = self.net.label_info_from(label)
         leaves = [self.params[i][k].requires_grad_() for i, k in keys]
+        if self._pp is not None:
+            if self._anchor is None:
+                self._anchor = torch.zeros((), device=self.dev,
+                                           requires_grad=True)
+            values, loss = self.net.forward_pipelined(
+                self.params, data, labels=labels, train=True, gen=gen,
+                epoch=self.epoch_counter, n_micro=self._pp["n_micro"],
+                plan=(self._pp["stages"], self._pp["first_loss"]),
+                row_span=self._row_span(data.shape[0]), anchor=self._anchor)
+            grads = torch.autograd.grad(loss, leaves + [self._anchor],
+                                        allow_unused=True)[:-1]
+            grads = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves, grads)]
+            return values, labels, loss.detach(), grads
         values, loss = self.net.forward(self.params, data, labels=labels,
                                         train=True, gen=gen,
                                         epoch=self.epoch_counter,
@@ -1008,11 +1294,20 @@ class Trainer:
         """The training step's work on the device tensors of one batch;
         returns its health vector (a float32 device tensor) when
         ``with_health``, else None."""
+        if with_stats:
+            self._check_observable(
+                self.eval_nodes, "metric node %d lives inside the "
+                "pipelined prefix; with pipeline_parallel only the "
+                "loss-tail nodes are observable")
         # the weights the updaters step; state (BN running stats) has none
         keys = self._update_keys()
         values, labels, loss, grads = self._forward_backward_on(
             data, label, self._next_gen(), keys)
-        if self.mesh is not None:
+        if self._flat is not None:
+            # ZeRO-1 of the stage: the flat gradient reduce-scattered over
+            # the data group, each tensor's segment of this rank's block
+            grads = self._reduce_flat(keys, grads)
+        elif self.mesh is not None:
             # summed over the data group, each in its optimizer block
             grads = [self._reduce_grad(i, k, g)
                      for (i, k), g in zip(keys, grads)]
@@ -1025,9 +1320,16 @@ class Trainer:
         guard = with_health and self.nonfinite_action == "skip"
         if with_stats:
             with torch.no_grad():
-                outs = [values[n].reshape(values[n].shape[0], -1).float()
-                        for n in self.eval_nodes]
-                stats = self.train_metric.device_stats(outs, labels)
+                if self._pp is not None and \
+                        self._pp["stage"] != self._pp["k"] - 1:
+                    # the loss tail runs on the last stage: the others
+                    # add nothing to the sums
+                    stats = torch.zeros((len(self.train_metric), 2),
+                                        device=self.dev)
+                else:
+                    outs = [values[n].reshape(values[n].shape[0], -1)
+                            .float() for n in self.eval_nodes]
+                    stats = self.train_metric.device_stats(outs, labels)
                 prev = self._metric_accum
                 self._metric_accum = stats if prev is None else prev + stats
                 if guard:
@@ -1062,8 +1364,10 @@ class Trainer:
                 self.updaters[i][k].apply(self._opt_view(i, k), g,
                                           self.opt_state[i][k],
                                           self.epoch_counter)
-                if self.mesh is not None:
+                if self.mesh is not None and self._flat is None:
                     self._gather_stepped(i, k)
+            if self._flat is not None:
+                self._gather_flat()
             if guard:
                 self._guard_end(live, ok)
                 if self.grad_accum is not None:
@@ -1087,8 +1391,37 @@ class Trainer:
         (each block once: ``_counted``); all of them on one rank."""
         if self.mesh is None:
             return list(grads)
-        return [g for (i, k), g in zip(keys, grads)
-                if self._counted(self._opt_spec[i][k])]
+        return [g for (i, k), g in zip(keys, grads) if self._counted(i, k)]
+
+    @torch.no_grad()
+    def _reduce_flat(self, keys, grads) -> List[torch.Tensor]:
+        """ZeRO-1 of the stage: the stage's gradients (of ``keys``) laid
+        end to end, summed over the data group with each rank keeping its
+        block (one reduce-scatter), cut into the tensors' segments, in
+        ``keys``' order."""
+        fl = self._flat
+        dg = self._data_group()
+        by_key = dict(zip(keys, grads))
+        flat = torch.cat([by_key[ik].reshape(-1) for ik in fl["keys"]]) \
+            if grads else torch.zeros(0, device=self.dev)
+        pad = fl["c"] * dg.n - flat.numel()
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        block = collectives.reduce_scatter(flat, dg, dim=0)
+        lo = dg.index * fl["c"]
+        for ik, a in zip(fl["keys"], fl["offs"]):
+            sa, sb = fl["seg"][ik]
+            by_key[ik] = block[a + sa - lo:a + sb - lo]
+        return [by_key[ik] for ik in keys]
+
+    @torch.no_grad()
+    def _gather_flat(self) -> None:
+        """After the ZeRO-1 step of the stage's blocks: every stored
+        tensor gathered back whole from the data ranks' blocks."""
+        keys = self._flat["keys"]
+        whole = self._flat_whole([self._opt_view(i, k) for i, k in keys])
+        for (i, k), w in zip(keys, whole):
+            self.params[i][k].copy_(w)
 
     @torch.no_grad()
     def _norm_sq(self, grads, keys) -> torch.Tensor:
@@ -1119,9 +1452,10 @@ class Trainer:
         nan_elems = torch.isnan(flat).sum().float()
         if self.mesh is not None:
             # the loss of this rank's rows, counted by one rank of each
-            # model / ep replica set
+            # model / ep / sp replica set (a pipeline's loss is the last
+            # stage's; the others' is zero)
             own = self.mesh.is_first([a for a in self.mesh.axis_names
-                                      if a != "data"])
+                                      if a not in ("data", "pipe")])
             lossf, gn_sq, nan_elems = self._world_sum(torch.stack(
                 [lossf * float(own), gn_sq, nan_elems]))
         ok = torch.isfinite(lossf) & torch.isfinite(gn_sq)
@@ -1197,7 +1531,7 @@ class Trainer:
                 ma = self._metric_accum
                 if self.mesh is not None:
                     # the whole batch's sums (every rank calls evaluate)
-                    ma = collectives.all_reduce(ma, self._data_group())
+                    ma = collectives.all_reduce(ma, self._metric_group())
                 # the only host read of the train-metric sums
                 self.train_metric.absorb(ma.cpu().numpy())
                 self._metric_accum = None
@@ -1270,8 +1604,36 @@ class Trainer:
             return x
         check(n % dp == 0, "a batch of %d rows does not split over %d data "
               "ranks (batch_size %d)" % (n, dp, self.batch_size))
+        if self._pp is not None:
+            return self._micro_rows(x)
         d = self.mesh.coords["data"]
         return x[d * (n // dp):(d + 1) * (n // dp)]
+
+    def _micro_rows(self, x):
+        """Under a pipeline, this data rank's rows of each microbatch, in
+        microbatch order: the JAX pipeline cuts the batch into microbatches
+        first and shards each over ``data``
+        (cxxnet_tpu/nnet/net.py:996-1008)."""
+        nm, dp = self._pp["n_micro"], self._dp
+        n = int(x.shape[0])
+        check(n % nm == 0 and (n // nm) % dp == 0,
+              "microbatch size (batch_size / pipeline_micro) must be "
+              "divisible by the data-parallel degree")
+        mb = n // nm
+        mbd, d = mb // dp, self.mesh.coords["data"]
+        parts = [x[m * mb + d * mbd:m * mb + (d + 1) * mbd]
+                 for m in range(nm)]
+        return torch.cat(parts) if torch.is_tensor(x) else \
+            np.concatenate(parts)
+
+    def _row_span(self, rows: int):
+        """Microbatch m's place in the whole batch, (rows of the whole
+        batch, its first row), for ``rows`` rows on this rank: the random
+        layers draw the whole batch's noise and keep those rows."""
+        nm, dp = self._pp["n_micro"], self._dp
+        mbd = rows // nm
+        d = self.mesh.coords["data"]
+        return lambda m: (rows * dp, m * mbd * dp + d * mbd)
 
     def _eval_forward(self, x: torch.Tensor, nodes):
         """The eval forward's values of ``nodes`` on ``x``, whole on every
@@ -1279,6 +1641,8 @@ class Trainer:
         rows that split over the data group run split, each rank its rows,
         and the values come back gathered; others run whole on every
         rank."""
+        if self._pp is not None:
+            return self._eval_forward_pipelined(x, nodes)
         dp = self._dp
         sharded = dp > 1 and x.shape[0] % dp == 0
         if sharded:
@@ -1292,6 +1656,44 @@ class Trainer:
             g = self._data_group()
             values = [collectives.all_gather(v, g, dim=0) for v in values]
         return values
+
+    def _eval_forward_pipelined(self, x: torch.Tensor, nodes):
+        """The pipelined eval forward (cxxnet_tpu/nnet/trainer.py:1237-
+        1252): the microbatches through the stages, the tail on the last
+        stage, whose values of ``nodes`` every rank then holds whole. Each
+        microbatch splits over the data ranks where its rows divide."""
+        self._check_observable(
+            nodes, "node %d lives inside the pipelined prefix; with "
+            "pipeline_parallel only loss-tail nodes are observable")
+        nm, dp = self._pp["n_micro"], self._dp
+        n = x.shape[0]
+        check(n % nm == 0, "pipeline_parallel: batch_size %d not divisible "
+              "by %d microbatches" % (n, nm))
+        sharded = dp > 1 and (n // nm) % dp == 0
+        xs = self._micro_rows(x) if sharded else x
+        values, _ = self.net.forward_pipelined(
+            self.params, xs, train=False, n_micro=nm,
+            plan=(self._pp["stages"], self._pp["first_loss"]))
+        last = self._pp["stage"] == self._pp["k"] - 1
+        codes = torch.tensor([float(_DTYPES.index(values[nd].dtype))
+                              if last else 0.0 for nd in nodes],
+                             device=self.dev)
+        pg = self.mesh.group("pipe")
+        codes = collectives.all_reduce(codes, pg).tolist()
+        out = []
+        for nd, code in zip(nodes, codes):
+            dt = _DTYPES[int(code)]
+            shape = (xs.shape[0],) + tuple(self.net.node_shapes[nd][1:])
+            v = values[nd].float() if last else \
+                torch.zeros(shape, device=self.dev)
+            v = collectives.all_reduce(v.contiguous(), pg).to(dt)
+            if sharded:
+                v = collectives.all_gather(v, self._data_group(), dim=0)
+                # (data rank, microbatch, row) -> the batch's order
+                v = v.reshape(dp, nm, n // nm // dp, *v.shape[1:]) \
+                    .transpose(0, 1).reshape(n, *v.shape[1:])
+            out.append(v)
+        return out
 
     # inference (reference Predict / ExtractFeature, nnet_impl-inl.hpp:186-299)
     def _input(self, data) -> torch.Tensor:
@@ -1958,8 +2360,11 @@ class Trainer:
         if self.mesh is None:
             return self.net.get_weight(self.params, layer_name, tag)
         idx, key = self.net._weight_key(layer_name, tag)
-        arr = fetch_global(self.params[idx][key], self.mesh,
-                           self._store_spec[idx][key])
+        if self._pp is not None:
+            arr = self.canonical_params()[idx][key]
+        else:
+            arr = fetch_global(self.params[idx][key], self.mesh,
+                               self._store_spec[idx][key])
         flat = arr.reshape(arr.shape[0], -1) if arr.ndim > 1 \
             else arr.reshape(1, -1)
         return flat, list(arr.shape)
@@ -1970,10 +2375,17 @@ class Trainer:
         else:
             idx, key = self.net._weight_key(layer_name, tag)
             shape = self.net.param_shapes()[idx][key]
+            if not self._owns(idx):
+                self._params_gen += 1
+                return
             self.params[idx][key] = sharding.shard_copy(
                 np.asarray(value, np.float32).reshape(shape), self.mesh,
                 self._store_spec[idx][key], self.dev)
         self._params_gen += 1
+
+
+# the node dtypes a pipelined eval forward hands between ranks, by code
+_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64]
 
 
 def kv_gather_views(pools: Dict, tabs: torch.Tensor, bs: int) -> Dict:

@@ -2,5 +2,6 @@
 world of processes (``multihost``), the mesh of ranks and its groups
 (``mesh``), the placement rules (``sharding``), tensor and expert
 parallelism (``tensor``), the collectives over a process group or over
-virtual ranks (``collectives``), and sequence parallelism, ring and Ulysses
-attention (``ring``). Pipeline parallelism is a later slice."""
+virtual ranks (``collectives``), sequence parallelism, ring and Ulysses
+attention (``ring``), and a rank's GPipe schedule over a pipe axis
+(``pipeline``)."""

@@ -25,6 +25,20 @@ Each works over one of two kinds of ranks:
   - ``enter_group``: the identity forward, the all-reduce backward: the
     input of a group whose ranks each compute a part of a result from it
     (the input of a column-parallel layer, or of the ep group's experts).
+  - ``split``: this rank's block of a tensor that is the same on every
+    rank; the backward all-gathers the blocks' gradients, so that every
+    rank holds the whole gradient (sequence parallelism: a rank's shard
+    of the sequence, whose gradient every sp rank needs). With
+    ``all_gather`` (no ``sum_grad``), whose backward takes this rank's
+    block of a gradient that is the same on every rank, it is the pair
+    that keeps the sp ranks replicas of each other.
+  - ``hop_send`` / ``hop_recv``: the pipeline's hop, stage s's tensors to
+    stage s + 1 of a pipe group with no wraparound (JAX's ``ppermute``
+    with the permutation ``(i, i + 1)``, cxxnet_tpu/parallel/pipeline.py
+    :45), posted and taken apart so that a stage sends as soon as it has
+    a microbatch's output. The pipeline's autograd node makes the hop
+    differentiable: its backward hops the gradients back, stage s + 1 to
+    s (parallel/pipeline.py).
   - ``ring_shift`` posts its send and its receive together
     (``batch_isend_irecv``), so that no rank waits on another; its
     backward is the shift the other way; ``all_to_all``'s is the
@@ -47,9 +61,10 @@ stages them itself), but not for point-to-point sends (its TCP transport
 is handed the device pointer and the process aborts), and it has no
 ``all_to_all`` at all there (it raises); the port's ``all_to_all`` over a
 ``gloo`` group is one send and one receive per pair of ranks. So for a
-``gloo`` group ``ring_shift`` and ``all_to_all`` go through host memory
-(``_STAGED``): a copy to the host, the sends, and a copy back. An
-``nccl`` group never takes that route.
+``gloo`` group ``ring_shift``, ``all_to_all`` and the pipeline's hop go
+through host memory (``_STAGED``): a copy to the host, the sends, and a
+copy back. The route is chosen by the group's backend, never by catching
+an error: an ``nccl`` group never takes it.
 """
 
 from __future__ import annotations
@@ -64,7 +79,7 @@ Ranks = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 # the operations that go through host memory on a gloo group when given
 # CUDA tensors (the module docstring says why)
-_STAGED = frozenset({"all_to_all", "ring_shift"})
+_STAGED = frozenset({"all_to_all", "ring_shift", "pipe_hop"})
 
 
 def _pg(group):
@@ -78,7 +93,13 @@ def _order(group, n: int):
 
 
 def _staged(op: str, group, t: torch.Tensor) -> bool:
-    return (t.is_cuda and op in _STAGED
+    return _staged_on(op, group, t.device)
+
+
+def _staged_on(op: str, group, device) -> bool:
+    """Whether ``op`` on ``group`` goes through host memory for tensors on
+    ``device``."""
+    return (torch.device(device).type == "cuda" and op in _STAGED
             and dist.get_backend(_pg(group)) == "gloo")
 
 
@@ -322,3 +343,68 @@ def reduce_scatter(x: torch.Tensor, group=None, *,
     ``dim`` (JAX ``psum_scatter`` with ``tiled=True``); the backward is
     the all-gather."""
     return _ReduceScatter.apply(x, group, int(dim))
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _block(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, dim = ctx.args
+        return _all_gather(grad.contiguous(), group, dim), None, None
+
+
+def split(x: torch.Tensor, group=None, *, dim: int = 0) -> torch.Tensor:
+    """This rank's block of ``x`` (the same on every rank) along ``dim``;
+    the backward all-gathers the blocks' gradients, so each rank holds the
+    whole gradient of ``x``."""
+    if group_size(group) == 1:
+        return x
+    if x.shape[dim] % group_size(group) != 0:
+        raise ValueError("split: axis %d of %s does not split %d ways"
+                         % (dim, tuple(x.shape), group_size(group)))
+    return _Split.apply(x, group, int(dim))
+
+
+# the pipeline's sends and their bytes (hop_send), read by the chip check
+hops = 0
+hop_bytes = 0
+
+
+def hop_send(xs, group, dst: int) -> list:
+    """Post the sends of the tensors ``xs`` to group rank ``dst`` (a
+    neighbouring stage), in order; returns the handles, each with the
+    buffer it sends from, for ``hop_wait``. Through host memory on a gloo
+    group (``_STAGED``)."""
+    global hops, hop_bytes
+    out = []
+    for x in xs:
+        hops += 1
+        hop_bytes += x.numel() * x.element_size()
+        buf = x.detach().contiguous()
+        if _staged("pipe_hop", group, x):
+            buf = buf.cpu()
+        out.append((dist.isend(buf, _peer(_pg(group), dst),
+                               group=_pg(group)), buf))
+    return out
+
+
+def hop_wait(handles) -> None:
+    for work, _ in handles:
+        work.wait()
+
+
+def hop_recv(specs, group, src: int, device) -> list:
+    """Receive one tensor per (shape, dtype) of ``specs`` from group rank
+    ``src``, in the order it sent them, onto ``device``."""
+    staged = _staged_on("pipe_hop", group, device)
+    out = []
+    for shape, dtype in specs:
+        buf = torch.empty(shape, dtype=dtype,
+                          device="cpu" if staged else device)
+        dist.recv(buf, _peer(_pg(group), src), group=_pg(group))
+        out.append(buf.to(device) if staged else buf)
+    return out

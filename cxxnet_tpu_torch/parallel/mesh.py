@@ -4,11 +4,12 @@ and of the JAX trainer's mesh build (cxxnet_tpu/nnet/trainer.py:252-296).
 JAX drives every device of its mesh from one process; the port is SPMD: one
 process per rank, one device per rank, and every rank runs the same
 program. A ``Mesh`` names the axes of the world in the JAX order, ``data``
-outermost, then ``ep`` and ``model`` innermost, so that a model group is a
-run of consecutive ranks (the pipeline's ``pipe`` axis goes after ``data``
-when it comes). ``data`` is always an axis; another axis is one only when
-its size is above 1, as in the JAX trainer. The trainer's ``seq_parallel``
-is no axis here: it runs as virtual ranks on each rank's own device.
+outermost, then ``pipe``, ``ep``, ``sp`` and ``model`` innermost, so that a
+model group is a run of consecutive ranks. ``data`` is always an axis;
+another axis is one only when its size is above 1, as in the JAX trainer.
+The trainer's ``seq_parallel`` is the ``sp`` axis over a world of several
+ranks; on a world of one rank it runs as virtual ranks on the rank's own
+device and the mesh is None.
 
 A rank's place is its coordinate on each axis (mixed radix over the axes,
 the last fastest). For every set of axes the mesh holds one
@@ -32,8 +33,8 @@ import torch.distributed as dist
 
 from ..layer.base import check
 
-# the axes in mesh order; "pipe" joins after "data" with pipeline_parallel
-AXES = ("data", "ep", "model")
+# the axes in mesh order (cxxnet_tpu/nnet/trainer.py:282)
+AXES = ("data", "pipe", "ep", "sp", "model")
 
 
 class AxisGroup:
@@ -152,28 +153,42 @@ def world() -> Tuple[int, int]:
 
 def create_mesh(model_parallel: int = 1, expert_parallel: int = 1,
                 batch_size: int = 0, n: Optional[int] = None,
-                rank: Optional[int] = None,
-                groups: bool = True) -> Optional[Mesh]:
-    """The trainer's mesh over the world (JAX ``Trainer._setup_mesh``): the
-    world's ranks are its devices, dp = world / (model_parallel *
-    expert_parallel), with the JAX trainer's checks and messages (the
-    pipeline, refused for now, joins the product with its axis). None for
-    a world of one rank. ``n`` / ``rank`` stand in for the world (the
+                rank: Optional[int] = None, groups: bool = True,
+                pipeline_parallel: int = 1, seq_parallel: int = 1,
+                pipeline_micro: int = 0) -> Optional[Mesh]:
+    """The trainer's mesh over the world (JAX ``Trainer._setup_mesh``,
+    cxxnet_tpu/nnet/trainer.py:252-296): the world's ranks are its
+    devices, dp = world / (model_parallel * seq_parallel *
+    pipeline_parallel * expert_parallel), with the JAX trainer's checks and
+    messages. ``seq_parallel`` joins the product only over several ranks:
+    on one rank it runs as virtual ranks on the rank's device. None for a
+    world of one rank. ``n`` / ``rank`` stand in for the world (the
     shape-only meshes of the rule tests)."""
     if n is None:
         n, r = world()
         rank = r if rank is None else rank
     rank = rank or 0
     mp, ep = int(model_parallel), int(expert_parallel)
-    ways = mp * ep
+    pp = int(pipeline_parallel)
+    sp = int(seq_parallel) if n > 1 else 1
+    ways = mp * sp * pp * ep
     check(n % ways == 0,
           "device count %d must be divisible by model_parallel * "
-          "seq_parallel * pipeline_parallel * expert_parallel = %d (the "
-          "port's seq_parallel runs inside each rank's device and counts "
-          "1 here)" % (n, ways))
+          "seq_parallel * pipeline_parallel * expert_parallel = %d"
+          % (n, ways))
     dp = n // ways
-    check(dp == 1 or batch_size % dp == 0,
-          "batch_size must be divisible by the data-parallel degree")
+    if pp > 1:
+        n_micro = int(pipeline_micro) or pp
+        check(batch_size % n_micro == 0,
+              "batch_size must be divisible by the microbatch count "
+              "(pipeline_micro, default pipeline_parallel)")
+        check(dp == 1 or (batch_size // n_micro) % dp == 0,
+              "microbatch size (batch_size / pipeline_micro) must be "
+              "divisible by the data-parallel degree")
+    else:
+        check(dp == 1 or batch_size % dp == 0,
+              "batch_size must be divisible by the data-parallel degree")
     if n <= 1:
         return None
-    return Mesh({"data": dp, "ep": ep, "model": mp}, rank, groups=groups)
+    return Mesh({"data": dp, "pipe": pp, "ep": ep, "sp": sp, "model": mp},
+                rank, groups=groups)

@@ -75,6 +75,24 @@ def init_distributed(coordinator_address: Optional[str] = None,
                             rank=int(process_id))
 
 
+def leave_distributed() -> None:
+    """Leave the world (every group of it) when one is up."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def rank0_value(value):
+    """Rank 0's ``value`` (any picklable object) on every rank of the
+    world, ``value`` itself without one. Collective: every rank calls it
+    at the same point."""
+    n, _ = world()
+    if n == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def worker_shard_params() -> Tuple[int, int]:
     """(num_workers, rank) for input sharding: the reference's
     dist_num_worker / dist_worker_rank derived from the world."""
@@ -84,7 +102,10 @@ def worker_shard_params() -> Tuple[int, int]:
 def fetch_global(x: torch.Tensor, mesh=None, spec=()) -> np.ndarray:
     """The host numpy value of the whole tensor of which ``x`` is this
     rank's block under ``spec`` (a placement of ``sharding``) on ``mesh``;
-    ``x`` itself when the spec splits nothing.
+    ``x`` itself when the spec splits nothing. A placement never splits
+    over ``pipe`` or ``sp``: a stage's tensor lives on its own pipe ranks
+    alone (``Trainer.canonical_params`` shares the stages' tensors over
+    the pipe group), and the sp ranks hold the same blocks.
 
     COLLECTIVE CONTRACT: the gather is a cross-process collective. In a
     multi-process run EVERY process must call fetch_global on the same

@@ -308,6 +308,70 @@ class _RingFlash(torch.autograd.Function):
             None, None, None, None)
 
 
+class _ChunkFlash(torch.autograd.Function):
+    """One ring step as a whole attention: a query chunk at global offset
+    ``q_off`` against a K/V block holding the whole sequence (offset 0),
+    forward and backward on the step kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_off, causal, scale, window):
+        kw = dict(causal=causal, scale=scale, window=window)
+        b, h, sq, d = q.shape
+        qr, kr, vr = _rows(q), _rows(k), _rows(v)
+        bh = qr.shape[0]
+        f32 = dict(dtype=torch.float32, device=q.device)
+        m, l, acc = rf.fwd_step(
+            qr, kr, vr, torch.full((bh, sq, 1), flash_attn.NEG_INF, **f32),
+            torch.zeros((bh, sq, 1), **f32), torch.zeros((bh, sq, d), **f32),
+            (q_off, 0), **kw)
+        l_safe = l.clamp_min(1e-30)
+        out = (acc / l_safe).to(q.dtype).reshape(b, h, sq, d)
+        ctx.save_for_backward(q, k, v, out, m + torch.log(l_safe))
+        ctx.args = (q_off, kw)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, out, lse = ctx.saved_tensors
+        q_off, kw = ctx.args
+        qr, kr, vr, dor = _rows(q), _rows(k), _rows(v), _rows(grad)
+        delta = flash_attn.bwd_delta(_rows(out), dor)[..., None]
+        bh, skv, d = qr.shape[0], kr.shape[1], qr.shape[2]
+        dq = rf.dq_step(qr, kr, vr, dor, lse, delta,
+                        torch.zeros(qr.shape, dtype=torch.float32,
+                                    device=q.device), (q_off, 0), **kw)
+        z = torch.zeros((bh, skv, d), dtype=torch.float32, device=q.device)
+        dk, dv = rf.dkv_step(qr, kr, vr, dor, lse, delta, z,
+                             torch.zeros_like(z), (q_off, 0), **kw)
+
+        def back(x, like):
+            b, h = like.shape[:2]
+            return x.reshape(b, h, -1, *x.shape[1:]).sum(2).to(like.dtype)
+        return (back(dq, q), back(dk, k), back(dv, v), None, None, None,
+                None)
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_offset: int, causal: bool = False,
+                    scale: Optional[float] = None,
+                    window: int = 0) -> torch.Tensor:
+    """Attention of a query chunk q (b, h, sq, d), whose first row sits at
+    global position ``q_offset``, against the whole sequence's k/v
+    (b, nkv, L, d): sequence parallelism inside a pipeline stage
+    (cxxnet_tpu/layer/layers.py:1311-1333), where k/v are already whole on
+    every sp rank. The ring-step kernels run it as one step whose K/V
+    block is the whole sequence, where ``ring_flash.supports`` takes
+    (sq, L, d); dense attention otherwise."""
+    _check_heads(q, k, causal, window)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if rf.supports(q.shape[2], k.shape[2], q.shape[-1]):
+        return _ChunkFlash.apply(q, k, v, int(q_offset), bool(causal),
+                                 float(scale), int(window))
+    return attention.attention_reference(q, k, v, causal=causal, scale=scale,
+                                         window=window, q_offset=q_offset)
+
+
 def _ring_chunk(q_c, k_cmp, v_cmp, m_c, l_c, acc_c, q_start: int,
                 k_start: int, causal: bool, scale: float, window: int):
     """One query chunk against one K/V block: the online-softmax update of

@@ -24,6 +24,13 @@ device, and ``shard_shape`` gives the block's shape.
   ``data`` on their first divisible dimension, composed with TP the same
   way; 1-D tensors and layer state (batch-norm running statistics) keep
   their placement (:105-146).
+- ``flat_blocks``: ZeRO-1 inside a pipeline stage (``fsdp`` under
+  ``pipeline_parallel``): the stage's tensors laid end to end in layer
+  order, each layer's keys sorted, padded to a multiple of the data-axis
+  size and cut into one block a data rank, the JAX trainer's packed row
+  sharded ``P("pipe", "data")`` (cxxnet_tpu/nnet/trainer.py:462-501). A
+  pipe rank's own tensors are its stage's (a rank holds no other), so
+  the stage needs no placement beyond its layers' TP / EP one.
 """
 
 from __future__ import annotations
@@ -216,3 +223,20 @@ def param_shardings(mesh, layers, shapes: Sequence[Dict[str, tuple]]
     """Per layer, {key: tp_spec} of every weight."""
     return [{k: tp_spec(lay, k, s, mesh) for k, s in p.items()}
             for lay, p in zip(layers, shapes)]
+
+
+def flat_blocks(sizes: Sequence[int], n: int, index: int):
+    """Tensors of ``sizes`` elements laid end to end and cut into ``n``
+    equal blocks (the total padded up to a multiple of n): (each tensor's
+    offset, the block size, the (start, stop) of each tensor inside block
+    ``index``, relative to the tensor, empty where the block misses
+    it)."""
+    offs, off = [], 0
+    for sz in sizes:
+        offs.append(off)
+        off += int(sz)
+    c = -(-off // n)
+    lo, hi = index * c, (index + 1) * c
+    segs = [(min(max(lo, a), a + sz) - a, max(min(hi, a + sz), a) - a)
+            for a, sz in zip(offs, sizes)]
+    return offs, c, segs

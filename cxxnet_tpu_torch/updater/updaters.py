@@ -63,6 +63,12 @@ def _pow32(base: float, e: float) -> float:
 
 class Updater:
     kind = "none"
+    # elementwise: apply() has no per-tensor reduction, so a block of the
+    # tensor steps as the whole would. The pipeline's ZeRO-1 steps such
+    # blocks of a stage's weights laid end to end, and pipeline_parallel
+    # refuses an updater that sets this False, as the JAX trainer does
+    # (cxxnet_tpu/updater/updaters.py:62-71)
+    elementwise = True
 
     def __init__(self, tag: str):
         self.param = UpdaterParam(tag)

@@ -551,3 +551,74 @@ def test_two_ranks_on_an_image_conf_prefix_pack_match_one_process(
     # rank 0 alone wrote the mean image, the same bytes as one process's
     assert (image_runs["two"] / "mean.bin").read_bytes() == \
         (image_runs["one"] / "mean.bin").read_bytes()
+
+
+# ----------------------------------------------------------------------
+# the mean image in a world: every rank takes rank 0's finding, so no rank
+# skips the mean's augmented pass (and its draws) that another makes
+MEAN_CHAIN = """iter = imgbin
+  image_list = "%(root)s/p.lst"
+  image_bin = "%(root)s/p.bin"
+  image_mean = "%(root)s/mean.bin"
+  rand_crop = 1
+  rand_mirror = 1
+input_shape = 3,32,32
+batch_size = 8
+"""
+
+
+def _mean_worker(rank, n, init_file, root):
+    import os as os_
+    from cxxnet_tpu_torch import io as tio
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    import torch.distributed as dist
+    multihost.init_distributed("file://" + init_file, n, rank, dev="cpu")
+    try:
+        mean = os_.path.join(root, "mean.bin")
+        if rank == 0:
+            # rank 0 finds no mean image; the others find the one there
+            real = os_.path.exists
+            os_.path.exists = lambda p: False if p == mean else real(p)
+        it = tio.create_iterator(parse_config_string(MEAN_CHAIN
+                                                     % {"root": root}))
+        it.init()
+        it.before_first()
+        assert it.next()
+        np.save(os_.path.join(root, "batch%d.npy" % rank),
+                np.asarray(it.value().data))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_every_rank_takes_rank_0s_finding_of_the_mean_image(tmp_path):
+    """Rank 0 makes the mean image (an augmented pass over the pack) where
+    another rank would find rank 0's file already written: every rank
+    follows rank 0, so their draws, and so their batches, stay equal."""
+    from cxxnet_tpu_torch import io as tio
+    from cxxnet_tpu_torch.io import synth
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    synth.make_ppm_pack(str(tmp_path), "p", 16, 36, 10, seed=3)
+    one = tio.create_iterator(parse_config_string(
+        MEAN_CHAIN % {"root": str(tmp_path)}))
+    one.init()
+    one.before_first()
+    assert one.next() and (tmp_path / "mean.bin").exists()
+    want = np.asarray(one.value().data)
+    n = 2
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mean_worker,
+                         args=(r, n, str(tmp_path / "rdv"), str(tmp_path)))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(TIME_LIMIT)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    assert not hung and [p.exitcode for p in procs] == [0] * n
+    for r in range(n):
+        np.testing.assert_array_equal(np.load(str(tmp_path /
+                                                  ("batch%d.npy" % r))),
+                                      want, err_msg="rank %d" % r)

@@ -4,8 +4,11 @@ ZeRO-1 split of an optimizer-state tensor, fsdp's split of every weight
 and the tensor / expert-parallel split, on the shapes of the JAX package's
 tests/test_fsdp.py, tests/test_compose.py and tests/test_moe.py nets and
 of ImageNet.conf, on every mesh of 2, 4 and 8 devices over the data, ep and
-model axes; the refusals of ``pipeline_parallel`` / ``pipeline_micro``;
-the JAX trainer's divisibility messages; and a rank's block of a split
+model axes; the pipeline's refusals (the microbatch divisibility, an
+updater that is not elementwise, a metric node inside the pipelined
+prefix, a shared layer across stages) and its stage plan and live sets on
+the JAX tests' nets; the JAX trainer's divisibility messages; and a
+rank's block of a split
 (``shard``) against the JAX array's addressable shard on the same device.
 
 A port placement is a tuple in the form of a ``PartitionSpec``; JAX's
@@ -175,16 +178,199 @@ def test_mesh_order_and_groups_without_processes():
     assert m._members(("model", "data"), m.coords) == [0, 4, 1, 5]
 
 
-@pytest.mark.parametrize("key, val, msg", [
-    ("pipeline_parallel", "2", "pipeline_parallel > 1 is not ported yet: "
-     "it is ROADMAP.md Queue 1 item 12b"),
-    ("pipeline_micro", "4", "pipeline_micro > 0 is not ported yet: it "
-     "belongs to pipeline_parallel, ROADMAP.md Queue 1 item 12b")])
-def test_pipeline_keys_are_refused_naming_item_12b(key, val, msg):
+# the refusals of the pipeline (the keys themselves are taken now): JAX's
+# checks, each raised by the port on a shape-only mesh of 4 ranks (the
+# trainer's mesh built without process groups; nothing here runs a
+# collective) and by the JAX trainer on as many devices
+SHARED_ACROSS = """
+netconfig = start
+layer[0->1] = fullc:fa
+  nhidden = 8
+  init_sigma = 0.1
+layer[1->2] = relu
+layer[2->3] = fullc:fb
+  nhidden = 8
+  init_sigma = 0.1
+layer[3->4] = relu
+layer[4->5] = fullc:fc
+  nhidden = 8
+  init_sigma = 0.1
+layer[5->6] = relu
+layer[6->7] = share[fb]
+layer[7->8] = fullc:out
+  nhidden = 4
+  init_sigma = 0.1
+layer[8->8] = softmax
+netconfig = end
+input_shape = 1,1,8
+batch_size = 16
+eta = 0.1
+"""
+
+
+def _pipe_trainer(monkeypatch, cfg, n=4, rank=0):
+    """A port trainer of ``cfg`` on a shape-only mesh of n ranks."""
+    real = tmesh.create_mesh
+
+    def shape_only(*a, **kw):
+        kw.update(n=n, rank=rank, groups=False)
+        return real(*a, **kw)
+    monkeypatch.setattr(ttrainer.mesh_mod, "create_mesh", shape_only)
     tr = ttrainer.Trainer()
+    for k, v in parse_config_string(cfg + "dev = cpu\n"):
+        tr.set_param(k, v)
+    return tr
+
+
+def _jax_refuses(cfg, n, msg, step=False):
+    from cxxnet_tpu.io.data import DataBatch
+    from cxxnet_tpu.nnet.trainer import Trainer
+    jt = Trainer()
+    for k, v in parse_config_string(cfg + "dev = cpu:0-%d\n" % (n - 1)):
+        jt.set_param(k, v)
     with pytest.raises(ValueError, match=msg):
-        tr.set_param(key, val)
-    tr.set_param(key, "1" if key == "pipeline_parallel" else "0")
+        jt.init_model()
+        if step:
+            b = DataBatch()
+            b.data = np.zeros((16, 1, 1, 48), np.float32)
+            b.label = np.zeros((16, 1), np.float32)
+            b.batch_size = 16
+            jt.update(b)
+
+
+@pytest.mark.parametrize("case", ["micro_count", "micro_size",
+                                  "not_elementwise", "metric_in_prefix",
+                                  "shared_across_stages"])
+def test_pipeline_keys_are_refused_naming_item_12b(monkeypatch, case):
+    """``pipeline_parallel`` and ``pipeline_micro`` are taken (ROADMAP
+    item 12b is ported); what the JAX trainer refuses under them the port
+    refuses with its message: a batch the microbatch count does not
+    divide, a microbatch the data ranks do not divide, an updater that
+    is not elementwise, a train metric on a node inside the pipelined
+    prefix and a shared layer split from its primary by a stage cut."""
+    tr = ttrainer.Trainer()
+    tr.set_param("pipeline_parallel", "2")
+    tr.set_param("pipeline_micro", "4")
+    assert (tr.pipeline_parallel, tr.pipeline_micro) == (2, 4)
+    pp = "pipeline_parallel = 2\n"
+    if case == "micro_count":
+        msg = "batch_size must be divisible by the microbatch count"
+        with pytest.raises(ValueError, match=msg):
+            tmesh.create_mesh(1, 1, 12, n=4, rank=0, groups=False,
+                              pipeline_parallel=2, pipeline_micro=8)
+        _jax_refuses(MLP + pp + "pipeline_micro = 8\nbatch_size = 12\n", 4,
+                     msg)
+    elif case == "micro_size":
+        msg = "microbatch size \\(batch_size / pipeline_micro\\) must be"
+        with pytest.raises(ValueError, match=msg):
+            tmesh.create_mesh(1, 1, 16, n=8, rank=0, groups=False,
+                              pipeline_parallel=2, pipeline_micro=8)
+        _jax_refuses(MLP + pp + "pipeline_micro = 8\n", 8, msg)
+    elif case == "not_elementwise":
+        from cxxnet_tpu_torch.updater import updaters as tupd
+        monkeypatch.setattr(tupd.Updater, "elementwise", False)
+        tr = _pipe_trainer(monkeypatch, MLP + pp)
+        with pytest.raises(ValueError, match="pipeline_parallel: updater "
+                           "'sgd' for layer 0 key wmat declares "
+                           "elementwise=False"):
+            tr.init_model()
+    elif case == "metric_in_prefix":
+        cfg = MLP + pp + "metric[label,fc1] = error\n"
+        tr = _pipe_trainer(monkeypatch, cfg)
+        tr.init_model()
+        x = torch.zeros((16, 1, 1, 48))
+        y = torch.zeros((16, 1))
+        with pytest.raises(ValueError, match="metric node 1 lives inside "
+                           "the pipelined prefix"):
+            tr._train_step(True, True, x, y)
+        _jax_refuses(cfg, 4, "metric node 1 lives inside the pipelined "
+                     "prefix", step=True)
+    else:
+        msg = "pipeline_parallel: shared layer 6 and its primary 2 must " \
+            "fall in the same pipeline stage"
+        tr = _pipe_trainer(monkeypatch, SHARED_ACROSS + pp)
+        with pytest.raises(ValueError, match=msg):
+            tr.init_model()
+        _jax_refuses(SHARED_ACROSS + pp, 4, msg)
+
+
+# the stage plan against JAX's on the branched, inception-style and resnet
+# trunks of the JAX package's tests/test_compose.py
+INCEPTION = """
+netconfig = start
+layer[0->1,2] = split
+layer[1->3] = conv:sa
+  kernel_size = 1
+  nchannel = 8
+  random_type = xavier
+layer[2->4] = conv:sb
+  kernel_size = 1
+  nchannel = 4
+  random_type = xavier
+layer[3,4->5] = ch_concat
+layer[5->6] = relu
+layer[6->7] = conv:gc
+  kernel_size = 3
+  pad = 1
+  nchannel = 8
+  ngroup = 2
+  random_type = xavier
+layer[7->8] = relu
+layer[8->9] = flatten
+layer[9->10] = fullc:fc
+  nhidden = 6
+  init_sigma = 0.1
+layer[+0] = softmax
+netconfig = end
+input_shape = 4,6,6
+batch_size = 16
+"""
+
+
+def _plan_nets():
+    from cxxnet_tpu import models as jmodels
+    lm = open(os.path.join(REPO, "example", "transformer",
+                           "lm_pipeline.conf")).read()
+    return {"branched_lm": lm, "inception": INCEPTION,
+            "resnet": jmodels.resnet_netconfig(depths=(2, 2), base_ch=8,
+                                               n_class=4, final_pool=4)
+            + "input_shape = 3,32,32\nbatch_size = 8\n",
+            "shared": SHARED_ACROSS, "mlp": MLP}
+
+
+@pytest.mark.parametrize("name", ["branched_lm", "inception", "resnet",
+                                  "shared", "mlp"])
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_stage_plan_and_live_sets_are_the_jax_nets(name, k):
+    text = _plan_nets()[name]
+    pairs = parse_config_string(text)
+    jcfg = JNetConfig()
+    jcfg.configure(pairs)
+    jnet = JNeuralNet(jcfg, 8)
+    tcfg = NetConfig()
+    tcfg.configure(pairs)
+    tnet = NeuralNet(tcfg, 8)
+    want_first = jnet._pipeline_chain_prefix()
+    assert tnet._pipeline_chain_prefix() == want_first
+    jparams = jnet.init_params(0)
+    try:
+        want = jnet.pipeline_plan(jparams, k)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=str(e)[:40]):
+            tnet.pipeline_plan(k)
+        return
+    stages, first_loss = tnet.pipeline_plan(k)
+    assert (stages, first_loss) == (list(want[0]), want[1])
+    want_bounds = [jnet._pipeline_live_set(0, first_loss)] + [
+        jnet._pipeline_live_set(hi, first_loss) if hi > lo else None
+        for lo, hi in want[0]]
+    for i in range(1, len(want_bounds)):
+        if want_bounds[i] is None:
+            want_bounds[i] = want_bounds[i - 1]
+    assert tnet.pipeline_boundaries(stages, first_loss) == want_bounds
+    for cut in range(first_loss + 1):
+        assert tnet._pipeline_live_set(cut, first_loss) == \
+            jnet._pipeline_live_set(cut, first_loss)
 
 
 @pytest.mark.parametrize("n, mp, ep, batch, msg", [
@@ -212,3 +398,41 @@ def test_a_world_of_one_builds_no_mesh():
     assert tmesh.create_mesh(1, 1, 16) is None
     m = tmesh.create_mesh(2, 2, 16, n=8, rank=3, groups=False)
     assert m.shape == {"data": 2, "ep": 2, "model": 2}
+
+
+@pytest.mark.parametrize("n, keys", [(4, "pipeline_parallel = 2\n"),
+                                     (8, "pipeline_parallel = 2\n"),
+                                     (8, "pipeline_parallel = 4\n")])
+def test_zero1_blocks_of_a_stage_are_the_jax_packed_rows(n, keys):
+    """ZeRO-1 inside a stage: the port lays each stage's tensors end to
+    end as the JAX trainer packs its row of (k, F_p) (layer order, each
+    layer's keys sorted: the same offsets) and cuts it into the data
+    ranks' blocks as JAX shards the row over ``data``. JAX pads every row
+    to the widest stage's (a rectangular array); the port cuts each stage
+    at its own width, so the widest stage's blocks are JAX's, on a net
+    whose every tensor is stepped."""
+    from cxxnet_tpu.nnet.trainer import Trainer
+    jt = Trainer()
+    for k, v in parse_config_string(MLP + keys + "fsdp = 1\ndev = cpu:0-%d\n"
+                                    % (n - 1)):
+        jt.set_param(k, v)
+    jt.init_model()
+    dp = jt.mesh.shape["data"]
+    f_p = jt.params[-1][jt._PACKED].shape[1]
+    stage_sizes = [[int(np.prod(e[3])) for e in es]
+                   for es in jt._pp_entries]
+    widest = max(range(len(stage_sizes)), key=lambda s_: sum(stage_sizes[s_]))
+    for s_, entries in enumerate(jt._pp_entries):
+        sizes = stage_sizes[s_]
+        for d in range(dp):
+            offs, c, segs = sharding.flat_blocks(sizes, dp, d)
+            assert offs == [e[2] for e in entries]
+            if s_ != widest:
+                continue
+            assert c * dp == f_p
+            lo, hi = d * c, (d + 1) * c
+            for off, size, seg in zip(offs, sizes, segs):
+                got = np.arange(off, off + size)[seg[0]:seg[1]]
+                want = np.arange(off, off + size)
+                want = want[(want >= lo) & (want < hi)]
+                np.testing.assert_array_equal(got, want)

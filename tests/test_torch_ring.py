@@ -336,11 +336,13 @@ def test_seq_parallel_key_reaches_the_layers():
     assert tnet.net_.seq_parallel == 4 and tnet.net_.net.seq_parallel == 4
     with pytest.raises(ValueError, match="seq_parallel must be >= 1"):
         tapi.Net(dev="cpu", cfg=_cfg("mha", "ring", "cpu", 0)).init_model()
-    # the pipeline is not ported yet; the modes over ranks are, and one
-    # rank refuses them with the JAX trainer's device-count message
+    # the modes over ranks, the pipeline among them, are ported: one rank
+    # refuses them with the JAX trainer's device-count message (where
+    # seq_parallel alone stays virtual ranks)
     for key, msg in (("model_parallel", "device count 1 must be divisible"),
-                     ("pipeline_parallel", "pipeline_parallel > 1 is not "
-                      "ported yet: it is ROADMAP.md Queue 1 item 12b"),
+                     ("pipeline_parallel", "device count 1 must be "
+                      "divisible by model_parallel \\* seq_parallel \\* "
+                      "pipeline_parallel \\* expert_parallel = 2"),
                      ("expert_parallel", "device count 1 must be divisible")):
         with pytest.raises(ValueError, match=msg):
             tapi.Net(dev="cpu", cfg=_cfg("mha", "ring", "cpu", 1) +
